@@ -1,0 +1,125 @@
+"""Bridge between the JAX package's parameter pytrees and the port's modules.
+
+JAX random numbers cannot be reproduced in PyTorch, so every parity test
+initializes params once (in JAX), converts them to numpy, and hands the
+same values to both packages through this module.
+
+The JAX decoder stacks the params of each block-pattern repetition on a
+leading group axis (``Decoder.init`` builds ``params["blocks"]`` with
+``jax.vmap``) and keeps ``n_layers % len(pattern)`` remainder layers as
+``blocks_rem<r>``, run first.  The port holds one :class:`~repro_torch.
+models.transformer.Block` per layer, so :func:`from_jax` unstacks the group
+axis (remainder layers first, then group ``g``'s pattern slot ``j`` at
+``n_rem + g * len(pattern) + j``) and :func:`to_jax` stacks it back.
+Everything here is numpy: the JAX side converts with ``np.asarray``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from .config import ArchConfig
+
+
+def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    for k, v in tree.items():
+        name = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.update(_flatten(v, name + "."))
+        else:
+            out[name] = np.asarray(v)
+    return out
+
+
+def _unflatten(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {}
+    for name, v in flat.items():
+        *path, leaf = name.split(".")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = v
+    return tree
+
+
+def _pattern(cfg: ArchConfig):
+    return tuple(cfg.block_pattern) or ("attn",)
+
+
+def from_jax(tree: Dict[str, Any], cfg: ArchConfig) -> Dict[str, np.ndarray]:
+    """JAX ``Transformer.init`` params (nested dicts of arrays) → the port's
+    parameter names and per-layer arrays."""
+    pattern = _pattern(cfg)
+    L = len(pattern)
+    n_rem = cfg.n_layers % L
+    out: Dict[str, np.ndarray] = {}
+    for key, sub in tree.items():
+        if key == "blocks":
+            for j in range(L):
+                for leaf, arr in _flatten(sub[f"p{j}"]).items():
+                    for g in range(arr.shape[0]):
+                        out[f"decoder.layers.{n_rem + g * L + j}.{leaf}"] = arr[g]
+        elif key.startswith("blocks_rem"):
+            r = int(key[len("blocks_rem"):])
+            for leaf, arr in _flatten(sub).items():
+                out[f"decoder.layers.{r}.{leaf}"] = arr
+        elif isinstance(sub, dict):
+            out.update(_flatten(sub, key + "."))
+        else:
+            out[key] = np.asarray(sub)
+    return out
+
+
+def to_jax(flat: Dict[str, np.ndarray], cfg: ArchConfig) -> Dict[str, Any]:
+    """The inverse of :func:`from_jax`: restack the group axis."""
+    pattern = _pattern(cfg)
+    L = len(pattern)
+    n_rem = cfg.n_layers % L
+    n_groups = cfg.n_layers // L
+    top: Dict[str, np.ndarray] = {}
+    layers: Dict[int, Dict[str, np.ndarray]] = {}
+    for name, arr in flat.items():
+        if name.startswith("decoder.layers."):
+            _, _, idx, leaf = name.split(".", 3)
+            layers.setdefault(int(idx), {})[leaf] = np.asarray(arr)
+        else:
+            top[name] = np.asarray(arr)
+    tree = _unflatten(top)
+    for r in range(n_rem):
+        tree[f"blocks_rem{r}"] = _unflatten(layers[r])
+    if n_groups:
+        blocks = {}
+        for j in range(L):
+            idxs = [n_rem + g * L + j for g in range(n_groups)]
+            blocks[f"p{j}"] = _unflatten({
+                leaf: np.stack([layers[i][leaf] for i in idxs])
+                for leaf in layers[idxs[0]]
+            })
+        tree["blocks"] = blocks
+    return tree
+
+
+def _transformer(model):
+    return getattr(model, "impl", model)
+
+
+def load_jax_params(model, tree: Dict[str, Any]):
+    """Load JAX params (numpy leaves) into a port model; returns the model."""
+    flat = from_jax(tree, model.cfg)
+    _transformer(model).load_state(
+        {k: torch.from_numpy(np.array(v)) for k, v in flat.items()})
+    return model
+
+
+def jax_params(model) -> Dict[str, Any]:
+    """A port model's params as a JAX-layout pytree of numpy arrays (bf16
+    parameters are widened to fp32, which numpy can hold exactly)."""
+    flat = {}
+    for name, p in _transformer(model).named_parameters():
+        t = p.detach().cpu()
+        flat[name] = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return to_jax(flat, model.cfg)

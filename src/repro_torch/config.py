@@ -1,0 +1,167 @@
+"""Architecture and kernel-policy configuration (port of ``repro.config``).
+
+``ArchConfig`` and ``MoEConfig`` are field-for-field copies of the JAX
+package's, so an architecture has the same numbers in both packages
+(``tests/test_torch_imports.py`` pins that for the registered archs).
+``ShardingConfig`` keeps only the one knob this slice needs: ``use_kernels``
+(the JAX package's ``use_pallas``) routes attention through the
+hand-written CUDA kernels.  :func:`resolve_device` is the port's single
+device policy: asking for CUDA without a GPU raises, it never falls back.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import Dict, Tuple
+
+import torch
+
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared_experts: int = 0
+    d_ff_expert: int = 0
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+    pad_to: int = 0
+
+    @property
+    def n_physical(self) -> int:
+        return max(self.pad_to, self.n_experts)
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    """One architecture.  Field semantics follow ``repro.config.ArchConfig``."""
+
+    name: str
+    family: str  # dense | moe | ssm | hybrid | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0  # 0 → d_model // n_heads
+    qk_norm: bool = False
+    rope_theta: float = 1e6
+    local_window: int = 0
+    moe: MoEConfig = MoEConfig()
+    block_pattern: Tuple[str, ...] = ()
+    n_ssm_heads: int = 0
+    n_enc_layers: int = 0
+    frontend_stub_len: int = 0
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    opt_dtype: str = "float32"
+    tie_embeddings: bool = False
+    notes: str = ""
+    sharding_defaults: Tuple[Tuple[str, object], ...] = ()
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def is_moe(self) -> bool:
+        return self.moe.n_experts > 0
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.n_enc_layers > 0
+
+
+@dataclass(frozen=True)
+class ShardingConfig:
+    """Kernel policy.  ``use_kernels`` swaps the hand-written CUDA attention
+    kernels into the model (flash forward for prefill, paged decode); on a
+    CPU tensor each kernel wrapper computes its plain PyTorch version."""
+
+    use_kernels: bool = False
+
+
+_REGISTRY: Dict[str, ArchConfig] = {}
+
+
+def register_arch(cfg: ArchConfig) -> ArchConfig:
+    if cfg.name in _REGISTRY:
+        raise ValueError(f"duplicate arch {cfg.name}")
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"unknown family {cfg.family}")
+    _REGISTRY[cfg.name] = cfg
+    return cfg
+
+
+def get_arch(name: str) -> ArchConfig:
+    _ensure_registered()
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
+    return _REGISTRY[name]
+
+
+def _ensure_registered() -> None:
+    if not _REGISTRY:
+        from . import configs  # noqa: F401  (imports register everything)
+
+
+def default_sharding(cfg: ArchConfig, **overrides) -> ShardingConfig:
+    """The arch's default ShardingConfig (its sharding_defaults applied)."""
+    kw = dict(cfg.sharding_defaults)
+    kw.update(overrides)
+    return ShardingConfig(**kw)
+
+
+def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:
+    """A smoke-test-sized config of the same family — the exact shrink rule
+    of ``repro.config.reduced`` (GQA ratio, qk_norm and pattern kept)."""
+    kv_ratio = max(cfg.n_heads // max(cfg.n_kv_heads, 1), 1)
+    n_heads = 4
+    n_kv = max(n_heads // kv_ratio, 1)
+    moe = cfg.moe
+    if cfg.is_moe:
+        moe = replace(
+            cfg.moe,
+            n_experts=min(cfg.moe.n_experts, 8),
+            top_k=min(cfg.moe.top_k, 2),
+            n_shared_experts=min(cfg.moe.n_shared_experts, 1),
+            d_ff_expert=64,
+            pad_to=0,
+        )
+    pattern_len = max(len(cfg.block_pattern), 1)
+    small = replace(
+        cfg,
+        name=cfg.name + "-smoke",
+        n_layers=max(2, 2 * pattern_len),
+        n_enc_layers=2 if cfg.n_enc_layers else 0,
+        d_model=64,
+        n_heads=n_heads,
+        n_kv_heads=n_kv,
+        head_dim=16,
+        d_ff=128 if cfg.d_ff else 0,
+        vocab=256,
+        moe=moe,
+        local_window=min(cfg.local_window, 64) if cfg.local_window else 0,
+        frontend_stub_len=16 if cfg.frontend_stub_len else 0,
+        param_dtype="float32",
+        compute_dtype="float32",
+        opt_dtype="float32",
+    )
+    return replace(small, **overrides) if overrides else small
+
+
+def resolve_device(name: str) -> torch.device:
+    """The device a caller asked for.  ``"cuda"`` without a usable GPU
+    raises — the port never carries on silently on the CPU."""
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {name!r} requested but torch.cuda.is_available() is "
+            f"False; pass device='cpu' to run the plain PyTorch path"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {name!r} (cuda or cpu)")
+    return dev

@@ -1,0 +1,58 @@
+"""Public kernel entry points: dispatch on the tensor's device.
+
+A CPU tensor goes to the kernel's plain PyTorch version
+(:mod:`repro_torch.kernels.ref`); a CUDA tensor goes to the hand-written
+CUDA kernel, whose build or launch failure raises.  There is no fallback
+between the two (the JAX wrapper's interpret-mode fallback,
+``repro/kernels/ops.py:77-80``, has no counterpart here).
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+from . import flash_attention as _flash
+from . import paged_attention as _paged
+from . import ref
+from .build import CudaKernel
+
+KERNELS: Dict[str, CudaKernel] = {
+    "flash_attention": _flash.KERNEL,
+    "paged_attention": _paged.KERNEL,
+}
+
+
+def _on_cpu(*tensors) -> bool:
+    devs = {t.device.type for t in tensors}
+    if devs == {"cpu"}:
+        return True
+    if devs == {"cuda"}:
+        return False
+    raise ValueError(f"kernel inputs must all be on the CPU or all on CUDA, "
+                     f"got {sorted(devs)}")
+
+
+def flash_attention(q, k, v, *, causal: bool = True):
+    """Causal (or full) GQA attention, head-major: q (B,H,Sq,hd), k/v
+    (B,K,Sk,hd) → (B,H,Sq,hd) in q's dtype."""
+    if _on_cpu(q, k, v):
+        return ref.flash_attention_ref(q, k, v, causal=causal)
+    return _flash.flash_attention(q, k, v, causal=causal)
+
+
+def paged_attention(q, k_pool, v_pool, page_table, lengths):
+    """One decode token per row against a paged KV pool: q (B,H,hd), pools
+    (P,K,ps,hd), page_table (B,n_pp) int32, lengths (B,) int32 positions →
+    (B,H,hd) in q's dtype."""
+    if _on_cpu(q, k_pool, v_pool, page_table, lengths):
+        return ref.paged_attention_ref(q, k_pool, v_pool, page_table, lengths)
+    return _paged.paged_attention(q, k_pool, v_pool, page_table, lengths)
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: k.launches for name, k in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS.values():
+        k.launches = 0

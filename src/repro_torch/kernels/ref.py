@@ -1,0 +1,74 @@
+"""Plain PyTorch versions of the attention kernels (port of ``repro.kernels.ref``).
+
+Each function computes the same function as its CUDA kernel and is what
+the kernel wrappers in :mod:`repro_torch.kernels.ops` run for a CPU
+tensor; ``chip_smoke.py`` holds each kernel against it on the card.  Both
+compute in fp32 from upcast inputs and return ``q``'s dtype — the kernels'
+contract.  In fp32 that is exactly the JAX oracle's arithmetic (the parity
+tests compare at fp32); in bf16 the oracle's intermediate roundings are
+not repeated.
+
+The causal mask is ``kpos <= qpos`` aligned top-left, as in the flash kernel
+and ``naive_attention``.  The JAX oracle ``flash_attention_ref`` aligns it
+bottom-right (``tril(k=Sk-Sq)``); the two agree when ``Sq == Sk``, the only
+case any caller or test uses.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+NEG_INF = -1e30
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True,
+                        sm_scale: Optional[float] = None):
+    """q (B,H,Sq,hd); k/v (B,K,Sk,hd) with K dividing H. Returns (B,H,Sq,hd)."""
+    B, H, Sq, hd = q.shape
+    K, Sk = k.shape[1], k.shape[2]
+    kk, vv = k.float(), v.float()
+    if K != H:
+        kk = kk.repeat_interleave(H // K, dim=1)
+        vv = vv.repeat_interleave(H // K, dim=1)
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(hd)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) * scale
+    if causal:
+        qpos = torch.arange(Sq, device=q.device)
+        kpos = torch.arange(Sk, device=q.device)
+        mask = kpos[None, :] <= qpos[:, None]
+        s = torch.where(mask[None, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vv).to(q.dtype)
+
+
+def paged_attention_ref(q, k_pool, v_pool, page_table, lengths, *,
+                        sm_scale: Optional[float] = None):
+    """Reference gather for paged decode attention.
+
+    q (B,H,hd); k/v pools (P,K,ps,hd); page_table (B,n_pp) physical page
+    ids; lengths (B,) — positions ``kpos <= lengths[b]`` are valid.  The
+    pool is gathered back into the per-row slab layout and scored like the
+    slab decode path.  Returns (B,H,hd)."""
+    B, H, hd = q.shape
+    K, ps = k_pool.shape[1], k_pool.shape[2]
+    n_pp = page_table.shape[1]
+    S = n_pp * ps
+    table = page_table.long()
+
+    def gather(pool):
+        g = pool[table]  # (B, n_pp, K, ps, hd)
+        return g.permute(0, 2, 1, 3, 4).reshape(B, K, S, hd).float()
+
+    kk, vv = gather(k_pool), gather(v_pool)
+    if K != H:
+        kk = kk.repeat_interleave(H // K, dim=1)
+        vv = vv.repeat_interleave(H // K, dim=1)
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(hd)
+    s = torch.einsum("bhd,bhkd->bhk", q.float(), kk) * scale
+    valid = torch.arange(S, device=q.device)[None, :] <= lengths.long()[:, None]
+    s = torch.where(valid[:, None, :], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhk,bhkd->bhd", p, vv).to(q.dtype)

@@ -1,0 +1,68 @@
+"""Model factory: ArchConfig → the uniform serving API (port of
+``repro/models/model.py``, decoder-only).
+
+``Model`` takes the JAX package's batch-dict calls — ``prefill(batch)``
+with ``batch["tokens"]`` — and forwards to the :class:`Transformer` it
+holds as ``impl``; the encoder-decoder and frontend-stub families it would
+also dispatch to come with their slices, and :func:`build_model` refuses
+them.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from ..config import ArchConfig, ShardingConfig, resolve_device
+from .transformer import Transformer
+
+
+class Model(nn.Module):
+    def __init__(self, cfg: ArchConfig, shcfg: ShardingConfig,
+                 device: torch.device):
+        super().__init__()
+        self.cfg = cfg
+        self.shcfg = shcfg
+        self.device = device
+        self.impl = Transformer(cfg, shcfg, device)
+
+    def init(self, seed: int) -> "Model":
+        self.impl.init(seed)
+        return self
+
+    def load_state(self, tensors: Dict[str, torch.Tensor]) -> "Model":
+        self.impl.load_state(tensors)
+        return self
+
+    def prefill(self, batch, *, cache_len: Optional[int] = None,
+                cache_dtype=torch.bfloat16):
+        return self.impl.prefill(batch["tokens"], cache_len=cache_len,
+                                 cache_dtype=cache_dtype)
+
+    def init_paged_cache(self, batch: int, cache_len: int, *, n_pages: int,
+                         page_size: int, cache_dtype=torch.bfloat16):
+        """Paged decode cache + per-leaf layout codes."""
+        return self.impl.init_paged_cache(
+            batch, cache_len, n_pages=n_pages, page_size=page_size,
+            cache_dtype=cache_dtype,
+        )
+
+    def decode_step(self, token, cache, pos, *, pages=None):
+        return self.impl.decode_step(token, cache, pos, pages=pages)
+
+
+def build_model(cfg: ArchConfig, shcfg: Optional[ShardingConfig] = None, *,
+                device: str = "cuda") -> Model:
+    """A model with uninitialized weights on ``device`` (fill it with
+    :meth:`Model.init` or :meth:`Model.load_state`).  Only dense decoders
+    with an all-attention block pattern are ported."""
+    pattern = tuple(cfg.block_pattern) or ("attn",)
+    if (cfg.family != "dense" or cfg.is_moe or cfg.is_encdec
+            or any(kind != "attn" for kind in pattern)):
+        raise NotImplementedError(
+            f"{cfg.name}: only dense all-attention decoders are ported; the "
+            f"{cfg.family} family waits for ROADMAP queue 1 (slab layout and "
+            f"the other families)")
+    return Model(cfg, shcfg or ShardingConfig(), resolve_device(device))

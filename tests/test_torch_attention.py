@@ -1,0 +1,179 @@
+"""The port's layers and attention against the JAX package, function by
+function, on the same numpy inputs (fp32, atol 1e-5: both sides compute in
+fp32 and differ only in summation order)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.models import attention as jatt
+from repro.models import layers as jlay
+from repro_torch.models import attention as tatt
+from repro_torch.models import layers as tlay
+
+ATOL = 1e-5
+D, H, KV, HD, THETA = 64, 4, 2, 16, 1e6
+
+
+def _np(rng, shape, scale=1.0):
+    return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+
+def _attn_params(rng):
+    return {
+        "wq": _np(rng, (D, H * HD), D ** -0.5),
+        "wk": _np(rng, (D, KV * HD), D ** -0.5),
+        "wv": _np(rng, (D, KV * HD), D ** -0.5),
+        "wo": _np(rng, (H * HD, D), (H * HD) ** -0.5),
+    }
+
+
+def _j(tree):
+    return {k: jnp.asarray(v) for k, v in tree.items()}
+
+
+def _t(tree):
+    return {k: torch.from_numpy(v) for k, v in tree.items()}
+
+
+def _close(got, want, atol=ATOL):
+    got = got.detach().numpy() if isinstance(got, torch.Tensor) else got
+    want = np.asarray(want)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    err = float(np.max(np.abs(got - want))) if got.size else 0.0
+    assert err < atol, err
+
+
+def test_rmsnorm_and_rms_normalize():
+    rng = np.random.default_rng(0)
+    x, scale = _np(rng, (2, 5, D)), _np(rng, (D,))
+    _close(tlay.rmsnorm({"scale": torch.from_numpy(scale)}, torch.from_numpy(x)),
+           jlay.rmsnorm({"scale": jnp.asarray(scale)}, jnp.asarray(x)))
+    _close(tlay.rms_normalize(torch.from_numpy(x)),
+           jlay.rms_normalize(jnp.asarray(x)))
+
+
+@pytest.mark.parametrize("start", [0, 500])
+def test_apply_rope(start):
+    rng = np.random.default_rng(1)
+    x = _np(rng, (2, 48, H, HD))
+    pos = (start + np.arange(48))[None, :].repeat(2, 0).astype(np.int32)
+    _close(tlay.apply_rope(torch.from_numpy(x), torch.from_numpy(pos), THETA),
+           jlay.apply_rope(jnp.asarray(x), jnp.asarray(pos), THETA))
+
+
+def test_mlp_apply_and_embed_lookup():
+    rng = np.random.default_rng(2)
+    p = {"w_gate": _np(rng, (D, 128), D ** -0.5), "w_up": _np(rng, (D, 128), D ** -0.5),
+         "w_down": _np(rng, (128, D), 128 ** -0.5)}
+    x = _np(rng, (2, 7, D))
+    _close(tlay.mlp_apply(_t(p), torch.from_numpy(x)),
+           jlay.mlp_apply(_j(p), jnp.asarray(x)))
+    table, toks = _np(rng, (256, D)), rng.integers(0, 256, (2, 9))
+    _close(tlay.embed_lookup(torch.from_numpy(table), torch.from_numpy(toks)),
+           jlay.embed_lookup(jnp.asarray(table), jnp.asarray(toks)))
+
+
+@pytest.mark.parametrize("S,impl,jax_impl", [
+    (64, "naive", "naive"),
+    (64, "kernels", "chunked"),    # S <= 256: naive on both sides
+    (300, "kernels", "chunked"),   # flash path (its plain version on CPU)
+    (300, "naive", "chunked"),
+])
+def test_attn_apply(S, impl, jax_impl):
+    rng = np.random.default_rng(3 + S)
+    p, x = _attn_params(rng), _np(rng, (2, S, D))
+    kw = dict(n_heads=H, n_kv=KV, head_dim=HD, rope_theta=THETA, causal=True,
+              qk_norm=True, return_kv=True)
+    y, (k, v) = tatt.attn_apply(_t(p), torch.from_numpy(x), impl=impl, **kw)
+    yj, (kj, vj) = jatt.attn_apply(_j(p), jnp.asarray(x), impl=jax_impl, **kw)
+    _close(y, yj)
+    _close(k, kj)
+    _close(v, vj)
+
+
+def test_attn_apply_rejects_unknown_impl():
+    rng = np.random.default_rng(4)
+    with pytest.raises(ValueError, match="impl"):
+        tatt.attn_apply(_t(_attn_params(rng)), torch.zeros(1, 4, D), n_heads=H,
+                        n_kv=KV, head_dim=HD, rope_theta=THETA, impl="pallas")
+
+
+def _paged_state(rng, B=4, n_pp=3, ps=4, P=14):
+    """Pools plus a table with distinct non-contiguous pages, one zeroed
+    (trash-only) row, and positions that include a stale row whose
+    position reaches n_pp*ps — its write must be dropped."""
+    kp, vp = _np(rng, (P, KV, ps, HD)), _np(rng, (P, KV, ps, HD))
+    table = np.asarray([[5, 2, 9], [1, 7, 0], [0, 0, 0], [3, 11, 4]], np.int32)
+    pos = np.asarray([9, 4, 6, n_pp * ps], np.int32)
+    return kp, vp, table, pos
+
+
+def _scatter(pool, table, pos, vals):
+    slots = tatt.page_slots(torch.from_numpy(table), torch.from_numpy(pos),
+                            pool.shape[2])
+    return tatt.paged_scatter(pool, slots, torch.from_numpy(vals))
+
+
+# The trash page 0 takes every write that must land nowhere (zeroed table
+# rows, and positions past the table, which JAX drops); its contents are
+# unspecified, so the tests below hold the MAPPED pages (1:) to JAX.
+
+
+def test_paged_gather_and_scatter_drop_out_of_range_writes():
+    rng = np.random.default_rng(5)
+    kp, _, table, pos = _paged_state(rng)
+    vals = _np(rng, (4, KV, HD))
+    _close(tatt.paged_gather(torch.from_numpy(kp), torch.from_numpy(table)),
+           jatt.paged_gather(jnp.asarray(kp), jnp.asarray(table)))
+    want = np.asarray(jatt.paged_scatter(jnp.asarray(kp), jnp.asarray(table),
+                                         jnp.asarray(pos), jnp.asarray(vals)))
+    pool = _scatter(torch.from_numpy(kp.copy()), table, pos, vals)
+    np.testing.assert_array_equal(pool.numpy()[1:], want[1:])
+    # the stale row (pos == n_pp*ps) changed no mapped page: only the
+    # (page, offset) slots of rows 0 and 1 did (row 2 wrote the trash)
+    changed = {tuple(int(i) for i in pair) for pair in
+               np.argwhere(np.any(pool.numpy() != kp, axis=(1, 3)))}
+    assert {pg_off for pg_off in changed if pg_off[0] != 0} == {(9, 1), (7, 0)}
+
+
+def test_paged_scatter_with_every_row_out_of_range_is_a_no_op():
+    rng = np.random.default_rng(6)
+    kp, _, table, _ = _paged_state(rng)
+    pos = np.full((4,), 12, np.int32)
+    pool = _scatter(torch.from_numpy(kp.copy()), table, pos,
+                    _np(rng, (4, KV, HD)))
+    np.testing.assert_array_equal(pool.numpy()[1:], kp[1:])
+
+
+@pytest.mark.parametrize("impl", ["naive", "kernels"])
+def test_attn_decode_paged_matches_jax(impl):
+    rng = np.random.default_rng(7)
+    p = _attn_params(rng)
+    kp, vp, table, pos = _paged_state(rng)
+    x = _np(rng, (4, 1, D))
+    kw = dict(n_heads=H, n_kv=KV, head_dim=HD, rope_theta=THETA, qk_norm=True)
+    yj, kj, vj = jatt.attn_decode(
+        _j(p), jnp.asarray(x), jnp.asarray(kp), jnp.asarray(vp),
+        jnp.asarray(pos), page_table=jnp.asarray(table), impl="ref", **kw)
+    ck, cv = torch.from_numpy(kp.copy()), torch.from_numpy(vp.copy())
+    y, ck2, cv2 = tatt.attn_decode(
+        _t(p), torch.from_numpy(x), ck, cv, torch.from_numpy(pos),
+        page_table=torch.from_numpy(table), impl=impl, **kw)
+    assert ck2 is ck and cv2 is cv, "pools are updated in place"
+    # row 2 has a zeroed table: a freed slot, whose output reads only the
+    # trash page and is discarded by the batcher
+    live = [0, 1, 3]
+    _close(y[live], np.asarray(yj)[live])
+    assert bool(torch.isfinite(y).all())
+    _close(ck[1:], np.asarray(kj)[1:])
+    _close(cv[1:], np.asarray(vj)[1:])
+
+
+def test_attn_decode_requires_a_page_table():
+    rng = np.random.default_rng(8)
+    with pytest.raises(NotImplementedError, match="slab"):
+        tatt.attn_decode(_t(_attn_params(rng)), torch.zeros(1, 1, D),
+                         torch.zeros(1, KV, 8, HD), torch.zeros(1, KV, 8, HD),
+                         0, n_heads=H, n_kv=KV, head_dim=HD, rope_theta=THETA)

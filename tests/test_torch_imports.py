@@ -1,0 +1,115 @@
+"""Guards of the PyTorch port's boundaries.
+
+* No file of ``src/repro_torch`` or ``chip_smoke.py`` imports ``jax`` or
+  the JAX package ``repro`` (checked on the AST, and by importing the port
+  in a fresh interpreter).
+* The port's entry points default to the GPU and never fall back: asking
+  for ``cuda`` without one raises; every unported serving option raises
+  ``NotImplementedError``.
+* The port's architecture numbers are the JAX package's.
+"""
+
+import ast
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro.config import get_arch as jax_get_arch
+from repro.config import reduced as jax_reduced
+from repro_torch.config import ArchConfig, get_arch, reduced, resolve_device
+from repro_torch.models import build_model
+from repro_torch.serving import ServingConfig, ServingSession
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"
+]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield (node.module or "").split(".")[0]
+
+
+@pytest.mark.parametrize(
+    "path", PORT_FILES, ids=[str(p.relative_to(ROOT)) for p in PORT_FILES]
+)
+def test_port_file_imports_no_jax_or_repro(path):
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_port_imports_without_jax_in_a_fresh_interpreter():
+    code = (
+        "import sys\n"
+        "import repro_torch.launch.serve, repro_torch.bridge\n"
+        "import repro_torch.kernels.ops\n"
+        "bad = sorted(m for m in sys.modules "
+        "if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_serving_defaults_to_cuda_and_never_falls_back(monkeypatch):
+    assert ServingConfig().device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        ServingSession(ServingConfig())
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_model(reduced(get_arch("qwen3-0.6b")))
+    assert resolve_device("cpu").type == "cpu"
+
+
+@pytest.mark.parametrize("kw", [
+    {"replan": "mix"},
+    {"replan": "initial"},
+    {"kv_layout": "slab"},
+    {"prefill_chunk": 16},
+    {"prefix_sharing": True},
+    {"kv_admission": "grow"},
+])
+def test_unported_serving_options_raise(kw):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ServingConfig(device="cpu", **kw)
+
+
+@pytest.mark.parametrize("family", ["moe", "ssm", "hybrid", "vlm", "audio"])
+def test_unported_families_raise(family):
+    cfg = dataclasses.replace(reduced(get_arch("qwen3-0.6b")), family=family)
+    with pytest.raises(NotImplementedError, match="dense"):
+        build_model(cfg, device="cpu")
+    pattern = dataclasses.replace(reduced(get_arch("qwen3-0.6b")),
+                                  block_pattern=("rglru", "attn"))
+    with pytest.raises(NotImplementedError):
+        build_model(pattern, device="cpu")
+
+
+@pytest.mark.parametrize("shrink", [False, True])
+def test_arch_config_matches_jax(shrink):
+    port = get_arch("qwen3-0.6b")
+    ref = jax_get_arch("qwen3-0.6b")
+    if shrink:
+        port, ref = reduced(port), jax_reduced(ref)
+    fields = [f.name for f in dataclasses.fields(ArchConfig)]
+    for name in fields:
+        a, b = getattr(port, name), getattr(ref, name)
+        if dataclasses.is_dataclass(a):
+            a, b = dataclasses.asdict(a), dataclasses.asdict(b)
+        assert a == b, f"{name}: port {a!r} != jax {b!r}"

@@ -1,0 +1,136 @@
+"""The port's attention kernels against the JAX Pallas kernels.
+
+On the CPU the port's kernel entry points compute their plain PyTorch
+versions (``repro_torch.kernels.ref``); these are held against the JAX
+Pallas kernels run in interpret mode, at the shapes of
+``tests/test_kernels.py``, with that file's fp32 tolerance (2e-4: both
+sides accumulate in fp32, in different orders).  The CUDA kernels
+themselves are held against the same plain versions on the card
+(``tests/test_torch_kernels_gpu.py`` and ``chip_smoke.py``).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import flash_attention as jax_flash
+from repro.kernels.paged_attention import paged_attention as jax_paged_kernel
+from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels import flash_attention as cuda_flash
+from repro_torch.kernels import paged_attention as cuda_paged
+
+ATOL = 2e-4
+
+
+def _np(rng, shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def _paged_inputs(seed, B, H, K, hd, ps, n_pp):
+    """The layout of tests/test_kernels.py:75 — distinct, deliberately
+    non-contiguous pages per row; odd rows full, even rows half a page."""
+    rng = np.random.default_rng(seed)
+    P = B * n_pp + 2
+    q = _np(rng, (B, H, hd))
+    kp = _np(rng, (P, K, ps, hd))
+    vp = _np(rng, (P, K, ps, hd))
+    table = (1 + np.arange(B * n_pp).reshape(B, n_pp)[:, ::-1]).astype(np.int32)
+    lengths = np.asarray(
+        [(n_pp * ps - 1) if b % 2 else (ps // 2) for b in range(B)], np.int32)
+    return q, kp, vp, np.ascontiguousarray(table), lengths
+
+
+@pytest.mark.parametrize("B,H,K,S,hd", [
+    (1, 4, 4, 64, 32),     # MHA, aligned
+    (2, 8, 2, 300, 64),    # GQA 4:1, ragged seq
+    (1, 4, 1, 128, 128),   # MQA
+    (2, 2, 2, 17, 16),     # tiny, sub-block
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_ref_matches_pallas_kernel(B, H, K, S, hd, causal):
+    rng = np.random.default_rng(100 + S)
+    q, k, v = _np(rng, (B, H, S, hd)), _np(rng, (B, K, S, hd)), _np(rng, (B, K, S, hd))
+    want = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                causal=causal, block_q=64, block_k=64))
+    got = ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), causal=causal)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert float(np.max(np.abs(got.numpy() - want))) < ATOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_ref_returns_q_dtype(dtype):
+    rng = np.random.default_rng(1)
+    q, k, v = (torch.from_numpy(_np(rng, (1, 2, 96, 32))).to(dtype)
+               for _ in range(3))
+    out = ref.flash_attention_ref(q, k, v)
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float())
+    assert out.dtype == dtype
+    tol = 2e-1 if dtype == torch.bfloat16 else 1e-6  # test_kernels.py's bf16 atol
+    assert float((out.float() - want).abs().max()) < tol
+
+
+@pytest.mark.parametrize("B,H,K,hd,ps,n_pp", [
+    (2, 4, 4, 32, 8, 3),    # MHA
+    (3, 8, 2, 64, 16, 2),   # GQA 4:1
+    (1, 4, 1, 128, 8, 4),   # MQA
+])
+def test_paged_ref_matches_pallas_kernel(B, H, K, hd, ps, n_pp):
+    q, kp, vp, table, lengths = _paged_inputs(2, B, H, K, hd, ps, n_pp)
+    want = np.asarray(jax_paged_kernel(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(table),
+        jnp.asarray(lengths), interpret=True))
+    got = ops.paged_attention(*(torch.from_numpy(a) for a in
+                                (q, kp, vp, table, lengths)))
+    assert got.shape == want.shape
+    assert float(np.max(np.abs(got.numpy() - want))) < ATOL
+
+
+def test_paged_ref_unmapped_pages_are_masked():
+    """Logical pages past a row's position may alias the trash page (entry
+    0) — their content must never leak (mirrors test_kernels.py:97)."""
+    rng = np.random.default_rng(3)
+    B, H, K, hd, ps, P = 1, 2, 2, 16, 4, 5
+    q = torch.from_numpy(_np(rng, (B, H, hd)))
+    kp = torch.from_numpy(_np(rng, (P, K, ps, hd)))
+    vp = torch.from_numpy(_np(rng, (P, K, ps, hd)))
+    lengths = torch.tensor([ps - 1], dtype=torch.int32)
+    t1 = torch.tensor([[1, 0, 0]], dtype=torch.int32)  # tail unmapped → trash
+    t2 = torch.tensor([[1, 3, 4]], dtype=torch.int32)  # tail mapped elsewhere
+    out1 = ops.paged_attention(q, kp, vp, t1, lengths)
+    out2 = ops.paged_attention(q, kp, vp, t2, lengths)
+    assert float((out1 - out2).abs().max()) < 1e-6
+    want = np.asarray(jax_paged_kernel(
+        *(jnp.asarray(a.numpy()) for a in (q, kp, vp, t1, lengths)),
+        interpret=True))
+    assert float(np.max(np.abs(out1.numpy() - want))) < ATOL
+
+
+def test_ops_on_cpu_need_no_nvcc(monkeypatch):
+    """CPU tensors take the plain versions: nothing is compiled or loaded,
+    and no launch is counted."""
+    def no_nvcc():
+        raise AssertionError("nvcc must not be looked up for CPU tensors")
+
+    monkeypatch.setattr(build, "nvcc_path", no_nvcc)
+    ops.reset_launch_counts()
+    q, kp, vp, table, lengths = _paged_inputs(4, 2, 4, 2, 16, 4, 3)
+    ops.paged_attention(*(torch.from_numpy(a) for a in
+                          (q, kp, vp, table, lengths)))
+    x = torch.randn(1, 4, 300, 16)
+    ops.flash_attention(x, x[:, :2], x[:, :2])
+    assert ops.launch_counts() == {"flash_attention": 0, "paged_attention": 0}
+    assert all(k._fn is None for k in ops.KERNELS.values())
+
+
+def test_cuda_wrappers_reject_cpu_tensors():
+    """The kernel wrappers launch on CUDA tensors or raise — they never
+    compute on the CPU themselves."""
+    q, kp, vp, table, lengths = (torch.from_numpy(a) for a in
+                                 _paged_inputs(5, 2, 4, 2, 16, 4, 3))
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_paged.paged_attention(q, kp, vp, table, lengths)
+    x = torch.randn(1, 2, 8, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_flash.flash_attention(x, x, x)

@@ -1,0 +1,297 @@
+"""The port's serving session against the JAX one (``replan="off"``).
+
+The load-bearing contract of ``tests/test_serving.py:95``: a request decoded
+in a shared continuous batch (joined late, neighbours evicted under it,
+slots and pages reused) produces exactly the tokens it produces alone — and
+here, exactly the tokens the JAX session produces on the same params, with
+the same page accounting.  Reduced qwen3, fp32 cache, on the CPU; the port
+runs with kernels on, so its attention goes through the kernels' plain
+versions, and a 300-token prompt takes the flash path.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.config import get_arch as jax_get_arch
+from repro.config import reduced as jax_reduced
+from repro.models import build_model as jax_build_model
+from repro.serving import Request as JaxRequest
+from repro.serving import ServingConfig as JaxServingConfig
+from repro.serving import ServingSession as JaxServingSession
+from repro_torch import bridge
+from repro_torch.config import ShardingConfig, get_arch, reduced
+from repro_torch.launch.events import RequestQueueSource
+from repro_torch.models import build_model
+from repro_torch.serving import (
+    MixTracker,
+    Request,
+    RequestQueue,
+    ServingConfig,
+    ServingSession,
+)
+from repro_torch.serving.pages import PagePool
+
+CACHE_LEN = 48
+KV_KEYS = ("kv_slab_tokens", "kv_page_size", "kv_pages", "kv_pages_in_use",
+           "kv_page_hw", "kv_page_hw_tokens", "kv_defers")
+
+
+@pytest.fixture(scope="module")
+def models():
+    jmodel = jax_build_model(jax_reduced(jax_get_arch("qwen3-0.6b")))
+    params = jmodel.init(jax.random.PRNGKey(0))
+    np_params = jax.tree.map(np.asarray, params)
+
+    def port(use_kernels=True):
+        model = build_model(reduced(get_arch("qwen3-0.6b")),
+                            ShardingConfig(use_kernels=use_kernels),
+                            device="cpu")
+        return bridge.load_jax_params(model, np_params)
+
+    return jmodel, params, port
+
+
+def _specs(n, *, seed=7, long_prompt=0):
+    """(rid, tokens, max_new, arrival) of n requests with varied lengths and
+    staggered arrivals (test_serving.py:40), plus one long prompt."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        p, g = (5, 9, 7, 12)[i % 4], (4, 7, 5, 6)[i % 4]
+        out.append((i, rng.integers(0, 256, (p,)).astype(np.int32), g, 2.0 * i))
+    if long_prompt:
+        out.append((n, rng.integers(0, 256, (long_prompt,)).astype(np.int32),
+                    5, 1.0))
+    return out
+
+
+def _port_reqs(specs):
+    return [Request(rid=r, tokens=t, max_new_tokens=g, arrival=a)
+            for r, t, g, a in specs]
+
+
+def _jax_reqs(specs):
+    return [JaxRequest(rid=r, tokens=jnp.asarray(t), max_new_tokens=g,
+                       arrival=a) for r, t, g, a in specs]
+
+
+def _solo_tokens(jmodel, params, tokens, max_new, cache_dtype):
+    """JAX reference: the request decoded entirely alone (batch 1, slab)."""
+    logits, cache = jmodel.prefill(params, {"tokens": jnp.asarray(tokens)[None]},
+                                   cache_len=CACHE_LEN,
+                                   cache_dtype=jnp.dtype(cache_dtype))
+    tok = int(jnp.argmax(logits[0], axis=-1))
+    out = [tok]
+    for i in range(max_new - 1):
+        logits, cache = jmodel.decode_step(
+            params, jnp.asarray([tok], jnp.int32), cache, len(tokens) + i)
+        tok = int(jnp.argmax(logits[0], axis=-1))
+        out.append(tok)
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_continuous(models):
+    jmodel, params, _ = models
+    specs = _specs(5, long_prompt=300)
+    sess = JaxServingSession(
+        JaxServingConfig(max_slots=2, cache_len=320, replan="off",
+                         kv_layout="paged", page_size=8,
+                         cache_dtype="float32"),
+        model=jmodel, params=params,
+    )
+    m = sess.run(_jax_reqs(specs), max_steps=500)
+    m["kv_page_bytes"] = sess.batcher.kv_page_bytes
+    return specs, {r: sess.results[r].tokens for r in sess.results}, m
+
+
+@pytest.mark.parametrize("use_kernels", [True, False])
+def test_continuous_equivalence_vs_jax(models, jax_continuous, use_kernels):
+    """Two slots force queueing, eviction, slot reuse and page recycling."""
+    _, _, port = models
+    specs, want, m_jax = jax_continuous
+    sess = ServingSession(
+        ServingConfig(device="cpu", max_slots=2, cache_len=320, page_size=8,
+                      cache_dtype="float32"),
+        model=port(use_kernels),
+    )
+    m = sess.run(_port_reqs(specs), max_steps=500)
+    got = {r: sess.results[r].tokens for r in sess.results}
+    assert got == want
+    for key in KV_KEYS + ("decode_steps", "prefill_calls", "output_tokens"):
+        assert m[key] == m_jax[key], key
+    assert sess.batcher.kv_page_bytes == m_jax["kv_page_bytes"]
+
+
+# the reference decode path rounds attention weights to the cache dtype
+# like the JAX slab decode (exact at bf16); the kernels keep them in fp32,
+# as the Pallas kernel does, so they are held to the fp32-cache reference
+@pytest.mark.parametrize("use_kernels,cache_dtype", [(False, "bfloat16"),
+                                                     (True, "float32")])
+def test_page_pool_exhaustion_defers_admission(models, use_kernels,
+                                               cache_dtype):
+    """A small page pool defers admission instead of corrupting state: no
+    physical page is ever double-mapped, eviction returns pages, and every
+    request still completes with its solo tokens (test_serving.py:167)."""
+    jmodel, params, port = models
+    specs = _specs(5)
+    solo = {r: _solo_tokens(jmodel, params, t, g, cache_dtype)
+            for r, t, g, _ in specs}
+    sess = ServingSession(
+        ServingConfig(device="cpu", max_slots=3, cache_len=CACHE_LEN,
+                      page_size=8, kv_pages=5,
+                      cache_dtype=cache_dtype),
+        model=port(use_kernels),
+    )
+    pool = sess.batcher.pool
+    pending = sorted(_port_reqs(specs), key=lambda r: r.arrival)
+    i = 0
+    while i < len(pending) or sess.busy:
+        while i < len(pending) and pending[i].arrival <= sess.steps:
+            sess.submit(pending[i])
+            i += 1
+        sess.step()
+        mapped = [p for pages in sess.batcher._slot_pages.values()
+                  for p in pages]
+        assert len(mapped) == len(set(mapped)), "double-mapped page"
+        assert pool.TRASH not in mapped
+        assert pool.in_use == len(mapped)
+        if sess.steps > 500:
+            raise AssertionError("exhausted pool deadlocked the session")
+    assert pool.defers > 0, "the small pool must defer at least once"
+    assert pool.in_use == 0, "eviction must return every page"
+    assert {r: sess.results[r].tokens for r in sess.results} == solo
+
+
+def test_serving_config_cache_geometry_validation(models):
+    """test_serving.py:214 — the slab-sizing bug class is rejected at config
+    construction, and per-request caps are enforced at submit."""
+    _, _, port = models
+    with pytest.raises(ValueError, match="cache_len"):
+        ServingConfig(cache_len=32, max_prompt_len=24, max_new_tokens=16)
+    ServingConfig(cache_len=39, max_prompt_len=24, max_new_tokens=16)
+    with pytest.raises(NotImplementedError, match="slab"):
+        ServingConfig(kv_layout="slab", prefill_chunk=16)
+    with pytest.raises(ValueError, match="kv_layout"):
+        ServingConfig(kv_layout="Paged")
+    model = port()
+    sess = ServingSession(
+        ServingConfig(device="cpu", max_slots=2, cache_len=48,
+                      max_prompt_len=10, max_new_tokens=8),
+        model=model,
+    )
+    with pytest.raises(ValueError, match="admissible max"):
+        sess.submit(Request(rid=0, tokens=np.zeros(12, np.int32),
+                            max_new_tokens=4))
+    with pytest.raises(ValueError, match="config cap"):
+        sess.submit(Request(rid=1, tokens=np.zeros(8, np.int32),
+                            max_new_tokens=9))
+    assert sess.submit(Request(rid=2, tokens=np.zeros(8, np.int32),
+                               max_new_tokens=8))
+    tiny = ServingSession(
+        ServingConfig(device="cpu", max_slots=2, cache_len=48, page_size=8,
+                      kv_pages=3),
+        model=model,
+    )
+    with pytest.raises(ValueError, match="pool capacity"):
+        tiny.submit(Request(rid=3, tokens=np.zeros(12, np.int32),
+                            max_new_tokens=8))
+    assert tiny.submit(Request(rid=4, tokens=np.zeros(6, np.int32),
+                               max_new_tokens=8))
+
+
+def test_oversized_request_and_bad_policy_fail_fast(models):
+    """test_serving.py:335."""
+    _, _, port = models
+    sess = ServingSession(
+        ServingConfig(device="cpu", max_slots=2, cache_len=16), model=port())
+    toks = np.zeros(10, np.int32)
+    with pytest.raises(ValueError, match="cache_len"):
+        sess.submit(Request(rid=0, tokens=toks, max_new_tokens=8))
+    assert sess.submit(Request(rid=1, tokens=toks, max_new_tokens=7))
+    with pytest.raises(ValueError, match="admission"):
+        ServingConfig(admission="Static")
+    with pytest.raises(ValueError, match="replan"):
+        ServingConfig(replan="none")
+
+
+def test_session_rejects_a_model_on_another_device(models):
+    _, _, port = models
+    with pytest.raises(ValueError, match="device|lives"):
+        ServingSession(ServingConfig(device="cpu"),
+                       model=type("M", (), {"device": torch.device("meta")})())
+
+
+def test_page_pool_refcounts_free_only_at_zero():
+    """test_serving.py:355 (the pool half; the prefix index is ported with
+    prefix sharing)."""
+    pool = PagePool(6, 8)
+    pages = pool.alloc(2, rid=0)
+    assert pages is not None and pool.in_use == 2
+    assert pool.refcount(pages[0]) == 1
+    pool.ref(pages[0])
+    assert pool.refcount(pages[0]) == 2
+    pool.release([pages[0]])
+    assert pool.in_use == 2 and pool.refcount(pages[0]) == 1
+    pool.release([pages[0]])
+    assert pool.in_use == 1 and pool.refcount(pages[0]) == 0
+    with pytest.raises(ValueError, match="double free"):
+        pool.release([pages[0]])
+    with pytest.raises(ValueError, match="trash"):
+        pool.release([pool.TRASH])
+    with pytest.raises(ValueError, match="unmapped"):
+        pool.ref(pages[0])
+    pool.release([pages[1]])
+    assert pool.in_use == 0 and pool.high_water == 2
+
+
+def test_admission_control_and_events():
+    """test_serving.py:316."""
+    q = RequestQueue(max_pending=2)
+    src = RequestQueueSource(q)
+    toks = np.zeros(4, np.int32)
+    assert q.submit(Request(rid=0, tokens=toks, max_new_tokens=2))
+    assert q.submit(Request(rid=1, tokens=toks, max_new_tokens=2))
+    assert not q.submit(Request(rid=2, tokens=toks, max_new_tokens=2))
+    assert q.rejected == 1
+    r0 = q.pop()
+    q.note_completion(r0, generated=2)
+    kinds = [e.kind for e in src.poll()]
+    assert kinds == ["request_arrived", "request_arrived", "request_completed"]
+    assert src.poll() == []
+
+
+def test_mix_tracker_quantization():
+    """test_serving.py:548."""
+    mix = MixTracker()
+    for rid, p in enumerate((5, 7, 30)):
+        mix.submitted(rid, "chat", p)
+        mix.joined(rid)
+    snap = mix.snapshot()
+    assert snap.counts == (("chat", 8, 2), ("chat", 32, 1))
+    key = snap.key
+    mix.submitted(3, "chat", 6)
+    mix.joined(3)
+    assert mix.snapshot().key != key
+    key = mix.snapshot().key
+    mix.submitted(4, "chat", 8)
+    mix.joined(4)
+    assert mix.snapshot().key == key
+    assert mix.snapshot().decoding == 5
+
+
+def test_serve_entry_point_on_cpu():
+    """``launch/serve.serve`` (test_train_serve_drivers.py:35): generates
+    the requested tokens, deterministically from the seed, and a prompt
+    longer than 256 tokens takes the flash path (its plain version here)."""
+    from repro_torch.launch.serve import serve
+
+    kw = dict(reduced_cfg=True, n_requests=2, prompt_len=260, gen_len=4,
+              seed=5, verbose=False, device="cpu")
+    a, b = serve("qwen3-0.6b", **kw), serve("qwen3-0.6b", **kw)
+    assert tuple(a["tokens"].shape) == (2, 4)
+    assert a["output_tokens"] == 8 and a["prefill_calls"] == 1
+    assert torch.equal(a["tokens"], b["tokens"])
