@@ -11,19 +11,27 @@ caught):
 2. build every kernel from ``src/repro_torch/csrc`` (one ``nvcc`` each, in
    parallel) and print the build time;
 3. hold each kernel against its plain PyTorch version on the card, at the
-   serving path's shapes, in bf16 and fp32: max error and tolerance, the
+   serving paths' shapes, in bf16 and fp32: max error and tolerance, the
    kernel's time, the plain version's time, the bound (the least time the
    card could take: bytes over 3.35 TB/s or flops over the dtype's peak,
    whichever is larger) and one PyTorch library call as a yardstick
-   (SDPA for flash; none exists for paged decode);
+   (SDPA for flash, ``torch.bmm`` for the grouped matmul; none exists for
+   paged decode).  Attention at qwen3's K=8 and qwen2-moe's K=16; the
+   grouped matmul at qwen2-moe's prefill and decode shapes, with routed
+   group sizes, whose rows past each group must be exactly 0;
 4. serve full-width, full-depth qwen3-0.6b (random weights from a seed):
    8 requests, prompt 512, 32 new tokens, 8 slots, page size 16, bf16
    cache, through ``repro_torch.launch.serve.serve``; the launch counters
    are zeroed just before and read just after, and flash launches must
    equal 28 x prefill calls, paged launches 28 x decode steps;
+4b. serve full-width, full-depth qwen2-moe-a2.7b the same way: flash
+   launches must equal 24 x prefill calls, paged 24 x decode steps and
+   grouped matmul 72 x (prefill calls + decode steps);
 5. serve the reduced qwen3 in fp32 from one seed on ``cuda`` and on ``cpu``
    and require identical tokens (the kernels against the plain path);
-6. print a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
+5b. the same for the reduced qwen2-moe (4 requests in 4 slots, all live);
+6. print a ``{"kernels": [...]}`` line (times at qwen2-moe's shapes,
+   launches from phase 4b), the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -36,6 +44,8 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -54,6 +64,15 @@ SOURCES = {
                         "src/repro/kernels/paged_attention.py:151"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:142"),
+    "grouped_matmul": ("src/repro_torch/csrc/grouped_matmul.cu",
+                       "src/repro/kernels/moe_gmm.py:98"),
+}
+# qwen2-moe-a2.7b's expert products: (E, C, d, f) with C the capacity of an
+# 8 x 512-token prefill (341) and of an 8-slot decode step (4)
+GMM_SHAPES = {
+    "prefill_gate_up": (64, 341, 2048, 1408),
+    "prefill_down": (64, 341, 1408, 2048),
+    "decode": (64, 4, 2048, 1408),
 }
 
 
@@ -110,13 +129,14 @@ def n_copies(torch, per_copy_bytes: int) -> int:
     return max(2, math.ceil(64e6 / max(per_copy_bytes, 1)) + 1)
 
 
-def check_paged(torch, ops, ref, dtype_name: str) -> dict:
-    """Paged decode at the serving path's shapes: B=8, H=16, K=8, hd=128,
-    ps=16, n_pp=34; ragged lengths, non-contiguous pages, all-trash tails."""
+def check_paged(torch, ops, ref, dtype_name: str, K: int) -> dict:
+    """Paged decode at the serving paths' shapes: B=8, H=16, K (8 for
+    qwen3, 16 for qwen2-moe), hd=128, ps=16, n_pp=34; ragged lengths,
+    non-contiguous pages, all-trash tails."""
     dt = getattr(torch, dtype_name)
     dev = torch.device("cuda")
     g = torch.Generator(device="cpu").manual_seed(11)
-    B, H, K, hd, ps, n_pp = 8, 16, 8, 128, 16, 34
+    B, H, hd, ps, n_pp = 8, 16, 128, 16, 34
     P = B * n_pp + 1
     lengths = torch.tensor([543, 530, 512, 400, 287, 100, 16, 0],
                            dtype=torch.int32)
@@ -151,14 +171,14 @@ def check_paged(torch, ops, ref, dtype_name: str) -> dict:
                 library_ms=None)
 
 
-def check_flash(torch, ops, ref, dtype_name: str, S: int) -> dict:
-    """Causal flash forward at the prefill shapes: B=8, H=16, K=8, hd=128."""
+def check_flash(torch, ops, ref, dtype_name: str, S: int, K: int) -> dict:
+    """Causal flash forward at the prefill shapes: B=8, H=16, K, hd=128."""
     import torch.nn.functional as F
 
     dt = getattr(torch, dtype_name)
     dev = torch.device("cuda")
     g = torch.Generator(device="cpu").manual_seed(12 + S)
-    B, H, K, hd = 8, 16, 8, 128
+    B, H, hd = 8, 16, 128
 
     def make():
         q = torch.randn(B, H, S, hd, generator=g).to(dev, dt)
@@ -178,7 +198,7 @@ def check_flash(torch, ops, ref, dtype_name: str, S: int) -> dict:
     # the yardstick: one PyTorch call (never used by the port); KV heads
     # repeated outside the timed call
     rsets = [(q, k.repeat_interleave(H // K, 1), v.repeat_interleave(H // K, 1))
-             for q, k, v in sets]
+             for q, k, v in sets] if K != H else sets
     library_ms = time_ms(
         torch, lambda q, k, v: F.scaled_dot_product_attention(
             q, k, v, is_causal=True), rsets)
@@ -190,31 +210,115 @@ def check_flash(torch, ops, ref, dtype_name: str, S: int) -> dict:
                 library_ms=library_ms)
 
 
+def routed_sizes(E_live: int, E: int, C: int, tokens: int, top_k: int,
+                 seed: int):
+    """Group sizes as routing makes them: ``tokens`` rows pick their top-k
+    of ``E_live`` experts from skewed random logits, each group capped at
+    the capacity ``C``; the padded experts past ``E_live`` stay empty.
+    Groups 0-3 are pinned to 0, 1, a partial tile and full capacity."""
+    rng = np.random.default_rng(seed)
+    logits = (rng.standard_normal((tokens, E_live))
+              + np.linspace(0.0, 1.0, E_live))
+    idx = np.argsort(-logits, axis=1)[:, :top_k]
+    sizes = np.zeros(E, np.int64)
+    sizes[:E_live] = np.minimum(np.bincount(idx.ravel(), minlength=E_live), C)
+    sizes[:4] = [0, 1, min(37, C - 1), C]
+    return sizes
+
+
+def check_gmm(torch, ops, ref, dtype_name: str, shape: str) -> dict:
+    """The grouped matmul at one of qwen2-moe's shapes, with routed group
+    sizes (60 live experts, 4 dead); rows past each group must be exactly
+    0.  w is drawn as the model draws it, N(0, 1/d_in)."""
+    dt = getattr(torch, dtype_name)
+    dev = torch.device("cuda")
+    E, C, d, f = GMM_SHAPES[shape]
+    tokens = 8 if shape == "decode" else 4096
+    sizes_np = routed_sizes(60, E, C, tokens, 4, seed=13)
+    sizes = torch.as_tensor(sizes_np, dtype=torch.int32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(14 + C + d)
+
+    def make():
+        x = torch.randn(E, C, d, generator=g, device=dev).to(dt)
+        w = (torch.randn(E, d, f, generator=g, device=dev)
+             / math.sqrt(d)).to(dt)
+        w[60:] = 0  # dead experts, as the model pads them
+        return x, w, sizes
+
+    first = make()
+    got = ops.grouped_matmul(*first)
+    want = ref.grouped_matmul_ref(*first)
+    err = check_close(f"grouped_matmul {shape}", got, want, dtype_name)
+    rows = torch.arange(C, device=dev)[None, :] >= sizes[:, None]
+    if bool(got[rows].ne(0).any()):
+        raise AssertionError(f"grouped_matmul {shape} {dtype_name}: rows past "
+                             f"a group are not exactly 0")
+    itemsize = first[0].element_size()
+    per = (first[0].numel() + first[1].numel()) * itemsize
+    sets = [first] + [make() for _ in range(n_copies(torch, per) - 1)]
+    ms = time_ms(torch, ops.grouped_matmul, sets)
+    plain_ms = time_ms(torch, ref.grouped_matmul_ref, sets, iters=10)
+    library_ms = time_ms(torch, lambda x, w, _: torch.bmm(x, w), sets)
+    live_rows = int(sizes_np.sum())
+    nonempty = int((sizes_np > 0).sum())
+    nbytes = ((live_rows * d + nonempty * d * f + E * C * f) * itemsize
+              + E * 4)
+    flops = 2.0 * live_rows * d * f
+    bms, bby = bound_ms(nbytes, flops, dtype_name)
+    return dict(max_abs_err=err, tol=TOL_TEXT[dtype_name], ms=ms,
+                plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
+                library_ms=library_ms, live_rows=live_rows,
+                nonempty=nonempty)
+
+
+def _line(r: dict) -> str:
+    lib = ("null" if r["library_ms"] is None
+           else f"{r['library_ms']:.5f}")
+    return (f"max_err={r['max_abs_err']:.3e} (tol {r['tol']}) "
+            f"ms={r['ms']:.5f} plain_ms={r['plain_ms']:.5f} "
+            f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']}) library_ms={lib}")
+
+
 def phase_kernels(torch, ops, ref) -> dict:
     results = {}
     for dtn in ("bfloat16", "float32"):
-        r = check_paged(torch, ops, ref, dtn)
-        log(f"paged_attention {dtn} B=8 H=16 K=8 hd=128 ps=16 n_pp=34: "
-            f"max_err={r['max_abs_err']:.3e} (tol {r['tol']}) "
-            f"ms={r['ms']:.5f} plain_ms={r['plain_ms']:.5f} "
-            f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']}) library_ms=null")
-        results[("paged_attention", dtn)] = r
-        for S in (512, 300):
-            r = check_flash(torch, ops, ref, dtn, S)
-            log(f"flash_attention {dtn} B=8 H=16 K=8 S={S} hd=128 causal: "
-                f"max_err={r['max_abs_err']:.3e} (tol {r['tol']}) "
-                f"ms={r['ms']:.5f} plain_ms={r['plain_ms']:.5f} "
-                f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']}) "
-                f"library_ms={r['library_ms']:.5f}")
-            results[("flash_attention", dtn, S)] = r
+        for K in (8, 16):
+            r = check_paged(torch, ops, ref, dtn, K)
+            log(f"paged_attention {dtn} B=8 H=16 K={K} hd=128 ps=16 "
+                f"n_pp=34: {_line(r)}")
+            results[("paged_attention", dtn, K)] = r
+        for S, K in ((512, 8), (300, 8), (512, 16)):
+            r = check_flash(torch, ops, ref, dtn, S, K)
+            log(f"flash_attention {dtn} B=8 H=16 K={K} S={S} hd=128 causal: "
+                f"{_line(r)}")
+            results[("flash_attention", dtn, S, K)] = r
+        for shape, (E, C, d, f) in GMM_SHAPES.items():
+            r = check_gmm(torch, ops, ref, dtn, shape)
+            log(f"grouped_matmul {dtn} {shape} E={E} C={C} d={d} f={f} "
+                f"({r['live_rows']} live rows in {r['nonempty']} groups): "
+                f"{_line(r)}")
+            results[("grouped_matmul", dtn, shape)] = r
     return results
 
 
-def phase_serve_full(torch, ops, serve, smi: str) -> dict:
-    n_layers = 28
+# arch: (layers, what the log line calls it, launches per layer and call)
+SERVED = {
+    "qwen3-0.6b": (28, "28L d1024, bf16",
+                   {"flash_attention": (1, 0), "paged_attention": (0, 1)}),
+    "qwen2-moe-a2.7b": (24, "24L d2048, 60+4 experts top-4, bf16",
+                        {"flash_attention": (1, 0), "paged_attention": (0, 1),
+                         "grouped_matmul": (3, 3)}),
+}
+
+
+def phase_serve_full(torch, ops, serve, smi: str, arch: str) -> dict:
+    """Serve the full ``arch``; every kernel of its path must have been
+    launched, exactly layers x (per prefill call, per decode step) times."""
+    n_layers, what, per = SERVED[arch]
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    out = serve("qwen3-0.6b", reduced_cfg=False, n_requests=8, prompt_len=512,
+    out = serve(arch, reduced_cfg=False, n_requests=8, prompt_len=512,
                 gen_len=32, max_slots=8, page_size=16,
                 cache_dtype="bfloat16", replan="off", device="cuda",
                 seed=0, verbose=True)
@@ -227,32 +331,35 @@ def phase_serve_full(torch, ops, serve, smi: str) -> dict:
     if not bool(((toks >= 0) & (toks < 151936)).all()):
         raise AssertionError("generated token ids out of the vocabulary")
     pf, ds = out["prefill_calls"], out["decode_steps"]
-    if not (counts["flash_attention"] == n_layers * pf
-            and counts["paged_attention"] == n_layers * ds
-            and counts["flash_attention"] > 0
-            and counts["paged_attention"] > 0):
-        raise AssertionError(
-            f"launch counts {counts} != 28 x (prefill {pf}, decode {ds})")
-    log(f"serve qwen3-0.6b full (28L d1024, bf16): {out['requests']} requests "
+    want = {name: n_layers * (a * pf + b * ds) for name, (a, b) in per.items()}
+    got = {name: counts[name] for name in want}
+    if got != want or min(got.values()) <= 0:
+        raise AssertionError(f"{arch}: launch counts {counts} != {want} "
+                             f"(prefill calls {pf}, decode steps {ds})")
+    log(f"serve {arch} full ({what}): {out['requests']} requests "
         f"x 32 tokens; prefill_calls={pf} decode_steps={ds} "
-        f"launches={counts}; throughput_tok_s={out['throughput_tok_s']} "
+        f"launches={counts}; init_seconds={out['init_seconds']} "
+        f"throughput_tok_s={out['throughput_tok_s']} "
         f"prefill_seconds={out['prefill_seconds']} "
         f"decode_seconds={out['decode_seconds']} "
         f"peak_mem_bytes={peak} on {smi}")
     return counts
 
 
-def phase_cpu_parity(torch, serve) -> None:
+def phase_cpu_parity(torch, serve, arch: str) -> None:
+    """Reduced ``arch`` in fp32 from one seed, 4 requests in 4 slots (all
+    live at every step): the kernels on ``cuda`` give the plain path's
+    tokens on ``cpu``."""
     kw = dict(reduced_cfg=True, n_requests=4, prompt_len=300, gen_len=16,
               max_slots=4, page_size=16, cache_dtype="float32", replan="off",
               seed=3, verbose=False)
-    gpu = serve("qwen3-0.6b", device="cuda", **kw)["tokens"]
-    cpu = serve("qwen3-0.6b", device="cpu", **kw)["tokens"]
+    gpu = serve(arch, device="cuda", **kw)["tokens"]
+    cpu = serve(arch, device="cpu", **kw)["tokens"]
     if not torch.equal(gpu.cpu(), cpu.cpu()):
-        raise AssertionError(f"reduced fp32 tokens differ cuda vs cpu:\n"
-                             f"{gpu.tolist()}\n{cpu.tolist()}")
-    log(f"reduced qwen3 fp32 (4 requests, prompt 300, 16 new): cuda tokens == "
-        f"cpu tokens ({cpu.numel()} tokens)")
+        raise AssertionError(f"reduced {arch} fp32 tokens differ cuda vs cpu:"
+                             f"\n{gpu.tolist()}\n{cpu.tolist()}")
+    log(f"reduced {arch} fp32 (4 requests, prompt 300, 16 new): cuda tokens "
+        f"== cpu tokens ({cpu.numel()} tokens)")
 
 
 def main(argv=None) -> int:
@@ -291,13 +398,18 @@ def main(argv=None) -> int:
     if args.only is None:
         from repro_torch.launch.serve import serve
 
-        counts = phase_serve_full(torch, ops, serve, smi)
-        phase_cpu_parity(torch, serve)
+        phase_serve_full(torch, ops, serve, smi, "qwen3-0.6b")
+        counts = phase_serve_full(torch, ops, serve, smi, "qwen2-moe-a2.7b")
+        phase_cpu_parity(torch, serve, "qwen3-0.6b")
+        phase_cpu_parity(torch, serve, "qwen2-moe-a2.7b")
 
+    # one row per kernel at qwen2-moe's bf16 shapes (the grouped matmul at
+    # its decode shape, where most of its launches are), launches of 4b
+    keys = {"paged_attention": ("paged_attention", "bfloat16", 16),
+            "flash_attention": ("flash_attention", "bfloat16", 512, 16),
+            "grouped_matmul": ("grouped_matmul", "bfloat16", "decode")}
     rows = []
-    for name in ("paged_attention", "flash_attention"):
-        key = (name, "bfloat16") if name == "paged_attention" else (
-            name, "bfloat16", 512)
+    for name, key in keys.items():
         r = checks[key]
         rows.append({
             "name": name, "route": "cuda", "source": SOURCES[name][0],

@@ -11,7 +11,10 @@ leading group axis (``Decoder.init`` builds ``params["blocks"]`` with
 models.transformer.Block` per layer, so :func:`from_jax` unstacks the group
 axis (remainder layers first, then group ``g``'s pattern slot ``j`` at
 ``n_rem + g * len(pattern) + j``) and :func:`to_jax` stacks it back.
-Everything here is numpy: the JAX side converts with ``np.asarray``.
+Only the leading group axis moves: an MoE layer's ``(E, d, f)`` expert
+stacks arrive per layer as they are (dead experts included), and the
+router keeps its fp32.  Everything here is numpy: the JAX side converts
+with ``np.asarray``.
 """
 
 from __future__ import annotations
@@ -107,11 +110,18 @@ def _transformer(model):
     return getattr(model, "impl", model)
 
 
+def _to_torch(arr: np.ndarray) -> torch.Tensor:
+    # numpy has no bfloat16 of its own; JAX's bf16 leaves widen to fp32
+    # exactly, and load_state casts back to the parameter's dtype
+    if arr.dtype.name == "bfloat16":
+        arr = arr.astype(np.float32)
+    return torch.from_numpy(np.array(arr))
+
+
 def load_jax_params(model, tree: Dict[str, Any]):
     """Load JAX params (numpy leaves) into a port model; returns the model."""
     flat = from_jax(tree, model.cfg)
-    _transformer(model).load_state(
-        {k: torch.from_numpy(np.array(v)) for k, v in flat.items()})
+    _transformer(model).load_state({k: _to_torch(v) for k, v in flat.items()})
     return model
 
 

@@ -3,15 +3,15 @@
 ``ArchConfig`` and ``MoEConfig`` are field-for-field copies of the JAX
 package's, so an architecture has the same numbers in both packages
 (``tests/test_torch_imports.py`` pins that for the registered archs).
-``ShardingConfig`` keeps only the one knob this slice needs: ``use_kernels``
-(the JAX package's ``use_pallas``) routes attention through the
-hand-written CUDA kernels.  :func:`resolve_device` is the port's single
+``ShardingConfig`` keeps only the one knob serving needs: ``use_kernels``
+(the JAX package's ``use_pallas``) routes attention and the MoE expert
+products through the hand-written CUDA kernels.  :func:`resolve_device` is the port's single
 device policy: asking for CUDA without a GPU raises, it never falls back.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, fields, replace
 from typing import Dict, Tuple
 
 import torch
@@ -77,9 +77,10 @@ class ArchConfig:
 
 @dataclass(frozen=True)
 class ShardingConfig:
-    """Kernel policy.  ``use_kernels`` swaps the hand-written CUDA attention
-    kernels into the model (flash forward for prefill, paged decode); on a
-    CPU tensor each kernel wrapper computes its plain PyTorch version."""
+    """Kernel policy.  ``use_kernels`` swaps the hand-written CUDA kernels
+    into the model (flash forward for prefill, paged decode, the grouped
+    matmul of the MoE experts); on a CPU tensor each kernel wrapper
+    computes its plain PyTorch version."""
 
     use_kernels: bool = False
 
@@ -109,8 +110,12 @@ def _ensure_registered() -> None:
 
 
 def default_sharding(cfg: ArchConfig, **overrides) -> ShardingConfig:
-    """The arch's default ShardingConfig (its sharding_defaults applied)."""
-    kw = dict(cfg.sharding_defaults)
+    """The arch's default ShardingConfig: its ``sharding_defaults`` that
+    name a field of the port's ShardingConfig, then ``overrides``.  The
+    JAX knobs it leaves out (``grad_accum`` of the MoE configs) are
+    training policy, which serving never reads."""
+    names = {f.name for f in fields(ShardingConfig)}
+    kw = {k: v for k, v in cfg.sharding_defaults if k in names}
     kw.update(overrides)
     return ShardingConfig(**kw)
 

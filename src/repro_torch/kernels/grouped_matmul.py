@@ -1,0 +1,73 @@
+"""CUDA grouped matmul of the MoE experts: the wrapper of ``csrc/grouped_matmul.cu``.
+
+Replaces ``repro/kernels/moe_gmm.py:grouped_matmul`` (the Pallas TPU
+kernel).  The wrapper checks what the kernel takes, allocates the output
+with ``torch.empty`` (the kernel writes every element, zeros included)
+and launches on the current CUDA stream; the kernel is built at first use
+(:mod:`repro_torch.kernels.build`).  Callers go through
+:func:`repro_torch.kernels.ops.grouped_matmul`, which sends CPU tensors to
+the plain version instead.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from .build import CudaKernel
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+KERNEL = CudaKernel(
+    "grouped_matmul",
+    "grouped_matmul.cu",
+    "repro_grouped_matmul",
+    [_P, _P, _P, _P,  # x, w, group sizes (or null), y
+     _I, _I, _I, _I,  # E, C, d, f
+     _I, _I, _P],  # dtype, vec, stream
+)
+
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
+                   group_sizes: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x (E,C,d) @ w (E,d,f) → (E,C,f) in x's dtype; rows ``>=
+    group_sizes[e]`` (int32 (E,), on the device) are exactly zero, and
+    ``None`` means every group is full."""
+    tensors = dict(x=x, w=w)
+    if group_sizes is not None:
+        tensors["group_sizes"] = group_sizes
+    for name, t in tensors.items():
+        if not t.is_cuda or t.device != x.device:
+            raise ValueError(f"grouped_matmul: {name} must be on {x.device} "
+                             f"(CUDA), got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"grouped_matmul: {name} must be contiguous")
+    if x.dim() != 3 or w.dim() != 3 or w.shape[0] != x.shape[0] \
+            or w.shape[1] != x.shape[2]:
+        raise ValueError(f"grouped_matmul: x (E,C,d) and w (E,d,f) expected, "
+                         f"got {tuple(x.shape)} / {tuple(w.shape)}")
+    if x.dtype not in DTYPE_CODE or w.dtype != x.dtype:
+        raise ValueError(f"grouped_matmul: dtypes {x.dtype}/{w.dtype} "
+                         f"unsupported (both float32 or both bfloat16)")
+    E, C, d = x.shape
+    f = w.shape[2]
+    if group_sizes is not None and (group_sizes.dtype != torch.int32
+                                    or group_sizes.shape != (E,)):
+        raise ValueError(f"grouped_matmul: group_sizes must be int32 ({E},), "
+                         f"got {group_sizes.dtype} {tuple(group_sizes.shape)}")
+    y = torch.empty((E, C, f), dtype=x.dtype, device=x.device)
+    if y.numel() == 0:
+        return y
+    vec = int(x.dtype == torch.bfloat16 and d % 8 == 0 and f % 8 == 0
+              and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+    sizes_ptr = group_sizes.data_ptr() if group_sizes is not None else None
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        KERNEL.launch(x.data_ptr(), w.data_ptr(), sizes_ptr, y.data_ptr(),
+                      E, C, d, f, DTYPE_CODE[x.dtype], vec, stream)
+    return y

@@ -12,6 +12,7 @@ from __future__ import annotations
 from typing import Dict
 
 from . import flash_attention as _flash
+from . import grouped_matmul as _gmm
 from . import paged_attention as _paged
 from . import ref
 from .build import CudaKernel
@@ -19,6 +20,7 @@ from .build import CudaKernel
 KERNELS: Dict[str, CudaKernel] = {
     "flash_attention": _flash.KERNEL,
     "paged_attention": _paged.KERNEL,
+    "grouped_matmul": _gmm.KERNEL,
 }
 
 
@@ -47,6 +49,16 @@ def paged_attention(q, k_pool, v_pool, page_table, lengths):
     if _on_cpu(q, k_pool, v_pool, page_table, lengths):
         return ref.paged_attention_ref(q, k_pool, v_pool, page_table, lengths)
     return _paged.paged_attention(q, k_pool, v_pool, page_table, lengths)
+
+
+def grouped_matmul(x, w, group_sizes=None):
+    """Per-group products x (E,C,d) @ w (E,d,f) → (E,C,f) in x's dtype,
+    fp32 accumulation; rows ``>= group_sizes[e]`` (int32 (E,)) are exactly
+    zero, ``None`` meaning every group is full."""
+    tensors = (x, w) if group_sizes is None else (x, w, group_sizes)
+    if _on_cpu(*tensors):
+        return ref.grouped_matmul_ref(x, w, group_sizes)
+    return _gmm.grouped_matmul(x, w, group_sizes)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -1,10 +1,10 @@
-"""Plain PyTorch versions of the attention kernels (port of ``repro.kernels.ref``).
+"""Plain PyTorch versions of the kernels (port of ``repro.kernels.ref``).
 
 Each function computes the same function as its CUDA kernel and is what
 the kernel wrappers in :mod:`repro_torch.kernels.ops` run for a CPU
-tensor; ``chip_smoke.py`` holds each kernel against it on the card.  Both
-compute in fp32 from upcast inputs and return ``q``'s dtype — the kernels'
-contract.  In fp32 that is exactly the JAX oracle's arithmetic (the parity
+tensor; ``chip_smoke.py`` holds each kernel against it on the card.  All
+compute in fp32 from upcast inputs and return the input's dtype (``q``'s,
+``x``'s) — the kernels' contract.  In fp32 that is exactly the JAX oracle's arithmetic (the parity
 tests compare at fp32); in bf16 the oracle's intermediate roundings are
 not repeated.
 
@@ -72,3 +72,16 @@ def paged_attention_ref(q, k_pool, v_pool, page_table, lengths, *,
     s = torch.where(valid[:, None, :], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhk,bhkd->bhd", p, vv).to(q.dtype)
+
+
+def grouped_matmul_ref(x, w, group_sizes=None):
+    """x (E,C,d) @ w (E,d,f) → (E,C,f) in x's dtype, with the rows
+    ``>= group_sizes[e]`` of group ``e`` exactly zero (``None``: every
+    group is full)."""
+    y = torch.einsum("ecd,edf->ecf", x.float(), w.float())
+    if group_sizes is not None:
+        C = x.shape[1]
+        live = (torch.arange(C, device=x.device)[None, :]
+                < group_sizes.to(x.device)[:, None])  # (E, C)
+        y = torch.where(live[..., None], y, torch.zeros((), device=x.device))
+    return y.to(x.dtype)

@@ -3,6 +3,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
         --requests 8 --prompt-len 512 --gen-len 32            # on the GPU
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b \\
+        --prompt-len 512 --gen-len 32                         # MoE, on the GPU
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
 
 Requests are random prompts from ``numpy.random.default_rng(seed + 1)``;
@@ -60,7 +62,9 @@ def serve(
     cache_dtype: str = "bfloat16",
     device: str = "cuda",
 ) -> Dict[str, Any]:
-    """Serve ``n_requests`` random prompts; returns tokens + metrics."""
+    """Serve ``n_requests`` random prompts; returns tokens + metrics
+    (``init_seconds``: building and initializing the model)."""
+    t_init = time.perf_counter()
     session = ServingSession(
         ServingConfig(
             arch=arch,
@@ -77,6 +81,7 @@ def serve(
             cache_dtype=cache_dtype,
         )
     )
+    init_seconds = time.perf_counter() - t_init
     reqs = _build_requests(
         session.model.cfg.vocab, n_requests=n_requests,
         prompt_len=prompt_len, gen_len=gen_len, seed=seed,
@@ -97,7 +102,7 @@ def serve(
             f"[serve] {arch}: {metrics['requests']} requests ({admission} "
             f"batching, replan={replan}) on {session.device} in "
             f"{wall * 1e3:.0f} ms; {b.decode_steps} decode steps at "
-            f"{tps:.0f} tok/s"
+            f"{tps:.0f} tok/s (model init {init_seconds:.1f} s)"
         )
         print(f"[serve] prefill: {metrics['prefill_calls']} calls in "
               f"{metrics['prefill_seconds']:.4f} s; decode "
@@ -110,7 +115,8 @@ def serve(
         sample = out_tokens[0][:12].tolist() if len(done) else []
         print(f"[serve] generated {metrics['output_tokens']} tokens; "
               f"sample: {sample}")
-    return {"arch": arch, "tokens": out_tokens, **metrics}
+    return {"arch": arch, "tokens": out_tokens, "init_seconds": init_seconds,
+            **metrics}
 
 
 def main() -> None:

@@ -56,13 +56,14 @@ class Model(nn.Module):
 def build_model(cfg: ArchConfig, shcfg: Optional[ShardingConfig] = None, *,
                 device: str = "cuda") -> Model:
     """A model with uninitialized weights on ``device`` (fill it with
-    :meth:`Model.init` or :meth:`Model.load_state`).  Only dense decoders
-    with an all-attention block pattern are ported."""
+    :meth:`Model.init` or :meth:`Model.load_state`).  Only decoders with an
+    all-attention block pattern are ported: the dense and MoE families."""
     pattern = tuple(cfg.block_pattern) or ("attn",)
-    if (cfg.family != "dense" or cfg.is_moe or cfg.is_encdec
+    if (cfg.family not in ("dense", "moe") or cfg.is_encdec
             or any(kind != "attn" for kind in pattern)):
         raise NotImplementedError(
-            f"{cfg.name}: only dense all-attention decoders are ported; the "
-            f"{cfg.family} family waits for ROADMAP queue 1 (slab layout and "
-            f"the other families)")
+            f"{cfg.name}: only dense and MoE all-attention decoders are "
+            f"ported; the {cfg.family} family waits for ROADMAP queue 1 "
+            f"(item 0: the hybrid family; item 4: slab layout and the other "
+            f"families)")
     return Model(cfg, shcfg or ShardingConfig(), resolve_device(device))

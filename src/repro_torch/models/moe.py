@@ -1,0 +1,115 @@
+"""Mixture-of-Experts FFN (Qwen-MoE family), port of ``repro/models/moe.py``.
+
+Routing is softmax top-k over the fp32 router logits, renormalised; the
+dispatch is the JAX package's capacity-bounded scatter: each assignment's
+position within its expert is an exclusive prefix count over the flattened
+``(T·k)`` assignments in row order, the first ``capacity`` of an expert
+are kept, and the rest go to an overflow bucket (row ``E`` of an
+``(E+1, C, d)`` buffer) that is never computed.  The three expert products
+are the JAX einsums, or — with ``use_kernels`` — the grouped-matmul kernel
+(:func:`repro_torch.kernels.ops.grouped_matmul`), whose group sizes are
+the kept counts per expert, computed on the device.  Rows past a group's
+count are zero in the buffer, so both compute the same function.
+
+Only the local branch of ``moe_apply`` is ported: the ``shard_map``
+expert parallelism comes with multi-GPU (ROADMAP queue 1, item 5).  The
+layer never waits on the device: the capacity is a Python int from
+shapes, and the dispatch is index arithmetic on device tensors.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..config import ArchConfig
+from ..kernels import ops
+from .layers import mlp_apply
+
+
+def capacity(n_tokens: int, cfg: ArchConfig) -> int:
+    """Per-expert capacity of one call over ``n_tokens`` tokens — exactly
+    ``moe.py:131``, with the logical expert count."""
+    m = cfg.moe
+    return max(int(n_tokens * m.top_k / m.n_experts * m.capacity_factor),
+               m.top_k)
+
+
+def route(router_w, x2d, n_experts: int, top_k: int):
+    """Returns (gates (T,k), idx (T,k) int64, aux_loss scalar).  The router
+    product runs in full fp32 (no TF32 on the card): a last-bit change of
+    a logit can flip a top-k choice."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        logits = x2d.float() @ router_w.float()  # (T, E)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    probs = torch.softmax(logits, dim=-1)
+    gates, idx = torch.topk(probs, top_k, dim=-1)
+    gates = gates / gates.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+    # load-balance auxiliary loss (Switch-style)
+    me = probs.mean(dim=0)
+    assign = F.one_hot(idx, n_experts).float().sum(dim=1)  # (T, E)
+    ce = assign.mean(dim=0)
+    aux = n_experts * (me * ce).sum()
+    return gates, idx, aux
+
+
+def dispatch_compute_combine(x2d, gates, idx, we_gate, we_up, we_down,
+                             cap: int, *, use_kernels: bool):
+    """Capacity-bounded scatter dispatch over all ``E`` physical experts,
+    the SwiGLU expert products, and the gated combine.  x2d (T,d) →
+    (T,d)."""
+    T, d = x2d.shape
+    E = we_gate.shape[0]
+    k = idx.shape[1]
+    flat_idx = idx.reshape(-1)  # the (T·k) assignments in row order
+    # each expert's running count of its assignments: a scan along the
+    # inner axis of an (E, T·k) one-hot.  The JAX layout, (T·k, E) scanned
+    # along its outer axis, took torch's outer-axis scan kernel 3 ms per
+    # layer at a 4096-token prefill on the H100 (launch/profile.py)
+    hits = flat_idx[None, :] == torch.arange(E, device=idx.device)[:, None]
+    running = hits.to(torch.int32).cumsum(dim=1, dtype=torch.int32)
+    pos = running.gather(0, flat_idx[None, :])[0].long() - 1  # exclusive
+    keep = pos < cap
+    e_idx = torch.where(keep, flat_idx, E)  # overflow bucket E
+    p_idx = torch.where(keep, pos, 0)
+    buf = x2d.new_zeros((E + 1, cap, d))
+    tok = x2d[:, None, :].expand(T, k, d).reshape(T * k, d)
+    buf[e_idx, p_idx] = tok  # kept slots are distinct; drops share row E
+    h = buf[:E]  # (E, C, d), contiguous
+    if use_kernels:
+        # kept assignments of each expert: rows [0, size) of its buffer
+        sizes = running[:, -1].clamp_max(cap)
+        g = F.silu(ops.grouped_matmul(h, we_gate, sizes))
+        u = ops.grouped_matmul(h, we_up, sizes)
+        y = ops.grouped_matmul(g * u, we_down, sizes)
+    else:
+        g = F.silu(torch.einsum("ecd,edf->ecf", h, we_gate))
+        u = torch.einsum("ecd,edf->ecf", h, we_up)
+        y = torch.einsum("ecf,efd->ecd", g * u, we_down)  # (E, C, d)
+    # combine: a dropped assignment gathers a clamped (in-range) row, as
+    # JAX's gather clamps, and its zero weight removes it
+    out_tok = y[e_idx.clamp_max(E - 1), p_idx]  # (T*k, d)
+    out_tok = out_tok * (gates.reshape(-1, 1) * keep[:, None]).to(y.dtype)
+    return out_tok.reshape(T, k, d).sum(dim=1)
+
+
+def moe_apply(params, x, cfg: ArchConfig, *,
+              use_kernels: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """MoE FFN on (B, S, d).  Returns (out, aux_loss)."""
+    m = cfg.moe
+    d = x.shape[-1]
+    x2d = x.reshape(-1, d)
+    gates, idx, aux = route(params["router"], x2d, m.n_experts, m.top_k)
+    out = dispatch_compute_combine(
+        x2d, gates, idx, params["we_gate"], params["we_up"],
+        params["we_down"], capacity(x2d.shape[0], cfg),
+        use_kernels=use_kernels,
+    ).reshape(x.shape)
+    if m.n_shared_experts > 0:
+        out = out + mlp_apply(params["shared"], x)
+    return out, aux

@@ -1,13 +1,17 @@
 """Decoder-only transformer for the serving slice (port of
 ``repro/models/transformer.py``).
 
-Only the all-``attn`` block pattern (dense decoders such as qwen3) is
-ported.  The JAX package scans over layer groups stacked on a leading
-axis; here each layer is its own :class:`Block` in a ``ModuleList`` and
-the scan is a Python loop (:mod:`repro_torch.bridge` unstacks the group
-axis).  Parameter names follow the JAX leaves (``norm1.scale``,
-``mix.wq``, ``ffn.w_gate``, ...), held in ``nn.ParameterDict``s so the
-functional layers index them exactly like the JAX param dicts.
+Only the all-``attn`` block pattern is ported: dense decoders such as
+qwen3, and MoE decoders such as qwen2-moe, whose FFN is
+:func:`repro_torch.models.moe.moe_apply` (``_ffn_apply`` dispatches on the
+family, as in JAX).  The JAX package scans over layer groups stacked on a
+leading axis; here each layer is its own :class:`Block` in a
+``ModuleList`` and the scan is a Python loop (:mod:`repro_torch.bridge`
+unstacks the group axis).  Parameter names follow the JAX leaves
+(``norm1.scale``, ``mix.wq``, ``ffn.w_gate``, ``ffn.we_up``,
+``ffn.shared.w_down``, ...), held in ``nn.ParameterDict``s (or, for the
+FFN, whose MoE leaves nest, :class:`Leaves`) that the functional layers
+index exactly like the JAX param dicts.
 
 Precision policy: the JAX model keeps params in ``param_dtype`` and casts
 the decoder's to ``compute_dtype`` on every call (``cast_floats``); the
@@ -16,12 +20,15 @@ at load (:meth:`Transformer.load_state`) — the same arithmetic, so
 ``cast_floats`` has no counterpart here.  ``final_norm`` stays in
 ``param_dtype``, as in JAX; the embedding table and the head are held in
 ``compute_dtype`` (JAX casts the looked-up rows and the head at use — the
-same values).
+same values).  The MoE router stays fp32 whatever the policy, as JAX
+keeps it (``layers.py`` ``_KEEP_F32``).
 """
 
 from __future__ import annotations
 
 import math
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Optional
 
 import torch
@@ -31,6 +38,7 @@ from torch import nn
 from ..config import ArchConfig, ShardingConfig
 from .attention import attn_apply, attn_decode, page_slots
 from .layers import dtype_of, embed_lookup, mlp_apply, rmsnorm
+from .moe import moe_apply
 from .paging import paginate_cache
 
 
@@ -39,8 +47,53 @@ def _param(shape, dtype, device) -> nn.Parameter:
                         requires_grad=False)
 
 
+class Leaves(nn.Module):
+    """Named parameter leaves, indexed like a JAX param dict (``p["w_up"]``)
+    — an ``nn.ParameterDict`` that can nest: a nested dict such as
+    ``ffn.shared`` is a child ``Leaves``."""
+
+    def __init__(self, leaves: Dict[str, nn.Module | nn.Parameter]):
+        super().__init__()
+        for name, leaf in leaves.items():
+            setattr(self, name, leaf)
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+    def __contains__(self, name: str) -> bool:
+        return hasattr(self, name)
+
+
+def _mlp_leaves(d: int, d_ff: int, dtype, device) -> Leaves:
+    return Leaves({
+        "w_gate": _param((d, d_ff), dtype, device),
+        "w_up": _param((d, d_ff), dtype, device),
+        "w_down": _param((d_ff, d), dtype, device),
+    })
+
+
+def _ffn_leaves(cfg: ArchConfig, dtype, device) -> Leaves:
+    """``_ffn_init``'s leaves: a SwiGLU, or ``moe_init``'s router (fp32),
+    expert stacks over the physical experts and shared SwiGLU."""
+    d = cfg.d_model
+    if not cfg.is_moe:
+        return _mlp_leaves(d, cfg.d_ff, dtype, device)
+    m = cfg.moe
+    E, f = m.n_physical, m.d_ff_expert
+    leaves = {
+        "router": _param((d, m.n_experts), torch.float32, device),
+        "we_gate": _param((E, d, f), dtype, device),
+        "we_up": _param((E, d, f), dtype, device),
+        "we_down": _param((E, f, d), dtype, device),
+    }
+    if m.n_shared_experts > 0:
+        leaves["shared"] = _mlp_leaves(d, f * m.n_shared_experts, dtype,
+                                       device)
+    return Leaves(leaves)
+
+
 class Block(nn.Module):
-    """One pre-norm (attention + SwiGLU) layer: ``_layer_init``'s leaves."""
+    """One pre-norm (attention + FFN) layer: ``_layer_init``'s leaves."""
 
     def __init__(self, cfg: ArchConfig, dtype, device):
         super().__init__()
@@ -54,11 +107,15 @@ class Block(nn.Module):
             "wo": _param((H * hd, d), dtype, device),
         })
         self.norm2 = nn.ParameterDict({"scale": _param((d,), dtype, device)})
-        self.ffn = nn.ParameterDict({
-            "w_gate": _param((d, cfg.d_ff), dtype, device),
-            "w_up": _param((d, cfg.d_ff), dtype, device),
-            "w_down": _param((cfg.d_ff, d), dtype, device),
-        })
+        self.ffn = _ffn_leaves(cfg, dtype, device)
+
+
+def ffn_apply(p, h, cfg: ArchConfig, *, impl: str):
+    """``_ffn_apply``: the MoE FFN (its aux loss dropped, as JAX serving
+    drops it) or the SwiGLU, on (B, S, d)."""
+    if cfg.is_moe:
+        return moe_apply(p, h, cfg, use_kernels=impl == "kernels")[0]
+    return mlp_apply(p, h)
 
 
 def _layer_apply(p: Block, h, cfg: ArchConfig, *, impl: str):
@@ -70,7 +127,7 @@ def _layer_apply(p: Block, h, cfg: ArchConfig, *, impl: str):
         causal=True, qk_norm=cfg.qk_norm, impl=impl, return_kv=True,
     )
     h = h + y
-    h = h + mlp_apply(p.ffn, rmsnorm(p.norm2, h))
+    h = h + ffn_apply(p.ffn, rmsnorm(p.norm2, h), cfg, impl=impl)
     return h, {"k": kv[0], "v": kv[1]}
 
 
@@ -83,7 +140,8 @@ def _layer_decode(p: Block, x_t, state, pos, cfg: ArchConfig, pages, slots,
         qk_norm=cfg.qk_norm, page_table=pages, slots=slots, impl=impl,
     )
     h = x_t + y[:, 0]
-    h = h + mlp_apply(p.ffn, rmsnorm(p.norm2, h[:, None, :]))[:, 0]
+    h = h + ffn_apply(p.ffn, rmsnorm(p.norm2, h[:, None, :]), cfg,
+                      impl=impl)[:, 0]
     return h, {"k": ck, "v": cv}
 
 
@@ -93,7 +151,8 @@ class Decoder(nn.Module):
     def __init__(self, cfg: ArchConfig, *, attn_impl: str, dtype, device):
         super().__init__()
         self.cfg = cfg
-        self.attn_impl = attn_impl  # "naive" | "kernels"
+        # "naive" | "kernels" (the kernels also take the MoE expert products)
+        self.attn_impl = attn_impl
         self.layers = nn.ModuleList(
             Block(cfg, dtype, device) for _ in range(cfg.n_layers))
 
@@ -188,21 +247,37 @@ class Transformer(nn.Module):
                                  f"{tuple(t.shape)}, expected {tuple(p.shape)}")
             p.copy_(t.to(p.device, p.dtype))
 
-    @torch.no_grad()
     def init(self, seed: int) -> None:
         """Random weights from ``seed`` with the JAX init's distributions:
-        N(0, 1/d_in) matrices, N(0, 0.02²) embeddings, unit norm scales.
-        Drawn on the CPU, so one seed gives one model on every device."""
-        g = torch.Generator(device="cpu").manual_seed(seed)
-        for name, p in self.named_parameters():
+        N(0, 1/d_in) matrices — ``d_in`` is the fan-in axis ``shape[-2]``,
+        also for an ``(E, d_in, d_out)`` expert stack — N(0, 0.02²)
+        embeddings, unit norm scales, and zero dead experts (``moe_init``
+        pads them).  Each parameter is drawn on the CPU from a generator
+        of its own, seeded from ``seed`` and the parameter's index, so one
+        seed gives one model on every device; the draws run in threads
+        (torch releases the GIL), since a full-width MoE model holds ~15 B
+        values."""
+        n_live = self.cfg.moe.n_experts
+
+        @torch.no_grad()
+        def fill(i: int, name: str, p: nn.Parameter) -> None:
             leaf = name.rsplit(".", 1)[-1]
             if leaf == "scale":
-                t = torch.ones(p.shape)
-            elif leaf == "tok_embed":
-                t = torch.randn(p.shape, generator=g) * 0.02
-            else:
-                t = torch.randn(p.shape, generator=g) / math.sqrt(p.shape[0])
-            p.copy_(t.to(p.device, p.dtype))
+                p.fill_(1.0)
+                return
+            g = torch.Generator(device="cpu").manual_seed((seed << 20) + i)
+            std = 0.02 if leaf == "tok_embed" else 1.0 / math.sqrt(p.shape[-2])
+            if p.dim() == 3:  # expert stack: live experts drawn, dead zero
+                p.zero_()
+                p = p[:n_live]
+            p.copy_((torch.randn(p.shape, generator=g) * std).to(p.device,
+                                                                 p.dtype))
+
+        params = list(self.named_parameters())
+        with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as ex:
+            for fut in [ex.submit(fill, i, n, p)
+                        for i, (n, p) in enumerate(params)]:
+                fut.result()  # re-raises a failed draw
 
     def head(self):
         if self.cfg.tie_embeddings:

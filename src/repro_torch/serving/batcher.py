@@ -8,11 +8,15 @@ physical pages through a per-slot page table and evicting *unmaps* them.
 Admission is **stacked**: :meth:`ContinuousBatcher.admit_many` prefills all
 same-length queued requests in ONE call.
 
-Correctness contract (``tests/test_torch_serving.py``): every per-row
-operation of the decode path is batch-independent, so a request decoded in
-a shared batch produces the tokens it produces decoded alone.  Inactive
-rows ride along in the fixed-shape decode and write through zeroed
-page-table rows into the pool's trash page.
+Correctness contract (``tests/test_torch_serving.py``): for a dense
+model every per-row operation of the decode path is batch-independent, so
+a request decoded in a shared batch produces the tokens it produces
+decoded alone.  Inactive rows ride along in the fixed-shape decode and
+write through zeroed page-table rows into the pool's trash page.  An MoE
+model breaks the contract as the JAX one does: the rows of one decode
+step share each expert's capacity in row order, so a neighbour — a freed
+slot's stale row included — can drop a live row's assignment once the
+batch has more rows than an expert's capacity (ROADMAP queue 3).
 
 Against the JAX batcher: the pools are updated in place (the JAX decode
 donates them); the prefill map-in writes only mapped pages (the JAX one
@@ -229,8 +233,9 @@ class ContinuousBatcher:
         if not admitted:
             return []
 
-        # stack requests of identical prompt length: rows are batch-
-        # independent, so one stacked prefill equals k solo prefills
+        # stack requests of identical prompt length: in a dense model rows
+        # are batch-independent, so one stacked prefill equals k solo
+        # prefills (an MoE prefill shares expert capacity, as in JAX)
         groups: Dict[Any, List[SlotState]] = {}
         for i, (req, slot) in enumerate(admitted):
             key = req.prompt_len if self.batched_prefill else i
@@ -301,10 +306,11 @@ class ContinuousBatcher:
     def step(self) -> List[SlotState]:
         """Decode ONE token for every occupied slot; return evictions.
 
-        Free slots ride along as masked garbage rows (every per-row op of
-        the decode path is batch-independent, so they cannot perturb live
-        rows); their KV writes land in the trash page, or are dropped when
-        a stale position lies past the page table.
+        Free slots ride along as masked garbage rows (in a dense model
+        every per-row op of the decode path is batch-independent, so they
+        cannot perturb live rows; in an MoE model they share expert
+        capacity with them); their KV writes land in the trash page, or go
+        there when a stale position lies past the page table.
         """
         finished, self._finished = self._finished, []
         if self.n_decoding == 0:

@@ -1,4 +1,4 @@
-"""The port's attention kernels against the JAX Pallas kernels.
+"""The port's kernels against the JAX Pallas kernels.
 
 On the CPU the port's kernel entry points compute their plain PyTorch
 versions (``repro_torch.kernels.ref``); these are held against the JAX
@@ -15,9 +15,11 @@ import pytest
 import torch
 
 from repro.kernels import flash_attention as jax_flash
+from repro.kernels import grouped_matmul as jax_gmm
 from repro.kernels.paged_attention import paged_attention as jax_paged_kernel
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels import flash_attention as cuda_flash
+from repro_torch.kernels import grouped_matmul as cuda_gmm
 from repro_torch.kernels import paged_attention as cuda_paged
 
 ATOL = 2e-4
@@ -120,7 +122,10 @@ def test_ops_on_cpu_need_no_nvcc(monkeypatch):
                           (q, kp, vp, table, lengths)))
     x = torch.randn(1, 4, 300, 16)
     ops.flash_attention(x, x[:, :2], x[:, :2])
-    assert ops.launch_counts() == {"flash_attention": 0, "paged_attention": 0}
+    ops.grouped_matmul(torch.randn(2, 4, 8), torch.randn(2, 8, 3),
+                       torch.tensor([4, 1], dtype=torch.int32))
+    assert ops.launch_counts() == {"flash_attention": 0, "paged_attention": 0,
+                                   "grouped_matmul": 0}
     assert all(k._fn is None for k in ops.KERNELS.values())
 
 
@@ -134,3 +139,62 @@ def test_cuda_wrappers_reject_cpu_tensors():
     x = torch.randn(1, 2, 8, 16)
     with pytest.raises(ValueError, match="CUDA"):
         cuda_flash.flash_attention(x, x, x)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_gmm.grouped_matmul(torch.randn(2, 4, 8), torch.randn(2, 8, 3))
+
+
+# ------------------------------------------------------------- grouped matmul
+# tests/test_kernels.py:118-152 — the JAX kernel in interpret mode, its
+# tolerances: 1e-3 in fp32 (values of size ~10, summed in other orders),
+# 8 × 0.2 in bf16 for the JAX side against the fp32 oracle; here both sides
+# round the same fp32 sums once to bf16, so they differ by one bf16 ulp.
+
+
+@pytest.mark.parametrize("E,C,d,f", [
+    (2, 64, 64, 64),
+    (4, 96, 160, 200),   # ragged vs blocks
+    (1, 16, 32, 48),
+])
+def test_gmm_ref_matches_pallas_kernel(E, C, d, f):
+    rng = np.random.default_rng(E * 1000 + C)
+    x, w = _np(rng, (E, C, d)), _np(rng, (E, d, f))
+    want = np.asarray(jax_gmm(jnp.asarray(x), jnp.asarray(w), block_c=32,
+                              block_f=64, block_d=64))
+    got = ops.grouped_matmul(torch.from_numpy(x), torch.from_numpy(w))
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert float(np.max(np.abs(got.numpy() - want))) < 1e-3
+
+
+def test_gmm_ref_ragged_groups_match_pallas_kernel():
+    E, C, d, f = 4, 64, 96, 80
+    rng = np.random.default_rng(6)
+    x, w = _np(rng, (E, C, d)), _np(rng, (E, d, f))
+    sizes = np.asarray([64, 33, 0, 1], np.int32)
+    want = np.asarray(jax_gmm(jnp.asarray(x), jnp.asarray(w),
+                              jnp.asarray(sizes), block_c=32, block_f=32,
+                              block_d=32))
+    got = ops.grouped_matmul(torch.from_numpy(x), torch.from_numpy(w),
+                             torch.from_numpy(sizes)).numpy()
+    assert float(np.max(np.abs(got - want))) < 1e-3
+    # rows beyond the group size are exactly zero, on both sides
+    for e, n in enumerate(sizes):
+        assert not got[e, n:].any() and not want[e, n:].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gmm_ref_dtypes_match_pallas_kernel(dtype):
+    E, C, d, f = 2, 32, 64, 64
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(_np(rng, (E, C, d))).to(dtype)
+    w = torch.from_numpy(_np(rng, (E, d, f))).to(dtype)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    want = jax_gmm(jnp.asarray(x.float().numpy(), jdt),
+                   jnp.asarray(w.float().numpy(), jdt),
+                   block_c=16, block_f=32, block_d=32)
+    assert want.dtype == jdt
+    got = ops.grouped_matmul(x, w)
+    assert got.dtype == dtype
+    want = torch.from_numpy(np.array(want.astype(jnp.float32)))
+    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+    excess = (got.float() - want).abs() - rtol * want.abs()
+    assert float(excess.max()) < 1e-3

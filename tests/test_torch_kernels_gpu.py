@@ -109,3 +109,68 @@ def test_paged_scatter_drops_stale_rows_on_gpu(cuda_device):
     want, got = scatter("cpu"), scatter(cuda_device)
     assert torch.equal(got[1:], want[1:])
     assert not torch.equal(want[1:], torch.from_numpy(pool)[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 0.0),
+                                        (torch.bfloat16, 2.0 ** -7)])
+@pytest.mark.parametrize("E,C,d,f,sizes", [
+    (4, 64, 96, 80, [64, 33, 0, 1]),        # tests/test_kernels.py:130
+    (4, 130, 160, 200, [130, 65, 64, 7]),   # ragged against the 64 tiles
+    (3, 4, 2048, 1408, [4, 0, 2]),          # a decode-shaped call
+    (2, 16, 36, 44, None),                  # d, f not multiples of 8
+])
+def test_gmm_kernel_matches_ref_on_gpu(cuda_device, dtype, rtol, E, C, d, f,
+                                       sizes):
+    rng = np.random.default_rng(10 + C)
+    x = torch.from_numpy(_np(rng, (E, C, d))).to(cuda_device, dtype)
+    w = (torch.from_numpy(_np(rng, (E, d, f))) / d ** 0.5).to(cuda_device, dtype)
+    gs = None if sizes is None else torch.tensor(sizes, dtype=torch.int32,
+                                                 device=cuda_device)
+    before = ops.launch_counts()["grouped_matmul"]
+    got = ops.grouped_matmul(x, w, gs)
+    want = ref.grouped_matmul_ref(x, w, gs)
+    assert ops.launch_counts()["grouped_matmul"] == before + 1
+    assert got.dtype == dtype and got.shape == (E, C, f)
+    _assert_close(got, want, rtol)
+    for e, n in enumerate(sizes or []):  # rows past the group: exactly 0
+        assert not got[e, n:].any()
+
+
+@pytest.mark.cuda
+def test_moe_layer_launches_gmm_without_host_sync(cuda_device):
+    """The MoE layer with kernels on routes, dispatches and combines on
+    the device — no host sync (``set_sync_debug_mode("error")`` raises on
+    one) — launches the grouped matmul 3 times, and matches the CPU's plain
+    path in fp32."""
+    from repro_torch.config import get_arch, reduced
+    from repro_torch.models.moe import moe_apply
+
+    cfg = reduced(get_arch("qwen2-moe-a2.7b"))
+    m, d = cfg.moe, cfg.d_model
+    rng = np.random.default_rng(12)
+    p = {"router": _np(rng, (d, m.n_experts)) / d ** 0.5,
+         "we_gate": _np(rng, (m.n_experts, d, 64)) / d ** 0.5,
+         "we_up": _np(rng, (m.n_experts, d, 64)) / d ** 0.5,
+         "we_down": _np(rng, (m.n_experts, 64, d)) / 8.0,
+         "shared": {k: _np(rng, s) / s[0] ** 0.5 for k, s in
+                    (("w_gate", (d, 64)), ("w_up", (d, 64)),
+                     ("w_down", (64, d)))}}
+    x = _np(rng, (4, 33, d))
+
+    def tree(dev):
+        return {k: ({kk: torch.from_numpy(vv).to(dev) for kk, vv in v.items()}
+                    if isinstance(v, dict) else torch.from_numpy(v).to(dev))
+                for k, v in p.items()}
+
+    want, _ = moe_apply(tree("cpu"), torch.from_numpy(x), cfg, use_kernels=True)
+    params, xg = tree(cuda_device), torch.from_numpy(x).to(cuda_device)
+    torch.cuda.synchronize()
+    before = ops.launch_counts()["grouped_matmul"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, _ = moe_apply(params, xg, cfg, use_kernels=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert ops.launch_counts()["grouped_matmul"] == before + 3
+    _assert_close(got.cpu(), want, 0.0)

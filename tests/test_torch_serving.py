@@ -7,6 +7,14 @@ here, exactly the tokens the JAX session produces on the same params, with
 the same page accounting.  Reduced qwen3, fp32 cache, on the CPU; the port
 runs with kernels on, so its attention goes through the kernels' plain
 versions, and a 300-token prompt takes the flash path.
+
+Reduced qwen2-moe is held to the JAX session too.  Its decode is not
+batch-independent: every row of the fixed-shape decode batch, a freed
+slot's stale row included, competes for expert capacity in row order.  So
+JAX-vs-port token equality is defined where every slot is live at every
+step (equal requests, all arriving at once), which is held exactly; the
+staggered trace is held as well, because with 2 slots a decode step's
+capacity (2) covers every row an expert can get.
 """
 
 import jax
@@ -106,6 +114,68 @@ def jax_continuous(models):
     m = sess.run(_jax_reqs(specs), max_steps=500)
     m["kv_page_bytes"] = sess.batcher.kv_page_bytes
     return specs, {r: sess.results[r].tokens for r in sess.results}, m
+
+
+@pytest.fixture(scope="module")
+def moe_models():
+    jmodel = jax_build_model(jax_reduced(jax_get_arch("qwen2-moe-a2.7b")))
+    params = jmodel.init(jax.random.PRNGKey(0))
+    np_params = jax.tree.map(np.asarray, params)
+
+    def port(use_kernels=True):
+        model = build_model(reduced(get_arch("qwen2-moe-a2.7b")),
+                            ShardingConfig(use_kernels=use_kernels),
+                            device="cpu")
+        return bridge.load_jax_params(model, np_params)
+
+    return jmodel, params, port
+
+
+def _run_both(models, specs, *, max_slots, cache_len, use_kernels):
+    jmodel, params, port = models
+    jsess = JaxServingSession(
+        JaxServingConfig(max_slots=max_slots, cache_len=cache_len,
+                         replan="off", kv_layout="paged", page_size=8,
+                         cache_dtype="float32"),
+        model=jmodel, params=params,
+    )
+    m_jax = jsess.run(_jax_reqs(specs), max_steps=500)
+    sess = ServingSession(
+        ServingConfig(device="cpu", max_slots=max_slots, cache_len=cache_len,
+                      page_size=8, cache_dtype="float32"),
+        model=port(use_kernels),
+    )
+    m = sess.run(_port_reqs(specs), max_steps=500)
+    want = {r: jsess.results[r].tokens for r in jsess.results}
+    got = {r: sess.results[r].tokens for r in sess.results}
+    return got, want, m, m_jax
+
+
+@pytest.mark.parametrize("use_kernels", [True, False])
+def test_moe_all_live_equivalence_vs_jax(moe_models, use_kernels):
+    """Two 300-token prompts in two slots, arriving together, generating
+    the same count: one stacked prefill (600 tokens through the flash path
+    and one dispatch) and every decode step with both rows live."""
+    rng = np.random.default_rng(11)
+    specs = [(i, rng.integers(0, 256, (300,)).astype(np.int32), 6, 0.0)
+             for i in range(2)]
+    got, want, m, m_jax = _run_both(moe_models, specs, max_slots=2,
+                                    cache_len=320, use_kernels=use_kernels)
+    assert len(got) == 2 and got == want
+    assert m["prefill_calls"] == m_jax["prefill_calls"] == 1
+    assert m["decode_steps"] == m_jax["decode_steps"] == 5
+
+
+def test_moe_staggered_equivalence_vs_jax(moe_models):
+    """The staggered 2-slot trace (joins, evictions, slot and page reuse)
+    gives JAX's tokens: at 2 slots a decode step's capacity is 2, so a
+    stale row can never take a live row's place in an expert."""
+    got, want, m, m_jax = _run_both(moe_models, _specs(5, long_prompt=300),
+                                    max_slots=2, cache_len=320,
+                                    use_kernels=True)
+    assert got == want
+    for key in KV_KEYS + ("decode_steps", "prefill_calls", "output_tokens"):
+        assert m[key] == m_jax[key], key
 
 
 @pytest.mark.parametrize("use_kernels", [True, False])
