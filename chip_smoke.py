@@ -16,22 +16,32 @@ caught):
    card could take: bytes over 3.35 TB/s or flops over the dtype's peak,
    whichever is larger) and one PyTorch library call as a yardstick
    (SDPA for flash, ``torch.bmm`` for the grouped matmul; none exists for
-   paged decode).  Attention at qwen3's K=8 and qwen2-moe's K=16; the
-   grouped matmul at qwen2-moe's prefill and decode shapes, with routed
-   group sizes, whose rows past each group must be exactly 0;
+   paged decode or the RG-LRU scan).  Attention at qwen3's K=8 and
+   qwen2-moe's K=16; the grouped matmul at qwen2-moe's prefill and decode
+   shapes, with routed group sizes, whose rows past each group must be
+   exactly 0; the RG-LRU scan at recurrentgemma-9b's prefill shape (8, 512,
+   4096), a ragged (3, 300, 130) and a long decay (a = 0.999, S = 2048);
 4. serve full-width, full-depth qwen3-0.6b (random weights from a seed):
    8 requests, prompt 512, 32 new tokens, 8 slots, page size 16, bf16
    cache, through ``repro_torch.launch.serve.serve``; the launch counters
    are zeroed just before and read just after, and flash launches must
-   equal 28 x prefill calls, paged launches 28 x decode steps;
+   equal 28 x prefill calls, paged launches 28 x decode steps, and every
+   other kernel 0;
 4b. serve full-width, full-depth qwen2-moe-a2.7b the same way: flash
-   launches must equal 24 x prefill calls, paged 24 x decode steps and
-   grouped matmul 72 x (prefill calls + decode steps);
+   launches must equal 24 x prefill calls, paged 24 x decode steps,
+   grouped matmul 72 x (prefill calls + decode steps), the scan 0;
+4c. serve full-width, full-depth recurrentgemma-9b the same way: RG-LRU
+   scan launches must equal 26 (its rglru layers of 38) x prefill calls,
+   and flash, paged and grouped matmul 0 (its 12 local-attention layers
+   run no kernel);
 5. serve the reduced qwen3 in fp32 from one seed on ``cuda`` and on ``cpu``
    and require identical tokens (the kernels against the plain path);
 5b. the same for the reduced qwen2-moe (4 requests in 4 slots, all live);
-6. print a ``{"kernels": [...]}`` line (times at qwen2-moe's shapes,
-   launches from phase 4b), the ``nvidia-smi`` line, and last
+5c. the same for the reduced recurrentgemma (prompt 300 > its 64-token
+   window: the prefill's roll and the circular decode buffers run);
+6. print a ``{"kernels": [...]}`` line (attention and grouped matmul at
+   qwen2-moe's shapes with phase 4b's launches, the scan at recurrentgemma's
+   fp32 prefill shape with phase 4c's), the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -66,6 +76,8 @@ SOURCES = {
                         "src/repro/kernels/flash_attention.py:142"),
     "grouped_matmul": ("src/repro_torch/csrc/grouped_matmul.cu",
                        "src/repro/kernels/moe_gmm.py:98"),
+    "rglru_scan": ("src/repro_torch/csrc/rglru_scan.cu",
+                   "src/repro/kernels/rglru_scan.py:72"),
 }
 # qwen2-moe-a2.7b's expert products: (E, C, d, f) with C the capacity of an
 # 8 x 512-token prefill (341) and of an 8-slot decode step (4)
@@ -73,6 +85,13 @@ GMM_SHAPES = {
     "prefill_gate_up": (64, 341, 2048, 1408),
     "prefill_down": (64, 341, 1408, 2048),
     "decode": (64, 4, 2048, 1408),
+}
+# the RG-LRU scan: (B, S, D, decay) — recurrentgemma-9b's 8 x 512-token
+# prefill at d 4096, a ragged shape, and a decay of 0.999 over 2048 steps
+SCAN_SHAPES = {
+    "prefill": (8, 512, 4096, None),
+    "ragged": (3, 300, 130, None),
+    "long_decay": (1, 2048, 4096, 0.999),
 }
 
 
@@ -113,15 +132,16 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
                                        "operations")
 
 
-def check_close(what: str, got, want, dtype_name: str) -> float:
-    """Max abs error of ``got`` against ``want``; raises past ``TOL``."""
-    rtol, atol = TOL[dtype_name]
+def check_close(what: str, got, want, dtype_name: str, tol=None) -> float:
+    """Max abs error of ``got`` against ``want``; raises past ``tol``
+    ((rtol, atol, text); ``TOL`` of the dtype by default)."""
+    rtol, atol, text = tol or (*TOL[dtype_name], TOL_TEXT[dtype_name])
     diff = (got.float() - want.float()).abs()
     err = float(diff.max())
     worst = float((diff - rtol * want.float().abs()).max())
     if not worst <= atol:
         raise AssertionError(f"{what} {dtype_name}: max err {err} exceeds "
-                             f"{TOL_TEXT[dtype_name]} (by {worst - atol})")
+                             f"{text} (by {worst - atol})")
     return err
 
 
@@ -271,6 +291,50 @@ def check_gmm(torch, ops, ref, dtype_name: str, shape: str) -> dict:
                 nonempty=nonempty)
 
 
+def check_scan(torch, ops, ref, dtype_name: str, shape: str) -> dict:
+    """The RG-LRU scan at one of ``SCAN_SHAPES``: decay gates sigmoid(N(0,
+    1)) and N(0, 1) inputs, or a constant decay with inputs 0.01.  In fp32
+    the JAX kernel tests' tolerances (1e-4; 1e-3 for the long decay), in
+    bf16 the one-ulp rule; timed at the prefill shape only."""
+    dt = getattr(torch, dtype_name)
+    dev = torch.device("cuda")
+    B, S, D, decay = SCAN_SHAPES[shape]
+    g = torch.Generator(device=dev).manual_seed(15 + S)
+
+    def make():
+        if decay is not None:
+            return (torch.full((B, S, D), decay, device=dev, dtype=dt),
+                    torch.full((B, S, D), 0.01, device=dev, dtype=dt))
+        a = torch.sigmoid(torch.randn(B, S, D, generator=g, device=dev))
+        return a.to(dt), torch.randn(B, S, D, generator=g, device=dev).to(dt)
+
+    first = make()
+    got = ops.rglru_scan(*first)
+    want = ref.rglru_scan_ref(*first)
+    tol = None
+    if dtype_name == "float32":
+        atol = 1e-3 if decay is not None else 1e-4
+        tol = (0.0, atol, f"{atol:g}")
+    err = check_close(f"rglru_scan {shape}", got, want, dtype_name, tol)
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"rglru_scan {shape} {dtype_name}: not finite")
+    r = dict(max_abs_err=err, tol=tol[2] if tol else TOL_TEXT[dtype_name],
+             max_abs_out=float(want.float().abs().max()))
+    if shape != "prefill":
+        return r
+    itemsize = first[0].element_size()
+    sets = [first] + [make() for _ in range(
+        n_copies(torch, 2 * first[0].numel() * itemsize) - 1)]
+    ms = time_ms(torch, ops.rglru_scan, sets)
+    plain_ms = time_ms(torch, ref.rglru_scan_ref, sets, iters=10)
+    # a and b read once, h written once; a multiply and an add per element
+    bms, bby = bound_ms(3.0 * B * S * D * itemsize, 2.0 * B * S * D,
+                        dtype_name)
+    r.update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
+             library_ms=None)
+    return r
+
+
 def _line(r: dict) -> str:
     lib = ("null" if r["library_ms"] is None
            else f"{r['library_ms']:.5f}")
@@ -298,23 +362,42 @@ def phase_kernels(torch, ops, ref) -> dict:
                 f"({r['live_rows']} live rows in {r['nonempty']} groups): "
                 f"{_line(r)}")
             results[("grouped_matmul", dtn, shape)] = r
+        for shape, (B, S, D, decay) in SCAN_SHAPES.items():
+            r = check_scan(torch, ops, ref, dtn, shape)
+            what = (f"rglru_scan {dtn} {shape} B={B} S={S} D={D}"
+                    + (f" a={decay}" if decay is not None else ""))
+            if "ms" in r:
+                log(f"{what}: {_line(r)}")
+            else:
+                log(f"{what}: max_err={r['max_abs_err']:.3e} (tol {r['tol']}) "
+                    f"max|h|={r['max_abs_out']:.4g}")
+            results[("rglru_scan", dtn, shape)] = r
     return results
 
 
-# arch: (layers, what the log line calls it, launches per layer and call)
+# arch: (what the log line calls it, {kernel: (layers that launch it,
+# launches per such layer and prefill call, per layer and decode step)});
+# every kernel not named must not be launched at all
 SERVED = {
-    "qwen3-0.6b": (28, "28L d1024, bf16",
-                   {"flash_attention": (1, 0), "paged_attention": (0, 1)}),
-    "qwen2-moe-a2.7b": (24, "24L d2048, 60+4 experts top-4, bf16",
-                        {"flash_attention": (1, 0), "paged_attention": (0, 1),
-                         "grouped_matmul": (3, 3)}),
+    "qwen3-0.6b": ("28L d1024, bf16",
+                   {"flash_attention": (28, 1, 0),
+                    "paged_attention": (28, 0, 1)}),
+    "qwen2-moe-a2.7b": ("24L d2048, 60+4 experts top-4, bf16",
+                        {"flash_attention": (24, 1, 0),
+                         "paged_attention": (24, 0, 1),
+                         "grouped_matmul": (24, 3, 3)}),
+    "recurrentgemma-9b": ("38L d4096 (26 rglru + 12 local_attn, window "
+                          "2048), MQA hd256, bf16",
+                          {"rglru_scan": (26, 1, 0)}),
 }
 
 
-def phase_serve_full(torch, ops, serve, smi: str, arch: str) -> dict:
+def phase_serve_full(torch, ops, serve, get_arch, smi: str, arch: str) -> dict:
     """Serve the full ``arch``; every kernel of its path must have been
-    launched, exactly layers x (per prefill call, per decode step) times."""
-    n_layers, what, per = SERVED[arch]
+    launched, exactly layers x (per prefill call, per decode step) times,
+    and every other kernel never."""
+    what, per = SERVED[arch]
+    vocab = get_arch(arch).vocab
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -328,12 +411,14 @@ def phase_serve_full(torch, ops, serve, smi: str, arch: str) -> dict:
     toks = out["tokens"]
     if tuple(toks.shape) != (8, 32):
         raise AssertionError(f"expected (8, 32) tokens, got {tuple(toks.shape)}")
-    if not bool(((toks >= 0) & (toks < 151936)).all()):
-        raise AssertionError("generated token ids out of the vocabulary")
+    if not bool(((toks >= 0) & (toks < vocab)).all()):
+        raise AssertionError(f"generated token ids out of the {vocab}-token "
+                             f"vocabulary")
     pf, ds = out["prefill_calls"], out["decode_steps"]
-    want = {name: n_layers * (a * pf + b * ds) for name, (a, b) in per.items()}
-    got = {name: counts[name] for name in want}
-    if got != want or min(got.values()) <= 0:
+    want = {name: 0 for name in counts}
+    want.update({name: n * (a * pf + b * ds)
+                 for name, (n, a, b) in per.items()})
+    if counts != want or min(want[name] for name in per) <= 0:
         raise AssertionError(f"{arch}: launch counts {counts} != {want} "
                              f"(prefill calls {pf}, decode steps {ds})")
     log(f"serve {arch} full ({what}): {out['requests']} requests "
@@ -396,18 +481,30 @@ def main(argv=None) -> int:
     checks = phase_kernels(torch, ops, ref)
     counts = {name: 0 for name in ops.KERNELS}
     if args.only is None:
+        from repro_torch.config import get_arch
         from repro_torch.launch.serve import serve
 
-        phase_serve_full(torch, ops, serve, smi, "qwen3-0.6b")
-        counts = phase_serve_full(torch, ops, serve, smi, "qwen2-moe-a2.7b")
+        phase_serve_full(torch, ops, serve, get_arch, smi, "qwen3-0.6b")
+        moe = phase_serve_full(torch, ops, serve, get_arch, smi,
+                               "qwen2-moe-a2.7b")
+        hybrid = phase_serve_full(torch, ops, serve, get_arch, smi,
+                                  "recurrentgemma-9b")
+        counts.update({name: moe[name] for name in
+                       ("paged_attention", "flash_attention",
+                        "grouped_matmul")})
+        counts["rglru_scan"] = hybrid["rglru_scan"]
         phase_cpu_parity(torch, serve, "qwen3-0.6b")
         phase_cpu_parity(torch, serve, "qwen2-moe-a2.7b")
+        phase_cpu_parity(torch, serve, "recurrentgemma-9b")
 
-    # one row per kernel at qwen2-moe's bf16 shapes (the grouped matmul at
-    # its decode shape, where most of its launches are), launches of 4b
+    # one row per kernel: attention and the grouped matmul at qwen2-moe's
+    # bf16 shapes (the grouped matmul at its decode shape, where most of
+    # its launches are) with the launches of 4b; the scan at
+    # recurrentgemma's fp32 prefill shape (the gates are fp32) with 4c's
     keys = {"paged_attention": ("paged_attention", "bfloat16", 16),
             "flash_attention": ("flash_attention", "bfloat16", 512, 16),
-            "grouped_matmul": ("grouped_matmul", "bfloat16", "decode")}
+            "grouped_matmul": ("grouped_matmul", "bfloat16", "decode"),
+            "rglru_scan": ("rglru_scan", "float32", "prefill")}
     rows = []
     for name, key in keys.items():
         r = checks[key]

@@ -2,6 +2,6 @@
 
 ``ops`` is the entry point the model calls; ``ref`` holds the plain
 versions; ``flash_attention`` / ``paged_attention`` / ``grouped_matmul``
-wrap the CUDA sources in ``repro_torch/csrc``; ``build`` compiles and
-binds them at first use.
+/ ``rglru_scan`` wrap the CUDA sources in ``repro_torch/csrc``; ``build``
+compiles and binds them at first use.
 """

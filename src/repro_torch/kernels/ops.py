@@ -15,12 +15,14 @@ from . import flash_attention as _flash
 from . import grouped_matmul as _gmm
 from . import paged_attention as _paged
 from . import ref
+from . import rglru_scan as _scan
 from .build import CudaKernel
 
 KERNELS: Dict[str, CudaKernel] = {
     "flash_attention": _flash.KERNEL,
     "paged_attention": _paged.KERNEL,
     "grouped_matmul": _gmm.KERNEL,
+    "rglru_scan": _scan.KERNEL,
 }
 
 
@@ -59,6 +61,14 @@ def grouped_matmul(x, w, group_sizes=None):
     if _on_cpu(*tensors):
         return ref.grouped_matmul_ref(x, w, group_sizes)
     return _gmm.grouped_matmul(x, w, group_sizes)
+
+
+def rglru_scan(a, b):
+    """The RG-LRU recurrence ``h_t = a_t * h_{t-1} + b_t`` from a zero
+    state: a, b (B,S,D) of one dtype → (B,S,D) in a's dtype, fp32 carry."""
+    if _on_cpu(a, b):
+        return ref.rglru_scan_ref(a, b)
+    return _scan.rglru_scan(a, b)
 
 
 def launch_counts() -> Dict[str, int]:

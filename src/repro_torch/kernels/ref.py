@@ -85,3 +85,16 @@ def grouped_matmul_ref(x, w, group_sizes=None):
                 < group_sizes.to(x.device)[:, None])  # (E, C)
         y = torch.where(live[..., None], y, torch.zeros((), device=x.device))
     return y.to(x.dtype)
+
+
+def rglru_scan_ref(a, b):
+    """h_t = a_t·h_{t-1} + b_t over a, b (B,S,D) from a zero state: a
+    sequential loop over S with an fp32 carry (the multiply and the add
+    rounded separately), each step rounded once to a's dtype."""
+    a32, b32 = a.float(), b.float()
+    h = torch.zeros_like(a32[:, 0])
+    out = torch.empty_like(a)
+    for t in range(a.shape[1]):
+        h = a32[:, t] * h + b32[:, t]
+        out[:, t] = h.to(a.dtype)
+    return out

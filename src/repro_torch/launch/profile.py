@@ -2,6 +2,7 @@
 
     PYTHONPATH=src python -m repro_torch.launch.profile      # full qwen3-0.6b
     PYTHONPATH=src python -m repro_torch.launch.profile --arch qwen2-moe-a2.7b
+    PYTHONPATH=src python -m repro_torch.launch.profile --arch recurrentgemma-9b
 
 Serves the ``chip_smoke.py`` cell (8 requests × 512-token prompts × 32
 new tokens, bf16, page size 16) once to warm every kernel and library
@@ -14,7 +15,7 @@ handle, then on a fresh session over the same model measures:
   kernel launches per step, and the idle share = 1 − device / wall.
 
 Device time is the sum of the profiler's CUDA-side events (one stream, so
-they do not overlap), grouped into the three ported kernels, copies and
+they do not overlap), grouped into the four ported kernels, copies and
 the rest, with the largest kernels also listed by name.  Prints one line per
 phase and a JSON line; exits non-zero when the profiler records no device
 time.
@@ -37,6 +38,7 @@ from .serve import _build_requests
 GROUPS = (("paged_attention", "paged_decode_kernel"),
           ("flash_attention", "flash_fwd_kernel"),
           ("grouped_matmul", "gmm_"),
+          ("rglru_scan", "rglru_scan_kernel"),
           ("copy", "emcpy"))
 TOP = 6
 

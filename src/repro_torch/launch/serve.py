@@ -5,6 +5,8 @@
         --requests 8 --prompt-len 512 --gen-len 32            # on the GPU
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b \\
         --prompt-len 512 --gen-len 32                         # MoE, on the GPU
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch recurrentgemma-9b --prompt-len 512 --gen-len 32  # hybrid
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
 
 Requests are random prompts from ``numpy.random.default_rng(seed + 1)``;

@@ -1,14 +1,18 @@
-"""Attention: GQA with RoPE / qk-norm, full-sequence and paged-decode paths.
+"""Attention: GQA with RoPE / qk-norm, full-sequence, sliding-window,
+paged-decode and circular-buffer decode paths.
 
-Port of ``repro/models/attention.py`` for this slice: ``naive_attention``,
-``attn_apply`` (with the JAX dispatch rule: the flash kernel when kernels
-are on and ``S > 256``, naive otherwise), ``paged_gather``,
-``page_slots``/``paged_scatter`` and the paged branch of ``attn_decode`` (the paged-decode
-kernel when kernels are on, the reference gather otherwise).  The chunked
-and sliding-window paths, and slab/cross-attention decode, come with the
-slices that use them.  The JAX code is functional and returns new caches;
-here ``paged_scatter`` updates the page pools in place (``index_put_``),
-where the JAX decode step donates them.
+Port of ``repro/models/attention.py``: ``naive_attention`` (with its
+window mask), ``local_attention``, ``attn_apply`` (with the JAX dispatch
+rule: the flash kernel when kernels are on, ``window == 0`` and ``S >
+256``; ``local_attention`` when kernels are on, ``window > 0`` and ``S >
+256``; naive otherwise), ``paged_gather``, ``page_slots``/``paged_scatter``
+and two branches of ``attn_decode``: the paged one (the paged-decode
+kernel when kernels are on, the reference gather otherwise) and the slab
+one of a local layer, a circular buffer of the last ``W`` tokens per row.
+The chunked path, full-attention slab decode and cross-attention come
+with the slices that use them.  The JAX code is functional and returns new
+caches; here ``paged_scatter`` and the circular write update the caches in
+place (``index_put_``), where the JAX decode step donates them.
 """
 
 from __future__ import annotations
@@ -37,20 +41,56 @@ def _repeat_kv(k, n_heads):
     return k.repeat_interleave(n_heads // K, dim=2)
 
 
-def naive_attention(q, k, v, *, causal: bool, q_offset: int = 0):
+def naive_attention(q, k, v, *, causal: bool, window: int = 0,
+                    q_offset: int = 0):
     """q (B,Sq,H,hd), k/v (B,Sk,H,hd) already head-repeated. Returns (B,Sq,H,hd)."""
     Sq, hd = q.shape[1], q.shape[3]
     Sk = k.shape[1]
     scale = 1.0 / math.sqrt(hd)
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
-    if causal:
+    if causal or window > 0:
         qpos = torch.arange(Sq, device=q.device) + q_offset
         kpos = torch.arange(Sk, device=q.device)
-        mask = kpos[None, :] <= qpos[:, None]
+        mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= kpos[None, :] <= qpos[:, None]
+        if window > 0:
+            mask &= kpos[None, :] > qpos[:, None] - window
         scores = torch.where(mask[None, None], scores,
                              torch.full_like(scores, NEG_INF))
     probs = torch.softmax(scores, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
+
+
+def local_attention(q, k, v, *, window: int, q_chunk: int = 512):
+    """Causal attention restricted to the last ``window`` positions, over q
+    chunks: a chunk of ``c`` queries scores only the keys it can see, the
+    ``window + c`` positions ending at its last query — O(S·(W+c)) work
+    instead of O(S²).  q (B,Sq,H,hd), k/v (B,Sk,H,hd) head-repeated.
+
+    The JAX version pads K/V on the left by ``window`` and masks the pad;
+    here the slice is clipped to the keys that exist, which drops only
+    masked scores (exactly zero weight), so both compute the same sums
+    wherever the chunks tile S.  On a ragged last chunk the JAX slice runs
+    past the padded keys and is clamped, which shifts them (a fault of the
+    reference, ROADMAP queue 3); this version keeps the window's keys."""
+    Sq, hd = q.shape[1], q.shape[3]
+    Sk = k.shape[1]
+    q_chunk = min(q_chunk, Sq)
+    outs = []
+    for q0 in range(0, Sq, q_chunk):
+        qc = q[:, q0: q0 + q_chunk]
+        lo, hi = max(q0 - window, 0), min(q0 + q_chunk, Sk)
+        kc, vc = k[:, lo:hi], v[:, lo:hi]
+        qpos = torch.arange(qc.shape[1], device=q.device) + q0
+        kpos = torch.arange(lo, hi, device=q.device)
+        s = torch.einsum("bqhd,bkhd->bhqk", qc, kc).float() / math.sqrt(hd)
+        mask = ((kpos[None, :] <= qpos[:, None])
+                & (kpos[None, :] > qpos[:, None] - window))
+        s = torch.where(mask[None, None], s, torch.full_like(s, NEG_INF))
+        p = torch.softmax(s, dim=-1)
+        outs.append(torch.einsum("bhqk,bkhd->bqhd", p.to(vc.dtype), vc))
+    return torch.cat(outs, dim=1)
 
 
 def attn_apply(
@@ -63,11 +103,13 @@ def attn_apply(
     rope_theta: float,
     causal: bool = True,
     qk_norm: bool = False,
+    window: int = 0,
     positions: Optional[torch.Tensor] = None,
     impl: str = "naive",
     return_kv: bool = False,
 ):
-    """Full attention block on (B, S, d). Optionally returns (k, v) for caches."""
+    """Full (``window == 0``) or sliding-window causal attention block on
+    (B, S, d). Optionally returns (k, v) for caches."""
     if impl not in IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}; one of {IMPLS}")
     B, S, _ = x.shape
@@ -81,15 +123,19 @@ def attn_apply(
     if rope_theta > 0:
         q = apply_rope(q, pos, rope_theta)
         k = apply_rope(k, pos, rope_theta)
-    if impl == "kernels" and S > 256:
+    if impl == "kernels" and window == 0 and S > 256:
         # flash kernel: head-major views, GQA-native (no KV repeat)
         out = ops.flash_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             causal=causal,
         ).transpose(1, 2)
     else:
-        out = naive_attention(q, _repeat_kv(k, n_heads), _repeat_kv(v, n_heads),
-                              causal=causal)
+        kfull, vfull = _repeat_kv(k, n_heads), _repeat_kv(v, n_heads)
+        if impl == "naive" or S <= 256:
+            out = naive_attention(q, kfull, vfull, causal=causal,
+                                  window=window)
+        else:  # kernels on, window > 0, S > 256
+            out = local_attention(q, kfull, vfull, window=window)
     y = out.reshape(B, S, n_heads * head_dim) @ params["wo"]
     if return_kv:
         return y, (k, v)
@@ -145,26 +191,41 @@ def attn_decode(
     head_dim: int,
     rope_theta: float,
     qk_norm: bool = False,
+    window: int = 0,
     page_table: Optional[torch.Tensor] = None,
     slots=None,
     impl: str = "naive",
 ):
-    """One-token decode against a paged cache. x (B,1,d); cache_k/v are the
-    shared pools (n_pages, K, page_size, hd); ``page_table`` (B, n_pp) maps
-    each row's logical pages to physical ones; pos is a scalar or a (B,)
-    vector of per-row positions.  The new token's K/V is scattered (in
-    place) at ``slots``, which the caller may compute once per decode step
-    with :func:`page_slots`, then attended: by the paged-decode kernel when
+    """One-token decode. x (B,1,d); pos is a scalar or a (B,) vector of
+    per-row positions.  Returns (y, cache_k, cache_v), the caches updated
+    in place.
+
+    Paged (full attention, ``page_table`` given): cache_k/v are the shared
+    pools (n_pages, K, page_size, hd) and ``page_table`` (B, n_pp) maps each
+    row's logical pages to physical ones.  The new token's K/V is scattered
+    at ``slots``, which the caller may compute once per decode step with
+    :func:`page_slots`, then attended: by the paged-decode kernel when
     ``impl="kernels"``, else by gathering the row's pages back into the slab
-    layout.  Returns (y, cache_k, cache_v)."""
-    if page_table is None:
+    layout.
+
+    Slab (a local layer, ``window > 0``): cache_k/v (B, K, W, hd) are a
+    circular buffer per row holding its last ``min(pos+1, window)`` tokens.
+    The new token is written at ``pos % W``, W the buffer's own length.  For
+    a live row that is JAX's ``pos % window`` (W == window, or pos < W ==
+    cache_len); a freed slot's stale row can reach ``pos == cache_len ==
+    W``, which JAX's ``dynamic_update_slice`` clamps to W-1 and which here
+    wraps to 0 — both land in the stale row's own buffer, which admission
+    overwrites."""
+    paged = page_table is not None
+    if paged and window > 0:
+        raise ValueError("paged KV applies to full causal self-attention only")
+    if not paged and window == 0:
         raise NotImplementedError(
-            "slab-layout decode is not ported yet (ROADMAP queue 1: slab "
-            "layout and the other families); pass page_table")
+            "full-attention slab decode is not ported yet (ROADMAP queue 1, "
+            "item 4: slab layout and the other families); pass page_table")
     if impl not in IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}; one of {IMPLS}")
     B = x.shape[0]
-    S = page_table.shape[1] * cache_k.shape[2]
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
     pos_b = pos if pos.dim() else pos.expand(B)  # (B,) per-row positions
     q = _split_heads(x @ params["wq"], n_heads, head_dim)  # (B,1,H,hd)
@@ -175,21 +236,34 @@ def attn_decode(
     if rope_theta > 0:
         q = apply_rope(q, pos_b[:, None], rope_theta)
         k = apply_rope(k, pos_b[:, None], rope_theta)
-    if slots is None:
-        slots = page_slots(page_table, pos_b, cache_k.shape[2])
-    paged_scatter(cache_k, slots, k[:, 0])
-    paged_scatter(cache_v, slots, v[:, 0])
 
-    if impl == "kernels":
-        ctx = ops.paged_attention(
-            q[:, 0].contiguous(), cache_k, cache_v,
-            page_table.to(torch.int32), pos_b.contiguous(),
-        )
-        y = ctx.reshape(B, 1, n_heads * head_dim) @ params["wo"]
-        return y, cache_k, cache_v
+    if paged:
+        if slots is None:
+            slots = page_slots(page_table, pos_b, cache_k.shape[2])
+        paged_scatter(cache_k, slots, k[:, 0])
+        paged_scatter(cache_v, slots, v[:, 0])
+        if impl == "kernels":
+            ctx = ops.paged_attention(
+                q[:, 0].contiguous(), cache_k, cache_v,
+                page_table.to(torch.int32), pos_b.contiguous(),
+            )
+            y = ctx.reshape(B, 1, n_heads * head_dim) @ params["wo"]
+            return y, cache_k, cache_v
+        view_k = paged_gather(cache_k, page_table)
+        view_v = paged_gather(cache_v, page_table)
+        S = view_k.shape[2]
+        valid = torch.arange(S, device=x.device)[None, :] <= pos_b[:, None]
+    else:
+        W = cache_k.shape[2]
+        rows = torch.arange(B, device=x.device)
+        slot = pos_b.long().remainder(W)
+        cache_k[rows, :, slot] = k[:, 0].to(cache_k.dtype)
+        cache_v[rows, :, slot] = v[:, 0].to(cache_v.dtype)
+        view_k, view_v = cache_k, cache_v
+        # circular buffer: slots hold the last min(pos+1, window) tokens
+        valid = (torch.arange(W, device=x.device)[None, :]
+                 < torch.clamp(pos_b + 1, max=window)[:, None])
 
-    view_k = paged_gather(cache_k, page_table)
-    view_v = paged_gather(cache_v, page_table)
     rep = n_heads // view_k.shape[1]
     kk = view_k.repeat_interleave(rep, dim=1) if rep > 1 else view_k
     vv = view_v.repeat_interleave(rep, dim=1) if rep > 1 else view_v
@@ -198,7 +272,6 @@ def attn_decode(
     dt = torch.promote_types(q.dtype, kk.dtype)
     s = torch.einsum("bqhd,bhkd->bhqk", q.to(dt), kk.to(dt)).float()
     s = s / math.sqrt(head_dim)
-    valid = torch.arange(S, device=x.device)[None, :] <= pos_b[:, None]
     s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhqk,bhkd->bqhd", p.to(vv.dtype), vv)

@@ -4,8 +4,8 @@
 ``Model`` takes the JAX package's batch-dict calls — ``prefill(batch)``
 with ``batch["tokens"]`` — and forwards to the :class:`Transformer` it
 holds as ``impl``; the encoder-decoder and frontend-stub families it would
-also dispatch to come with their slices, and :func:`build_model` refuses
-them.
+also dispatch to, and the xLSTM mixers, come with their slices, and
+:func:`build_model` refuses them.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ import torch
 from torch import nn
 
 from ..config import ArchConfig, ShardingConfig, resolve_device
-from .transformer import Transformer
+from .transformer import KINDS, Transformer, resolve_pattern
 
 
 class Model(nn.Module):
@@ -56,14 +56,15 @@ class Model(nn.Module):
 def build_model(cfg: ArchConfig, shcfg: Optional[ShardingConfig] = None, *,
                 device: str = "cuda") -> Model:
     """A model with uninitialized weights on ``device`` (fill it with
-    :meth:`Model.init` or :meth:`Model.load_state`).  Only decoders with an
-    all-attention block pattern are ported: the dense and MoE families."""
-    pattern = tuple(cfg.block_pattern) or ("attn",)
-    if (cfg.family not in ("dense", "moe") or cfg.is_encdec
-            or any(kind != "attn" for kind in pattern)):
+    :meth:`Model.init` or :meth:`Model.load_state`).  The dense, MoE and
+    hybrid decoders are ported, with the mixing kinds ``attn``,
+    ``local_attn`` and ``rglru``."""
+    pattern = resolve_pattern(cfg)
+    if (cfg.family not in ("dense", "moe", "hybrid") or cfg.is_encdec
+            or not set(pattern) <= set(KINDS)):
         raise NotImplementedError(
-            f"{cfg.name}: only dense and MoE all-attention decoders are "
-            f"ported; the {cfg.family} family waits for ROADMAP queue 1 "
-            f"(item 0: the hybrid family; item 4: slab layout and the other "
-            f"families)")
+            f"{cfg.name} ({cfg.family}, pattern {pattern}): only dense, MoE "
+            f"and hybrid decoders over the mixing kinds {KINDS} are ported; "
+            f"the rest waits for ROADMAP queue 1, item 4 (slab layout and "
+            f"the other families)")
     return Model(cfg, shcfg or ShardingConfig(), resolve_device(device))

@@ -4,9 +4,9 @@ A slab decode cache's full-attention KV leaves — ``(..., batch @ ax, K,
 cache_len @ ax+2, hd)`` — become shared page pools ``(..., n_pages @ ax,
 K, page_size @ ax+2, hd)`` indexed through per-row page tables.  Layout
 codes mirror the cache tree: ``"kv<ax>"`` for a pool (``ax`` is its page
-axis) and ``"state<ax>"`` for slot-major state, which passes through.
-The port's caches are lists of per-layer dicts (no scan-stacked group
-axis), so its pools are coded ``"kv0"``.
+axis) and ``"state<ax>"`` for slot-major state (``ax`` its batch axis),
+which keeps its shape.  The port's caches are lists of per-layer dicts (no
+scan-stacked group axis), so its codes are ``"kv0"`` and ``"state0"``.
 """
 
 from __future__ import annotations
@@ -29,16 +29,17 @@ def _tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
 def paginate_cache(slab: Any, layout: Any, *, n_pages: int, page_size: int,
                    device: torch.device) -> Tuple[Any, Any]:
     """Turn a slab decode cache (``init_cache``'s, possibly on the ``meta``
-    device — only shapes and dtypes are read) into its paged counterpart
-    on ``device``.  Returns ``(cache, layout)``."""
+    device — only shapes and dtypes are read) into its paged counterpart:
+    zeros on ``device``, each pool with ``n_pages`` pages of ``page_size``
+    positions, each state leaf in its slab shape.  Returns ``(cache,
+    layout)``."""
 
     def one(leaf, code):
-        if not code.startswith("kv"):
-            return leaf
-        ax = int(code[len("kv"):])
         shape = list(leaf.shape)
-        shape[ax] = n_pages
-        shape[ax + 2] = page_size
+        if code.startswith("kv"):
+            ax = int(code[len("kv"):])
+            shape[ax] = n_pages
+            shape[ax + 2] = page_size
         return torch.zeros(shape, dtype=leaf.dtype, device=device)
 
     return _tree_map(one, slab, layout), layout

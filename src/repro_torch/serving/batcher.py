@@ -5,6 +5,8 @@ The decode batch is a fixed array of ``max_slots`` rows; each row is a
 **slot** holding one request's decode state.  Full-attention KV lives in a
 shared page pool (:mod:`repro_torch.serving.pages`): joining *maps*
 physical pages through a per-slot page table and evicting *unmaps* them.
+Window and recurrent state (a hybrid model's local-attention buffers and
+RG-LRU state) is slot-major: joining overwrites the slot's rows.
 Admission is **stacked**: :meth:`ContinuousBatcher.admit_many` prefills all
 same-length queued requests in ONE call.
 
@@ -12,7 +14,8 @@ Correctness contract (``tests/test_torch_serving.py``): for a dense
 model every per-row operation of the decode path is batch-independent, so
 a request decoded in a shared batch produces the tokens it produces
 decoded alone.  Inactive rows ride along in the fixed-shape decode and
-write through zeroed page-table rows into the pool's trash page.  An MoE
+write through zeroed page-table rows into the pool's trash page, and into
+their own slot-major rows, which the next admission overwrites.  An MoE
 model breaks the contract as the JAX one does: the rows of one decode
 step share each expert's capacity in row order, so a neighbour — a freed
 slot's stale row included — can drop a live row's assignment once the
@@ -40,31 +43,42 @@ from .queue import Request
 
 
 @torch.no_grad()
-def write_pages(cache, page, rows: np.ndarray) -> None:
-    """Map a packed batch-k prefill cache into the paged cache, in place.
+def write_pages(cache, page, slots, rows: np.ndarray, layout) -> None:
+    """Map a packed batch-k prefill cache into the paged cache, in place,
+    following the per-leaf layout codes (JAX ``_write_pages_impl``).
 
-    ``page`` is what ``prefill`` returned — per layer ``{"k", "v"}`` of
-    shape (k, K, cache_len, hd); ``rows`` (k, pages_per_slot) holds each
-    request's physical page ids.  Only mapped logical pages (nonzero ids)
-    are written; the JAX map-in also scatters the zero-padded tail of
-    unmapped pages into the trash page, which nothing reads."""
+    ``page`` is what ``prefill`` returned, per layer; ``slots`` (k,) are the
+    admitted slot rows and ``rows`` (k, pages_per_slot) each request's
+    physical page ids.  A ``"state0"`` leaf — recurrent state, conv
+    buffer, local-attention window — takes the prefill's rows at
+    ``slots``, whole, so a reused slot keeps nothing of its last request.
+    A ``"kv0"`` pool takes the (k, K, cache_len, hd) K or V through the
+    page table; only mapped logical pages (nonzero ids) are written (the
+    JAX map-in also scatters the zero-padded tail of unmapped pages into
+    the trash page, which nothing reads)."""
+    device = next(iter(cache[0].values())).device
+    slot_ids = torch.as_tensor(np.asarray(slots), dtype=torch.long,
+                               device=device)
     ii, lp = np.nonzero(rows)
-    if ii.size == 0:
-        return
-    device = cache[0]["k"].device
     phys = torch.as_tensor(rows[ii, lp], dtype=torch.long, device=device)
     ii = torch.as_tensor(ii, device=device)
     lp = torch.as_tensor(lp, device=device)
     n_pp = rows.shape[1]
-    for src_layer, pool_layer in zip(page, cache):
-        for key in ("k", "v"):
-            pool = pool_layer[key]
-            ps = pool.shape[2]
-            src = src_layer[key]
+    for src_layer, dst_layer, codes in zip(page, cache, layout):
+        for key, code in codes.items():
+            dst, src = dst_layer[key], src_layer[key]
+            if code == "state0":
+                dst[slot_ids] = src.to(dst.dtype)
+                continue
+            if code != "kv0":
+                raise ValueError(f"write_pages: unknown layout code {code!r}")
+            if phys.numel() == 0:
+                continue
+            ps = dst.shape[2]
             k, K, S, hd = src.shape
             src = torch.nn.functional.pad(src, (0, 0, 0, n_pp * ps - S))
             src = src.reshape(k, K, n_pp, ps, hd).permute(0, 2, 1, 3, 4)
-            pool[phys] = src[ii, lp].to(pool.dtype)
+            dst[phys] = src[ii, lp].to(dst.dtype)
 
 
 @dataclass
@@ -285,7 +299,8 @@ class ContinuousBatcher:
             cache_dtype=self.cache_dtype,
         )
         firsts = logits.argmax(dim=-1)
-        write_pages(self.cache, page, self._tables[np.asarray(slot_list)])
+        write_pages(self.cache, page, slot_list,
+                    self._tables[np.asarray(slot_list)], self._layout)
         slot_ids = torch.as_tensor(slot_list, device=self.device)
         self.tokens[slot_ids] = firsts
         self.pos[slot_ids] = torch.as_tensor(

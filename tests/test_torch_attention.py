@@ -177,3 +177,100 @@ def test_attn_decode_requires_a_page_table():
         tatt.attn_decode(_t(_attn_params(rng)), torch.zeros(1, 1, D),
                          torch.zeros(1, KV, 8, HD), torch.zeros(1, KV, 8, HD),
                          0, n_heads=H, n_kv=KV, head_dim=HD, rope_theta=THETA)
+
+
+# ------------------------------------------------------- sliding window
+
+
+@pytest.mark.parametrize("S,window,q_chunk", [(64, 16, 512), (96, 16, 24),
+                                              (100, 16, 24), (300, 64, 512)])
+def test_naive_and_local_attention_with_a_window(S, window, q_chunk):
+    """Both windowed paths against JAX's naive one, and the local path
+    with several q chunks against JAX's local one where the chunks tile S.
+    With a ragged last chunk (S = 100 in chunks of 24) the JAX
+    ``local_attention`` clamps that chunk's key slice at the end of the
+    padded keys and scores its queries against shifted positions (a fault
+    of the reference, ROADMAP queue 3); the port's chunks see the keys the
+    window defines, so it is held to the naive path there."""
+    rng = np.random.default_rng(10 + S)
+    q, k, v = (_np(rng, (2, S, H, HD)) for _ in range(3))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    want = jatt.naive_attention(jq, jk, jv, causal=True, window=window)
+    _close(tatt.naive_attention(tq, tk, tv, causal=True, window=window), want)
+    local = tatt.local_attention(tq, tk, tv, window=window, q_chunk=q_chunk)
+    _close(local, want)
+    if S % min(q_chunk, S) == 0:
+        _close(local, jatt.local_attention(jq, jk, jv, window=window,
+                                           q_chunk=q_chunk))
+
+
+@pytest.mark.parametrize("S,impl,jax_impl", [
+    (64, "naive", "naive"),
+    (64, "kernels", "chunked"),    # S <= 256: naive with the window
+    (300, "kernels", "chunked"),   # local_attention on both sides
+    (300, "naive", "naive"),
+])
+def test_attn_apply_with_a_window(S, impl, jax_impl):
+    """``attn_apply(window=...)`` dispatches as JAX does: never the flash
+    kernel for a window, local attention past 256 tokens."""
+    rng = np.random.default_rng(20 + S)
+    p, x = _attn_params(rng), _np(rng, (2, S, D))
+    kw = dict(n_heads=H, n_kv=KV, head_dim=HD, rope_theta=1e4, causal=True,
+              window=48, return_kv=True)
+    y, (k, v) = tatt.attn_apply(_t(p), torch.from_numpy(x), impl=impl, **kw)
+    yj, (kj, vj) = jatt.attn_apply(_j(p), jnp.asarray(x), impl=jax_impl, **kw)
+    _close(y, yj)
+    _close(k, kj)
+
+
+def _slab_decode(p, x, ck, cv, pos, window, side):
+    kw = dict(n_heads=H, n_kv=KV, head_dim=HD, rope_theta=1e4, window=window)
+    if side == "jax":
+        return jatt.attn_decode(_j(p), jnp.asarray(x), ck, cv,
+                                jnp.asarray(pos), **kw)
+    return tatt.attn_decode(_t(p), torch.from_numpy(x), ck, cv,
+                            torch.from_numpy(pos), impl="kernels", **kw)
+
+
+def test_attn_decode_circular_buffer_matches_jax_past_the_wrap():
+    """A local layer's slab decode: rows at different depths write their
+    token at ``pos % W`` and attend the last min(pos+1, W) tokens; twelve
+    steps take every row past the wrap of its W = 8 buffer."""
+    rng = np.random.default_rng(30)
+    p, W = _attn_params(rng), 8
+    ck0, cv0 = _np(rng, (3, KV, W, HD)), _np(rng, (3, KV, W, HD))
+    jk, jv = jnp.asarray(ck0), jnp.asarray(cv0)
+    tk, tv = torch.from_numpy(ck0.copy()), torch.from_numpy(cv0.copy())
+    pos = np.asarray([0, 5, 13], np.int32)
+    for _ in range(12):
+        x = _np(rng, (3, 1, D))
+        yj, jk, jv = _slab_decode(p, x, jk, jv, pos, W, "jax")
+        y, tk2, tv2 = _slab_decode(p, x, tk, tv, pos, W, "port")
+        assert tk2 is tk and tv2 is tv, "the buffers are updated in place"
+        _close(y, yj)
+        _close(tk, jk)
+        _close(tv, jv)
+        pos = pos + 1
+
+
+def test_attn_decode_stale_row_at_pos_w_stays_in_its_own_row():
+    """cache_len (= W = 6) below the window (8): a freed slot's stale row
+    sits at pos == W.  JAX clamps that write to W-1; the port writes at
+    pos % W = 0 without indexing past the buffer.  Either way only the
+    stale row's own buffer changes, and live rows match JAX exactly."""
+    rng = np.random.default_rng(31)
+    p, W = _attn_params(rng), 6
+    ck0, cv0 = _np(rng, (3, KV, W, HD)), _np(rng, (3, KV, W, HD))
+    pos = np.asarray([2, 5, W], np.int32)
+    x = _np(rng, (3, 1, D))
+    yj, jk, _ = _slab_decode(p, x, jnp.asarray(ck0), jnp.asarray(cv0), pos,
+                             8, "jax")
+    tk = torch.from_numpy(ck0.copy())
+    y, _, _ = _slab_decode(p, x, tk, torch.from_numpy(cv0.copy()), pos, 8,
+                           "port")
+    _close(y[:2], np.asarray(yj)[:2])
+    _close(tk[:2], np.asarray(jk)[:2])
+    changed = np.any(tk.numpy()[2] != ck0[2], axis=(0, 2))
+    assert changed.tolist() == [True] + [False] * (W - 1)
+    assert bool(torch.isfinite(y).all())

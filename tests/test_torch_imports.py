@@ -98,19 +98,28 @@ def test_unported_families_raise(family):
             assert model.cfg.family == "moe" and "router" in \
                 model.impl.decoder.layers[0].ffn
         return
-    cfg = dataclasses.replace(reduced(get_arch("qwen3-0.6b")), family=family)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(cfg, device="cpu")
+    if family == "hybrid":  # ported: recurrentgemma builds with rglru blocks
+        model = build_model(reduced(get_arch("recurrentgemma-9b")),
+                            device="cpu")
+        layers = model.impl.decoder.layers
+        assert model.cfg.family == "hybrid" and "rglru" in layers[0].mix
+        assert "wq" in layers[2].mix
+    else:
+        cfg = dataclasses.replace(reduced(get_arch("qwen3-0.6b")),
+                                  family=family)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            build_model(cfg, device="cpu")
     pattern = dataclasses.replace(reduced(get_arch("qwen3-0.6b")),
-                                  block_pattern=("rglru", "attn"))
-    with pytest.raises(NotImplementedError):
+                                  block_pattern=("mlstm", "attn"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(pattern, device="cpu")
 
 
 @pytest.mark.parametrize("arch,shrink", [
     pytest.param(arch, shrink,
                  id=str(shrink) if arch == "qwen3-0.6b" else f"{arch}-{shrink}")
-    for arch in ("qwen3-0.6b", "qwen2-moe-a2.7b", "qwen3-moe-30b-a3b")
+    for arch in ("qwen3-0.6b", "qwen2-moe-a2.7b", "qwen3-moe-30b-a3b",
+                 "recurrentgemma-9b")
     for shrink in (False, True)
 ])
 def test_arch_config_matches_jax(arch, shrink):

@@ -21,6 +21,7 @@ from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels import flash_attention as cuda_flash
 from repro_torch.kernels import grouped_matmul as cuda_gmm
 from repro_torch.kernels import paged_attention as cuda_paged
+from repro_torch.kernels import rglru_scan as cuda_scan
 
 ATOL = 2e-4
 
@@ -124,8 +125,9 @@ def test_ops_on_cpu_need_no_nvcc(monkeypatch):
     ops.flash_attention(x, x[:, :2], x[:, :2])
     ops.grouped_matmul(torch.randn(2, 4, 8), torch.randn(2, 8, 3),
                        torch.tensor([4, 1], dtype=torch.int32))
+    ops.rglru_scan(torch.rand(2, 5, 8), torch.randn(2, 5, 8))
     assert ops.launch_counts() == {"flash_attention": 0, "paged_attention": 0,
-                                   "grouped_matmul": 0}
+                                   "grouped_matmul": 0, "rglru_scan": 0}
     assert all(k._fn is None for k in ops.KERNELS.values())
 
 
@@ -141,6 +143,8 @@ def test_cuda_wrappers_reject_cpu_tensors():
         cuda_flash.flash_attention(x, x, x)
     with pytest.raises(ValueError, match="CUDA"):
         cuda_gmm.grouped_matmul(torch.randn(2, 4, 8), torch.randn(2, 8, 3))
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_scan.rglru_scan(torch.rand(2, 5, 8), torch.randn(2, 5, 8))
 
 
 # ------------------------------------------------------------- grouped matmul

@@ -174,3 +174,82 @@ def test_moe_layer_launches_gmm_without_host_sync(cuda_device):
         torch.cuda.set_sync_debug_mode("default")
     assert ops.launch_counts()["grouped_matmul"] == before + 3
     _assert_close(got.cpu(), want, 0.0)
+
+
+# ---------------------------------------------------------------- RG-LRU scan
+# the shapes of chip_smoke.py's phase 3: recurrentgemma-9b's prefill
+# (8 x 512 tokens, d 4096), a ragged one, and a long decay; fp32 within
+# tests/test_kernels.py's 1e-4 (1e-3 for the long decay), bf16 within one
+# output ulp
+
+
+def _scan_inputs(B, S, D, decay=None, seed=13):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    if decay is None:
+        a = torch.sigmoid(torch.randn(B, S, D, generator=g))
+        b = torch.randn(B, S, D, generator=g)
+    else:
+        a = torch.full((B, S, D), decay)
+        b = torch.full((B, S, D), 0.01)
+    return a, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 0.0),
+                                        (torch.bfloat16, 2.0 ** -7)])
+@pytest.mark.parametrize("B,S,D,decay,atol", [
+    (8, 512, 4096, None, 1e-4),
+    (3, 300, 130, None, 1e-4),
+    (1, 2048, 4096, 0.999, 1e-3),
+])
+def test_rglru_scan_kernel_matches_ref_on_gpu(cuda_device, dtype, rtol, B, S,
+                                              D, decay, atol):
+    a, b = (t.to(cuda_device, dtype) for t in _scan_inputs(B, S, D, decay))
+    before = ops.launch_counts()["rglru_scan"]
+    got = ops.rglru_scan(a, b)
+    want = ref.rglru_scan_ref(a, b)
+    assert ops.launch_counts()["rglru_scan"] == before + 1
+    assert got.dtype == dtype and got.shape == (B, S, D)
+    assert bool(torch.isfinite(got).all())
+    diff = (got.float() - want.float()).abs()
+    assert float((diff - rtol * want.float().abs()).max()) <= atol
+
+
+@pytest.mark.cuda
+def test_hybrid_prefill_and_decode_without_host_sync(cuda_device):
+    """Reduced recurrentgemma in fp32 with kernels on: a 100-token prefill
+    (past the 64-token window: the roll) and a decode step into the
+    circular buffers, with no host sync (``set_sync_debug_mode("error")``
+    raises on one); the scan runs once per rglru layer, and both calls
+    match the CPU's plain path."""
+    from repro_torch.config import ShardingConfig, get_arch, reduced
+    from repro_torch.models import build_model
+
+    cfg = reduced(get_arch("recurrentgemma-9b"))
+    sh = ShardingConfig(use_kernels=True)
+    cpu = build_model(cfg, sh, device="cpu").init(5)
+    gpu = build_model(cfg, sh, device="cuda")
+    gpu.load_state(dict(cpu.impl.named_parameters()))
+    toks = torch.randint(0, cfg.vocab, (2, 100),
+                         generator=torch.Generator().manual_seed(6))
+    pos = torch.full((2,), 100, dtype=torch.int32)
+
+    def run(model, toks, pos):
+        logits, cache = model.prefill({"tokens": toks}, cache_len=120,
+                                      cache_dtype=torch.float32)
+        tok = logits.argmax(dim=-1)
+        step, _ = model.decode_step(tok, cache, pos)
+        return logits, step
+
+    want = run(cpu, toks, pos)
+    toks, pos = toks.to(cuda_device), pos.to(cuda_device)
+    torch.cuda.synchronize()
+    before = ops.launch_counts()["rglru_scan"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = run(gpu, toks, pos)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert ops.launch_counts()["rglru_scan"] == before + 4
+    for g, w in zip(got, want):
+        _assert_close(g.cpu(), w, 0.0)

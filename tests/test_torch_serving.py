@@ -365,3 +365,79 @@ def test_serve_entry_point_on_cpu():
     assert tuple(a["tokens"].shape) == (2, 4)
     assert a["output_tokens"] == 8 and a["prefill_calls"] == 1
     assert torch.equal(a["tokens"], b["tokens"])
+
+
+# ----------------------------------------------------------- recurrentgemma
+# tests/test_serving.py:95 on the hybrid arch: two remainder-free groups of
+# (rglru, rglru, local_attn), window 64.  Its decode state is slot-major
+# (RG-LRU state, conv buffer, a circular K/V window per local layer), so
+# admission must overwrite a reused slot's rows whole.
+
+
+@pytest.fixture(scope="module")
+def rg_models():
+    jmodel = jax_build_model(jax_reduced(jax_get_arch("recurrentgemma-9b")))
+    params = jax.jit(jmodel.init)(jax.random.PRNGKey(4))
+    np_params = jax.tree.map(np.asarray, params)
+    prefill = jax.jit(jmodel.prefill, static_argnames=("cache_len",
+                                                       "cache_dtype"))
+    decode = jax.jit(jmodel.decode_step)
+
+    def jax_solo(tokens, max_new, cache_len):
+        """The request decoded alone in JAX (batch 1, slab cache)."""
+        logits, cache = prefill(params, {"tokens": jnp.asarray(tokens)[None]},
+                                cache_len=cache_len, cache_dtype=jnp.float32)
+        out = [int(jnp.argmax(logits[0]))]
+        for i in range(max_new - 1):
+            logits, cache = decode(params, jnp.asarray([out[-1]], jnp.int32),
+                                   cache, jnp.asarray(len(tokens) + i))
+            out.append(int(jnp.argmax(logits[0])))
+        return out
+
+    def port(use_kernels=True):
+        model = build_model(reduced(get_arch("recurrentgemma-9b")),
+                            ShardingConfig(use_kernels=use_kernels),
+                            device="cpu")
+        return bridge.load_jax_params(model, np_params)
+
+    return jax_solo, port
+
+
+def _rg_run(port_model, specs, *, max_slots, cache_len):
+    sess = ServingSession(
+        ServingConfig(device="cpu", max_slots=max_slots, cache_len=cache_len,
+                      page_size=8, cache_dtype="float32"),
+        model=port_model,
+    )
+    sess.run(_port_reqs(specs), max_steps=500)
+    return {r: sess.results[r].tokens for r in sess.results}
+
+
+def _long_specs(seed=9):
+    """Prompts and generations past the reduced window (64): one prompt
+    longer than it, others that cross it while decoding."""
+    rng = np.random.default_rng(seed)
+    return [(i, rng.integers(0, 256, (p,)).astype(np.int32), g, a)
+            for i, (p, g, a) in enumerate([(100, 6, 0.0), (60, 12, 0.0),
+                                           (70, 9, 3.0), (58, 10, 5.0)])]
+
+
+@pytest.mark.parametrize("long", [False, True], ids=["short", "past_window"])
+@pytest.mark.parametrize("use_kernels", [True, False])
+def test_recurrentgemma_continuous_equals_solo_and_jax(rg_models, long,
+                                                       use_kernels):
+    """Staggered requests in 2 slots (queueing, eviction, slot reuse)
+    give each request the tokens it gets alone in the port, and the
+    tokens JAX gives it alone."""
+    jax_solo, port = rg_models
+    specs = _long_specs() if long else _specs(5)
+    cache_len = 120 if long else CACHE_LEN
+    model = port(use_kernels)
+    got = _rg_run(model, specs, max_slots=2, cache_len=cache_len)
+    want = {r: jax_solo(t, g, cache_len) for r, t, g, _ in specs}
+    assert got == want
+    solo = {}
+    for spec in specs:
+        solo.update(_rg_run(model, [spec[:3] + (0.0,)], max_slots=1,
+                            cache_len=cache_len))
+    assert got == solo

@@ -1,9 +1,11 @@
 """The port's transformer against the JAX one on bridged params.
 
 Reduced qwen3 (``reduced(get_arch("qwen3-0.6b"))``: 2 layers, d 64, GQA
-4:2, qk-norm, tied embeddings) and the reduced MoE archs (qwen2-moe: MHA,
+4:2, qk-norm, tied embeddings), the reduced MoE archs (qwen2-moe: MHA,
 8 experts top-2 and a shared expert, untied head; qwen3-moe: GQA 4:1,
-qk-norm, no shared expert) in fp32.  Params are initialized once in JAX
+qk-norm, no shared expert) and reduced recurrentgemma at 8 layers (two
+remainder ``rglru`` layers, then two (rglru, rglru, local_attn) groups;
+MQA, window 64) in fp32.  Params are initialized once in JAX
 and handed to both packages through ``repro_torch.bridge``.  Prefill
 logits and packed caches, then four paged decode steps, agree within
 1e-4 (fp32 on both sides; the JAX side's chunked attention and XLA's
@@ -157,9 +159,9 @@ def _check_decode(jmodel, params, model):
     cj = _write_pages_impl(cj, pj, jnp.arange(B), jnp.asarray(rows), layout)
     _, pt = model.prefill({"tokens": torch.from_numpy(toks).long()},
                           cache_len=cache_len, cache_dtype=torch.float32)
-    ct, _ = model.init_paged_cache(B, cache_len, n_pages=n_pages,
-                                   page_size=PS, cache_dtype=torch.float32)
-    write_pages(ct, pt, rows)
+    ct, lt = model.init_paged_cache(B, cache_len, n_pages=n_pages,
+                                    page_size=PS, cache_dtype=torch.float32)
+    write_pages(ct, pt, np.arange(B), rows, lt)
     table = torch.from_numpy(rows)
     tok = np.asarray(jnp.argmax(lj, axis=-1)).astype(np.int32)
     for step in range(4):
@@ -171,3 +173,116 @@ def _check_decode(jmodel, params, model):
         err = float(np.max(np.abs(lt.numpy() - np.asarray(lj))))
         assert err < ATOL, (step, err)
         tok = np.asarray(jnp.argmax(lj, axis=-1)).astype(np.int32)
+
+
+# ----------------------------------------------------------- recurrentgemma
+
+RG_LAYERS = 8  # 2 remainder layers + 2 groups, as the full model's 2 + 12
+
+
+@pytest.fixture(scope="module")
+def rg_side():
+    jcfg = jax_reduced(jax_get_arch("recurrentgemma-9b"), n_layers=RG_LAYERS)
+    model = jax_build_model(jcfg)
+    params = jax.jit(model.init)(jax.random.PRNGKey(3))
+    # jitted once per shape: the eager JAX calls retrace the layer scans
+    prefill = jax.jit(model.prefill, static_argnames=("cache_len",
+                                                      "cache_dtype"))
+    decode = jax.jit(model.decode_step)
+    return (prefill, decode, model), params, jax.tree.map(np.asarray, params)
+
+
+def _rg_port(np_params, use_kernels):
+    cfg = reduced(get_arch("recurrentgemma-9b"), n_layers=RG_LAYERS)
+    model = build_model(cfg, ShardingConfig(use_kernels=use_kernels),
+                        device="cpu")
+    return bridge.load_jax_params(model, np_params)
+
+
+def _jax_layer(cache, i, n_rem=2, L=3):
+    """Port layer ``i``'s state in a JAX cache (remainder layers, then
+    group ``g``'s pattern slot ``j``)."""
+    if i < n_rem:
+        return cache["rem"][i]
+    g, j = divmod(i - n_rem, L)
+    return jax.tree.map(lambda x: x[g], cache["groups"][f"p{j}"])
+
+
+def test_recurrentgemma_layer_kinds_follow_jax_order():
+    model = build_model(
+        reduced(get_arch("recurrentgemma-9b"), n_layers=RG_LAYERS),
+        device="cpu")
+    assert model.impl.decoder.kinds == (
+        "rglru", "rglru", "rglru", "rglru", "local_attn",
+        "rglru", "rglru", "local_attn")
+    full = get_arch("recurrentgemma-9b")
+    from repro_torch.models.transformer import layer_kinds
+    kinds = layer_kinds(full)
+    assert kinds.count("rglru") == 26 and kinds.count("local_attn") == 12
+
+
+@pytest.mark.parametrize("S,cache_len,use_kernels", [
+    (20, 40, False),    # S < W = cache_len < window: zero-padded buffers
+    (100, 120, True),   # S >= W = window: the last 64 rolled by S % 64
+    (300, 320, True),   # S > 256: local_attention in the prefill
+])
+def test_recurrentgemma_prefill_logits_and_cache(rg_side, S, cache_len,
+                                                 use_kernels):
+    (prefill, _, _), params, np_params = rg_side
+    model = _rg_port(np_params, use_kernels)
+    toks = _tokens(S, 2, S)
+    lj, cj = prefill(params, {"tokens": jnp.asarray(toks)},
+                     cache_len=cache_len, cache_dtype=jnp.float32)
+    lt, ct = model.prefill({"tokens": torch.from_numpy(toks).long()},
+                           cache_len=cache_len, cache_dtype=torch.float32)
+    assert float(np.max(np.abs(lt.numpy() - np.asarray(lj)))) < ATOL
+    for i, layer in enumerate(ct):
+        want = _jax_layer(cj, i)
+        assert sorted(layer) == sorted(want)
+        for key, got in layer.items():
+            w = np.asarray(want[key])
+            assert tuple(got.shape) == w.shape, (i, key)
+            assert float(np.max(np.abs(got.numpy() - w))) < ATOL, (i, key)
+
+
+@pytest.mark.parametrize("S,cache_len,use_kernels", [
+    (20, 40, False), (60, 80, True), (100, 120, True)])
+def test_recurrentgemma_decode_steps(rg_side, S, cache_len, use_kernels):
+    """Prefill, map into the paged cache (slot-major state at slots 2 and 0
+    of 3), then six decode steps on the same tokens and per-row positions:
+    S = 60 crosses the window (64) while decoding, S = 100 starts past it,
+    and S = 20 decodes into a buffer shorter than the window."""
+    (prefill, decode, jmodel), params, np_params = rg_side
+    model = _rg_port(np_params, use_kernels)
+    B, slots = 2, np.asarray([2, 0])
+    n_pp = -(-cache_len // PS)
+    rows = (1 + np.arange(B * n_pp).reshape(B, n_pp)).astype(np.int32)
+    toks = _tokens(S + 1, B, S)
+    lj, pj = prefill(params, {"tokens": jnp.asarray(toks)},
+                     cache_len=cache_len, cache_dtype=jnp.float32)
+    cj, layout = jmodel.init_paged_cache(3, cache_len, n_pages=B * n_pp + 1,
+                                         page_size=PS,
+                                         cache_dtype=jnp.float32)
+    cj = _write_pages_impl(cj, pj, jnp.asarray(slots), jnp.asarray(rows),
+                           layout)
+    _, pt = model.prefill({"tokens": torch.from_numpy(toks).long()},
+                          cache_len=cache_len, cache_dtype=torch.float32)
+    ct, lt = model.init_paged_cache(3, cache_len, n_pages=B * n_pp + 1,
+                                    page_size=PS, cache_dtype=torch.float32)
+    assert all(code == "state0" for layer in lt for code in layer.values())
+    write_pages(ct, pt, slots, rows, lt)
+    table = np.zeros((3, n_pp), np.int32)
+    table[slots] = rows
+    tok = np.zeros(3, np.int32)
+    tok[slots] = np.asarray(jnp.argmax(lj, axis=-1))
+    pos = np.asarray([S, 0, S], np.int32)  # row 1: a free slot
+    for step in range(6):
+        lj, cj = decode(params, jnp.asarray(tok), cj, jnp.asarray(pos),
+                        pages=jnp.asarray(table))
+        lt_, ct = model.decode_step(torch.from_numpy(tok).long(), ct,
+                                    torch.from_numpy(pos),
+                                    pages=torch.from_numpy(table))
+        err = float(np.max(np.abs(lt_.numpy()[slots] - np.asarray(lj)[slots])))
+        assert err < ATOL, (step, err)
+        tok = np.asarray(jnp.argmax(lj, axis=-1)).astype(np.int32)
+        pos = pos + np.asarray([1, 0, 1], np.int32)
