@@ -9,18 +9,24 @@ caught):
 
 1. require CUDA; print the card's name and power limit (``nvidia-smi``);
 2. build every kernel from ``src/repro_torch/csrc`` (one ``nvcc`` each, in
-   parallel) and print the build time;
+   parallel) and print the build time and, per compiled kernel function
+   (every dtype and head dim), ``ptxas``'s registers, spills and shared
+   memory;
 3. hold each kernel against its plain PyTorch version on the card, at the
    serving paths' shapes, in bf16 and fp32: max error and tolerance, the
-   kernel's time, the plain version's time, the bound (the least time the
+   kernel's device time, the plain version's time, the bound (the least time the
    card could take: bytes over 3.35 TB/s or flops over the dtype's peak,
    whichever is larger) and one PyTorch library call as a yardstick
    (SDPA for flash, ``torch.bmm`` for the grouped matmul; none exists for
    paged decode or the RG-LRU scan).  Attention at qwen3's K=8 and
    qwen2-moe's K=16; the grouped matmul at qwen2-moe's prefill and decode
    shapes, with routed group sizes, whose rows past each group must be
-   exactly 0; the RG-LRU scan at recurrentgemma-9b's prefill shape (8, 512,
-   4096), a ragged (3, 300, 130) and a long decay (a = 0.999, S = 2048);
+   exactly 0, and the variant that ran at each shape (wgmma for the bf16
+   prefill, wmma for the bf16 decode step, fp32); flash and the grouped
+   matmul also print the host time of one call (TMA descriptors are built
+   on the host per call); the RG-LRU scan at recurrentgemma-9b's prefill
+   shape (8, 512, 4096), a ragged (3, 300, 130) and a long decay
+   (a = 0.999, S = 2048);
 4. serve full-width, full-depth qwen3-0.6b (random weights from a seed):
    8 requests, prompt 512, 32 new tokens, 8 slots, page size 16, bf16
    cache, through ``repro_torch.launch.serve.serve``; the launch counters
@@ -50,6 +56,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -61,6 +68,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+SPIN_CYCLES = 50_000_000  # ~25 ms at the H100's clocks: longer than enqueueing a timed run
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense; fp32 off tensor cores
 # (rtol, atol): a kernel passes where |kernel - plain| <= atol + rtol*|plain|.
 # Both compute in fp32 from the same inputs and round once to the output
@@ -111,18 +119,56 @@ def nvidia_smi_line() -> str:
 def time_ms(torch, fn, arg_sets, iters: int = 40, warmup: int = 3) -> float:
     """Mean device time of ``fn`` over ``iters`` launches, cycling through
     ``arg_sets`` (copies whose total exceeds the 50 MB L2, so each launch
-    finds its inputs cold, as a layer of the served model does)."""
+    finds its inputs cold, as a layer of the served model does).  A spin
+    kernel holds the device while the launches are enqueued, so they run
+    back to back and a wrapper's host time (``host_us``) does not show."""
     for i in range(warmup):
         fn(*arg_sets[i % len(arg_sets)])
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
     t0.record()
     for i in range(iters):
         fn(*arg_sets[i % len(arg_sets)])
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def host_us(torch, fn, args, iters: int = 40) -> float:
+    """Mean host time of one call of ``fn`` (checks, descriptors, the
+    launch), without waiting for the device."""
+    fn(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn(*args)
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / iters * 1e6
+
+
+def ptxas_lines(log: str):
+    """(function, line) for ptxas's register and spill lines; the function
+    is the kernel's name and its first template argument, read from the
+    mangled name of the entry being compiled."""
+    fn, out = "?", []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '_ZN([^']+)'", line)
+        if m:
+            mangled, i, names = m.group(1), 0, []
+            while i < len(mangled) and mangled[i].isdigit():
+                j = i
+                while mangled[j].isdigit():
+                    j += 1
+                names.append(mangled[j:j + int(mangled[i:j])])
+                i = j + int(mangled[i:j])
+            arg = re.match(r"ILi(\d+)E", mangled[i:])
+            fn = names[-1] + (f"<{arg.group(1)}>" if arg else "")
+        elif "registers" in line or "spill" in line:
+            out.append((fn, line.split(":", 1)[-1].strip()))
+    return out
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str):
@@ -214,6 +260,7 @@ def check_flash(torch, ops, ref, dtype_name: str, S: int, K: int) -> dict:
     per = (first[0].numel() + 2 * first[1].numel()) * itemsize
     sets = [first] + [make() for _ in range(n_copies(torch, per) - 1)]
     ms = time_ms(torch, ops.flash_attention, sets)
+    host = host_us(torch, ops.flash_attention, first)
     plain_ms = time_ms(torch, ref.flash_attention_ref, sets, iters=10)
     # the yardstick: one PyTorch call (never used by the port); KV heads
     # repeated outside the timed call
@@ -227,7 +274,7 @@ def check_flash(torch, ops, ref, dtype_name: str, S: int, K: int) -> dict:
     bms, bby = bound_ms(nbytes, flops, dtype_name)
     return dict(max_abs_err=err, tol=TOL_TEXT[dtype_name], ms=ms,
                 plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
-                library_ms=library_ms)
+                library_ms=library_ms, host_us=host)
 
 
 def routed_sizes(E_live: int, E: int, C: int, tokens: int, top_k: int,
@@ -246,7 +293,7 @@ def routed_sizes(E_live: int, E: int, C: int, tokens: int, top_k: int,
     return sizes
 
 
-def check_gmm(torch, ops, ref, dtype_name: str, shape: str) -> dict:
+def check_gmm(torch, ops, ref, gmm, dtype_name: str, shape: str) -> dict:
     """The grouped matmul at one of qwen2-moe's shapes, with routed group
     sizes (60 live experts, 4 dead); rows past each group must be exactly
     0.  w is drawn as the model draws it, N(0, 1/d_in)."""
@@ -277,6 +324,7 @@ def check_gmm(torch, ops, ref, dtype_name: str, shape: str) -> dict:
     per = (first[0].numel() + first[1].numel()) * itemsize
     sets = [first] + [make() for _ in range(n_copies(torch, per) - 1)]
     ms = time_ms(torch, ops.grouped_matmul, sets)
+    host = host_us(torch, ops.grouped_matmul, first)
     plain_ms = time_ms(torch, ref.grouped_matmul_ref, sets, iters=10)
     library_ms = time_ms(torch, lambda x, w, _: torch.bmm(x, w), sets)
     live_rows = int(sizes_np.sum())
@@ -288,7 +336,8 @@ def check_gmm(torch, ops, ref, dtype_name: str, shape: str) -> dict:
     return dict(max_abs_err=err, tol=TOL_TEXT[dtype_name], ms=ms,
                 plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
                 library_ms=library_ms, live_rows=live_rows,
-                nonempty=nonempty)
+                nonempty=nonempty, host_us=host,
+                variant=gmm.variant(first[0], first[1]))
 
 
 def check_scan(torch, ops, ref, dtype_name: str, shape: str) -> dict:
@@ -343,7 +392,7 @@ def _line(r: dict) -> str:
             f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']}) library_ms={lib}")
 
 
-def phase_kernels(torch, ops, ref) -> dict:
+def phase_kernels(torch, ops, ref, gmm) -> dict:
     results = {}
     for dtn in ("bfloat16", "float32"):
         for K in (8, 16):
@@ -354,13 +403,14 @@ def phase_kernels(torch, ops, ref) -> dict:
         for S, K in ((512, 8), (300, 8), (512, 16)):
             r = check_flash(torch, ops, ref, dtn, S, K)
             log(f"flash_attention {dtn} B=8 H=16 K={K} S={S} hd=128 causal: "
-                f"{_line(r)}")
+                f"{_line(r)} host_us={r['host_us']:.1f}")
             results[("flash_attention", dtn, S, K)] = r
         for shape, (E, C, d, f) in GMM_SHAPES.items():
-            r = check_gmm(torch, ops, ref, dtn, shape)
+            r = check_gmm(torch, ops, ref, gmm, dtn, shape)
             log(f"grouped_matmul {dtn} {shape} E={E} C={C} d={d} f={f} "
                 f"({r['live_rows']} live rows in {r['nonempty']} groups): "
-                f"{_line(r)}")
+                f"variant={r['variant']} {_line(r)} "
+                f"host_us={r['host_us']:.1f}")
             results[("grouped_matmul", dtn, shape)] = r
         for shape, (B, S, D, decay) in SCAN_SHAPES.items():
             r = check_scan(torch, ops, ref, dtn, shape)
@@ -460,6 +510,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import grouped_matmul as gmm
 
     # fp32 products in full fp32 on the card, as on the CPU
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -474,11 +525,10 @@ def main(argv=None) -> int:
     log(f"built {sorted(secs)} in {time.perf_counter() - t0:.1f} s "
         f"(per kernel {secs})")
     for k in ops.KERNELS.values():
-        for line in k.ptxas_log.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"ptxas {k.name}: {line.strip()}")
+        for fn, line in ptxas_lines(k.ptxas_log):
+            log(f"ptxas {k.name} {fn}: {line}")
 
-    checks = phase_kernels(torch, ops, ref)
+    checks = phase_kernels(torch, ops, ref, gmm)
     counts = {name: 0 for name in ops.KERNELS}
     if args.only is None:
         from repro_torch.config import get_arch

@@ -11,24 +11,45 @@
 // Bound on this card: the bytes of the live experts' weights, at decode
 // (C = 4; at most 32 of 64 groups live) and at a 4096-token prefill alike
 // (346 MB of weights against ~95 GFLOP, ~0.1 ms of bf16 tensor-core time).
-// So the design reads each live expert's weights once and no other's:
-// one thread block per (64-column f tile, 64-row C tile, expert e) reads
-// sizes[e] itself, and a tile whose first row is past the group writes
-// zeros and exits without touching w[e] — an empty or dead expert costs
-// no weight traffic.  Live tiles walk d in 64-deep chunks staged in shared
-// memory, the next chunk's loads in flight in registers while the current
-// one is multiplied; rows past the group are staged as zeros and never
-// read.  bf16: four warps, each a 16-row strip x 64 columns of 16x16x16
-// wmma fragments with fp32 accumulators; a warp whose strip lies past the
-// group skips its products.  fp32: 256 threads with a 4x4 register tile
-// each and fp32 FMAs on the CUDA cores (the tensor cores' fp32 path is
-// TF32, which drops mantissa bits).  Simple first: no TMA, no wgmma, no
-// cp.async pipeline.
+// So every variant reads each live expert's weights once and no other's: a
+// block reads sizes[e] itself, and a tile whose first row is past the group
+// writes zeros and exits without touching w[e] — an empty or dead expert
+// costs no weight traffic.  Three variants, chosen by shape in the wrapper
+// (grouped_matmul.py, `variant`), one entry point:
+//
+// wgmma (bf16, C >= 64, d and f multiples of 8, 16-byte aligned x and w:
+// every prefill call of the model).  One block per (128-column f tile,
+// 128-row C tile, expert) with two consumer warpgroups and one producer
+// warp; two blocks fit an SM, so one block's prologue and epilogue overlap
+// the other's products.  The producer streams 64-deep chunks of x (128 x 64,
+// K-major) and w (64 x 128, MN-major) through TMA into a 3-stage ring of
+// 128-byte-swizzled shared memory, guarded by full/empty mbarriers.  x's
+// tensor map is 3-D over (E, C, d), so rows past C read as TMA's zeros and
+// never cross into the next expert.  Each warpgroup multiplies its 64 rows
+// with wgmma m64n128k16 into fp32 registers, one k chunk's group in flight
+// while the previous chunk's stage is released; a warpgroup whose rows all
+// lie past the group skips its products.  The epilogue writes bf16 from
+// the accumulators (zeros for rows in [sizes[e], C)) into a free w stage,
+// with no fp32 staging tile, and TMA stores it.
+//
+// wmma (bf16 otherwise: decode's C = 4, unaligned shapes).  One block per
+// (64-column f tile, 64-row C tile, expert); live tiles walk d in 64-deep
+// chunks staged in shared memory, the next chunk's loads in flight in
+// registers while the current one is multiplied; rows past the group are
+// staged as zeros and never read.  Four warps, each a 16-row strip x 64
+// columns of 16x16x16 wmma fragments with fp32 accumulators; a warp whose
+// strip lies past the group skips its products.
+//
+// fp32: 256 threads with a 4x4 register tile each and fp32 FMAs on the
+// CUDA cores (the tensor cores' fp32 path is TF32, which drops mantissa
+// bits), same tiles as wmma.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -230,21 +251,176 @@ __global__ void __launch_bounds__(kThreadsF) gmm_f32_kernel(
   }
 }
 
+// ------------------------------------------------------------ wgmma (bf16)
+
+constexpr int kRowsW = 128;                    // rows of one output tile (64 per warpgroup)
+constexpr int kColsW = 128;                    // columns of one output tile
+constexpr int kDepthW = 64;                    // d per stage: one 128-byte swizzle span
+constexpr int kStagesW = 3;                    // x and w chunks in flight
+constexpr int kThreadsW = 2 * 128 + 32;        // two consumer warpgroups + the producer warp
+constexpr int kBytesA = kRowsW * kDepthW * 2;  // x chunk: 128 rows x 128 B
+constexpr int kBox = 64 * 128;                 // one w box: 64 rows x 64 columns
+constexpr int kBytesB = kDepthW * kColsW * 2;  // w chunk: kColsW / 64 boxes
+constexpr size_t kSmemW = 1024 + (size_t)kStagesW * (kBytesA + kBytesB);
+
+// two blocks fit an SM (registers and shared memory), so one block's
+// prologue and epilogue overlap the other's products
+__global__ void __launch_bounds__(kThreadsW, 2) gmm_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tx,  // x (E, C, d): boxes of 128 rows x 64
+    const __grid_constant__ CUtensorMap tw,  // w (E, d, f): boxes of 64 rows x 64 columns
+    const __grid_constant__ CUtensorMap ty,  // y (E, C, f): boxes of 64 rows x 64 columns
+    const int* __restrict__ sizes, __nv_bfloat16* __restrict__ y, int C, int d, int f) {
+  using namespace hopper;
+  const int e = blockIdx.z;
+  const int r0 = blockIdx.y * kRowsW;
+  const int c0 = blockIdx.x * kColsW;
+  const int live = live_rows(sizes, e, C);
+  const int tid = threadIdx.x;
+  if (r0 >= live) {  // the whole tile is past the group: zeros, no w[e] read
+    const int nrows = min(kRowsW, C - r0);
+    const int nseg = min(kColsW, f - c0) / 8;  // f % 8 == 0: 16-byte segments
+    for (int i = tid; i < nrows * (kColsW / 8); i += kThreadsW) {
+      const int r = i / (kColsW / 8), sg = i % (kColsW / 8);
+      if (sg < nseg)
+        *reinterpret_cast<uint4*>(&y[((size_t)e * C + r0 + r) * f + c0 + 8 * sg]) =
+            make_uint4(0u, 0u, 0u, 0u);
+    }
+    return;
+  }
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[kStagesW], empty[kStagesW];
+  uint8_t* as = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);  // [stage] x chunks
+  uint8_t* bs = as + kStagesW * kBytesA;                                       // [stage] w chunks
+  if (tid == 0) {
+    for (int s = 0; s < kStagesW; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+  const int nk = (d + kDepthW - 1) / kDepthW;
+  const int wg = tid / 128;
+  if (wg == 2) {  // the producer warp: one lane issues every copy
+    if (tid % 32 == 0) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % kStagesW;
+        if (kt >= kStagesW) mbar_wait(&empty[s], (kt / kStagesW - 1) & 1);
+        mbar_expect_tx(&full[s], kBytesA + kBytesB);
+        tma_load_3d(as + s * kBytesA, &tx, &full[s], kt * kDepthW, r0, e);
+        for (int h = 0; h < kColsW / 64; ++h)
+          tma_load_3d(bs + s * kBytesB + h * kBox, &tw, &full[s], c0 + 64 * h,
+                      kt * kDepthW, e);
+      }
+    }
+    return;
+  }
+
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const bool wg_live = r0 + 64 * wg < live;
+  const uint32_t a_addr = smem_addr(as) + wg * 64 * 128;
+  const uint32_t b_addr = smem_addr(bs);
+  float acc[kColsW / 2];
+#pragma unroll
+  for (int i = 0; i < kColsW / 2; ++i) acc[i] = 0.f;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % kStagesW;
+    mbar_wait(&full[s], (kt / kStagesW) & 1);
+    if (wg_live) {
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kDepthW / 16; ++kk)
+        wgmma_m64n128k16_ss<1>(
+            acc, gmma_desc(a_addr + s * kBytesA + kk * 32, 16, 1024, 128),
+            gmma_desc(b_addr + s * kBytesB + kk * 16 * 128, kBox, 1024, 128), 1);
+      wgmma_commit();
+      wgmma_wait<1>();  // chunk kt - 1 is done: its stage can be refilled
+      fence_regs(acc);
+    }
+    if (kt > 0) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[(kt - 1) % kStagesW]);
+    }
+  }
+  if (wg_live) {
+    wgmma_wait<0>();
+    fence_regs(acc);
+  }
+
+  // epilogue: once both warpgroups are done with every stage, each writes its
+  // 64 x kColsW tile in bf16 (zeros for rows in [live, C)) into one w stage,
+  // swizzled as TMA reads it, and stores it box by box; rows past C and
+  // columns past f fall outside the tensor map and are not written
+  named_barrier(1, 256);
+  uint8_t* ys = bs + wg * kBytesB;  // [box][64 rows][128 B]
+  const int r = 16 * warp + lane / 4;
+  const bool live_a = r0 + 64 * wg + r < live;
+  const bool live_b = r0 + 64 * wg + r + 8 < live;
+#pragma unroll
+  for (int j = 0; j < kColsW / 8; ++j) {
+    const uint32_t off = (j / 8) * kBox + r * 128 + 16 * (j % 8) + 4 * (lane % 4);
+    const __nv_bfloat162 va = __floats2bfloat162_rn(live_a ? acc[4 * j] : 0.f,
+                                                    live_a ? acc[4 * j + 1] : 0.f);
+    const __nv_bfloat162 vb = __floats2bfloat162_rn(live_b ? acc[4 * j + 2] : 0.f,
+                                                    live_b ? acc[4 * j + 3] : 0.f);
+    *reinterpret_cast<__nv_bfloat162*>(ys + swizzle(off, 128)) = va;
+    *reinterpret_cast<__nv_bfloat162*>(ys + swizzle(off + 8 * 128, 128)) = vb;
+  }
+  fence_async_smem();
+  named_barrier(2 + wg, 128);
+  if (tid % 128 == 0) {
+    for (int h = 0; h < kColsW / 64; ++h)
+      tma_store_3d(&ty, ys + h * kBox, c0 + 64 * h, r0 + 64 * wg, e);
+    tma_store_drain();
+  }
+}
+
+cudaError_t launch_wgmma(const void* x, const void* w, const int* sizes, void* y, int E,
+                         int C, int d, int f, cudaStream_t s) {
+  if (reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(w) % 16 ||
+      reinterpret_cast<uintptr_t>(y) % 16 || d % 8 || f % 8)
+    return cudaErrorMisalignedAddress;
+  CUtensorMap tx, tw, ty;
+  const uint64_t xd[3] = {(uint64_t)d, (uint64_t)C, (uint64_t)E};
+  const uint64_t xs[2] = {2ull * d, 2ull * d * C};
+  const uint32_t xb[3] = {kDepthW, kRowsW, 1};
+  const uint64_t wd[3] = {(uint64_t)f, (uint64_t)d, (uint64_t)E};
+  const uint64_t ws[2] = {2ull * f, 2ull * f * d};
+  const uint32_t wb[3] = {64, kDepthW, 1};
+  cudaError_t err = hopper::make_map_bf16(&tx, x, 3, xd, xs, xb, 128);
+  if (err == cudaSuccess) err = hopper::make_map_bf16(&tw, w, 3, wd, ws, wb, 128);
+  const uint64_t yd[3] = {(uint64_t)f, (uint64_t)C, (uint64_t)E};
+  const uint64_t ys[2] = {2ull * f, 2ull * f * C};
+  const uint32_t yb[3] = {64, 64, 1};
+  if (err == cudaSuccess) err = hopper::make_map_bf16(&ty, y, 3, yd, ys, yb, 128);
+  if (err == cudaSuccess) err = hopper::allow_smem<gmm_wgmma_kernel>(kSmemW);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((f + kColsW - 1) / kColsW, (C + kRowsW - 1) / kRowsW, E);
+  gmm_wgmma_kernel<<<grid, kThreadsW, kSmemW, s>>>(tx, tw, ty, sizes,
+                                                   static_cast<__nv_bfloat16*>(y), C, d, f);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  vec (bf16 only): x and w are 16-byte
-// aligned and d, f multiples of 8.  Launches on `stream`; returns the
+// dtype: 0 = float32, 1 = bfloat16.  mode (bf16 only): 0 = wmma, 1 = wmma
+// with 16-byte loads (x and w 16-byte aligned, d and f multiples of 8),
+// 2 = wgmma (the same, and C >= 64).  Launches on `stream`; returns the
 // launch's cudaError_t.
 extern "C" int repro_grouped_matmul(const void* x, const void* w, const int* sizes,
                                     void* y, int E, int C, int d, int f, int dtype,
-                                    int vec, void* stream) {
+                                    int mode, void* stream) {
   if (E <= 0 || C <= 0 || f <= 0) return 0;
   const dim3 grid((f + kTile - 1) / kTile, (C + kTile - 1) / kTile, E);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
+  if (dtype == 1 && mode == 2) {
+    return static_cast<int>(launch_wgmma(x, w, sizes, y, E, C, d, f, s));
+  } else if (dtype == 1) {
     gmm_bf16_kernel<<<grid, kThreadsB, 0, s>>>(
         static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
-        sizes, static_cast<__nv_bfloat16*>(y), C, d, f, vec);
+        sizes, static_cast<__nv_bfloat16*>(y), C, d, f, mode);
   } else if (dtype == 0) {
     gmm_f32_kernel<<<grid, kThreadsF, 0, s>>>(
         static_cast<const float*>(x), static_cast<const float*>(w), sizes,

@@ -3,12 +3,16 @@
 Each kernel is one ``csrc/*.cu`` file with a plain C entry point that
 returns a ``cudaError_t``.  :class:`CudaKernel` compiles it with ``nvcc``
 for ``sm_90a`` into ``<repo>/build/repro_torch/`` at first use — the file
-name carries a hash of the source and the flags, so an edited source is
-rebuilt and an unchanged one is reused — loads it with ``ctypes``, and
+name carries a hash of the source, of every shared header ``csrc/*.cuh``
+and of the flags, so an edited source or header is rebuilt and an
+unchanged one is reused — loads it with ``ctypes``, and
 raises if the build, the load or a launch fails.  Nothing is compiled or
 loaded when this module is imported, so the CPU tests import every module
 without ``nvcc``.  :func:`build_all` starts one ``nvcc`` per kernel at once
-(the smoke script's parallel build).
+(the smoke script's parallel build).  No kernel links the driver API:
+``csrc/hopper.cuh`` fetches ``cuTensorMapEncodeTiled`` (TMA descriptors)
+through the runtime's ``cudaGetDriverEntryPoint``, so the flags name no
+``-lcuda``.
 """
 
 from __future__ import annotations
@@ -72,6 +76,9 @@ class CudaKernel:
     @property
     def library(self) -> Path:
         h = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(self.source.parent.glob("*.cuh")):
+            h.update(header.name.encode())
+            h.update(header.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"{self.name}-{h.hexdigest()[:16]}.so"
 

@@ -5,7 +5,10 @@ TPU kernel), forward only — the backward kernel belongs to the training
 slice.  q, k and v may be strided views (the model passes its
 ``(B, S, heads, hd)`` projections transposed, without a copy) as long as
 the head dim is contiguous; the output is a new contiguous
-``(B, H, Sq, hd)`` tensor.  Callers go through
+``(B, H, Sq, hd)`` tensor.  bf16 runs on the tensor cores and reads q, k
+and v through TMA, which needs 16-byte aligned bases and strides: the
+wrapper raises on anything else rather than copying.  fp32 has no such
+rule.  Callers go through
 :func:`repro_torch.kernels.ops.flash_attention`.
 """
 
@@ -35,6 +38,16 @@ KERNEL = CudaKernel(
 
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
+
+
+def tma_strides(t: torch.Tensor):
+    """(b, h, s) strides of a (B, heads, S, hd) tensor, in elements.  A dim
+    of size 1 is never stepped along, so its stride (whatever the view
+    says) is replaced by the extent of the whole tensor: aligned, and past
+    the other two."""
+    span = max([t.shape[3]] + [t.stride(i) * t.shape[i] for i in range(3)
+                               if t.shape[i] > 1])
+    return tuple(t.stride(i) if t.shape[i] > 1 else span for i in range(3))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -69,15 +82,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     if Sk == 0:
         raise ValueError("flash_attention: empty key sequence")
+    strides = [tma_strides(t) for t in (q, k, v)]
+    if q.dtype == torch.bfloat16:
+        for name, t, st in zip("qkv", (q, k, v), strides):
+            if t.data_ptr() % 16 or any(x % 8 for x in st):
+                raise ValueError(
+                    f"flash_attention: bf16 {name} needs a 16-byte aligned "
+                    f"base and strides that are multiples of 8 elements "
+                    f"(TMA), got strides {t.stride()}")
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(hd)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         KERNEL.launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             B, H, K, Sq, Sk, hd,
-            q.stride(0), q.stride(1), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
+            *strides[0], *strides[1], *strides[2],
             int(causal), scale, DTYPE_CODE[q.dtype], stream,
         )
     return out

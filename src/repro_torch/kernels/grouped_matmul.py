@@ -1,9 +1,10 @@
 """CUDA grouped matmul of the MoE experts: the wrapper of ``csrc/grouped_matmul.cu``.
 
 Replaces ``repro/kernels/moe_gmm.py:grouped_matmul`` (the Pallas TPU
-kernel).  The wrapper checks what the kernel takes, allocates the output
-with ``torch.empty`` (the kernel writes every element, zeros included)
-and launches on the current CUDA stream; the kernel is built at first use
+kernel).  The wrapper checks what the kernel takes, picks the kernel's
+variant by shape (:func:`variant`), allocates the output with
+``torch.empty`` (the kernel writes every element, zeros included) and
+launches on the current CUDA stream; the kernel is built at first use
 (:mod:`repro_torch.kernels.build`).  Callers go through
 :func:`repro_torch.kernels.ops.grouped_matmul`, which sends CPU tensors to
 the plain version instead.
@@ -27,10 +28,36 @@ KERNEL = CudaKernel(
     "repro_grouped_matmul",
     [_P, _P, _P, _P,  # x, w, group sizes (or null), y
      _I, _I, _I, _I,  # E, C, d, f
-     _I, _I, _P],  # dtype, vec, stream
+     _I, _I, _P],  # dtype, mode, stream
 )
 
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+WGMMA_MIN_ROWS = 64  # one wgmma warpgroup's rows
+
+
+def variant(x: torch.Tensor, w: torch.Tensor) -> str:
+    """The kernel variant that runs for x (E,C,d) and w (E,d,f), by shape:
+
+    * ``"wgmma"``: bf16 with C >= 64, d and f multiples of 8 and 16-byte
+      aligned x and w (TMA's rules) — every prefill call of the model;
+    * ``"wmma"``: any other bf16 call (the decode step's C = 4, unaligned
+      shapes);
+    * ``"fp32"``: float32, CUDA-core FMAs.
+
+    A choice by shape, not a fallback: a variant that fails raises."""
+    if x.dtype != torch.bfloat16:
+        return "fp32"
+    return "wgmma" if _mode(x, w) == 2 else "wmma"
+
+
+def _mode(x: torch.Tensor, w: torch.Tensor) -> int:
+    """The entry point's mode: 2 = wgmma, 1 = wmma with 16-byte loads,
+    0 = wmma with 2-byte loads (or fp32, which ignores it)."""
+    if x.dtype != torch.bfloat16:
+        return 0
+    aligned = (x.shape[2] % 8 == 0 and w.shape[2] % 8 == 0
+               and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+    return 2 if aligned and x.shape[1] >= WGMMA_MIN_ROWS else int(aligned)
 
 
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
@@ -63,11 +90,10 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
     y = torch.empty((E, C, f), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
-    vec = int(x.dtype == torch.bfloat16 and d % 8 == 0 and f % 8 == 0
-              and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+    mode = _mode(x, w)
     sizes_ptr = group_sizes.data_ptr() if group_sizes is not None else None
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         KERNEL.launch(x.data_ptr(), w.data_ptr(), sizes_ptr, y.data_ptr(),
-                      E, C, d, f, DTYPE_CODE[x.dtype], vec, stream)
+                      E, C, d, f, DTYPE_CODE[x.dtype], mode, stream)
     return y

@@ -35,8 +35,11 @@ from torch.profiler import ProfilerActivity, profile
 from ..serving import ServingConfig, ServingSession
 from .serve import _build_requests
 
+# substrings of the kernels' names: flash_fwd_kernel (fp32) and
+# flash_fwd_wgmma_kernel (bf16); gmm_bf16_kernel, gmm_wgmma_kernel and
+# gmm_f32_kernel
 GROUPS = (("paged_attention", "paged_decode_kernel"),
-          ("flash_attention", "flash_fwd_kernel"),
+          ("flash_attention", "flash_fwd_"),
           ("grouped_matmul", "gmm_"),
           ("rglru_scan", "rglru_scan_kernel"),
           ("copy", "emcpy"))

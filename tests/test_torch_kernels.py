@@ -147,6 +147,63 @@ def test_cuda_wrappers_reject_cpu_tensors():
         cuda_scan.rglru_scan(torch.rand(2, 5, 8), torch.randn(2, 5, 8))
 
 
+def test_library_hash_follows_shared_headers(monkeypatch, tmp_path):
+    """A kernel's built library is named by a hash of its source, the
+    shared headers ``csrc/*.cuh`` and the flags: editing a header names a
+    new library (it is rebuilt), and restoring it names the old one."""
+    for src in build.CSRC.iterdir():
+        if src.suffix in (".cu", ".cuh"):
+            (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    kernel = build.CudaKernel("flash_attention", "flash_attention.cu",
+                              "repro_flash_attention", [])
+    first = kernel.library
+    header = tmp_path / "hopper.cuh"
+    text = header.read_text()
+    header.write_text(text + "\n// edited\n")
+    assert kernel.library != first
+    header.write_text(text)
+    assert kernel.library == first
+    (tmp_path / "flash_attention.cu").write_text("// edited source\n")
+    assert kernel.library != first
+
+
+def test_profile_groups_follow_kernel_names():
+    """``launch/profile.py`` files each kernel of ``csrc/<kernel>.cu`` under
+    that kernel's group, by name."""
+    import re
+
+    from repro_torch.launch.profile import GROUPS
+
+    for src in build.CSRC.glob("*.cu"):
+        names = re.findall(r"__global__ void(?: __launch_bounds__\([^)]*\))? "
+                           r"(\w+)\(", src.read_text())
+        assert names, src
+        for name in names:
+            group = next((g for g, key in GROUPS if key in name), "other")
+            assert group == src.stem, (name, group)
+
+
+@pytest.mark.parametrize("dtype,C,d,f,offset,want", [
+    (torch.bfloat16, 341, 2048, 1408, 0, "wgmma"),  # qwen2-moe's prefill
+    (torch.bfloat16, 64, 96, 80, 0, "wgmma"),
+    (torch.bfloat16, 4, 2048, 1408, 0, "wmma"),     # its decode step
+    (torch.bfloat16, 63, 96, 80, 0, "wmma"),
+    (torch.bfloat16, 64, 36, 80, 0, "wmma"),        # d % 8
+    (torch.bfloat16, 64, 96, 44, 0, "wmma"),        # f % 8
+    (torch.bfloat16, 64, 96, 80, 1, "wmma"),        # x off 16 bytes
+    (torch.float32, 341, 2048, 1408, 0, "fp32"),
+])
+def test_gmm_variant_rule(dtype, C, d, f, offset, want):
+    """The grouped matmul's variant by shape: wgmma for bf16 with C >= 64,
+    d and f multiples of 8 and 16-byte aligned operands; wmma for any other
+    bf16 call; fp32 for float32 (what the wrapper launches; the tensors
+    here are only measured, never computed on)."""
+    x = torch.empty(2 * C * d + offset, dtype=dtype)[offset:].view(2, C, d)
+    w = torch.empty(2, d, f, dtype=dtype)
+    assert cuda_gmm.variant(x, w) == want
+
+
 # ------------------------------------------------------------- grouped matmul
 # tests/test_kernels.py:118-152 — the JAX kernel in interpret mode, its
 # tolerances: 1e-3 in fp32 (values of size ~10, summed in other orders),

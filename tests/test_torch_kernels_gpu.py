@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import grouped_matmul as cuda_gmm
 from repro_torch.kernels import ops, ref
 
 
@@ -69,6 +70,89 @@ def test_flash_kernel_matches_ref_on_gpu(cuda_device, dtype, rtol, S, hd):
         assert got.dtype == dtype
         _assert_close(got, want, rtol)
     assert ops.launch_counts()["flash_attention"] == before + 2
+
+
+# sequence lengths around the 64-key tiles and the 64/128-row q tiles of
+# the bf16 kernel, every head dim it takes and H/K of 1, 2 and 4 (one or
+# two query heads per block)
+FLASH_S = (1, 63, 64, 65, 127, 128, 129, 300, 512, 1030)
+DTYPES = [(torch.float32, 0.0), (torch.bfloat16, 2.0 ** -7)]
+
+
+def _flash_check(dev, dtype, rtol, q, k, v, causal):
+    q, k, v = (t.to(dev, dtype) for t in (q, k, v))
+    got = ops.flash_attention(q, k, v, causal=causal)
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    assert got.dtype == dtype and got.shape == q.shape
+    _assert_close(got, want, rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", DTYPES)
+@pytest.mark.parametrize("S", FLASH_S)
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_flash_kernel_tile_edges_on_gpu(cuda_device, dtype, rtol, S, hd):
+    rng = np.random.default_rng(S * 7 + hd)
+    for group in (1, 2, 4):
+        K = 2
+        q = torch.from_numpy(_np(rng, (1, K * group, S, hd)))
+        k = torch.from_numpy(_np(rng, (1, K, S, hd)))
+        v = torch.from_numpy(_np(rng, (1, K, S, hd)))
+        for causal in (True, False):
+            _flash_check(cuda_device, dtype, rtol, q, k, v, causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", DTYPES)
+@pytest.mark.parametrize("S,hd", [(65, 16), (300, 32), (129, 64),
+                                  (512, 128), (1030, 128)])
+@pytest.mark.parametrize("group", [1, 2, 4])
+def test_flash_kernel_strided_views_on_gpu(cuda_device, dtype, rtol, S, hd,
+                                           group):
+    """The model's layout: (B, S, heads, hd) projections passed as their
+    transposes, without a copy."""
+    rng = np.random.default_rng(S + hd + group)
+    B, K = 2, 2
+    H = K * group
+    q = torch.from_numpy(_np(rng, (B, S, H, hd))).to(cuda_device, dtype)
+    k = torch.from_numpy(_np(rng, (B, S, K, hd))).to(cuda_device, dtype)
+    v = torch.from_numpy(_np(rng, (B, S, K, hd))).to(cuda_device, dtype)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    assert not qt.is_contiguous()
+    got = ops.flash_attention(qt, kt, vt)
+    want = ref.flash_attention_ref(qt.contiguous(), kt.contiguous(),
+                                   vt.contiguous())
+    _assert_close(got, want, rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", DTYPES)
+@pytest.mark.parametrize("Sq,Sk,hd", [(1, 300, 64), (65, 1030, 128),
+                                      (300, 64, 128), (129, 17, 32)])
+def test_flash_kernel_unequal_lengths_on_gpu(cuda_device, dtype, rtol, Sq, Sk,
+                                             hd):
+    """Sq != Sk, non-causal and causal (the mask aligned top-left)."""
+    rng = np.random.default_rng(Sq * 3 + Sk)
+    q = torch.from_numpy(_np(rng, (2, 4, Sq, hd)))
+    k = torch.from_numpy(_np(rng, (2, 2, Sk, hd)))
+    v = torch.from_numpy(_np(rng, (2, 2, Sk, hd)))
+    for causal in (False, True):
+        _flash_check(cuda_device, dtype, rtol, q, k, v, causal)
+
+
+@pytest.mark.cuda
+def test_flash_bf16_rejects_views_tma_cannot_read(cuda_device):
+    """bf16 reads q, k and v through TMA: a base off 16 bytes raises in the
+    wrapper (no copy, no launch)."""
+    base = torch.randn(1, 2, 64, 72, device=cuda_device).to(torch.bfloat16)
+    q = base[..., 1:65]  # 2 bytes off the allocation, head dim contiguous
+    before = ops.launch_counts()["flash_attention"]
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.flash_attention(q, q, q)
+    assert ops.launch_counts()["flash_attention"] == before
+    q32 = torch.randn(1, 2, 64, 72, device=cuda_device)[..., 1:65]
+    got = ops.flash_attention(q32, q32, q32)  # fp32 reads no TMA: no rule
+    _assert_close(got, ref.flash_attention_ref(q32, q32, q32), 0.0)
 
 
 @pytest.mark.cuda
@@ -135,6 +219,55 @@ def test_gmm_kernel_matches_ref_on_gpu(cuda_device, dtype, rtol, E, C, d, f,
     _assert_close(got, want, rtol)
     for e, n in enumerate(sizes or []):  # rows past the group: exactly 0
         assert not got[e, n:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 0.0),
+                                        (torch.bfloat16, 2.0 ** -7)])
+def test_gmm_kernel_prefill_shape_on_gpu(cuda_device, dtype, rtol):
+    """qwen2-moe's prefill shape cut to 4 experts (C 341, d 2048, f 1408),
+    with an empty group, a single row, a partial tile and a full one: bf16
+    takes the wgmma variant; rows past each group are exactly 0."""
+    E, C, d, f = 4, 341, 2048, 1408
+    sizes = [0, 1, 37, 341]
+    rng = np.random.default_rng(16)
+    x = torch.from_numpy(_np(rng, (E, C, d))).to(cuda_device, dtype)
+    w = (torch.from_numpy(_np(rng, (E, d, f))) / d ** 0.5).to(cuda_device, dtype)
+    gs = torch.tensor(sizes, dtype=torch.int32, device=cuda_device)
+    assert cuda_gmm.variant(x, w) == ("wgmma" if dtype == torch.bfloat16
+                                      else "fp32")
+    got = ops.grouped_matmul(x, w, gs)
+    _assert_close(got, ref.grouped_matmul_ref(x, w, gs), rtol)
+    for e, n in enumerate(sizes):
+        assert not got[e, n:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,d,f,offset,want", [
+    (64, 96, 80, 0, "wgmma"),
+    (63, 96, 80, 0, "wmma"),     # fewer rows than one warpgroup's 64
+    (4, 2048, 1408, 0, "wmma"),  # the decode step
+    (64, 36, 80, 0, "wmma"),     # d not a multiple of 8
+    (64, 96, 80, 1, "wmma"),     # x 2 bytes off 16
+])
+def test_gmm_variant_rule_on_gpu(cuda_device, C, d, f, offset, want):
+    """The variant the shape rule names is the one that runs, and each is
+    right (bf16)."""
+    rng = np.random.default_rng(C + d + offset)
+    flat = torch.from_numpy(_np(rng, (2 * C * d + offset,)))
+    x = flat[offset:].reshape(2, C, d).to(cuda_device, torch.bfloat16)
+    if offset:  # the same misalignment on the card
+        buf = torch.empty(2 * C * d + offset, device=cuda_device,
+                          dtype=torch.bfloat16)
+        buf[offset:] = x.reshape(-1)
+        x = buf[offset:].view(2, C, d)
+    w = (torch.from_numpy(_np(rng, (2, d, f))) / d ** 0.5).to(cuda_device,
+                                                           torch.bfloat16)
+    gs = torch.tensor([C, C // 2], dtype=torch.int32, device=cuda_device)
+    assert cuda_gmm.variant(x, w) == want
+    got = ops.grouped_matmul(x, w, gs)
+    _assert_close(got, ref.grouped_matmul_ref(x, w, gs), 2.0 ** -7)
+    assert not got[1, C // 2:].any()
 
 
 @pytest.mark.cuda
