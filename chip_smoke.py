@@ -18,15 +18,17 @@ caught):
    card could take: bytes over 3.35 TB/s or flops over the dtype's peak,
    whichever is larger) and one PyTorch library call as a yardstick
    (SDPA for flash, ``torch.bmm`` for the grouped matmul; none exists for
-   paged decode or the RG-LRU scan).  Attention at qwen3's K=8 and
-   qwen2-moe's K=16; the grouped matmul at qwen2-moe's prefill and decode
-   shapes, with routed group sizes, whose rows past each group must be
-   exactly 0, and the variant that ran at each shape (wgmma for the bf16
-   prefill, wmma for the bf16 decode step, fp32); flash and the grouped
-   matmul also print the host time of one call (TMA descriptors are built
-   on the host per call); the RG-LRU scan at recurrentgemma-9b's prefill
-   shape (8, 512, 4096), a ragged (3, 300, 130) and a long decay
-   (a = 0.999, S = 2048);
+   paged decode or the RG-LRU scan), and the host time of one call
+   (``host_us``) for paged decode, flash and the grouped matmul.  Paged
+   decode at qwen3's K=8 and qwen2-moe's K=16, with ragged row positions
+   and at the served decode's (512-543), and its split count; flash at
+   both K; the grouped matmul at qwen2-moe's prefill and decode shapes
+   (gate/up and down), with routed group sizes, whose rows past each
+   group must be exactly 0, and the variant that ran at each shape
+   (wgmma for the bf16 prefill, skinny for the decode step in both
+   dtypes, fp32 for the fp32 prefill); the
+   RG-LRU scan at recurrentgemma-9b's prefill shape (8, 512, 4096), a
+   ragged (3, 300, 130) and a long decay (a = 0.999, S = 2048);
 4. serve full-width, full-depth qwen3-0.6b (random weights from a seed):
    8 requests, prompt 512, 32 new tokens, 8 slots, page size 16, bf16
    cache, through ``repro_torch.launch.serve.serve``; the launch counters
@@ -93,6 +95,13 @@ GMM_SHAPES = {
     "prefill_gate_up": (64, 341, 2048, 1408),
     "prefill_down": (64, 341, 1408, 2048),
     "decode": (64, 4, 2048, 1408),
+    "decode_down": (64, 4, 1408, 2048),
+}
+# paged decode's row positions: phase 3's ragged set, and the served decode
+# (8 requests of 512-token prompts, 32 new tokens: positions 512-543)
+PAGED_LENGTHS = {
+    "ragged": [543, 530, 512, 400, 287, 100, 16, 0],
+    "served": [512 + 31 * b // 7 for b in range(8)],
 }
 # the RG-LRU scan: (B, S, D, decay) — recurrentgemma-9b's 8 x 512-token
 # prefill at d 4096, a ragged shape, and a decay of 0.999 over 2048 steps
@@ -149,10 +158,33 @@ def host_us(torch, fn, args, iters: int = 40) -> float:
     return t / iters * 1e6
 
 
+def _template_args(mangled: str) -> str:
+    """The template arguments at the start of ``mangled`` (``I...E``), as
+    text: types (``f``, ``13__nv_bfloat16``) and integers (``Li4E``)."""
+    if not mangled.startswith("I"):
+        return ""
+    args, i = [], 1
+    while i < len(mangled) and mangled[i] != "E":
+        m = re.match(r"Li(\d+)E", mangled[i:])
+        if m:
+            args.append(m.group(1))
+            i += m.end()
+        elif mangled[i] == "f":
+            args.append("float")
+            i += 1
+        elif mangled[i].isdigit():
+            n = re.match(r"\d+", mangled[i:]).group(0)
+            args.append(mangled[i + len(n):i + len(n) + int(n)])
+            i += len(n) + int(n)
+        else:
+            return ""
+    return "<" + ",".join(args) + ">"
+
+
 def ptxas_lines(log: str):
     """(function, line) for ptxas's register and spill lines; the function
-    is the kernel's name and its first template argument, read from the
-    mangled name of the entry being compiled."""
+    is the kernel's name and its template arguments, read from the mangled
+    name of the entry being compiled."""
     fn, out = "?", []
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '_ZN([^']+)'", line)
@@ -164,8 +196,7 @@ def ptxas_lines(log: str):
                     j += 1
                 names.append(mangled[j:j + int(mangled[i:j])])
                 i = j + int(mangled[i:j])
-            arg = re.match(r"ILi(\d+)E", mangled[i:])
-            fn = names[-1] + (f"<{arg.group(1)}>" if arg else "")
+            fn = names[-1] + _template_args(mangled[i:])
         elif "registers" in line or "spill" in line:
             out.append((fn, line.split(":", 1)[-1].strip()))
     return out
@@ -195,17 +226,17 @@ def n_copies(torch, per_copy_bytes: int) -> int:
     return max(2, math.ceil(64e6 / max(per_copy_bytes, 1)) + 1)
 
 
-def check_paged(torch, ops, ref, dtype_name: str, K: int) -> dict:
+def check_paged(torch, ops, ref, paged, dtype_name: str, K: int,
+                shape: str) -> dict:
     """Paged decode at the serving paths' shapes: B=8, H=16, K (8 for
-    qwen3, 16 for qwen2-moe), hd=128, ps=16, n_pp=34; ragged lengths,
-    non-contiguous pages, all-trash tails."""
+    qwen3, 16 for qwen2-moe), hd=128, ps=16, n_pp=34; the row positions of
+    ``PAGED_LENGTHS[shape]``, non-contiguous pages, all-trash tails."""
     dt = getattr(torch, dtype_name)
     dev = torch.device("cuda")
     g = torch.Generator(device="cpu").manual_seed(11)
     B, H, hd, ps, n_pp = 8, 16, 128, 16, 34
     P = B * n_pp + 1
-    lengths = torch.tensor([543, 530, 512, 400, 287, 100, 16, 0],
-                           dtype=torch.int32)
+    lengths = torch.tensor(PAGED_LENGTHS[shape], dtype=torch.int32)
     table = (torch.randperm(B * n_pp, generator=g) + 1).to(torch.int32)
     table = table.reshape(B, n_pp)
     for b in range(B):  # pages past the row's position are unmapped: trash
@@ -226,15 +257,18 @@ def check_paged(torch, ops, ref, dtype_name: str, K: int) -> dict:
     sets = [first] + [make() for _ in range(
         n_copies(torch, 2 * first[1].numel() * itemsize) - 1)]
     ms = time_ms(torch, ops.paged_attention, sets)
+    host = host_us(torch, ops.paged_attention, first)
     plain_ms = time_ms(torch, ref.paged_attention_ref, sets, iters=10)
     live = sum(min(int(x) + 1, n_pp * ps) for x in lengths.tolist())
     nbytes = (2 * live * K * hd * itemsize + 2 * B * H * hd * itemsize
               + table.numel() * 4 + B * 4)
     flops = 4.0 * live * H * hd
     bms, bby = bound_ms(nbytes, flops, dtype_name)
+    splits = paged.num_splits(B, K, n_pp, torch.cuda.get_device_properties(
+        0).multi_processor_count, paged.head_groups(H, K))
     return dict(max_abs_err=err, tol=TOL_TEXT[dtype_name], ms=ms,
                 plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
-                library_ms=None)
+                library_ms=None, host_us=host, splits=splits)
 
 
 def check_flash(torch, ops, ref, dtype_name: str, S: int, K: int) -> dict:
@@ -300,7 +334,7 @@ def check_gmm(torch, ops, ref, gmm, dtype_name: str, shape: str) -> dict:
     dt = getattr(torch, dtype_name)
     dev = torch.device("cuda")
     E, C, d, f = GMM_SHAPES[shape]
-    tokens = 8 if shape == "decode" else 4096
+    tokens = 8 if shape.startswith("decode") else 4096
     sizes_np = routed_sizes(60, E, C, tokens, 4, seed=13)
     sizes = torch.as_tensor(sizes_np, dtype=torch.int32, device=dev)
     g = torch.Generator(device=dev).manual_seed(14 + C + d)
@@ -392,14 +426,16 @@ def _line(r: dict) -> str:
             f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']}) library_ms={lib}")
 
 
-def phase_kernels(torch, ops, ref, gmm) -> dict:
+def phase_kernels(torch, ops, ref, gmm, paged) -> dict:
     results = {}
     for dtn in ("bfloat16", "float32"):
-        for K in (8, 16):
-            r = check_paged(torch, ops, ref, dtn, K)
-            log(f"paged_attention {dtn} B=8 H=16 K={K} hd=128 ps=16 "
-                f"n_pp=34: {_line(r)}")
-            results[("paged_attention", dtn, K)] = r
+        for shape in PAGED_LENGTHS:
+            for K in (8, 16):
+                r = check_paged(torch, ops, ref, paged, dtn, K, shape)
+                log(f"paged_attention {dtn} {shape} B=8 H=16 K={K} hd=128 "
+                    f"ps=16 n_pp=34 splits={r['splits']}: {_line(r)} "
+                    f"host_us={r['host_us']:.1f}")
+                results[("paged_attention", dtn, shape, K)] = r
         for S, K in ((512, 8), (300, 8), (512, 16)):
             r = check_flash(torch, ops, ref, dtn, S, K)
             log(f"flash_attention {dtn} B=8 H=16 K={K} S={S} hd=128 causal: "
@@ -511,6 +547,7 @@ def main(argv=None) -> int:
         return 1
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import grouped_matmul as gmm
+    from repro_torch.kernels import paged_attention as paged
 
     # fp32 products in full fp32 on the card, as on the CPU
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -528,7 +565,7 @@ def main(argv=None) -> int:
         for fn, line in ptxas_lines(k.ptxas_log):
             log(f"ptxas {k.name} {fn}: {line}")
 
-    checks = phase_kernels(torch, ops, ref, gmm)
+    checks = phase_kernels(torch, ops, ref, gmm, paged)
     counts = {name: 0 for name in ops.KERNELS}
     if args.only is None:
         from repro_torch.config import get_arch
@@ -551,7 +588,7 @@ def main(argv=None) -> int:
     # bf16 shapes (the grouped matmul at its decode shape, where most of
     # its launches are) with the launches of 4b; the scan at
     # recurrentgemma's fp32 prefill shape (the gates are fp32) with 4c's
-    keys = {"paged_attention": ("paged_attention", "bfloat16", 16),
+    keys = {"paged_attention": ("paged_attention", "bfloat16", "ragged", 16),
             "flash_attention": ("flash_attention", "bfloat16", 512, 16),
             "grouped_matmul": ("grouped_matmul", "bfloat16", "decode"),
             "rglru_scan": ("rglru_scan", "float32", "prefill")}

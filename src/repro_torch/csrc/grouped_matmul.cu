@@ -14,25 +14,37 @@
 // So every variant reads each live expert's weights once and no other's: a
 // block reads sizes[e] itself, and a tile whose first row is past the group
 // writes zeros and exits without touching w[e] — an empty or dead expert
-// costs no weight traffic.  Three variants, chosen by shape in the wrapper
+// costs no weight traffic.  Four variants, chosen by shape in the wrapper
 // (grouped_matmul.py, `variant`), one entry point:
 //
-// wgmma (bf16, C >= 64, d and f multiples of 8, 16-byte aligned x and w:
-// every prefill call of the model).  One block per (128-column f tile,
-// 128-row C tile, expert) with two consumer warpgroups and one producer
-// warp; two blocks fit an SM, so one block's prologue and epilogue overlap
-// the other's products.  The producer streams 64-deep chunks of x (128 x 64,
-// K-major) and w (64 x 128, MN-major) through TMA into a 3-stage ring of
-// 128-byte-swizzled shared memory, guarded by full/empty mbarriers.  x's
-// tensor map is 3-D over (E, C, d), so rows past C read as TMA's zeros and
-// never cross into the next expert.  Each warpgroup multiplies its 64 rows
-// with wgmma m64n128k16 into fp32 registers, one k chunk's group in flight
-// while the previous chunk's stage is released; a warpgroup whose rows all
-// lie past the group skips its products.  The epilogue writes bf16 from
-// the accumulators (zeros for rows in [sizes[e], C)) into a free w stage,
-// with no fp32 staging tile, and TMA stores it.
+// skinny (bf16 or fp32, C <= 16, d and f multiples of 8, 16-byte aligned
+// x and w: every decode step of the model).  At C = 4 a weight byte feeds
+// at most 2 FMAs, so the tensor cores are of no use and the kernel must
+// keep HBM busy.  One block per (128-column tile, expert), 256 threads;
+// each thread owns 8 consecutive columns of one of 16 interleaved slices
+// of d and streams its weights with 16-byte cp.async into an 8-deep ring
+// of its own in shared memory (no block barrier in the stream), while x[e]
+// is staged whole as fp32.  FMAs run on the CUDA cores for the live rows
+// only (read on the device, rounded up to 1, 2, 4, 8, 16), and the slices
+// are summed through shared memory in a fixed tree order: no float atomics,
+// the same bits every run.
 //
-// wmma (bf16 otherwise: decode's C = 4, unaligned shapes).  One block per
+// wgmma (bf16, C >= 64, the same alignment: every prefill call of the
+// model).  One block per (128-column f tile, 128-row C tile, expert) with
+// two consumer warpgroups and one producer warp; two blocks fit an SM, so
+// one block's prologue and epilogue overlap the other's products.  The
+// producer streams 64-deep chunks of x (128 x 64, K-major) and w (64 x
+// 128, MN-major) through TMA into a 3-stage ring of 128-byte-swizzled
+// shared memory, guarded by full/empty mbarriers.  x's tensor map is 3-D
+// over (E, C, d), so rows past C read as TMA's zeros and never cross into
+// the next expert.  Each warpgroup multiplies its 64 rows with wgmma
+// m64n128k16 into fp32 registers, one k chunk's group in flight while the
+// previous chunk's stage is released; a warpgroup whose rows all lie past
+// the group skips its products.  The epilogue writes bf16 from the
+// accumulators (zeros for rows in [sizes[e], C)) into a free w stage, with
+// no fp32 staging tile, and TMA stores it.
+//
+// wmma (bf16 otherwise: 16 < C < 64, unaligned shapes).  One block per
 // (64-column f tile, 64-row C tile, expert); live tiles walk d in 64-deep
 // chunks staged in shared memory, the next chunk's loads in flight in
 // registers while the current one is multiplied; rows past the group are
@@ -40,9 +52,9 @@
 // columns of 16x16x16 wmma fragments with fp32 accumulators; a warp whose
 // strip lies past the group skips its products.
 //
-// fp32: 256 threads with a 4x4 register tile each and fp32 FMAs on the
-// CUDA cores (the tensor cores' fp32 path is TF32, which drops mantissa
-// bits), same tiles as wmma.
+// fp32 (float32 otherwise): 256 threads with a 4x4 register tile each and
+// fp32 FMAs on the CUDA cores (the tensor cores' fp32 path is TF32, which
+// drops mantissa bits), same tiles as wmma.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -251,6 +263,256 @@ __global__ void __launch_bounds__(kThreadsF) gmm_f32_kernel(
   }
 }
 
+// ------------------------------------------------------- skinny (C <= 16)
+
+constexpr int kThreadsS = 256;
+constexpr int kColsS = 128;                   // columns of one block: 16 groups of 8
+constexpr int kGroupsS = kColsS / 8;          // threads that share a d-row
+constexpr int kSlicesS = kThreadsS / kGroupsS;  // 16 interleaved slices of d
+
+// eight consecutive values (16 bytes of bf16, 32 of fp32) as fp32
+__device__ __forceinline__ void unpack8(const uint4 (&u)[1], float (&o)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u[0]);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    o[2 * i] = f.x;
+    o[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void unpack8(const uint4 (&u)[2], float (&o)[8]) {
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    o[4 * c] = __uint_as_float(u[c].x);
+    o[4 * c + 1] = __uint_as_float(u[c].y);
+    o[4 * c + 2] = __uint_as_float(u[c].z);
+    o[4 * c + 3] = __uint_as_float(u[c].w);
+  }
+}
+
+__device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&v)[8]) {
+  uint4 u;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+  *reinterpret_cast<uint4*>(p) = u;
+}
+__device__ __forceinline__ void store8(float* p, const float (&v)[8]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+constexpr int kStagesS = 8;  // d-rows of weights in flight per thread
+constexpr int kRedS = kSlicesS / 2 * kColsS;  // floats per row of the slices' sums
+
+// x[e] as fp32 (or later the slices' partial sums, whichever is larger),
+// then each thread's ring of weight loads
+constexpr size_t skinny_smem(int CM, int d, int itemsize) {
+  return sizeof(float) * (size_t)CM * (d > kRedS ? d : kRedS) +
+         (size_t)kStagesS * kThreadsS * 8 * itemsize;
+}
+
+// The weight stream of one thread: row j of its slice lands in ring stage
+// j % kStagesS while rows j + 1 ... j + kStagesS - 1 are in flight; the
+// first kStagesS - 1 were issued by the caller.  NR rows of x are live.
+template <int NR, int CM, typename T>
+__device__ __forceinline__ void stream_rows(float (&acc)[CM][8], const float* xsl, uint4* ring,
+                                            const T* wc, size_t step, int nk) {
+  using namespace hopper;
+  constexpr int kVec = 8 * (int)sizeof(T) / 16;
+  constexpr int kPerVec = 16 / (int)sizeof(T);
+  for (int j = 0; j < nk; ++j) {
+    const int jn = j + kStagesS - 1;
+    if (jn < nk)
+#pragma unroll
+      for (int v = 0; v < kVec; ++v)
+        cp_async16(ring + (size_t)(jn % kStagesS) * kThreadsS * kVec + v,
+                   wc + jn * step + v * kPerVec);
+    cp_async_commit();
+    cp_async_wait<kStagesS - 1>();  // row j has landed
+    uint4 raw[kVec];
+#pragma unroll
+    for (int v = 0; v < kVec; ++v) raw[v] = ring[(size_t)(j % kStagesS) * kThreadsS * kVec + v];
+    float wv[8];
+    unpack8(raw, wv);
+    const float* xk = xsl + (size_t)j * kSlicesS * CM;  // x[0:CM][k], k = sl + 16 j
+    float xr[NR];
+    if constexpr (NR == 1) {
+      xr[0] = xk[0];
+    } else if constexpr (NR == 2) {
+      const float2 t = *reinterpret_cast<const float2*>(xk);
+      xr[0] = t.x;
+      xr[1] = t.y;
+    } else {
+#pragma unroll
+      for (int r4 = 0; r4 < NR / 4; ++r4) {
+        const float4 t = reinterpret_cast<const float4*>(xk)[r4];
+        xr[4 * r4] = t.x;
+        xr[4 * r4 + 1] = t.y;
+        xr[4 * r4 + 2] = t.z;
+        xr[4 * r4 + 3] = t.w;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < NR; ++i)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[i][c] = fmaf(xr[i], wv[c], acc[i][c]);
+  }
+}
+
+// One block per (128-column tile, expert).  Each thread owns 8 consecutive
+// columns and one of 16 interleaved slices of d.  It keeps kStagesS d-rows
+// of its columns in flight with cp.async into a ring of its own in shared
+// memory (no block barrier: a thread reads only what it copied), while x[e]
+// is staged whole in shared memory as fp32, transposed to [k][row]; then it
+// does 8 fp32 FMAs per live row of x and d-row (the live rows' count is
+// read on the device and rounded up to 1, 2, 4, 8 or 16).  The slices are summed through shared
+// memory in a fixed tree order.
+template <typename T, int CM>
+__global__ void __launch_bounds__(kThreadsS) gmm_skinny_kernel(
+    const T* __restrict__ x,  // (E, C, d), d % 8 == 0, 16-byte aligned
+    const T* __restrict__ w,  // (E, d, f), f % 8 == 0, 16-byte aligned
+    const int* __restrict__ sizes, T* __restrict__ y, int C, int d, int f) {
+  using namespace hopper;
+  constexpr int kVec = 8 * (int)sizeof(T) / 16;  // 16-byte pieces of 8 columns
+  constexpr int kPerVec = 16 / (int)sizeof(T);    // elements per piece
+  const int e = blockIdx.y;
+  const int c0 = blockIdx.x * kColsS;
+  const int tid = threadIdx.x;
+  const int cg = tid % kGroupsS, sl = tid / kGroupsS;
+  const int col = c0 + 8 * cg;
+  const int live = live_rows(sizes, e, C);
+  T* ye = y + (size_t)e * C * f;
+  if (live == 0) {  // an empty group: zeros, no w[e] read
+    const float z[8] = {};
+    for (int r = sl; r < C; r += kSlicesS)
+      if (col < f) store8(ye + (size_t)r * f + col, z);
+    return;
+  }
+  extern __shared__ float4 smem_s[];
+  float* xs = reinterpret_cast<float*>(smem_s);  // [d][CM]; later [slice][CM][kColsS]
+  uint4* ring = reinterpret_cast<uint4*>(xs + (size_t)CM * (d > kRedS ? d : kRedS)) +
+                tid * kVec;  // [stage][thread][kVec]
+  const bool own = col < f;
+  const int nk = own && sl < d ? (d - sl + kSlicesS - 1) / kSlicesS : 0;
+  const T* wc = w + (size_t)e * d * f + col + (size_t)sl * f;
+  const size_t step = (size_t)kSlicesS * f;
+
+  // the first kStagesS - 1 rows are in flight before x is staged
+#pragma unroll
+  for (int j = 0; j < kStagesS - 1; ++j) {
+    if (j < nk)
+#pragma unroll
+      for (int v = 0; v < kVec; ++v)
+        cp_async16(ring + (size_t)j * kThreadsS * kVec + v, wc + j * step + v * kPerVec);
+    cp_async_commit();
+  }
+  const T* xe = x + (size_t)e * C * d;
+  const int nvec = d / kPerVec;  // 16-byte pieces per row of x
+#pragma unroll 4
+  for (int i = tid; i < CM * nvec; i += kThreadsS) {
+    const int r = i / nvec, k = (i - r * nvec) * kPerVec;
+    float v[kPerVec];
+    if (r < live) {
+      const uint4 u = __ldg(reinterpret_cast<const uint4*>(xe + (size_t)r * d + k));
+      if constexpr (kVec == 1) {
+        const uint4 one[1] = {u};
+        unpack8(one, v);
+      } else {
+        v[0] = __uint_as_float(u.x);
+        v[1] = __uint_as_float(u.y);
+        v[2] = __uint_as_float(u.z);
+        v[3] = __uint_as_float(u.w);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kPerVec; ++j) v[j] = 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < kPerVec; ++j) xs[(k + j) * CM + r] = v[j];
+  }
+  __syncthreads();
+
+  float acc[CM][8];
+#pragma unroll
+  for (int r = 0; r < CM; ++r)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[r][j] = 0.f;
+  // FMAs for the live rows only (rounded up to 1, 2, 4, 8, 16)
+  const float* xsl = xs + (size_t)sl * CM;
+  if (live <= 1)
+    stream_rows<1>(acc, xsl, ring, wc, step, nk);
+  else if (live <= 2)
+    stream_rows<2>(acc, xsl, ring, wc, step, nk);
+  else if (CM == 4 || live <= 4)
+    stream_rows<(4 < CM ? 4 : CM)>(acc, xsl, ring, wc, step, nk);
+  else if (CM == 8 || live <= 8)
+    stream_rows<(8 < CM ? 8 : CM)>(acc, xsl, ring, wc, step, nk);
+  else
+    stream_rows<CM>(acc, xsl, ring, wc, step, nk);
+  cp_async_wait<0>();
+
+  // sum the slices in halves (8 + 8, 4 + 4, 2 + 2, 1 + 1), always in this order
+  float* red = xs;
+#pragma unroll
+  for (int half = kSlicesS / 2; half >= 1; half /= 2) {
+    __syncthreads();
+    if (sl >= half && sl < 2 * half)
+#pragma unroll
+      for (int r = 0; r < CM; ++r) {
+        float4* p = reinterpret_cast<float4*>(red + (((sl - half) * CM + r) * kGroupsS + cg) * 8);
+        p[0] = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+        p[1] = make_float4(acc[r][4], acc[r][5], acc[r][6], acc[r][7]);
+      }
+    __syncthreads();
+    if (sl < half)
+#pragma unroll
+      for (int r = 0; r < CM; ++r) {
+        const float4* p = reinterpret_cast<const float4*>(red + ((sl * CM + r) * kGroupsS + cg) * 8);
+        const float4 a = p[0], b = p[1];
+        acc[r][0] += a.x; acc[r][1] += a.y; acc[r][2] += a.z; acc[r][3] += a.w;
+        acc[r][4] += b.x; acc[r][5] += b.y; acc[r][6] += b.z; acc[r][7] += b.w;
+      }
+  }
+  if (sl == 0 && own) {
+#pragma unroll
+    for (int r = 0; r < CM; ++r) {
+      float v[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[j] = r < live ? acc[r][j] : 0.f;  // `_finalize`
+      if (r < C) store8(ye + (size_t)r * f + col, v);
+    }
+  }
+}
+
+template <typename T, int CM>
+cudaError_t launch_skinny_cm(const void* x, const void* w, const int* sizes, void* y, int E,
+                             int C, int d, int f, cudaStream_t s) {
+  const size_t smem = skinny_smem(CM, d, (int)sizeof(T));
+  if (smem > 227 * 1024) return cudaErrorInvalidValue;
+  auto kern = gmm_skinny_kernel<T, CM>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((f + kColsS - 1) / kColsS, E);
+  kern<<<grid, kThreadsS, smem, s>>>(static_cast<const T*>(x), static_cast<const T*>(w), sizes,
+                                     static_cast<T*>(y), C, d, f);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_skinny(const void* x, const void* w, const int* sizes, void* y, int E, int C,
+                          int d, int f, cudaStream_t s) {
+  if (reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(w) % 16 ||
+      reinterpret_cast<uintptr_t>(y) % 16 || d % 8 || f % 8 || C > 16)
+    return cudaErrorInvalidValue;
+  if (C <= 4) return launch_skinny_cm<T, 4>(x, w, sizes, y, E, C, d, f, s);
+  if (C <= 8) return launch_skinny_cm<T, 8>(x, w, sizes, y, E, C, d, f, s);
+  return launch_skinny_cm<T, 16>(x, w, sizes, y, E, C, d, f, s);
+}
+
 // ------------------------------------------------------------ wgmma (bf16)
 
 constexpr int kRowsW = 128;                    // rows of one output tile (64 per warpgroup)
@@ -405,28 +667,32 @@ cudaError_t launch_wgmma(const void* x, const void* w, const int* sizes, void* y
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  mode (bf16 only): 0 = wmma, 1 = wmma
-// with 16-byte loads (x and w 16-byte aligned, d and f multiples of 8),
-// 2 = wgmma (the same, and C >= 64).  Launches on `stream`; returns the
-// launch's cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16.  mode: 0 = wmma (bf16) or the fp32
+// tile kernel, 1 = wmma with 16-byte loads (x and w 16-byte aligned, d and f
+// multiples of 8), 2 = wgmma (bf16, the same, and C >= 64), 3 = skinny
+// (either dtype, the same alignment, and C <= 16).  Launches on `stream`;
+// returns the launch's cudaError_t.
 extern "C" int repro_grouped_matmul(const void* x, const void* w, const int* sizes,
                                     void* y, int E, int C, int d, int f, int dtype,
                                     int mode, void* stream) {
   if (E <= 0 || C <= 0 || f <= 0) return 0;
   const dim3 grid((f + kTile - 1) / kTile, (C + kTile - 1) / kTile, E);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && mode == 2) {
+  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (mode == 3) {
+    return static_cast<int>(
+        dtype == 1 ? launch_skinny<__nv_bfloat16>(x, w, sizes, y, E, C, d, f, s)
+                   : launch_skinny<float>(x, w, sizes, y, E, C, d, f, s));
+  } else if (dtype == 1 && mode == 2) {
     return static_cast<int>(launch_wgmma(x, w, sizes, y, E, C, d, f, s));
   } else if (dtype == 1) {
     gmm_bf16_kernel<<<grid, kThreadsB, 0, s>>>(
         static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
         sizes, static_cast<__nv_bfloat16*>(y), C, d, f, mode);
-  } else if (dtype == 0) {
+  } else {
     gmm_f32_kernel<<<grid, kThreadsF, 0, s>>>(
         static_cast<const float*>(x), static_cast<const float*>(w), sizes,
         static_cast<float*>(y), C, d, f);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }

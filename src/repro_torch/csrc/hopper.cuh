@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
-// TMA tensor maps and loads, and warpgroup matrix multiplies (wgmma), in
-// raw PTX.  Header-only, no CUTLASS/CuTe: nvcc builds a kernel that
-// includes it in seconds.  The build cache (kernels/build.py) hashes every
+// TMA tensor maps and loads, 1-D bulk copies, cp.async, and warpgroup
+// matrix multiplies (wgmma), in raw PTX.  Header-only, no CUTLASS/CuTe:
+// nvcc builds a kernel that includes it in seconds.  The build cache (kernels/build.py) hashes every
 // csrc/*.cuh beside the kernel's own source, so an edit here rebuilds every
 // kernel.
 //
@@ -143,6 +143,35 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// a 1-D bulk copy of `bytes` contiguous bytes (a multiple of 16; both
+// addresses 16-byte aligned) from global into shared memory; no tensor map,
+// so it costs no host work.  Completes on `bar` (announce the bytes first
+// with mbar_expect_tx)
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// 16 bytes from global into shared memory, asynchronously (Ampere's
+// cp.async, bypassing L1); grouped with cp_async_commit and awaited by the
+// issuing thread with cp_async_wait
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// waits until at most N of this thread's groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,

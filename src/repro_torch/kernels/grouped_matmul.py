@@ -33,31 +33,49 @@ KERNEL = CudaKernel(
 
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 WGMMA_MIN_ROWS = 64  # one wgmma warpgroup's rows
+SKINNY_MAX_ROWS = 16  # decode: C = 4 at 8 slots
+MAX_SMEM = 227 * 1024
+
+
+def _skinny_smem(C: int, d: int, itemsize: int) -> int:
+    """Shared memory of the skinny kernel: x[e] as fp32 with C rounded up
+    to 4, 8 or 16 rows (or the partial sums of 128 columns, if larger),
+    and 256 threads' rings of 8 weight rows of 8 columns."""
+    rows = 4 if C <= 4 else 8 if C <= 8 else 16
+    return 4 * rows * max(d, 1024) + 8 * 256 * 8 * itemsize
 
 
 def variant(x: torch.Tensor, w: torch.Tensor) -> str:
     """The kernel variant that runs for x (E,C,d) and w (E,d,f), by shape:
 
-    * ``"wgmma"``: bf16 with C >= 64, d and f multiples of 8 and 16-byte
-      aligned x and w (TMA's rules) — every prefill call of the model;
-    * ``"wmma"``: any other bf16 call (the decode step's C = 4, unaligned
-      shapes);
-    * ``"fp32"``: float32, CUDA-core FMAs.
+    * ``"skinny"``: bf16 or fp32 with C <= 16, d and f multiples of 8 and
+      16-byte aligned x and w — every decode step of the model: each
+      thread streams 8 columns of an expert's weights once, fp32 FMAs;
+    * ``"wgmma"``: bf16 with C >= 64 and the same alignment (TMA's rules)
+      — every prefill call of the model;
+    * ``"wmma"``: any other bf16 call (16 < C < 64, unaligned shapes);
+    * ``"fp32"``: any other float32 call, CUDA-core FMAs on 64 x 64 tiles.
 
     A choice by shape, not a fallback: a variant that fails raises."""
+    mode = _mode(x, w)
+    if mode == 3:
+        return "skinny"
     if x.dtype != torch.bfloat16:
         return "fp32"
-    return "wgmma" if _mode(x, w) == 2 else "wmma"
+    return "wgmma" if mode == 2 else "wmma"
 
 
 def _mode(x: torch.Tensor, w: torch.Tensor) -> int:
-    """The entry point's mode: 2 = wgmma, 1 = wmma with 16-byte loads,
-    0 = wmma with 2-byte loads (or fp32, which ignores it)."""
+    """The entry point's mode: 3 = skinny, 2 = wgmma, 1 = wmma with 16-byte
+    loads, 0 = wmma with 2-byte loads (or the fp32 tile kernel)."""
+    C, d = x.shape[1], x.shape[2]
+    aligned = (d % 8 == 0 and w.shape[2] % 8 == 0
+               and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+    if aligned and C <= SKINNY_MAX_ROWS and _skinny_smem(C, d, x.element_size()) <= MAX_SMEM:
+        return 3
     if x.dtype != torch.bfloat16:
         return 0
-    aligned = (x.shape[2] % 8 == 0 and w.shape[2] % 8 == 0
-               and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
-    return 2 if aligned and x.shape[1] >= WGMMA_MIN_ROWS else int(aligned)
+    return 2 if aligned and C >= WGMMA_MIN_ROWS else int(aligned)
 
 
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor,

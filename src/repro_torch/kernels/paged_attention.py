@@ -1,18 +1,21 @@
 """CUDA paged-decode attention: the wrapper of ``csrc/paged_attention.cu``.
 
 Replaces ``repro/kernels/paged_attention.py:paged_attention`` (the Pallas TPU
-kernel).  The wrapper checks what the kernel takes, allocates the output
-with ``torch.empty`` and launches on the current CUDA stream; the kernel
-is built at first use (:mod:`repro_torch.kernels.build`).  Callers go
-through :func:`repro_torch.kernels.ops.paged_attention`, which sends CPU
-tensors to the plain version instead.
+kernel).  The wrapper checks what the kernel takes, picks the number of
+splits of each row's pages from shapes alone (:func:`num_splits`), allocates
+the output and the splits' fp32 workspace with ``torch.empty`` and launches
+on the current CUDA stream; the kernel is built at first use
+(:mod:`repro_torch.kernels.build`).  Callers go through
+:func:`repro_torch.kernels.ops.paged_attention`, which sends CPU tensors to
+the plain version instead.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -27,10 +30,72 @@ KERNEL = CudaKernel(
     "repro_paged_attention",
     [_P, _P, _P, _P, _P, _P,  # q, k_pool, v_pool, table, lengths, out
      _I, _I, _I, _I, _I, _I, _I,  # B, H, K, hd, ps, n_pp, P
-     ctypes.c_float, _I, _I, _P],  # scale, q dtype, kv dtype, stream
+     ctypes.c_float, _I, _I,  # scale, q dtype, kv dtype
+     _I, _P, _P, _P],  # n_split, workspace, counters, stream
 )
 
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+MAX_HEAD_DIM = 256  # 32 lanes of 8 head dims score one token
+HEADS_PER_BLOCK = 8  # query heads of a KV group per block: csrc kMaxHeads
+BLOCKS_PER_SM = 4  # what the split count aims at
+MAX_SPLITS = 32  # csrc/paged_attention.cu:kMaxSplits
+MAX_SMEM = 227 * 1024
+
+_SM_COUNT: Dict[int, int] = {}
+_COUNTERS: Dict[int, torch.Tensor] = {}
+
+
+def head_groups(H: int, K: int) -> int:
+    """Blocks per (row, KV head) along the query heads: ``rep = H/K`` heads
+    share one block up to ``HEADS_PER_BLOCK``."""
+    return -(-(H // K) // HEADS_PER_BLOCK)
+
+
+def num_splits(B: int, K: int, n_pp: int, sm_count: int,
+               n_hg: int = 1) -> int:
+    """Splits of each row's ``n_pp`` logical pages, from shapes only: enough
+    (row, KV head, head group, split) blocks for ``BLOCKS_PER_SM`` per SM,
+    at most ``MAX_SPLITS`` and one page per split, and no split that would
+    own no page at all."""
+    want = -(-BLOCKS_PER_SM * sm_count // max(B * K * n_hg, 1))
+    s = max(1, min(want, n_pp, MAX_SPLITS))
+    pps = -(-n_pp // s)
+    return -(-n_pp // pps)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(B: int, H: int, K: int, hd: int, ps: int, n_pp: int, P: int,
+          itemsize: int, sm_count: int) -> Tuple[int, int]:
+    """(splits, head groups) of a call, or ValueError for a shape the
+    kernel cannot take; cached per shape (decode repeats a few)."""
+    if hd > MAX_HEAD_DIM:
+        raise ValueError(f"paged_attention: head_dim {hd} > {MAX_HEAD_DIM}")
+    if n_pp == 0 or P == 0:
+        raise ValueError("paged_attention: empty page table or pool")
+    # two stages of K and V slabs (rows padded to 8 dims) must fit
+    if 4 * ps * (-(-hd // 8) * 8) * itemsize > MAX_SMEM - 40 * 1024:
+        raise ValueError(f"paged_attention: pages of {ps} x {hd} do not fit "
+                         f"two shared-memory stages")
+    n_hg = head_groups(H, K)
+    return num_splits(B, K, n_pp, sm_count, n_hg), n_hg
+
+
+def _sm_count(device: torch.device) -> int:
+    if device.index not in _SM_COUNT:
+        _SM_COUNT[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SM_COUNT[device.index]
+
+
+def _counters(device: torch.device, n: int) -> torch.Tensor:
+    """The kernel's per-(row, KV head, head group) split counters: zeros,
+    kept per device and left at zero by every launch.  Launches that share
+    them must not overlap: one stream per device."""
+    c = _COUNTERS.get(device.index)
+    if c is None or c.numel() < n:
+        c = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _COUNTERS[device.index] = c
+    return c
 
 
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -71,10 +136,17 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                          f"unsupported (float32, bfloat16)")
     if v_pool.dtype != k_pool.dtype:
         raise ValueError("paged_attention: k_pool and v_pool dtypes differ")
-    n_pp = page_table.shape[1]
     out = torch.empty_like(q)
     if B == 0:
         return out
+    n_pp = page_table.shape[1]
+    n_split, n_hg = _plan(B, H, K, hd, ps, n_pp, P, k_pool.element_size(),
+                          _sm_count(q.device))
+    ws = cnt = None
+    if n_split > 1:
+        ws = torch.empty(B * H * n_split * (hd + 2), dtype=torch.float32,
+                         device=q.device)
+        cnt = _counters(q.device, B * K * n_hg)
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(hd)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -82,6 +154,8 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
             B, H, K, hd, ps, n_pp, P, scale,
-            DTYPE_CODE[q.dtype], DTYPE_CODE[k_pool.dtype], stream,
+            DTYPE_CODE[q.dtype], DTYPE_CODE[k_pool.dtype], n_split,
+            None if ws is None else ws.data_ptr(),
+            None if cnt is None else cnt.data_ptr(), stream,
         )
     return out

@@ -35,10 +35,10 @@ from torch.profiler import ProfilerActivity, profile
 from ..serving import ServingConfig, ServingSession
 from .serve import _build_requests
 
-# substrings of the kernels' names: flash_fwd_kernel (fp32) and
-# flash_fwd_wgmma_kernel (bf16); gmm_bf16_kernel, gmm_wgmma_kernel and
-# gmm_f32_kernel
-GROUPS = (("paged_attention", "paged_decode_kernel"),
+# substrings of the kernels' names: paged_decode_split_kernel;
+# flash_fwd_kernel (fp32) and flash_fwd_wgmma_kernel (bf16);
+# gmm_bf16_kernel, gmm_wgmma_kernel, gmm_skinny_kernel and gmm_f32_kernel
+GROUPS = (("paged_attention", "paged_decode_split"),
           ("flash_attention", "flash_fwd_"),
           ("grouped_matmul", "gmm_"),
           ("rglru_scan", "rglru_scan_kernel"),

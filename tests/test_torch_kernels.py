@@ -187,18 +187,30 @@ def test_profile_groups_follow_kernel_names():
 @pytest.mark.parametrize("dtype,C,d,f,offset,want", [
     (torch.bfloat16, 341, 2048, 1408, 0, "wgmma"),  # qwen2-moe's prefill
     (torch.bfloat16, 64, 96, 80, 0, "wgmma"),
-    (torch.bfloat16, 4, 2048, 1408, 0, "wmma"),     # its decode step
+    (torch.bfloat16, 4, 2048, 1408, 0, "skinny"),   # its decode step
     (torch.bfloat16, 63, 96, 80, 0, "wmma"),
+    (torch.bfloat16, 16, 96, 80, 0, "skinny"),      # the skinny threshold
+    (torch.bfloat16, 17, 96, 80, 0, "wmma"),
+    (torch.bfloat16, 1, 1408, 2048, 0, "skinny"),
+    (torch.bfloat16, 4, 36, 80, 0, "wmma"),         # skinny needs d % 8
+    (torch.bfloat16, 4, 96, 80, 1, "wmma"),         # and aligned x
+    (torch.bfloat16, 4, 16384, 80, 0, "wmma"),      # x[e] past shared memory
+    (torch.float32, 4, 2048, 1408, 0, "skinny"),
+    (torch.float32, 16, 1408, 2048, 0, "skinny"),
+    (torch.float32, 17, 96, 80, 0, "fp32"),
+    (torch.float32, 4, 96, 44, 0, "fp32"),          # f % 8
     (torch.bfloat16, 64, 36, 80, 0, "wmma"),        # d % 8
     (torch.bfloat16, 64, 96, 44, 0, "wmma"),        # f % 8
     (torch.bfloat16, 64, 96, 80, 1, "wmma"),        # x off 16 bytes
     (torch.float32, 341, 2048, 1408, 0, "fp32"),
 ])
 def test_gmm_variant_rule(dtype, C, d, f, offset, want):
-    """The grouped matmul's variant by shape: wgmma for bf16 with C >= 64,
-    d and f multiples of 8 and 16-byte aligned operands; wmma for any other
-    bf16 call; fp32 for float32 (what the wrapper launches; the tensors
-    here are only measured, never computed on)."""
+    """The grouped matmul's variant by shape: skinny for either dtype with
+    C <= 16, d and f multiples of 8, 16-byte aligned operands and x[e]
+    within shared memory; wgmma for bf16 with C >= 64 and the same
+    alignment; wmma for any other bf16 call; fp32 for any other float32
+    call (what the wrapper launches; the tensors here are only measured,
+    never computed on)."""
     x = torch.empty(2 * C * d + offset, dtype=dtype)[offset:].view(2, C, d)
     w = torch.empty(2, d, f, dtype=dtype)
     assert cuda_gmm.variant(x, w) == want
@@ -259,3 +271,34 @@ def test_gmm_ref_dtypes_match_pallas_kernel(dtype):
     rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
     excess = (got.float() - want).abs() - rtol * want.abs()
     assert float(excess.max()) < 1e-3
+
+
+@pytest.mark.parametrize("B,K,n_pp,sms,n_hg,want", [
+    (8, 8, 34, 132, 1, 9),     # qwen3's decode step: 576 blocks
+    (8, 16, 34, 132, 1, 5),    # qwen2-moe's: 640 blocks
+    (40, 16, 4, 132, 1, 1),    # blocks enough without a split
+    (1, 1, 1, 132, 1, 1),      # one page
+    (2, 1, 200, 132, 1, 29),   # 32 wanted: 7 pages each, so 29 own pages
+    (8, 1, 34, 132, 2, 17),    # two head groups (rep 16)
+    (8, 8, 34, 114, 1, 7),     # another SM count: 8 wanted, 5 pages each
+])
+def test_paged_num_splits_from_shapes(B, K, n_pp, sms, n_hg, want):
+    """The paged kernel's split count is a function of shapes only (the
+    positions lie on the device): about ``BLOCKS_PER_SM`` blocks per SM."""
+    assert cuda_paged.num_splits(B, K, n_pp, sms, n_hg) == want
+
+
+def test_paged_num_splits_every_split_owns_a_page():
+    for B in (1, 3, 8, 40):
+        for K in (1, 2, 8, 16):
+            for n_pp in (1, 2, 5, 34, 100, 513):
+                s = cuda_paged.num_splits(B, K, n_pp, 132)
+                pps = -(-n_pp // s)
+                assert 1 <= s <= min(n_pp, cuda_paged.MAX_SPLITS)
+                assert (s - 1) * pps < n_pp <= s * pps
+
+
+@pytest.mark.parametrize("H,K,want", [(16, 8, 1), (16, 16, 1), (16, 2, 1),
+                                      (16, 1, 2), (24, 2, 2), (8, 1, 1)])
+def test_paged_head_groups(H, K, want):
+    assert cuda_paged.head_groups(H, K) == want

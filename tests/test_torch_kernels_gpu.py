@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.kernels import grouped_matmul as cuda_gmm
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import paged_attention as cuda_paged
 
 
 ATOL = 2e-4
@@ -172,6 +173,225 @@ def test_paged_kernel_matches_ref_on_gpu(cuda_device, dtype, rtol, B, H, K, hd,
     _assert_close(got, want, rtol)
 
 
+# paged decode, split over the pages: (q dtype, kv dtype, rtol) — the
+# output is in q's dtype, so one bf16 ulp only where q is bf16
+PAGED_DTYPES = [(torch.float32, torch.float32, 0.0),
+                (torch.float32, torch.bfloat16, 0.0),
+                (torch.bfloat16, torch.float32, 2.0 ** -7),
+                (torch.bfloat16, torch.bfloat16, 2.0 ** -7)]
+
+
+def _split_case(seed, K, rep, hd, ps, n_pp, dev, q_dt, kv_dt, trash_row=True):
+    """Rows at positions 0, ps-1, ps, on each side of every split boundary
+    and at the last position (all n_pp pages), with distinct scattered
+    pages and trash (page 0) past each row's position; with ``trash_row``
+    one more row whose every page is the trash page."""
+    H = K * rep
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_hg = cuda_paged.head_groups(H, K)
+    pos = [0, ps - 1, ps, n_pp * ps - 1]
+    for _ in range(2):  # the row count moves the split count: settle it
+        B = len(pos) + int(trash_row)
+        n_split = cuda_paged.num_splits(B, K, n_pp, sms, n_hg)
+        pps = -(-n_pp // n_split)
+        bounds = [pps * ps * i + o for i in range(1, n_split) for o in (-1, 0)]
+        pos = sorted({p for p in [0, ps - 1, ps, n_pp * ps - 1] + bounds
+                      if p < n_pp * ps})
+    B = len(pos) + int(trash_row)
+    rng = np.random.default_rng(seed)
+    P = B * n_pp + 1
+    table = (1 + rng.permutation(B * n_pp)).reshape(B, n_pp).astype(np.int32)
+    lengths = np.asarray(pos + [ps + 1] * int(trash_row), np.int32)
+    for b in range(B):
+        table[b, lengths[b] // ps + 1:] = 0
+    if trash_row:
+        table[-1] = 0
+    q = torch.from_numpy(_np(rng, (B, H, hd))).to(dev, q_dt)
+    kp = torch.from_numpy(_np(rng, (P, K, ps, hd))).to(dev, kv_dt)
+    vp = torch.from_numpy(_np(rng, (P, K, ps, hd))).to(dev, kv_dt)
+    return [q, kp, vp, torch.from_numpy(table).to(dev),
+            torch.from_numpy(lengths).to(dev)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dt,kv_dt,rtol", PAGED_DTYPES)
+@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("ps", [8, 16, 32])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_paged_kernel_split_edges_on_gpu(cuda_device, q_dt, kv_dt, rtol, rep,
+                                         ps, hd):
+    """Every position class against the plain version, one launch per
+    call, and the same bits on a second run (the splits are merged in a
+    fixed order)."""
+    args = _split_case(ps + hd + rep, 2, rep, hd, ps, 12, cuda_device, q_dt,
+                       kv_dt)
+    before = ops.launch_counts()["paged_attention"]
+    got = ops.paged_attention(*args)
+    again = ops.paged_attention(*args)
+    assert ops.launch_counts()["paged_attention"] == before + 2
+    assert got.dtype == q_dt and got.shape == args[0].shape
+    _assert_close(got, ref.paged_attention_ref(*args), rtol)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dt,kv_dt,rtol", PAGED_DTYPES)
+@pytest.mark.parametrize("B,K,n_pp", [(4, 2, 1),     # one page: one split
+                                      (40, 16, 4),   # many blocks: one split
+                                      (8, 8, 34),    # qwen3's decode step
+                                      (2, 1, 200)])  # few blocks: many splits
+def test_paged_kernel_split_counts_on_gpu(cuda_device, q_dt, kv_dt, rtol, B,
+                                          K, n_pp):
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    n_split = cuda_paged.num_splits(B, K, n_pp, sms)
+    assert (n_split == 1) == (n_pp == 1
+                              or B * K >= cuda_paged.BLOCKS_PER_SM * sms)
+    q, kp, vp, table, lengths = _paged_inputs(B + n_pp, B, 2 * K, K, 128, 16,
+                                              n_pp)
+    args = [torch.from_numpy(a).to(cuda_device) for a in
+            (q, kp, vp, table, lengths)]
+    args[0] = args[0].to(q_dt)
+    args[1], args[2] = args[1].to(kv_dt), args[2].to(kv_dt)
+    _assert_close(ops.paged_attention(*args), ref.paged_attention_ref(*args),
+                  rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dt,kv_dt,rtol", PAGED_DTYPES)
+def test_paged_kernel_trash_page_never_leaks_on_gpu(cuda_device, q_dt, kv_dt,
+                                                    rtol):
+    """Page 0 full of NaN and inf: no live position reads it, so the output
+    is finite and equals the plain version's on a pool whose page 0 is 0
+    (masked positions weigh exactly 0 either way)."""
+    args = _split_case(21, 2, 2, 128, 16, 12, cuda_device, q_dt, kv_dt,
+                       trash_row=False)
+    clean = [a.clone() for a in args]
+    for pool in (args[1], args[2]):
+        pool[0] = float("nan")
+        pool[0, :, ::2] = float("inf")
+    for pool in (clean[1], clean[2]):
+        pool[0] = 0
+    got = ops.paged_attention(*args)
+    assert bool(torch.isfinite(got).all())
+    _assert_close(got, ref.paged_attention_ref(*clean), rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 0.0),
+                                        (torch.bfloat16, 2.0 ** -7)])
+@pytest.mark.parametrize("hd,ps,offset", [(20, 3, 0),    # slab not 16-byte sized
+                                          (66, 16, 0),   # rows padded per lane
+                                          (17, 5, 0),
+                                          (128, 16, 1)])  # pools off 16 bytes
+def test_paged_kernel_unaligned_slabs_on_gpu(cuda_device, dtype, rtol, hd, ps,
+                                             offset):
+    """Slabs that bulk copies cannot take are copied by the producer warp's
+    lanes: same results."""
+    q, kp, vp, table, lengths = _paged_inputs(30 + hd, 3, 4, 2, hd, ps, 5)
+    args = [torch.from_numpy(a).to(cuda_device) for a in
+            (q, kp, vp, table, lengths)]
+    args[0] = args[0].to(dtype)
+    for i in (1, 2):
+        pool = args[i].to(dtype)
+        if offset:
+            buf = torch.empty(pool.numel() + offset, dtype=dtype,
+                              device=cuda_device)
+            buf[offset:] = pool.reshape(-1)
+            pool = buf[offset:].view(pool.shape)
+        args[i] = pool
+    _assert_close(ops.paged_attention(*args), ref.paged_attention_ref(*args),
+                  rtol)
+
+
+@pytest.mark.cuda
+def test_paged_kernel_rejects_what_it_cannot_take(cuda_device):
+    q = torch.zeros(1, 2, 264, device=cuda_device)
+    pool = torch.zeros(3, 1, 4, 264, device=cuda_device)
+    table = torch.ones(1, 2, dtype=torch.int32, device=cuda_device)
+    pos = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    before = ops.launch_counts()["paged_attention"]
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.paged_attention(q, pool, pool, table, pos)
+    assert ops.launch_counts()["paged_attention"] == before
+
+
+@pytest.mark.cuda
+def test_decode_kernels_replay_in_a_cuda_graph(cuda_device):
+    """Paged decode (split, with its workspace and counters) and the skinny
+    grouped matmul read no device value on the host, so a CUDA graph
+    captures them; a replay on new inputs gives the eager results."""
+    paged_args = _split_case(40, 8, 2, 128, 16, 34, cuda_device,
+                             torch.bfloat16, torch.bfloat16)
+    assert cuda_paged.num_splits(
+        paged_args[0].shape[0], 8, 34,
+        torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    ) > 1
+    rng = np.random.default_rng(41)
+    x = torch.from_numpy(_np(rng, (8, 4, 256))).to(cuda_device, torch.bfloat16)
+    w = torch.from_numpy(_np(rng, (8, 256, 136)) / 16).to(cuda_device,
+                                                          torch.bfloat16)
+    gs = torch.tensor([0, 1, 2, 3, 4, 4, 1, 0], dtype=torch.int32,
+                      device=cuda_device)
+    ops.paged_attention(*paged_args)  # warm: build, plan and counters
+    ops.grouped_matmul(x, w, gs)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out_p = ops.paged_attention(*paged_args)
+        out_g = ops.grouped_matmul(x, w, gs)
+    for t in paged_args[:3] + [x, w]:
+        t.copy_(torch.randn_like(t.float()).to(t.dtype))
+    gs.copy_(torch.tensor([4, 0, 3, 1, 2, 4, 0, 2], dtype=torch.int32))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out_p, ops.paged_attention(*paged_args))
+    assert torch.equal(out_g, ops.grouped_matmul(x, w, gs))
+    _assert_close(out_p, ref.paged_attention_ref(*paged_args), 2.0 ** -7)
+    _assert_close(out_g, ref.grouped_matmul_ref(x, w, gs), 2.0 ** -7)
+
+
+@pytest.mark.cuda
+def test_dense_decode_step_launches_paged_without_host_sync(cuda_device):
+    """A reduced qwen3 decode step over a random paged fp32 cache with
+    kernels on: no host sync (``set_sync_debug_mode("error")`` raises on
+    one), one paged launch per layer, and the CPU's plain path's logits."""
+    from repro_torch.config import ShardingConfig, get_arch, reduced
+    from repro_torch.models import build_model
+
+    cfg = reduced(get_arch("qwen3-0.6b"))
+    sh = ShardingConfig(use_kernels=True)
+    cpu = build_model(cfg, sh, device="cpu").init(5)
+    gpu = build_model(cfg, sh, device="cuda")
+    gpu.load_state(dict(cpu.impl.named_parameters()))
+    g = torch.Generator().manual_seed(8)
+
+    def make(model, dev):
+        cache, _ = model.init_paged_cache(2, 64, n_pages=17, page_size=8,
+                                          cache_dtype=torch.float32)
+        g.manual_seed(8)
+        for st in cache:
+            for v in st.values():
+                v.copy_(torch.randn(v.shape, generator=g).to(dev))
+        return cache
+
+    table = torch.arange(1, 17, dtype=torch.int32).reshape(2, 8)
+    table[0, 2:] = 0
+    pos = torch.tensor([13, 40], dtype=torch.int32)
+    tok = torch.tensor([3, 7])
+    want, _ = cpu.decode_step(tok, make(cpu, "cpu"), pos, pages=table)
+    cache = make(gpu, cuda_device)
+    args = [t.to(cuda_device) for t in (tok, pos, table)]
+    torch.cuda.synchronize()
+    before = ops.launch_counts()["paged_attention"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, _ = gpu.decode_step(args[0], cache, args[1], pages=args[2])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert ops.launch_counts()["paged_attention"] == before + cfg.n_layers
+    _assert_close(got.cpu(), want, 0.0)
+
+
 @pytest.mark.cuda
 def test_paged_scatter_drops_stale_rows_on_gpu(cuda_device):
     """The stale-slot write rule (a position past the page table goes to
@@ -243,10 +463,42 @@ def test_gmm_kernel_prefill_shape_on_gpu(cuda_device, dtype, rtol):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 0.0),
+                                        (torch.bfloat16, 2.0 ** -7)])
+@pytest.mark.parametrize("C", [1, 2, 4, 8, cuda_gmm.SKINNY_MAX_ROWS])
+@pytest.mark.parametrize("d,f", [(2048, 1408),   # decode gate/up
+                                 (1408, 2048),   # decode down
+                                 (200, 200),     # f past a 128-column tile,
+                                                 # d past a 128-row chunk
+                                 (8, 8)])
+def test_gmm_skinny_kernel_on_gpu(cuda_device, dtype, rtol, C, d, f):
+    """The skinny variant (C <= 16) with empty, partial and full groups:
+    within tolerance of the plain version, rows past each group exactly
+    0, one launch per call."""
+    E = 4
+    sizes = [0, max(C // 2, 1), C, C]
+    rng = np.random.default_rng(C * 31 + d)
+    x = torch.from_numpy(_np(rng, (E, C, d))).to(cuda_device, dtype)
+    w = (torch.from_numpy(_np(rng, (E, d, f))) / d ** 0.5).to(cuda_device,
+                                                           dtype)
+    gs = torch.tensor(sizes, dtype=torch.int32, device=cuda_device)
+    assert cuda_gmm.variant(x, w) == "skinny"
+    before = ops.launch_counts()["grouped_matmul"]
+    got = ops.grouped_matmul(x, w, gs)
+    assert ops.launch_counts()["grouped_matmul"] == before + 1
+    assert got.dtype == dtype and got.shape == (E, C, f)
+    _assert_close(got, ref.grouped_matmul_ref(x, w, gs), rtol)
+    for e, n in enumerate(sizes):
+        assert not got[e, n:].any()
+    full = ops.grouped_matmul(x, w)  # no sizes: every group full
+    _assert_close(full, ref.grouped_matmul_ref(x, w), rtol)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("C,d,f,offset,want", [
     (64, 96, 80, 0, "wgmma"),
     (63, 96, 80, 0, "wmma"),     # fewer rows than one warpgroup's 64
-    (4, 2048, 1408, 0, "wmma"),  # the decode step
+    (4, 2048, 1408, 0, "skinny"),  # the decode step
     (64, 36, 80, 0, "wmma"),     # d not a multiple of 8
     (64, 96, 80, 1, "wmma"),     # x 2 bytes off 16
 ])
