@@ -7,7 +7,9 @@
 Phases, one summary line each (any failure exits non-zero, nothing is
 caught):
 
-1. require CUDA; print the card's name and power limit (``nvidia-smi``);
+1. require CUDA and the port's sources beside the script (run alone, the
+   script fails here); print the card's name and power limit
+   (``nvidia-smi``);
 2. build every kernel from ``src/repro_torch/csrc`` (one ``nvcc`` each, in
    parallel) and print the build time and, per compiled kernel function
    (every dtype and head dim), ``ptxas``'s registers, spills and shared
@@ -29,12 +31,28 @@ caught):
    dtypes, fp32 for the fp32 prefill); the
    RG-LRU scan at recurrentgemma-9b's prefill shape (8, 512, 4096), a
    ragged (3, 300, 130) and a long decay (a = 0.999, S = 2048);
+3b. the cost model's spec: bf16 ``torch.matmul`` device times over
+   ``SPEC_SHAPES`` and the host time of launching one small op, each
+   shape's measured time (device + launch) beside
+   ``op_time(..., H100)``, which must agree within 3x; and the spec's
+   four fitted constants refitted to this run's times
+   (``repro_torch/core/costmodel.py`` holds one such fit);
+3c. the planner on the serving path: full-width qwen3-0.6b serves the
+   mix-shift trace of ``tests/test_torch_serving.py`` (three chat
+   requests, a fourth inside the same quantized mix, a code request
+   joining mid-trace and leaving, then the drain; prompts of 300 and 400
+   tokens, so the prefill takes flash) with ``replan="off"`` (first: it
+   carries the warm-up) and ``"mix"``: equal tokens, the replans full,
+   full, hit for the first shifts and none for the churn, the launch
+   counts of phase 4 in each run; each replan's ``planning_seconds`` and
+   the plan's makespan;
 4. serve full-width, full-depth qwen3-0.6b (random weights from a seed):
    8 requests, prompt 512, 32 new tokens, 8 slots, page size 16, bf16
-   cache, through ``repro_torch.launch.serve.serve``; the launch counters
-   are zeroed just before and read just after, and flash launches must
-   equal 28 x prefill calls, paged launches 28 x decode steps, and every
-   other kernel 0;
+   cache, through ``repro_torch.launch.serve.serve`` with its default
+   ``replan="mix"``; the launch counters are zeroed just before and read
+   just after, and flash launches must equal 28 x prefill calls, paged
+   launches 28 x decode steps, and every other kernel 0; tok/s and
+   ``planning_seconds`` (tok/s counts planning time);
 4b. serve full-width, full-depth qwen2-moe-a2.7b the same way: flash
    launches must equal 24 x prefill calls, paged 24 x decode steps,
    grouped matmul 72 x (prefill calls + decode steps), the scan 0;
@@ -56,6 +74,7 @@ caught):
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import re
@@ -110,6 +129,17 @@ SCAN_SHAPES = {
     "ragged": (3, 300, 130, None),
     "long_decay": (1, 2048, 4096, 0.999),
 }
+# the cost model's sweep: bf16 (M, K, N) products from a decode step's few
+# rows to a long prefill's, at a small and a large model's widths
+SPEC_SHAPES = [(m, k, n) for m in (16, 128, 1024, 8192)
+               for k, n in ((1024, 1024), (1024, 4096), (4096, 4096),
+                            (8192, 8192))]
+SPEC_AGREE = 3.0  # op_time within 3x of each measured time
+# the mix-shift trace of tests/test_torch_serving.py with prompts that take
+# flash: (rid, prompt length, new tokens, family, step it is submitted at)
+MIX_TRACE = [(0, 300, 40, "chat", 0), (1, 300, 40, "chat", 0),
+             (2, 300, 40, "chat", 0), (3, 300, 40, "chat", 1),
+             (4, 400, 4, "code", 2)]
 
 
 def log(msg: str) -> None:
@@ -461,6 +491,151 @@ def phase_kernels(torch, ops, ref, gmm, paged) -> dict:
     return results
 
 
+def launch_probe_s(torch, iters: int = 2000) -> float:
+    """Host time of launching one small op (an in-place add on one float),
+    without waiting for the device."""
+    x = torch.zeros(1, device="cuda")
+    for _ in range(100):
+        x.add_(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        x.add_(1)
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / iters
+
+
+def fit_spec(points, peak_flops: float, hbm_bw: float):
+    """(mxu_max_eff, mxu_knee_flops, token_knee) of the cost model's
+    roofline that fit ``points`` ((flops, bytes, tokens, device seconds)
+    per product) best in the least squares of log time, on a grid."""
+    f, b, tok, t = (np.asarray(v, np.float64)[:, None] for v in zip(*points))
+    effs = np.linspace(0.30, 1.00, 71)
+    knees = np.logspace(6.0, 12.0, 61)
+    tknees = np.logspace(0.0, 4.8, 49)
+    grid = np.stack(np.meshgrid(effs, knees, tknees, indexing="ij"),
+                    -1).reshape(-1, 3).T
+    eff = np.maximum(grid[0] * f / (f + grid[1]) * tok / (tok + grid[2]),
+                     1e-3)
+    model = np.maximum(f / (peak_flops * eff), b / hbm_bw)
+    err = ((np.log(model) - np.log(t)) ** 2).sum(0)
+    return tuple(float(v) for v in grid[:, int(np.argmin(err))])
+
+
+def phase_spec(torch, smi: str) -> None:
+    """bf16 ``torch.matmul`` device times over ``SPEC_SHAPES`` and the
+    launch probe, beside the cost model's ``op_time`` under ``H100``."""
+    from repro_torch.core.contraction import MetaOp
+    from repro_torch.core.costmodel import H100, op_time
+    from repro_torch.core.estimator import ParallelConfig
+    from repro_torch.core.graph import OpWorkload
+
+    t_launch = launch_probe_s(torch)
+    g = torch.Generator(device="cuda").manual_seed(16)
+    points, rows = [], []
+    for M, K, N in SPEC_SHAPES:
+        def make():
+            return (torch.randn(M, K, generator=g, device="cuda").to(
+                        torch.bfloat16),
+                    torch.randn(K, N, generator=g, device="cuda").to(
+                        torch.bfloat16))
+        per = 2 * (M * K + K * N)
+        sets = [make() for _ in range(n_copies(torch, per))]
+        dev_s = time_ms(torch, torch.matmul, sets) * 1e-3
+        flops, nbytes = 2.0 * M * K * N, 2.0 * (M * K + K * N + M * N)
+        points.append((flops, nbytes, M, dev_s))
+        meta = MetaOp(meta_id=0, op_type="matmul", task="spec",
+                      component="matmul", op_ids=[0],
+                      workload=OpWorkload(flops=flops, bytes_hbm=nbytes,
+                                          param_bytes=2.0 * K * N,
+                                          act_bytes=2.0 * M * N),
+                      batch_size=M, seq_len=1, param_group=None, max_tp=1)
+        model_s = op_time(meta, ParallelConfig(1, 1), H100)
+        ratio = model_s / (dev_s + t_launch)
+        rows.append(((M, K, N), ratio))
+        log(f"spec matmul bf16 M={M} K={K} N={N}: measured_ms="
+            f"{(dev_s + t_launch) * 1e3:.5f} (device {dev_s * 1e3:.5f} + "
+            f"launch) op_time_ms={model_s * 1e3:.5f} ratio={ratio:.3f} "
+            f"tflops={flops / dev_s / 1e12:.1f}")
+    eff, knee, tknee = fit_spec(points, H100.peak_flops, H100.hbm_bw)
+    log(f"spec fit on {smi}: t_launch={t_launch:.3e} mxu_max_eff={eff:.2f} "
+        f"mxu_knee_flops={knee:.3e} token_knee={tknee:.1f}; committed: "
+        + " ".join(f"{k}={v:g}" for k, v in dataclasses.asdict(H100).items()))
+    bad = [(shape, r) for shape, r in rows
+           if not 1 / SPEC_AGREE <= r <= SPEC_AGREE]
+    if bad:
+        raise AssertionError(f"op_time(H100) off by more than {SPEC_AGREE}x "
+                             f"at (M, K, N) {bad}")
+
+
+def phase_planner(torch, ops, smi: str) -> None:
+    """Full qwen3-0.6b through the mix-shift trace with ``replan="off"``
+    and ``"mix"`` (in that order: the first run carries the model's
+    warm-up): equal tokens, the expected replans, phase 4's launch rule in
+    each run."""
+    from repro_torch.config import default_sharding, get_arch
+    from repro_torch.models import build_model
+    from repro_torch.serving import Request, ServingConfig, ServingSession
+
+    arch = get_arch("qwen3-0.6b")
+    model = build_model(arch, default_sharding(arch, use_kernels=True),
+                        device="cuda").init(0)
+    rng = np.random.default_rng(17)
+    trace = [(rid, rng.integers(0, arch.vocab, (p,)), g, fam, at)
+             for rid, p, g, fam, at in MIX_TRACE]
+    _, per = SERVED["qwen3-0.6b"]
+    tokens, runs = {}, {}
+    for replan in ("off", "mix"):
+        sess = ServingSession(ServingConfig(
+            arch="qwen3-0.6b", reduced_cfg=False, device="cuda",
+            max_slots=8, cache_len=448, page_size=16,
+            cache_dtype="bfloat16", replan=replan), model=model)
+        ops.reset_launch_counts()
+        seen = []
+        while sess.steps < 3 or sess.busy:
+            for rid, toks, g, fam, at in trace:
+                if at == sess.steps:
+                    sess.submit(Request(rid=rid, tokens=toks,
+                                        max_new_tokens=g, family=fam))
+            sess.step()
+            seen.append(len(sess.replans))
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        m = sess.metrics()
+        pf, ds = m["prefill_calls"], m["decode_steps"]
+        want = {name: 0 for name in counts}
+        want.update({name: n * (a * pf + b * ds)
+                     for name, (n, a, b) in per.items()})
+        if counts != want:
+            raise AssertionError(f"planner phase replan={replan}: launch "
+                                 f"counts {counts} != {want}")
+        tokens[replan] = {r: res.tokens for r, res in sess.results.items()}
+        runs[replan] = sess, m, seen
+        log(f"planner qwen3-0.6b full replan={replan}: {m['requests']} "
+            f"requests, prefill_calls={pf} decode_steps={ds} "
+            f"launches={counts}; replans={m['replans']} "
+            f"modes={m['replan_modes']} planning_seconds="
+            f"{m['planning_seconds']} throughput_tok_s="
+            f"{m['throughput_tok_s']} on {smi}")
+    sess, m, seen = runs["mix"]
+    for i, r in enumerate(sess.replans):
+        log(f"planner replan {i}: mode={r.mode} event={r.event.kind} "
+            f"({len(r.events)} events) planning_seconds="
+            f"{r.planning_seconds}")
+    log(f"planner plan: makespan_ms={m['planned_makespan_ms']} "
+        f"steps={len(sess.current_plan.steps)} cache={m['cache']}")
+    modes = [r.mode for r in sess.replans]
+    if seen[:3] != [1, 1, 2] or modes[:3] != ["full", "full", "hit"] or (
+            sess.replans[2].event.kind != "request_completed"):
+        raise AssertionError(f"planner phase: replans after the first "
+                             f"steps {seen[:3]}, modes {modes} (want 1, 1, "
+                             f"2 and full, full, hit)")
+    if tokens["mix"] != tokens["off"] or len(tokens["mix"]) != len(trace):
+        raise AssertionError("planner phase: replan='mix' tokens differ "
+                             "from replan='off'")
+
+
 # arch: (what the log line calls it, {kernel: (layers that launch it,
 # launches per such layer and prefill call, per layer and decode step)});
 # every kernel not named must not be launched at all
@@ -489,8 +664,7 @@ def phase_serve_full(torch, ops, serve, get_arch, smi: str, arch: str) -> dict:
     ops.reset_launch_counts()
     out = serve(arch, reduced_cfg=False, n_requests=8, prompt_len=512,
                 gen_len=32, max_slots=8, page_size=16,
-                cache_dtype="bfloat16", replan="off", device="cuda",
-                seed=0, verbose=True)
+                cache_dtype="bfloat16", device="cuda", seed=0, verbose=True)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -511,6 +685,8 @@ def phase_serve_full(torch, ops, serve, get_arch, smi: str, arch: str) -> dict:
         f"x 32 tokens; prefill_calls={pf} decode_steps={ds} "
         f"launches={counts}; init_seconds={out['init_seconds']} "
         f"throughput_tok_s={out['throughput_tok_s']} "
+        f"planning_seconds={out['planning_seconds']} "
+        f"replans={out['replans']} {out['replan_modes']} "
         f"prefill_seconds={out['prefill_seconds']} "
         f"decode_seconds={out['decode_seconds']} "
         f"peak_mem_bytes={peak} on {smi}")
@@ -545,6 +721,11 @@ def main(argv=None) -> int:
         print("[smoke] FAILED: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 1
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print(f"[smoke] FAILED: the port's sources are not beside the "
+              f"script ({ROOT / 'src' / 'repro_torch'} is missing)",
+              file=sys.stderr)
+        return 1
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import grouped_matmul as gmm
     from repro_torch.kernels import paged_attention as paged
@@ -570,6 +751,9 @@ def main(argv=None) -> int:
     if args.only is None:
         from repro_torch.config import get_arch
         from repro_torch.launch.serve import serve
+
+        phase_spec(torch, smi)
+        phase_planner(torch, ops, smi)
 
         phase_serve_full(torch, ops, serve, get_arch, smi, "qwen3-0.6b")
         moe = phase_serve_full(torch, ops, serve, get_arch, smi,

@@ -42,7 +42,10 @@ MAX_SPLITS = 32  # csrc/paged_attention.cu:kMaxSplits
 MAX_SMEM = 227 * 1024
 
 _SM_COUNT: Dict[int, int] = {}
-_COUNTERS: Dict[int, torch.Tensor] = {}
+#: split counters per (device index, raw CUDA stream), and whether their
+#: zeros were written outside a graph capture; a tensor here is never
+#: replaced or freed while the process lives
+_COUNTERS: Dict[Tuple[int, int], Tuple[torch.Tensor, bool]] = {}
 
 
 def head_groups(H: int, K: int) -> int:
@@ -77,7 +80,11 @@ def _plan(B: int, H: int, K: int, hd: int, ps: int, n_pp: int, P: int,
         raise ValueError(f"paged_attention: pages of {ps} x {hd} do not fit "
                          f"two shared-memory stages")
     n_hg = head_groups(H, K)
-    return num_splits(B, K, n_pp, sm_count, n_hg), n_hg
+    n_split = num_splits(B, K, n_pp, sm_count, n_hg)
+    # a call splits only below BLOCKS_PER_SM * sm_count (row, KV head,
+    # head group) triples, so the counters of _counters always suffice
+    assert n_split == 1 or B * K * n_hg <= BLOCKS_PER_SM * sm_count
+    return n_split, n_hg
 
 
 def _sm_count(device: torch.device) -> int:
@@ -87,14 +94,25 @@ def _sm_count(device: torch.device) -> int:
     return _SM_COUNT[device.index]
 
 
-def _counters(device: torch.device, n: int) -> torch.Tensor:
-    """The kernel's per-(row, KV head, head group) split counters: zeros,
-    kept per device and left at zero by every launch.  Launches that share
-    them must not overlap: one stream per device."""
-    c = _COUNTERS.get(device.index)
-    if c is None or c.numel() < n:
-        c = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _COUNTERS[device.index] = c
+def _counters(device: torch.device, stream: int) -> torch.Tensor:
+    """The kernel's per-(row, KV head, head group) split counters, one for
+    each block a split call can have (``BLOCKS_PER_SM`` per SM, see
+    :func:`_plan`): zeros, left at zero by every launch, kept per (device,
+    stream) so that launches on two streams never share one, and never
+    freed, so a CUDA graph captured with them writes into live memory.
+    Until a launch outside a capture has zeroed them, every capture
+    records its own zero fill, so a graph replayed before any eager launch
+    finds zeros.  A graph keeps the counters of the stream it was captured
+    on: replay it where no launch on that stream runs at the same time."""
+    key = (device.index, stream)
+    entry = _COUNTERS.get(key)
+    if entry is not None and entry[1]:
+        return entry[0]
+    capturing = torch.cuda.is_current_stream_capturing()
+    c = entry[0] if entry is not None else torch.empty(
+        BLOCKS_PER_SM * _sm_count(device), dtype=torch.int32, device=device)
+    c.zero_()  # inside a capture: recorded into the graph, not run
+    _COUNTERS[key] = (c, not capturing)
     return c
 
 
@@ -142,14 +160,14 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     n_pp = page_table.shape[1]
     n_split, n_hg = _plan(B, H, K, hd, ps, n_pp, P, k_pool.element_size(),
                           _sm_count(q.device))
-    ws = cnt = None
-    if n_split > 1:
-        ws = torch.empty(B * H * n_split * (hd + 2), dtype=torch.float32,
-                         device=q.device)
-        cnt = _counters(q.device, B * K * n_hg)
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(hd)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
+        ws = cnt = None
+        if n_split > 1:
+            ws = torch.empty(B * H * n_split * (hd + 2), dtype=torch.float32,
+                             device=q.device)
+            cnt = _counters(q.device, stream)
         KERNEL.launch(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),

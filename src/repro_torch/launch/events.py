@@ -1,16 +1,40 @@
-"""Serving lifecycle events (the part of ``repro/launch/events.py`` that
-serving needs).
+"""Runtime event taxonomy + event sources for the session lifecycle (port of
+``repro/launch/events.py``).
 
-The JAX module also defines the training, straggler, fault and fleet
-events and imports ``repro.ckpt.straggler``; those arrive with the slices
-that raise them.  :class:`RequestQueueSource` drains a request queue's
-buffered events once per serving step.
+The paper's §5.5 dynamicity hook — "the plan is regenerated when the input
+workload changes" — needs the *changes* to arrive as first-class values the
+session can dispatch on:
+
+  * :class:`TaskArrived` / :class:`TaskCompleted` — the multi-task workload
+    shifted (a task joined or finished); the session replans through the
+    :class:`repro_torch.core.plancache.PlanCache`.
+  * :class:`StragglerDetected` / :class:`HostFailed` — slow or dead hosts;
+    the session replans against a shrunken cluster.
+  * :class:`RequestArrived` / :class:`RequestCompleted` — the *serving*
+    workload shifted (an inference request was admitted or finished); the
+    :class:`repro_torch.serving.session.ServingSession` maps the active
+    request mix to a planner workload signature and replans when the mix
+    drifts.
+  * :class:`LeaseChanged`, :class:`JobArrived`, :class:`JobFinished` — the
+    fleet scheduler's events.
+
+Event *sources* are pollable producers the session drains once per step
+(:class:`EventSource` protocol).  :class:`RequestQueueSource` drains the
+request queue's buffered burst; :class:`ScriptedEventSource` replays a
+fixed script.  The JAX module's ``StragglerEventSource`` wraps
+``repro.ckpt.straggler``'s detector; it comes with the bound session and
+the straggler detector (ROADMAP queue 1, item 3).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Any, List
+from dataclasses import dataclass, field
+from typing import Any, List, Optional, Protocol, Tuple, runtime_checkable
+
+
+# --------------------------------------------------------------------------
+# Event taxonomy
+# --------------------------------------------------------------------------
 
 
 @dataclass(frozen=True)
@@ -18,6 +42,51 @@ class Event:
     """Base class for session lifecycle events; ``kind`` keys replan policy."""
 
     kind = "event"
+
+
+@dataclass(frozen=True)
+class TaskArrived(Event):
+    """A new task joined the multi-task workload mid-run."""
+
+    task: str
+    kind = "task_arrived"
+
+
+@dataclass(frozen=True)
+class TaskCompleted(Event):
+    """A task finished (converged / drained) and leaves the workload."""
+
+    task: str
+    kind = "task_completed"
+
+
+@dataclass(frozen=True)
+class StragglerDetected(Event):
+    """Hosts whose median step time exceeds the cluster median threshold."""
+
+    hosts: Tuple[int, ...]
+    kind = "straggler"
+
+
+@dataclass(frozen=True)
+class HostFailed(Event):
+    """Hosts crashed hard — no cooperative snapshot turn was possible.
+
+    Unlike :class:`StragglerDetected` (a *performance* signal: the host is
+    alive, its state is intact, the session snapshots before shrinking),
+    a hard failure loses the host's device state outright: the session
+    must roll back to the last durable snapshot, re-mesh over survivors,
+    and deterministically replay the lost steps (DESIGN.md §17).
+
+    Follows the straggler convention: ``hosts`` carries the FULL
+    currently-dead set, so a transient host that returns is reported by
+    firing again with the smaller set (``transient=True`` marks events
+    from a flap rather than a confirmed permanent crash), and ``()``
+    means every previously-dead host recovered."""
+
+    hosts: Tuple[int, ...]
+    transient: bool = False
+    kind = "host_failed"
 
 
 @dataclass(frozen=True)
@@ -40,13 +109,121 @@ class RequestCompleted(Event):
     kind = "request_completed"
 
 
+@dataclass(frozen=True)
+class LeaseChanged(Event):
+    """An externally-arbitrated device lease replaced the session's cluster.
+
+    Carries the new sub-cluster view (a :class:`repro_torch.core.placement.
+    ClusterSpec`, typically a canonical fleet-lease view with an explicit
+    ``host_map``).  The session replans over it exactly like a topology
+    change — the lease arbiter, not the session, owns which physical
+    devices back the view."""
+
+    cluster: Any  # repro_torch.core.placement.ClusterSpec (kept Any: no dep cycle)
+    kind = "lease_changed"
+
+
+@dataclass(frozen=True)
+class JobArrived(Event):
+    """A job joined the fleet's compound workload (multi-tenant scheduler)."""
+
+    name: str
+    job_kind: str = "train"
+    kind = "job_arrived"
+
+
+@dataclass(frozen=True)
+class JobFinished(Event):
+    """A fleet job drained its workload and released its device lease."""
+
+    name: str
+    kind = "job_finished"
+
+
+EVENT_KINDS = (
+    "task_arrived",
+    "task_completed",
+    "straggler",
+    "host_failed",
+    "request_arrived",
+    "request_completed",
+    "lease_changed",
+    "job_arrived",
+    "job_finished",
+)
+
+
+# --------------------------------------------------------------------------
+# Event sources
+# --------------------------------------------------------------------------
+
+
+@runtime_checkable
+class EventSource(Protocol):
+    """A pollable producer of events, drained once per session step."""
+
+    def poll(self) -> List[Event]:
+        """Return (and clear) any events that fired since the last poll."""
+
+
 @dataclass
 class RequestQueueSource:
-    """Serving request lifecycle as a pollable event source: ``poll``
-    drains the queue's accumulated burst (anything with
-    ``drain_events() -> List[Event]``)."""
+    """Serving request lifecycle as a session event source.
 
-    queue: Any  # repro_torch.serving.queue.RequestQueue (no import cycle)
+    Wraps a :class:`repro_torch.serving.queue.RequestQueue` (duck-typed: anything
+    with ``drain_events() -> List[Event]``).  The queue *notes* one
+    :class:`RequestArrived` per admission and the serving session notes one
+    :class:`RequestCompleted` per eviction; ``poll`` drains the accumulated
+    burst so a whole admission/eviction cycle coalesces into ONE replan
+    (exactly like a phase shift arriving as a burst of task events)."""
+
+    queue: Any  # repro_torch.serving.queue.RequestQueue (avoids an import cycle)
 
     def poll(self) -> List[Event]:
         return self.queue.drain_events()
+
+
+@dataclass
+class ScriptedEventSource:
+    """Deterministic event source for tests/benchmarks.
+
+    Default: a fixed queue drained one event per poll.  With ``fire_at``
+    (one 0-based poll index per event, ascending), each event instead fires
+    on its scheduled poll — a session polls once per training step, so
+    ``fire_at=[4]`` injects the event after step 4 (the fault-injection CI
+    hook: "straggler at step N").
+    """
+
+    events: List[Event]
+    fire_at: Optional[List[int]] = None
+    _polls: int = field(default=0, repr=False)
+
+    def __post_init__(self):
+        # own copies: poll() drains destructively and must not consume a
+        # caller-shared list; a partial schedule would silently strand the
+        # unscheduled tail, so it is an error
+        self.events = list(self.events)
+        if self.fire_at is not None:
+            if len(self.fire_at) != len(self.events):
+                raise ValueError(
+                    f"fire_at schedules {len(self.fire_at)} of "
+                    f"{len(self.events)} events — every event needs a slot"
+                )
+            if sorted(self.fire_at) != list(self.fire_at):
+                raise ValueError(
+                    "fire_at must be ascending — the drain loop only ever "
+                    "inspects the head, an out-of-order schedule would "
+                    "silently shift the scenario"
+                )
+            self.fire_at = list(self.fire_at)
+
+    def poll(self) -> List[Event]:
+        if self.fire_at is None:
+            return [self.events.pop(0)] if self.events else []
+        i = self._polls
+        self._polls += 1
+        out: List[Event] = []
+        while self.events and self.fire_at and self.fire_at[0] <= i:
+            self.fire_at.pop(0)
+            out.append(self.events.pop(0))
+        return out

@@ -13,7 +13,8 @@ Requests are random prompts from ``numpy.random.default_rng(seed + 1)``;
 the weights are random from ``seed``.  KV memory is the paged layout,
 admission prefills are stacked per prompt length (``--no-batched-prefill``
 restores batch-1 joins), and ``--static`` switches to drain-then-refill
-batching.  Runs on the GPU unless ``--device cpu`` is given (``cuda``
+batching.  The session replans on every shift of the request mix
+(``replan="mix"``); ``--no-replan`` plans the first mix only.  Runs on the GPU unless ``--device cpu`` is given (``cuda``
 without a GPU raises).  Exits non-zero when no output tokens were
 generated.
 """
@@ -56,7 +57,7 @@ def serve(
     verbose: bool = True,
     max_slots: Optional[int] = None,
     admission: str = "continuous",
-    replan: str = "off",
+    replan: str = "mix",
     arrival_every: float = 0.0,
     page_size: int = 16,
     kv_pages: int = 0,
@@ -104,7 +105,8 @@ def serve(
             f"[serve] {arch}: {metrics['requests']} requests ({admission} "
             f"batching, replan={replan}) on {session.device} in "
             f"{wall * 1e3:.0f} ms; {b.decode_steps} decode steps at "
-            f"{tps:.0f} tok/s (model init {init_seconds:.1f} s)"
+            f"{tps:.0f} tok/s; {metrics['replans']} replans "
+            f"{metrics['replan_modes']} (model init {init_seconds:.1f} s)"
         )
         print(f"[serve] prefill: {metrics['prefill_calls']} calls in "
               f"{metrics['prefill_seconds']:.4f} s; decode "
@@ -135,6 +137,8 @@ def main() -> None:
                     help="stagger arrivals by N decode steps")
     ap.add_argument("--static", action="store_true",
                     help="classic drain-then-refill batching")
+    ap.add_argument("--no-replan", action="store_true",
+                    help="serve on the initial plan only")
     ap.add_argument("--page-size", type=int, default=16,
                     help="KV page size in token positions")
     ap.add_argument("--kv-pages", type=int, default=0,
@@ -155,6 +159,7 @@ def main() -> None:
         seed=args.seed,
         max_slots=args.slots or None,
         admission="static" if args.static else "continuous",
+        replan="initial" if args.no_replan else "mix",
         arrival_every=args.arrival_every,
         page_size=args.page_size,
         kv_pages=args.kv_pages,

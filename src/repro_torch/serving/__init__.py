@@ -3,8 +3,9 @@
   * :mod:`.queue`   — requests, admission control, lifecycle events.
   * :mod:`.pages`   — the paged-KV allocator (physical pages, trash page 0).
   * :mod:`.batcher` — fixed-slot continuous batcher with stacked prefill.
-  * :mod:`.mix`     — the live request mix, bucketized.
-  * :mod:`.session` — :class:`ServingSession`: admit → decode → evict.
+  * :mod:`.mix`     — the live request mix, bucketized, and its planner tower.
+  * :mod:`.session` — :class:`ServingSession`: admit → decode → evict →
+    replan on mix shifts.
 """
 
 from .batcher import ContinuousBatcher, SlotState

@@ -1,12 +1,22 @@
-"""Active-request-mix tracking (port of ``repro/serving/mix.py``).
+"""Active-request-mix tracking → planner workload signatures (port of
+``repro/serving/mix.py``).
 
-The live mix — which request families are active, at which prompt-length
-buckets, in which counts — reduced to a small deterministic snapshot:
-prompt lengths quantize to power-of-two-ish buckets and per-bucket counts
-optionally to powers of two (hysteresis), so join/evict churn inside a
-steady mix does not move ``MixSnapshot.key``.  The JAX package feeds the
-snapshot to its planner (``tower_from_arch``, ``serving_mix_workload``),
-which is ported with ``replan="mix"``.
+The live mix of a serving session — which request families are active, at
+which prompt-length buckets, in which counts — IS the workload the paper's
+§5.5 dynamicity hook should replan for.  This module reduces that mix to a
+small deterministic snapshot:
+
+  * prompt lengths quantize to power-of-two-ish **buckets** (two requests
+    of 30 and 31 tokens are the same work to the planner), and
+  * per-bucket counts optionally quantize to powers of two as well
+    (**hysteresis**: a 5th identical request joining a 4-slot bucket shifts
+    the signature; a 4th does not), so single join/evict churn inside a
+    steady mix does not thrash the planner.
+
+``MixSnapshot.key`` is the replan trigger (the serving session signals only
+when it changes); the full planner-side identity is the workload signature
+of :func:`repro_torch.core.workloads.serving_mix_workload` over
+``MixSnapshot.counts``, which is what the PlanCache keys plans by.
 """
 
 from __future__ import annotations
@@ -14,6 +24,8 @@ from __future__ import annotations
 import hashlib
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
+
+from ..core.workloads import TowerSpec
 
 #: default prompt-length buckets (smallest bucket ≥ prompt_len wins)
 DEFAULT_PROMPT_BUCKETS = (8, 16, 32, 64, 128, 256, 512, 1024)
@@ -24,6 +36,18 @@ def prompt_bucket(n: int, buckets: Tuple[int, ...] = DEFAULT_PROMPT_BUCKETS) -> 
         if n <= b:
             return b
     return buckets[-1]
+
+
+def tower_from_arch(cfg, seq: int = 128) -> TowerSpec:
+    """Size the serving workload tower from a served ArchConfig."""
+    return TowerSpec(
+        name=cfg.name,
+        n_layers=cfg.n_layers,
+        d_model=cfg.d_model,
+        d_ff=cfg.d_ff or 4 * cfg.d_model,
+        n_heads=cfg.n_heads,
+        seq=seq,
+    )
 
 
 def _pow2(n: int) -> int:
@@ -54,7 +78,7 @@ class MixSnapshot:
 
     @property
     def key(self) -> str:
-        """Deterministic digest — the replan trigger."""
+        """Deterministic digest — the serving session's replan trigger."""
         payload = ";".join(f"{f}/p{b}={c}" for f, b, c in self.counts)
         return hashlib.sha256(payload.encode()).hexdigest()[:16]
 

@@ -1,24 +1,41 @@
-"""ServingSession — continuous batching over a request queue (port of
-``repro/serving/session.py`` with ``replan="off"``).
+"""ServingSession — continuous batching planned through the Spindle lifecycle
+(port of ``repro/serving/session.py``).
 
     session = ServingSession(ServingConfig(arch="qwen3-0.6b"))
     session.submit(Request(rid=0, tokens=prompt, max_new_tokens=16))
     while session.busy:
-        session.step()       # admit → decode one token → evict
+        session.step()       # admit → decode one token → evict → replan?
     results = session.results
 
 Each ``step`` admits queued requests into free batch slots (stacked prefill
-+ page map-in), decodes one token for the whole active batch and evicts
-finished requests, returning their KV pages to the pool.  Admission is
++ page map-in), decodes one token for the whole active batch, evicts
+finished requests (returning their KV pages to the pool), and then drains
+the request lifecycle events (:class:`repro_torch.launch.events.
+RequestQueueSource`).  When the bucketized **mix signature**
+(:class:`repro_torch.serving.mix.MixTracker`) actually changed, the event
+burst is driven through the inner plan-only :class:`repro_torch.session.
+SpindleSession` via ``signal_all`` — one coalesced replan per mix shift,
+planned through the :class:`repro_torch.core.plancache.PlanCache`:
+
+  * an unchanged mix signature never reaches the planner at all,
+  * a recurring mix is an exact-signature cache **hit** (zero planning),
+  * a count/bucket drift inside known families replans **incrementally**,
+  * a NEW family is a structural shift: the session forces a **full**
+    replan (``SpindleSession.incremental = False`` for that turn).
+
+The plan runs on the host and changes no device work: tokens are the same
+under every replan policy.  Replan policies: ``"mix"`` (the above),
+``"initial"`` (plan the first non-empty mix, then serve on the stale plan —
+the ablation baseline), and ``"off"`` (no planner); ``replan_cooldown``
+coalesces bursty mix churn into one planner turn per window.  Admission is
 ``"continuous"`` (join whenever a slot is free) or ``"static"`` (wait until
 the batch drains, then refill).
 
-This slice ports the paged KV layout with reserve admission and no
-planner.  The JAX session's other settings are accepted by name and raise
+This slice ports the paged KV layout with reserve admission.  The JAX
+session's other settings are accepted by name and raise
 ``NotImplementedError`` naming the ROADMAP item that brings them, rather
-than serving quietly in another mode: ``replan="mix"``/``"initial"`` (the
-planner), ``kv_layout="slab"``, ``prefill_chunk > 0``,
-``prefix_sharing`` and ``kv_admission="grow"``.
+than serving quietly in another mode: ``kv_layout="slab"``,
+``prefill_chunk > 0``, ``prefix_sharing`` and ``kv_admission="grow"``.
 """
 
 from __future__ import annotations
@@ -30,16 +47,24 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..config import default_sharding, get_arch, reduced, resolve_device
-from ..launch.events import RequestQueueSource
+from ..core.costmodel import ICI_BW
+from ..core.placement import ClusterSpec
+from ..core.workloads import serving_mix_workload
+from ..launch.events import (
+    Event,
+    LeaseChanged,
+    RequestArrived,
+    RequestQueueSource,
+)
 from ..models import build_model
 from ..models.layers import dtype_of
+from ..session import ReplanRecord, SessionConfig, SpindleSession
 from .batcher import ContinuousBatcher, SlotState
-from .mix import DEFAULT_PROMPT_BUCKETS, MixTracker
+from .mix import DEFAULT_PROMPT_BUCKETS, MixTracker, tower_from_arch
 from .queue import Request, RequestQueue
 
 __all__ = ["RequestResult", "ServingConfig", "ServingSession"]
 
-_PLANNER = "ROADMAP queue 1, item 1 (planner + replan='mix')"
 _KV_PATHS = ("ROADMAP queue 1, item 2 (chunked prefill, prefix sharing and "
              "grow admission)")
 _SLAB = "ROADMAP queue 1, item 4 (slab layout and the other families)"
@@ -71,14 +96,30 @@ class ServingConfig:
     prefill_chunk: int = 0
     max_prompt_len: int = 0  # 0 → cache_len - max_new_tokens
     max_new_tokens: int = 0  # 0 → no per-request generation cap
-    #: "off" is the one policy ported; "mix" | "initial" need the planner
-    replan: str = "off"
+    # planning
+    #: "mix" (replan on mix shifts) | "initial" (plan once, stale after)
+    #: | "off" (no planner at all)
+    replan: str = "mix"
+    #: minimum serving steps between replan turns (0 = replan on every mix
+    #: shift).  Bursty admission churns the quantized mix many times within
+    #: a few steps; a cooldown coalesces those shifts into ONE planner turn
+    #: over the settled mix.
+    replan_cooldown: int = 0
+    planner: str = "spindle"
+    placement_strategy: str = "spindle"
+    #: two 8-card H100 NVLink islands
+    cluster: ClusterSpec = ClusterSpec(
+        n_devices=16, island_size=8, mem_bytes=80e9, intra_island_bw=ICI_BW
+    )
     prompt_buckets: Tuple[int, ...] = DEFAULT_PROMPT_BUCKETS
     quantize_counts: bool = True
+    cache_maxsize: int = 64
 
     def __post_init__(self):
         if self.admission not in ("continuous", "static"):
             raise ValueError(f"unknown admission policy {self.admission!r}")
+        if self.replan_cooldown < 0:
+            raise ValueError("replan_cooldown must be >= 0")
         if self.replan not in ("mix", "initial", "off"):
             raise ValueError(f"unknown replan policy {self.replan!r}")
         if self.kv_layout not in ("paged", "slab"):
@@ -104,7 +145,6 @@ class ServingConfig:
                     f"cache_len or lower the admissibility caps"
                 )
         unported = [
-            (self.replan != "off", f"replan={self.replan!r}", _PLANNER),
             (self.kv_layout == "slab", "kv_layout='slab'", _SLAB),
             (self.prefill_chunk > 0, "prefill_chunk > 0", _KV_PATHS),
             (self.prefix_sharing, "prefix_sharing=True", _KV_PATHS),
@@ -137,10 +177,11 @@ class RequestResult:
 
 
 class ServingSession:
-    """Continuous batching over a request queue."""
+    """Continuous batching over a request queue, replanned per mix shift."""
 
     def __init__(self, config: Optional[ServingConfig] = None, *,
-                 model: Any = None):
+                 model: Any = None, callbacks: Sequence[Any] = (),
+                 plan_cache: Any = None):
         self.config = config or ServingConfig()
         cfg = self.config
         self.device = resolve_device(cfg.device)
@@ -170,6 +211,40 @@ class ServingSession:
             kv_pages=cfg.kv_pages,
             batched_prefill=cfg.batched_prefill,
         )
+        self._tower = tower_from_arch(model.cfg, seq=cfg.cache_len)
+        self.planner_session: Optional[SpindleSession] = None
+        if cfg.replan != "off":
+            # the graph factory holds the mix and the tower, not the
+            # session: no reference cycle keeps a served model alive
+            mix, tower = self.mix, self._tower
+            self.planner_session = SpindleSession(
+                SessionConfig(
+                    cluster=cfg.cluster,
+                    planner=cfg.planner,
+                    placement_strategy=cfg.placement_strategy,
+                    cache_maxsize=cfg.cache_maxsize,
+                    replan_on=(
+                        "request_arrived", "request_completed",
+                        "lease_changed",
+                    ),
+                ),
+                graph_factory=lambda tasks: serving_mix_workload(
+                    mix.snapshot().counts,
+                    tower=tower,
+                    # chunked prefill and prefix sharing are not ported
+                    # (ROADMAP queue 1, item 2): whole-prompt prefill
+                    # towers, no positions served by page mapping
+                    prefill_chunk=0,
+                    prefix_hit_rate=0.0,
+                ),
+                callbacks=callbacks,
+                cache=plan_cache,
+            )
+        self._last_key: Optional[str] = None
+        self._last_families: Optional[Tuple[str, ...]] = None
+        self._event_buf: List[Event] = []
+        self._planned_once = False
+        self._last_replan_step = -(10**9)
         self._t_submit: Dict[int, float] = {}
         self.results: Dict[int, RequestResult] = {}
         self.steps = 0
@@ -178,6 +253,14 @@ class ServingSession:
     @property
     def busy(self) -> bool:
         return self.batcher.n_active > 0 or len(self.queue) > 0
+
+    @property
+    def replans(self) -> List[ReplanRecord]:
+        return self.planner_session.replans if self.planner_session else []
+
+    @property
+    def current_plan(self):
+        return self.planner_session.current_plan if self.planner_session else None
 
     def submit(self, req: Request) -> bool:
         """Admit a request (False = rejected by admission control).
@@ -216,18 +299,32 @@ class ServingSession:
             self.queue.requeue_front(cand[len(slots):])
         except Exception:
             # a group prefill failed mid-admission: earlier groups ARE
-            # resident — keep the mix in sync for them before propagating
+            # resident — sync the mix/event bookkeeping for them before
+            # propagating, or every later snapshot would plan an
+            # undercounted mix
             resident = {s.req.rid for s in self.batcher.slots if s is not None}
-            for req in cand:
-                if req.rid in resident:
-                    self.mix.joined(req.rid)
+            self._note_joined([r for r in cand if r.rid in resident])
             raise
-        for req in joined:
-            self.mix.joined(req.rid)
+        self._note_joined(joined)
         return len(slots)
 
+    def _note_joined(self, reqs: Sequence[Request]) -> None:
+        for req in reqs:
+            if self.mix.is_active(req.rid):
+                continue  # the mix already counts this request
+            self.mix.joined(req.rid)
+            # joining is the mix-changing moment (a queued request's
+            # submit-time arrival event may have drained steps ago without
+            # shifting anything) — feed the replan buffer so a backlog
+            # refilling freed slots still reaches the planner
+            self._event_buf.append(
+                RequestArrived(
+                    rid=req.rid, family=req.family, prompt_len=req.prompt_len
+                )
+            )
+
     def step(self) -> List[SlotState]:
-        """One serving step: admit → decode one token → evict."""
+        """One serving step: admit → decode one token → evict → replan."""
         self._admit()
         finished = self.batcher.step()
         for s in finished:
@@ -243,7 +340,7 @@ class ServingSession:
                 queue_seconds=s.t_join - t0,
             )
         self.steps += 1
-        self.source.poll()  # no planner consumes the lifecycle events yet
+        self._maybe_replan()
         return finished
 
     def run(self, requests: Sequence[Request] = (), *,
@@ -277,11 +374,81 @@ class ServingSession:
             **b.kv_stats(),
             "p50_latency_s": float(np.percentile(lats, 50)) if lats else 0.0,
             "p99_latency_s": float(np.percentile(lats, 99)) if lats else 0.0,
+            "replans": len(self.replans),
+            "replan_modes": [r.mode for r in self.replans],
+            "planning_seconds": sum(r.planning_seconds for r in self.replans),
         }
-        # busy time = prefill + decode; wall additionally counts idle steps
-        # between scripted arrivals, which is trace shape, not serving cost
-        m["busy_seconds"] = m["prefill_seconds"] + m["decode_seconds"]
+        # busy time = the resources the trace actually consumed (prefill +
+        # decode + planning); wall additionally counts idle steps between
+        # scripted arrivals, which is trace shape, not serving cost
+        m["busy_seconds"] = (
+            m["prefill_seconds"] + m["decode_seconds"] + m["planning_seconds"]
+        )
         m["throughput_tok_s"] = out_tokens / max(m["busy_seconds"], 1e-9)
         if wall_seconds is not None:
             m["wall_seconds"] = wall_seconds
+        if self.planner_session is not None:
+            m["cache"] = self.planner_session.cache.stats.as_dict()
+            if self.current_plan is not None:
+                m["planned_makespan_ms"] = self.current_plan.makespan * 1e3
         return m
+
+    def apply_lease(self, cluster: ClusterSpec) -> Optional[ReplanRecord]:
+        """Inject an externally-arbitrated sub-cluster (a fleet lease).
+
+        With live traffic the inner planner session replans the current
+        mix over the new view immediately (one ``LeaseChanged`` turn
+        through the shared PlanCache); with nothing to plan — no mix yet,
+        or a drained queue — the lease is adopted silently and the next
+        mix shift plans over it.  No-op under ``replan="off"``.
+        """
+        ps = self.planner_session
+        if ps is None:
+            return None
+        if not self.mix.snapshot().counts:
+            ps.adopt_cluster(cluster)
+            self._last_key = None  # replan as soon as traffic returns
+            return None
+        ps.signal(LeaseChanged(cluster=cluster))
+        return ps.replans[-1] if ps.replans else None
+
+    # ---------------------------------------------------------------- replan
+    def _maybe_replan(self) -> Optional[ReplanRecord]:
+        """Drain request events (queue arrivals/completions + slot joins);
+        drive the burst through ``session.signal_all`` when the bucketized
+        mix signature actually moved."""
+        self._event_buf.extend(self.source.poll())
+        ps = self.planner_session
+        if ps is None or not self._event_buf:
+            self._event_buf = []
+            return None
+        cd = self.config.replan_cooldown
+        if cd and self.steps - self._last_replan_step < cd:
+            # cooldown: keep buffering — the burst's shifts coalesce into
+            # one planner turn over the settled mix when the window expires
+            return None
+        snap = self.mix.snapshot()
+        if not snap.counts:  # drained: nothing to plan until traffic returns
+            self._last_key = None
+            self._event_buf = []
+            return None
+        if self.config.replan == "initial" and self._planned_once:
+            self._event_buf = []
+            return None
+        if snap.key == self._last_key:
+            self._event_buf = []  # churn inside an unchanged mix: no shift
+            return None
+        new_family = self._last_families is not None and bool(
+            set(snap.families) - set(self._last_families)
+        )
+        self._last_key = snap.key
+        self._last_families = snap.families
+        self._planned_once = True
+        self._last_replan_step = self.steps
+        events, self._event_buf = self._event_buf, []
+        ps.incremental = not new_family  # structural shift → full replan
+        try:
+            ps.signal_all(events)
+        finally:
+            ps.incremental = True
+        return ps.replans[-1] if ps.replans else None

@@ -5,7 +5,7 @@
   in a fresh interpreter).
 * The port's entry points default to the GPU and never fall back: asking
   for ``cuda`` without one raises; every unported serving option raises
-  ``NotImplementedError``.
+  ``NotImplementedError``; the ported ones construct and run.
 * The port's architecture numbers are the JAX package's.
 """
 
@@ -16,6 +16,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -23,7 +24,7 @@ from repro.config import get_arch as jax_get_arch
 from repro.config import reduced as jax_reduced
 from repro_torch.config import ArchConfig, get_arch, reduced, resolve_device
 from repro_torch.models import build_model
-from repro_torch.serving import ServingConfig, ServingSession
+from repro_torch.serving import Request, ServingConfig, ServingSession
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -86,6 +87,17 @@ def test_serving_defaults_to_cuda_and_never_falls_back(monkeypatch):
     {"kv_admission": "grow"},
 ])
 def test_unported_serving_options_raise(kw):
+    if "replan" in kw:  # ported: the session constructs and plans
+        sess = ServingSession(ServingConfig(device="cpu", cache_len=32, **kw))
+        assert sess.planner_session is not None
+        for rid, n in enumerate((8, 20)):
+            sess.submit(Request(rid=rid, tokens=np.arange(n), max_new_tokens=3,
+                                family=f"f{rid}"))
+            sess.step()
+        assert sess.current_plan is not None and sess.current_plan.steps
+        assert [r.mode for r in sess.replans] == (
+            ["full", "full"] if kw["replan"] == "mix" else ["full"])
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServingConfig(device="cpu", **kw)
 

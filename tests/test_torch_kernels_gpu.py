@@ -351,6 +351,109 @@ def test_decode_kernels_replay_in_a_cuda_graph(cuda_device):
 
 
 @pytest.mark.cuda
+def test_paged_counters_survive_a_large_call_under_a_captured_graph(
+        cuda_device):
+    """A graph captured with one stream's split counters replays right
+    after a call on that stream with more (row, KV head) pairs than the
+    counters hold (B 128, K 16: too many blocks to split) and after fresh
+    blocks of the counters' size were handed out: the counter tensor is
+    the one the graph captured, still alive."""
+    stream = torch.cuda.Stream(cuda_device)
+    small = _split_case(50, 8, 2, 128, 16, 34, cuda_device, torch.bfloat16,
+                        torch.bfloat16)
+    with torch.cuda.stream(stream):
+        ops.paged_attention(*small)  # warm: build, plan and counters
+    stream.synchronize()
+    key = (cuda_device.index or 0, stream.cuda_stream)
+    counters = cuda_paged._COUNTERS[key][0]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = ops.paged_attention(*small)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    rng = np.random.default_rng(51)
+    B, K, ps, n_pp = 128, 16, 16, 4
+    assert B * K > counters.numel()
+    big = [torch.from_numpy(_np(rng, shape)).to(cuda_device, torch.bfloat16)
+           for shape in ((B, K, 128), (B * n_pp + 1, K, ps, 128),
+                         (B * n_pp + 1, K, ps, 128))]
+    big += [torch.arange(1, B * n_pp + 1, dtype=torch.int32,
+                         device=cuda_device).reshape(B, n_pp),
+            torch.full((B,), n_pp * ps - 1, dtype=torch.int32,
+                       device=cuda_device)]
+    assert cuda_paged.num_splits(B, K, n_pp, sms) == 1
+    with torch.cuda.stream(stream):
+        got_big = ops.paged_attention(*big)
+        junk = [torch.full((counters.numel(),), 7, dtype=torch.int32,
+                           device=cuda_device) for _ in range(64)]
+    stream.synchronize()
+    _assert_close(got_big, ref.paged_attention_ref(*big), 2.0 ** -7)
+    assert cuda_paged._COUNTERS[key][0] is counters
+    for t in small[:3]:
+        t.copy_(torch.randn_like(t.float()).to(t.dtype))
+    with torch.cuda.stream(stream):
+        graph.replay()
+    stream.synchronize()
+    _assert_close(out, ref.paged_attention_ref(*small), 2.0 ** -7)
+    assert all(int(j.min()) == 7 for j in junk)
+    assert int(counters.abs().max()) == 0
+
+
+@pytest.mark.cuda
+def test_paged_graphs_captured_before_any_eager_launch_replay_in_any_order(
+        cuda_device, monkeypatch):
+    """Two graphs captured on a stream that never ran a launch outside a
+    capture, so its split counters are made inside the first capture:
+    each graph zeroes them at its start, so the second one replayed first,
+    over counters full of garbage, gives the plain version's output, and
+    both leave the counters at zero."""
+    monkeypatch.setattr(cuda_paged, "_COUNTERS", {})
+    cases = [_split_case(70 + i, 8, 2, 128, 16, 34, cuda_device,
+                         torch.bfloat16, torch.bfloat16) for i in range(2)]
+    ops.paged_attention(*cases[0])  # build and plan on another stream
+    torch.cuda.synchronize()
+    stream = torch.cuda.Stream(cuda_device)
+    key = (cuda_device.index or 0, stream.cuda_stream)
+    assert key not in cuda_paged._COUNTERS
+    graphs, outs = [], []
+    for args in cases:
+        graphs.append(torch.cuda.CUDAGraph())
+        with torch.cuda.graph(graphs[-1], stream=stream):
+            outs.append(ops.paged_attention(*args))
+    counters, zeroed = cuda_paged._COUNTERS[key]
+    assert not zeroed
+    with torch.cuda.stream(stream):
+        counters.fill_(7)  # memory nobody wrote
+        graphs[1].replay()
+        graphs[0].replay()
+    stream.synchronize()
+    for args, out in zip(cases, outs):
+        _assert_close(out, ref.paged_attention_ref(*args), 2.0 ** -7)
+    assert int(counters.abs().max()) == 0
+
+
+@pytest.mark.cuda
+def test_paged_split_calls_on_two_streams_at_once(cuda_device):
+    """Split decode calls of one shape enqueued on two streams at once,
+    each many times over: every output is the plain version's (each stream
+    has its own counters, so neither merges the other's splits)."""
+    streams = [torch.cuda.Stream(cuda_device) for _ in range(2)]
+    cases = [_split_case(60 + i, 8, 2, 128, 16, 34, cuda_device,
+                         torch.bfloat16, torch.bfloat16) for i in range(2)]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(20):
+        for i, (st, args) in enumerate(zip(streams, cases)):
+            with torch.cuda.stream(st):
+                outs[i].append(ops.paged_attention(*args))
+    torch.cuda.synchronize()
+    for args, got in zip(cases, outs):
+        want = ref.paged_attention_ref(*args)
+        for o in got:
+            _assert_close(o, want, 2.0 ** -7)
+            assert torch.equal(o, got[0])
+
+
+@pytest.mark.cuda
 def test_dense_decode_step_launches_paged_without_host_sync(cuda_device):
     """A reduced qwen3 decode step over a random paged fp32 cache with
     kernels on: no host sync (``set_sync_debug_mode("error")`` raises on

@@ -1,4 +1,4 @@
-"""The port's serving session against the JAX one (``replan="off"``).
+"""The port's serving session against the JAX one.
 
 The load-bearing contract of ``tests/test_serving.py:95``: a request decoded
 in a shared continuous batch (joined late, neighbours evicted under it,
@@ -16,6 +16,10 @@ step (equal requests, all arriving at once), which is held exactly; the
 staggered trace is held as well, because with 2 slots a decode step's
 capacity (2) covers every row an expert can get.
 """
+
+import dataclasses
+import gc
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -286,6 +290,142 @@ def test_oversized_request_and_bad_policy_fail_fast(models):
         ServingConfig(admission="Static")
     with pytest.raises(ValueError, match="replan"):
         ServingConfig(replan="none")
+
+
+def _mix_shift_trace(sess, make):
+    """tests/test_serving.py:267's trace: three long chat requests, a
+    fourth (churn inside the quantized mix), a short code request joining
+    mid-trace and leaving (the recurring chat-only mix), then the drain.
+    Returns the replan count after each of the first three steps."""
+    seen = []
+    for rid in range(3):
+        sess.submit(make(rid, 6, 40, "chat"))
+    sess.step()
+    seen.append(len(sess.replans))
+    sess.submit(make(3, 6, 40, "chat"))
+    sess.step()
+    seen.append(len(sess.replans))
+    sess.submit(make(4, 20, 4, "code"))
+    sess.step()
+    seen.append(len(sess.replans))
+    while sess.busy:
+        sess.step()
+    return seen
+
+
+def _replan_kinds(sess):
+    return [(r.mode, type(r.event).__name__, r.event.kind,
+             tuple(e.kind for e in r.events)) for r in sess.replans]
+
+
+def test_mix_shift_replans_equal_jax_and_leave_tokens_alone(models):
+    """One replan per mix shift, none for churn, a full replan for a new
+    family and a PlanCache hit for a recurring mix — mode for mode and
+    event kind for event kind the JAX session's on the same trace; the
+    tokens are JAX's, and the same as with ``replan="off"``."""
+    jmodel, params, port = models
+    rng = np.random.default_rng(3)
+    prompts = {rid: rng.integers(0, 256, (n,)).astype(np.int32)
+               for rid, n in enumerate((6, 6, 6, 6, 20))}
+
+    jsess = JaxServingSession(
+        JaxServingConfig(max_slots=8, cache_len=CACHE_LEN, replan="mix",
+                         cache_dtype="float32"),
+        model=jmodel, params=params)
+    jseen = _mix_shift_trace(jsess, lambda rid, p, g, fam: JaxRequest(
+        rid=rid, tokens=jnp.asarray(prompts[rid]), max_new_tokens=g,
+        family=fam))
+    runs = {}
+    for replan in ("mix", "off"):
+        sess = ServingSession(
+            ServingConfig(device="cpu", max_slots=8, cache_len=CACHE_LEN,
+                          replan=replan, cache_dtype="float32"),
+            model=port())
+        seen = _mix_shift_trace(sess, lambda rid, p, g, fam: Request(
+            rid=rid, tokens=prompts[rid], max_new_tokens=g, family=fam))
+        runs[replan] = sess, seen
+    sess, seen = runs["mix"]
+    assert seen == jseen == [1, 1, 2]
+    assert _replan_kinds(sess) == _replan_kinds(jsess)
+    assert [r.mode for r in sess.replans][:3] == ["full", "full", "hit"]
+    assert sess.replans[2].event.kind == "request_completed"
+    m = sess.metrics()
+    assert m["replans"] == len(jsess.replans) and m["cache"]["hits"] >= 1
+    assert m["busy_seconds"] == pytest.approx(
+        m["prefill_seconds"] + m["decode_seconds"] + m["planning_seconds"])
+    assert m["planned_makespan_ms"] > 0
+    tokens = {r: res.tokens for r, res in sess.results.items()}
+    off, _ = runs["off"]
+    assert tokens == {r: res.tokens for r, res in off.results.items()}
+    assert tokens == {r: res.tokens for r, res in jsess.results.items()}
+    assert off.replans == [] and "cache" not in off.metrics()
+
+
+def test_replan_initial_plans_once_and_cooldown_coalesces(models):
+    """``"initial"`` plans the first mix only; a cooldown holds the burst
+    of shifts until its window has passed (tests/test_serving.py's
+    policies, against the JAX session)."""
+    jmodel, params, port = models
+    rng = np.random.default_rng(4)
+    prompts = {rid: rng.integers(0, 256, (n,)).astype(np.int32)
+               for rid, n in enumerate((6, 6, 6, 6, 20))}
+    for kw in (dict(replan="initial"), dict(replan="mix", replan_cooldown=3)):
+        jsess = JaxServingSession(
+            JaxServingConfig(max_slots=8, cache_len=CACHE_LEN,
+                             cache_dtype="float32", **kw),
+            model=jmodel, params=params)
+        _mix_shift_trace(jsess, lambda rid, p, g, fam: JaxRequest(
+            rid=rid, tokens=jnp.asarray(prompts[rid]), max_new_tokens=g,
+            family=fam))
+        sess = ServingSession(
+            ServingConfig(device="cpu", max_slots=8, cache_len=CACHE_LEN,
+                          cache_dtype="float32", **kw),
+            model=port())
+        _mix_shift_trace(sess, lambda rid, p, g, fam: Request(
+            rid=rid, tokens=prompts[rid], max_new_tokens=g, family=fam))
+        assert _replan_kinds(sess) == _replan_kinds(jsess)
+        if kw["replan"] == "initial":
+            assert len(sess.replans) == 1
+
+
+def test_apply_lease_replans_live_traffic(models):
+    """A lease with live traffic replans the current mix over the new view;
+    with nothing to plan it is adopted silently, as in the JAX session."""
+    _, _, port = models
+    sess = ServingSession(
+        ServingConfig(device="cpu", max_slots=4, cache_len=CACHE_LEN),
+        model=port())
+    lease = dataclasses.replace(sess.config.cluster, n_devices=8)
+    assert sess.apply_lease(lease) is None  # no mix yet: adopted
+    assert sess.planner_session.cluster == lease and not sess.replans
+    sess.submit(Request(rid=0, tokens=np.arange(6), max_new_tokens=8))
+    sess.step()
+    assert sess.current_plan.n_devices == 8
+    rec = sess.apply_lease(sess.config.cluster)
+    assert rec is sess.replans[-1] and rec.event.kind == "lease_changed"
+    assert sess.current_plan.n_devices == 16
+    off = ServingSession(ServingConfig(device="cpu", replan="off"),
+                         model=port())
+    assert off.apply_lease(lease) is None and off.current_plan is None
+
+
+def test_served_session_is_freed_without_the_cycle_collector(models):
+    """A replanning session holds no reference cycle: dropped, it frees its
+    model at once (a cycle through the planner's graph factory kept each
+    served model on the card until the collector ran)."""
+    _, _, port = models
+    sess = ServingSession(ServingConfig(device="cpu", max_slots=2,
+                                        cache_len=CACHE_LEN), model=port())
+    sess.submit(Request(rid=0, tokens=np.arange(6), max_new_tokens=4))
+    sess.step()
+    assert sess.replans
+    alive = weakref.ref(sess.model)
+    gc.disable()
+    try:
+        del sess
+        assert alive() is None
+    finally:
+        gc.enable()
 
 
 def test_session_rejects_a_model_on_another_device(models):
