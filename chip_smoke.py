@@ -23,12 +23,16 @@ caught):
    paged decode or the RG-LRU scan), and the host time of one call
    (``host_us``) for paged decode, flash and the grouped matmul.  Paged
    decode at qwen3's K=8 and qwen2-moe's K=16, with ragged row positions
-   and at the served decode's (512-543), and its split count; flash at
-   both K; the grouped matmul at qwen2-moe's prefill and decode shapes
-   (gate/up and down), with routed group sizes, whose rows past each
-   group must be exactly 0, and the variant that ran at each shape
-   (wgmma for the bf16 prefill, skinny for the decode step in both
-   dtypes, fp32 for the fp32 prefill); the
+   and at the served decode's (512-543), and at K=8 at phase 4d's decode
+   step (16 rows of 100 pages, positions 1536-1599, two rows prefilling
+   with all-trash tables), and its split count; flash at both K; the
+   grouped matmul at qwen2-moe's prefill and decode shapes (gate/up and
+   down), with routed group sizes, whose rows past each group must be
+   exactly 0, and the variant that ran at each shape (wgmma for the bf16
+   prefill, skinny for the decode step in both dtypes, fp32 for the fp32
+   prefill), and at a chunked prefill's capacities (phase 4e's 8 rows x
+   256 tokens: C 170, gate/up and down, wgmma in bf16; one row x 256
+   tokens: C 21, wmma); the
    RG-LRU scan at recurrentgemma-9b's prefill shape (8, 512, 4096), a
    ragged (3, 300, 130) and a long decay (a = 0.999, S = 2048);
 3b. the cost model's spec: bf16 ``torch.matmul`` device times over
@@ -60,11 +64,34 @@ caught):
    scan launches must equal 26 (its rglru layers of 38) x prefill calls,
    and flash, paged and grouped matmul 0 (its 12 local-attention layers
    run no kernel);
+4d. chunked prefill, prefix sharing and grow admission at full width:
+   full qwen3-0.6b serves 16 requests in 16 slots, arriving at once, each
+   a 1,536-token prompt (a 1,000-token shared prefix, not a multiple of
+   the page size, and a 536-token private suffix) and 64 new tokens, in
+   256-token chunks at duty 1.0 — (a) with sharing and grow admission,
+   (b) without sharing, reserve admission, each after a 2-token warm-up
+   run of its own (so neither carries the first calls at the chunks'
+   shapes).  Flash launches 0 (every admission is a chunk job), paged 28
+   x decode steps, the rest 0 in each run; in (a) chunk steps, interleaved chunks and grown pages > 0, the
+   hit rate 15 x 1,000 / (16 x 1,536), 15 forks and the index's shared
+   maps; (a)'s page high-water below (b)'s; tokens in the vocabulary;
+4e. full qwen2-moe-a2.7b chunked through ``serve``: 8 requests x
+   512-token prompts x 16 new tokens in 256-token chunks, one job (C 170):
+   flash 0, paged 24 x decode steps, grouped matmul 72 x (chunk steps +
+   decode steps), the scan 0;
 5. serve the reduced qwen3 in fp32 from one seed on ``cuda`` and on ``cpu``
    and require identical tokens (the kernels against the plain path);
 5b. the same for the reduced qwen2-moe (4 requests in 4 slots, all live);
 5c. the same for the reduced recurrentgemma (prompt 300 > its 64-token
    window: the prefill's roll and the circular decode buffers run);
+5d. the reduced qwen3 in fp32 on the shared-prefix bursty trace of
+   ``tests/test_serving.py`` (two bursts of five chat and two code
+   requests) with 8-token chunks, sharing and grow admission in a pool
+   small enough to pause or preempt: identical tokens and identical chunk
+   steps, forks, shared maps, grown pages, paused steps and preemptions
+   on ``cuda`` and ``cpu``;
+5e. the reduced qwen2-moe chunked (4 requests x 40-token prompts in one
+   job of 16-token chunks): identical tokens on ``cuda`` and ``cpu``;
 6. print a ``{"kernels": [...]}`` line (attention and grouped matmul at
    qwen2-moe's shapes with phase 4b's launches, the scan at recurrentgemma's
    fp32 prefill shape with phase 4c's), the ``nvidia-smi`` line, and last
@@ -108,19 +135,29 @@ SOURCES = {
     "rglru_scan": ("src/repro_torch/csrc/rglru_scan.cu",
                    "src/repro/kernels/rglru_scan.py:72"),
 }
-# qwen2-moe-a2.7b's expert products: (E, C, d, f) with C the capacity of an
-# 8 x 512-token prefill (341) and of an 8-slot decode step (4)
+# qwen2-moe-a2.7b's expert products: (E, C, d, f, tokens routed) with C the
+# capacity of one call's tokens: an 8 x 512-token prefill (341), an 8-slot
+# decode step (4), phase 4e's chunk step of 8 rows x 256 tokens (170) and
+# one row's 256-token chunk (21)
 GMM_SHAPES = {
-    "prefill_gate_up": (64, 341, 2048, 1408),
-    "prefill_down": (64, 341, 1408, 2048),
-    "decode": (64, 4, 2048, 1408),
-    "decode_down": (64, 4, 1408, 2048),
+    "prefill_gate_up": (64, 341, 2048, 1408, 4096),
+    "prefill_down": (64, 341, 1408, 2048, 4096),
+    "decode": (64, 4, 2048, 1408, 8),
+    "decode_down": (64, 4, 1408, 2048, 8),
+    "chunk_gate_up": (64, 170, 2048, 1408, 2048),
+    "chunk_down": (64, 170, 1408, 2048, 2048),
+    "chunk_row": (64, 21, 2048, 1408, 256),
 }
-# paged decode's row positions: phase 3's ragged set, and the served decode
-# (8 requests of 512-token prompts, 32 new tokens: positions 512-543)
-PAGED_LENGTHS = {
-    "ragged": [543, 530, 512, 400, 287, 100, 16, 0],
-    "served": [512 + 31 * b // 7 for b in range(8)],
+# paged decode: (rows, pages per row, row positions, rows whose table is all
+# trash, KV heads): phase 3's ragged set and the served decode (8 requests
+# of 512-token prompts, 32 new tokens: positions 512-543) at qwen3's and
+# qwen2-moe's K; phase 4d's decode step (16 rows of 1,536-token prompts and
+# 64 new tokens: positions 1536-1599, two rows prefilling) at qwen3's
+PAGED_CASES = {
+    "ragged": (8, 34, [543, 530, 512, 400, 287, 100, 16, 0], (), (8, 16)),
+    "served": (8, 34, [512 + 31 * b // 7 for b in range(8)], (), (8, 16)),
+    "chunked": (16, 100, [1536 + 63 * b // 15 for b in range(16)], (5, 12),
+                (8,)),
 }
 # the RG-LRU scan: (B, S, D, decay) — recurrentgemma-9b's 8 x 512-token
 # prefill at d 4096, a ragged shape, and a decay of 0.999 over 2048 steps
@@ -258,19 +295,22 @@ def n_copies(torch, per_copy_bytes: int) -> int:
 
 def check_paged(torch, ops, ref, paged, dtype_name: str, K: int,
                 shape: str) -> dict:
-    """Paged decode at the serving paths' shapes: B=8, H=16, K (8 for
-    qwen3, 16 for qwen2-moe), hd=128, ps=16, n_pp=34; the row positions of
-    ``PAGED_LENGTHS[shape]``, non-contiguous pages, all-trash tails."""
+    """Paged decode at the serving paths' shapes: H=16, K (8 for qwen3, 16
+    for qwen2-moe), hd=128, ps=16, and the rows, pages per row, positions
+    and all-trash rows of ``PAGED_CASES[shape]``; non-contiguous pages,
+    all-trash tails."""
     dt = getattr(torch, dtype_name)
     dev = torch.device("cuda")
     g = torch.Generator(device="cpu").manual_seed(11)
-    B, H, hd, ps, n_pp = 8, 16, 128, 16, 34
+    B, n_pp, positions, trash_rows, _ = PAGED_CASES[shape]
+    H, hd, ps = 16, 128, 16
     P = B * n_pp + 1
-    lengths = torch.tensor(PAGED_LENGTHS[shape], dtype=torch.int32)
+    lengths = torch.tensor(positions, dtype=torch.int32)
     table = (torch.randperm(B * n_pp, generator=g) + 1).to(torch.int32)
     table = table.reshape(B, n_pp)
     for b in range(B):  # pages past the row's position are unmapped: trash
         table[b, int(lengths[b]) // ps + 1:] = 0
+    table[list(trash_rows)] = 0  # prefilling rows: every page the trash page
     table, lengths = table.to(dev), lengths.to(dev)
 
     def make():
@@ -363,8 +403,7 @@ def check_gmm(torch, ops, ref, gmm, dtype_name: str, shape: str) -> dict:
     0.  w is drawn as the model draws it, N(0, 1/d_in)."""
     dt = getattr(torch, dtype_name)
     dev = torch.device("cuda")
-    E, C, d, f = GMM_SHAPES[shape]
-    tokens = 8 if shape.startswith("decode") else 4096
+    E, C, d, f, tokens = GMM_SHAPES[shape]
     sizes_np = routed_sizes(60, E, C, tokens, 4, seed=13)
     sizes = torch.as_tensor(sizes_np, dtype=torch.int32, device=dev)
     g = torch.Generator(device=dev).manual_seed(14 + C + d)
@@ -459,11 +498,12 @@ def _line(r: dict) -> str:
 def phase_kernels(torch, ops, ref, gmm, paged) -> dict:
     results = {}
     for dtn in ("bfloat16", "float32"):
-        for shape in PAGED_LENGTHS:
-            for K in (8, 16):
+        for shape, (B, n_pp, _, trash_rows, Ks) in PAGED_CASES.items():
+            for K in Ks:
                 r = check_paged(torch, ops, ref, paged, dtn, K, shape)
-                log(f"paged_attention {dtn} {shape} B=8 H=16 K={K} hd=128 "
-                    f"ps=16 n_pp=34 splits={r['splits']}: {_line(r)} "
+                log(f"paged_attention {dtn} {shape} B={B} H=16 K={K} hd=128 "
+                    f"ps=16 n_pp={n_pp} all_trash_rows={list(trash_rows)} "
+                    f"splits={r['splits']}: {_line(r)} "
                     f"host_us={r['host_us']:.1f}")
                 results[("paged_attention", dtn, shape, K)] = r
         for S, K in ((512, 8), (300, 8), (512, 16)):
@@ -471,10 +511,10 @@ def phase_kernels(torch, ops, ref, gmm, paged) -> dict:
             log(f"flash_attention {dtn} B=8 H=16 K={K} S={S} hd=128 causal: "
                 f"{_line(r)} host_us={r['host_us']:.1f}")
             results[("flash_attention", dtn, S, K)] = r
-        for shape, (E, C, d, f) in GMM_SHAPES.items():
+        for shape, (E, C, d, f, tokens) in GMM_SHAPES.items():
             r = check_gmm(torch, ops, ref, gmm, dtn, shape)
             log(f"grouped_matmul {dtn} {shape} E={E} C={C} d={d} f={f} "
-                f"({r['live_rows']} live rows in {r['nonempty']} groups): "
+                f"({tokens} tokens routed: {r['live_rows']} live rows in {r['nonempty']} groups): "
                 f"variant={r['variant']} {_line(r)} "
                 f"host_us={r['host_us']:.1f}")
             results[("grouped_matmul", dtn, shape)] = r
@@ -709,6 +749,184 @@ def phase_cpu_parity(torch, serve, arch: str) -> None:
         f"== cpu tokens ({cpu.numel()} tokens)")
 
 
+def check_launches(what: str, counts: dict, per: dict, calls: dict) -> None:
+    """``counts`` must be ``layers x (a x chunk steps + b x decode steps)``
+    for each kernel ``name: (layers, a, b)`` of ``per`` (``calls`` holds the
+    run's chunk and decode steps), at least one launch each, and 0 for
+    every other kernel."""
+    cs, ds = calls["chunk_steps"], calls["decode_steps"]
+    want = {name: 0 for name in counts}
+    want.update({name: n * (a * cs + b * ds)
+                 for name, (n, a, b) in per.items()})
+    if counts != want or min(want[name] for name in per) <= 0:
+        raise AssertionError(f"{what}: launch counts {counts} != {want} "
+                             f"(chunk steps {cs}, decode steps {ds})")
+
+
+# phase 4d: the shared-prefix trace at full width
+SHARED_TRACE = dict(n_requests=16, prompt_len=1536, shared_prefix=1000,
+                    gen_len=64, prefill_chunk=256)
+
+
+def phase_chunked_full(torch, ops, serve, get_arch, smi: str) -> None:
+    """Full qwen3-0.6b on :data:`SHARED_TRACE`: (a) prefix sharing with grow
+    admission, (b) no sharing, reserve admission.  Every admission is a
+    chunk job: no flash launch, paged decode in every decode layer."""
+    t = SHARED_TRACE
+    vocab = get_arch("qwen3-0.6b").vocab
+    configs = (("a", dict(prefix_sharing=True, kv_admission="grow")),
+               ("b", dict(prefix_sharing=False, kv_admission="reserve")))
+    # a warm-up of each run with 2 new tokens: the chunks' shapes reach the
+    # process once before either measured run, so (a) does not carry them
+    for _, kw in configs:
+        serve("qwen3-0.6b", reduced_cfg=False, max_slots=16, page_size=16,
+              prefill_duty=1.0, cache_dtype="bfloat16", device="cuda",
+              seed=0, verbose=False, **{**t, "gen_len": 2}, **kw)
+    runs = {}
+    for name, kw in configs:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        out = serve("qwen3-0.6b", reduced_cfg=False, max_slots=16,
+                    page_size=16, prefill_duty=1.0, cache_dtype="bfloat16",
+                    device="cuda", seed=0, verbose=True, **t, **kw)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        check_launches(f"4d ({name})", counts,
+                       {"paged_attention": (28, 0, 1)}, out)
+        toks = out["tokens"]
+        if tuple(toks.shape) != (t["n_requests"], t["gen_len"]) or not bool(
+                ((toks >= 0) & (toks < vocab)).all()):
+            raise AssertionError(f"4d ({name}): tokens of shape "
+                                 f"{tuple(toks.shape)} or out of the vocab")
+        runs[name] = out
+        log(f"chunked qwen3-0.6b full ({name}: {kw}): {out['requests']} "
+            f"requests x {t['prompt_len']} prompt ({t['shared_prefix']} "
+            f"shared) x {t['gen_len']} new; chunk_steps={out['chunk_steps']} "
+            f"interleaved_chunks={out['interleaved_chunks']} prefill_calls="
+            f"{out['prefill_calls']} decode_steps={out['decode_steps']} "
+            f"launches={counts}; prefill_seconds={out['prefill_seconds']} "
+            f"decode_seconds={out['decode_seconds']} planning_seconds="
+            f"{out['planning_seconds']} throughput_tok_s="
+            f"{out['throughput_tok_s']} kv_page_hw={out['kv_page_hw']} "
+            f"kv_page_hw_tokens={out['kv_page_hw_tokens']} "
+            f"kv_grow_allocs={out['kv_grow_allocs']} prefix_hit_rate="
+            f"{out.get('prefix_hit_rate')} kv_cow_forks="
+            f"{out.get('kv_cow_forks')} kv_shared_maps="
+            f"{out.get('kv_shared_maps')} peak_mem_bytes={peak} "
+            f"replans={out['replans']} {out['replan_modes']} on {smi}")
+    a, b = runs["a"], runs["b"]
+    n, ps = t["n_requests"], 16
+    pages = t["prompt_len"] // ps  # the prompt's full pages
+    matched = t["shared_prefix"] // ps  # whole shared pages per sharer
+    # the index takes one hold per new node (the donor's prompt pages, then
+    # each sharer's pages past the divergence), each a shared map, beside
+    # the sharers' read-shared map-ins
+    want_maps = (n - 1) * matched + pages + (n - 1) * (pages - matched)
+    want_rate = (n - 1) * t["shared_prefix"] / (n * t["prompt_len"])
+    if not (a["chunk_steps"] > 0 and a["interleaved_chunks"] > 0
+            and a["kv_grow_allocs"] > 0
+            and a["prefix_hit_rate"] == want_rate
+            and a["kv_cow_forks"] == n - 1
+            and a["kv_shared_maps"] == want_maps
+            and a["kv_page_hw"] < b["kv_page_hw"]):
+        raise AssertionError(
+            f"4d: sharing run {a['chunk_steps']} chunk steps, "
+            f"{a['interleaved_chunks']} interleaved, {a['kv_grow_allocs']} "
+            f"grown, hit rate {a['prefix_hit_rate']} (want {want_rate}), "
+            f"{a['kv_cow_forks']} forks (want {n - 1}), "
+            f"{a['kv_shared_maps']} shared maps (want {want_maps}), page "
+            f"high-water {a['kv_page_hw']} vs {b['kv_page_hw']} unshared")
+
+
+def phase_moe_chunked(torch, ops, serve, get_arch, smi: str) -> None:
+    """Full qwen2-moe-a2.7b, 8 x 512-token prompts in 256-token chunks, all
+    in one job: the grouped matmul at the chunks' capacity."""
+    vocab = get_arch("qwen2-moe-a2.7b").vocab
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    m = serve("qwen2-moe-a2.7b", reduced_cfg=False, n_requests=8,
+              prompt_len=512, gen_len=16, prefill_chunk=256, page_size=16,
+              cache_dtype="bfloat16", device="cuda", seed=0, verbose=True)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    check_launches("4e", counts, {"paged_attention": (24, 0, 1),
+                                  "grouped_matmul": (24, 3, 3)}, m)
+    toks = m["tokens"]
+    if tuple(toks.shape) != (8, 16) or not bool(
+            ((toks >= 0) & (toks < vocab)).all()):
+        raise AssertionError("4e: expected 8 x 16 tokens in the vocabulary")
+    log(f"chunked qwen2-moe-a2.7b full: 8 requests x 512 prompt x 16 new, "
+        f"chunk 256; chunk_steps={m['chunk_steps']} decode_steps="
+        f"{m['decode_steps']} launches={counts}; init_seconds="
+        f"{m['init_seconds']} "
+        f"prefill_seconds={m['prefill_seconds']} decode_seconds="
+        f"{m['decode_seconds']} planning_seconds={m['planning_seconds']} "
+        f"throughput_tok_s={m['throughput_tok_s']} "
+        f"peak_mem_bytes={torch.cuda.max_memory_allocated()} "
+        f"replans={m['replans']} {m['replan_modes']} on {smi}")
+
+
+def shared_prefix_trace(seed: int = 17):
+    """The bursty shared-prefix trace of ``tests/test_serving.py``: two
+    bursts, 10 steps apart, of five chat requests (a 16-token shared
+    prefix and a 4-token suffix) and two code requests (a 20-token prefix,
+    which ends mid-page, and 4), 10 new tokens each: (rid, tokens, new
+    tokens, family, arrival)."""
+    rng = np.random.default_rng(seed)
+    chat, code = rng.integers(0, 256, (16,)), rng.integers(0, 256, (20,))
+    out = []
+    for burst in range(2):
+        for fam, prefix in (("chat", chat),) * 5 + (("code", code),) * 2:
+            out.append((len(out), np.concatenate(
+                [prefix, rng.integers(0, 256, (4,))]), 10, fam,
+                float(10 * burst)))
+    return out
+
+
+# what must agree between cuda and cpu in phases 5d and 5e
+CHUNK_COUNTERS = ("chunk_steps", "interleaved_chunks", "decode_steps",
+                  "kv_cow_forks", "kv_shared_maps", "kv_grow_allocs",
+                  "kv_grow_defers", "kv_preemptions", "kv_page_hw")
+
+
+def phase_chunk_parity(torch, arch: str) -> None:
+    """Reduced ``arch`` in fp32 from one seed, chunked, on ``cuda`` and on
+    ``cpu``: identical tokens and counters.  qwen3: the shared-prefix
+    trace with sharing and grow admission in a pool of 12 pages, which
+    pauses and preempts; qwen2-moe: four equal prompts in one job, so no
+    row decodes while another prefills (MoE rows share expert capacity)."""
+    from repro_torch.serving import Request, ServingConfig, ServingSession
+
+    if arch == "qwen3-0.6b":
+        trace = shared_prefix_trace()
+        cfg = dict(max_slots=6, cache_len=48, page_size=8, prefill_chunk=8,
+                   prefix_sharing=True, kv_admission="grow", kv_pages=12)
+    else:
+        rng = np.random.default_rng(19)
+        trace = [(i, rng.integers(0, 256, (40,)), 8, "chat", 0.0)
+                 for i in range(4)]
+        cfg = dict(max_slots=4, cache_len=48, page_size=8, prefill_chunk=16)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        sess = ServingSession(ServingConfig(
+            arch=arch, device=dev, seed=3, cache_dtype="float32",
+            replan="off", **cfg))
+        m = sess.run([Request(rid=r, tokens=t, max_new_tokens=g, family=f,
+                              arrival=a) for r, t, g, f, a in trace],
+                     max_steps=1000)
+        out[dev] = ({r: res.tokens for r, res in sess.results.items()},
+                    {k: m.get(k) for k in CHUNK_COUNTERS})
+    if out["cuda"] != out["cpu"] or len(out["cpu"][0]) != len(trace):
+        raise AssertionError(f"reduced {arch} chunked fp32 differs cuda vs "
+                             f"cpu:\n{out['cuda']}\n{out['cpu']}")
+    log(f"reduced {arch} fp32 chunked ({cfg}): cuda tokens == cpu tokens "
+        f"({sum(map(len, out['cpu'][0].values()))} tokens), counters "
+        f"{out['cpu'][1]}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("kernels",), default=None,
@@ -764,9 +982,13 @@ def main(argv=None) -> int:
                        ("paged_attention", "flash_attention",
                         "grouped_matmul")})
         counts["rglru_scan"] = hybrid["rglru_scan"]
+        phase_chunked_full(torch, ops, serve, get_arch, smi)
+        phase_moe_chunked(torch, ops, serve, get_arch, smi)
         phase_cpu_parity(torch, serve, "qwen3-0.6b")
         phase_cpu_parity(torch, serve, "qwen2-moe-a2.7b")
         phase_cpu_parity(torch, serve, "recurrentgemma-9b")
+        phase_chunk_parity(torch, "qwen3-0.6b")
+        phase_chunk_parity(torch, "qwen2-moe-a2.7b")
 
     # one row per kernel: attention and the grouped matmul at qwen2-moe's
     # bf16 shapes (the grouped matmul at its decode shape, where most of

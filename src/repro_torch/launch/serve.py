@@ -8,15 +8,25 @@
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch recurrentgemma-9b --prompt-len 512 --gen-len 32  # hybrid
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
+        --prefix-smoke --shared-prefix 16 --prefill-chunk 8 --page-size 8
 
-Requests are random prompts from ``numpy.random.default_rng(seed + 1)``;
-the weights are random from ``seed``.  KV memory is the paged layout,
-admission prefills are stacked per prompt length (``--no-batched-prefill``
-restores batch-1 joins), and ``--static`` switches to drain-then-refill
-batching.  The session replans on every shift of the request mix
-(``replan="mix"``); ``--no-replan`` plans the first mix only.  Runs on the GPU unless ``--device cpu`` is given (``cuda``
-without a GPU raises).  Exits non-zero when no output tokens were
-generated.
+Requests are random prompts from ``numpy.random.default_rng(seed + 1)``
+(``--shared-prefix N`` gives them all the same first N tokens, drawn from
+the same generator after the prompts); the weights are random from
+``seed``.  KV memory is the paged layout, admission prefills are stacked
+per prompt length (``--no-batched-prefill`` restores batch-1 joins),
+``--prefill-chunk N`` streams long prompts into the page pool in N-token
+chunks interleaved with decode steps (``--prefill-duty`` sets the
+chunk:decode duty cycle), ``--prefix-sharing`` maps hot prompt prefixes
+through the radix index, ``--kv-admission grow`` maps pages as decode
+writes them, and ``--static`` switches to drain-then-refill batching.  The
+session replans on every shift of the request mix (``replan="mix"``);
+``--no-replan`` plans the first mix only.  ``--prefix-smoke`` serves one
+shared-prefix trace with and without sharing and fails unless sharing
+hit, shrank the KV high-water and left every token as it was.  Runs on
+the GPU unless ``--device cpu`` is given (``cuda`` without a GPU raises).
+Exits non-zero when no output tokens were generated.
 """
 
 from __future__ import annotations
@@ -33,16 +43,21 @@ from ..serving import Request, ServingConfig, ServingSession
 
 
 def _build_requests(vocab: int, *, n_requests: int, prompt_len: int,
-                    gen_len: int, seed: int, arrival_every: float) -> list:
+                    gen_len: int, seed: int, arrival_every: float,
+                    shared_prefix: int = 0) -> list:
     rng = np.random.default_rng(seed + 1)
+    prompts = [rng.integers(0, vocab, size=(prompt_len,), dtype=np.int64)
+               for _ in range(n_requests)]
+    if shared_prefix:
+        # every request opens with the same system-prompt-like prefix and
+        # diverges into a private suffix — the prefix-sharing workload
+        prefix = rng.integers(0, vocab, size=(shared_prefix,), dtype=np.int64)
+        prompts = [np.concatenate([prefix, p[shared_prefix:]])
+                   for p in prompts]
     return [
-        Request(
-            rid=i,
-            tokens=rng.integers(0, vocab, size=(prompt_len,), dtype=np.int64),
-            max_new_tokens=gen_len,
-            arrival=i * arrival_every,
-        )
-        for i in range(n_requests)
+        Request(rid=i, tokens=toks, max_new_tokens=gen_len,
+                arrival=i * arrival_every)
+        for i, toks in enumerate(prompts)
     ]
 
 
@@ -61,7 +76,12 @@ def serve(
     arrival_every: float = 0.0,
     page_size: int = 16,
     kv_pages: int = 0,
+    prefill_chunk: int = 0,
+    prefill_duty: float = 1.0,
     batched_prefill: bool = True,
+    prefix_sharing: bool = False,
+    kv_admission: str = "reserve",
+    shared_prefix: int = 0,
     cache_dtype: str = "bfloat16",
     device: str = "cuda",
 ) -> Dict[str, Any]:
@@ -80,7 +100,11 @@ def serve(
             replan=replan,
             page_size=page_size,
             kv_pages=kv_pages,
+            prefill_chunk=prefill_chunk,
+            prefill_duty=prefill_duty,
             batched_prefill=batched_prefill,
+            prefix_sharing=prefix_sharing,
+            kv_admission=kv_admission,
             cache_dtype=cache_dtype,
         )
     )
@@ -88,7 +112,7 @@ def serve(
     reqs = _build_requests(
         session.model.cfg.vocab, n_requests=n_requests,
         prompt_len=prompt_len, gen_len=gen_len, seed=seed,
-        arrival_every=arrival_every,
+        arrival_every=arrival_every, shared_prefix=shared_prefix,
     )
     t0 = time.perf_counter()
     metrics = session.run(reqs)
@@ -108,19 +132,72 @@ def serve(
             f"{tps:.0f} tok/s; {metrics['replans']} replans "
             f"{metrics['replan_modes']} (model init {init_seconds:.1f} s)"
         )
-        print(f"[serve] prefill: {metrics['prefill_calls']} calls in "
-              f"{metrics['prefill_seconds']:.4f} s; decode "
-              f"{metrics['decode_seconds']:.4f} s")
+        print(f"[serve] prefill: {metrics['prefill_calls']} calls "
+              f"({b.chunk_steps} chunk steps, {b.interleaved_chunks} "
+              f"interleaved with decode) in {metrics['prefill_seconds']:.4f}"
+              f" s; decode {metrics['decode_seconds']:.4f} s")
         print(
             f"[serve] kv pages: high-water {metrics['kv_page_hw_tokens']} "
             f"tokens over a {metrics['kv_slab_tokens']}-token slab footprint "
             f"({100 * metrics['kv_mem_saving']:.0f}% saved)"
         )
+        if metrics.get("prefix_sharing"):
+            print(
+                f"[serve] prefix sharing: prefix_hit_rate="
+                f"{metrics['prefix_hit_rate']:.3f} "
+                f"({metrics['prefix_hits']}/{metrics['prefix_requests']} "
+                f"requests, {metrics['prefix_hit_tokens']} tokens mapped); "
+                f"kv_compression={metrics['kv_compression']:.2f}x, "
+                f"{metrics['kv_shared_maps']} shared maps, "
+                f"{metrics['kv_cow_forks']} cow forks"
+            )
+        if metrics["kv_admission"] == "grow":
+            print(
+                f"[serve] grow admission: {metrics['kv_grow_allocs']} "
+                f"pages grown, {metrics['kv_grow_defers']} paused steps, "
+                f"{metrics['kv_preemptions']} preemptions"
+            )
         sample = out_tokens[0][:12].tolist() if len(done) else []
         print(f"[serve] generated {metrics['output_tokens']} tokens; "
               f"sample: {sample}")
     return {"arch": arch, "tokens": out_tokens, "init_seconds": init_seconds,
             **metrics}
+
+
+def prefix_smoke(args) -> int:
+    """Serve one shared-prefix trace twice — shared (grow admission) and the
+    unshared paged baseline — and fail unless sharing actually hit
+    (``prefix_hit_rate > 0``), its KV high-water came in strictly below the
+    unshared run, and the generated tokens are EXACTLY the baseline's (an
+    fp32 cache pins the arithmetic)."""
+    common = dict(
+        reduced_cfg=args.reduced,
+        n_requests=args.requests,
+        prompt_len=args.prompt_len,
+        gen_len=args.gen_len,
+        seed=args.seed,
+        max_slots=args.slots or None,
+        replan="off",
+        page_size=args.page_size,
+        prefill_chunk=args.prefill_chunk,
+        shared_prefix=args.shared_prefix,
+        cache_dtype="float32",
+        device=args.device,
+    )
+    base = serve(args.arch, **common)
+    shared = serve(args.arch, prefix_sharing=True, kv_admission="grow",
+                   **common)
+    exact = torch.equal(base["tokens"], shared["tokens"])
+    hit = shared.get("prefix_hit_rate", 0.0)
+    hw_base, hw_shared = base["kv_page_hw"], shared["kv_page_hw"]
+    print(
+        f"[prefix-smoke] prefix_hit_rate={hit:.3f} "
+        f"kv_page_hw shared={hw_shared} unshared={hw_base} "
+        f"token_exact={exact}"
+    )
+    ok = exact and hit > 0 and hw_shared < hw_base
+    print(f"[prefix-smoke] {'PASSED' if ok else 'FAILED'}")
+    return 0 if ok else 1
 
 
 def main() -> None:
@@ -143,13 +220,33 @@ def main() -> None:
                     help="KV page size in token positions")
     ap.add_argument("--kv-pages", type=int, default=0,
                     help="physical page budget (0 = full coverage)")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="chunk long prompts into N-token prefill chunks "
+                         "interleaved with decode (0 = one-shot)")
+    ap.add_argument("--prefill-duty", type=float, default=1.0,
+                    help="prefill chunks allowed per decode step")
     ap.add_argument("--no-batched-prefill", action="store_true",
                     help="batch-1 admission prefills")
+    ap.add_argument("--prefix-sharing", action="store_true",
+                    help="map hot prompt prefixes through the radix index "
+                         "instead of re-prefilling them")
+    ap.add_argument("--kv-admission", choices=("reserve", "grow"),
+                    default="reserve",
+                    help="page admission: reserve the full reach up front, "
+                         "or grow pages as decode writes them")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="give every request the same first N prompt tokens")
+    ap.add_argument("--prefix-smoke", action="store_true",
+                    help="serve a shared-prefix trace with and without "
+                         "sharing; fail unless hits > 0, the KV high-water "
+                         "shrinks, and tokens match exactly")
     ap.add_argument("--cache-dtype", choices=("bfloat16", "float32"),
                     default="bfloat16")
     ap.add_argument("--device", default="cuda",
                     help="cuda (hand-written kernels) or cpu (plain PyTorch)")
     args = ap.parse_args()
+    if args.prefix_smoke:
+        sys.exit(prefix_smoke(args))
     out = serve(
         args.arch,
         reduced_cfg=args.reduced,
@@ -163,7 +260,12 @@ def main() -> None:
         arrival_every=args.arrival_every,
         page_size=args.page_size,
         kv_pages=args.kv_pages,
+        prefill_chunk=args.prefill_chunk,
+        prefill_duty=args.prefill_duty,
         batched_prefill=not args.no_batched_prefill,
+        prefix_sharing=args.prefix_sharing,
+        kv_admission=args.kv_admission,
+        shared_prefix=args.shared_prefix,
         cache_dtype=args.cache_dtype,
         device=args.device,
     )

@@ -5,14 +5,16 @@ Port of ``repro/models/attention.py``: ``naive_attention`` (with its
 window mask), ``local_attention``, ``attn_apply`` (with the JAX dispatch
 rule: the flash kernel when kernels are on, ``window == 0`` and ``S >
 256``; ``local_attention`` when kernels are on, ``window > 0`` and ``S >
-256``; naive otherwise), ``paged_gather``, ``page_slots``/``paged_scatter``
-and two branches of ``attn_decode``: the paged one (the paged-decode
-kernel when kernels are on, the reference gather otherwise) and the slab
-one of a local layer, a circular buffer of the last ``W`` tokens per row.
-The chunked path, full-attention slab decode and cross-attention come
-with the slices that use them.  The JAX code is functional and returns new
-caches; here ``paged_scatter`` and the circular write update the caches in
-place (``index_put_``), where the JAX decode step donates them.
+256``; naive otherwise), ``paged_gather``, ``page_slots``/``paged_scatter``,
+two branches of ``attn_decode`` — the paged one (the paged-decode kernel
+when kernels are on, the reference gather otherwise) and the slab one of a
+local layer, a circular buffer of the last ``W`` tokens per row — and
+``attn_prefill_chunk``, one chunk of a chunked prefill against the page
+pool (plain PyTorch, as the JAX one is plain XLA).  Full-attention slab
+decode and cross-attention come with the slices that use them.  The JAX
+code is functional and returns new caches; here ``paged_scatter``, the
+chunk's scatter and the circular write update the caches in place
+(``index_put_``), where the JAX decode step donates them.
 """
 
 from __future__ import annotations
@@ -279,3 +281,57 @@ def attn_decode(
     out = out.reshape(B, 1, n_heads * head_dim)
     y = out.to(torch.promote_types(out.dtype, wo.dtype)) @ wo
     return y, cache_k, cache_v
+
+
+def attn_prefill_chunk(
+    params,
+    x,
+    pool_k,
+    pool_v,
+    page_table,
+    pos0: int,
+    *,
+    n_heads: int,
+    n_kv: int,
+    head_dim: int,
+    rope_theta: float,
+    qk_norm: bool = False,
+):
+    """One prefill chunk against a paged cache (JAX ``attn_prefill_chunk``).
+
+    x (B, C, d) holds the chunk's embeddings for positions ``pos0 ..
+    pos0+C-1`` (the same ``pos0`` for every row: a chunk job's rows share
+    one prompt length and advance in lockstep).  The chunk's K/V is
+    scattered into the pools in place through ``page_table[:, pos //
+    page_size]``, then the whole prefix ``[0, pos0+C)`` is gathered back
+    and scored with :func:`naive_attention` at ``q_offset=pos0`` — so with
+    a lossless cache dtype the last chunk's outputs equal a one-shot
+    prefill's.  Returns (y (B, C, d), pool_k, pool_v)."""
+    B, C, _ = x.shape
+    ps = pool_k.shape[2]
+    seen = pos0 + C  # prefix length after this chunk
+    q = _split_heads(x @ params["wq"], n_heads, head_dim)  # (B,C,H,hd)
+    k = _split_heads(x @ params["wk"], n_kv, head_dim)
+    v = _split_heads(x @ params["wv"], n_kv, head_dim)
+    if qk_norm:
+        q, k = rms_normalize(q), rms_normalize(k)
+    pos = (pos0 + torch.arange(C, device=x.device))[None, :]
+    if rope_theta > 0:
+        q = apply_rope(q, pos, rope_theta)
+        k = apply_rope(k, pos, rope_theta)
+
+    # scatter the chunk through the page tables (all C positions at once)
+    pg = page_table.long()[:, pos[0] // ps]  # (B, C)
+    off = (pos[0] % ps).expand(B, C)
+    pool_k[pg, :, off, :] = k.to(pool_k.dtype)
+    pool_v[pg, :, off, :] = v.to(pool_v.dtype)
+
+    # gather the prefix (past chunks + this one) back into the slab layout
+    n_need = -(-seen // ps)
+    kf = paged_gather(pool_k, page_table[:, :n_need])[:, :, :seen]
+    vf = paged_gather(pool_v, page_table[:, :n_need])[:, :, :seen]
+    kf = _repeat_kv(kf.transpose(1, 2).to(x.dtype), n_heads)
+    vf = _repeat_kv(vf.transpose(1, 2).to(x.dtype), n_heads)
+    out = naive_attention(q, kf, vf, causal=True, q_offset=pos0)
+    y = out.reshape(B, C, n_heads * head_dim) @ params["wo"]
+    return y, pool_k, pool_v

@@ -49,8 +49,17 @@ class Model(nn.Module):
             cache_dtype=cache_dtype,
         )
 
+    @property
+    def supports_chunked_prefill(self) -> bool:
+        """Chunked prefill rebuilds attention state from the KV pool chunk
+        by chunk — only all-attention stacks qualify."""
+        return self.impl.supports_chunked_prefill
+
     def decode_step(self, token, cache, pos, *, pages=None):
         return self.impl.decode_step(token, cache, pos, pages=pages)
+
+    def prefill_chunk(self, tokens, cache, pos0: int, *, pages):
+        return self.impl.prefill_chunk(tokens, cache, pos0, pages=pages)
 
 
 def build_model(cfg: ArchConfig, shcfg: Optional[ShardingConfig] = None, *,

@@ -48,7 +48,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import ArchConfig, ShardingConfig
-from .attention import attn_apply, attn_decode, page_slots
+from .attention import (attn_apply, attn_decode, attn_prefill_chunk,
+                        page_slots)
 from .layers import dtype_of, embed_lookup, mlp_apply, rmsnorm
 from .moe import moe_apply
 from .paging import paginate_cache
@@ -238,6 +239,23 @@ def _layer_decode(p: Block, x_t, state, pos, cfg: ArchConfig, kind: str,
     return h, state
 
 
+def _layer_chunk(p: Block, x, pool, page_table, pos0: int, cfg: ArchConfig,
+                 impl: str):
+    """One (attn + FFN) layer over a prefill chunk x (B, C, d) against the
+    paged cache (JAX ``_layer_chunk``): attention stays plain; an MoE FFN
+    takes the grouped-matmul kernel with kernels on, at the chunk's
+    capacity."""
+    y, pk, pv = attn_prefill_chunk(
+        p.mix, rmsnorm(p.norm1, x), pool["k"], pool["v"], page_table, pos0,
+        n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+        head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
+        qk_norm=cfg.qk_norm,
+    )
+    h = x + y
+    h = h + ffn_apply(p.ffn, rmsnorm(p.norm2, h), cfg, impl=impl)
+    return h, {"k": pk, "v": pv}
+
+
 def _state_init(cfg: ArchConfig, kind: str, batch: int, cache_len: int,
                 cache_dtype, device):
     """One layer's slab decode state (JAX ``_state_init``)."""
@@ -307,6 +325,13 @@ class Decoder(nn.Module):
         return [_state_init(self.cfg, kind, batch, cache_len, cache_dtype,
                             device) for kind in self.kinds]
 
+    @property
+    def chunkable(self) -> bool:
+        """Chunked prefill needs every mixing layer to be paged full
+        attention (recurrent and window state cannot be rebuilt chunk by
+        chunk from a KV pool)."""
+        return all(kind == "attn" for kind in self.kinds)
+
     def init_paged_cache(self, batch: int, cache_len: int, *, n_pages: int,
                          page_size: int, cache_dtype, device):
         """Paged decode cache: full-attention K and V pools (n_pages, K,
@@ -338,6 +363,20 @@ class Decoder(nn.Module):
                                     pages, slots, self.attn_impl)
             new.append(st)
         return x_t, new
+
+    def decode_chunk(self, x, cache, pos0: int, *, pages):
+        """One prefill chunk x (B, C, d) at base position ``pos0`` through
+        the paged cache (all-attention stacks only, see :attr:`chunkable`);
+        the pools are updated in place.  Returns (h (B, C, d), cache)."""
+        if not self.chunkable:
+            raise ValueError(f"chunked prefill needs an all-attention "
+                             f"pattern, got {self.kinds}")
+        new = []
+        for layer, state in zip(self.layers, cache):
+            x, st = _layer_chunk(layer, x, state, pages, pos0, self.cfg,
+                                 self.attn_impl)
+            new.append(st)
+        return x, new
 
 
 class Transformer(nn.Module):
@@ -453,6 +492,10 @@ class Transformer(nn.Module):
             cache_dtype=cache_dtype, device=self.device,
         )
 
+    @property
+    def supports_chunked_prefill(self) -> bool:
+        return self.decoder.chunkable
+
     def decode_step(self, token, cache, pos, *, pages=None):
         """token: (B,) ids; pos: scalar or (B,) positions; ``pages`` the page
         table.  Returns (logits (B,V) fp32, cache)."""
@@ -460,4 +503,15 @@ class Transformer(nn.Module):
         x, cache = self.decoder.decode_step(x, cache, pos, pages=pages)
         x = rmsnorm(self.final_norm, x[:, None, :])[:, 0]
         logits = (x @ self.head().to(x.dtype)).float()
+        return logits, cache
+
+    def prefill_chunk(self, tokens, cache, pos0: int, *, pages):
+        """One chunk of a paged prefill: tokens (B, C) at positions
+        ``pos0..pos0+C-1``.  Returns (logits at the chunk's last position
+        (B, V) fp32, cache) — the batcher takes the final chunk's logits as
+        each request's first token."""
+        h, cache = self.decoder.decode_chunk(self._embed(tokens), cache, pos0,
+                                             pages=pages)
+        h = rmsnorm(self.final_norm, h)
+        logits = (h[:, -1] @ self.head().to(h.dtype)).float()
         return logits, cache

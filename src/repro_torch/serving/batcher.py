@@ -1,5 +1,5 @@
 """Continuous batcher: slot map + paged KV pool over one decode batch (port of
-``repro/serving/batcher.py`` for the paged layout with reserve admission).
+``repro/serving/batcher.py`` for the paged layout).
 
 The decode batch is a fixed array of ``max_slots`` rows; each row is a
 **slot** holding one request's decode state.  Full-attention KV lives in a
@@ -8,7 +8,17 @@ physical pages through a per-slot page table and evicting *unmaps* them.
 Window and recurrent state (a hybrid model's local-attention buffers and
 RG-LRU state) is slot-major: joining overwrites the slot's rows.
 Admission is **stacked**: :meth:`ContinuousBatcher.admit_many` prefills all
-same-length queued requests in ONE call.
+same-length queued requests in ONE call.  Long prompts of an all-attention
+model are **chunked**: admission only maps pages and queues a
+:class:`PrefillJob`, and :meth:`prefill_chunk_step` advances it one chunk
+at a time, so the serving session can interleave chunks *between* decode
+steps.  With **prefix sharing** admission maps the pages of a prompt
+prefix that the :class:`~repro_torch.serving.pages.PrefixIndex` already
+holds, read-shared, copy-on-write forks the divergence page and prefills
+only the suffix (as a chunk job).  Under **grow** admission a request maps
+only its prompt's pages and decode maps each page the step it is first
+written; a slot that cannot get one pauses, or a victim is preempted and
+requeued.
 
 Correctness contract (``tests/test_torch_serving.py``): for a dense
 model every per-row operation of the decode path is batch-independent, so
@@ -22,11 +32,20 @@ slot's stale row included — can drop a live row's assignment once the
 batch has more rows than an expert's capacity (ROADMAP queue 3).
 
 Against the JAX batcher: the pools are updated in place (the JAX decode
-donates them); the prefill map-in writes only mapped pages (the JAX one
-also scatters the padded tail of unmapped logical pages into the trash
-page, which nothing reads); and the host read of each step's tokens sits
-inside the timed window in both prefill and decode, so on an asynchronous
-CUDA stream the times include the device work.
+and chunk calls donate them, and the copy-on-write fork is an in-place
+copy of one page in every pool); the prefill map-in writes only mapped
+pages (the JAX one also scatters the padded tail of unmapped logical pages
+into the trash page, which nothing reads); admission holds the pages its
+prefix lookup matched while it allocates (the JAX batcher does not, so
+under pool pressure its index reclaim can free a matched page and hand
+it back as the same request's private page, ROADMAP queue 3 — on every
+trace where that does not happen the two give the same pages and
+counters); and every timed window ends on
+the device's work: the host read of each step's tokens sits inside the
+window in one-shot prefill and decode, and a chunk step that reads nothing
+back (all but a job's last) ends in a stream synchronize, so on an
+asynchronous CUDA stream ``prefill_seconds`` and ``decode_seconds`` each
+hold their own device work.
 """
 
 from __future__ import annotations
@@ -38,7 +57,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .pages import PagePool, pages_needed
+from .pages import PagePool, PrefixHit, PrefixIndex, pages_needed
 from .queue import Request
 
 
@@ -81,6 +100,19 @@ def write_pages(cache, page, slots, rows: np.ndarray, layout) -> None:
             dst[phys] = src[ii, lp].to(dst.dtype)
 
 
+@torch.no_grad()
+def copy_page(cache, layout, src: int, dst: int) -> None:
+    """Copy physical page ``src`` over ``dst`` in every ``"kv0"`` pool, in
+    place — the device half of a copy-on-write fork (JAX ``_copy_page``):
+    the divergence page's matched head stays readable through the new
+    private page while the donor's page is untouched.  State leaves are
+    left alone."""
+    for layer, codes in zip(cache, layout):
+        for key, code in codes.items():
+            if code == "kv0":
+                layer[key][dst] = layer[key][src]
+
+
 @dataclass
 class SlotState:
     """One occupied slot: the request plus its decode progress."""
@@ -89,6 +121,9 @@ class SlotState:
     slot: int
     prompt_total: int
     generated: List[int] = field(default_factory=list)
+    prefilling: bool = False  # mapped but chunks still streaming in
+    prefix_hit: int = 0  # prompt positions mapped from the prefix index
+    paused: bool = False  # grow admission: stalled on a free page
     t_join: float = 0.0
     t_done: float = 0.0
 
@@ -100,6 +135,29 @@ class SlotState:
         if not self.generated or eos is None:
             return False
         return self.generated[-1] == eos
+
+
+@dataclass
+class PrefillJob:
+    """One admitted group whose prompt streams in chunk by chunk.
+
+    ``base`` is the prefix-shared offset: positions ``[0, base)`` arrived
+    by page mapping (no compute), so ``tokens`` holds only the suffix and
+    each chunk scores at absolute position ``base + progress``."""
+
+    states: List[SlotState]
+    tokens: torch.Tensor  # (k, prompt_total - base) int64, stacked suffix
+    chunk: int
+    base: int = 0  # positions provided by shared prefix pages
+    progress: int = 0  # suffix positions already prefilled
+
+    @property
+    def prompt_total(self) -> int:
+        return self.base + int(self.tokens.shape[1])
+
+    @property
+    def remaining(self) -> int:
+        return int(self.tokens.shape[1]) - self.progress
 
 
 class ContinuousBatcher:
@@ -114,8 +172,13 @@ class ContinuousBatcher:
         cache_dtype=torch.bfloat16,
         page_size: int = 16,
         kv_pages: int = 0,
+        prefill_chunk: int = 0,
         batched_prefill: bool = True,
+        prefix_sharing: bool = False,
+        kv_admission: str = "reserve",
     ):
+        if kv_admission not in ("reserve", "grow"):
+            raise ValueError(f"unknown kv_admission {kv_admission!r}")
         self.model = model
         self.device = model.device
         self.max_slots = max_slots
@@ -123,17 +186,43 @@ class ContinuousBatcher:
         self.cache_dtype = cache_dtype
         self.page_size = page_size
         self.batched_prefill = batched_prefill
+        chunkable = model.supports_chunked_prefill
+        self.prefill_chunk = prefill_chunk if chunkable else 0
         self.pages_per_slot = pages_needed(cache_len, page_size)
         n_pages = kv_pages or max_slots * self.pages_per_slot + 1
         self.cache, self._layout = model.init_paged_cache(
             max_slots, cache_len, n_pages=n_pages, page_size=page_size,
             cache_dtype=cache_dtype,
         )
+        # a model without full-attention layers maps pages that hold no KV:
+        # grow admission and sharing apply to KV pools only, as in JAX
+        has_kv = any(code == "kv0" for codes in self._layout
+                     for code in codes.values())
         self.pool = PagePool(n_pages, page_size)
         # physical page ids per (slot, logical page); 0 = trash
         self._tables = np.zeros((max_slots, max(self.pages_per_slot, 1)),
                                 np.int32)
+        # the table the decode step sees: prefilling and paused slots stay
+        # zeroed (their decode-lane writes must hit the trash page)
         self._visible_dev = torch.as_tensor(self._tables, device=self.device)
+        self.grow = kv_admission == "grow" and has_kv
+        self.kv_admission = "grow" if self.grow else "reserve"
+        # sharing rides the chunked-prefill path (the suffix prefill is one
+        # chunk at base offset), so it needs a KV pool and an all-attention
+        # model
+        self.prefix_sharing = prefix_sharing and has_kv and chunkable
+        self.index: Optional[PrefixIndex] = (
+            PrefixIndex(self.pool) if self.prefix_sharing else None)
+        self._preempted: List[Request] = []
+        self._pending_forks: Dict[int, Tuple[int, int]] = {}  # slot→(src,dst)
+        self.preemptions = 0
+        self.host_loss_preemptions = 0  # subset of preemptions: dead host
+        self.prefix_requests = 0  # sharing-eligible admissions
+        self.prefix_hits = 0  # admissions that mapped >= 1 shared position
+        self.prefix_hit_tokens = 0  # prompt positions mapped, not prefilled
+        self.prompt_tokens = 0  # prompt positions admitted (denominator)
+        self.logical_hw = 0  # max logical pages mapped (shared counted per
+        #                      reader — what an unshared run would allocate)
 
         self.tokens = torch.zeros((max_slots,), dtype=torch.long,
                                   device=self.device)
@@ -142,23 +231,31 @@ class ContinuousBatcher:
         self.slots: List[Optional[SlotState]] = [None] * max_slots
         self._slot_pages: Dict[int, List[int]] = {}
         self._last_defer_rid: Optional[int] = None
+        self._jobs: List[PrefillJob] = []
         self._finished: List[SlotState] = []
         self.decode_steps = 0
         self.prefill_calls = 0  # prefill dispatches (stacked counts once)
+        self.chunk_steps = 0
+        self.interleaved_chunks = 0  # chunk steps run with decode work live
         self.prefill_seconds = 0.0
         self.decode_seconds = 0.0
 
     # ------------------------------------------------------------- occupancy
     @property
     def n_active(self) -> int:
+        """Occupied slots (decoding or still prefilling)."""
         return sum(s is not None for s in self.slots)
 
     @property
     def n_decoding(self) -> int:
-        return self.n_active
+        return sum(s is not None and not s.prefilling and not s.paused
+                   for s in self.slots)
 
     def free_slots(self) -> List[int]:
         return [i for i, s in enumerate(self.slots) if s is None]
+
+    def prefill_pending(self) -> bool:
+        return bool(self._jobs)
 
     @property
     def kv_page_bytes(self) -> int:
@@ -171,10 +268,11 @@ class ContinuousBatcher:
         """Page-pool occupancy vs. the slab footprint (token positions)."""
         slab_tokens = self.max_slots * self.cache_len
         hw = self.pool.high_water_tokens()
-        return {
+        out: Dict[str, Any] = {
             "kv_layout": "paged",
             "kv_slab_tokens": slab_tokens,
-            "kv_admission": "reserve",
+            "kv_host_loss_preemptions": self.host_loss_preemptions,
+            "kv_admission": self.kv_admission,
             "kv_page_size": self.page_size,
             "kv_pages": self.pool.n_pages,
             "kv_pages_in_use": self.pool.in_use,
@@ -182,7 +280,32 @@ class ContinuousBatcher:
             "kv_page_hw_tokens": hw,
             "kv_mem_saving": 1.0 - hw / max(slab_tokens, 1),
             "kv_defers": self.pool.defers,
+            "kv_grow_allocs": self.pool.grow_allocs,
+            "kv_grow_defers": self.pool.grow_defers,
+            "kv_preemptions": self.preemptions,
         }
+        if self.index is not None:
+            out.update(
+                prefix_sharing=True,
+                prefix_requests=self.prefix_requests,
+                prefix_hits=self.prefix_hits,
+                prefix_hit_tokens=self.prefix_hit_tokens,
+                prefix_hit_rate=self.observed_hit_rate(),
+                kv_shared_maps=self.pool.shared_maps,
+                kv_cow_forks=self.pool.cow_forks,
+                # logical/physical: how many pages an unshared run would
+                # have needed at this run's logical high-water vs. the
+                # physical pages sharing actually touched
+                kv_compression=self.logical_hw / max(self.pool.high_water, 1),
+                prefix_index_nodes=len(self.index),
+                prefix_index_reclaimed=self.index.reclaimed,
+            )
+        return out
+
+    def observed_hit_rate(self) -> float:
+        """Fraction of admitted prompt positions served from the prefix
+        index instead of prefill compute (0.0 with sharing off)."""
+        return self.prefix_hit_tokens / max(self.prompt_tokens, 1)
 
     # ------------------------------------------------------------------ join
     def validate(self, req: Request) -> None:
@@ -208,58 +331,167 @@ class ContinuousBatcher:
         return req.prompt_len + req.max_new_tokens - 1
 
     def _admit_pages(self, req: Request) -> int:
-        """Reserve admission: every page the request can ever write."""
+        """Pages admission must map up front: the full reach under reserve,
+        only the prompt's pages under grow (decode grows the rest)."""
+        if self.grow:
+            return min(pages_needed(req.prompt_len, self.page_size),
+                       self.pages_per_slot)
         return min(pages_needed(self._need_tokens(req), self.page_size),
                    self.pages_per_slot)
 
+    def can_admit(self, req: Request) -> bool:
+        """A free slot AND enough pool pages — free or reclaimable from the
+        prefix index — for the admission mapping.  Conservative: ignores
+        the prefix credit an actual lookup might grant."""
+        if not self.free_slots():
+            return False
+        need = self._admit_pages(req)
+        avail = self.pool.capacity - self.pool.in_use
+        if self.index is not None:
+            avail += self.index.reclaimable()
+        ok = need <= avail
+        if not ok and req.rid != self._last_defer_rid:
+            # count deferral EVENTS, not per-step admission polls
+            self.pool.defers += 1
+            self._last_defer_rid = req.rid
+        return ok
+
+    def _lookup(self, req: Request) -> Optional[PrefixHit]:
+        """Consult the prefix index for a sharing-eligible request."""
+        if self.index is None:
+            return None
+        hit = self.index.lookup(np.asarray(req.tokens).tolist())
+        return hit if (hit.pages or hit.fork is not None) else None
+
+    def _admit_alloc(self, n: int, req: Request) -> Optional[List[int]]:
+        """Allocate ``n`` private pages, reclaiming index-only pages to
+        cover a shortfall; ``None`` (defer) when even reclaim cannot."""
+        if n == 0:
+            return []
+        if not self.pool.can_alloc(n) and self.index is not None:
+            free = self.pool.capacity - self.pool.in_use
+            self.index.reclaim(n - free)
+        if not self.pool.can_alloc(n):
+            return None
+        return self.pool.alloc(n, rid=req.rid)
+
+    def _note_logical(self) -> None:
+        """Track the logical-page high water: every slot's mapping counted
+        per reader — what an unshared, reserve-free run would hold."""
+        live = sum(len(p) for p in self._slot_pages.values())
+        if live > self.logical_hw:
+            self.logical_hw = live
+
+    def join(self, req: Request) -> int:
+        """Admit one request on its own (a batch-1 prefill)."""
+        slots = self.admit_many([req])
+        if not slots:
+            raise RuntimeError("no free slot/pages: admission outran eviction")
+        return slots[0]
+
     def admit_many(self, reqs: List[Request]) -> List[int]:
         """Admit queued requests: map slots and pages, then prefill in
-        stacked same-length groups — ONE prefill call for k requests.
-        Stops at the first request that does not fit (FIFO preserved).
-        Returns the admitted slots, in request order."""
+        stacked same-shape groups — ONE prefill call for k requests.  Long
+        prompts of a chunkable model and prefix hits become
+        :class:`PrefillJob`s instead of prefilling inline.  Stops at the
+        first request that does not fit (FIFO preserved).  Returns the
+        admitted slots, in request order."""
         admitted: List[Tuple[Request, int]] = []
         for req in reqs:
             self.validate(req)
             if not self.free_slots():
                 break
+            hit = self._lookup(req)
             slot = self.free_slots()[0]
-            n = self._admit_pages(req)
-            pages: Optional[List[int]] = []
-            if n:
-                pages = (self.pool.alloc(n, rid=req.rid)
-                         if self.pool.can_alloc(n) else None)
+            shared = list(hit.pages) if hit else []
+            fork = hit.fork if hit else None
+            # hold the matched pages (and the fork source) while the
+            # private pages are allocated: the index reclaim that covers a
+            # shortfall must not free them and hand them back as this
+            # request's own pages (the JAX batcher takes no hold here,
+            # ROADMAP queue 3)
+            held = shared + ([fork] if fork is not None else [])
+            for p in held:
+                self.pool.pin(p)
+            n_new = self._admit_pages(req) - len(shared)
+            pages = self._admit_alloc(n_new, req)
             if pages is None:
+                self.pool.release(held)
                 # pool pressure defers the tail, FIFO preserved; count
                 # deferral EVENTS, not per-step admission polls
                 if req.rid != self._last_defer_rid:
                     self.pool.defers += 1
                     self._last_defer_rid = req.rid
                 break
-            self._slot_pages[slot] = pages
+            for p in shared:
+                self.pool.ref(p)  # read-shared map-in: refcount only
+            self.pool.release(shared)  # the holds became the map-ins
+            if fork is not None:
+                # CoW fork: the divergence page's matched head is valid
+                # prefix KV, but this request's own writes land in the same
+                # logical page — it is copied into the first private page
+                # at this request's first chunk (the donor may not have
+                # written it yet; FIFO prefill order guarantees it has by
+                # then).  The hold on the source stays until the copy, so
+                # eviction/reclaim cannot free it in between.
+                self.pool.cow_forks += 1
+                self._pending_forks[slot] = (fork, pages[0])
+            row = shared + pages  # logical order: prefix, then private
+            self._slot_pages[slot] = row
             self._tables[slot] = 0
-            self._tables[slot, : len(pages)] = pages
-            self.slots[slot] = SlotState(
+            self._tables[slot, : len(row)] = row
+            state = SlotState(
                 req=req, slot=slot, prompt_total=req.prompt_len,
+                prefix_hit=(hit.tokens if hit else 0),
                 t_join=time.perf_counter(),
             )
+            self.slots[slot] = state
             self._last_defer_rid = None
+            if self.index is not None:
+                self.prefix_requests += 1
+                self.prompt_tokens += state.prompt_total
+                if state.prefix_hit:
+                    self.prefix_hits += 1
+                    self.prefix_hit_tokens += state.prefix_hit
+            self._index_insert(state)
+            self._note_logical()
             admitted.append((req, slot))
         if not admitted:
             return []
 
-        # stack requests of identical prompt length: in a dense model rows
-        # are batch-independent, so one stacked prefill equals k solo
-        # prefills (an MoE prefill shares expert capacity, as in JAX)
+        # group by stacked-prefill compatibility: identical prompt length
+        # and prefix-hit offset (the suffix shapes must agree); in a dense
+        # model rows are batch-independent, so one stacked prefill equals k
+        # solo prefills (an MoE prefill shares expert capacity, as in JAX)
         groups: Dict[Any, List[SlotState]] = {}
         for i, (req, slot) in enumerate(admitted):
-            key = req.prompt_len if self.batched_prefill else i
-            groups.setdefault(key, []).append(self.slots[slot])
+            state = self.slots[slot]
+            key = ((state.prompt_total, state.prefix_hit)
+                   if self.batched_prefill else (i,))
+            groups.setdefault(key, []).append(state)
         for states in groups.values():
+            base = states[0].prefix_hit
+            suffix_len = states[0].prompt_total - base
+            if base or 0 < self.prefill_chunk < suffix_len:
+                # prefix hits always take the chunk path: the suffix
+                # prefill is a chunk (or a few) scored at offset ``base``
+                # over the shared pages already mapped in
+                for s in states:
+                    s.prefilling = True
+                toks = torch.as_tensor(
+                    np.stack([np.asarray(s.req.tokens)[base:]
+                              for s in states]),
+                    dtype=torch.long, device=self.device)
+                self._jobs.append(PrefillJob(
+                    states=states, tokens=toks,
+                    chunk=(self.prefill_chunk or suffix_len), base=base))
+                continue
             try:
                 self._prefill_group(states)
             except Exception:
                 # roll the group's capacity back: a failing prefill must not
                 # leak slots or pool pages (its requests are lost)
+                self._index_evict_states(states)
                 for st in states:
                     self._release(st)
                 self._refresh_tables()
@@ -268,20 +500,26 @@ class ContinuousBatcher:
         return [slot for _, slot in admitted]
 
     def _release(self, state: SlotState) -> None:
-        """Return a slot's capacity without completion bookkeeping."""
+        """Return a slot's capacity without completion bookkeeping (error
+        rollback, preemption)."""
         if self.slots[state.slot] is state:
             self.slots[state.slot] = None
+        pf = self._pending_forks.pop(state.slot, None)
+        if pf is not None:
+            self.pool.release([pf[0]])  # unpin the never-copied CoW source
         pages = self._slot_pages.pop(state.slot, None)
         if pages is not None:
             self.pool.free(pages)
             self._tables[state.slot] = 0
 
     def _refresh_tables(self) -> None:
-        """Rebuild the decode-visible page table: occupied slots expose
-        their mapping, free ones point at the trash page."""
+        """Rebuild the decode-visible page table: occupied decoding slots
+        expose their mapping; everything else — free, still prefilling, or
+        paused on grow pressure — points at trash, so its fixed-shape
+        decode write cannot corrupt a mapped (possibly shared) page."""
         visible = self._tables.copy()
         for i, s in enumerate(self.slots):
-            if s is None:
+            if s is None or s.prefilling or s.paused:
                 visible[i] = 0
         self._visible_dev = torch.as_tensor(visible, device=self.device)
 
@@ -316,21 +554,137 @@ class ContinuousBatcher:
                 self._evict(s)
                 self._finished.append(s)
 
+    # --------------------------------------------------------------- chunks
+    @torch.no_grad()
+    def prefill_chunk_step(self) -> bool:
+        """Advance the front prefill job by one chunk (the serving session
+        calls this *between* decode steps).  Returns True if a chunk ran.
+
+        The window timed into ``prefill_seconds`` ends on the chunk's device
+        work: the last chunk reads its first tokens back to the host, any
+        other chunk synchronizes the stream (it reads nothing back, and its
+        work would otherwise land in the next decode step's time)."""
+        if not self._jobs:
+            return False
+        job = self._jobs[0]
+        t0 = time.perf_counter()
+        if job.progress == 0:
+            # the donor prefills ahead of this job (FIFO), so its
+            # divergence pages hold valid KV now — run the pending CoW
+            # copies before the first suffix chunk reads or writes them
+            self._run_forks(job.states)
+        width = min(job.chunk, job.remaining)
+        toks = job.tokens[:, job.progress: job.progress + width]
+        rows = torch.as_tensor(
+            self._tables[np.asarray([s.slot for s in job.states])],
+            device=self.device)
+        try:
+            logits, self.cache = self.model.prefill_chunk(
+                toks, self.cache, job.base + job.progress, pages=rows)
+        except Exception:
+            self._jobs.pop(0)
+            self._index_evict_states(job.states)
+            for st in job.states:
+                self._release(st)
+            self._refresh_tables()
+            raise
+        job.progress += width
+        self.chunk_steps += 1
+        if self.n_decoding > 0:
+            self.interleaved_chunks += 1
+        firsts = first_host = None
+        if job.remaining == 0:
+            firsts = logits.argmax(dim=-1)
+            first_host = firsts.tolist()
+        elif self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.prefill_seconds += time.perf_counter() - t0
+        if firsts is not None:
+            self._finish_job(job, firsts, first_host)
+        return True
+
+    def _run_forks(self, states: List[SlotState]) -> None:
+        """Execute the deferred CoW copies for ``states`` and unpin the
+        donor pages."""
+        for s in states:
+            pf = self._pending_forks.pop(s.slot, None)
+            if pf is None:
+                continue
+            src, dst = pf
+            copy_page(self.cache, self._layout, src, dst)
+            self.pool.release([src])
+
+    def _finish_job(self, job: PrefillJob, firsts: torch.Tensor,
+                    first_host: List[int]) -> None:
+        self._jobs.pop(0)
+        slot_ids = torch.as_tensor([s.slot for s in job.states],
+                                   device=self.device)
+        self.tokens[slot_ids] = firsts
+        self.pos[slot_ids] = torch.as_tensor(
+            [s.prompt_total for s in job.states], dtype=torch.int32,
+            device=self.device)
+        self.prefill_calls += 1
+        for s, tok in zip(job.states, first_host):
+            s.prefilling = False
+            s.generated = [int(tok)]
+            if s.done:
+                self._evict(s)
+                self._finished.append(s)
+        self._refresh_tables()
+
+    def _index_insert(self, s: SlotState) -> None:
+        """Index a request's full prompt pages at ADMISSION time, before its
+        prefill has written them — so siblings of the same burst share
+        intra-batch.  Safe because prefill order is FIFO: inline groups run
+        during the same ``admit_many`` call, chunk jobs drain in admission
+        order, and a sharer's first read of a prefix page (its suffix
+        prefill's gather) therefore happens after the donor's write.  The
+        failure paths drop these optimistic entries via
+        :meth:`_index_evict_states` before releasing the pages."""
+        if self.index is None:
+            return
+        n_full = s.prompt_total // self.page_size
+        if n_full == 0:
+            return
+        self.index.insert(
+            np.asarray(s.req.tokens).tolist()[: n_full * self.page_size],
+            [int(p) for p in self._tables[s.slot, :n_full]],
+        )
+
+    def _index_evict_states(self, states: List[SlotState]) -> None:
+        """Un-index the pages a failing prefill group OWNED (never the
+        read-shared prefix pages of an earlier donor — those are valid):
+        they were indexed optimistically at admission and will never be
+        written now."""
+        if self.index is None:
+            return
+        bad = set()
+        for st in states:
+            for p in self._slot_pages.get(st.slot, []):
+                if self.pool.owner(p) == st.req.rid:
+                    bad.add(p)
+        if bad:
+            self.index.evict_pages(bad)
+
     # ------------------------------------------------------------------ step
     @torch.no_grad()
     def step(self) -> List[SlotState]:
-        """Decode ONE token for every occupied slot; return evictions.
+        """Decode ONE token for every decoding slot; return evictions.
 
-        Free slots ride along as masked garbage rows (in a dense model
-        every per-row op of the decode path is batch-independent, so they
-        cannot perturb live rows; in an MoE model they share expert
-        capacity with them); their KV writes land in the trash page, or go
-        there when a stale position lies past the page table.
+        Free, prefilling and paused slots ride along as masked garbage rows
+        (in a dense model every per-row op of the decode path is
+        batch-independent, so they cannot perturb live rows; in an MoE
+        model they share expert capacity with them); their KV writes land
+        in the trash page, or go there when a stale position lies past the
+        page table.
         """
         finished, self._finished = self._finished, []
+        if self._grow_pages():
+            self._refresh_tables()
         if self.n_decoding == 0:
             return finished
-        active = [s is not None for s in self.slots]
+        active = [s is not None and not s.prefilling and not s.paused
+                  for s in self.slots]
         t0 = time.perf_counter()
         logits, self.cache = self.model.decode_step(
             self.tokens, self.cache, self.pos, pages=self._visible_dev,
@@ -344,7 +698,7 @@ class ContinuousBatcher:
         self.decode_seconds += time.perf_counter() - t0
         evicted = False
         for s in list(self.slots):
-            if s is None:
+            if s is None or s.prefilling or s.paused:
                 continue
             s.generated.append(int(toks[s.slot]))
             if s.done:
@@ -355,14 +709,137 @@ class ContinuousBatcher:
             self._refresh_tables()
         return finished
 
+    # ------------------------------------------------------------------ grow
+    def _grow_pages(self) -> bool:
+        """Grow admission: map the page each decoding slot's NEXT decode
+        write lands in, called before every decode dispatch.  A slot whose
+        growth cannot be satisfied — even after index reclaim and
+        preemption — pauses: its table row goes dark (writes hit trash, its
+        position does not advance) until a page frees up.  Returns True if
+        any table changed."""
+        if not self.grow:
+            return False
+        changed = False
+        for s in list(self.slots):
+            if s is None or s.prefilling:
+                continue
+            if self.slots[s.slot] is not s:
+                continue  # preempted by an earlier slot's growth this pass
+            # the next decode step writes KV at this absolute position
+            need_pos = s.prompt_total + len(s.generated) - 1
+            lp = need_pos // self.page_size
+            row = self._slot_pages.get(s.slot, [])
+            if lp < len(row) or lp >= self.pages_per_slot:
+                if s.paused:
+                    s.paused = False
+                    changed = True
+                continue
+            page = self._grow_alloc(s)
+            if self.slots[s.slot] is not s:
+                # the slot went away under the allocation (lone decoder
+                # preempted itself) — a page handed out anyway must not leak
+                if page is not None:
+                    self.pool.release([page])
+                changed = True
+                continue
+            if page is None:
+                if not s.paused:
+                    changed = True
+                s.paused = True
+                self.pool.grow_defers += 1
+                continue
+            row.append(page)
+            self._slot_pages[s.slot] = row
+            self._tables[s.slot, lp] = page
+            self.pool.grow_allocs += 1
+            if s.paused:
+                s.paused = False
+            changed = True
+            self._note_logical()
+        return changed
+
+    def _grow_alloc(self, s: SlotState) -> Optional[int]:
+        """One page for slot ``s``'s growth, through the recovery ladder:
+        free list → index reclaim → preempt the cheapest-to-redo decoding
+        victim (fewest generated tokens; greedy decoding regenerates its
+        exact tokens on re-admission) → None (pause)."""
+        pool = self.pool
+        if not pool.can_alloc(1) and self.index is not None:
+            self.index.reclaim(1)
+        if not pool.can_alloc(1):
+            victims = sorted(
+                (v for v in self.slots
+                 if v is not None and not v.prefilling and v is not s),
+                key=lambda v: len(v.generated),
+            )
+            if not victims and self.n_decoding <= 1:
+                # the lone decoder cannot wait on anyone: requeue ITSELF
+                # for a full re-prefill rather than livelock
+                victims = [s]
+            for v in victims:
+                self._preempt(v)
+                if v is s:
+                    return None
+                if pool.can_alloc(1):
+                    break
+                if self.index is not None:
+                    self.index.reclaim(1)
+                    if pool.can_alloc(1):
+                        break
+        if not pool.can_alloc(1):
+            return None
+        pages = pool.alloc(1, rid=s.req.rid)
+        return pages[0] if pages else None
+
+    def _preempt(self, state: SlotState) -> None:
+        """Release a slot under grow pressure and requeue its request (the
+        session re-admits it for a full re-prefill)."""
+        self._release(state)
+        self._preempted.append(state.req)
+        self.preemptions += 1
+
+    def take_preempted(self) -> List[Request]:
+        """Drain requests bumped by preemption; the caller requeues them at
+        the front of the admission queue."""
+        out, self._preempted = self._preempted, []
+        return out
+
+    def preempt_resident(self) -> int:
+        """Hard host loss: bump EVERY resident request through the
+        preemption machinery (the device KV is gone) and return how many
+        were bumped.  Also cancels in-progress chunk jobs (their
+        optimistically indexed pages will never be written) and drops the
+        whole prefix index.  Greedy decode makes the re-admissions
+        token-exact."""
+        n = 0
+        for job in list(self._jobs):  # streaming prefills first
+            self._jobs.remove(job)
+            self._index_evict_states(job.states)
+            for st in job.states:
+                self._preempt(st)
+                n += 1
+        for s in list(self.slots):
+            if s is None:
+                continue
+            self._preempt(s)
+            n += 1
+        if self.index is not None:
+            self.index.evict_pages(self.index.pages)
+        self.host_loss_preemptions += n
+        self._refresh_tables()
+        return n
+
     # ----------------------------------------------------------------- evict
     def _evict(self, state: SlotState) -> None:
         """Free the slot the step its request finishes (eos-aware: an early
         EOS returns its pages immediately): its pages unmap back to the
-        pool."""
+        pool (a shared page only when its last reader is gone)."""
         state.t_done = time.perf_counter()
         if self.slots[state.slot] is state:
             self.slots[state.slot] = None
+            pf = self._pending_forks.pop(state.slot, None)
+            if pf is not None:
+                self.pool.release([pf[0]])
             pages = self._slot_pages.pop(state.slot, None)
             if pages is not None:
                 self.pool.free(pages)

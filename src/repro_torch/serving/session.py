@@ -8,9 +8,11 @@
     results = session.results
 
 Each ``step`` admits queued requests into free batch slots (stacked prefill
-+ page map-in), decodes one token for the whole active batch, evicts
-finished requests (returning their KV pages to the pool), and then drains
-the request lifecycle events (:class:`repro_torch.launch.events.
++ page map-in, or a chunked-prefill job), advances pending prefill chunks
+at the ``prefill_duty`` cycle (chunks run *between* decode steps), decodes
+one token for the whole decoding batch, evicts finished requests
+(returning their KV pages to the pool), and then drains the request
+lifecycle events (:class:`repro_torch.launch.events.
 RequestQueueSource`).  When the bucketized **mix signature**
 (:class:`repro_torch.serving.mix.MixTracker`) actually changed, the event
 burst is driven through the inner plan-only :class:`repro_torch.session.
@@ -31,11 +33,12 @@ coalesces bursty mix churn into one planner turn per window.  Admission is
 ``"continuous"`` (join whenever a slot is free) or ``"static"`` (wait until
 the batch drains, then refill).
 
-This slice ports the paged KV layout with reserve admission.  The JAX
-session's other settings are accepted by name and raise
-``NotImplementedError`` naming the ROADMAP item that brings them, rather
-than serving quietly in another mode: ``kv_layout="slab"``,
-``prefill_chunk > 0``, ``prefix_sharing`` and ``kv_admission="grow"``.
+The KV layout is paged, with chunked prefill (``prefill_chunk``,
+``prefill_duty``), prefix sharing and ``"reserve"`` or ``"grow"``
+admission; :meth:`ServingSession.host_failed` requeues every resident
+request after a host loss.  ``kv_layout="slab"`` is accepted by name and
+raises ``NotImplementedError`` naming the ROADMAP item that brings it,
+rather than serving quietly in another mode.
 """
 
 from __future__ import annotations
@@ -65,8 +68,6 @@ from .queue import Request, RequestQueue
 
 __all__ = ["RequestResult", "ServingConfig", "ServingSession"]
 
-_KV_PATHS = ("ROADMAP queue 1, item 2 (chunked prefill, prefix sharing and "
-             "grow admission)")
 _SLAB = "ROADMAP queue 1, item 4 (slab layout and the other families)"
 
 
@@ -90,10 +91,20 @@ class ServingConfig:
     kv_layout: str = "paged"
     page_size: int = 16
     kv_pages: int = 0  # physical pages incl. trash page; 0 → full coverage
+    #: prefix sharing: map a hot prompt prefix's pages read-shared through
+    #: the radix index instead of re-prefilling them (all-attention models)
     prefix_sharing: bool = False
+    #: "reserve" (map the full reach at admission) | "grow" (map the
+    #: prompt's pages; decode grows one page as each is first written)
     kv_admission: str = "reserve"
+    # prefill: stacked same-length admission (one prefill call for k
+    # requests), and — all-attention models — chunked prefill interleaved
+    # with decode steps
     batched_prefill: bool = True
-    prefill_chunk: int = 0
+    prefill_chunk: int = 0  # 0 = one-shot; else chunk width in tokens
+    #: prefill:decode duty cycle — chunk calls allowed per decode step
+    #: (fractional: 0.5 = one chunk every other decode step)
+    prefill_duty: float = 1.0
     max_prompt_len: int = 0  # 0 → cache_len - max_new_tokens
     max_new_tokens: int = 0  # 0 → no per-request generation cap
     # planning
@@ -126,9 +137,14 @@ class ServingConfig:
             raise ValueError(f"unknown kv_layout {self.kv_layout!r}")
         if self.page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {self.page_size}")
-        if self.prefill_chunk < 0:
+        if self.kv_layout == "slab":
+            raise NotImplementedError(
+                f"kv_layout='slab' is not ported to repro_torch yet: {_SLAB}")
+        if self.prefill_chunk < 0 or self.prefill_duty <= 0:
             raise ValueError(
-                f"prefill_chunk must be >= 0, got {self.prefill_chunk}")
+                f"prefill_chunk must be >= 0 and prefill_duty > 0, got "
+                f"{self.prefill_chunk}/{self.prefill_duty}"
+            )
         if self.kv_admission not in ("reserve", "grow"):
             raise ValueError(f"unknown kv_admission {self.kv_admission!r}")
         if self.cache_dtype not in ("float32", "bfloat16"):
@@ -144,16 +160,6 @@ class ServingConfig:
                     f"cache positions > cache_len={self.cache_len}; raise "
                     f"cache_len or lower the admissibility caps"
                 )
-        unported = [
-            (self.kv_layout == "slab", "kv_layout='slab'", _SLAB),
-            (self.prefill_chunk > 0, "prefill_chunk > 0", _KV_PATHS),
-            (self.prefix_sharing, "prefix_sharing=True", _KV_PATHS),
-            (self.kv_admission == "grow", "kv_admission='grow'", _KV_PATHS),
-        ]
-        for hit, what, item in unported:
-            if hit:
-                raise NotImplementedError(
-                    f"{what} is not ported to repro_torch yet: {item}")
 
     @property
     def effective_max_prompt_len(self) -> int:
@@ -209,14 +215,18 @@ class ServingSession:
             cache_dtype=dtype_of(cfg.cache_dtype),
             page_size=cfg.page_size,
             kv_pages=cfg.kv_pages,
+            prefill_chunk=cfg.prefill_chunk,
             batched_prefill=cfg.batched_prefill,
+            prefix_sharing=cfg.prefix_sharing,
+            kv_admission=cfg.kv_admission,
         )
+        self._duty_credit = 0.0
         self._tower = tower_from_arch(model.cfg, seq=cfg.cache_len)
         self.planner_session: Optional[SpindleSession] = None
         if cfg.replan != "off":
-            # the graph factory holds the mix and the tower, not the
-            # session: no reference cycle keeps a served model alive
-            mix, tower = self.mix, self._tower
+            # the graph factory holds the mix, the tower and the batcher,
+            # not the session: no reference cycle keeps a served model alive
+            mix, tower, batcher = self.mix, self._tower, self.batcher
             self.planner_session = SpindleSession(
                 SessionConfig(
                     cluster=cfg.cluster,
@@ -231,11 +241,14 @@ class ServingSession:
                 graph_factory=lambda tasks: serving_mix_workload(
                     mix.snapshot().counts,
                     tower=tower,
-                    # chunked prefill and prefix sharing are not ported
-                    # (ROADMAP queue 1, item 2): whole-prompt prefill
-                    # towers, no positions served by page mapping
-                    prefill_chunk=0,
-                    prefix_hit_rate=0.0,
+                    # the batcher's EFFECTIVE chunk: zero on models that
+                    # cannot chunk, so the planner never models chunked
+                    # towers that won't execute
+                    prefill_chunk=batcher.prefill_chunk,
+                    # observed prefix-sharing rate: shared positions arrive
+                    # by page mapping, so the planner sizes prefill towers
+                    # for the suffix compute that actually runs
+                    prefix_hit_rate=batcher.observed_hit_rate(),
                 ),
                 callbacks=callbacks,
                 cache=plan_cache,
@@ -248,6 +261,8 @@ class ServingSession:
         self._t_submit: Dict[int, float] = {}
         self.results: Dict[int, RequestResult] = {}
         self.steps = 0
+        self.host_loss_events = 0
+        self.host_loss_requeued = 0
 
     # ------------------------------------------------------------- lifecycle
     @property
@@ -286,6 +301,10 @@ class ServingSession:
         return ok
 
     def _admit(self) -> int:
+        # preempted requests rejoin at the FRONT of the queue: their full
+        # re-prefill (greedy decoding regenerates the exact tokens) should
+        # not wait behind the backlog that evicted them
+        self.queue.requeue_front(self.batcher.take_preempted())
         if self.config.admission == "static" and self.batcher.n_active > 0:
             return 0  # classic batch serving: drain before refilling
         free = len(self.batcher.free_slots())
@@ -311,7 +330,9 @@ class ServingSession:
     def _note_joined(self, reqs: Sequence[Request]) -> None:
         for req in reqs:
             if self.mix.is_active(req.rid):
-                continue  # the mix already counts this request
+                # re-admission after a preemption: the mix already counts
+                # this request; a second arrival event would double-plan it
+                continue
             self.mix.joined(req.rid)
             # joining is the mix-changing moment (a queued request's
             # submit-time arrival event may have drained steps ago without
@@ -323,9 +344,29 @@ class ServingSession:
                 )
             )
 
+    def _run_prefill_chunks(self) -> None:
+        """Interleave: advance queued prefill chunks between decode steps,
+        throttled by the prefill:decode duty cycle.  With nothing decoding
+        there is nothing to interleave with — stream chunks until a request
+        becomes decodable."""
+        b = self.batcher
+        if not b.prefill_pending():
+            return
+        if b.n_decoding == 0:
+            while b.prefill_pending() and b.n_decoding == 0:
+                b.prefill_chunk_step()
+            self._duty_credit = 0.0
+            return
+        self._duty_credit += self.config.prefill_duty
+        while b.prefill_pending() and self._duty_credit >= 1.0:
+            b.prefill_chunk_step()
+            self._duty_credit -= 1.0
+
     def step(self) -> List[SlotState]:
-        """One serving step: admit → decode one token → evict → replan."""
+        """One serving step: admit → prefill chunks → decode one token →
+        evict → replan."""
         self._admit()
+        self._run_prefill_chunks()
         finished = self.batcher.step()
         for s in finished:
             self.mix.completed(s.req.rid)
@@ -369,11 +410,15 @@ class ServingSession:
             "output_tokens": out_tokens,
             "decode_steps": b.decode_steps,
             "prefill_calls": b.prefill_calls,
+            "chunk_steps": b.chunk_steps,
+            "interleaved_chunks": b.interleaved_chunks,
             "prefill_seconds": b.prefill_seconds,
             "decode_seconds": b.decode_seconds,
             **b.kv_stats(),
             "p50_latency_s": float(np.percentile(lats, 50)) if lats else 0.0,
             "p99_latency_s": float(np.percentile(lats, 99)) if lats else 0.0,
+            "host_loss_events": self.host_loss_events,
+            "host_loss_requeued": self.host_loss_requeued,
             "replans": len(self.replans),
             "replan_modes": [r.mode for r in self.replans],
             "planning_seconds": sum(r.planning_seconds for r in self.replans),
@@ -411,6 +456,25 @@ class ServingSession:
             return None
         ps.signal(LeaseChanged(cluster=cluster))
         return ps.replans[-1] if ps.replans else None
+
+    def host_failed(self, cluster: Optional[ClusterSpec] = None) -> int:
+        """Degrade gracefully under a hard host loss.
+
+        Every in-flight request's KV lived (at least partly) on the dead
+        host, so the whole resident set — decoding slots AND streaming
+        prefill jobs — is bumped through the preemption machinery and
+        requeued at the FRONT of the admission queue; the prefix index is
+        dropped with the lost pages.  Greedy decode makes the regeneration
+        token-exact.  Pass the surviving sub-cluster as ``cluster`` to
+        re-lease in the same turn.  Returns how many requests were
+        requeued."""
+        n = self.batcher.preempt_resident()
+        self.queue.requeue_front(self.batcher.take_preempted())
+        self.host_loss_events += 1
+        self.host_loss_requeued += n
+        if cluster is not None:
+            self.apply_lease(cluster)
+        return n
 
     # ---------------------------------------------------------------- replan
     def _maybe_replan(self) -> Optional[ReplanRecord]:

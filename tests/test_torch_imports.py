@@ -87,6 +87,23 @@ def test_serving_defaults_to_cuda_and_never_falls_back(monkeypatch):
     {"kv_admission": "grow"},
 ])
 def test_unported_serving_options_raise(kw):
+    if set(kw) & {"prefill_chunk", "prefix_sharing", "kv_admission"}:
+        # ported: the session constructs and serves, and the option is on
+        sess = ServingSession(ServingConfig(device="cpu", cache_len=48,
+                                            page_size=8, replan="off", **kw))
+        b = sess.batcher
+        assert (b.prefill_chunk, b.index is not None, b.kv_admission) == (
+            kw.get("prefill_chunk", 0), kw.get("prefix_sharing", False),
+            kw.get("kv_admission", "reserve"))
+        prefix = np.arange(20)
+        sess.run([Request(rid=rid, tokens=np.concatenate([prefix, [rid]]),
+                          max_new_tokens=12) for rid in range(3)])
+        assert sorted(sess.results) == [0, 1, 2]
+        m = sess.metrics()
+        key = {"prefill_chunk": "chunk_steps", "prefix_sharing": "prefix_hits",
+               "kv_admission": "kv_grow_allocs"}[next(iter(kw))]
+        assert m[key] > 0, (key, m)
+        return
     if "replan" in kw:  # ported: the session constructs and plans
         sess = ServingSession(ServingConfig(device="cpu", cache_len=32, **kw))
         assert sess.planner_session is not None

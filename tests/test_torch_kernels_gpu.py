@@ -741,3 +741,95 @@ def test_hybrid_prefill_and_decode_without_host_sync(cuda_device):
     assert ops.launch_counts()["rglru_scan"] == before + 4
     for g, w in zip(got, want):
         _assert_close(g.cpu(), w, 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dt,kv_dt,rtol", [
+    (torch.float32, torch.float32, 0.0),
+    (torch.bfloat16, torch.bfloat16, 2.0 ** -7),
+])
+def test_paged_kernel_all_trash_row_at_the_cache_end_on_gpu(cuda_device, q_dt,
+                                                           kv_dt, rtol):
+    """A paused or prefilling slot in a chunked serving step: its table row
+    is all zeros (every page the trash page 0) and its position the last of
+    the cache, beside live rows.  The kernel reads that row's whole reach
+    through page 0 without a fault, and the live rows equal the plain
+    version."""
+    B, H, K, hd, ps, n_pp = 4, 16, 8, 128, 16, 100
+    q, kp, vp, table, _ = _paged_inputs(21, B, H, K, hd, ps, n_pp)
+    table[0] = 0
+    table[2] = 0
+    lengths = np.asarray([n_pp * ps - 1, 1535, n_pp * ps - 1, 700], np.int32)
+    table[3, 700 // ps + 1:] = 0
+    args = [torch.from_numpy(a).to(cuda_device) for a in (q, kp, vp, table,
+                                                           lengths)]
+    args[0] = args[0].to(q_dt)
+    args[1], args[2] = args[1].to(kv_dt), args[2].to(kv_dt)
+    before = ops.launch_counts()["paged_attention"]
+    got = ops.paged_attention(*args)
+    torch.cuda.synchronize()
+    want = ref.paged_attention_ref(*args)
+    assert ops.launch_counts()["paged_attention"] == before + 1
+    assert bool(torch.isfinite(got).all())
+    live = [1, 3]
+    _assert_close(got[live], want[live], rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,dtype,rtol,variant", [
+    (21, torch.float32, 0.0, "fp32"),
+    (21, torch.bfloat16, 2.0 ** -7, "wmma"),
+    (170, torch.float32, 0.0, "fp32"),
+    (170, torch.bfloat16, 2.0 ** -7, "wgmma"),
+])
+def test_gmm_kernel_chunk_capacity_on_gpu(cuda_device, C, dtype, rtol,
+                                          variant):
+    """A chunked MoE prefill's expert products: one row x 256 tokens gives
+    qwen2-moe a capacity of 21 (16 < C < 64: bf16 takes the wmma variant),
+    8 rows x 256 tokens one of 170 (bf16: wgmma); E 64, d 2048, f 1408,
+    with an empty group, a single row, a partial group, a full one and
+    dead experts."""
+    E, d, f = 64, 2048, 1408
+    rng = np.random.default_rng(22)
+    sizes = np.minimum(rng.integers(0, 2 * C, E), C)
+    sizes[:4] = [0, 1, C - 1, C]
+    sizes[60:] = 0
+    x = torch.from_numpy(_np(rng, (E, C, d))).to(cuda_device, dtype)
+    w = (torch.from_numpy(_np(rng, (E, d, f))) / d ** 0.5).to(cuda_device, dtype)
+    gs = torch.tensor(sizes, dtype=torch.int32, device=cuda_device)
+    assert cuda_gmm.variant(x, w) == variant
+    got = ops.grouped_matmul(x, w, gs)
+    want = ref.grouped_matmul_ref(x, w, gs)
+    _assert_close(got, want, rtol)
+    for e, n in enumerate(sizes):  # rows past the group: exactly 0
+        assert not got[e, n:].any()
+
+
+@pytest.mark.cuda
+def test_chunked_shared_grow_serving_equal_on_cuda_and_cpu(cuda_device):
+    """Reduced qwen3 in fp32 with 8-token chunks, prefix sharing and grow
+    admission in a pool small enough to preempt: a shared-prefix burst
+    gives the same tokens and the same page accounting on the card (the
+    kernels) as on the CPU (their plain versions)."""
+    from repro_torch.serving import Request, ServingConfig, ServingSession
+
+    rng = np.random.default_rng(23)
+    prefix = rng.integers(0, 256, (20,))
+    trace = [(i, np.concatenate([prefix, rng.integers(0, 256, (4,))]))
+             for i in range(5)]
+    keys = ("chunk_steps", "interleaved_chunks", "decode_steps",
+            "kv_cow_forks", "kv_shared_maps", "kv_grow_allocs",
+            "kv_preemptions", "kv_page_hw")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        sess = ServingSession(ServingConfig(
+            device=dev, seed=3, max_slots=4, cache_len=40, page_size=8,
+            prefill_chunk=8, prefix_sharing=True, kv_admission="grow",
+            kv_pages=10, cache_dtype="float32", replan="off"))
+        m = sess.run([Request(rid=r, tokens=t, max_new_tokens=12,
+                              arrival=float(r // 2)) for r, t in trace],
+                     max_steps=1000)
+        out[dev] = ({r: res.tokens for r, res in sess.results.items()},
+                    {k: m[k] for k in keys})
+    assert len(out["cpu"][0]) == 5 and out["cpu"][1]["kv_cow_forks"] > 0
+    assert out["cuda"] == out["cpu"]
