@@ -92,10 +92,36 @@ caught):
    on ``cuda`` and ``cpu``;
 5e. the reduced qwen2-moe chunked (4 requests x 40-token prompts in one
    job of 16-token chunks): identical tokens on ``cuda`` and ``cpu``;
-6. print a ``{"kernels": [...]}`` line (attention and grouped matmul at
+6. train full-width qwen3-0.6b (28 layers, d 1024, vocab 151,936; bf16
+   compute, fp32 masters and moments, block remat) through
+   ``repro_torch.launch.train.train``: batch 8 x seq 1,024 (so every
+   layer's attention is the flash kernel), 8 steps on ``SyntheticLM``;
+   per step the loss, ms and tok/s, and the peak device memory; flash
+   launches must be 2 x 28 per step (forward and remat recompute) and
+   every other kernel 0; every loss finite, the last below the first;
+   then the same steps with kernels off (plain attention on the card):
+   per-step losses equal within 2^-7 relative (bf16 compute);
+6b. reduced qwen3 in fp32, 3 train steps at seq 320 (the fp32 flash
+   kernel and its plain-recompute gradient) on ``cuda`` against the plain
+   path on ``cpu``: losses and final params within 1e-4;
+6c. the wavefront training path: a bound ``SpindleSession`` over
+   ``tiny_multitask_clip`` and over ``tiny_ofasys`` on ``cuda``: engine
+   loss and gradients equal to autograd of ``reference_loss`` before and
+   after a ``TaskCompleted`` replan, the loss history equal to the
+   ``cpu`` run's within 1e-5 through the first step on the rebound
+   engine and 1e-4 after the replan's restart of Adam's moments; then a
+   wider clip (d 512, batch 16) through the same session, step times and
+   waves;
+7. print a ``{"kernels": [...]}`` line (attention and grouped matmul at
    qwen2-moe's shapes with phase 4b's launches, the scan at recurrentgemma's
-   fp32 prefill shape with phase 4c's), the ``nvidia-smi`` line, and last
-   ``{"ok": true, "device": {...}}``.
+   fp32 prefill shape with phase 4c's, and flash again at phase 6's
+   training shape B8 H16 K8 S1024 with phase 6's launches), the
+   ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
+
+Phase 3 also holds flash at the training shape (S 1,024) and the flash
+gradient there — the plain version recomputed and differentiated, as the
+JAX package's ``custom_vjp`` does (no TPU kernel) — against autograd of
+the plain version, with its device time per layer.
 """
 
 from __future__ import annotations
@@ -381,6 +407,43 @@ def check_flash(torch, ops, ref, dtype_name: str, S: int, K: int) -> dict:
                 library_ms=library_ms, host_us=host)
 
 
+def check_flash_backward(torch, ops, ref, dtype_name: str, S: int,
+                         K: int) -> dict:
+    """The flash autograd function's backward (the plain version
+    recomputed and differentiated: no TPU kernel, JAX's is the same
+    recompute in XLA) at the training shape B=8, H=16, K, hd=128: its
+    gradients through ``ops.flash_attention`` must equal autograd of the
+    plain version, and one call's device time per layer."""
+    dt = getattr(torch, dtype_name)
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(31 + S)
+    B, H, hd = 8, 16, 128
+
+    def make():
+        return tuple(torch.randn(shape, generator=g).to(dev, dt)
+                     for shape in ((B, H, S, hd), (B, K, S, hd),
+                                   (B, K, S, hd), (B, H, S, hd)))
+
+    first = make()
+    q, k, v, gout = first
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(ops.flash_attention(*ins), ins, gout)
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(ref.flash_attention_ref(*ins), ins, gout)
+    err = max(check_close(f"flash backward d{n} S={S}", a, b, dtype_name)
+              for n, a, b in zip("qkv", got, want))
+    sets = [first] + [make() for _ in range(2)]
+    ms = time_ms(torch, lambda q, k, v, g: ops.flash_attention_backward(
+        q, k, v, g), sets, iters=10)
+    itemsize = q.element_size()
+    nbytes = 2 * (2 * q.numel() + 2 * k.numel()) * itemsize
+    # the scores recomputed, then dV, dP, dQ and dK: five causal products
+    flops = 5 * 2.0 * B * H * hd * S * (S + 1) / 2
+    bms, bby = bound_ms(nbytes, flops, dtype_name)
+    return dict(max_abs_err=err, tol=TOL_TEXT[dtype_name], ms=ms,
+                plain_ms=ms, bound_ms=bms, bound_by=bby, library_ms=None)
+
+
 def routed_sizes(E_live: int, E: int, C: int, tokens: int, top_k: int,
                  seed: int):
     """Group sizes as routing makes them: ``tokens`` rows pick their top-k
@@ -506,11 +569,19 @@ def phase_kernels(torch, ops, ref, gmm, paged) -> dict:
                     f"splits={r['splits']}: {_line(r)} "
                     f"host_us={r['host_us']:.1f}")
                 results[("paged_attention", dtn, shape, K)] = r
-        for S, K in ((512, 8), (300, 8), (512, 16)):
+        for S, K in ((512, 8), (300, 8), (512, 16), (1024, 8)):
             r = check_flash(torch, ops, ref, dtn, S, K)
             log(f"flash_attention {dtn} B=8 H=16 K={K} S={S} hd=128 causal: "
                 f"{_line(r)} host_us={r['host_us']:.1f}")
             results[("flash_attention", dtn, S, K)] = r
+        if dtn == "bfloat16":  # phase 6's training shape
+            r = check_flash_backward(torch, ops, ref, dtn, 1024, 8)
+            log(f"flash_attention backward (plain recompute, not a TPU "
+                f"kernel) {dtn} B=8 H=16 K=8 S=1024 hd=128 causal, per "
+                f"layer: max_err={r['max_abs_err']:.3e} (tol {r['tol']}) "
+                f"ms={r['ms']:.5f} bound_ms={r['bound_ms']:.5f} "
+                f"({r['bound_by']})")
+            results[("flash_backward", dtn, 1024, 8)] = r
         for shape, (E, C, d, f, tokens) in GMM_SHAPES.items():
             r = check_gmm(torch, ops, ref, gmm, dtn, shape)
             log(f"grouped_matmul {dtn} {shape} E={E} C={C} d={d} f={f} "
@@ -927,6 +998,185 @@ def phase_chunk_parity(torch, arch: str) -> None:
         f"{out['cpu'][1]}")
 
 
+# phase 6: full qwen3-0.6b training (batch 8 x 1,024 tokens: S > 256, so
+# every layer's attention is the flash kernel, forward and remat recompute)
+TRAIN_CELL = dict(arch="qwen3-0.6b", steps=8, batch=8, seq=1024, lr=1e-3,
+                  seed=0)
+# kernels on and off compute in bf16 with fp32 masters: their per-step
+# losses may differ by the compute dtype's relative precision (2^-7)
+TRAIN_LOSS_RTOL = 2.0 ** -7
+TRAIN_PARITY_TOL = 1e-4  # phase 6b: reduced fp32, cuda vs cpu
+MT_TOL = 1e-5  # phase 6c: engine vs reference, cuda vs cpu (fp32)
+# phase 6c, cuda vs cpu after the TaskCompleted: the replan restarts Adam's
+# moments, and a first Adam step moves every entry by lr·g/(|g| + eps),
+# which turns a cross-device gradient difference δ into lr·δ/eps (5e5·δ
+# at lr 5e-3, eps 1e-8) where |g| is near eps
+MT_RESTART_TOL = 1e-4
+
+
+def train_param_count(cfg) -> int:
+    """Parameters of a dense decoder of ``cfg`` (what training holds
+    masters, gradients and two moments of)."""
+    d, hd, L = cfg.d_model, cfg.resolved_head_dim, cfg.n_layers
+    H, K = cfg.n_heads, cfg.n_kv_heads
+    layer = d * (H + 2 * K) * hd + H * hd * d + 3 * d * cfg.d_ff + 2 * d
+    head = 0 if cfg.tie_embeddings else d * cfg.vocab
+    return cfg.vocab * d + L * layer + d + head
+
+
+def phase_train_full(torch, ops, train, get_arch, smi: str) -> dict:
+    """Train full qwen3-0.6b through ``repro_torch.launch.train.train``:
+    flash launches must be 2 x 28 per step (each layer's forward and its
+    remat recompute) and every other kernel 0; every loss finite and the
+    last below the first; then the same steps with kernels off (plain
+    attention on the card) give the same per-step losses within
+    ``TRAIN_LOSS_RTOL``."""
+    cfg = get_arch(TRAIN_CELL["arch"])
+    B, S, steps = TRAIN_CELL["batch"], TRAIN_CELL["seq"], TRAIN_CELL["steps"]
+    n = train_param_count(cfg)
+    log(f"train {cfg.name} full: {n} params; masters + grads + 2 moments "
+        f"(fp32) {16 * n} bytes; one ({B} x {min(S, 1024)} x {cfg.vocab}) "
+        f"fp32 logits chunk {4 * B * min(S, 1024) * cfg.vocab} bytes")
+    runs = {}
+    for kernels in (True, False):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        out = train(reduced_cfg=False, device="cuda", use_kernels=kernels,
+                    verbose=True, log_every=1, **TRAIN_CELL)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        hist, secs = out["history"], out["step_seconds"]
+        del out
+        per = 2 * cfg.n_layers if kernels else 0
+        want = {name: 0 for name in counts}
+        want["flash_attention"] = per * steps
+        if counts != want:
+            raise AssertionError(f"train kernels={kernels}: launch counts "
+                                 f"{counts} != {want}")
+        if not all(math.isfinite(x) for x in hist) or not hist[-1] < hist[0]:
+            raise AssertionError(f"train kernels={kernels}: losses {hist} "
+                                 f"not finite and decreasing")
+        tok_s = [B * S / t for t in secs]
+        log(f"train {cfg.name} full (28L d1024, bf16 compute, fp32 masters "
+            f"and moments, block remat) kernels={kernels}: batch {B} x seq "
+            f"{S}, {steps} steps; losses={hist} step_ms={[t * 1e3 for t in secs]} "
+            f"tok_s={tok_s} flash launches {counts['flash_attention']} "
+            f"({per} per step) peak_mem_bytes={peak} on {smi}")
+        runs[kernels] = dict(history=hist, counts=counts, peak=peak,
+                             step_s=secs)
+    worst = max(abs(a - b) - TRAIN_LOSS_RTOL * abs(b)
+                for a, b in zip(runs[True]["history"], runs[False]["history"]))
+    if not worst <= 0:
+        raise AssertionError(f"train: kernels on/off losses differ beyond "
+                             f"2^-7 relative: {runs[True]['history']} vs "
+                             f"{runs[False]['history']}")
+    log(f"train: kernels on/off per-step losses agree within 2^-7 relative "
+        f"(max |diff| {max(abs(a - b) for a, b in zip(runs[True]['history'], runs[False]['history']))})")
+    return runs[True]
+
+
+def phase_train_parity(torch, train) -> None:
+    """Reduced qwen3 in fp32, 3 steps at seq 320 (the fp32 flash kernel)
+    on cuda against the plain path on cpu: losses and final params within
+    ``TRAIN_PARITY_TOL``.  Adam moves an entry whose gradient is near zero
+    by up to lr whatever its size, so the lr (1e-3) keeps that spread
+    (0.03·lr between the port and JAX on the CPU) under the tolerance."""
+    kw = dict(reduced_cfg=True, steps=3, batch=2, seq=320, lr=1e-3, seed=5,
+              verbose=False)
+    gpu = train("qwen3-0.6b", device="cuda", **kw)
+    cpu = train("qwen3-0.6b", device="cpu", **kw)
+    dl = max(abs(a - b) for a, b in zip(gpu["history"], cpu["history"]))
+    dp = max(float((gpu["params"][k].detach().cpu() - v.detach()).abs().max())
+             for k, v in cpu["params"].items())
+    if not (dl <= TRAIN_PARITY_TOL and dp <= TRAIN_PARITY_TOL):
+        raise AssertionError(f"reduced train cuda vs cpu: loss diff {dl}, "
+                             f"param diff {dp} > {TRAIN_PARITY_TOL}")
+    log(f"reduced qwen3 fp32 train (3 steps, batch 2 x seq 320): cuda "
+        f"losses {gpu['history']} == cpu {cpu['history']} (max diff {dl}); "
+        f"final params max diff {dp} (tol {TRAIN_PARITY_TOL})")
+
+
+def _engine_delta(torch, session) -> tuple:
+    """Engine loss and grads against autograd of ``reference_loss`` on the
+    session's current params and batches."""
+    dev = next(session.params.parameters()).device
+    batches = {t: {k: v.to(dev) for k, v in b.items()}
+               for t, b in session.batches.items()}
+    ref_l, ref_g = session.model.reference_loss_and_grads(session.params,
+                                                          batches)
+    loss, grads = session.engine.loss_and_grads(session.params, batches)
+    dg = max(float((grads[n] - g).abs().max()) for n, g in ref_g.items())
+    return abs(float(loss) - float(ref_l)), dg
+
+
+def phase_wavefront(torch, smi: str) -> None:
+    """A bound SpindleSession over tiny_multitask_clip and tiny_ofasys on
+    cuda: the engine equals the reference before and after a
+    TaskCompleted replan, and the loss history equals the cpu run's
+    (``MT_TOL`` through the first step on the rebound engine,
+    ``MT_RESTART_TOL`` after the update that restarts Adam's moments);
+    then a wider clip (d 512, batch 16) through the same session, step
+    times and waves."""
+    from repro_torch.core import ClusterSpec
+    from repro_torch.launch.events import TaskCompleted
+    from repro_torch.runtime import tiny_multitask_clip, tiny_ofasys
+    from repro_torch.session import SessionConfig, SpindleSession
+
+    cluster = ClusterSpec(n_devices=8, island_size=4, mem_bytes=80e9)
+    cases = {"clip": (tiny_multitask_clip,
+                      ("img_text", "audio_text", "audio_vision"),
+                      "audio_vision"),
+             "ofasys": (tiny_ofasys, ("caption", "asr", "summ"), "summ")}
+    for name, (maker, tasks, done) in cases.items():
+        hist, deltas, recs = {}, {}, {}
+        for device in ("cuda", "cpu"):
+            sess = SpindleSession(
+                SessionConfig(cluster=cluster, device=device),
+                model_factory=lambda ts, maker=maker: maker(n_tasks=len(ts)),
+                tasks=tasks).bind()
+            d = [_engine_delta(torch, sess)]
+            sess.run(3)
+            sess.signal(TaskCompleted(done))
+            d.append(_engine_delta(torch, sess))
+            sess.run(2)
+            if max(max(x) for x in d) > MT_TOL:
+                raise AssertionError(f"wavefront {name} {device}: engine vs "
+                                     f"reference (loss, grad) {d}")
+            hist[device], deltas[device] = sess.history, d
+            recs[device] = sess.replans[-1]
+        diffs = [abs(a - b) for a, b in zip(hist["cuda"], hist["cpu"])]
+        diff = max(diffs)
+        # history[3] is the first loss on the rebound engine; history[4]
+        # follows the first update with restarted moments
+        if not (max(diffs[:4]) <= MT_TOL and diff <= MT_RESTART_TOL):
+            raise AssertionError(f"wavefront {name}: cuda losses "
+                                 f"{hist['cuda']} != cpu {hist['cpu']}")
+        rec = recs["cuda"]
+        log(f"wavefront {name} (bound session, TaskCompleted({done}) after "
+            f"step 3 -> {rec.mode}, {rec.closures_cached} closures kept): "
+            f"engine == reference on cuda before and after (loss, grad "
+            f"deltas {deltas['cuda']}); cuda losses == cpu within {MT_TOL} "
+            f"through the rebind, {MT_RESTART_TOL} after the moment restart "
+            f"(diffs {diffs}): {hist['cuda']}")
+    sess = SpindleSession(
+        SessionConfig(cluster=cluster, device="cuda"),
+        model_factory=lambda ts: tiny_multitask_clip(n_tasks=len(ts), d=512,
+                                                      batch=16),
+        tasks=cases["clip"][1]).bind()
+    secs = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        loss = sess.step()
+        secs.append(time.perf_counter() - t0)
+    if not math.isfinite(loss):
+        raise AssertionError(f"wide clip: loss {loss}")
+    log(f"wavefront wide clip (d 512, batch 16, 3 tasks) on cuda: "
+        f"{len(sess.current_plan.waves())} waves, step_ms "
+        f"{[t * 1e3 for t in secs]}, losses {sess.history} on {smi}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("kernels",), default=None,
@@ -990,6 +1240,12 @@ def main(argv=None) -> int:
         phase_chunk_parity(torch, "qwen3-0.6b")
         phase_chunk_parity(torch, "qwen2-moe-a2.7b")
 
+        from repro_torch.launch.train import train
+
+        trained = phase_train_full(torch, ops, train, get_arch, smi)
+        phase_train_parity(torch, train)
+        phase_wavefront(torch, smi)
+
     # one row per kernel: attention and the grouped matmul at qwen2-moe's
     # bf16 shapes (the grouped matmul at its decode shape, where most of
     # its launches are) with the launches of 4b; the scan at
@@ -999,15 +1255,25 @@ def main(argv=None) -> int:
             "grouped_matmul": ("grouped_matmul", "bfloat16", "decode"),
             "rglru_scan": ("rglru_scan", "float32", "prefill")}
     rows = []
-    for name, key in keys.items():
-        r = checks[key]
+
+    def row(name, r, launches, **extra):
         rows.append({
             "name": name, "route": "cuda", "source": SOURCES[name][0],
-            "replaces": SOURCES[name][1], "launches": counts[name],
+            "replaces": SOURCES[name][1], "launches": launches,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            **extra,
         })
+
+    for name, key in keys.items():
+        row(name, checks[key], counts[name])
+    if args.only is None:
+        # flash at phase 6's training shape, with its launches in that run
+        row("flash_attention",
+            checks[("flash_attention", "bfloat16", 1024, 8)],
+            trained["counts"]["flash_attention"], path="train",
+            launches_per_step=2 * get_arch("qwen3-0.6b").n_layers)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

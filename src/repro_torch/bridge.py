@@ -13,8 +13,16 @@ axis (remainder layers first, then group ``g``'s pattern slot ``j`` at
 ``n_rem + g * len(pattern) + j``) and :func:`to_jax` stacks it back.
 Only the leading group axis moves: an MoE layer's ``(E, d, f)`` expert
 stacks arrive per layer as they are (dead experts included), and the
-router keeps its fp32.  Everything here is numpy: the JAX side converts
-with ``np.asarray``.
+router keeps its fp32.  A training model (``build_model(..., train=True)``)
+takes the same names and holds the values in fp32, as the JAX params are.
+
+The multi-task model's params (``repro.runtime.MTModel.init``: instance
+name → nested dicts and lists) map onto the port's instance ``ModuleDict``
+by name: :func:`flatten_tree` names a JAX leaf by its path (list indices
+included, ``"img_text:contrastive.proj.text"``, ``"vision.layers.0.attn.wq"``),
+which is the name ``named_parameters()`` gives the port's leaf
+(:func:`load_mt_params`, :func:`mt_params_to_jax`).  Everything here is
+numpy: the JAX side converts with ``np.asarray``.
 """
 
 from __future__ import annotations
@@ -27,14 +35,15 @@ import torch
 from .config import ArchConfig
 
 
-def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
+def flatten_tree(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """A pytree of nested dicts and lists → {dotted path: numpy array}."""
+    items = (tree.items() if isinstance(tree, dict)
+             else enumerate(tree) if isinstance(tree, (list, tuple)) else None)
+    if items is None:
+        return {prefix[:-1]: np.asarray(tree)}
     out: Dict[str, np.ndarray] = {}
-    for k, v in tree.items():
-        name = f"{prefix}{k}"
-        if isinstance(v, dict):
-            out.update(_flatten(v, name + "."))
-        else:
-            out[name] = np.asarray(v)
+    for k, v in items:
+        out.update(flatten_tree(v, f"{prefix}{k}."))
     return out
 
 
@@ -63,15 +72,15 @@ def from_jax(tree: Dict[str, Any], cfg: ArchConfig) -> Dict[str, np.ndarray]:
     for key, sub in tree.items():
         if key == "blocks":
             for j in range(L):
-                for leaf, arr in _flatten(sub[f"p{j}"]).items():
+                for leaf, arr in flatten_tree(sub[f"p{j}"]).items():
                     for g in range(arr.shape[0]):
                         out[f"decoder.layers.{n_rem + g * L + j}.{leaf}"] = arr[g]
         elif key.startswith("blocks_rem"):
             r = int(key[len("blocks_rem"):])
-            for leaf, arr in _flatten(sub).items():
+            for leaf, arr in flatten_tree(sub).items():
                 out[f"decoder.layers.{r}.{leaf}"] = arr
         elif isinstance(sub, dict):
-            out.update(_flatten(sub, key + "."))
+            out.update(flatten_tree(sub, key + "."))
         else:
             out[key] = np.asarray(sub)
     return out
@@ -133,3 +142,48 @@ def jax_params(model) -> Dict[str, Any]:
         t = p.detach().cpu()
         flat[name] = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
     return to_jax(flat, model.cfg)
+
+
+# ---------------------------------------------------------------------------
+# Multi-task model params
+# ---------------------------------------------------------------------------
+
+
+def _unflatten_tree(flat: Dict[str, np.ndarray]):
+    tree = _unflatten(flat)
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: lists(v) for k, v in node.items()}
+        if node and all(k.isdigit() for k in node):
+            return [node[str(i)] for i in range(len(node))]
+        return node
+
+    return lists(tree)
+
+
+@torch.no_grad()
+def load_mt_params(params: torch.nn.ModuleDict, tree: Dict[str, Any]):
+    """Copy a JAX ``MTModel.init`` tree (numpy leaves) into the port's
+    instance ``ModuleDict``; every leaf of both must match by name and
+    shape.  Returns ``params``."""
+    flat = flatten_tree(tree)
+    named = dict(params.named_parameters())
+    if set(flat) != set(named):
+        raise KeyError(f"load_mt_params: names differ: "
+                       f"{sorted(set(flat) ^ set(named))}")
+    for name, p in named.items():
+        t = _to_torch(flat[name])
+        if tuple(t.shape) != tuple(p.shape):
+            raise ValueError(f"load_mt_params: {name} has shape "
+                             f"{tuple(t.shape)}, expected {tuple(p.shape)}")
+        p.copy_(t.to(p.dtype))
+    return params
+
+
+def mt_params_to_jax(named: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """Instance params (or grads) by name — ``dict(params.named_parameters())``
+    or the engine's grads — as the JAX MT pytree of numpy arrays."""
+    return _unflatten_tree({k: v.detach().cpu().numpy()
+                            for k, v in named.items()})

@@ -3,9 +3,10 @@
 ``ArchConfig`` and ``MoEConfig`` are field-for-field copies of the JAX
 package's, so an architecture has the same numbers in both packages
 (``tests/test_torch_imports.py`` pins that for the registered archs).
-``ShardingConfig`` keeps only the one knob serving needs: ``use_kernels``
-(the JAX package's ``use_pallas``) routes attention and the MoE expert
-products through the hand-written CUDA kernels.  :func:`resolve_device` is the port's single
+``ShardingConfig`` keeps the knobs one card reads: ``use_kernels`` (the
+JAX package's ``use_pallas``) routes attention and the MoE expert
+products through the hand-written CUDA kernels, and ``remat`` sets the
+training forward's activation checkpoints.  :func:`resolve_device` is the port's single
 device policy: asking for CUDA without a GPU raises, it never falls back.
 """
 
@@ -77,12 +78,15 @@ class ArchConfig:
 
 @dataclass(frozen=True)
 class ShardingConfig:
-    """Kernel policy.  ``use_kernels`` swaps the hand-written CUDA kernels
-    into the model (flash forward for prefill, paged decode, the grouped
-    matmul of the MoE experts); on a CPU tensor each kernel wrapper
-    computes its plain PyTorch version."""
+    """Kernel and training policy.  ``use_kernels`` swaps the hand-written
+    CUDA kernels into the model (flash forward for prefill and training,
+    paged decode, the grouped matmul of the MoE experts); on a CPU tensor
+    each kernel wrapper computes its plain PyTorch version."""
 
     use_kernels: bool = False
+    # activation checkpoint policy of a training forward: "block" (each
+    # block-pattern repetition recomputed in backward) | "none"
+    remat: str = "block"
 
 
 _REGISTRY: Dict[str, ArchConfig] = {}
@@ -112,8 +116,8 @@ def _ensure_registered() -> None:
 def default_sharding(cfg: ArchConfig, **overrides) -> ShardingConfig:
     """The arch's default ShardingConfig: its ``sharding_defaults`` that
     name a field of the port's ShardingConfig, then ``overrides``.  The
-    JAX knobs it leaves out (``grad_accum`` of the MoE configs) are
-    training policy, which serving never reads."""
+    JAX knobs it leaves out (``grad_accum`` of the MoE configs) belong to
+    MoE training, which is not ported (ROADMAP queue 1, item 3b)."""
     names = {f.name for f in fields(ShardingConfig)}
     kw = {k: v for k, v in cfg.sharding_defaults if k in names}
     kw.update(overrides)

@@ -1,8 +1,9 @@
 """CUDA flash-attention forward: the wrapper of ``csrc/flash_attention.cu``.
 
 Replaces ``repro/kernels/flash_attention.py:flash_attention`` (the Pallas
-TPU kernel), forward only — the backward kernel belongs to the training
-slice.  q, k and v may be strided views (the model passes its
+TPU kernel), a forward kernel, as the Pallas one is: the gradient
+(:func:`repro_torch.kernels.ops.flash_attention`) recomputes the plain
+version, as the JAX ``custom_vjp`` recomputes its oracle.  q, k and v may be strided views (the model passes its
 ``(B, S, heads, hd)`` projections transposed, without a copy) as long as
 the head dim is contiguous; the output is a new contiguous
 ``(B, H, Sq, hd)`` tensor.  bf16 runs on the tensor cores and reads q, k

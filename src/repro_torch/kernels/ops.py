@@ -5,11 +5,20 @@ A CPU tensor goes to the kernel's plain PyTorch version
 CUDA kernel, whose build or launch failure raises.  There is no fallback
 between the two (the JAX wrapper's interpret-mode fallback,
 ``repro/kernels/ops.py:77-80``, has no counterpart here).
+
+Flash attention is differentiable, as the JAX wrapper's ``custom_vjp``
+(``_flash_diff``, ``repro/kernels/ops.py:29-57``) makes it: the forward is
+the kernel, the backward recomputes the plain version under autograd and
+differentiates it (JAX, too, has no backward kernel: its ``_flash_bwd``
+recomputes ``flash_attention_ref`` in XLA).  A forward run again by an
+activation checkpoint launches the kernel again, and counts again.
 """
 
 from __future__ import annotations
 
 from typing import Dict
+
+import torch
 
 from . import flash_attention as _flash
 from . import grouped_matmul as _gmm
@@ -36,12 +45,38 @@ def _on_cpu(*tensors) -> bool:
                      f"got {sorted(devs)}")
 
 
+class _FlashAttention(torch.autograd.Function):
+    """The flash kernel forward with the plain version's gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v)
+        if _on_cpu(q, k, v):
+            return ref.flash_attention_ref(q, k, v, causal=causal)
+        return _flash.flash_attention(q, k, v, causal=causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*flash_attention_backward(*ctx.saved_tensors, g,
+                                          causal=ctx.causal), None)
+
+
+def flash_attention_backward(q, k, v, g, *, causal: bool = True):
+    """(dq, dk, dv) of flash attention for the output cotangent ``g``: the
+    plain version recomputed under autograd and differentiated.  One
+    call's scores and probabilities live only until it returns."""
+    with torch.enable_grad(), torch.profiler.record_function(
+            "repro.flash_backward"):
+        ins = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = ref.flash_attention_ref(*ins, causal=causal)
+        return torch.autograd.grad(out, ins, g)
+
+
 def flash_attention(q, k, v, *, causal: bool = True):
     """Causal (or full) GQA attention, head-major: q (B,H,Sq,hd), k/v
-    (B,K,Sk,hd) → (B,H,Sq,hd) in q's dtype."""
-    if _on_cpu(q, k, v):
-        return ref.flash_attention_ref(q, k, v, causal=causal)
-    return _flash.flash_attention(q, k, v, causal=causal)
+    (B,K,Sk,hd) → (B,H,Sq,hd) in q's dtype; differentiable in q, k, v."""
+    return _FlashAttention.apply(q, k, v, causal)
 
 
 def paged_attention(q, k_pool, v_pool, page_table, lengths):

@@ -19,17 +19,21 @@ session can dispatch on:
     fleet scheduler's events.
 
 Event *sources* are pollable producers the session drains once per step
-(:class:`EventSource` protocol).  :class:`RequestQueueSource` drains the
-request queue's buffered burst; :class:`ScriptedEventSource` replays a
-fixed script.  The JAX module's ``StragglerEventSource`` wraps
-``repro.ckpt.straggler``'s detector; it comes with the bound session and
-the straggler detector (ROADMAP queue 1, item 3).
+(:class:`EventSource` protocol).  :class:`StragglerEventSource` wraps the
+straggler detector (:mod:`repro_torch.ckpt.straggler`) and is fed step
+times by the session or the training loop; :class:`RequestQueueSource`
+drains the request queue's buffered burst; :class:`ScriptedEventSource`
+replays a fixed script.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Any, List, Optional, Protocol, Tuple, runtime_checkable
+
+import torch
+
+from ..ckpt.straggler import StragglerDetector, TimingCollector
 
 
 # --------------------------------------------------------------------------
@@ -164,6 +168,58 @@ class EventSource(Protocol):
 
     def poll(self) -> List[Event]:
         """Return (and clear) any events that fired since the last poll."""
+
+
+def process_index() -> int:
+    """This process's rank in the ``torch.distributed`` group (0 without
+    one) — the host index of an unaggregated step time."""
+    if torch.distributed.is_available() and torch.distributed.is_initialized():
+        return torch.distributed.get_rank()
+    return 0
+
+
+@dataclass
+class StragglerEventSource:
+    """Straggler detection as a session event source.
+
+    Producers (the training loop, or the session itself via
+    ``record``/``record_step``) feed per-host step times; ``poll`` emits one
+    :class:`StragglerDetected` per *change* in the flagged host set — a
+    host stays flagged across consecutive polls without refiring, so one
+    degradation triggers one replan, not one per step.  The event always
+    carries the FULL currently-flagged set; recovery (the set emptying
+    again) fires ``StragglerDetected(())``.
+
+    With a :class:`repro_torch.ckpt.straggler.TimingCollector` attached,
+    ``record_step(local_seconds)`` feeds the detector the per-host vector
+    (the in-process skew path) — the only feed under which a per-process
+    caller can flag.  Without one, ``record_step`` records this process's
+    host only (the detector then never flags by itself).
+    """
+
+    detector: StragglerDetector
+    collector: Optional[TimingCollector] = None
+    _last_flagged: Tuple[int, ...] = ()
+
+    def record(self, host: int, step_seconds: float) -> None:
+        self.detector.record(host, step_seconds)
+
+    def record_step(self, step_seconds: float) -> None:
+        """One local step time in — the full per-host stream (when a
+        collector aggregates) into the detector."""
+        if self.collector is None:
+            self.detector.record(process_index(), step_seconds)
+            return
+        vec = self.collector.gather(step_seconds)
+        if vec is not None:
+            self.detector.record_all(vec)
+
+    def poll(self) -> List[Event]:
+        hosts = tuple(self.detector.stragglers())
+        if hosts != self._last_flagged:
+            self._last_flagged = hosts
+            return [StragglerDetected(hosts)]
+        return []
 
 
 @dataclass

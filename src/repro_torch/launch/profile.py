@@ -1,11 +1,13 @@
-"""Where the serving path's time goes on the GPU (``torch.profiler``).
+"""Where the serving and training paths' time goes on the GPU
+(``torch.profiler``).
 
     PYTHONPATH=src python -m repro_torch.launch.profile      # full qwen3-0.6b
     PYTHONPATH=src python -m repro_torch.launch.profile --arch qwen2-moe-a2.7b
     PYTHONPATH=src python -m repro_torch.launch.profile --arch recurrentgemma-9b
+    PYTHONPATH=src python -m repro_torch.launch.profile --train  # one train step
 
-Serves the ``chip_smoke.py`` cell (8 requests × 512-token prompts × 32
-new tokens, bf16, page size 16) once to warm every kernel and library
+Serving: serves the ``chip_smoke.py`` cell (8 requests × 512-token prompts
+× 32 new tokens, bf16, page size 16) once to warm every kernel and library
 handle, then on a fresh session over the same model measures:
 
 * the stacked prefill (one ``admit_many``) under the profiler: wall time,
@@ -16,9 +18,22 @@ handle, then on a fresh session over the same model measures:
 
 Device time is the sum of the profiler's CUDA-side events (one stream, so
 they do not overlap), grouped into the four ported kernels, copies and
-the rest, with the largest kernels also listed by name.  Prints one line per
-phase and a JSON line; exits non-zero when the profiler records no device
-time.
+the rest, with the largest kernels also listed by name.
+
+Training (``--train``, :func:`profile_train`): full qwen3-0.6b in the
+training layout, batch 8 × seq 1024 (``chip_smoke.py`` phase 6's cell),
+two warm-up steps, then one profiled step whose forward, backward and
+update are each closed by a device sync.  Its device time is split by the
+phase a kernel was launched in and by what launched it (:data:`TRAIN_GROUPS`):
+the flash kernel in the forward and in the backward (the remat recompute),
+the plain attention backward (inside the flash autograd function's
+backward), ``chunked_xent`` (its forward, its backward-time logits
+recompute, and the backward nodes of its forward ops, matched by autograd
+sequence number), the remaining matmuls (cuBLAS kernels by name), the
+optimizer update and the rest.
+
+Prints one line per phase and a JSON line; exits non-zero when the
+profiler records no device time.
 """
 
 from __future__ import annotations
@@ -35,6 +50,12 @@ from torch.profiler import ProfilerActivity, profile
 from ..serving import ServingConfig, ServingSession
 from .serve import _build_requests
 
+#: the groups of a train step's device time (see the module doc)
+TRAIN_GROUPS = ("flash_forward", "flash_recompute", "attention_backward_plain",
+                "chunked_xent", "matmul", "optimizer", "other")
+#: substrings of cuBLAS / CUTLASS matmul kernel names on Hopper
+MATMUL_KEYS = ("gemm", "nvjet", "xmma", "cutlass")
+
 # substrings of the kernels' names: paged_decode_split_kernel;
 # flash_fwd_kernel (fp32) and flash_fwd_wgmma_kernel (bf16);
 # gmm_bf16_kernel, gmm_wgmma_kernel, gmm_skinny_kernel and gmm_f32_kernel
@@ -48,20 +69,21 @@ TOP = 6
 
 def device_times(prof) -> Tuple[Dict[str, float], Dict[str, float], int]:
     """Device µs by kernel group, the ``TOP`` kernels by name (µs), and the
-    number of device events of a profiler run."""
+    number of device events of a profiler run.  A ``record_function``
+    range also shows on the device timeline, spanning the kernels it
+    launched: only the kernels (and copies) are counted."""
     by_group: Dict[str, float] = {}
     by_name: Dict[str, float] = {}
     count = 0
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+    for e in prof.events():
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
             continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        group = next((g for g, key in GROUPS if key in e.key), "other")
+        us = e.time_range.elapsed_us()
+        group = next((g for g, key in GROUPS if key in e.name), "other")
         by_group[group] = by_group.get(group, 0.0) + us
-        by_name[e.key[:80]] = by_name.get(e.key[:80], 0.0) + us
-        count += e.count
+        by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + us
+        count += 1
     top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP])
     return by_group, top, count
 
@@ -125,12 +147,144 @@ def profile_serve(arch: str = "qwen3-0.6b", *, reduced_cfg: bool = False,
     }
 
 
+def _ancestors(evt):
+    """The event and its enclosing host events, innermost first."""
+    out = []
+    while evt is not None:
+        out.append(evt)
+        evt = evt.cpu_parent
+    return out
+
+
+def train_breakdown(events, phases: Dict[str, Tuple[float, float]]
+                    ) -> Dict[str, float]:
+    """Device µs of a profiled train step by :data:`TRAIN_GROUPS`.
+    ``events`` is the profiler's event list; ``phases`` maps "forward",
+    "backward" and "update" to the host-time range (µs) each ran in —
+    a kernel's phase is that of the host op that launched it."""
+    def phase_of(evt):
+        t = evt.time_range.start
+        return next((name for name, (lo, hi) in phases.items()
+                     if lo <= t <= hi), None)
+
+    # the forward ops of chunked_xent, by autograd sequence number: their
+    # backward nodes carry the same number
+    xent_seq = {e.sequence_nr for e in events
+                if e.sequence_nr >= 0 and phase_of(e) == "forward"
+                and any(a.name == "repro.chunked_xent"
+                        for a in _ancestors(e))}
+    out = {g: 0.0 for g in TRAIN_GROUPS}
+    for e in events:
+        if not e.kernels:
+            continue
+        phase = phase_of(e)
+        anc = _ancestors(e)
+        names = {a.name for a in anc}
+        in_xent = "repro.chunked_xent" in names or any(
+            a.name.startswith("autograd::engine::evaluate_function")
+            and a.sequence_nr in xent_seq for a in anc)
+        for k in e.kernels:
+            if phase == "update":
+                group = "optimizer"
+            elif "flash_fwd" in k.name:
+                group = ("flash_recompute" if phase == "backward"
+                         else "flash_forward")
+            elif "repro.flash_backward" in names:
+                group = "attention_backward_plain"
+            elif in_xent:
+                group = "chunked_xent"
+            elif any(key in k.name.lower() for key in MATMUL_KEYS):
+                group = "matmul"
+            else:
+                group = "other"
+            out[group] += k.duration
+    return out
+
+
+def profile_train(arch: str = "qwen3-0.6b", *, batch: int = 8,
+                  seq: int = 1024, seed: int = 0,
+                  warm_steps: int = 2) -> dict:
+    """One profiled train step of the full ``arch`` on the GPU (see the
+    module doc)."""
+    from ..config import default_sharding, get_arch
+    from ..data import DataConfig, SyntheticLM
+    from ..kernels import ops
+    from ..models import build_model
+    from ..optim import AdamW
+    from .train import make_train_state, train_step
+
+    dev = torch.device("cuda")
+    cfg = get_arch(arch)
+    model = build_model(cfg, default_sharding(cfg, use_kernels=True),
+                        device="cuda", train=True)
+    optimizer = AdamW(lr=3e-4)
+    params, state = make_train_state(model, optimizer, seed)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                  global_batch=batch, seed=seed))
+    for step in range(warm_steps):
+        b = {k: v.to(dev) for k, v in data.batch(step).items()}
+        state, _ = train_step(model, optimizer, params, state, b)
+    b = {k: v.to(dev) for k, v in data.batch(warm_steps).items()}
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        with torch.profiler.record_function("repro.train.forward"):
+            loss, _ = model.loss(b)
+            torch.cuda.synchronize()
+        with torch.profiler.record_function("repro.train.backward"):
+            grads = torch.autograd.grad(loss, list(params.values()))
+            torch.cuda.synchronize()
+        with torch.profiler.record_function("repro.train.update"):
+            state = optimizer.update(dict(zip(params, grads)), state, params)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    events = prof.events()
+    # the host-side ranges (each also shows on the device timeline)
+    phases = {name: (e.time_range.start, e.time_range.end) for e in events
+              for name in ("forward", "backward", "update")
+              if e.name == f"repro.train.{name}"
+              and e.device_type == torch.autograd.DeviceType.CPU}
+    groups = train_breakdown(events, phases)
+    by_group, top, n_events = device_times(prof)
+    device_s = sum(by_group.values()) / 1e6
+    return {
+        "device": torch.cuda.get_device_name(0),
+        "arch": arch, "batch": batch, "seq": seq,
+        "loss": float(loss.detach()),
+        "step_wall_s": wall,
+        "step_device_s": device_s,
+        "step_device_us_by_group": groups,
+        "step_device_us_attributed": sum(groups.values()),
+        "step_top_kernels_us": top,
+        "step_device_events": n_events,
+        "step_idle_share": 1.0 - device_s / wall,
+        "flash_launches": launches["flash_attention"],
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="qwen3-0.6b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--train", action="store_true",
+                    help="profile one train step instead of serving")
     args = ap.parse_args()
+    if args.train:
+        out = profile_train(args.arch, seed=args.seed)
+        if out["step_device_s"] <= 0:
+            print("[profile] FAILED: the profiler recorded no device time",
+                  file=sys.stderr)
+            return 1
+        print(f"[profile] {out['device']}: train step "
+              f"{out['step_wall_s']:.6f} s wall, {out['step_device_s']:.6f} "
+              f"s device (idle {out['step_idle_share']:.3f}); by group (us) "
+              f"{out['step_device_us_by_group']}")
+        print(json.dumps(out))
+        return 0
     out = profile_serve(args.arch, reduced_cfg=args.reduced, seed=args.seed)
     if out["prefill_device_s"] <= 0 or out["decode_step_device_s"] <= 0:
         print("[profile] FAILED: the profiler recorded no device time",

@@ -25,10 +25,21 @@ from typing import Optional
 import torch
 
 from ..kernels import ops
-from .layers import apply_rope, rms_normalize
+from .layers import apply_rope, dense_init, rms_normalize
 
 NEG_INF = -1e30
 IMPLS = ("naive", "kernels")
+
+
+def attn_init(gen: torch.Generator, d: int, n_heads: int, n_kv: int,
+              head_dim: int, dtype=torch.float32, device=None):
+    """The projections ``wq``/``wk``/``wv``/``wo``, N(0, 1/fan-in) each."""
+    return {
+        "wq": dense_init(gen, d, n_heads * head_dim, dtype, device=device),
+        "wk": dense_init(gen, d, n_kv * head_dim, dtype, device=device),
+        "wv": dense_init(gen, d, n_kv * head_dim, dtype, device=device),
+        "wo": dense_init(gen, n_heads * head_dim, d, dtype, device=device),
+    }
 
 
 def _split_heads(x, n, hd):

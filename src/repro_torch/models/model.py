@@ -21,12 +21,12 @@ from .transformer import KINDS, Transformer, resolve_pattern
 
 class Model(nn.Module):
     def __init__(self, cfg: ArchConfig, shcfg: ShardingConfig,
-                 device: torch.device):
+                 device: torch.device, *, train: bool = False):
         super().__init__()
         self.cfg = cfg
         self.shcfg = shcfg
         self.device = device
-        self.impl = Transformer(cfg, shcfg, device)
+        self.impl = Transformer(cfg, shcfg, device, train=train)
 
     def init(self, seed: int) -> "Model":
         self.impl.init(seed)
@@ -35,6 +35,11 @@ class Model(nn.Module):
     def load_state(self, tensors: Dict[str, torch.Tensor]) -> "Model":
         self.impl.load_state(tensors)
         return self
+
+    def loss(self, batch):
+        """(loss, {"nll", "aux"}) of a batch dict (see
+        :meth:`Transformer.loss`)."""
+        return self.impl.loss(batch)
 
     def prefill(self, batch, *, cache_len: Optional[int] = None,
                 cache_dtype=torch.bfloat16):
@@ -63,11 +68,12 @@ class Model(nn.Module):
 
 
 def build_model(cfg: ArchConfig, shcfg: Optional[ShardingConfig] = None, *,
-                device: str = "cuda") -> Model:
+                device: str = "cuda", train: bool = False) -> Model:
     """A model with uninitialized weights on ``device`` (fill it with
     :meth:`Model.init` or :meth:`Model.load_state`).  The dense, MoE and
     hybrid decoders are ported, with the mixing kinds ``attn``,
-    ``local_attn`` and ``rglru``."""
+    ``local_attn`` and ``rglru``.  ``train=True`` gives the training
+    layout (fp32 masters with gradients, a cast per layer)."""
     pattern = resolve_pattern(cfg)
     if (cfg.family not in ("dense", "moe", "hybrid") or cfg.is_encdec
             or not set(pattern) <= set(KINDS)):
@@ -76,4 +82,5 @@ def build_model(cfg: ArchConfig, shcfg: Optional[ShardingConfig] = None, *,
             f"and hybrid decoders over the mixing kinds {KINDS} are ported; "
             f"the rest waits for ROADMAP queue 1, item 4 (slab layout and "
             f"the other families)")
-    return Model(cfg, shcfg or ShardingConfig(), resolve_device(device))
+    return Model(cfg, shcfg or ShardingConfig(), resolve_device(device),
+                 train=train)

@@ -21,10 +21,18 @@ Parameter names follow the JAX leaves (``norm1.scale``, ``mix.wq``,
 param dicts.
 
 Precision policy: the JAX model keeps params in ``param_dtype`` and casts
-the decoder's to ``compute_dtype`` on every call (``cast_floats``); the
-port creates each parameter in the dtype it computes with and casts once,
-at load (:meth:`Transformer.load_state`) — the same arithmetic, so
-``cast_floats`` has no counterpart here.  ``final_norm`` stays in
+the decoder's to ``compute_dtype`` on every call (``cast_floats``).  A
+serving model (the default) creates each parameter in the dtype it
+computes with and casts once, at load (:meth:`Transformer.load_state`) —
+the same arithmetic without a cast per call.  A model built with
+``train=True`` holds every parameter in ``param_dtype`` with
+``requires_grad`` (the fp32 masters the optimizer updates) and casts each
+layer's leaves inside the forward (:func:`cast_leaves`, under the layer's
+activation checkpoint), so the gradients land on the fp32 leaves, as
+JAX's do.  :meth:`Transformer.loss` is the training objective: the
+decoder under block remat (each pattern repetition recomputed in
+backward, ``ShardingConfig.remat``) and :func:`chunked_xent`; it trains
+the dense family only.  In a serving model ``final_norm`` stays in
 ``param_dtype``, as in JAX; the embedding table and the head are held in
 ``compute_dtype`` (JAX casts the looked-up rows and the head at use — the
 same values).  The MoE router and the RG-LRU's ``lam`` stay fp32 whatever
@@ -33,7 +41,8 @@ gate matrices ``w_r``/``w_i`` are cast to ``compute_dtype`` by JAX and
 widened to fp32 at every use (``_rglru_gates``); the port holds them in
 fp32 with the compute dtype's values (:data:`WIDENED`), rounded once at
 load — the same products, for 2 × 4 bytes instead of 2 × 2 per element
-(+1.7 GB at recurrentgemma-9b's full width) and no cast per call.
+(+1.7 GB at recurrentgemma-9b's full width) and no cast per call.  A
+training model keeps them fp32 masters and rounds them per call.
 """
 
 from __future__ import annotations
@@ -41,11 +50,13 @@ from __future__ import annotations
 import math
 import os
 from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
 from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import ArchConfig, ShardingConfig
 from .attention import (attn_apply, attn_decode, attn_prefill_chunk,
@@ -59,6 +70,12 @@ from .recurrent import (RGLRU_C, griffin_block_apply, griffin_block_decode,
 KINDS = ("attn", "local_attn", "rglru")  # the mixing kinds ported
 #: leaves held in fp32 with the compute dtype's values (see the module doc)
 WIDENED = ("w_r", "w_i")
+#: leaves kept fp32 whatever the compute policy (JAX ``layers._KEEP_F32``)
+KEEP_F32 = ("lam", "logit_scale", "router")
+REMATS = ("block", "none")
+LOGITS_CHUNK = 1024  # sequence positions per chunk of the vocab loss
+_ITEM_3B = ("ROADMAP queue 1, item 3b (MoE and hybrid training, "
+            "remat='sqrt', grad_accum)")
 
 
 def resolve_pattern(cfg: ArchConfig):
@@ -159,6 +176,24 @@ def _mix_leaves(cfg: ArchConfig, kind: str, dtype, device):
             "w_out": _param((r, d), dtype, device),
         })
     raise ValueError(f"mixing kind {kind!r} is not ported; one of {KINDS}")
+
+
+def cast_leaves(mod: nn.Module, dtype):
+    """``cast_floats`` of one module's leaves: a nested dict (by leaf name)
+    of the leaves cast to ``dtype``, :data:`KEEP_F32` leaves as they are
+    and :data:`WIDENED` ones rounded to ``dtype`` and widened back to fp32
+    (JAX casts them and ``_rglru_gates`` widens them at use).  The casts
+    are differentiable: gradients flow back to the fp32 leaves."""
+    out = {name: cast_leaves(child, dtype)
+           for name, child in mod.named_children()}
+    for name, p in mod.named_parameters(recurse=False):
+        if name in KEEP_F32:
+            out[name] = p
+        elif name in WIDENED:
+            out[name] = p.to(dtype).float()
+        else:
+            out[name] = p.to(dtype)
+    return out
 
 
 class Block(nn.Module):
@@ -273,25 +308,59 @@ def _state_init(cfg: ArchConfig, kind: str, batch: int, cache_len: int,
 class Decoder(nn.Module):
     """The layer stack (no embeddings — see :class:`Transformer`)."""
 
-    def __init__(self, cfg: ArchConfig, *, attn_impl: str, dtype, device):
+    def __init__(self, cfg: ArchConfig, *, attn_impl: str, dtype, device,
+                 cast_dtype=None):
         super().__init__()
         self.cfg = cfg
         # "naive" | "kernels" (the kernels also take the MoE expert
         # products and the RG-LRU scan)
         self.attn_impl = attn_impl
+        # the dtype a training model casts its fp32 leaves to per layer
+        # (None: the leaves are held in the dtype they compute with)
+        self.cast_dtype = cast_dtype
         self.kinds = layer_kinds(cfg)
         self.layers = nn.ModuleList(
             Block(cfg, kind, dtype, device) for kind in self.kinds)
 
-    def forward(self, h, *, return_cache: bool = False):
-        """h: (B,S,d) → (h, raw per-layer decode states | None)."""
-        states = []
-        for layer, kind in zip(self.layers, self.kinds):
-            h, st = _layer_apply(layer, h, self.cfg, kind,
-                                 impl=self.attn_impl)
-            if return_cache:
-                states.append(st)
-        return h, (states if return_cache else None)
+    def _layer(self, i: int, h):
+        layer = self.layers[i]
+        if self.cast_dtype is not None:
+            layer = SimpleNamespace(**cast_leaves(layer, self.cast_dtype))
+        return _layer_apply(layer, h, self.cfg, self.kinds[i],
+                            impl=self.attn_impl)
+
+    def _layers(self, h, lo: int, hi: int):
+        for i in range(lo, hi):
+            h = self._layer(i, h)[0]
+        return h
+
+    def forward(self, h, *, return_cache: bool = False, remat: str = "none"):
+        """h: (B,S,d) → (h, raw per-layer decode states | None).
+
+        ``remat="block"`` recomputes each block-pattern repetition in
+        backward (one ``torch.utils.checkpoint`` per group, as JAX
+        checkpoints each scan step; the ``n_layers % len(pattern)``
+        remainder layers run first, unchecked), so only the groups' inputs
+        are kept.  It applies to a forward without a cache."""
+        if remat not in REMATS:
+            if remat == "sqrt":
+                raise NotImplementedError(
+                    f"remat='sqrt' is not ported yet: {_ITEM_3B}")
+            raise ValueError(f"unknown remat {remat!r}; one of {REMATS}")
+        n = len(self.layers)
+        if return_cache or remat == "none":
+            states = []
+            for i in range(n):
+                h, st = self._layer(i, h)
+                if return_cache:
+                    states.append(st)
+            return h, (states if return_cache else None)
+        L = len(resolve_pattern(self.cfg))
+        n_rem = n % L
+        h = self._layers(h, 0, n_rem)
+        for g0 in range(n_rem, n, L):
+            h = checkpoint(self._layers, h, g0, g0 + L, use_reentrant=False)
+        return h, None
 
     def pack_cache(self, cache, prompt_len: int, cache_len: int,
                    cache_dtype=torch.bfloat16):
@@ -379,33 +448,75 @@ class Decoder(nn.Module):
         return x, new
 
 
-class Transformer(nn.Module):
-    """Decoder-only LM: embeddings + decoder + (tied) head."""
+def _xent_chunk(hc, w, lc, mc):
+    with torch.profiler.record_function("repro.chunked_xent"):
+        logits = (hc @ w).float()  # (B, c, V)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, lc[..., None])[..., 0]
+        return ((logz - gold) * mc).sum(), mc.sum()
 
-    def __init__(self, cfg: ArchConfig, shcfg: ShardingConfig, device):
+
+def chunked_xent(h, w_head, labels, mask=None, chunk: int = 1024):
+    """h (B,S,d), w_head (d,V), labels (B,S) → mean token NLL (fp32), over
+    sequence chunks of ``chunk`` positions (the last padded to a whole
+    chunk and masked).  The head product runs in h's dtype, the loss math
+    in fp32, and each chunk's (B, chunk, V) logits are recomputed in
+    backward (an activation checkpoint per chunk), never stored."""
+    B, S, _ = h.shape
+    chunk = min(chunk, S)
+    labels = labels.long()
+    mask = (torch.ones((B, S), dtype=torch.float32, device=h.device)
+            if mask is None else mask.float())
+    if S % chunk:  # pad to a whole number of chunks, mask the pad
+        pad = chunk - S % chunk
+        h = F.pad(h, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad))
+        mask = F.pad(mask, (0, pad))
+        S += pad
+    w = w_head.to(h.dtype)
+    tot = cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, S, chunk):
+        t, n = checkpoint(_xent_chunk, h[:, c0:c0 + chunk], w,
+                          labels[:, c0:c0 + chunk], mask[:, c0:c0 + chunk],
+                          use_reentrant=False)
+        tot, cnt = tot + t, cnt + n
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+class Transformer(nn.Module):
+    """Decoder-only LM: embeddings + decoder + (tied) head.  ``train=True``
+    builds the training layout (fp32 masters with ``requires_grad``, a
+    cast per layer; see the module doc)."""
+
+    def __init__(self, cfg: ArchConfig, shcfg: ShardingConfig, device, *,
+                 train: bool = False):
         super().__init__()
         self.cfg = cfg
         self.shcfg = shcfg
+        self.train_layout = train
         self.device = torch.device(device)
         cdt = self._cdt = dtype_of(cfg.compute_dtype)
-        self.tok_embed = _param((cfg.vocab, cfg.d_model), cdt, self.device)
+        pdt = dtype_of(cfg.param_dtype)
+        held = pdt if train else cdt  # the dtype the leaves are held in
+        self.tok_embed = _param((cfg.vocab, cfg.d_model), held, self.device)
         self.final_norm = nn.ParameterDict({
-            "scale": _param((cfg.d_model,), dtype_of(cfg.param_dtype),
-                            self.device)})
+            "scale": _param((cfg.d_model,), pdt, self.device)})
         self.decoder = Decoder(
             cfg, attn_impl="kernels" if shcfg.use_kernels else "naive",
-            dtype=cdt, device=self.device,
+            dtype=held, device=self.device, cast_dtype=cdt if train else None,
         )
         if not cfg.tie_embeddings:
-            self.lm_head = _param((cfg.d_model, cfg.vocab), cdt, self.device)
+            self.lm_head = _param((cfg.d_model, cfg.vocab), held, self.device)
+        if train:
+            self.requires_grad_(True)
 
     # ------------------------------------------------------------ params
     @torch.no_grad()
     def load_state(self, tensors: Dict[str, torch.Tensor]) -> None:
         """Copy ``param_dtype`` values (by parameter name) into the model,
         casting each to the dtype its parameter holds (the compute policy
-        applied once; a :data:`WIDENED` leaf is rounded to the compute
-        dtype first).  Every parameter must be given."""
+        applied once; in a serving model a :data:`WIDENED` leaf is rounded
+        to the compute dtype first).  Every parameter must be given."""
         params = dict(self.named_parameters())
         missing = sorted(set(params) - set(tensors))
         extra = sorted(set(tensors) - set(params))
@@ -416,7 +527,7 @@ class Transformer(nn.Module):
             if tuple(t.shape) != tuple(p.shape):
                 raise ValueError(f"load_state: {name} has shape "
                                  f"{tuple(t.shape)}, expected {tuple(p.shape)}")
-            if _leaf(name) in WIDENED:
+            if _leaf(name) in WIDENED and not self.train_layout:
                 t = t.to(self._cdt)
             p.copy_(t.to(p.dtype))  # cast first: no staging copy on device
 
@@ -450,7 +561,7 @@ class Transformer(nn.Module):
                 p.zero_()
                 p = p[:n_live]
             w = torch.randn(p.shape, generator=g) * std
-            if leaf in WIDENED:
+            if leaf in WIDENED and not self.train_layout:
                 w = w.to(self._cdt)
             p.copy_(w.to(p.dtype))
 
@@ -471,8 +582,30 @@ class Transformer(nn.Module):
             dtype_of(self.cfg.compute_dtype))
 
     def forward(self, tokens, *, return_cache: bool = False):
-        h, cache = self.decoder(self._embed(tokens), return_cache=return_cache)
+        """tokens (B,S) → (final-normed h (B,S,d), cache | None).  Without a
+        cache the decoder runs under ``shcfg.remat``, as JAX's does."""
+        remat = "none" if return_cache else self.shcfg.remat
+        h, cache = self.decoder(self._embed(tokens), return_cache=return_cache,
+                                remat=remat)
         return rmsnorm(self.final_norm, h), cache
+
+    def loss(self, batch):
+        """batch: {tokens (B,S), labels (B,S), [mask (B,S)]} → (nll + w·aux,
+        {"nll", "aux"}) with :func:`chunked_xent` over
+        :data:`LOGITS_CHUNK` positions at a time (JAX's default
+        ``logits_chunk``).  The dense family only: the MoE router's aux
+        loss and the hybrid's scan need gradients through the grouped
+        matmul and the scan."""
+        if self.cfg.is_moe or set(self.decoder.kinds) != {"attn"}:
+            raise NotImplementedError(
+                f"{self.cfg.name}: training is ported for the dense family "
+                f"only; {_ITEM_3B}")
+        h, _ = self.forward(batch["tokens"])
+        nll = chunked_xent(h, self.head(), batch["labels"], batch.get("mask"),
+                           chunk=LOGITS_CHUNK)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        loss = nll + self.cfg.moe.router_aux_weight * aux
+        return loss, {"nll": nll, "aux": aux}
 
     def prefill(self, tokens, *, cache_len: Optional[int] = None,
                 cache_dtype=torch.bfloat16):

@@ -1,8 +1,9 @@
 """Guards of the PyTorch port's boundaries.
 
-* No file of ``src/repro_torch`` or ``chip_smoke.py`` imports ``jax`` or
-  the JAX package ``repro`` (checked on the AST, and by importing the port
-  in a fresh interpreter).
+* No file of ``src/repro_torch``, ``chip_smoke.py`` or the port's example
+  ``examples/wavefront_mt_training_torch.py`` imports ``jax`` or the JAX
+  package ``repro`` (checked on the AST, and by importing the port in a
+  fresh interpreter).
 * The port's entry points default to the GPU and never fall back: asking
   for ``cuda`` without one raises; every unported serving option raises
   ``NotImplementedError``; the ported ones construct and run.
@@ -28,7 +29,7 @@ from repro_torch.serving import Request, ServingConfig, ServingSession
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"
+    ROOT / "chip_smoke.py", ROOT / "examples" / "wavefront_mt_training_torch.py"
 ]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
@@ -55,7 +56,9 @@ def test_port_imports_without_jax_in_a_fresh_interpreter():
     code = (
         "import sys\n"
         "import repro_torch.launch.serve, repro_torch.bridge\n"
-        "import repro_torch.kernels.ops\n"
+        "import repro_torch.kernels.ops, repro_torch.launch.train\n"
+        "import repro_torch.launch.profile, repro_torch.session\n"
+        "import repro_torch.runtime, repro_torch.optim, repro_torch.data\n"
         "bad = sorted(m for m in sys.modules "
         "if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"

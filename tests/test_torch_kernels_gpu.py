@@ -833,3 +833,75 @@ def test_chunked_shared_grow_serving_equal_on_cuda_and_cpu(cuda_device):
                     {k: m[k] for k in keys})
     assert len(out["cpu"][0]) == 5 and out["cpu"][1]["kv_cow_forks"] > 0
     assert out["cuda"] == out["cpu"]
+
+
+# the flash autograd function: the kernel's forward, the plain version's
+# recomputed gradient (the training path)
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", DTYPES)
+@pytest.mark.parametrize("H,K,S,hd", [(8, 2, 300, 64), (16, 8, 1024, 128)])
+def test_flash_backward_matches_plain_on_gpu(cuda_device, dtype, rtol, H, K,
+                                             S, hd):
+    """Gradients through ``ops.flash_attention`` equal autograd of the plain
+    version on the card (the same recompute: exact up to the forward's
+    rounding, which the gradient never reads), for head-major views of
+    (B, S, heads, hd) projections as the model passes them; the forward
+    launches the kernel once."""
+    rng = np.random.default_rng(41)
+    B = 2
+
+    def view(n):  # (B, S, n, hd) storage seen head-major, as attn_apply does
+        x = torch.from_numpy(_np(rng, (B, S, n, hd))).to(cuda_device, dtype)
+        return x.transpose(1, 2)
+
+    q, k, v = view(H), view(K), view(K)
+    g = torch.from_numpy(_np(rng, (B, H, S, hd))).to(cuda_device, dtype)
+    before = ops.launch_counts()["flash_attention"]
+    ins = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = ops.flash_attention(*ins)
+    got = torch.autograd.grad(out, ins, g)
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    ins = [t.detach().requires_grad_() for t in (q, k, v)]
+    want_out = ref.flash_attention_ref(*ins)
+    want = torch.autograd.grad(want_out, ins, g)
+    _assert_close(out.detach(), want_out.detach(), rtol)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        _assert_close(a, b, 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+def test_train_step_launches_flash_twice_per_layer_on_gpu(cuda_device,
+                                                          compute):
+    """One loss + backward of a reduced qwen3 training model at S 320 under
+    block remat launches flash 2 x n_layers times (forward and recompute)
+    and no other kernel; in fp32 its loss and gradients equal the CPU
+    model's (the plain path) within 1e-4."""
+    from repro_torch.config import ShardingConfig, get_arch, reduced
+    from repro_torch.models import build_model
+
+    cfg = reduced(get_arch("qwen3-0.6b"), compute_dtype=compute,
+                  head_dim=128 if compute == "bfloat16" else 16)
+    toks = torch.from_numpy(np.random.default_rng(5).integers(0, 256,
+                                                              (2, 321)))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        m = build_model(cfg, ShardingConfig(use_kernels=True), device=dev,
+                        train=True)
+        m.init(0)
+        batch = {"tokens": toks[:, :-1].to(dev), "labels": toks[:, 1:].to(dev)}
+        before = ops.launch_counts()
+        loss, _ = m.loss(batch)
+        grads = torch.autograd.grad(loss, list(m.impl.parameters()))
+        torch.cuda.synchronize()
+        after = ops.launch_counts()
+        delta = {n: after[n] - before[n] for n in after}
+        want = 2 * cfg.n_layers if dev == "cuda" else 0
+        assert delta == {**{n: 0 for n in after}, "flash_attention": want}
+        assert torch.isfinite(loss)
+        out[dev] = (float(loss), [g.float().cpu() for g in grads])
+    if compute == "float32":
+        assert abs(out["cuda"][0] - out["cpu"][0]) < 1e-4
+        for a, b in zip(out["cuda"][1], out["cpu"][1]):
+            assert float((a - b).abs().max()) < 1e-4

@@ -177,12 +177,44 @@ def test_failed_replan_rolls_back_session_state():
         assert s.tasks == ("t0",) and s.current_plan is p0 and not s.replans
 
 
-def test_bound_paths_raise_naming_the_training_item():
-    s = session.SpindleSession(session.SessionConfig(workload="qwen_val"))
-    for call in (s.bind, s.step, lambda: s.run(1)):
-        with pytest.raises(NotImplementedError, match="queue 1, item 3"):
-            call()
-    assert s.plan().steps  # the plan-only path still works
+def test_checkpoint_options_raise_naming_item_5(monkeypatch):
+    """The JAX session's checkpoint, restore and rollback branches, and the
+    trainer's checkpoint and fault-injection options, come with
+    multi-GPU runs: each raises naming ROADMAP queue 1, item 5.  The
+    plan-only path still works."""
+    from repro_torch.launch import train as train_mod
+
+    with pytest.raises(NotImplementedError, match="item 5"):
+        session.CheckpointCallbacks(object())
+    for kw in ({"ckpt_dir": "ck"}, {"compress_grads": True}):
+        with pytest.raises(NotImplementedError, match="item 5"):
+            train_mod.train(steps=1, device="cpu", verbose=False, **kw)
+    for flag in ("--elastic-smoke", "--crash-smoke"):
+        monkeypatch.setattr("sys.argv", ["train", flag])
+        with pytest.raises(NotImplementedError, match="item 5"):
+            train_mod.main()
+
+    class Manager:  # what the JAX session recognizes as a checkpoint manager
+        def save(self, *a, **kw):
+            pass
+
+        def restore_latest(self, *a, **kw):
+            pass
+
+    class WithManager(session.SessionCallbacks):
+        manager = Manager()
+
+    s = _bound(callbacks=[WithManager()],
+               config={"straggler_shrink": True,
+                       "cluster": ClusterSpec(n_devices=8, island_size=4,
+                                              devices_per_host=1,
+                                              mem_bytes=96e9)})
+    s.step()
+    with pytest.raises(NotImplementedError, match="item 5"):
+        s.signal(events.StragglerDetected((6,)))
+    assert s.cluster == s.config.cluster and not s.replans
+    assert session.SpindleSession(
+        session.SessionConfig(workload="qwen_val")).plan().steps
     with pytest.raises(ValueError, match="no workload"):
         session.SpindleSession().plan()
 
@@ -215,3 +247,223 @@ def test_poll_drains_sources_into_one_replan():
     s.plan()
     assert len(s.poll()) == 2 and len(s.replans) == 1
     assert s.poll() == [] and s.tasks == ("t1", "t2")
+
+
+# --------------------------------------------------------------------------
+# Bound sessions (tests/test_session.py:54,85,129,155,433): the wave engine
+# under the session, on the CPU, against the reference and the JAX session
+# --------------------------------------------------------------------------
+
+TASKS = ("img_text", "audio_text", "audio_vision")
+BOUND_CLUSTER = dict(n_devices=8, island_size=4, mem_bytes=96e9)
+
+
+def _bound(callbacks=(), event_sources=(), config=None):
+    from repro_torch.runtime import tiny_multitask_clip
+
+    cfg = {"cluster": ClusterSpec(**BOUND_CLUSTER), "device": "cpu",
+           **(config or {})}
+    return session.SpindleSession(
+        session.SessionConfig(**cfg),
+        model_factory=lambda ts: tiny_multitask_clip(n_tasks=len(ts)),
+        tasks=TASKS, callbacks=list(callbacks),
+        event_sources=list(event_sources)).bind()
+
+
+def _reference_delta(sess):
+    """Engine vs single-program reference on the session's current state."""
+    ref_l, ref_g = sess.model.reference_loss_and_grads(sess.params,
+                                                       sess.batches)
+    loss, grads = sess.engine.loss_and_grads(sess.params, sess.batches)
+    dg = max(float((grads[n] - g).abs().max()) for n, g in ref_g.items())
+    return abs(float(loss) - float(ref_l)), dg
+
+
+def test_task_completed_rebinds_and_matches_reference_and_jax():
+    """A mid-run TaskCompleted rebuilds the model, replans and rebinds the
+    engine with its closures kept; engine == reference (1e-6) before and
+    after; and the loss history equals the JAX session's on the same
+    (bridged) params and batches (1e-5)."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from repro.runtime import tiny_multitask_clip as jax_tiny_clip
+    from repro_torch import bridge
+
+    sess = _bound()
+    jsess = jax_session.SpindleSession(
+        jax_session.SessionConfig(cluster=JaxClusterSpec(**BOUND_CLUSTER)),
+        model_factory=lambda ts: jax_tiny_clip(n_tasks=len(ts)),
+        tasks=TASKS).bind()
+    bridge.load_mt_params(sess.params,
+                          jax.tree.map(np.asarray, jsess.params))
+
+    def same_batches():
+        jsess.batches = {t: {k: jnp.asarray(v.numpy()) for k, v in b.items()}
+                         for t, b in sess.batches.items()}
+
+    same_batches()
+    dl, dg = _reference_delta(sess)
+    assert dl < 1e-6 and dg < 1e-6  # contract before the shift
+    sess.run(steps=2)
+    jsess.run(steps=2)
+    n_closures = len(sess.engine._fn_cache)
+    p = sess.signal(events.TaskCompleted("audio_vision"))
+    jsess.signal(jax_events.TaskCompleted("audio_vision"))
+    same_batches()
+    assert p is sess.current_plan and sess.tasks == ("img_text", "audio_text")
+    rec = sess.replans[-1]
+    assert rec.model_rebuilt and rec.closures_cached == n_closures
+    assert len(sess.model.flows) == 2
+    dl, dg = _reference_delta(sess)
+    assert dl < 1e-6 and dg < 1e-6
+    sess.run(steps=2)
+    jsess.run(steps=2)
+    dl, dg = _reference_delta(sess)
+    assert dl < 1e-6 and dg < 1e-6
+    assert np.max(np.abs(np.asarray(sess.history)
+                         - np.asarray(jsess.history))) < 1e-5
+    assert sess.history[-1] < sess.history[0]
+
+
+def test_bound_cache_hit_replan_vs_full_replan():
+    sess = _bound()
+    sess.step()
+    assert sess.cache.stats.misses == 1  # the initial plan
+    sess.signal(events.TaskCompleted("audio_vision"))
+    assert sess.replans[-1].mode in ("full", "incremental", "fallback")
+    sess.signal(events.TaskArrived("audio_vision"))
+    hits = sess.cache.stats.hits
+    sess.signal(events.TaskCompleted("audio_vision"))
+    assert sess.replans[-1].mode == "hit"
+    assert sess.cache.stats.hits == hits + 1
+    sess.step()  # still executable after the cached rebind
+    dl, dg = _reference_delta(sess)
+    assert dl < 1e-6 and dg < 1e-6
+
+
+class _Recorder(session.SessionCallbacks):
+    def __init__(self):
+        self.log = []
+
+    def on_plan(self, sess, plan):
+        self.log.append(("plan", plan.planner))
+
+    def on_wave(self, sess, wave_index, steps):
+        self.log.append(("wave", wave_index))
+
+    def on_replan(self, sess, event, old_plan, new_plan, info):
+        self.log.append(("replan", event.kind, info.mode))
+
+    def on_step_end(self, sess, step, loss, dt):
+        self.log.append(("step_end", step))
+
+
+def test_bound_callback_firing_order():
+    rec = _Recorder()
+    sess = _bound(callbacks=[rec])
+    assert rec.log[0] == ("plan", "spindle")  # bind planned before stepping
+    sess.step()
+    kinds = [e[0] for e in rec.log]
+    assert kinds.count("wave") == len(sess.current_plan.waves())
+    assert kinds[-1] == "step_end" and rec.log[-1] == ("step_end", 0)
+    assert kinds.index("wave") > kinds.index("plan")
+    rec.log.clear()
+    sess.signal(events.TaskCompleted("audio_vision"))
+    assert [e[0] for e in rec.log] == ["plan", "replan"]
+    assert rec.log[1][1] == "task_completed"
+
+
+def test_on_wave_windows_reach_callbacks_that_ask():
+    seen = []
+
+    class Windows(session.SessionCallbacks):
+        def on_wave(self, sess, wave_index, steps, windows=None):
+            seen.append(windows)
+
+    sess = _bound(callbacks=[Windows()])
+    sess.step()
+    assert len(seen) == len(sess.current_plan.waves())
+    assert all(w is None or isinstance(w, list) for w in seen)
+
+
+def test_bound_event_source_polled_and_straggler_replans():
+    from repro_torch.ckpt.straggler import StragglerDetector, TimingCollector
+
+    rec = _Recorder()
+    src = events.ScriptedEventSource([events.StragglerDetected((3,))])
+    sess = _bound(callbacks=[rec], event_sources=[src])
+    sess.step()
+    assert not src.events  # drained by the step's poll
+    assert [e for e in rec.log if e[0] == "replan"] == [
+        ("replan", "straggler", "hit")]  # same workload → hit
+    # a detector fed by the session's own step times, skewed in-process
+    det = StragglerDetector(n_hosts=4, min_samples=2)
+    strag = events.StragglerEventSource(
+        det, collector=TimingCollector(n_hosts=4, skew={3: 3.0}))
+    sess = _bound(event_sources=[strag], config={
+        "straggler_shrink": True,
+        "cluster": ClusterSpec(n_devices=8, island_size=4, devices_per_host=2,
+                               mem_bytes=96e9)})
+    sess.run(2)
+    assert [r.event.hosts for r in sess.replans] == [(3,)]
+    assert sess.cluster.n_healthy == 6  # host 3's two devices evicted
+
+
+def test_failed_bind_rolls_back():
+    """bind() of a broken model must leave the previous binding intact."""
+    sess = _bound()
+    model_a, params_a, state_a = sess.model, sess.params, sess.opt_state
+
+    class NotAModel:
+        pass
+
+    with pytest.raises(AttributeError):
+        sess.bind(NotAModel())
+    assert sess.model is model_a and sess.engine.model is model_a
+    assert sess.params is params_a and sess.opt_state is state_a
+    assert sess.tasks == TASKS
+    sess.step()  # previous binding still fully usable
+
+
+def test_bound_session_without_factory_rejects_task_shifts():
+    from repro_torch.runtime import tiny_multitask_clip
+
+    model, batches = tiny_multitask_clip(n_tasks=3)
+    sess = session.SpindleSession(
+        session.SessionConfig(cluster=ClusterSpec(**BOUND_CLUSTER),
+                              device="cpu"),
+        model=model, batches=batches)
+    assert sess.tasks == TASKS
+    with pytest.raises(RuntimeError, match="model_factory"):
+        sess.signal(events.TaskCompleted("audio_vision"))
+    model2, batches2 = tiny_multitask_clip(n_tasks=2)
+    sess.batches = batches2
+    sess.bind(model2)
+    assert sess.tasks == ("img_text", "audio_text")
+    sess.step()
+
+
+def test_bound_session_batch_fn_and_device_policy(monkeypatch):
+    import torch
+
+    from repro_torch.runtime import tiny_ofasys
+
+    model, batches = tiny_ofasys()
+    seen = []
+
+    def batch_fn(step):
+        seen.append(step)
+        return batches
+
+    sess = session.SpindleSession(
+        session.SessionConfig(cluster=ClusterSpec(**BOUND_CLUSTER),
+                              device="cpu"),
+        model=model, batch_fn=batch_fn)
+    out = sess.run(3)
+    assert seen == [0, 1, 2] and out["steps"] == 3
+    assert session.SessionConfig().device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        session.SpindleSession(model=tiny_ofasys()[0])
