@@ -34,7 +34,15 @@ caught):
    256 tokens: C 170, gate/up and down, wgmma in bf16; one row x 256
    tokens: C 21, wmma); the
    RG-LRU scan at recurrentgemma-9b's prefill shape (8, 512, 4096), a
-   ragged (3, 300, 130) and a long decay (a = 0.999, S = 2048);
+   ragged (3, 300, 130) and a long decay (a = 0.999, S = 2048); and the
+   modal families' shapes in bf16 (``FLASH_CASES``, ``PAGED_CASES``):
+   flash non-causal at seamless's encoder (B8 H16 K16 S1,024 hd64), at its
+   cross-attention (Sq 512 x Sk 1,024, also fp32) and causal at its
+   decoder (S 512 hd64), causal at pixtral's B8 H32 K8 S1,536 hd128, paged
+   decode at seamless's step (MHA K16 hd64) and glm4's (H32 K2 hd128, two
+   head groups per KV head), each with SDPA's time beside it where one
+   exists; and SDPA's forward + backward at phase 6's training shape, the
+   flash gradient's library yardstick;
 3b. the cost model's spec: bf16 ``torch.matmul`` device times over
    ``SPEC_SHAPES`` and the host time of launching one small op, each
    shape's measured time (device + launch) beside
@@ -79,6 +87,17 @@ caught):
    512-token prompts x 16 new tokens in 256-token chunks, one job (C 170):
    flash 0, paged 24 x decode steps, grouped matmul 72 x (chunk steps +
    decode steps), the scan 0;
+4f. serve full seamless-m4t-medium (12 + 12 layers, d 1,024, MHA hd 64,
+   vocab 256,206; bf16) through ``serve``: 8 requests at once, each 512
+   prompt tokens and 1,024 frames (``enc_len`` 1,024), 32 new tokens, 8
+   slots, page size 16: flash 36 (12 encoder + 12 self + 12 cross) x
+   prefill calls, paged 12 x decode steps, the rest 0;
+4g. full pixtral-12b (40 layers, d 5,120, GQA 32:8): each request carries
+   1,024 patch embeddings (one image) before 512 prompt tokens: flash 40
+   x prefill calls, paged 40 x decode steps, the rest 0;
+4h. full glm4-9b (40 layers, d 4,096, 32 query heads over 2 KV heads) on
+   8 x 512 x 32: flash 40 x prefill calls, paged 40 x decode steps; each
+   of 4f-4h frees its model before the next phase loads;
 5. serve the reduced qwen3 in fp32 from one seed on ``cuda`` and on ``cpu``
    and require identical tokens (the kernels against the plain path);
 5b. the same for the reduced qwen2-moe (4 requests in 4 slots, all live);
@@ -92,6 +111,10 @@ caught):
    on ``cuda`` and ``cpu``;
 5e. the reduced qwen2-moe chunked (4 requests x 40-token prompts in one
    job of 16-token chunks): identical tokens on ``cuda`` and ``cpu``;
+5f. the reduced seamless in fp32 (prompt 300 and 300 frames: the
+   encoder, self- and cross-attention all take the fp32 flash kernel),
+   identical tokens on ``cuda`` and ``cpu``;
+5g. the same for the reduced pixtral (16 patch embeddings + 300 tokens);
 6. train full-width qwen3-0.6b (28 layers, d 1024, vocab 151,936; bf16
    compute, fp32 masters and moments, block remat) through
    ``repro_torch.launch.train.train``: batch 8 x seq 1,024 (so every
@@ -112,11 +135,15 @@ caught):
    engine and 1e-4 after the replan's restart of Adam's moments; then a
    wider clip (d 512, batch 16) through the same session, step times and
    waves;
+6d. reduced seamless and pixtral in fp32, loss and every gradient at
+   S 300 (frames 300; a 16-position stub) on ``cuda`` (flash forward,
+   plain-recompute gradient) against ``cpu``: within 1e-4;
 7. print a ``{"kernels": [...]}`` line (attention and grouped matmul at
    qwen2-moe's shapes with phase 4b's launches, the scan at recurrentgemma's
    fp32 prefill shape with phase 4c's, and flash again at phase 6's
-   training shape B8 H16 K8 S1024 with phase 6's launches), the
-   ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
+   training shape B8 H16 K8 S1024 with phase 6's launches, and at
+   seamless's cross-attention shape with phase 4f's), the ``nvidia-smi``
+   line, and last ``{"ok": true, "device": {...}}``.
 
 Phase 3 also holds flash at the training shape (S 1,024) and the flash
 gradient there — the plain version recomputed and differentiated, as the
@@ -128,6 +155,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -175,15 +203,37 @@ GMM_SHAPES = {
     "chunk_row": (64, 21, 2048, 1408, 256),
 }
 # paged decode: (rows, pages per row, row positions, rows whose table is all
-# trash, KV heads): phase 3's ragged set and the served decode (8 requests
-# of 512-token prompts, 32 new tokens: positions 512-543) at qwen3's and
-# qwen2-moe's K; phase 4d's decode step (16 rows of 1,536-token prompts and
-# 64 new tokens: positions 1536-1599, two rows prefilling) at qwen3's
+# trash, KV heads, query heads, head dim): phase 3's ragged set and the
+# served decode (8 requests of 512-token prompts, 32 new tokens: positions
+# 512-543) at qwen3's and qwen2-moe's K; phase 4d's decode step (16 rows of
+# 1,536-token prompts and 64 new tokens: positions 1536-1599, two rows
+# prefilling) at qwen3's; the served decode at seamless's MHA hd 64 and at
+# glm4's 32 query heads over 2 KV heads
+SERVED_POS = [512 + 31 * b // 7 for b in range(8)]
 PAGED_CASES = {
-    "ragged": (8, 34, [543, 530, 512, 400, 287, 100, 16, 0], (), (8, 16)),
-    "served": (8, 34, [512 + 31 * b // 7 for b in range(8)], (), (8, 16)),
+    "ragged": (8, 34, [543, 530, 512, 400, 287, 100, 16, 0], (), (8, 16),
+               16, 128),
+    "served": (8, 34, SERVED_POS, (), (8, 16), 16, 128),
     "chunked": (16, 100, [1536 + 63 * b // 15 for b in range(16)], (5, 12),
-                (8,)),
+                (8,), 16, 128),
+    "seamless": (8, 34, SERVED_POS, (), (16,), 16, 64),
+    "glm4": (8, 34, SERVED_POS, (), (2,), 32, 128),
+}
+# flash forward: (B, H, K, Sq, Sk, hd, causal, dtypes) — qwen3's and
+# qwen2-moe's prefill, a 300-token one, phase 6's training shape; then
+# seamless's encoder, its cross-attention (512 prompt positions against
+# 1,024 frames) and decoder self-attention, and pixtral's 1,024 patches +
+# 512 tokens
+BOTH = ("bfloat16", "float32")
+FLASH_CASES = {
+    "qwen3": (8, 16, 8, 512, 512, 128, True, BOTH),
+    "s300": (8, 16, 8, 300, 300, 128, True, BOTH),
+    "moe": (8, 16, 16, 512, 512, 128, True, BOTH),
+    "train": (8, 16, 8, 1024, 1024, 128, True, BOTH),
+    "encoder": (8, 16, 16, 1024, 1024, 64, False, ("bfloat16",)),
+    "cross": (8, 16, 16, 512, 1024, 64, False, BOTH),
+    "dec_self": (8, 16, 16, 512, 512, 64, True, ("bfloat16",)),
+    "pixtral": (8, 32, 8, 1536, 1536, 128, True, ("bfloat16",)),
 }
 # the RG-LRU scan: (B, S, D, decay) — recurrentgemma-9b's 8 x 512-token
 # prefill at d 4096, a ragged shape, and a decay of 0.999 over 2048 steps
@@ -321,15 +371,15 @@ def n_copies(torch, per_copy_bytes: int) -> int:
 
 def check_paged(torch, ops, ref, paged, dtype_name: str, K: int,
                 shape: str) -> dict:
-    """Paged decode at the serving paths' shapes: H=16, K (8 for qwen3, 16
-    for qwen2-moe), hd=128, ps=16, and the rows, pages per row, positions
-    and all-trash rows of ``PAGED_CASES[shape]``; non-contiguous pages,
-    all-trash tails."""
+    """Paged decode at the serving paths' shapes: K (8 for qwen3, 16 for
+    qwen2-moe and seamless, 2 for glm4), ps=16, and the rows, pages per
+    row, positions, all-trash rows, query heads and head dim of
+    ``PAGED_CASES[shape]``; non-contiguous pages, all-trash tails."""
     dt = getattr(torch, dtype_name)
     dev = torch.device("cuda")
     g = torch.Generator(device="cpu").manual_seed(11)
-    B, n_pp, positions, trash_rows, _ = PAGED_CASES[shape]
-    H, hd, ps = 16, 128, 16
+    B, n_pp, positions, trash_rows, _, H, hd = PAGED_CASES[shape]
+    ps = 16
     P = B * n_pp + 1
     lengths = torch.tensor(positions, dtype=torch.int32)
     table = (torch.randperm(B * n_pp, generator=g) + 1).to(torch.int32)
@@ -367,41 +417,47 @@ def check_paged(torch, ops, ref, paged, dtype_name: str, K: int,
                 library_ms=None, host_us=host, splits=splits)
 
 
-def check_flash(torch, ops, ref, dtype_name: str, S: int, K: int) -> dict:
-    """Causal flash forward at the prefill shapes: B=8, H=16, K, hd=128."""
+def check_flash(torch, ops, ref, dtype_name: str, case: str) -> dict:
+    """Flash forward at ``FLASH_CASES[case]``: (B, H, K, Sq, Sk, hd,
+    causal).  The causal cases have Sq == Sk (top-left mask)."""
     import torch.nn.functional as F
 
     dt = getattr(torch, dtype_name)
     dev = torch.device("cuda")
-    g = torch.Generator(device="cpu").manual_seed(12 + S)
-    B, H, hd = 8, 16, 128
+    B, H, K, Sq, Sk, hd, causal, _ = FLASH_CASES[case]
+    g = torch.Generator(device="cpu").manual_seed(12 + Sq + Sk + hd)
 
     def make():
-        q = torch.randn(B, H, S, hd, generator=g).to(dev, dt)
-        k = torch.randn(B, K, S, hd, generator=g).to(dev, dt)
-        v = torch.randn(B, K, S, hd, generator=g).to(dev, dt)
+        q = torch.randn(B, H, Sq, hd, generator=g).to(dev, dt)
+        k = torch.randn(B, K, Sk, hd, generator=g).to(dev, dt)
+        v = torch.randn(B, K, Sk, hd, generator=g).to(dev, dt)
         return q, k, v
 
+    def flash(q, k, v):
+        return ops.flash_attention(q, k, v, causal=causal)
+
+    def plain(q, k, v):
+        return ref.flash_attention_ref(q, k, v, causal=causal)
+
     first = make()
-    got = ops.flash_attention(*first)
-    want = ref.flash_attention_ref(*first)
-    err = check_close(f"flash_attention S={S}", got, want, dtype_name)
+    err = check_close(f"flash_attention {case}", flash(*first), plain(*first),
+                      dtype_name)
     itemsize = first[0].element_size()
     per = (first[0].numel() + 2 * first[1].numel()) * itemsize
     sets = [first] + [make() for _ in range(n_copies(torch, per) - 1)]
-    ms = time_ms(torch, ops.flash_attention, sets)
-    host = host_us(torch, ops.flash_attention, first)
-    plain_ms = time_ms(torch, ref.flash_attention_ref, sets, iters=10)
+    ms = time_ms(torch, flash, sets)
+    host = host_us(torch, flash, first)
+    plain_ms = time_ms(torch, plain, sets, iters=10)
     # the yardstick: one PyTorch call (never used by the port); KV heads
     # repeated outside the timed call
     rsets = [(q, k.repeat_interleave(H // K, 1), v.repeat_interleave(H // K, 1))
              for q, k, v in sets] if K != H else sets
     library_ms = time_ms(
         torch, lambda q, k, v: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True), rsets)
+            q, k, v, is_causal=causal), rsets)
     nbytes = 2 * first[0].numel() * itemsize + 2 * first[1].numel() * itemsize
-    flops = 4.0 * B * H * hd * S * (S + 1) / 2
-    bms, bby = bound_ms(nbytes, flops, dtype_name)
+    pairs = Sq * (Sq + 1) / 2 if causal else Sq * Sk  # scored (q, k) pairs
+    bms, bby = bound_ms(nbytes, 4.0 * B * H * hd * pairs, dtype_name)
     return dict(max_abs_err=err, tol=TOL_TEXT[dtype_name], ms=ms,
                 plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
                 library_ms=library_ms, host_us=host)
@@ -413,7 +469,11 @@ def check_flash_backward(torch, ops, ref, dtype_name: str, S: int,
     recomputed and differentiated: no TPU kernel, JAX's is the same
     recompute in XLA) at the training shape B=8, H=16, K, hd=128: its
     gradients through ``ops.flash_attention`` must equal autograd of the
-    plain version, and one call's device time per layer."""
+    plain version, and one call's device time per layer; beside it SDPA's
+    forward + backward (one call each) on the same inputs, KV heads
+    repeated outside the timed calls."""
+    import torch.nn.functional as F
+
     dt = getattr(torch, dtype_name)
     dev = torch.device("cuda")
     g = torch.Generator(device="cpu").manual_seed(31 + S)
@@ -435,13 +495,23 @@ def check_flash_backward(torch, ops, ref, dtype_name: str, S: int,
     sets = [first] + [make() for _ in range(2)]
     ms = time_ms(torch, lambda q, k, v, g: ops.flash_attention_backward(
         q, k, v, g), sets, iters=10)
+
+    def sdpa_fwd_bwd(q, k, v, g):
+        out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        return torch.autograd.grad(out, (q, k, v), g)
+
+    rsets = [tuple(t.detach().requires_grad_() for t in (
+        q, k.repeat_interleave(H // K, 1), v.repeat_interleave(H // K, 1)))
+        + (g,) for q, k, v, g in sets]
+    library_ms = time_ms(torch, sdpa_fwd_bwd, rsets, iters=10)
     itemsize = q.element_size()
     nbytes = 2 * (2 * q.numel() + 2 * k.numel()) * itemsize
     # the scores recomputed, then dV, dP, dQ and dK: five causal products
     flops = 5 * 2.0 * B * H * hd * S * (S + 1) / 2
     bms, bby = bound_ms(nbytes, flops, dtype_name)
     return dict(max_abs_err=err, tol=TOL_TEXT[dtype_name], ms=ms,
-                plain_ms=ms, bound_ms=bms, bound_by=bby, library_ms=None)
+                plain_ms=ms, bound_ms=bms, bound_by=bby,
+                library_ms=library_ms)
 
 
 def routed_sizes(E_live: int, E: int, C: int, tokens: int, top_k: int,
@@ -561,26 +631,30 @@ def _line(r: dict) -> str:
 def phase_kernels(torch, ops, ref, gmm, paged) -> dict:
     results = {}
     for dtn in ("bfloat16", "float32"):
-        for shape, (B, n_pp, _, trash_rows, Ks) in PAGED_CASES.items():
+        for shape, (B, n_pp, _, trash_rows, Ks, H, hd) in PAGED_CASES.items():
             for K in Ks:
                 r = check_paged(torch, ops, ref, paged, dtn, K, shape)
-                log(f"paged_attention {dtn} {shape} B={B} H=16 K={K} hd=128 "
-                    f"ps=16 n_pp={n_pp} all_trash_rows={list(trash_rows)} "
-                    f"splits={r['splits']}: {_line(r)} "
+                log(f"paged_attention {dtn} {shape} B={B} H={H} K={K} "
+                    f"hd={hd} ps=16 n_pp={n_pp} all_trash_rows="
+                    f"{list(trash_rows)} splits={r['splits']}: {_line(r)} "
                     f"host_us={r['host_us']:.1f}")
                 results[("paged_attention", dtn, shape, K)] = r
-        for S, K in ((512, 8), (300, 8), (512, 16), (1024, 8)):
-            r = check_flash(torch, ops, ref, dtn, S, K)
-            log(f"flash_attention {dtn} B=8 H=16 K={K} S={S} hd=128 causal: "
+        for case, (B, H, K, Sq, Sk, hd, causal, dts) in FLASH_CASES.items():
+            if dtn not in dts:
+                continue
+            r = check_flash(torch, ops, ref, dtn, case)
+            log(f"flash_attention {dtn} {case} B={B} H={H} K={K} Sq={Sq} "
+                f"Sk={Sk} hd={hd} {'causal' if causal else 'non-causal'}: "
                 f"{_line(r)} host_us={r['host_us']:.1f}")
-            results[("flash_attention", dtn, S, K)] = r
+            results[("flash_attention", dtn, case)] = r
         if dtn == "bfloat16":  # phase 6's training shape
             r = check_flash_backward(torch, ops, ref, dtn, 1024, 8)
             log(f"flash_attention backward (plain recompute, not a TPU "
                 f"kernel) {dtn} B=8 H=16 K=8 S=1024 hd=128 causal, per "
                 f"layer: max_err={r['max_abs_err']:.3e} (tol {r['tol']}) "
                 f"ms={r['ms']:.5f} bound_ms={r['bound_ms']:.5f} "
-                f"({r['bound_by']})")
+                f"({r['bound_by']}) library_ms={r['library_ms']:.5f} (SDPA "
+                f"forward + backward)")
             results[("flash_backward", dtn, 1024, 8)] = r
         for shape, (E, C, d, f, tokens) in GMM_SHAPES.items():
             r = check_gmm(torch, ops, ref, gmm, dtn, shape)
@@ -761,21 +835,39 @@ SERVED = {
     "recurrentgemma-9b": ("38L d4096 (26 rglru + 12 local_attn, window "
                           "2048), MQA hd256, bf16",
                           {"rglru_scan": (26, 1, 0)}),
+    # flash in the encoder, decoder self- and cross-attention (12 each)
+    "seamless-m4t-medium": ("12+12L d1024 MHA hd64, vocab 256,206, 1,024 "
+                            "frames per request, bf16",
+                            {"flash_attention": (36, 1, 0),
+                             "paged_attention": (12, 0, 1)}),
+    "pixtral-12b": ("40L d5120 GQA 32:8 hd128, 1,024 patch embeddings per "
+                    "request, bf16",
+                    {"flash_attention": (40, 1, 0),
+                     "paged_attention": (40, 0, 1)}),
+    "glm4-9b": ("40L d4096 GQA 32:2 hd128, bf16",
+                {"flash_attention": (40, 1, 0),
+                 "paged_attention": (40, 0, 1)}),
 }
+# what each modal arch's requests carry at full width (phases 4f, 4g)
+FRONTEND = {"seamless-m4t-medium": dict(enc_len=1024),
+            "pixtral-12b": dict(stub_len=1024)}
 
 
 def phase_serve_full(torch, ops, serve, get_arch, smi: str, arch: str) -> dict:
     """Serve the full ``arch``; every kernel of its path must have been
     launched, exactly layers x (per prefill call, per decode step) times,
-    and every other kernel never."""
+    and every other kernel never.  The model is freed when ``serve``
+    returns (the session holds no reference cycle)."""
     what, per = SERVED[arch]
     vocab = get_arch(arch).vocab
+    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     out = serve(arch, reduced_cfg=False, n_requests=8, prompt_len=512,
                 gen_len=32, max_slots=8, page_size=16,
-                cache_dtype="bfloat16", device="cuda", seed=0, verbose=True)
+                cache_dtype="bfloat16", device="cuda", seed=0, verbose=True,
+                **FRONTEND.get(arch, {}))
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -793,7 +885,7 @@ def phase_serve_full(torch, ops, serve, get_arch, smi: str, arch: str) -> dict:
         raise AssertionError(f"{arch}: launch counts {counts} != {want} "
                              f"(prefill calls {pf}, decode steps {ds})")
     log(f"serve {arch} full ({what}): {out['requests']} requests "
-        f"x 32 tokens; prefill_calls={pf} decode_steps={ds} "
+        f"x 512 prompt x 32 new tokens; prefill_calls={pf} decode_steps={ds} "
         f"launches={counts}; init_seconds={out['init_seconds']} "
         f"throughput_tok_s={out['throughput_tok_s']} "
         f"planning_seconds={out['planning_seconds']} "
@@ -804,20 +896,28 @@ def phase_serve_full(torch, ops, serve, get_arch, smi: str, arch: str) -> dict:
     return counts
 
 
+# phases 5f, 5g: what the reduced modal archs' requests carry (300 frames,
+# the reduced 16-position stub), so every attention of the prefill has a
+# query length past 256 and takes the fp32 flash kernel
+REDUCED_FRONTEND = {"seamless-m4t-medium": dict(enc_len=300),
+                    "pixtral-12b": dict(stub_len=16)}
+
+
 def phase_cpu_parity(torch, serve, arch: str) -> None:
     """Reduced ``arch`` in fp32 from one seed, 4 requests in 4 slots (all
     live at every step): the kernels on ``cuda`` give the plain path's
     tokens on ``cpu``."""
+    front = REDUCED_FRONTEND.get(arch, {})
     kw = dict(reduced_cfg=True, n_requests=4, prompt_len=300, gen_len=16,
               max_slots=4, page_size=16, cache_dtype="float32", replan="off",
-              seed=3, verbose=False)
+              seed=3, verbose=False, **front)
     gpu = serve(arch, device="cuda", **kw)["tokens"]
     cpu = serve(arch, device="cpu", **kw)["tokens"]
     if not torch.equal(gpu.cpu(), cpu.cpu()):
         raise AssertionError(f"reduced {arch} fp32 tokens differ cuda vs cpu:"
                              f"\n{gpu.tolist()}\n{cpu.tolist()}")
-    log(f"reduced {arch} fp32 (4 requests, prompt 300, 16 new): cuda tokens "
-        f"== cpu tokens ({cpu.numel()} tokens)")
+    log(f"reduced {arch} fp32 (4 requests, prompt 300{front or ''}, 16 new): "
+        f"cuda tokens == cpu tokens ({cpu.numel()} tokens)")
 
 
 def check_launches(what: str, counts: dict, per: dict, calls: dict) -> None:
@@ -1098,6 +1198,54 @@ def phase_train_parity(torch, train) -> None:
         f"final params max diff {dp} (tol {TRAIN_PARITY_TOL})")
 
 
+def phase_modal_train_parity(torch, ops) -> None:
+    """Reduced seamless and pixtral in fp32, one loss and every gradient at
+    S 300 (300 frames; a 16-position stub) on ``cuda`` — the flash kernel
+    forward in every attention and its plain-recompute gradient — against
+    the plain path on ``cpu``, within ``TRAIN_PARITY_TOL``; the flash
+    launches are the layers' attentions (enc-dec: encoder, self and cross,
+    no remat; pixtral: forward and remat recompute)."""
+    from repro_torch.config import ShardingConfig, get_arch, reduced
+    from repro_torch.models import build_model
+
+    for arch, per_layer in (("seamless-m4t-medium", 3), ("pixtral-12b", 2)):
+        cfg = reduced(get_arch(arch))
+        rng = np.random.default_rng(23)
+        toks = rng.integers(0, cfg.vocab, (2, 301))
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        if cfg.is_encdec:
+            batch["frames"] = rng.standard_normal((2, 300, cfg.d_model),
+                                                  dtype=np.float32)
+        else:
+            batch["embeds"] = rng.standard_normal(
+                (2, cfg.frontend_stub_len, cfg.d_model), dtype=np.float32)
+        out = {}
+        for dev in ("cuda", "cpu"):
+            m = build_model(cfg, ShardingConfig(use_kernels=True), device=dev,
+                            train=True).init(5)
+            ops.reset_launch_counts()
+            loss, _ = m.loss({k: torch.as_tensor(v, device=dev)
+                              for k, v in batch.items()})
+            named = list(m.impl.named_parameters())
+            grads = torch.autograd.grad(loss, [p for _, p in named])
+            out[dev] = (float(loss.detach()), {n: g.cpu() for (n, _), g in
+                                      zip(named, grads)},
+                        ops.launch_counts()["flash_attention"])
+        dl = abs(out["cuda"][0] - out["cpu"][0])
+        dg = max(float((g - out["cpu"][1][n]).abs().max())
+                 for n, g in out["cuda"][1].items())
+        want = per_layer * cfg.n_layers
+        if not (dl <= TRAIN_PARITY_TOL and dg <= TRAIN_PARITY_TOL
+                and out["cuda"][2] == want and out["cpu"][2] == 0):
+            raise AssertionError(f"reduced {arch} train cuda vs cpu: loss "
+                                 f"diff {dl}, grad diff {dg}, flash launches "
+                                 f"{out['cuda'][2]} (want {want})")
+        log(f"reduced {arch} fp32 loss + grads at S 300 (flash {want} "
+            f"launches on cuda): loss cuda {out['cuda'][0]} == cpu "
+            f"{out['cpu'][0]} (diff {dl}); {len(out['cpu'][1])} gradient "
+            f"leaves, max diff {dg} (tol {TRAIN_PARITY_TOL})")
+
+
 def _engine_delta(torch, session) -> tuple:
     """Engine loss and grads against autograd of ``reference_loss`` on the
     session's current params and batches."""
@@ -1234,9 +1382,15 @@ def main(argv=None) -> int:
         counts["rglru_scan"] = hybrid["rglru_scan"]
         phase_chunked_full(torch, ops, serve, get_arch, smi)
         phase_moe_chunked(torch, ops, serve, get_arch, smi)
-        phase_cpu_parity(torch, serve, "qwen3-0.6b")
-        phase_cpu_parity(torch, serve, "qwen2-moe-a2.7b")
-        phase_cpu_parity(torch, serve, "recurrentgemma-9b")
+        encdec = phase_serve_full(torch, ops, serve, get_arch, smi,
+                                  "seamless-m4t-medium")
+        phase_serve_full(torch, ops, serve, get_arch, smi, "pixtral-12b")
+        phase_serve_full(torch, ops, serve, get_arch, smi, "glm4-9b")
+        gc.collect()
+        torch.cuda.empty_cache()
+        for arch in ("qwen3-0.6b", "qwen2-moe-a2.7b", "recurrentgemma-9b",
+                     "seamless-m4t-medium", "pixtral-12b"):
+            phase_cpu_parity(torch, serve, arch)
         phase_chunk_parity(torch, "qwen3-0.6b")
         phase_chunk_parity(torch, "qwen2-moe-a2.7b")
 
@@ -1245,13 +1399,14 @@ def main(argv=None) -> int:
         trained = phase_train_full(torch, ops, train, get_arch, smi)
         phase_train_parity(torch, train)
         phase_wavefront(torch, smi)
+        phase_modal_train_parity(torch, ops)
 
     # one row per kernel: attention and the grouped matmul at qwen2-moe's
     # bf16 shapes (the grouped matmul at its decode shape, where most of
     # its launches are) with the launches of 4b; the scan at
     # recurrentgemma's fp32 prefill shape (the gates are fp32) with 4c's
     keys = {"paged_attention": ("paged_attention", "bfloat16", "ragged", 16),
-            "flash_attention": ("flash_attention", "bfloat16", 512, 16),
+            "flash_attention": ("flash_attention", "bfloat16", "moe"),
             "grouped_matmul": ("grouped_matmul", "bfloat16", "decode"),
             "rglru_scan": ("rglru_scan", "float32", "prefill")}
     rows = []
@@ -1271,9 +1426,14 @@ def main(argv=None) -> int:
     if args.only is None:
         # flash at phase 6's training shape, with its launches in that run
         row("flash_attention",
-            checks[("flash_attention", "bfloat16", 1024, 8)],
+            checks[("flash_attention", "bfloat16", "train")],
             trained["counts"]["flash_attention"], path="train",
             launches_per_step=2 * get_arch("qwen3-0.6b").n_layers)
+        # flash at seamless's cross-attention shape, with phase 4f's
+        # launches (encoder, self- and cross-attention)
+        row("flash_attention",
+            checks[("flash_attention", "bfloat16", "cross")],
+            encdec["flash_attention"], path="encdec")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

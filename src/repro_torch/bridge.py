@@ -11,6 +11,10 @@ leading group axis (``Decoder.init`` builds ``params["blocks"]`` with
 models.transformer.Block` per layer, so :func:`from_jax` unstacks the group
 axis (remainder layers first, then group ``g``'s pattern slot ``j`` at
 ``n_rem + g * len(pattern) + j``) and :func:`to_jax` stacks it back.
+The encoder-decoder's ``enc_blocks`` and ``dec_blocks`` are vmapped over
+their layers (one leading layer axis each): they become
+``enc_blocks.<i>.*`` and ``dec_blocks.<i>.*`` and are restacked the same
+way.
 Only the leading group axis moves: an MoE layer's ``(E, d, f)`` expert
 stacks arrive per layer as they are (dead experts included), and the
 router keeps its fp32.  A training model (``build_model(..., train=True)``)
@@ -62,6 +66,10 @@ def _pattern(cfg: ArchConfig):
     return tuple(cfg.block_pattern) or ("attn",)
 
 
+#: the encoder-decoder's layer stacks, one leading layer axis each
+LAYER_STACKS = ("enc_blocks", "dec_blocks")
+
+
 def from_jax(tree: Dict[str, Any], cfg: ArchConfig) -> Dict[str, np.ndarray]:
     """JAX ``Transformer.init`` params (nested dicts of arrays) → the port's
     parameter names and per-layer arrays."""
@@ -79,6 +87,10 @@ def from_jax(tree: Dict[str, Any], cfg: ArchConfig) -> Dict[str, np.ndarray]:
             r = int(key[len("blocks_rem"):])
             for leaf, arr in flatten_tree(sub).items():
                 out[f"decoder.layers.{r}.{leaf}"] = arr
+        elif key in LAYER_STACKS:
+            for leaf, arr in flatten_tree(sub).items():
+                for i in range(arr.shape[0]):
+                    out[f"{key}.{i}.{leaf}"] = arr[i]
         elif isinstance(sub, dict):
             out.update(flatten_tree(sub, key + "."))
         else:
@@ -94,13 +106,24 @@ def to_jax(flat: Dict[str, np.ndarray], cfg: ArchConfig) -> Dict[str, Any]:
     n_groups = cfg.n_layers // L
     top: Dict[str, np.ndarray] = {}
     layers: Dict[int, Dict[str, np.ndarray]] = {}
+    stacks: Dict[str, Dict[int, Dict[str, np.ndarray]]] = {}
     for name, arr in flat.items():
         if name.startswith("decoder.layers."):
             _, _, idx, leaf = name.split(".", 3)
             layers.setdefault(int(idx), {})[leaf] = np.asarray(arr)
+        elif name.split(".", 1)[0] in LAYER_STACKS:
+            key, idx, leaf = name.split(".", 2)
+            stacks.setdefault(key, {}).setdefault(int(idx), {})[leaf] = (
+                np.asarray(arr))
         else:
             top[name] = np.asarray(arr)
     tree = _unflatten(top)
+    for key, per_layer in stacks.items():
+        tree[key] = _unflatten({
+            leaf: np.stack([per_layer[i][leaf] for i in range(len(per_layer))])
+            for leaf in per_layer[0]})
+    if not layers:
+        return tree
     for r in range(n_rem):
         tree[f"blocks_rem{r}"] = _unflatten(layers[r])
     if n_groups:
@@ -115,7 +138,7 @@ def to_jax(flat: Dict[str, np.ndarray], cfg: ArchConfig) -> Dict[str, Any]:
     return tree
 
 
-def _transformer(model):
+def _impl(model):
     return getattr(model, "impl", model)
 
 
@@ -130,7 +153,7 @@ def _to_torch(arr: np.ndarray) -> torch.Tensor:
 def load_jax_params(model, tree: Dict[str, Any]):
     """Load JAX params (numpy leaves) into a port model; returns the model."""
     flat = from_jax(tree, model.cfg)
-    _transformer(model).load_state({k: _to_torch(v) for k, v in flat.items()})
+    _impl(model).load_state({k: _to_torch(v) for k, v in flat.items()})
     return model
 
 
@@ -138,7 +161,7 @@ def jax_params(model) -> Dict[str, Any]:
     """A port model's params as a JAX-layout pytree of numpy arrays (bf16
     parameters are widened to fp32, which numpy can hold exactly)."""
     flat = {}
-    for name, p in _transformer(model).named_parameters():
+    for name, p in _impl(model).named_parameters():
         t = p.detach().cpu()
         flat[name] = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
     return to_jax(flat, model.cfg)

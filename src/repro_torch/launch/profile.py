@@ -4,11 +4,17 @@
     PYTHONPATH=src python -m repro_torch.launch.profile      # full qwen3-0.6b
     PYTHONPATH=src python -m repro_torch.launch.profile --arch qwen2-moe-a2.7b
     PYTHONPATH=src python -m repro_torch.launch.profile --arch recurrentgemma-9b
+    PYTHONPATH=src python -m repro_torch.launch.profile \\
+        --arch seamless-m4t-medium --enc-len 1024         # enc-dec
+    PYTHONPATH=src python -m repro_torch.launch.profile --arch pixtral-12b \\
+        --stub-len 1024                                   # VLM, one image
     PYTHONPATH=src python -m repro_torch.launch.profile --train  # one train step
 
 Serving: serves the ``chip_smoke.py`` cell (8 requests × 512-token prompts
-× 32 new tokens, bf16, page size 16) once to warm every kernel and library
-handle, then on a fresh session over the same model measures:
+× 32 new tokens, bf16, page size 16; an enc-dec arch's requests carry
+``enc_len`` frames and a VLM's ``stub_len`` patch embeddings, as
+:func:`repro_torch.launch.serve.serve` builds them) once to warm every
+kernel and library handle, then on a fresh session over the same model measures:
 
 * the stacked prefill (one ``admit_many``) under the profiler: wall time,
   device time by kernel group, device busy share;
@@ -48,7 +54,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from ..serving import ServingConfig, ServingSession
-from .serve import _build_requests
+from ..config import get_arch
+from .serve import _build_requests, frontend_lens
 
 #: the groups of a train step's device time (see the module doc)
 TRAIN_GROUPS = ("flash_forward", "flash_recompute", "attention_backward_plain",
@@ -91,17 +98,18 @@ def device_times(prof) -> Tuple[Dict[str, float], Dict[str, float], int]:
 def profile_serve(arch: str = "qwen3-0.6b", *, reduced_cfg: bool = False,
                   n_requests: int = 8, prompt_len: int = 512,
                   gen_len: int = 32, seed: int = 0, warm_steps: int = 3,
-                  steps: int = 12) -> dict:
+                  steps: int = 12, enc_len: int = 0,
+                  stub_len: int = 0) -> dict:
     if 1 + warm_steps + 2 * steps > gen_len:
         raise ValueError("gen_len too short for the warm + measured steps")
+    enc, stub = frontend_lens(get_arch(arch), prompt_len, enc_len, stub_len)
     cfg = ServingConfig(arch=arch, reduced_cfg=reduced_cfg, seed=seed,
                         device="cuda", max_slots=n_requests,
-                        cache_len=prompt_len + gen_len)
+                        cache_len=prompt_len + stub + gen_len, enc_len=enc)
     warm = ServingSession(cfg)
-    vocab = warm.model.cfg.vocab
-    reqs = _build_requests(vocab, n_requests=n_requests,
+    reqs = _build_requests(warm.model.cfg, n_requests=n_requests,
                            prompt_len=prompt_len, gen_len=gen_len, seed=seed,
-                           arrival_every=0.0)
+                           arrival_every=0.0, enc_len=enc, stub_len=stub)
     warm.run(reqs)
     b = ServingSession(cfg, model=warm.model).batcher
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -272,6 +280,10 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--train", action="store_true",
                     help="profile one train step instead of serving")
+    ap.add_argument("--enc-len", type=int, default=0,
+                    help="enc-dec archs: frames per request")
+    ap.add_argument("--stub-len", type=int, default=0,
+                    help="VLM archs: patch embeddings per request")
     args = ap.parse_args()
     if args.train:
         out = profile_train(args.arch, seed=args.seed)
@@ -285,7 +297,8 @@ def main() -> int:
               f"{out['step_device_us_by_group']}")
         print(json.dumps(out))
         return 0
-    out = profile_serve(args.arch, reduced_cfg=args.reduced, seed=args.seed)
+    out = profile_serve(args.arch, reduced_cfg=args.reduced, seed=args.seed,
+                        enc_len=args.enc_len, stub_len=args.stub_len)
     if out["prefill_device_s"] <= 0 or out["decode_step_device_s"] <= 0:
         print("[profile] FAILED: the profiler recorded no device time",
               file=sys.stderr)

@@ -7,6 +7,10 @@
         --prompt-len 512 --gen-len 32                         # MoE, on the GPU
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch recurrentgemma-9b --prompt-len 512 --gen-len 32  # hybrid
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch seamless-m4t-medium --prompt-len 512 --enc-len 1024  # enc-dec
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch pixtral-12b \\
+        --prompt-len 512 --stub-len 1024                      # VLM, one image
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
         --prefix-smoke --shared-prefix 16 --prefill-chunk 8 --page-size 8
@@ -14,7 +18,11 @@
 Requests are random prompts from ``numpy.random.default_rng(seed + 1)``
 (``--shared-prefix N`` gives them all the same first N tokens, drawn from
 the same generator after the prompts); the weights are random from
-``seed``.  KV memory is the paged layout, admission prefills are stacked
+``seed``.  Encoder-decoder requests carry ``frames`` of (``--enc-len``,
+d) and VLM requests ``embeds`` of (``--stub-len``, d), random normals
+from the same generator; by default ``enc_len = max(prompt_len // 4, 1)``
+and the stub is ``min(frontend_stub_len, 8)`` positions, which
+``cache_len`` counts, as the JAX CLI has them.  KV memory is the paged layout, admission prefills are stacked
 per prompt length (``--no-batched-prefill`` restores batch-1 joins),
 ``--prefill-chunk N`` streams long prompts into the page pool in N-token
 chunks interleaved with decode steps (``--prefill-duty`` sets the
@@ -39,13 +47,31 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from ..config import ArchConfig, get_arch
 from ..serving import Request, ServingConfig, ServingSession
 
 
-def _build_requests(vocab: int, *, n_requests: int, prompt_len: int,
+def frontend_lens(cfg: ArchConfig, prompt_len: int, enc_len: int = 0,
+                  stub_len: int = 0):
+    """(frames per request, stub positions per request) of ``cfg``: the
+    encoder memory length of an enc-dec arch (``enc_len``, 0 → ``max(
+    prompt_len // 4, 1)``) and a VLM's patch count (``stub_len``, 0 →
+    ``min(frontend_stub_len, 8)``); 0 where the arch takes none."""
+    enc = (enc_len or max(prompt_len // 4, 1)) if cfg.is_encdec else 0
+    stub = ((stub_len or min(cfg.frontend_stub_len, 8))
+            if cfg.family == "vlm" else 0)
+    return enc, stub
+
+
+def _build_requests(cfg: ArchConfig, *, n_requests: int, prompt_len: int,
                     gen_len: int, seed: int, arrival_every: float,
-                    shared_prefix: int = 0) -> list:
+                    shared_prefix: int = 0, enc_len: int = 0,
+                    stub_len: int = 0) -> list:
+    """Random prompts, and each request's stub modality inputs: ``frames``
+    (``enc_len``, d) for an enc-dec ``cfg``, ``embeds`` (``stub_len``, d)
+    for a VLM (see :func:`frontend_lens`)."""
     rng = np.random.default_rng(seed + 1)
+    vocab = cfg.vocab
     prompts = [rng.integers(0, vocab, size=(prompt_len,), dtype=np.int64)
                for _ in range(n_requests)]
     if shared_prefix:
@@ -54,11 +80,19 @@ def _build_requests(vocab: int, *, n_requests: int, prompt_len: int,
         prefix = rng.integers(0, vocab, size=(shared_prefix,), dtype=np.int64)
         prompts = [np.concatenate([prefix, p[shared_prefix:]])
                    for p in prompts]
-    return [
-        Request(rid=i, tokens=toks, max_new_tokens=gen_len,
-                arrival=i * arrival_every)
-        for i, toks in enumerate(prompts)
-    ]
+    enc, stub = frontend_lens(cfg, prompt_len, enc_len, stub_len)
+    reqs = []
+    for i, toks in enumerate(prompts):
+        extras = {}
+        if enc:
+            extras["frames"] = rng.standard_normal(
+                (enc, cfg.d_model), dtype=np.float32)
+        elif stub:
+            extras["embeds"] = rng.standard_normal(
+                (stub, cfg.d_model), dtype=np.float32)
+        reqs.append(Request(rid=i, tokens=toks, max_new_tokens=gen_len,
+                            arrival=i * arrival_every, extras=extras))
+    return reqs
 
 
 def serve(
@@ -84,9 +118,14 @@ def serve(
     shared_prefix: int = 0,
     cache_dtype: str = "bfloat16",
     device: str = "cuda",
+    enc_len: int = 0,
+    stub_len: int = 0,
 ) -> Dict[str, Any]:
     """Serve ``n_requests`` random prompts; returns tokens + metrics
-    (``init_seconds``: building and initializing the model)."""
+    (``init_seconds``: building and initializing the model).  ``enc_len``
+    and ``stub_len`` size the enc-dec frames and the VLM patch embeddings
+    (:func:`frontend_lens`)."""
+    enc, stub = frontend_lens(get_arch(arch), prompt_len, enc_len, stub_len)
     t_init = time.perf_counter()
     session = ServingSession(
         ServingConfig(
@@ -95,7 +134,8 @@ def serve(
             seed=seed,
             device=device,
             max_slots=max_slots or n_requests,
-            cache_len=prompt_len + gen_len,
+            cache_len=prompt_len + stub + gen_len,
+            enc_len=enc,
             admission=admission,
             replan=replan,
             page_size=page_size,
@@ -110,9 +150,10 @@ def serve(
     )
     init_seconds = time.perf_counter() - t_init
     reqs = _build_requests(
-        session.model.cfg.vocab, n_requests=n_requests,
+        session.model.cfg, n_requests=n_requests,
         prompt_len=prompt_len, gen_len=gen_len, seed=seed,
         arrival_every=arrival_every, shared_prefix=shared_prefix,
+        enc_len=enc, stub_len=stub,
     )
     t0 = time.perf_counter()
     metrics = session.run(reqs)
@@ -244,6 +285,12 @@ def main() -> None:
                     default="bfloat16")
     ap.add_argument("--device", default="cuda",
                     help="cuda (hand-written kernels) or cpu (plain PyTorch)")
+    ap.add_argument("--enc-len", type=int, default=0,
+                    help="enc-dec archs: frames per request (0 = prompt "
+                         "length // 4)")
+    ap.add_argument("--stub-len", type=int, default=0,
+                    help="VLM archs: patch embeddings per request (0 = "
+                         "min(frontend_stub_len, 8))")
     args = ap.parse_args()
     if args.prefix_smoke:
         sys.exit(prefix_smoke(args))
@@ -268,6 +315,8 @@ def main() -> None:
         shared_prefix=args.shared_prefix,
         cache_dtype=args.cache_dtype,
         device=args.device,
+        enc_len=args.enc_len,
+        stub_len=args.stub_len,
     )
     if out["output_tokens"] <= 0 or out["requests"] <= 0:
         print("[serve] FAILED: no output tokens generated", file=sys.stderr)

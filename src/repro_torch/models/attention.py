@@ -1,20 +1,24 @@
-"""Attention: GQA with RoPE / qk-norm, full-sequence, sliding-window,
-paged-decode and circular-buffer decode paths.
+"""Attention: GQA with RoPE / qk-norm, full-sequence, chunked, sliding-
+window, cross-attention, paged-decode and circular-buffer decode paths.
 
 Port of ``repro/models/attention.py``: ``naive_attention`` (with its
-window mask), ``local_attention``, ``attn_apply`` (with the JAX dispatch
-rule: the flash kernel when kernels are on, ``window == 0`` and ``S >
-256``; ``local_attention`` when kernels are on, ``window > 0`` and ``S >
-256``; naive otherwise), ``paged_gather``, ``page_slots``/``paged_scatter``,
-two branches of ``attn_decode`` — the paged one (the paged-decode kernel
-when kernels are on, the reference gather otherwise) and the slab one of a
-local layer, a circular buffer of the last ``W`` tokens per row — and
+window mask), ``chunked_attention`` (online softmax over Q and KV chunks,
+the reference's kernels-off path past 256 tokens), ``local_attention``,
+``attn_apply`` (with the JAX dispatch rule: the flash kernel when kernels
+are on, ``window == 0`` and ``S > 256``; otherwise naive when ``S <=
+256``, ``local_attention`` when ``window > 0`` and ``chunked_attention``
+else — ``impl="naive"`` always takes the naive path — and ``kv_override``
+for cross-attention), ``paged_gather``, ``page_slots``/``paged_scatter``,
+three branches of ``attn_decode`` — the paged one (the paged-decode kernel
+when kernels are on, the reference gather otherwise), the slab one of a
+local layer, a circular buffer of the last ``W`` tokens per row, and the
+cross one over a fixed slot-major encoder memory — and
 ``attn_prefill_chunk``, one chunk of a chunked prefill against the page
 pool (plain PyTorch, as the JAX one is plain XLA).  Full-attention slab
-decode and cross-attention come with the slices that use them.  The JAX
-code is functional and returns new caches; here ``paged_scatter``, the
-chunk's scatter and the circular write update the caches in place
-(``index_put_``), where the JAX decode step donates them.
+decode comes with ROADMAP queue 1, item 4b.  The JAX code is functional
+and returns new caches; here ``paged_scatter``, the chunk's scatter and
+the circular write update the caches in place (``index_put_``), where the
+JAX decode step donates them.
 """
 
 from __future__ import annotations
@@ -28,7 +32,9 @@ from ..kernels import ops
 from .layers import apply_rope, dense_init, rms_normalize
 
 NEG_INF = -1e30
-IMPLS = ("naive", "kernels")
+IMPLS = ("naive", "chunked", "kernels")
+_SLAB = ("ROADMAP queue 1, item 4b (the xLSTM cells, full-attention slab "
+         "decode and kv_layout='slab')")
 
 
 def attn_init(gen: torch.Generator, d: int, n_heads: int, n_kv: int,
@@ -75,6 +81,58 @@ def naive_attention(q, k, v, *, causal: bool, window: int = 0,
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
 
 
+def chunked_attention(q, k, v, *, causal: bool, q_chunk: int = 512,
+                      kv_chunk: int = 1024, q_offset: int = 0):
+    """Online-softmax attention over Q chunks (outer) and KV chunks (inner),
+    O(Sk·chunk) memory: q (B,Sq,H,hd), k/v (B,Sk,H,hd) head-repeated →
+    (B,Sq,H,hd).  The causal mask is top-left with queries at ``q_offset +
+    i``.  Scores, the running (max, denominator) and the accumulator are
+    fp32; the output takes q's dtype.
+
+    The JAX version pads Q and KV to whole chunks and masks the padded
+    keys; here the last chunks are sliced short, which drops only masked
+    scores (exactly zero weight).  KV blocks past the diagonal of a
+    chunk's last query are skipped, as JAX skips them with ``lax.cond``;
+    the first block always holds a visible key, so every row's running
+    max is finite before any skipped or fully masked block."""
+    Sq, hd = q.shape[1], q.shape[3]
+    Sk = k.shape[1]
+    q_chunk = min(q_chunk, Sq)
+    kv_chunk = min(kv_chunk, Sk)
+    scale = 1.0 / math.sqrt(hd)
+    outs = []
+    for q0 in range(0, Sq, q_chunk):
+        qc = q[:, q0: q0 + q_chunk]
+        c = qc.shape[1]
+        qpos = torch.arange(c, device=q.device) + q0 + q_offset
+        m = l = acc = None
+        for k0 in range(0, Sk, kv_chunk):
+            if causal and k0 > q0 + c - 1 + q_offset:
+                break  # every later block lies above the diagonal
+            kc, vc = k[:, k0: k0 + kv_chunk], v[:, k0: k0 + kv_chunk]
+            s = torch.einsum("bqhd,bkhd->bhqk", qc, kc).float() * scale
+            if causal:
+                kpos = torch.arange(k0, k0 + kc.shape[1], device=q.device)
+                s = torch.where(kpos[None, :] <= qpos[:, None], s,
+                                torch.full_like(s, NEG_INF))
+            if m is None:
+                m = torch.full(s.shape[:-1], NEG_INF, dtype=torch.float32,
+                               device=q.device)
+                l = torch.zeros_like(m)
+                acc = torch.zeros((*m.shape, hd), dtype=torch.float32,
+                                  device=q.device)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhqk,bkhd->bhqd", p, vc.float())
+            m = m_new
+        out = acc / torch.clamp(l[..., None], min=1e-30)
+        outs.append(out.transpose(1, 2).to(q.dtype))  # (B,c,H,hd)
+    return torch.cat(outs, dim=1)
+
+
 def local_attention(q, k, v, *, window: int, q_chunk: int = 512):
     """Causal attention restricted to the last ``window`` positions, over q
     chunks: a chunk of ``c`` queries scores only the keys it can see, the
@@ -119,23 +177,34 @@ def attn_apply(
     window: int = 0,
     positions: Optional[torch.Tensor] = None,
     impl: str = "naive",
+    kv_override=None,
     return_kv: bool = False,
 ):
-    """Full (``window == 0``) or sliding-window causal attention block on
-    (B, S, d). Optionally returns (k, v) for caches."""
+    """Full (``window == 0``) or sliding-window attention block on (B, S,
+    d). Optionally returns (k, v) for caches.  ``kv_override=(k, v)``
+    (B, Sk, K, hd) supplies externally computed keys and values
+    (cross-attention): only q is projected, normed and, when ``rope_theta
+    > 0``, rotated.  The dispatch reads the query length ``S``."""
     if impl not in IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}; one of {IMPLS}")
     B, S, _ = x.shape
     q = _split_heads(x @ params["wq"], n_heads, head_dim)
-    k = _split_heads(x @ params["wk"], n_kv, head_dim)
-    v = _split_heads(x @ params["wv"], n_kv, head_dim)
-    if qk_norm:
-        q, k = rms_normalize(q), rms_normalize(k)
     pos = (positions if positions is not None
            else torch.arange(S, device=x.device)[None, :])
-    if rope_theta > 0:
-        q = apply_rope(q, pos, rope_theta)
-        k = apply_rope(k, pos, rope_theta)
+    if kv_override is None:
+        k = _split_heads(x @ params["wk"], n_kv, head_dim)
+        v = _split_heads(x @ params["wv"], n_kv, head_dim)
+        if qk_norm:
+            q, k = rms_normalize(q), rms_normalize(k)
+        if rope_theta > 0:
+            q = apply_rope(q, pos, rope_theta)
+            k = apply_rope(k, pos, rope_theta)
+    else:
+        k, v = kv_override
+        if qk_norm:
+            q = rms_normalize(q)
+        if rope_theta > 0:
+            q = apply_rope(q, pos, rope_theta)
     if impl == "kernels" and window == 0 and S > 256:
         # flash kernel: head-major views, GQA-native (no KV repeat)
         out = ops.flash_attention(
@@ -147,8 +216,10 @@ def attn_apply(
         if impl == "naive" or S <= 256:
             out = naive_attention(q, kfull, vfull, causal=causal,
                                   window=window)
-        else:  # kernels on, window > 0, S > 256
+        elif window > 0:
             out = local_attention(q, kfull, vfull, window=window)
+        else:
+            out = chunked_attention(q, kfull, vfull, causal=causal)
     y = out.reshape(B, S, n_heads * head_dim) @ params["wo"]
     if return_kv:
         return y, (k, v)
@@ -205,6 +276,8 @@ def attn_decode(
     rope_theta: float,
     qk_norm: bool = False,
     window: int = 0,
+    cross: bool = False,
+    cross_len=None,
     page_table: Optional[torch.Tensor] = None,
     slots=None,
     impl: str = "naive",
@@ -228,24 +301,40 @@ def attn_decode(
     cache_len); a freed slot's stale row can reach ``pos == cache_len ==
     W``, which JAX's ``dynamic_update_slice`` clamps to W-1 and which here
     wraps to 0 — both land in the stale row's own buffer, which admission
-    overwrites."""
+    overwrites.
+
+    Cross (``cross=True``): cache_k/v (B, K, S_enc, hd) are a fixed
+    slot-major encoder memory.  Nothing is written, q is not rotated, and
+    keys below ``cross_len`` (all of them when it is None) are valid.  As
+    in JAX this path is plain arithmetic (no kernel), with the same fp32
+    scores and ``p`` rounded to the memory's dtype."""
     paged = page_table is not None
-    if paged and window > 0:
+    if paged and (cross or window > 0):
         raise ValueError("paged KV applies to full causal self-attention only")
-    if not paged and window == 0:
+    if not (paged or cross or window > 0):
         raise NotImplementedError(
-            "full-attention slab decode is not ported yet (ROADMAP queue 1, "
-            "item 4: slab layout and the other families); pass page_table")
+            f"full-attention slab decode is not ported yet: {_SLAB}; pass "
+            f"page_table")
     if impl not in IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}; one of {IMPLS}")
     B = x.shape[0]
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
     pos_b = pos if pos.dim() else pos.expand(B)  # (B,) per-row positions
     q = _split_heads(x @ params["wq"], n_heads, head_dim)  # (B,1,H,hd)
+    if qk_norm:
+        q = rms_normalize(q)
+    if cross:
+        S = cache_k.shape[2]
+        lim = (S if cross_len is None else
+               torch.as_tensor(cross_len, device=x.device).reshape(-1, 1))
+        valid = (torch.arange(S, device=x.device)[None, :] < lim).expand(B, S)
+        y = _decode_attend(params, q, cache_k, cache_v, valid, n_heads,
+                           head_dim)
+        return y, cache_k, cache_v
     k = _split_heads(x @ params["wk"], n_kv, head_dim)
     v = _split_heads(x @ params["wv"], n_kv, head_dim)
     if qk_norm:
-        q, k = rms_normalize(q), rms_normalize(k)
+        k = rms_normalize(k)
     if rope_theta > 0:
         q = apply_rope(q, pos_b[:, None], rope_theta)
         k = apply_rope(k, pos_b[:, None], rope_theta)
@@ -276,7 +365,16 @@ def attn_decode(
         # circular buffer: slots hold the last min(pos+1, window) tokens
         valid = (torch.arange(W, device=x.device)[None, :]
                  < torch.clamp(pos_b + 1, max=window)[:, None])
+    y = _decode_attend(params, q, view_k, view_v, valid, n_heads, head_dim)
+    return y, cache_k, cache_v
 
+
+def _decode_attend(params, q, view_k, view_v, valid, n_heads: int,
+                   head_dim: int):
+    """The reference decode's scoring of q (B,1,H,hd) over a slab view (B,
+    K, S, hd) with per-row validity (B, S), then the output projection:
+    y (B, 1, d)."""
+    B = q.shape[0]
     rep = n_heads // view_k.shape[1]
     kk = view_k.repeat_interleave(rep, dim=1) if rep > 1 else view_k
     vv = view_v.repeat_interleave(rep, dim=1) if rep > 1 else view_v
@@ -290,8 +388,7 @@ def attn_decode(
     out = torch.einsum("bhqk,bhkd->bqhd", p.to(vv.dtype), vv)
     wo = params["wo"]
     out = out.reshape(B, 1, n_heads * head_dim)
-    y = out.to(torch.promote_types(out.dtype, wo.dtype)) @ wo
-    return y, cache_k, cache_v
+    return out.to(torch.promote_types(out.dtype, wo.dtype)) @ wo
 
 
 def attn_prefill_chunk(

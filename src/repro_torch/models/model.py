@@ -1,11 +1,14 @@
-"""Model factory: ArchConfig → the uniform serving API (port of
-``repro/models/model.py``, decoder-only).
+"""Model factory: ArchConfig → the uniform serving and training API (port of
+``repro/models/model.py``).
 
 ``Model`` takes the JAX package's batch-dict calls — ``prefill(batch)``
-with ``batch["tokens"]`` — and forwards to the :class:`Transformer` it
-holds as ``impl``; the encoder-decoder and frontend-stub families it would
-also dispatch to, and the xLSTM mixers, come with their slices, and
-:func:`build_model` refuses them.
+with ``batch["tokens"]``, and the stub modality inputs: ``frames`` for the
+encoder-decoder (``[audio]``) archs, precomputed patch ``embeds``
+prepended to the tokens for the ``[vlm]`` archs — and forwards to the
+model it holds as ``impl``: an :class:`~repro_torch.models.encdec.
+EncDecTransformer` when ``cfg.is_encdec``, else a :class:`Transformer`.
+The xLSTM mixers come with their slice, and :func:`build_model` refuses
+them.
 """
 
 from __future__ import annotations
@@ -16,7 +19,10 @@ import torch
 from torch import nn
 
 from ..config import ArchConfig, ShardingConfig, resolve_device
+from .encdec import EncDecTransformer
 from .transformer import KINDS, Transformer, resolve_pattern
+
+FAMILIES = ("dense", "moe", "hybrid", "vlm", "audio")  # the ported ones
 
 
 class Model(nn.Module):
@@ -26,7 +32,8 @@ class Model(nn.Module):
         self.cfg = cfg
         self.shcfg = shcfg
         self.device = device
-        self.impl = Transformer(cfg, shcfg, device, train=train)
+        impl = EncDecTransformer if cfg.is_encdec else Transformer
+        self.impl = impl(cfg, shcfg, device, train=train)
 
     def init(self, seed: int) -> "Model":
         self.impl.init(seed)
@@ -38,17 +45,38 @@ class Model(nn.Module):
 
     def loss(self, batch):
         """(loss, {"nll", "aux"}) of a batch dict (see
-        :meth:`Transformer.loss`)."""
+        :meth:`Transformer.loss` and :meth:`EncDecTransformer.loss`)."""
         return self.impl.loss(batch)
+
+    def _enc_len(self, cache_len: int, enc_len: int) -> int:
+        return enc_len or max(cache_len // 4, 1)
 
     def prefill(self, batch, *, cache_len: Optional[int] = None,
                 cache_dtype=torch.bfloat16):
-        return self.impl.prefill(batch["tokens"], cache_len=cache_len,
-                                 cache_dtype=cache_dtype)
+        if self.cfg.is_encdec:
+            return self.impl.prefill(batch["tokens"], batch["frames"],
+                                     cache_len=cache_len,
+                                     cache_dtype=cache_dtype)
+        return self.impl.prefill(batch["tokens"], batch.get("embeds"),
+                                 cache_len=cache_len, cache_dtype=cache_dtype)
+
+    def init_cache(self, batch: int, cache_len: int, *, enc_len: int = 0,
+                   cache_dtype=torch.bfloat16):
+        """The slab decode cache (``enc_len`` 0 → ``cache_len // 4``)."""
+        if self.cfg.is_encdec:
+            return self.impl.init_cache(
+                batch, cache_len, self._enc_len(cache_len, enc_len),
+                cache_dtype)
+        return self.impl.init_cache(batch, cache_len, cache_dtype)
 
     def init_paged_cache(self, batch: int, cache_len: int, *, n_pages: int,
-                         page_size: int, cache_dtype=torch.bfloat16):
+                         page_size: int, enc_len: int = 0,
+                         cache_dtype=torch.bfloat16):
         """Paged decode cache + per-leaf layout codes."""
+        if self.cfg.is_encdec:
+            return self.impl.init_paged_cache(
+                batch, cache_len, self._enc_len(cache_len, enc_len),
+                n_pages=n_pages, page_size=page_size, cache_dtype=cache_dtype)
         return self.impl.init_paged_cache(
             batch, cache_len, n_pages=n_pages, page_size=page_size,
             cache_dtype=cache_dtype,
@@ -57,7 +85,7 @@ class Model(nn.Module):
     @property
     def supports_chunked_prefill(self) -> bool:
         """Chunked prefill rebuilds attention state from the KV pool chunk
-        by chunk — only all-attention stacks qualify."""
+        by chunk — only all-attention decoder-only stacks qualify."""
         return self.impl.supports_chunked_prefill
 
     def decode_step(self, token, cache, pos, *, pages=None):
@@ -70,17 +98,16 @@ class Model(nn.Module):
 def build_model(cfg: ArchConfig, shcfg: Optional[ShardingConfig] = None, *,
                 device: str = "cuda", train: bool = False) -> Model:
     """A model with uninitialized weights on ``device`` (fill it with
-    :meth:`Model.init` or :meth:`Model.load_state`).  The dense, MoE and
-    hybrid decoders are ported, with the mixing kinds ``attn``,
-    ``local_attn`` and ``rglru``.  ``train=True`` gives the training
-    layout (fp32 masters with gradients, a cast per layer)."""
+    :meth:`Model.init` or :meth:`Model.load_state`).  The dense, MoE,
+    hybrid and VLM decoders (mixing kinds ``attn``, ``local_attn`` and
+    ``rglru``) and the encoder-decoder are ported.  ``train=True`` gives
+    the training layout (fp32 masters with gradients, a cast per layer)."""
     pattern = resolve_pattern(cfg)
-    if (cfg.family not in ("dense", "moe", "hybrid") or cfg.is_encdec
-            or not set(pattern) <= set(KINDS)):
+    if cfg.family not in FAMILIES or not set(pattern) <= set(KINDS):
         raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}, pattern {pattern}): only dense, MoE "
-            f"and hybrid decoders over the mixing kinds {KINDS} are ported; "
-            f"the rest waits for ROADMAP queue 1, item 4 (slab layout and "
-            f"the other families)")
+            f"{cfg.name} ({cfg.family}, pattern {pattern}): only the "
+            f"{FAMILIES} families over the mixing kinds {KINDS} are ported; "
+            f"the rest waits for ROADMAP queue 1, item 4b (the xLSTM cells, "
+            f"full-attention slab decode and kv_layout='slab')")
     return Model(cfg, shcfg or ShardingConfig(), resolve_device(device),
                  train=train)

@@ -1,6 +1,6 @@
 """Griffin's recurrent block: RG-LRU and the causal conv1d (port of
 ``repro/models/recurrent.py:27-162``; the xLSTM cells come with ROADMAP
-queue 1, item 4).
+queue 1, item 4b).
 
 The functions take parameter mappings keyed by the JAX leaf names
 (``w_x``, ``w_gate``, ``conv.w``, ``rglru.lam|w_r|w_i``, ``w_out``).  The

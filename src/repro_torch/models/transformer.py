@@ -7,8 +7,10 @@ KV pools), ``local_attn`` (sliding-window attention with a circular
 per-slot buffer) or ``rglru`` (Griffin's recurrent block,
 :mod:`repro_torch.models.recurrent`) — so dense decoders such as qwen3,
 MoE decoders such as qwen2-moe (whose FFN is
-:func:`repro_torch.models.moe.moe_apply`) and the hybrid recurrentgemma
-run on one stack.  The JAX package runs ``n_layers % len(pattern)``
+:func:`repro_torch.models.moe.moe_apply`), the hybrid recurrentgemma and
+the VLM backbone of pixtral (its stub patch embeddings prepended to the
+token stream, as JAX's ``_embed`` does) run on one stack.  With kernels
+off attention takes the JAX decoder's impl, ``"chunked"``.  The JAX package runs ``n_layers % len(pattern)``
 remainder layers first and then scans over layer groups stacked on a
 leading axis; here each layer is its own :class:`Block` in a
 ``ModuleList`` in that order (layer ``i`` has kind ``pattern[i]`` for
@@ -32,7 +34,7 @@ activation checkpoint), so the gradients land on the fp32 leaves, as
 JAX's do.  :meth:`Transformer.loss` is the training objective: the
 decoder under block remat (each pattern repetition recomputed in
 backward, ``ShardingConfig.remat``) and :func:`chunked_xent`; it trains
-the dense family only.  In a serving model ``final_norm`` stays in
+the dense and VLM families only.  In a serving model ``final_norm`` stays in
 ``param_dtype``, as in JAX; the embedding table and the head are held in
 ``compute_dtype`` (JAX casts the looked-up rows and the head at use — the
 same values).  The MoE router and the RG-LRU's ``lam`` stay fp32 whatever
@@ -312,8 +314,8 @@ class Decoder(nn.Module):
                  cast_dtype=None):
         super().__init__()
         self.cfg = cfg
-        # "naive" | "kernels" (the kernels also take the MoE expert
-        # products and the RG-LRU scan)
+        # "chunked" (JAX's kernels-off impl) | "kernels" (the kernels also
+        # take the MoE expert products and the RG-LRU scan) | "naive"
         self.attn_impl = attn_impl
         # the dtype a training model casts its fp32 leaves to per layer
         # (None: the leaves are held in the dtype they compute with)
@@ -483,34 +485,12 @@ def chunked_xent(h, w_head, labels, mask=None, chunk: int = 1024):
     return tot / torch.clamp(cnt, min=1.0)
 
 
-class Transformer(nn.Module):
-    """Decoder-only LM: embeddings + decoder + (tied) head.  ``train=True``
-    builds the training layout (fp32 masters with ``requires_grad``, a
-    cast per layer; see the module doc)."""
+class SeededParams(nn.Module):
+    """Loading and seeded initialization of a model's parameters, shared by
+    :class:`Transformer` and the encoder-decoder
+    (:class:`repro_torch.models.encdec.EncDecTransformer`).  A subclass
+    sets ``cfg``, ``train_layout`` and ``_cdt`` (the compute dtype)."""
 
-    def __init__(self, cfg: ArchConfig, shcfg: ShardingConfig, device, *,
-                 train: bool = False):
-        super().__init__()
-        self.cfg = cfg
-        self.shcfg = shcfg
-        self.train_layout = train
-        self.device = torch.device(device)
-        cdt = self._cdt = dtype_of(cfg.compute_dtype)
-        pdt = dtype_of(cfg.param_dtype)
-        held = pdt if train else cdt  # the dtype the leaves are held in
-        self.tok_embed = _param((cfg.vocab, cfg.d_model), held, self.device)
-        self.final_norm = nn.ParameterDict({
-            "scale": _param((cfg.d_model,), pdt, self.device)})
-        self.decoder = Decoder(
-            cfg, attn_impl="kernels" if shcfg.use_kernels else "naive",
-            dtype=held, device=self.device, cast_dtype=cdt if train else None,
-        )
-        if not cfg.tie_embeddings:
-            self.lm_head = _param((cfg.d_model, cfg.vocab), held, self.device)
-        if train:
-            self.requires_grad_(True)
-
-    # ------------------------------------------------------------ params
     @torch.no_grad()
     def load_state(self, tensors: Dict[str, torch.Tensor]) -> None:
         """Copy ``param_dtype`` values (by parameter name) into the model,
@@ -571,52 +551,97 @@ class Transformer(nn.Module):
                         for i, (n, p) in enumerate(params)]:
                 fut.result()  # re-raises a failed draw
 
+
+class Transformer(SeededParams):
+    """Decoder-only LM: embeddings + decoder + (tied) head.  ``train=True``
+    builds the training layout (fp32 masters with ``requires_grad``, a
+    cast per layer; see the module doc)."""
+
+    def __init__(self, cfg: ArchConfig, shcfg: ShardingConfig, device, *,
+                 train: bool = False):
+        super().__init__()
+        self.cfg = cfg
+        self.shcfg = shcfg
+        self.train_layout = train
+        self.device = torch.device(device)
+        cdt = self._cdt = dtype_of(cfg.compute_dtype)
+        pdt = dtype_of(cfg.param_dtype)
+        held = pdt if train else cdt  # the dtype the leaves are held in
+        self.tok_embed = _param((cfg.vocab, cfg.d_model), held, self.device)
+        self.final_norm = nn.ParameterDict({
+            "scale": _param((cfg.d_model,), pdt, self.device)})
+        self.decoder = Decoder(
+            cfg, attn_impl="kernels" if shcfg.use_kernels else "chunked",
+            dtype=held, device=self.device, cast_dtype=cdt if train else None,
+        )
+        if not cfg.tie_embeddings:
+            self.lm_head = _param((cfg.d_model, cfg.vocab), held, self.device)
+        if train:
+            self.requires_grad_(True)
+
     def head(self):
         if self.cfg.tie_embeddings:
             return self.tok_embed.T
         return self.lm_head
 
     # ----------------------------------------------------------- forward
-    def _embed(self, tokens):
-        return embed_lookup(self.tok_embed, tokens).to(
-            dtype_of(self.cfg.compute_dtype))
+    def _embed(self, tokens, embeds=None):
+        """Token embeddings in the compute dtype, with the VLM's stub patch
+        embeddings ``embeds`` (B, P, d) prepended (JAX ``_embed``)."""
+        h = embed_lookup(self.tok_embed, tokens).to(self._cdt)
+        if embeds is not None:
+            h = torch.cat([embeds.to(device=h.device, dtype=self._cdt), h],
+                          dim=1)
+        return h
 
-    def forward(self, tokens, *, return_cache: bool = False):
-        """tokens (B,S) → (final-normed h (B,S,d), cache | None).  Without a
-        cache the decoder runs under ``shcfg.remat``, as JAX's does."""
+    def forward(self, tokens, embeds=None, *, return_cache: bool = False):
+        """tokens (B,S) [and stub embeds (B,P,d), prepended: RoPE positions
+        run over stub and text] → (final-normed h (B,P+S,d), cache | None).
+        Without a cache the decoder runs under ``shcfg.remat``, as JAX's
+        does."""
         remat = "none" if return_cache else self.shcfg.remat
-        h, cache = self.decoder(self._embed(tokens), return_cache=return_cache,
-                                remat=remat)
+        h, cache = self.decoder(self._embed(tokens, embeds),
+                                return_cache=return_cache, remat=remat)
         return rmsnorm(self.final_norm, h), cache
 
     def loss(self, batch):
-        """batch: {tokens (B,S), labels (B,S), [mask (B,S)]} → (nll + w·aux,
-        {"nll", "aux"}) with :func:`chunked_xent` over
-        :data:`LOGITS_CHUNK` positions at a time (JAX's default
-        ``logits_chunk``).  The dense family only: the MoE router's aux
-        loss and the hybrid's scan need gradients through the grouped
-        matmul and the scan."""
+        """batch: {tokens (B,S), labels (B,S), [embeds (B,P,d)], [mask
+        (B,S)]} → (nll + w·aux, {"nll", "aux"}) with :func:`chunked_xent`
+        over :data:`LOGITS_CHUNK` positions at a time (JAX's default
+        ``logits_chunk``) on the text positions (the stub's P are dropped).
+        The dense and VLM families only: the MoE router's aux loss and the
+        hybrid's scan need gradients through the grouped matmul and the
+        scan."""
         if self.cfg.is_moe or set(self.decoder.kinds) != {"attn"}:
             raise NotImplementedError(
                 f"{self.cfg.name}: training is ported for the dense family "
                 f"only; {_ITEM_3B}")
-        h, _ = self.forward(batch["tokens"])
+        embeds = batch.get("embeds")
+        h, _ = self.forward(batch["tokens"], embeds)
+        if embeds is not None:
+            h = h[:, embeds.shape[1]:]
         nll = chunked_xent(h, self.head(), batch["labels"], batch.get("mask"),
                            chunk=LOGITS_CHUNK)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         loss = nll + self.cfg.moe.router_aux_weight * aux
         return loss, {"nll": nll, "aux": aux}
 
-    def prefill(self, tokens, *, cache_len: Optional[int] = None,
+    def prefill(self, tokens, embeds=None, *, cache_len: Optional[int] = None,
                 cache_dtype=torch.bfloat16):
-        """Forward + cache build. Returns (last-position logits (B,V) fp32,
-        cache)."""
-        h, cache = self.forward(tokens, return_cache=True)
+        """Forward + cache build over the stub (if any) and the prompt.
+        Returns (last-position logits (B,V) fp32, cache)."""
+        h, cache = self.forward(tokens, embeds, return_cache=True)
         prompt_len = h.shape[1]
         cache = self.decoder.pack_cache(cache, prompt_len,
                                         cache_len or prompt_len, cache_dtype)
         logits = (h[:, -1] @ self.head().to(h.dtype)).float()
         return logits, cache
+
+    def init_cache(self, batch: int, cache_len: int,
+                   cache_dtype=torch.bfloat16):
+        """The slab decode cache (zeros), one dict per layer."""
+        return self.decoder.init_cache(batch, cache_len, cache_dtype,
+                                       self.device)
 
     def init_paged_cache(self, batch: int, cache_len: int, *, n_pages: int,
                          page_size: int, cache_dtype=torch.bfloat16):

@@ -168,10 +168,10 @@ class MTModel:
     def instances(self) -> List[str]:
         return sorted({info[0] for info in self.op_info.values()})
 
-    def init(self, seed: int = 0, device="cpu") -> nn.ModuleDict:
+    def init(self, seed: int = 0, *, device) -> nn.ModuleDict:
         """One parameter module per component *instance*, drawn on the CPU
         from a generator seeded with ``(seed, instance index)`` and moved to
-        ``device``."""
+        ``device`` (the caller names it: ``"cuda"`` or ``"cpu"``)."""
         params = {}
         for i, inst in enumerate(self.instances()):
             c = self.components[inst.split(":")[-1]]

@@ -20,6 +20,16 @@ only its prompt's pages and decode maps each page the step it is first
 written; a slot that cannot get one pauses, or a victim is preempted and
 requeued.
 
+Requests of the encoder-decoder and VLM archs carry their stub modality
+inputs in ``Request.extras`` (``frames`` (S_enc, d), ``embeds`` (P, d)):
+admission stacks them into the prefill batch of a group whose extras have
+one shape, a VLM request's ``P`` stub positions count toward its cache
+reach and its first decode position, and the prefill's cross memory lands
+in the slot's ``"state0"`` leaves.  Since a prompt's tokens no longer
+define its KV once frames or patches precede them, such a request never
+takes a chunk job, never looks up the prefix index and is never inserted
+into it, as in JAX.
+
 Correctness contract (``tests/test_torch_serving.py``): for a dense
 model every per-row operation of the decode path is batch-independent, so
 a request decoded in a shared batch produces the tokens it produces
@@ -169,6 +179,7 @@ class ContinuousBatcher:
         *,
         max_slots: int = 8,
         cache_len: int = 128,
+        enc_len: int = 0,
         cache_dtype=torch.bfloat16,
         page_size: int = 16,
         kv_pages: int = 0,
@@ -183,6 +194,8 @@ class ContinuousBatcher:
         self.device = model.device
         self.max_slots = max_slots
         self.cache_len = cache_len
+        # encoder memory length of an enc-dec arch (frames per request)
+        self.enc_len = enc_len or max(cache_len // 4, 1)
         self.cache_dtype = cache_dtype
         self.page_size = page_size
         self.batched_prefill = batched_prefill
@@ -192,7 +205,7 @@ class ContinuousBatcher:
         n_pages = kv_pages or max_slots * self.pages_per_slot + 1
         self.cache, self._layout = model.init_paged_cache(
             max_slots, cache_len, n_pages=n_pages, page_size=page_size,
-            cache_dtype=cache_dtype,
+            enc_len=self.enc_len, cache_dtype=cache_dtype,
         )
         # a model without full-attention layers maps pages that hold no KV:
         # grow admission and sharing apply to KV pools only, as in JAX
@@ -313,10 +326,17 @@ class ContinuousBatcher:
         need = self._need_tokens(req)
         if need > self.cache_len:
             raise ValueError(
-                f"request {req.rid}: prompt ({req.prompt_len}+0) + "
-                f"{req.max_new_tokens} new tokens needs {need} cache "
-                f"positions > cache_len={self.cache_len}"
+                f"request {req.rid}: prompt ({req.prompt_len}+"
+                f"{self._stub(req)}) + {req.max_new_tokens} new tokens needs "
+                f"{need} cache positions > cache_len={self.cache_len}"
             )
+        if "frames" in req.extras:
+            got = int(req.extras["frames"].shape[0])
+            if got != self.enc_len:
+                raise ValueError(
+                    f"request {req.rid}: frames length {got} != batcher "
+                    f"enc_len {self.enc_len}"
+                )
         pages = min(pages_needed(need, self.page_size), self.pages_per_slot)
         if pages > self.pool.capacity:
             # a reservation no pool state can ever satisfy must fail loudly
@@ -327,15 +347,23 @@ class ContinuousBatcher:
             )
 
     @staticmethod
-    def _need_tokens(req: Request) -> int:
-        return req.prompt_len + req.max_new_tokens - 1
+    def _stub(req: Request) -> int:
+        """Stub positions a VLM request's patch embeddings take before its
+        prompt."""
+        if "embeds" in req.extras:
+            return int(req.extras["embeds"].shape[0])
+        return 0
+
+    def _need_tokens(self, req: Request) -> int:
+        return req.prompt_len + self._stub(req) + req.max_new_tokens - 1
 
     def _admit_pages(self, req: Request) -> int:
         """Pages admission must map up front: the full reach under reserve,
-        only the prompt's pages under grow (decode grows the rest)."""
+        only the prompt's (and stub's) pages under grow (decode grows the
+        rest)."""
         if self.grow:
-            return min(pages_needed(req.prompt_len, self.page_size),
-                       self.pages_per_slot)
+            return min(pages_needed(req.prompt_len + self._stub(req),
+                                    self.page_size), self.pages_per_slot)
         return min(pages_needed(self._need_tokens(req), self.page_size),
                    self.pages_per_slot)
 
@@ -357,8 +385,9 @@ class ContinuousBatcher:
         return ok
 
     def _lookup(self, req: Request) -> Optional[PrefixHit]:
-        """Consult the prefix index for a sharing-eligible request."""
-        if self.index is None:
+        """Consult the prefix index for a sharing-eligible request (token
+        prompts only — extras change what a position's KV means)."""
+        if self.index is None or req.extras:
             return None
         hit = self.index.lookup(np.asarray(req.tokens).tolist())
         return hit if (hit.pages or hit.fork is not None) else None
@@ -441,13 +470,14 @@ class ContinuousBatcher:
             self._tables[slot] = 0
             self._tables[slot, : len(row)] = row
             state = SlotState(
-                req=req, slot=slot, prompt_total=req.prompt_len,
+                req=req, slot=slot,
+                prompt_total=req.prompt_len + self._stub(req),
                 prefix_hit=(hit.tokens if hit else 0),
                 t_join=time.perf_counter(),
             )
             self.slots[slot] = state
             self._last_defer_rid = None
-            if self.index is not None:
+            if self.index is not None and not req.extras:
                 self.prefix_requests += 1
                 self.prompt_tokens += state.prompt_total
                 if state.prefix_hit:
@@ -459,20 +489,25 @@ class ContinuousBatcher:
         if not admitted:
             return []
 
-        # group by stacked-prefill compatibility: identical prompt length
-        # and prefix-hit offset (the suffix shapes must agree); in a dense
-        # model rows are batch-independent, so one stacked prefill equals k
-        # solo prefills (an MoE prefill shares expert capacity, as in JAX)
+        # group by stacked-prefill compatibility: identical prompt length,
+        # prefix-hit offset (the suffix shapes must agree) and extras
+        # shapes; in a dense model rows are batch-independent, so one
+        # stacked prefill equals k solo prefills (an MoE prefill shares
+        # expert capacity, as in JAX)
         groups: Dict[Any, List[SlotState]] = {}
         for i, (req, slot) in enumerate(admitted):
             state = self.slots[slot]
-            key = ((state.prompt_total, state.prefix_hit)
+            extras = tuple(sorted((k, tuple(v.shape))
+                                  for k, v in req.extras.items()))
+            key = ((state.prompt_total, state.prefix_hit, extras)
                    if self.batched_prefill else (i,))
             groups.setdefault(key, []).append(state)
         for states in groups.values():
             base = states[0].prefix_hit
             suffix_len = states[0].prompt_total - base
-            if base or 0 < self.prefill_chunk < suffix_len:
+            chunkable = (0 < self.prefill_chunk < suffix_len
+                         and not states[0].req.extras)
+            if base or chunkable:
                 # prefix hits always take the chunk path: the suffix
                 # prefill is a chunk (or a few) scored at offset ``base``
                 # over the shared pages already mapped in
@@ -526,15 +561,18 @@ class ContinuousBatcher:
     @torch.no_grad()
     def _prefill_group(self, states: List[SlotState]) -> None:
         """One stacked (or solo) one-shot prefill + cache map-in."""
-        tokens = torch.as_tensor(
+        batch = {"tokens": torch.as_tensor(
             np.stack([np.asarray(s.req.tokens) for s in states]),
             dtype=torch.long, device=self.device,
-        )
+        )}
+        for key in states[0].req.extras:
+            batch[key] = torch.stack([
+                torch.as_tensor(s.req.extras[key], device=self.device)
+                for s in states])
         slot_list = [s.slot for s in states]
         t0 = time.perf_counter()
         logits, page = self.model.prefill(
-            {"tokens": tokens}, cache_len=self.cache_len,
-            cache_dtype=self.cache_dtype,
+            batch, cache_len=self.cache_len, cache_dtype=self.cache_dtype,
         )
         firsts = logits.argmax(dim=-1)
         write_pages(self.cache, page, slot_list,
@@ -641,7 +679,7 @@ class ContinuousBatcher:
         prefill's gather) therefore happens after the donor's write.  The
         failure paths drop these optimistic entries via
         :meth:`_index_evict_states` before releasing the pages."""
-        if self.index is None:
+        if self.index is None or s.req.extras:
             return
         n_full = s.prompt_total // self.page_size
         if n_full == 0:

@@ -11,8 +11,8 @@ RequestQueueSource`.
 from __future__ import annotations
 
 from collections import deque
-from dataclasses import dataclass
-from typing import Any, Deque, List, Optional
+from dataclasses import dataclass, field
+from typing import Any, Deque, Dict, List, Optional
 
 from ..launch.events import Event, RequestArrived, RequestCompleted
 
@@ -21,7 +21,10 @@ from ..launch.events import Event, RequestArrived, RequestCompleted
 class Request:
     """One inference request: ``tokens`` is the (P,) prompt (a numpy array,
     tensor or anything ``numpy.asarray`` takes); ``family`` keys the
-    request's workload class in the mix signature."""
+    request's workload class in the mix signature.  Encoder-decoder and
+    VLM archs carry their stub modality inputs in ``extras``: ``frames``
+    (S_enc, d) and ``embeds`` (P_img, d), each a numpy array or a tensor;
+    the batcher stacks them at prefill."""
 
     rid: int
     tokens: Any
@@ -29,6 +32,7 @@ class Request:
     family: str = "text"
     arrival: float = 0.0
     eos_id: Optional[int] = None
+    extras: Dict[str, Any] = field(default_factory=dict)
 
     @property
     def prompt_len(self) -> int:

@@ -68,7 +68,8 @@ from .queue import Request, RequestQueue
 
 __all__ = ["RequestResult", "ServingConfig", "ServingSession"]
 
-_SLAB = "ROADMAP queue 1, item 4 (slab layout and the other families)"
+_SLAB = ("ROADMAP queue 1, item 4b (the xLSTM cells, full-attention slab "
+         "decode and kv_layout='slab')")
 
 
 @dataclass(frozen=True)
@@ -84,6 +85,7 @@ class ServingConfig:
     # batching
     max_slots: int = 8
     cache_len: int = 128
+    enc_len: int = 0  # 0 → cache_len // 4 (enc-dec archs only)
     cache_dtype: str = "bfloat16"
     #: "continuous" (join as slots free) | "static" (drain-then-refill)
     admission: str = "continuous"
@@ -212,6 +214,7 @@ class ServingSession:
             model,
             max_slots=cfg.max_slots,
             cache_len=cfg.cache_len,
+            enc_len=cfg.enc_len,
             cache_dtype=dtype_of(cfg.cache_dtype),
             page_size=cfg.page_size,
             kv_pages=cfg.kv_pages,

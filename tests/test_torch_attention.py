@@ -274,3 +274,103 @@ def test_attn_decode_stale_row_at_pos_w_stays_in_its_own_row():
     changed = np.any(tk.numpy()[2] != ck0[2], axis=(0, 2))
     assert changed.tolist() == [True] + [False] * (W - 1)
     assert bool(torch.isfinite(y).all())
+
+
+# ------------------------------------------------- chunked and cross paths
+
+CHUNKED_ATOL = 2e-5  # tests/test_decode_equivalence.py::test_attention_impls_agree
+
+
+@pytest.mark.parametrize("Sq,Sk,causal,q_offset,chunks", [
+    (96, 96, True, 0, (32, 32)),     # test_attention_impls_agree's case
+    (150, 300, False, 0, (64, 128)),  # Sq != Sk, ragged tails of both
+    (150, 300, True, 150, (64, 128)),  # a q_offset (chunked prefill)
+    (70, 200, True, 0, (64, 128)),    # top-left: blocks past the diagonal
+    (520, 1030, False, 0, (512, 1024)),  # the defaults, ragged past both
+    (520, 520, True, 0, (512, 1024)),
+])
+def test_chunked_attention_matches_jax(Sq, Sk, causal, q_offset, chunks):
+    rng = np.random.default_rng(Sq + Sk)
+    q = _np(rng, (1, Sq, H, HD))
+    k, v = _np(rng, (1, Sk, H, HD)), _np(rng, (1, Sk, H, HD))
+    kw = dict(causal=causal, q_chunk=chunks[0], kv_chunk=chunks[1],
+              q_offset=q_offset)
+    got = tatt.chunked_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                                 **kw)
+    want = jatt.chunked_attention(*(jnp.asarray(a) for a in (q, k, v)), **kw)
+    _close(got, want, CHUNKED_ATOL)
+    ref = tatt.naive_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                               causal=causal, q_offset=q_offset)
+    _close(got, ref.numpy(), CHUNKED_ATOL)
+
+
+def test_attn_apply_chunked_impl_matches_jax():
+    """``impl="chunked"`` (the kernels-off decoder's) takes
+    ``chunked_attention`` past 256 tokens, as JAX's default does."""
+    rng = np.random.default_rng(40)
+    p, x = _attn_params(rng), _np(rng, (2, 300, D))
+    kw = dict(n_heads=H, n_kv=KV, head_dim=HD, rope_theta=THETA, causal=True,
+              qk_norm=True)
+    _close(tatt.attn_apply(_t(p), torch.from_numpy(x), impl="chunked", **kw),
+           jatt.attn_apply(_j(p), jnp.asarray(x), impl="chunked", **kw))
+
+
+def _memory(rng, B, E):
+    mem = _np(rng, (B, E, D))
+    p = _attn_params(rng)
+    mk = (mem @ p["wk"]).reshape(B, E, KV, HD)
+    mv = (mem @ p["wv"]).reshape(B, E, KV, HD)
+    return p, mk, mv
+
+
+@pytest.mark.parametrize("S,E,impl", [(12, 20, "chunked"), (300, 280, "chunked"),
+                                      (300, 280, "kernels"), (12, 300, "kernels")])
+def test_attn_apply_kv_override_matches_jax(S, E, impl):
+    """Cross-attention: k/v come in as given (no projection, norm or RoPE);
+    q is rotated only when ``rope_theta > 0``."""
+    rng = np.random.default_rng(41 + S)
+    p, mk, mv = _memory(rng, 2, E)
+    x = _np(rng, (2, S, D))
+    for theta in (0.0, THETA):
+        kw = dict(n_heads=H, n_kv=KV, head_dim=HD, rope_theta=theta,
+                  causal=False)
+        got = tatt.attn_apply(_t(p), torch.from_numpy(x), impl=impl,
+                              kv_override=(torch.from_numpy(mk),
+                                           torch.from_numpy(mv)), **kw)
+        want = jatt.attn_apply(_j(p), jnp.asarray(x), impl="chunked",
+                               kv_override=(jnp.asarray(mk), jnp.asarray(mv)),
+                               **kw)
+        _close(got, want)
+
+
+@pytest.mark.parametrize("cache_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cross_len", [None, 13])
+def test_attn_decode_cross_matches_jax(cache_dtype, cross_len):
+    """Decode over a fixed slot-major memory: no cache write, no RoPE on q,
+    keys below ``cross_len`` valid; with a bf16 memory the attention
+    weights are rounded to bf16, as JAX rounds them."""
+    rng = np.random.default_rng(42)
+    p, mk, mv = _memory(rng, 3, 20)
+    ck = mk.transpose(0, 2, 1, 3)
+    cv = mv.transpose(0, 2, 1, 3)
+    jdt = jnp.dtype(cache_dtype)
+    tdt = getattr(torch, cache_dtype)
+    x = _np(rng, (3, 1, D))
+    pos = np.asarray([4, 0, 17], np.int32)
+    kw = dict(n_heads=H, n_kv=KV, head_dim=HD, rope_theta=THETA, cross=True,
+              cross_len=cross_len)
+    yj, kj, _ = jatt.attn_decode(_j(p), jnp.asarray(x),
+                                 jnp.asarray(ck).astype(jdt),
+                                 jnp.asarray(cv).astype(jdt),
+                                 jnp.asarray(pos), **kw)
+    tk = torch.from_numpy(np.ascontiguousarray(ck)).to(tdt)
+    tv = torch.from_numpy(np.ascontiguousarray(cv)).to(tdt)
+    before = tk.clone()
+    y, tk2, _ = tatt.attn_decode(_t(p), torch.from_numpy(x), tk, tv,
+                                 torch.from_numpy(pos), impl="kernels", **kw)
+    assert tk2 is tk and torch.equal(tk, before), "the memory is read-only"
+    _close(y, yj)
+    with pytest.raises(ValueError, match="paged"):
+        tatt.attn_decode(_t(p), torch.from_numpy(x), tk, tv, 0,
+                         page_table=torch.zeros((3, 2), dtype=torch.int32),
+                         **kw)

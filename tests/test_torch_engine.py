@@ -60,7 +60,7 @@ def _max_delta(grads, ref):
 
 def _bridged(port_model, jax_model, seed=0):
     jparams = jax.jit(jax_model.init)(jax.random.PRNGKey(seed))
-    params = bridge.load_mt_params(port_model.init(seed),
+    params = bridge.load_mt_params(port_model.init(seed, device="cpu"),
                                    jax.tree.map(np.asarray, jparams))
     return params, jparams
 
@@ -69,7 +69,7 @@ def _bridged(port_model, jax_model, seed=0):
 @pytest.mark.parametrize("n_devices,island", [(4, 4), (8, 4), (16, 8)])
 def test_engine_matches_reference(name, n_devices, island):
     model, batches = MAKERS[name][0]()
-    params = model.init(0)
+    params = model.init(0, device="cpu")
     ref_loss, ref_grads = _reference(model, params, batches)
     p = plan(model.graph, ClusterSpec(n_devices=n_devices, island_size=island))
     loss, grads = WaveEngine(model, p).loss_and_grads(params, batches)
@@ -108,7 +108,7 @@ def test_engine_matches_jax_wave_engine(name):
 def test_engine_shared_param_group_sync():
     """Shared components: engine grads = Σ task contributions."""
     model, batches = tiny_multitask_clip(n_tasks=3)
-    params = model.init(1)
+    params = model.init(1, device="cpu")
     eng = WaveEngine(model, plan(model.graph,
                                  ClusterSpec(n_devices=8, island_size=4)))
     groups = eng.param_device_groups()
@@ -121,7 +121,7 @@ def test_engine_shared_param_group_sync():
 
 def test_engine_train_step_descends():
     model, batches = tiny_ofasys()
-    params = model.init(0)
+    params = model.init(0, device="cpu")
     opt = AdamW(lr=1e-2, weight_decay=0.0)
     state = opt.init(dict(params.named_parameters()))
     eng = WaveEngine(model, plan(model.graph,
@@ -139,7 +139,7 @@ def test_engine_backward_runs_in_reverse_wave_order():
     reverse of the forward order (the plan's waves): each step's graph is
     cut at its inputs, so no call reaches into another step's graph."""
     model, batches = tiny_multitask_clip()
-    params = model.init(0)
+    params = model.init(0, device="cpu")
     p = plan(model.graph, ClusterSpec(n_devices=8, island_size=4))
     eng = WaveEngine(model, p)
     forward, backward, waves = [], [], []

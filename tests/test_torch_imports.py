@@ -59,6 +59,7 @@ def test_port_imports_without_jax_in_a_fresh_interpreter():
         "import repro_torch.kernels.ops, repro_torch.launch.train\n"
         "import repro_torch.launch.profile, repro_torch.session\n"
         "import repro_torch.runtime, repro_torch.optim, repro_torch.data\n"
+        "import repro_torch.models.encdec\n"
         "bad = sorted(m for m in sys.modules "
         "if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
@@ -136,14 +137,26 @@ def test_unported_families_raise(family):
         layers = model.impl.decoder.layers
         assert model.cfg.family == "hybrid" and "rglru" in layers[0].mix
         assert "wq" in layers[2].mix
-    else:
-        cfg = dataclasses.replace(reduced(get_arch("qwen3-0.6b")),
-                                  family=family)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    elif family == "vlm":  # ported: pixtral's decoder takes stub embeds
+        model = build_model(reduced(get_arch("pixtral-12b")), device="cpu")
+        assert type(model.impl).__name__ == "Transformer"
+    elif family == "audio":  # ported: seamless is the encoder-decoder
+        model = build_model(reduced(get_arch("seamless-m4t-medium")),
+                            device="cpu")
+        assert type(model.impl).__name__ == "EncDecTransformer"
+        assert not model.supports_chunked_prefill
+    else:  # xlstm-125m, the JAX package's one ssm arch, is not registered
+        ref = jax_get_arch("xlstm-125m")
+        cfg = ArchConfig(**{f.name: getattr(ref, f.name)
+                            for f in dataclasses.fields(ArchConfig)
+                            if f.name != "moe"})
+        with pytest.raises(NotImplementedError, match="item 4b"):
             build_model(cfg, device="cpu")
+        with pytest.raises(KeyError):
+            get_arch("xlstm-125m")
     pattern = dataclasses.replace(reduced(get_arch("qwen3-0.6b")),
                                   block_pattern=("mlstm", "attn"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="item 4b"):
         build_model(pattern, device="cpu")
 
 
@@ -151,10 +164,12 @@ def test_unported_families_raise(family):
     pytest.param(arch, shrink,
                  id=str(shrink) if arch == "qwen3-0.6b" else f"{arch}-{shrink}")
     for arch in ("qwen3-0.6b", "qwen2-moe-a2.7b", "qwen3-moe-30b-a3b",
-                 "recurrentgemma-9b")
+                 "recurrentgemma-9b", "seamless-m4t-medium", "pixtral-12b",
+                 "glm4-9b")
     for shrink in (False, True)
 ])
 def test_arch_config_matches_jax(arch, shrink):
+    """Every arch the port registers."""
     port = get_arch(arch)
     ref = jax_get_arch(arch)
     if shrink:

@@ -905,3 +905,112 @@ def test_train_step_launches_flash_twice_per_layer_on_gpu(cuda_device,
         assert abs(out["cuda"][0] - out["cpu"][0]) < 1e-4
         for a, b in zip(out["cuda"][1], out["cpu"][1]):
             assert float((a - b).abs().max()) < 1e-4
+
+
+# ------------------------------------------------- the modal families' shapes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", DTYPES)
+@pytest.mark.parametrize("H,K,Sq,Sk,hd,causal", [
+    (16, 16, 1024, 1024, 64, False),  # seamless's encoder
+    (16, 16, 300, 1030, 64, False),   # cross-attention, a ragged Sk tail
+    (16, 16, 512, 512, 64, True),     # seamless's decoder self-attention
+    (32, 8, 1536, 1536, 128, True),   # pixtral: 1,024 patches + 512 tokens
+])
+def test_flash_kernel_at_the_modal_shapes_on_gpu(cuda_device, dtype, rtol, H,
+                                                 K, Sq, Sk, hd, causal):
+    """The flash modes the modal archs serve: non-causal, Sq != Sk with a
+    ragged key tail, hd 64, and pixtral's 4:1 GQA at S 1,536; q and K/V are
+    passed as the model passes them, head-split transposed views."""
+    rng = np.random.default_rng(Sq + Sk + hd)
+    B = 2
+    q = torch.from_numpy(_np(rng, (B, Sq, H * hd))).to(cuda_device, dtype)
+    kv = torch.from_numpy(_np(rng, (B, Sk, 2 * K * hd))).to(cuda_device, dtype)
+    qv = q.reshape(B, Sq, H, hd).transpose(1, 2)
+    kt = kv[..., :K * hd].reshape(B, Sk, K, hd).transpose(1, 2)
+    vt = kv[..., K * hd:].reshape(B, Sk, K, hd).transpose(1, 2)
+    before = ops.launch_counts()["flash_attention"]
+    got = ops.flash_attention(qv, kt, vt, causal=causal)
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    want = ref.flash_attention_ref(qv.contiguous(), kt.contiguous(),
+                                   vt.contiguous(), causal=causal)
+    _assert_close(got, want, rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dt,kv_dt,rtol", PAGED_DTYPES)
+@pytest.mark.parametrize("H,K,hd", [(16, 16, 64),    # seamless: MHA at hd 64
+                                    (32, 2, 128)])   # glm4: 16 per KV head
+def test_paged_kernel_at_the_modal_layouts_on_gpu(cuda_device, q_dt, kv_dt,
+                                                  rtol, H, K, hd):
+    """Paged decode at the served step (8 rows at positions 512-543 of 34
+    pages of 16): one query head per block (MHA), and two head groups of 8
+    per KV head (glm4)."""
+    rng = np.random.default_rng(H + K + hd)
+    B, ps, n_pp = 8, 16, 34
+    P = B * n_pp + 1
+    table = (1 + rng.permutation(B * n_pp)).reshape(B, n_pp).astype(np.int32)
+    lengths = np.asarray([512 + 31 * b // 7 for b in range(B)], np.int32)
+    for b in range(B):
+        table[b, lengths[b] // ps + 1:] = 0
+    args = [torch.from_numpy(_np(rng, (B, H, hd))).to(cuda_device, q_dt),
+            torch.from_numpy(_np(rng, (P, K, ps, hd))).to(cuda_device, kv_dt),
+            torch.from_numpy(_np(rng, (P, K, ps, hd))).to(cuda_device, kv_dt),
+            torch.from_numpy(table).to(cuda_device),
+            torch.from_numpy(lengths).to(cuda_device)]
+    assert cuda_paged.head_groups(H, K) == (2 if H // K == 16 else 1)
+    got = ops.paged_attention(*args)
+    _assert_close(got, ref.paged_attention_ref(*args), rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+def test_encdec_prefill_and_decode_launch_counts_on_gpu(cuda_device, compute):
+    """A reduced seamless prefill over 280 frames and a 300-token prompt
+    launches flash 3 x n_layers times (encoder, self- and
+    cross-attention: every query length past 256) and nothing else; one
+    paged decode step launches paged decode n_layers times.  In fp32 the
+    logits equal the CPU model's (the plain path) within 1e-4; bf16 runs
+    hd 64 (the full model's) through the wgmma body."""
+    from repro_torch.config import ShardingConfig, get_arch, reduced
+    from repro_torch.models import build_model
+    from repro_torch.serving.batcher import write_pages
+
+    cfg = reduced(get_arch("seamless-m4t-medium"), compute_dtype=compute,
+                  head_dim=64 if compute == "bfloat16" else 16)
+    rng = np.random.default_rng(9)
+    toks = torch.from_numpy(rng.integers(0, 256, (2, 300)))
+    frames = torch.from_numpy(_np(rng, (2, 280, cfg.d_model)))
+    cdt = getattr(torch, compute)
+    rows = (1 + np.arange(2 * 20)).reshape(2, 20).astype(np.int32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        m = build_model(cfg, ShardingConfig(use_kernels=True), device=dev)
+        m.init(0)
+        before = ops.launch_counts()
+        logits, page = m.prefill({"tokens": toks.to(dev),
+                                  "frames": frames.to(dev)},
+                                 cache_len=310, cache_dtype=cdt)
+        mid = ops.launch_counts()
+        cache, lay = m.init_paged_cache(2, 310, n_pages=41, page_size=16,
+                                        enc_len=280, cache_dtype=cdt)
+        write_pages(cache, page, [0, 1], rows, lay)
+        step, _ = m.decode_step(logits.argmax(-1), cache,
+                                torch.tensor([300, 300], dtype=torch.int32,
+                                             device=dev),
+                                pages=torch.from_numpy(rows).to(dev))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        after = ops.launch_counts()
+        L = cfg.n_layers
+        want_pf = 3 * L if dev == "cuda" else 0
+        assert {n: mid[n] - before[n] for n in mid} == {
+            **{n: 0 for n in mid}, "flash_attention": want_pf}
+        assert {n: after[n] - mid[n] for n in mid} == {
+            **{n: 0 for n in mid}, "paged_attention": L if dev == "cuda" else 0}
+        assert bool(torch.isfinite(logits).all() & torch.isfinite(step).all())
+        out[dev] = (logits.float().cpu(), step.float().cpu())
+    if compute == "float32":
+        for a, b in zip(out["cuda"], out["cpu"]):
+            assert float((a - b).abs().max()) < 1e-4

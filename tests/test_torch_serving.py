@@ -15,6 +15,11 @@ JAX-vs-port token equality is defined where every slot is live at every
 step (equal requests, all arriving at once), which is held exactly; the
 staggered trace is held as well, because with 2 slots a decode step's
 capacity (2) covers every row an expert can get.
+
+The multimodal archs (reduced seamless-m4t-medium with frames, reduced
+pixtral-12b with a 16-position patch stub) and reduced glm4-9b are held
+to the JAX session on the same staggered trace: tokens, solo decoding and
+every page counter.
 """
 
 import dataclasses
@@ -581,3 +586,161 @@ def test_recurrentgemma_continuous_equals_solo_and_jax(rg_models, long,
         solo.update(_rg_run(model, [spec[:3] + (0.0,)], max_slots=1,
                             cache_len=cache_len))
     assert got == solo
+
+
+# ------------------------------------------------- enc-dec and VLM serving
+# tests/test_serving.py:41-67's trace on the modal archs: seamless requests
+# carry frames of CACHE_LEN // 4, pixtral requests a 16-position stub of
+# patch embeddings (which shifts every decode position).  Both sessions
+# serve paged with an fp32 cache and replan="off".
+
+MODAL_ARCHS = ("seamless-m4t-medium", "pixtral-12b")
+
+
+@pytest.fixture(scope="module", params=MODAL_ARCHS)
+def modal(request):
+    arch = request.param
+    jmodel = jax_build_model(jax_reduced(jax_get_arch(arch)))
+    params = jax.jit(jmodel.init)(jax.random.PRNGKey(5))
+    np_params = jax.tree.map(np.asarray, params)
+    prefill = jax.jit(jmodel.prefill, static_argnames=("cache_len",
+                                                       "cache_dtype"))
+    decode = jax.jit(jmodel.decode_step)
+    cfg = jmodel.cfg
+    rng = np.random.default_rng(13)
+    specs = []
+    for rid, tokens, g, a in _specs(5):
+        shape = ((CACHE_LEN // 4, cfg.d_model) if cfg.is_encdec
+                 else (cfg.frontend_stub_len, cfg.d_model))
+        key = "frames" if cfg.is_encdec else "embeds"
+        specs.append((rid, tokens, g, a,
+                      {key: rng.standard_normal(shape).astype(np.float32)}))
+
+    def jax_solo(tokens, extras, max_new):
+        """The request decoded alone in JAX (batch 1, slab cache)."""
+        batch = {"tokens": jnp.asarray(tokens)[None]}
+        batch.update({k: jnp.asarray(v)[None] for k, v in extras.items()})
+        logits, cache = prefill(params, batch, cache_len=CACHE_LEN,
+                                cache_dtype=jnp.float32)
+        total = len(tokens) + (extras["embeds"].shape[0]
+                               if "embeds" in extras else 0)
+        out = [int(jnp.argmax(logits[0]))]
+        for i in range(max_new - 1):
+            logits, cache = decode(params, jnp.asarray([out[-1]], jnp.int32),
+                                   cache, jnp.asarray(total + i))
+            out.append(int(jnp.argmax(logits[0])))
+        return out
+
+    solo = {r: jax_solo(t, e, g) for r, t, g, _, e in specs}
+
+    def port():
+        model = build_model(reduced(get_arch(arch)),
+                            ShardingConfig(use_kernels=True), device="cpu")
+        return bridge.load_jax_params(model, np_params)
+
+    return arch, jmodel, params, port, specs, solo
+
+
+@pytest.mark.parametrize("sharing", [False, True],
+                         ids=["plain", "sharing_and_chunks"])
+def test_modal_continuous_equals_solo_and_jax(modal, sharing):
+    """Two slots force queueing, eviction and slot and page reuse; each
+    request's tokens equal JAX's session's and its solo decode, and every
+    page counter equals JAX's.  With prefix sharing and a prefill chunk
+    asked for, a request with extras never takes a chunk job, never looks
+    up the index and is never inserted into it (JAX ``batcher.py:679,
+    771, 818, 990``): no chunk steps, hits, maps or forks."""
+    arch, jmodel, params, port, specs, solo = modal
+    kw = dict(max_slots=2, cache_len=CACHE_LEN, replan="off", page_size=8,
+              cache_dtype="float32")
+    if sharing:
+        kw.update(prefix_sharing=True, prefill_chunk=4)
+    jsess = JaxServingSession(JaxServingConfig(kv_layout="paged", **kw),
+                              model=jmodel, params=params)
+    m_jax = jsess.run([JaxRequest(rid=r, tokens=jnp.asarray(t),
+                                  max_new_tokens=g, arrival=a,
+                                  extras={k: jnp.asarray(v)
+                                          for k, v in e.items()})
+                       for r, t, g, a, e in specs], max_steps=500)
+    sess = ServingSession(ServingConfig(device="cpu", **kw), model=port())
+    m = sess.run([Request(rid=r, tokens=t, max_new_tokens=g, arrival=a,
+                          extras=e) for r, t, g, a, e in specs],
+                 max_steps=500)
+    got = {r: sess.results[r].tokens for r in sess.results}
+    assert got == {r: jsess.results[r].tokens for r in jsess.results}
+    assert got == solo
+    stats = sess.batcher.kv_stats()
+    assert stats == {k: m_jax[k] for k in stats}
+    for key in ("decode_steps", "prefill_calls", "chunk_steps",
+                "output_tokens"):
+        assert m[key] == m_jax[key], key
+    assert m["chunk_steps"] == 0
+    if sharing and arch == "pixtral-12b":  # chunkable: the index exists
+        assert stats["prefix_requests"] == stats["prefix_hits"] == 0
+        assert stats["kv_shared_maps"] == stats["kv_cow_forks"] == 0
+        assert stats["prefix_index_nodes"] == 0
+
+
+def test_modal_requests_are_validated_like_jax(modal):
+    """Frames of another length than the batcher's ``enc_len`` are refused;
+    a VLM stub counts toward the cache reach."""
+    arch, _, _, port, specs, _ = modal
+    sess = ServingSession(ServingConfig(device="cpu", max_slots=2,
+                                        cache_len=CACHE_LEN, replan="off",
+                                        page_size=8), model=port())
+    assert sess.batcher.enc_len == CACHE_LEN // 4
+    rid, tokens, _, _, extras = specs[0]
+    key, val = next(iter(extras.items()))
+    if key == "frames":
+        bad = {key: val[:-1]}
+        match = "enc_len"
+    else:  # 5 prompt + 16 stub + 28 new - 1 = 48 fits; 29 new does not
+        bad, match = extras, "cache positions"
+        sess.submit(Request(rid=rid, tokens=tokens, max_new_tokens=28,
+                            extras=extras))
+    with pytest.raises(ValueError, match=match):
+        sess.submit(Request(rid=99, tokens=tokens, max_new_tokens=29,
+                            extras=bad))
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "pixtral-12b"])
+def test_serve_entry_point_builds_modal_requests(arch):
+    """``serve()`` gives enc-dec requests frames of max(prompt // 4, 1) and
+    VLM requests min(frontend_stub_len, 8) patch embeddings, which the
+    cache length counts (JAX ``launch/serve.py:58-70, 108-118``)."""
+    from repro_torch.launch.serve import serve
+
+    out = serve(arch, reduced_cfg=True, n_requests=2, prompt_len=20,
+                gen_len=3, seed=1, verbose=False, device="cpu")
+    assert tuple(out["tokens"].shape) == (2, 3)
+    stub = 8 if arch == "pixtral-12b" else 0
+    assert out["kv_slab_tokens"] == 2 * (20 + stub + 3)
+    assert out["prefill_calls"] == 1
+
+
+@pytest.fixture(scope="module")
+def glm4_models():
+    jmodel = jax_build_model(jax_reduced(jax_get_arch("glm4-9b")))
+    params = jax.jit(jmodel.init)(jax.random.PRNGKey(6))
+    np_params = jax.tree.map(np.asarray, params)
+
+    def port(use_kernels=True):
+        model = build_model(reduced(get_arch("glm4-9b")),
+                            ShardingConfig(use_kernels=use_kernels),
+                            device="cpu")
+        return bridge.load_jax_params(model, np_params)
+
+    return jmodel, params, port
+
+
+@pytest.mark.parametrize("use_kernels", [True, False])
+def test_glm4_continuous_equivalence_vs_jax(glm4_models, use_kernels):
+    """Reduced glm4-9b (GQA 4:1, as the full model's 32 query heads share
+    2 KV heads 16:1) on the staggered trace with a 300-token prompt (the
+    flash path): JAX's tokens and page counters."""
+    got, want, m, m_jax = _run_both(glm4_models, _specs(5, long_prompt=300),
+                                    max_slots=2, cache_len=320,
+                                    use_kernels=use_kernels)
+    assert len(got) == 6 and got == want
+    for key in KV_KEYS + ("decode_steps", "prefill_calls", "output_tokens"):
+        assert m[key] == m_jax[key], key
