@@ -138,17 +138,45 @@ caught):
 6d. reduced seamless and pixtral in fp32, loss and every gradient at
    S 300 (frames 300; a 16-position stub) on ``cuda`` (flash forward,
    plain-recompute gradient) against ``cpu``: within 1e-4;
+6e. train qwen2-moe-a2.7b at full width cut to 4 layers (3.04 B params;
+   the full 15.1 B do not fit a card with gradients and moments): bf16
+   params and compute as the config has them, fp32 moments, block remat,
+   batch 4 x seq 1,024 (capacity 341: the grouped matmul at phase 3's
+   prefill shape), 4 steps through ``make_train_state`` / ``train_step``,
+   kernels on and off; launches per step derived from the layer kinds
+   (``train_launches_per_step``: grouped matmul 9 per layer — forward,
+   recompute, dx — and flash 2) and printed before the run, asserted
+   exactly; losses finite and falling, on/off within 2^-7 relative, peak
+   below 76 GB; then one more step under ``launch/profile.py``'s
+   ``profile_train_step`` (device time by group);
+6f. the same for recurrentgemma-9b cut to 5 layers (two remainder rglru
+   layers, then one rglru, rglru, local_attn group: the full model's
+   order; 3.22 B params): scan 10 per step (2 for each remainder layer,
+   3 for each group layer: forward, recompute, reverse), no other kernel;
+6g. reduced qwen2-moe and recurrentgemma in fp32: one loss and every
+   gradient at S 320 on ``cuda`` (kernels, with the predicted launches)
+   against ``cpu``, then 3 ``train`` steps at lr 1e-5: losses,
+   gradients and params within 1e-4;
 7. print a ``{"kernels": [...]}`` line (attention and grouped matmul at
    qwen2-moe's shapes with phase 4b's launches, the scan at recurrentgemma's
-   fp32 prefill shape with phase 4c's, and flash again at phase 6's
+   fp32 prefill shape with phase 4c's, flash again at phase 6's
    training shape B8 H16 K8 S1024 with phase 6's launches, and at
-   seamless's cross-attention shape with phase 4f's), the ``nvidia-smi``
-   line, and last ``{"ok": true, "device": {...}}``.
+   seamless's cross-attention shape with phase 4f's, the grouped matmul's
+   dx at 6e's shape with 6e's launches and the scan's reverse at 6f's
+   with 6f's), the ``nvidia-smi`` line, and last ``{"ok": true,
+   "device": {...}}``.
 
 Phase 3 also holds flash at the training shape (S 1,024) and the flash
 gradient there — the plain version recomputed and differentiated, as the
 JAX package's ``custom_vjp`` does (no TPU kernel) — against autograd of
-the plain version, with its device time per layer.
+the plain version, with its device time per layer; the grouped matmul's
+gradient at 6e's expert shapes (E64 C341, gate/up and down, bf16: dx
+through the kernel, dw one ``torch.bmm``) and the scan's at 6f's (B4
+S1,024 D4,096, fp32: the reverse scan through the kernel) against
+autograd of the plain versions, with the device time of the dx launch,
+w's transposed copy, dw and the whole backward (``torch.bmm`` at the dx
+shape as the library yardstick), and of the reverse scan and the whole
+scan backward.
 """
 
 from __future__ import annotations
@@ -620,6 +648,109 @@ def check_scan(torch, ops, ref, dtype_name: str, shape: str) -> dict:
     return r
 
 
+def check_gmm_backward(torch, ops, ref, shape: str) -> dict:
+    """The grouped matmul's gradient at one of qwen2-moe's prefill shapes
+    (phase 6e's capacity: 4 x 1,024 tokens give C 341), bf16, routed group
+    sizes: dx through the kernel and dw one ``torch.bmm``
+    (``ops.grouped_matmul_backward``) against autograd of the plain
+    version on the card (the bf16 rule), dx exactly 0 past each group.
+    Device times: the dx launch (w's transposed copy made outside), that
+    copy, dw's ``bmm`` and the whole backward; the plain version and
+    ``torch.bmm`` at the dx shape."""
+    dt = torch.bfloat16
+    dev = torch.device("cuda")
+    E, C, d, f, tokens = GMM_SHAPES[shape]
+    sizes_np = routed_sizes(60, E, C, tokens, 4, seed=13)
+    sizes = torch.as_tensor(sizes_np, dtype=torch.int32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(18 + C + d)
+
+    def make():
+        x = torch.randn(E, C, d, generator=g, device=dev).to(dt)
+        w = (torch.randn(E, d, f, generator=g, device=dev)
+             / math.sqrt(d)).to(dt)
+        w[60:] = 0
+        return x, w, sizes, torch.randn(E, C, f, generator=g,
+                                        device=dev).to(dt)
+
+    first = make()
+    x, w, _, gy = first
+    ins = [x.clone().requires_grad_(), w.clone().requires_grad_()]
+    got = torch.autograd.grad(ops.grouped_matmul(*ins, sizes), ins, gy)
+    ins = [x.clone().requires_grad_(), w.clone().requires_grad_()]
+    want = torch.autograd.grad(ref.grouped_matmul_ref(*ins, sizes), ins, gy)
+    err = max(check_close(f"grouped_matmul backward d{n} {shape}", a, b,
+                          "bfloat16") for n, a, b in zip("xw", got, want))
+    rows = torch.arange(C, device=dev)[None, :] >= sizes[:, None]
+    if bool(got[0][rows].ne(0).any()):
+        raise AssertionError(f"grouped_matmul backward {shape}: dx rows past "
+                             f"a group are not exactly 0")
+    per = (x.numel() + w.numel() + gy.numel()) * 2
+    sets = [first] + [make() for _ in range(n_copies(torch, per) - 1)]
+    # dx alone: the kernel on (E, C, f) @ (E, f, d), w's transposed copy
+    # made outside the timed launches
+    tsets = [(gy, w.transpose(1, 2).contiguous(), s) for _, w, s, gy in sets]
+    ms = time_ms(torch, ops.grouped_matmul, tsets)
+    transpose_ms = time_ms(torch, lambda w: w.transpose(1, 2).contiguous(),
+                           [(w,) for _, w, _, _ in sets])
+    dw_ms = time_ms(torch, lambda x, gy: torch.bmm(x.transpose(1, 2), gy),
+                    [(x, gy) for x, _, _, gy in sets])
+    backward_ms = time_ms(torch, ops.grouped_matmul_backward, sets)
+    plain_ms = time_ms(torch, ref.grouped_matmul_ref, tsets, iters=10)
+    library_ms = time_ms(torch, lambda gy, wt, _: torch.bmm(gy, wt), tsets)
+    live_rows = int(sizes_np.sum())
+    nonempty = int((sizes_np > 0).sum())
+    nbytes = (live_rows * f + nonempty * f * d + E * C * d) * 2 + E * 4
+    bms, bby = bound_ms(nbytes, 2.0 * live_rows * d * f, "bfloat16")
+    return dict(max_abs_err=err, tol=TOL_TEXT["bfloat16"], ms=ms,
+                plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
+                library_ms=library_ms, transpose_ms=transpose_ms,
+                dw_ms=dw_ms, backward_ms=backward_ms, live_rows=live_rows)
+
+
+# the scan's gradient: phase 6f's rglru shape (4 x 1,024 tokens at d 4096)
+SCAN_TRAIN = (4, 1024, 4096)
+
+
+def check_scan_backward(torch, ops, ref) -> dict:
+    """The RG-LRU scan's gradient at :data:`SCAN_TRAIN` in fp32 (the
+    model's gates are fp32): the reverse scan through the kernel and the
+    elementwise da, db (``ops.rglru_scan_backward``) against autograd of
+    the plain version on the card, within 2e-4.  Device times: the reverse
+    scan's launch (on flipped copies made outside) and the whole backward;
+    the plain version's scan at the same shape."""
+    dev = torch.device("cuda")
+    B, S, D = SCAN_TRAIN
+    g = torch.Generator(device=dev).manual_seed(19)
+
+    def make():
+        a = torch.sigmoid(torch.randn(B, S, D, generator=g, device=dev))
+        return (a, torch.randn(B, S, D, generator=g, device=dev),
+                torch.randn(B, S, D, generator=g, device=dev))
+
+    first = make()
+    a, b, gy = first
+    ins = [a.clone().requires_grad_(), b.clone().requires_grad_()]
+    got = torch.autograd.grad(ops.rglru_scan(*ins), ins, gy)
+    ins = [a.clone().requires_grad_(), b.clone().requires_grad_()]
+    want = torch.autograd.grad(ref.rglru_scan_ref(*ins), ins, gy)
+    tol = (0.0, 2e-4, "2e-4")
+    err = max(check_close(f"rglru_scan backward d{n}", x, y, "float32", tol)
+              for n, x, y in zip("ab", got, want))
+    sets = [first] + [make() for _ in range(
+        n_copies(torch, 3 * a.numel() * 4) - 1)]
+    rsets = [(torch.cat([a[:, 1:], torch.zeros_like(a[:, :1])], 1)
+              .flip(1).contiguous(), gy.flip(1).contiguous())
+             for a, _, gy in sets]
+    ms = time_ms(torch, ops.rglru_scan, rsets)
+    hsets = [(a, ops.rglru_scan(a, b), gy) for a, b, gy in sets]
+    backward_ms = time_ms(torch, ops.rglru_scan_backward, hsets)
+    plain_ms = time_ms(torch, ref.rglru_scan_ref, rsets, iters=10)
+    bms, bby = bound_ms(3.0 * B * S * D * 4, 2.0 * B * S * D, "float32")
+    return dict(max_abs_err=err, tol="2e-4", ms=ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=bby, library_ms=None,
+                backward_ms=backward_ms)
+
+
 def _line(r: dict) -> str:
     lib = ("null" if r["library_ms"] is None
            else f"{r['library_ms']:.5f}")
@@ -663,6 +794,17 @@ def phase_kernels(torch, ops, ref, gmm, paged) -> dict:
                 f"variant={r['variant']} {_line(r)} "
                 f"host_us={r['host_us']:.1f}")
             results[("grouped_matmul", dtn, shape)] = r
+        if dtn == "bfloat16":  # phase 6e's expert products, backward
+            for shape in ("prefill_gate_up", "prefill_down"):
+                E, C, d, f, _ = GMM_SHAPES[shape]
+                r = check_gmm_backward(torch, ops, ref, shape)
+                log(f"grouped_matmul backward {dtn} {shape} E={E} C={C} d={d} "
+                    f"f={f} ({r['live_rows']} live rows): dx kernel "
+                    f"{_line(r)} (library: bmm at the dx shape); "
+                    f"w_transposed_copy_ms={r['transpose_ms']:.5f} "
+                    f"dw_bmm_ms={r['dw_ms']:.5f} "
+                    f"whole_backward_ms={r['backward_ms']:.5f}")
+                results[("grouped_matmul_backward", dtn, shape)] = r
         for shape, (B, S, D, decay) in SCAN_SHAPES.items():
             r = check_scan(torch, ops, ref, dtn, shape)
             what = (f"rglru_scan {dtn} {shape} B={B} S={S} D={D}"
@@ -673,6 +815,12 @@ def phase_kernels(torch, ops, ref, gmm, paged) -> dict:
                 log(f"{what}: max_err={r['max_abs_err']:.3e} (tol {r['tol']}) "
                     f"max|h|={r['max_abs_out']:.4g}")
             results[("rglru_scan", dtn, shape)] = r
+        if dtn == "float32":  # phase 6f's recurrence, backward
+            r = check_scan_backward(torch, ops, ref)
+            log(f"rglru_scan backward {dtn} B={SCAN_TRAIN[0]} "
+                f"S={SCAN_TRAIN[1]} D={SCAN_TRAIN[2]}: reverse scan "
+                f"{_line(r)} whole_backward_ms={r['backward_ms']:.5f}")
+            results[("rglru_scan_backward", dtn)] = r
     return results
 
 
@@ -1246,6 +1394,207 @@ def phase_modal_train_parity(torch, ops) -> None:
             f"leaves, max diff {dg} (tol {TRAIN_PARITY_TOL})")
 
 
+# phases 6e, 6f: MoE and hybrid training at full width, depth cut so that
+# params, gradients and two fp32 moments fit one card (the full models'
+# 15.1 B and 10.45 B params would not): qwen2-moe at 4 layers, and
+# recurrentgemma at 5 — its full order, two remainder rglru layers and one
+# (rglru, rglru, local_attn) group
+TRAIN_CUT = {"qwen2-moe-a2.7b": 4, "recurrentgemma-9b": 5}
+TRAIN_CUT_RUN = dict(steps=4, batch=4, seq=1024, lr=1e-3, seed=0)
+PEAK_LIMIT = 76e9  # bytes: the card's 80 GB less headroom
+
+
+def train_launches_per_step(cfg) -> dict:
+    """Kernel launches of one train step with kernels on, block remat and
+    S > 256, derived from the layer kinds: a layer in a checkpointed group
+    runs its forward twice (forward and recompute), a remainder layer
+    once; each forward of an ``attn`` layer launches flash, of an MoE FFN
+    three grouped matmuls, of an ``rglru`` layer one scan; backward adds
+    three grouped-matmul dx launches per MoE layer and one reverse scan
+    per rglru layer (flash's gradient and the windowed layers launch
+    nothing)."""
+    from repro_torch.models.transformer import layer_kinds, resolve_pattern
+
+    n_rem = cfg.n_layers % len(resolve_pattern(cfg))
+    out = {"flash_attention": 0, "grouped_matmul": 0, "rglru_scan": 0,
+           "paged_attention": 0}
+    for i, kind in enumerate(layer_kinds(cfg)):
+        runs = 1 if i < n_rem else 2
+        if kind == "attn":
+            out["flash_attention"] += runs
+        if kind == "rglru":
+            out["rglru_scan"] += runs + 1
+        if cfg.is_moe:
+            out["grouped_matmul"] += 3 * runs + 3
+    return out
+
+
+def phase_train_cut(torch, ops, smi: str, arch: str) -> dict:
+    """Train ``arch`` at full width and :data:`TRAIN_CUT` depth through
+    ``make_train_state`` and ``train_step`` (what ``train`` calls): bf16
+    compute, the arch's param dtype, fp32 moments, block remat,
+    :data:`TRAIN_CUT_RUN`, kernels on and then off, the last step on the
+    first step's batch.  Kernels on: the launches must equal
+    :func:`train_launches_per_step` x steps; then one more step under
+    ``launch/profile.py``'s :func:`profile_train_step`.  Each run: losses
+    finite, the last (the first batch again) below the first, peak memory
+    below :data:`PEAK_LIMIT`; kernels on/off per-step losses within
+    ``TRAIN_LOSS_RTOL``.  Each model is freed before the next loads."""
+    from functools import partial
+
+    from repro_torch.config import default_sharding, get_arch
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.profile import profile_train_step
+    from repro_torch.launch.train import make_train_state, train_step
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import dtype_of
+    from repro_torch.optim import AdamW, warmup_cosine
+
+    r = TRAIN_CUT_RUN
+    B, S, steps = r["batch"], r["seq"], r["steps"]
+    cfg = dataclasses.replace(get_arch(arch), n_layers=TRAIN_CUT[arch])
+    per_step = train_launches_per_step(cfg)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=S,
+                                  global_batch=B, seed=r["seed"]))
+    # the last step replays the first batch, so that "the last loss below
+    # the first" compares one batch before and after the updates (from
+    # batch to batch the loss moves by more than a few steps' progress)
+    batches = [{k: v.to("cuda") for k, v in data.batch(i).items()}
+               for i in list(range(steps - 1)) + [0, steps - 1]]
+    log(f"train {arch} cut to {cfg.n_layers} layers (full width), batch {B} "
+        f"x seq {S}, {steps} steps: predicted launches per step {per_step}; "
+        f"one ({B} x {S} x {cfg.vocab}) fp32 logits chunk "
+        f"{4 * B * S * cfg.vocab} bytes")
+    runs = {}
+    for kernels in (True, False):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = build_model(cfg, default_sharding(cfg, use_kernels=kernels),
+                            device="cuda", train=True)
+        opt = AdamW(lr=partial(warmup_cosine, peak_lr=r["lr"],
+                               warmup_steps=1, total_steps=steps),
+                    moment_dtype=dtype_of(cfg.opt_dtype))
+        params, state = make_train_state(model, opt, r["seed"])
+        n = sum(p.numel() for p in params.values())
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        hist, secs = [], []
+        for step in range(steps):
+            t0 = time.perf_counter()
+            state, loss = train_step(model, opt, params, state, batches[step])
+            hist.append(float(loss))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        counts = ops.launch_counts()
+        want = {name: per_step[name] * steps if kernels else 0
+                for name in counts}
+        if counts != want:
+            raise AssertionError(f"train {arch} kernels={kernels}: launch "
+                                 f"counts {counts} != {want}")
+        prof = None
+        if kernels:
+            prof = profile_train_step(model, opt, params, state,
+                                      batches[steps])
+            if prof["launches"] != per_step or prof["step_device_s"] <= 0:
+                raise AssertionError(f"train {arch} profiled step: launches "
+                                     f"{prof['launches']} != {per_step}")
+        peak = torch.cuda.max_memory_allocated()
+        del model, opt, params, state
+        if not all(math.isfinite(x) for x in hist) or not hist[-1] < hist[0]:
+            raise AssertionError(f"train {arch} kernels={kernels}: losses "
+                                 f"{hist} not finite and decreasing")
+        if not peak < PEAK_LIMIT:
+            raise AssertionError(f"train {arch} kernels={kernels}: peak "
+                                 f"{peak} bytes >= {PEAK_LIMIT}")
+        log(f"train {arch} cut to {cfg.n_layers} layers ({n} params, "
+            f"{cfg.param_dtype} params, bf16 compute, fp32 moments, block "
+            f"remat) kernels={kernels}: batch {B} x seq {S}, {steps} steps; "
+            f"losses={hist} step_ms={[t * 1e3 for t in secs]} "
+            f"tok_s={[B * S / t for t in secs]} launches={counts} "
+            f"peak_mem_bytes={peak} on {smi}")
+        if prof is not None:
+            log(f"train {arch} profiled step (launch/profile.py "
+                f"profile_train_step): wall_s={prof['step_wall_s']} "
+                f"device_s={prof['step_device_s']} idle="
+                f"{prof['step_idle_share']:.3f} events="
+                f"{prof['step_device_events']} device_us_by_group="
+                f"{json.dumps(prof['step_device_us_by_group'])} top_kernels_us="
+                f"{json.dumps(prof['step_top_kernels_us'])} on {smi}")
+        runs[kernels] = dict(history=hist, counts=counts, peak=peak,
+                             step_s=secs, profile=prof, per_step=per_step)
+    on, off = runs[True]["history"], runs[False]["history"]
+    worst = max(abs(a - b) - TRAIN_LOSS_RTOL * abs(b) for a, b in zip(on, off))
+    if not worst <= 0:
+        raise AssertionError(f"train {arch}: kernels on/off losses differ "
+                             f"beyond 2^-7 relative: {on} vs {off}")
+    log(f"train {arch}: kernels on/off per-step losses agree within 2^-7 "
+        f"relative (max |diff| {max(abs(a - b) for a, b in zip(on, off))})")
+    return runs[True]
+
+
+# phase 6g: Adam moves an entry whose gradient is near zero by up to lr
+# whatever its size, so a sign that differs between devices at fp32 noise
+# puts that entry up to 2·lr apart per step; at lr 1e-5 three steps stay
+# inside TRAIN_PARITY_TOL whatever the signs
+MOE_HYBRID_PARITY_LR = 1e-5
+
+
+def phase_moe_hybrid_train_parity(torch, ops, train) -> None:
+    """Reduced qwen2-moe and recurrentgemma in fp32 on ``cuda`` (kernels on)
+    against the plain path on ``cpu``: one loss and every gradient at S
+    320 (flash, the grouped matmul and its dx, the scan and its reverse),
+    with the launches :func:`train_launches_per_step` predicts, then three
+    ``train`` steps: losses, gradients and final params within
+    ``TRAIN_PARITY_TOL``."""
+    from repro_torch.config import ShardingConfig, get_arch, reduced
+    from repro_torch.models import build_model
+
+    for arch in ("qwen2-moe-a2.7b", "recurrentgemma-9b"):
+        cfg = reduced(get_arch(arch))
+        toks = np.random.default_rng(29).integers(0, cfg.vocab, (2, 321))
+        out = {}
+        for dev in ("cuda", "cpu"):
+            m = build_model(cfg, ShardingConfig(use_kernels=True), device=dev,
+                            train=True).init(5)
+            ops.reset_launch_counts()
+            loss, parts = m.loss({
+                "tokens": torch.as_tensor(toks[:, :-1], device=dev),
+                "labels": torch.as_tensor(toks[:, 1:], device=dev)})
+            named = list(m.impl.named_parameters())
+            grads = torch.autograd.grad(loss, [p for _, p in named])
+            out[dev] = (float(loss.detach()), float(parts["aux"].detach()),
+                        {n: g.cpu() for (n, _), g in zip(named, grads)},
+                        ops.launch_counts())
+        want = train_launches_per_step(cfg)
+        dl = abs(out["cuda"][0] - out["cpu"][0])
+        da = abs(out["cuda"][1] - out["cpu"][1])
+        dg = max(float((g - out["cpu"][2][n]).abs().max())
+                 for n, g in out["cuda"][2].items())
+        if not (dl <= TRAIN_PARITY_TOL and da <= TRAIN_PARITY_TOL
+                and dg <= TRAIN_PARITY_TOL and out["cuda"][3] == want
+                and not any(out["cpu"][3].values())):
+            raise AssertionError(f"reduced {arch} train cuda vs cpu: loss "
+                                 f"diff {dl}, aux diff {da}, grad diff {dg}, "
+                                 f"launches {out['cuda'][3]} (want {want})")
+        kw = dict(reduced_cfg=True, steps=3, batch=2, seq=320,
+                  lr=MOE_HYBRID_PARITY_LR, seed=5, verbose=False)
+        gpu = train(arch, device="cuda", **kw)
+        cpu = train(arch, device="cpu", **kw)
+        sl = max(abs(a - b) for a, b in zip(gpu["history"], cpu["history"]))
+        sp = max(float((gpu["params"][k].detach().cpu() - v.detach())
+                       .abs().max()) for k, v in cpu["params"].items())
+        if not (sl <= TRAIN_PARITY_TOL and sp <= TRAIN_PARITY_TOL):
+            raise AssertionError(f"reduced {arch} train steps cuda vs cpu: "
+                                 f"loss diff {sl}, param diff {sp}")
+        log(f"reduced {arch} fp32 loss + grads at S 320 (launches on cuda "
+            f"{out['cuda'][3]}): loss diff {dl}, aux diff {da} (aux "
+            f"{out['cpu'][1]}), {len(out['cpu'][2])} gradient leaves max diff "
+            f"{dg}; 3 train steps at lr {MOE_HYBRID_PARITY_LR}: cuda losses "
+            f"{gpu['history']} vs cpu {cpu['history']} (max diff {sl}), "
+            f"final params max diff {sp} (tol {TRAIN_PARITY_TOL})")
+
+
 def _engine_delta(torch, session) -> tuple:
     """Engine loss and grads against autograd of ``reference_loss`` on the
     session's current params and batches."""
@@ -1400,6 +1749,11 @@ def main(argv=None) -> int:
         phase_train_parity(torch, train)
         phase_wavefront(torch, smi)
         phase_modal_train_parity(torch, ops)
+        gc.collect()
+        torch.cuda.empty_cache()
+        moe_train = phase_train_cut(torch, ops, smi, "qwen2-moe-a2.7b")
+        hybrid_train = phase_train_cut(torch, ops, smi, "recurrentgemma-9b")
+        phase_moe_hybrid_train_parity(torch, ops, train)
 
     # one row per kernel: attention and the grouped matmul at qwen2-moe's
     # bf16 shapes (the grouped matmul at its decode shape, where most of
@@ -1434,6 +1788,16 @@ def main(argv=None) -> int:
         row("flash_attention",
             checks[("flash_attention", "bfloat16", "cross")],
             encdec["flash_attention"], path="encdec")
+        # the grouped matmul's dx and the scan's reverse scan at phases 6e
+        # and 6f's shapes, with those phases' launches (forward, recompute
+        # and backward together)
+        row("grouped_matmul",
+            checks[("grouped_matmul_backward", "bfloat16", "prefill_gate_up")],
+            moe_train["counts"]["grouped_matmul"], path="train_dx",
+            launches_per_step=moe_train["per_step"]["grouped_matmul"])
+        row("rglru_scan", checks[("rglru_scan_backward", "float32")],
+            hybrid_train["counts"]["rglru_scan"], path="train_reverse",
+            launches_per_step=hybrid_train["per_step"]["rglru_scan"])
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -80,12 +80,14 @@ class ArchConfig:
 class ShardingConfig:
     """Kernel and training policy.  ``use_kernels`` swaps the hand-written
     CUDA kernels into the model (flash forward for prefill and training,
-    paged decode, the grouped matmul of the MoE experts); on a CPU tensor
-    each kernel wrapper computes its plain PyTorch version."""
+    paged decode, the grouped matmul of the MoE experts, the RG-LRU
+    scan); on a CPU tensor each kernel wrapper computes its plain PyTorch
+    version."""
 
     use_kernels: bool = False
     # activation checkpoint policy of a training forward: "block" (each
-    # block-pattern repetition recomputed in backward) | "none"
+    # block-pattern repetition recomputed in backward) | "sqrt" (JAX's
+    # two-level checkpointed groups) | "none"
     remat: str = "block"
 
 
@@ -116,8 +118,9 @@ def _ensure_registered() -> None:
 def default_sharding(cfg: ArchConfig, **overrides) -> ShardingConfig:
     """The arch's default ShardingConfig: its ``sharding_defaults`` that
     name a field of the port's ShardingConfig, then ``overrides``.  The
-    JAX knobs it leaves out (``grad_accum`` of the MoE configs) belong to
-    MoE training, which is not ported (ROADMAP queue 1, item 3b)."""
+    JAX knob it leaves out, ``grad_accum`` of the MoE configs, is read
+    only by the JAX package's XLA step functions (``launch/steps.py``),
+    not by its ``train``: it comes with them (ROADMAP queue 1, item 6)."""
     names = {f.name for f in fields(ShardingConfig)}
     kw = {k: v for k, v in cfg.sharding_defaults if k in names}
     kw.update(overrides)

@@ -6,12 +6,28 @@ CUDA kernel, whose build or launch failure raises.  There is no fallback
 between the two (the JAX wrapper's interpret-mode fallback,
 ``repro/kernels/ops.py:77-80``, has no counterpart here).
 
-Flash attention is differentiable, as the JAX wrapper's ``custom_vjp``
-(``_flash_diff``, ``repro/kernels/ops.py:29-57``) makes it: the forward is
-the kernel, the backward recomputes the plain version under autograd and
-differentiates it (JAX, too, has no backward kernel: its ``_flash_bwd``
-recomputes ``flash_attention_ref`` in XLA).  A forward run again by an
-activation checkpoint launches the kernel again, and counts again.
+Three entry points are differentiable, each a ``torch.autograd.Function``
+whose forward is the kernel (or, on the CPU, the plain version), so a
+kernel's output never leaves autograd without a gradient:
+
+* flash attention, as the JAX wrapper's ``custom_vjp`` (``_flash_diff``,
+  ``repro/kernels/ops.py:29-57``) makes it: the backward recomputes the
+  plain version under autograd and differentiates it (JAX, too, has no
+  backward kernel: its ``_flash_bwd`` recomputes ``flash_attention_ref``
+  in XLA);
+* the grouped matmul: dx is the same grouped product of the output
+  cotangent with each group's transposed weights (the kernel again, on the
+  card), dw one ``torch.bmm`` of x against the cotangent with the rows past
+  each group zeroed (JAX differentiates its expert einsums in XLA,
+  ``repro/models/moe.py:106-108``);
+* the RG-LRU scan: its backward is the same linear recurrence run
+  backwards in time, so it is the scan kernel again on inputs flipped
+  along S; ``da`` and ``db`` follow from it elementwise.
+
+A forward run again by an activation checkpoint launches its kernel
+again, and counts again.  With no input that requires a gradient a
+Function records no graph, so serving pays nothing for this.  Paged
+decode has no gradient in either package: it raises when asked for one.
 """
 
 from __future__ import annotations
@@ -82,28 +98,112 @@ def flash_attention(q, k, v, *, causal: bool = True):
 def paged_attention(q, k_pool, v_pool, page_table, lengths):
     """One decode token per row against a paged KV pool: q (B,H,hd), pools
     (P,K,ps,hd), page_table (B,n_pp) int32, lengths (B,) int32 positions →
-    (B,H,hd) in q's dtype."""
+    (B,H,hd) in q's dtype.  Not differentiable: it raises when grad mode
+    is on and an input requires a gradient."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k_pool, v_pool)):
+        raise RuntimeError("paged_attention has no gradient (decode only, in "
+                           "either package); call it under torch.no_grad()")
     if _on_cpu(q, k_pool, v_pool, page_table, lengths):
         return ref.paged_attention_ref(q, k_pool, v_pool, page_table, lengths)
     return _paged.paged_attention(q, k_pool, v_pool, page_table, lengths)
 
 
-def grouped_matmul(x, w, group_sizes=None):
-    """Per-group products x (E,C,d) @ w (E,d,f) → (E,C,f) in x's dtype,
-    fp32 accumulation; rows ``>= group_sizes[e]`` (int32 (E,)) are exactly
-    zero, ``None`` meaning every group is full."""
+def _grouped_matmul(x, w, group_sizes):
     tensors = (x, w) if group_sizes is None else (x, w, group_sizes)
     if _on_cpu(*tensors):
         return ref.grouped_matmul_ref(x, w, group_sizes)
     return _gmm.grouped_matmul(x, w, group_sizes)
 
 
-def rglru_scan(a, b):
-    """The RG-LRU recurrence ``h_t = a_t * h_{t-1} + b_t`` from a zero
-    state: a, b (B,S,D) of one dtype → (B,S,D) in a's dtype, fp32 carry."""
+class _GroupedMatmul(torch.autograd.Function):
+    """The grouped-matmul kernel with its gradient
+    (:func:`grouped_matmul_backward`)."""
+
+    @staticmethod
+    def forward(ctx, x, w, group_sizes):
+        ctx.save_for_backward(x, w, group_sizes)
+        return _grouped_matmul(x, w, group_sizes)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, sizes = ctx.saved_tensors
+        return (*grouped_matmul_backward(x, w, sizes, g,
+                                         need=ctx.needs_input_grad[:2]), None)
+
+
+def grouped_matmul_backward(x, w, group_sizes, g, *, need=(True, True)):
+    """(dx, dw) of the grouped matmul for the output cotangent ``g`` (each
+    ``None`` where ``need`` says so).  The rows at and past a group's size
+    are the constant 0 in the output, so their cotangent is zeroed first;
+    then dx is the same grouped product with each group's weights
+    transposed (the kernel, on the card: one launch, and a transposed copy
+    of w) and dw one ``torch.bmm`` of x's transpose against it."""
+    with torch.profiler.record_function("repro.gmm_backward"):
+        g = g.to(x.dtype)
+        if group_sizes is not None:
+            live = (torch.arange(g.shape[1], device=g.device)[None, :]
+                    < group_sizes[:, None])
+            g = torch.where(live[..., None], g,
+                            torch.zeros((), dtype=g.dtype, device=g.device))
+        g = g.contiguous()
+        dx = dw = None
+        if need[0]:
+            dx = _grouped_matmul(g, w.transpose(1, 2).contiguous(),
+                                 group_sizes)
+        if need[1]:
+            dw = torch.bmm(x.transpose(1, 2), g).to(w.dtype)
+        return dx, dw
+
+
+def grouped_matmul(x, w, group_sizes=None):
+    """Per-group products x (E,C,d) @ w (E,d,f) → (E,C,f) in x's dtype,
+    fp32 accumulation; rows ``>= group_sizes[e]`` (int32 (E,)) are exactly
+    zero, ``None`` meaning every group is full.  Differentiable in x and
+    w."""
+    return _GroupedMatmul.apply(x, w, group_sizes)
+
+
+def _rglru_scan(a, b):
     if _on_cpu(a, b):
         return ref.rglru_scan_ref(a, b)
     return _scan.rglru_scan(a, b)
+
+
+class _RGLRUScan(torch.autograd.Function):
+    """The scan kernel with its gradient (:func:`rglru_scan_backward`)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        h = _rglru_scan(a, b)
+        ctx.save_for_backward(a, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        return rglru_scan_backward(*ctx.saved_tensors, g)
+
+
+def rglru_scan_backward(a, h, g):
+    """(da, db) of the scan ``h = rglru_scan(a, b)`` for the cotangent
+    ``g`` of h.  The cotangent of h obeys ``dh_t = g_t + a_{t+1}·dh_{t+1}``:
+    the same scan over the sequence reversed (one more launch of the
+    kernel on the card, on contiguous flipped copies); then ``db = dh``
+    and ``da_t = dh_t·h_{t-1}`` with ``h_0 = 0``."""
+    with torch.profiler.record_function("repro.scan_backward"):
+        # a_{t+1} beside g_t (the last step has no successor), flipped
+        a_next = torch.cat([a[:, 1:], torch.zeros_like(a[:, :1])], dim=1)
+        dh = _rglru_scan(a_next.flip(1).contiguous(),
+                         g.to(a.dtype).flip(1).contiguous()).flip(1)
+        h_prev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], dim=1)
+        return dh * h_prev, dh
+
+
+def rglru_scan(a, b):
+    """The RG-LRU recurrence ``h_t = a_t * h_{t-1} + b_t`` from a zero
+    state: a, b (B,S,D) of one dtype → (B,S,D) in a's dtype, fp32 carry.
+    Differentiable in a and b."""
+    return _RGLRUScan.apply(a, b)
 
 
 def launch_counts() -> Dict[str, int]:

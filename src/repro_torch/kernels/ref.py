@@ -4,9 +4,10 @@ Each function computes the same function as its CUDA kernel and is what
 the kernel wrappers in :mod:`repro_torch.kernels.ops` run for a CPU
 tensor; ``chip_smoke.py`` holds each kernel against it on the card.  All
 compute in fp32 from upcast inputs and return the input's dtype (``q``'s,
-``x``'s) — the kernels' contract.  In fp32 that is exactly the JAX oracle's arithmetic (the parity
-tests compare at fp32); in bf16 the oracle's intermediate roundings are
-not repeated.
+``x``'s) — the kernels' contract; float64, which no kernel takes, stays
+float64 (the gradient checks).  In fp32 that is exactly the JAX oracle's
+arithmetic (the parity tests compare at fp32); in bf16 the oracle's
+intermediate roundings are not repeated.
 
 The causal mask is ``kpos <= qpos`` aligned top-left, as in the flash kernel
 and ``naive_attention``.  The JAX oracle ``flash_attention_ref`` aligns it
@@ -22,6 +23,11 @@ from typing import Optional
 import torch
 
 NEG_INF = -1e30
+
+
+def _wide(t):
+    """``t`` in fp32, or float64 if it is float64."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True,
@@ -78,7 +84,7 @@ def grouped_matmul_ref(x, w, group_sizes=None):
     """x (E,C,d) @ w (E,d,f) → (E,C,f) in x's dtype, with the rows
     ``>= group_sizes[e]`` of group ``e`` exactly zero (``None``: every
     group is full)."""
-    y = torch.einsum("ecd,edf->ecf", x.float(), w.float())
+    y = torch.einsum("ecd,edf->ecf", _wide(x), _wide(w))
     if group_sizes is not None:
         C = x.shape[1]
         live = (torch.arange(C, device=x.device)[None, :]
@@ -91,7 +97,7 @@ def rglru_scan_ref(a, b):
     """h_t = a_t·h_{t-1} + b_t over a, b (B,S,D) from a zero state: a
     sequential loop over S with an fp32 carry (the multiply and the add
     rounded separately), each step rounded once to a's dtype."""
-    a32, b32 = a.float(), b.float()
+    a32, b32 = _wide(a), _wide(b)
     h = torch.zeros_like(a32[:, 0])
     out = torch.empty_like(a)
     for t in range(a.shape[1]):

@@ -28,15 +28,23 @@ the rest, with the largest kernels also listed by name.
 
 Training (``--train``, :func:`profile_train`): full qwen3-0.6b in the
 training layout, batch 8 × seq 1024 (``chip_smoke.py`` phase 6's cell),
-two warm-up steps, then one profiled step whose forward, backward and
-update are each closed by a device sync.  Its device time is split by the
-phase a kernel was launched in and by what launched it (:data:`TRAIN_GROUPS`):
-the flash kernel in the forward and in the backward (the remat recompute),
-the plain attention backward (inside the flash autograd function's
-backward), ``chunked_xent`` (its forward, its backward-time logits
-recompute, and the backward nodes of its forward ops, matched by autograd
-sequence number), the remaining matmuls (cuBLAS kernels by name), the
-optimizer update and the rest.
+two warm-up steps, then one profiled step (:func:`profile_train_step`,
+which ``chip_smoke.py`` phases 6e and 6f also call on their depth-cut MoE
+and hybrid models) whose forward, backward and update are each closed by
+a device sync.  Its device time is split by the phase a kernel was
+launched in and by what launched it (:data:`TRAIN_GROUPS`): the flash
+kernel in the forward and in the backward (the remat recompute), the
+plain attention backward (inside the flash autograd function's
+backward); the grouped matmul in the forward, in the recompute and as dx
+(inside its function's backward), and the rest of that backward (dw's
+``torch.bmm``, the cotangent's mask, w's transposed copy); the scan in
+the forward, in the recompute and reversed (inside its function's
+backward) with the elementwise rest of that backward; the RG-LRU gate
+products (``repro.rglru_gates``: forward and recompute; their backward
+counts as matmuls); ``chunked_xent`` (its forward, its backward-time
+logits recompute, and the backward nodes of its forward ops, matched by
+autograd sequence number), the remaining matmuls (cuBLAS kernels by
+name), the optimizer update and the rest.
 
 Prints one line per phase and a JSON line; exits non-zero when the
 profiler records no device time.
@@ -59,9 +67,18 @@ from .serve import _build_requests, frontend_lens
 
 #: the groups of a train step's device time (see the module doc)
 TRAIN_GROUPS = ("flash_forward", "flash_recompute", "attention_backward_plain",
-                "chunked_xent", "matmul", "optimizer", "other")
+                "gmm_forward", "gmm_recompute", "gmm_dx", "gmm_backward_rest",
+                "scan_forward", "scan_recompute", "scan_reverse",
+                "scan_backward_rest", "gate_products", "chunked_xent",
+                "matmul", "optimizer", "other")
 #: substrings of cuBLAS / CUTLASS matmul kernel names on Hopper
 MATMUL_KEYS = ("gemm", "nvjet", "xmma", "cutlass")
+#: what marks a kernel as launched by the grouped matmul's or the scan's
+#: backward: the function's ``record_function`` range, or the autograd
+#: node that runs it — a kernel launched through ``ctypes`` is filed under
+#: the node's op, outside the range
+BACKWARD_NODES = {"repro.gmm_backward": "_GroupedMatmulBackward",
+                  "repro.scan_backward": "_RGLRUScanBackward"}
 
 # substrings of the kernels' names: paged_decode_split_kernel;
 # flash_fwd_kernel (fp32) and flash_fwd_wgmma_kernel (bf16);
@@ -169,7 +186,8 @@ def train_breakdown(events, phases: Dict[str, Tuple[float, float]]
     """Device µs of a profiled train step by :data:`TRAIN_GROUPS`.
     ``events`` is the profiler's event list; ``phases`` maps "forward",
     "backward" and "update" to the host-time range (µs) each ran in —
-    a kernel's phase is that of the host op that launched it."""
+    a kernel's phase is that of the host op that launched it, and its
+    marks the host op's ancestors' names (with :data:`BACKWARD_NODES`)."""
     def phase_of(evt):
         t = evt.time_range.start
         return next((name for name, (lo, hi) in phases.items()
@@ -188,17 +206,30 @@ def train_breakdown(events, phases: Dict[str, Tuple[float, float]]
         phase = phase_of(e)
         anc = _ancestors(e)
         names = {a.name for a in anc}
+        marks = names | {m for m, node in BACKWARD_NODES.items()
+                         if any(node in n for n in names)}
         in_xent = "repro.chunked_xent" in names or any(
             a.name.startswith("autograd::engine::evaluate_function")
             and a.sequence_nr in xent_seq for a in anc)
+        again = "recompute" if phase == "backward" else "forward"
         for k in e.kernels:
             if phase == "update":
                 group = "optimizer"
             elif "flash_fwd" in k.name:
-                group = ("flash_recompute" if phase == "backward"
-                         else "flash_forward")
-            elif "repro.flash_backward" in names:
+                group = f"flash_{again}"
+            elif "repro.flash_backward" in marks:
                 group = "attention_backward_plain"
+            elif "repro.gmm_backward" in marks:
+                group = "gmm_dx" if "gmm_" in k.name else "gmm_backward_rest"
+            elif "gmm_" in k.name:
+                group = f"gmm_{again}"
+            elif "repro.scan_backward" in marks:
+                group = ("scan_reverse" if "rglru_scan" in k.name
+                         else "scan_backward_rest")
+            elif "rglru_scan" in k.name:
+                group = f"scan_{again}"
+            elif "repro.rglru_gates" in marks:
+                group = "gate_products"
             elif in_xent:
                 group = "chunked_xent"
             elif any(key in k.name.lower() for key in MATMUL_KEYS):
@@ -209,14 +240,60 @@ def train_breakdown(events, phases: Dict[str, Tuple[float, float]]
     return out
 
 
+def profile_train_step(model, optimizer, params, state, batch) -> dict:
+    """One profiled train step (loss, gradients, AdamW update) of a model
+    in the training layout on the GPU, each phase closed by a device sync:
+    wall and device time, device time by :data:`TRAIN_GROUPS`, the top
+    kernels and the kernels' launches in the step.  The caller warms the
+    model up first."""
+    from ..kernels import ops
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        with torch.profiler.record_function("repro.train.forward"):
+            loss, _ = model.loss(batch)
+            torch.cuda.synchronize()
+        with torch.profiler.record_function("repro.train.backward"):
+            grads = torch.autograd.grad(loss, list(params.values()))
+            torch.cuda.synchronize()
+        with torch.profiler.record_function("repro.train.update"):
+            optimizer.update(dict(zip(params, grads)), state, params)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    events = prof.events()
+    # the host-side ranges (each also shows on the device timeline)
+    phases = {name: (e.time_range.start, e.time_range.end) for e in events
+              for name in ("forward", "backward", "update")
+              if e.name == f"repro.train.{name}"
+              and e.device_type == torch.autograd.DeviceType.CPU}
+    groups = train_breakdown(events, phases)
+    by_group, top, n_events = device_times(prof)
+    device_s = sum(by_group.values()) / 1e6
+    return {
+        "device": torch.cuda.get_device_name(0),
+        "loss": float(loss.detach()),
+        "step_wall_s": wall,
+        "step_device_s": device_s,
+        "step_device_us_by_group": groups,
+        "step_device_us_attributed": sum(groups.values()),
+        "step_top_kernels_us": top,
+        "step_device_events": n_events,
+        "step_idle_share": 1.0 - device_s / wall,
+        "launches": launches,
+        "flash_launches": launches["flash_attention"],
+    }
+
+
 def profile_train(arch: str = "qwen3-0.6b", *, batch: int = 8,
-                  seq: int = 1024, seed: int = 0,
-                  warm_steps: int = 2) -> dict:
-    """One profiled train step of the full ``arch`` on the GPU (see the
-    module doc)."""
+                  seq: int = 1024, seed: int = 0, warm_steps: int = 2) -> dict:
+    """One profiled train step of the full ``arch`` on the GPU, after
+    ``warm_steps`` steps (see the module doc)."""
     from ..config import default_sharding, get_arch
     from ..data import DataConfig, SyntheticLM
-    from ..kernels import ops
     from ..models import build_model
     from ..optim import AdamW
     from .train import make_train_state, train_step
@@ -233,44 +310,8 @@ def profile_train(arch: str = "qwen3-0.6b", *, batch: int = 8,
         b = {k: v.to(dev) for k, v in data.batch(step).items()}
         state, _ = train_step(model, optimizer, params, state, b)
     b = {k: v.to(dev) for k, v in data.batch(warm_steps).items()}
-    torch.cuda.synchronize()
-    ops.reset_launch_counts()
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        with torch.profiler.record_function("repro.train.forward"):
-            loss, _ = model.loss(b)
-            torch.cuda.synchronize()
-        with torch.profiler.record_function("repro.train.backward"):
-            grads = torch.autograd.grad(loss, list(params.values()))
-            torch.cuda.synchronize()
-        with torch.profiler.record_function("repro.train.update"):
-            state = optimizer.update(dict(zip(params, grads)), state, params)
-            torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    launches = ops.launch_counts()
-    events = prof.events()
-    # the host-side ranges (each also shows on the device timeline)
-    phases = {name: (e.time_range.start, e.time_range.end) for e in events
-              for name in ("forward", "backward", "update")
-              if e.name == f"repro.train.{name}"
-              and e.device_type == torch.autograd.DeviceType.CPU}
-    groups = train_breakdown(events, phases)
-    by_group, top, n_events = device_times(prof)
-    device_s = sum(by_group.values()) / 1e6
-    return {
-        "device": torch.cuda.get_device_name(0),
-        "arch": arch, "batch": batch, "seq": seq,
-        "loss": float(loss.detach()),
-        "step_wall_s": wall,
-        "step_device_s": device_s,
-        "step_device_us_by_group": groups,
-        "step_device_us_attributed": sum(groups.values()),
-        "step_top_kernels_us": top,
-        "step_device_events": n_events,
-        "step_idle_share": 1.0 - device_s / wall,
-        "flash_launches": launches["flash_attention"],
-    }
+    out = profile_train_step(model, optimizer, params, state, b)
+    return {"arch": arch, "batch": batch, "seq": seq, **out}
 
 
 def main() -> int:

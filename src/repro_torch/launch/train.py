@@ -1,18 +1,25 @@
 """Training entry point — a thin CLI shell over the model, optimizer and data
 stream (port of ``repro/launch/train.py``).
 
-Trains a registered dense arch (full or ``--reduced`` smoke size) on the
-deterministic synthetic LM stream with AdamW and straggler detection, on
-the GPU unless ``--device cpu`` is given (``cuda`` without a GPU raises).
-The model is built in the training layout (fp32 masters, a bf16 cast per
-layer) and its loss runs the decoder under block remat: on the GPU the
-attention of every layer with S > 256 is the flash kernel, forward and
-remat recompute alike, and its gradient recomputes the plain version.
+Trains a registered arch — dense, MoE, hybrid, VLM or enc-dec (full or
+``--reduced`` smoke size) — on the deterministic synthetic LM stream with
+AdamW and straggler detection, on the GPU unless ``--device cpu`` is
+given (``cuda`` without a GPU raises).  The model is built in the
+training layout (fp32 masters, a bf16 cast per layer) and its loss runs
+the decoder under the arch's remat (block by default; ``"sqrt"``
+too): on the GPU the attention of every layer with S > 256 is the flash
+kernel, forward and remat recompute alike, and its gradient recomputes
+the plain version; an MoE layer's expert products are the grouped-matmul
+kernel (forward, recompute and dx) and an rglru layer's recurrence the
+scan kernel (forward, recompute and the reverse scan of its gradient).
+The loss adds the MoE router's aux loss, weighted, as JAX's does.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
         --steps 8 --batch 8 --seq 1024                     # on the GPU
     PYTHONPATH=src python -m repro_torch.launch.train --reduced \\
         --device cpu --steps 3 --seq 320
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-moe-a2.7b \\
+        --reduced --device cpu --steps 3 --seq 64   # or recurrentgemma-9b
 
 With ``--plan-workload`` the trainer also stands up a plan-only
 :class:`repro_torch.session.SpindleSession` for the named MT workload: the

@@ -11,6 +11,12 @@ are the JAX einsums, or — with ``use_kernels`` — the grouped-matmul kernel
 the kept counts per expert, computed on the device.  Rows past a group's
 count are zero in the buffer, so both compute the same function.
 
+The layer trains as JAX's does: the scatter into the buffer, the gather
+of the expert outputs and the gates are differentiable, the grouped
+matmul is an autograd function (its dx through the kernel), and the
+Switch aux loss reaches the fp32 router through the softmax probs.  A
+padded (dead) expert is never routed and gets a zero gradient.
+
 Only the local branch of ``moe_apply`` is ported: the ``shard_map``
 expert parallelism comes with multi-GPU (ROADMAP queue 1, item 5).  The
 layer never waits on the device: the capacity is a Python int from

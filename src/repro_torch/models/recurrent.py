@@ -8,8 +8,11 @@ sequence path runs the recurrence through the hand-written scan kernel
 (:func:`repro_torch.kernels.ops.rglru_scan`) when ``use_kernels`` is on,
 and otherwise through a log-depth doubling scan, the counterpart of the
 JAX model's ``lax.associative_scan`` (the JAX model never calls its own
-Pallas scan; both compute the same recurrence).  Decode is the O(1)-state
-one-token update.
+Pallas scan; both compute the same recurrence).  Both are differentiable:
+the kernel's autograd function runs the scan reversed for its gradient
+(:func:`repro_torch.kernels.ops.rglru_scan_backward`), and the folded
+initial state ``h0`` gets its gradient through the fold.  Decode is the
+O(1)-state one-token update.
 
 Precision, as in JAX: the gates are computed in fp32 (``w_r``/``w_i``
 widened to fp32, ``lam`` always fp32), the state ``h`` is fp32, and the
@@ -62,7 +65,8 @@ def rglru_apply(params, x, h0: Optional[torch.Tensor] = None, *,
     """Sequence-parallel RG-LRU. x: (B, S, d_rnn); h0: optional (B, d_rnn)
     initial state.  Returns (y (B,S,d_rnn) in x's dtype, h_last (B,d_rnn)
     fp32)."""
-    log_a, b = _rglru_gates(params, x)  # (B,S,d), fp32
+    with torch.profiler.record_function("repro.rglru_gates"):
+        log_a, b = _rglru_gates(params, x)  # (B,S,d), fp32
     a = torch.exp(log_a)
     if h0 is not None:
         # fold the initial state into the first input: h1 = a1·h0 + b1

@@ -32,9 +32,14 @@ the same arithmetic without a cast per call.  A model built with
 layer's leaves inside the forward (:func:`cast_leaves`, under the layer's
 activation checkpoint), so the gradients land on the fp32 leaves, as
 JAX's do.  :meth:`Transformer.loss` is the training objective: the
-decoder under block remat (each pattern repetition recomputed in
-backward, ``ShardingConfig.remat``) and :func:`chunked_xent`; it trains
-the dense and VLM families only.  In a serving model ``final_norm`` stays in
+decoder under ``ShardingConfig.remat`` (``"block"``: each pattern
+repetition recomputed in backward; ``"sqrt"``: JAX's two-level scheme) and
+:func:`chunked_xent`, plus the MoE router's load-balance loss summed over
+the layers (``router_aux_weight`` times it, as JAX's); it trains every
+family of the stack — dense, MoE, hybrid and VLM.  With kernels on, the
+grouped matmul and the RG-LRU scan run forward, in remat recompute and in
+backward through their autograd functions (:mod:`repro_torch.kernels.ops`).
+In a serving model ``final_norm`` stays in
 ``param_dtype``, as in JAX; the embedding table and the head are held in
 ``compute_dtype`` (JAX casts the looked-up rows and the head at use — the
 same values).  The MoE router and the RG-LRU's ``lam`` stay fp32 whatever
@@ -74,10 +79,19 @@ KINDS = ("attn", "local_attn", "rglru")  # the mixing kinds ported
 WIDENED = ("w_r", "w_i")
 #: leaves kept fp32 whatever the compute policy (JAX ``layers._KEEP_F32``)
 KEEP_F32 = ("lam", "logit_scale", "router")
-REMATS = ("block", "none")
+REMATS = ("block", "sqrt", "none")
 LOGITS_CHUNK = 1024  # sequence positions per chunk of the vocab loss
-_ITEM_3B = ("ROADMAP queue 1, item 3b (MoE and hybrid training, "
-            "remat='sqrt', grad_accum)")
+
+
+def _sqrt_factor(g: int) -> int:
+    """Largest factor of ``g`` ≤ √g (1 if prime — sqrt-remat degenerates)."""
+    best = 1
+    f = 1
+    while f * f <= g:
+        if g % f == 0:
+            best = f
+        f += 1
+    return best
 
 
 def resolve_pattern(cfg: ArchConfig):
@@ -211,11 +225,12 @@ class Block(nn.Module):
 
 
 def ffn_apply(p, h, cfg: ArchConfig, *, impl: str):
-    """``_ffn_apply``: the MoE FFN (its aux loss dropped, as JAX serving
-    drops it) or the SwiGLU, on (B, S, d)."""
+    """``_ffn_apply`` on (B, S, d): (the MoE FFN, its router's aux loss) or
+    (the SwiGLU, 0.0 — a Python zero, so a dense layer launches nothing
+    for it).  The serving paths drop the aux loss, as JAX's do."""
     if cfg.is_moe:
-        return moe_apply(p, h, cfg, use_kernels=impl == "kernels")[0]
-    return mlp_apply(p, h)
+        return moe_apply(p, h, cfg, use_kernels=impl == "kernels")
+    return mlp_apply(p, h), 0.0
 
 
 def _mix_apply(p, h, cfg: ArchConfig, kind: str, *, impl: str):
@@ -259,11 +274,12 @@ def _mix_decode(p, x_t, state, pos, cfg: ArchConfig, kind: str, pages,
 
 
 def _layer_apply(p: Block, h, cfg: ArchConfig, kind: str, *, impl: str):
-    """One layer over a sequence. Returns (h, raw decode state)."""
+    """One layer over a sequence. Returns (h, aux loss, raw decode
+    state)."""
     y, state = _mix_apply(p.mix, rmsnorm(p.norm1, h), cfg, kind, impl=impl)
     h = h + y
-    h = h + ffn_apply(p.ffn, rmsnorm(p.norm2, h), cfg, impl=impl)
-    return h, state
+    y, aux = ffn_apply(p.ffn, rmsnorm(p.norm2, h), cfg, impl=impl)
+    return h + y, aux, state
 
 
 def _layer_decode(p: Block, x_t, state, pos, cfg: ArchConfig, kind: str,
@@ -272,7 +288,7 @@ def _layer_decode(p: Block, x_t, state, pos, cfg: ArchConfig, kind: str,
                            kind, pages, slots, impl)
     h = x_t + y
     h = h + ffn_apply(p.ffn, rmsnorm(p.norm2, h[:, None, :]), cfg,
-                      impl=impl)[:, 0]
+                      impl=impl)[0][:, 0]
     return h, state
 
 
@@ -289,7 +305,7 @@ def _layer_chunk(p: Block, x, pool, page_table, pos0: int, cfg: ArchConfig,
         qk_norm=cfg.qk_norm,
     )
     h = x + y
-    h = h + ffn_apply(p.ffn, rmsnorm(p.norm2, h), cfg, impl=impl)
+    h = h + ffn_apply(p.ffn, rmsnorm(p.norm2, h), cfg, impl=impl)[0]
     return h, {"k": pk, "v": pv}
 
 
@@ -332,37 +348,67 @@ class Decoder(nn.Module):
                             impl=self.attn_impl)
 
     def _layers(self, h, lo: int, hi: int):
+        """Layers ``lo..hi-1``. Returns (h, their summed aux loss)."""
+        aux = 0.0
         for i in range(lo, hi):
-            h = self._layer(i, h)[0]
-        return h
+            h, a, _ = self._layer(i, h)
+            aux = aux + a
+        return h, aux
+
+    def _groups(self, h, starts):
+        """The groups starting at ``starts``, each checkpointed (block
+        remat). Returns (h, their summed aux loss)."""
+        L = len(resolve_pattern(self.cfg))
+        aux = 0.0
+        for g0 in starts:
+            h, a = checkpoint(self._layers, h, g0, g0 + L,
+                              use_reentrant=False)
+            aux = aux + a
+        return h, aux
 
     def forward(self, h, *, return_cache: bool = False, remat: str = "none"):
-        """h: (B,S,d) → (h, raw per-layer decode states | None).
+        """h: (B,S,d) → (h, aux loss, raw per-layer decode states | None),
+        the aux loss the MoE layers' router losses summed (a Python 0.0
+        in a stack without MoE), as JAX's ``Decoder.forward`` returns.
 
-        ``remat="block"`` recomputes each block-pattern repetition in
-        backward (one ``torch.utils.checkpoint`` per group, as JAX
-        checkpoints each scan step; the ``n_layers % len(pattern)``
-        remainder layers run first, unchecked), so only the groups' inputs
-        are kept.  It applies to a forward without a cache."""
+        The ``n_layers % len(pattern)`` remainder layers run first,
+        unchecked, then the G groups of one pattern repetition each.
+        ``remat="block"`` recomputes each group in backward (one
+        ``torch.utils.checkpoint`` per group, as JAX checkpoints each scan
+        step), so only the groups' inputs are kept.  ``remat="sqrt"`` is
+        JAX's two-level scheme: with g1 = :func:`_sqrt_factor` (G) > 1 it
+        checkpoints g1 outer segments of G/g1 groups each, and each group
+        inside them, so only g1 segment inputs live through the forward
+        (each layer then runs three times, but the last group of a
+        segment twice: the non-reentrant checkpoint stops a recompute once
+        what backward needs is back); with g1 ≤ 1 (G prime) it is block
+        remat.  Remat applies to a forward without a cache."""
         if remat not in REMATS:
-            if remat == "sqrt":
-                raise NotImplementedError(
-                    f"remat='sqrt' is not ported yet: {_ITEM_3B}")
             raise ValueError(f"unknown remat {remat!r}; one of {REMATS}")
         n = len(self.layers)
         if return_cache or remat == "none":
-            states = []
+            states, aux = [], 0.0
             for i in range(n):
-                h, st = self._layer(i, h)
+                h, a, st = self._layer(i, h)
+                aux = aux + a
                 if return_cache:
                     states.append(st)
-            return h, (states if return_cache else None)
+            return h, aux, (states if return_cache else None)
         L = len(resolve_pattern(self.cfg))
         n_rem = n % L
-        h = self._layers(h, 0, n_rem)
-        for g0 in range(n_rem, n, L):
-            h = checkpoint(self._layers, h, g0, g0 + L, use_reentrant=False)
-        return h, None
+        h, aux = self._layers(h, 0, n_rem)
+        starts = list(range(n_rem, n, L))
+        g1 = _sqrt_factor(len(starts)) if remat == "sqrt" else 0
+        if g1 > 1:
+            g2 = len(starts) // g1
+            for k in range(g1):
+                h, a = checkpoint(self._groups, h, starts[k * g2:(k + 1) * g2],
+                                  use_reentrant=False)
+                aux = aux + a
+        else:
+            h, a = self._groups(h, starts)
+            aux = aux + a
+        return h, aux, None
 
     def pack_cache(self, cache, prompt_len: int, cache_len: int,
                    cache_dtype=torch.bfloat16):
@@ -594,35 +640,35 @@ class Transformer(SeededParams):
                           dim=1)
         return h
 
+    def _forward(self, tokens, embeds=None, *, return_cache: bool = False):
+        """(final-normed h, aux loss, cache | None): JAX's ``forward``."""
+        remat = "none" if return_cache else self.shcfg.remat
+        h, aux, cache = self.decoder(self._embed(tokens, embeds),
+                                     return_cache=return_cache, remat=remat)
+        return rmsnorm(self.final_norm, h), aux, cache
+
     def forward(self, tokens, embeds=None, *, return_cache: bool = False):
         """tokens (B,S) [and stub embeds (B,P,d), prepended: RoPE positions
-        run over stub and text] → (final-normed h (B,P+S,d), cache | None).
-        Without a cache the decoder runs under ``shcfg.remat``, as JAX's
-        does."""
-        remat = "none" if return_cache else self.shcfg.remat
-        h, cache = self.decoder(self._embed(tokens, embeds),
-                                return_cache=return_cache, remat=remat)
-        return rmsnorm(self.final_norm, h), cache
+        run over stub and text] → (final-normed h (B,P+S,d), cache | None);
+        the MoE aux loss is dropped, as serving drops it.  Without a cache
+        the decoder runs under ``shcfg.remat``, as JAX's does."""
+        h, _, cache = self._forward(tokens, embeds, return_cache=return_cache)
+        return h, cache
 
     def loss(self, batch):
         """batch: {tokens (B,S), labels (B,S), [embeds (B,P,d)], [mask
-        (B,S)]} → (nll + w·aux, {"nll", "aux"}) with :func:`chunked_xent`
-        over :data:`LOGITS_CHUNK` positions at a time (JAX's default
-        ``logits_chunk``) on the text positions (the stub's P are dropped).
-        The dense and VLM families only: the MoE router's aux loss and the
-        hybrid's scan need gradients through the grouped matmul and the
-        scan."""
-        if self.cfg.is_moe or set(self.decoder.kinds) != {"attn"}:
-            raise NotImplementedError(
-                f"{self.cfg.name}: training is ported for the dense family "
-                f"only; {_ITEM_3B}")
+        (B,S)]} → (nll + ``router_aux_weight``·aux, {"nll", "aux"}) with
+        :func:`chunked_xent` over :data:`LOGITS_CHUNK` positions at a time
+        (JAX's default ``logits_chunk``) on the text positions (the stub's
+        P are dropped), and aux the MoE layers' summed router loss (0 for
+        a stack without MoE): JAX's ``Transformer.loss``."""
         embeds = batch.get("embeds")
-        h, _ = self.forward(batch["tokens"], embeds)
+        h, aux, _ = self._forward(batch["tokens"], embeds)
         if embeds is not None:
             h = h[:, embeds.shape[1]:]
         nll = chunked_xent(h, self.head(), batch["labels"], batch.get("mask"),
                            chunk=LOGITS_CHUNK)
-        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        aux = torch.as_tensor(aux, dtype=torch.float32, device=h.device)
         loss = nll + self.cfg.moe.router_aux_weight * aux
         return loss, {"nll": nll, "aux": aux}
 

@@ -131,6 +131,24 @@ def test_ops_on_cpu_need_no_nvcc(monkeypatch):
     assert all(k._fn is None for k in ops.KERNELS.values())
 
 
+def test_paged_attention_refuses_a_gradient():
+    """Paged decode has no gradient in either package: with grad mode on
+    and an input that requires one it raises (on the card it would
+    otherwise return a detached result); under ``no_grad``, or with no
+    such input, it runs."""
+    q, kp, vp, table, lengths = (torch.from_numpy(a) for a in
+                                 _paged_inputs(6, 2, 4, 2, 16, 4, 3))
+    want = ops.paged_attention(q, kp, vp, table, lengths)
+    for i in range(3):
+        args = [q, kp, vp]
+        args[i] = args[i].clone().requires_grad_()
+        with pytest.raises(RuntimeError, match="no gradient"):
+            ops.paged_attention(*args, table, lengths)
+        with torch.no_grad():
+            assert torch.equal(ops.paged_attention(*args, table, lengths),
+                               want)
+
+
 def test_cuda_wrappers_reject_cpu_tensors():
     """The kernel wrappers launch on CUDA tensors or raise — they never
     compute on the CPU themselves."""
@@ -182,6 +200,42 @@ def test_profile_groups_follow_kernel_names():
         for name in names:
             group = next((g for g, key in GROUPS if key in name), "other")
             assert group == src.stem, (name, group)
+
+
+def test_train_breakdown_files_backward_launches_by_autograd_node():
+    """``launch/profile.py``'s train breakdown: a grouped-matmul or scan
+    kernel under its function's backward node is dx or the reverse scan,
+    one under the forward op is the forward (a ctypes launch is filed
+    under the node's op, outside the backward's ``record_function``
+    range).  On the CPU no kernel runs, so stand-in kernels are hung on
+    the profiled ops."""
+    from types import SimpleNamespace
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.profile import train_breakdown
+
+    x = torch.randn(2, 4, 8, requires_grad=True)
+    w = torch.randn(2, 8, 3, requires_grad=True)
+    a = torch.rand(2, 5, 3, requires_grad=True)
+    b = torch.randn(2, 5, 3, requires_grad=True)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with torch.profiler.record_function("repro.train.forward"):
+            y = ops.grouped_matmul(x, w).sum() + ops.rglru_scan(a, b).sum()
+        with torch.profiler.record_function("repro.train.backward"):
+            y.backward()
+    events = prof.events()
+    phases = {n: (e.time_range.start, e.time_range.end) for e in events
+              for n in ("forward", "backward") if e.name == "repro.train." + n}
+    kernel = {"_GroupedMatmul": "gmm_wgmma_kernel",
+              "_RGLRUScan": "rglru_scan_kernel"}
+    for e in events:
+        name = kernel.get(e.name.removesuffix("Backward"))
+        if name:
+            e.kernels.append(SimpleNamespace(name=name, duration=1.0))
+    got = {g: v for g, v in train_breakdown(events, phases).items() if v}
+    assert got == {"gmm_forward": 1.0, "gmm_dx": 1.0, "scan_forward": 1.0,
+                   "scan_reverse": 1.0}
 
 
 @pytest.mark.parametrize("dtype,C,d,f,offset,want", [

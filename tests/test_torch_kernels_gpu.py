@@ -907,6 +907,69 @@ def test_train_step_launches_flash_twice_per_layer_on_gpu(cuda_device,
             assert float((a - b).abs().max()) < 1e-4
 
 
+# the grouped matmul's and the scan's autograd functions (MoE and hybrid
+# training): their CUDA gradients against autograd of the plain versions
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", DTYPES)
+@pytest.mark.parametrize("C", [4, 40, 96])  # skinny, wmma / fp32, wgmma
+def test_grouped_matmul_gradients_match_plain_on_gpu(cuda_device, dtype, rtol,
+                                                     C):
+    """dx through the kernel (one more launch, at the forward's variant for
+    the same C), dw one ``torch.bmm``, rows past each group zero, against
+    autograd of the plain version on the card."""
+    rng = np.random.default_rng(43)
+    E, d, f = 6, 64, 48
+    x = torch.from_numpy(_np(rng, (E, C, d))).to(cuda_device, dtype)
+    w = torch.from_numpy(_np(rng, (E, d, f)) / 8).to(cuda_device, dtype)
+    g = torch.from_numpy(_np(rng, (E, C, f))).to(cuda_device, dtype)
+    sizes = torch.tensor([0, 1, C // 2, C, 3, C - 1], dtype=torch.int32,
+                         device=cuda_device)
+    before = ops.launch_counts()["grouped_matmul"]
+    ins = [t.detach().requires_grad_() for t in (x, w)]
+    got = torch.autograd.grad(ops.grouped_matmul(*ins, sizes), ins, g)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["grouped_matmul"] == before + 2
+    ins = [t.detach().requires_grad_() for t in (x, w)]
+    want = torch.autograd.grad(ref.grouped_matmul_ref(*ins, sizes), ins, g)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        _assert_close(a, b, rtol)
+    dead = torch.arange(C, device=cuda_device)[None, :] >= sizes[:, None]
+    assert not bool(got[0][dead].ne(0).any())
+
+
+@pytest.mark.cuda
+def test_rglru_scan_gradients_match_plain_on_gpu(cuda_device):
+    """The reverse scan through the kernel (one more launch) and the
+    elementwise da, db, with an initial state folded in, against autograd
+    of the plain version on the card, in fp32: the model's gates and scan
+    are fp32, and in bf16 the plain version's gradient reads its fp32
+    carry where the function reads the rounded output."""
+    dtype, rtol = torch.float32, 0.0
+    rng = np.random.default_rng(44)
+    B, S, D = 2, 300, 130
+    a = torch.sigmoid(torch.from_numpy(_np(rng, (B, S, D)))).to(cuda_device,
+                                                                dtype)
+    b = torch.from_numpy(_np(rng, (B, S, D))).to(cuda_device, dtype)
+    h0 = torch.from_numpy(_np(rng, (B, D))).to(cuda_device, dtype)
+    g = torch.from_numpy(_np(rng, (B, S, D))).to(cuda_device, dtype)
+
+    def grads(scan):
+        ins = [t.detach().requires_grad_() for t in (a, b, h0)]
+        aa, bb, hh = ins
+        bb = torch.cat([bb[:, :1] + aa[:, :1] * hh[:, None], bb[:, 1:]], 1)
+        return torch.autograd.grad(scan(aa, bb.contiguous()), ins, g)
+
+    before = ops.launch_counts()["rglru_scan"]
+    got = grads(ops.rglru_scan)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["rglru_scan"] == before + 2
+    want = grads(ref.rglru_scan_ref)
+    for x, y in zip(got, want):
+        assert x.dtype == dtype
+        _assert_close(x, y, rtol)
+
+
 # ------------------------------------------------- the modal families' shapes
 
 
