@@ -98,6 +98,20 @@ caught):
 4h. full glm4-9b (40 layers, d 4,096, 32 query heads over 2 KV heads) on
    8 x 512 x 32: flash 40 x prefill calls, paged 40 x decode steps; each
    of 4f-4h frees its model before the next phase loads;
+4i. serve full xlstm-125m (12 layers, d 768: 9 mLSTM + 3 sLSTM, 4 heads of
+   192, vocab 50,304; bf16 compute, fp32 states) on 8 x 512 x 32 with
+   ``replan="mix"``, on ``kv_layout="paged"`` and on ``"slab"``: no kernel
+   launched in either (the model has no attention), tokens equal between
+   the layouts (both hold only slot-major state, so the arithmetic is the
+   same); then one prefill and decode steps under ``launch/profile.py``'s
+   ``profile_serve`` (device time by group, busy and idle shares, events
+   per step);
+4j. serve full qwen3-0.6b at phase 4's shape on ``kv_layout="slab"``: flash
+   28 x prefill calls, paged decode 0 (slab decode is plain arithmetic, as
+   in JAX), the share of greedy tokens equal to phase 4's paged run
+   (reported: the slab path rounds the attention weights to bf16, the
+   paged kernel keeps them fp32); then the slab decode step under
+   ``profile_serve``;
 5. serve the reduced qwen3 in fp32 from one seed on ``cuda`` and on ``cpu``
    and require identical tokens (the kernels against the plain path);
 5b. the same for the reduced qwen2-moe (4 requests in 4 slots, all live);
@@ -115,6 +129,9 @@ caught):
    encoder, self- and cross-attention all take the fp32 flash kernel),
    identical tokens on ``cuda`` and ``cpu``;
 5g. the same for the reduced pixtral (16 patch embeddings + 300 tokens);
+5h. the same for the reduced qwen3 on the slab layout (the prefill's flash
+   kernel at S 300, slab decode) and for the reduced xlstm on the paged and
+   the slab layouts;
 6. train full-width qwen3-0.6b (28 layers, d 1024, vocab 151,936; bf16
    compute, fp32 masters and moments, block remat) through
    ``repro_torch.launch.train.train``: batch 8 x seq 1,024 (so every
@@ -157,14 +174,22 @@ caught):
    gradient at S 320 on ``cuda`` (kernels, with the predicted launches)
    against ``cpu``, then 3 ``train`` steps at lr 1e-5: losses,
    gradients and params within 1e-4;
+6h. reduced xlstm in fp32 the same way (no kernel: the cells are plain
+   PyTorch): loss and params within 1e-4, gradients within 1e-4 plus 1e-3
+   of each leaf's largest entry (the tied embedding's gradient is
+   ill-conditioned through the mLSTM normaliser: on the CPU a 1e-7
+   relative change of the params moves it by 4.9e-4); then 3 steps of
+   full xlstm-125m (bf16 compute, fp32 masters and moments, block remat)
+   at batch 4 x seq 1,024, the last step replaying the first batch: the
+   loss must fall, no kernel launched; step ms and peak memory;
 7. print a ``{"kernels": [...]}`` line (attention and grouped matmul at
    qwen2-moe's shapes with phase 4b's launches, the scan at recurrentgemma's
    fp32 prefill shape with phase 4c's, flash again at phase 6's
    training shape B8 H16 K8 S1024 with phase 6's launches, and at
-   seamless's cross-attention shape with phase 4f's, the grouped matmul's
-   dx at 6e's shape with 6e's launches and the scan's reverse at 6f's
-   with 6f's), the ``nvidia-smi`` line, and last ``{"ok": true,
-   "device": {...}}``.
+   seamless's cross-attention shape with phase 4f's, at qwen3's prefill
+   shape with phase 4j's slab launches, the grouped matmul's dx at 6e's
+   shape with 6e's launches and the scan's reverse at 6f's with 6f's),
+   the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
 Phase 3 also holds flash at the training shape (S 1,024) and the flash
 gradient there — the plain version recomputed and differentiated, as the
@@ -995,18 +1020,28 @@ SERVED = {
     "glm4-9b": ("40L d4096 GQA 32:2 hd128, bf16",
                 {"flash_attention": (40, 1, 0),
                  "paged_attention": (40, 0, 1)}),
+    # no attention: no kernel on either layout
+    "xlstm-125m": ("12L d768 (9 mlstm + 3 slstm) 4H hd192, vocab 50,304, "
+                   "bf16 compute, fp32 states", {}),
 }
+# on the slab layout, full attention decodes without a kernel
+SLAB_SERVED = {"qwen3-0.6b": {"flash_attention": (28, 1, 0)},
+               "xlstm-125m": {}}
 # what each modal arch's requests carry at full width (phases 4f, 4g)
 FRONTEND = {"seamless-m4t-medium": dict(enc_len=1024),
             "pixtral-12b": dict(stub_len=1024)}
 
 
-def phase_serve_full(torch, ops, serve, get_arch, smi: str, arch: str) -> dict:
-    """Serve the full ``arch``; every kernel of its path must have been
-    launched, exactly layers x (per prefill call, per decode step) times,
-    and every other kernel never.  The model is freed when ``serve``
-    returns (the session holds no reference cycle)."""
+def phase_serve_full(torch, ops, serve, get_arch, smi: str, arch: str,
+                     kv_layout: str = "paged"):
+    """Serve the full ``arch`` on ``kv_layout``; every kernel of its path
+    must have been launched, exactly layers x (per prefill call, per
+    decode step) times, and every other kernel never.  The model is freed
+    when ``serve`` returns (the session holds no reference cycle).
+    Returns (the launch counts, the (8, 32) tokens)."""
     what, per = SERVED[arch]
+    if kv_layout == "slab":
+        per = SLAB_SERVED[arch]
     vocab = get_arch(arch).vocab
     gc.collect()
     torch.cuda.empty_cache()
@@ -1015,7 +1050,7 @@ def phase_serve_full(torch, ops, serve, get_arch, smi: str, arch: str) -> dict:
     out = serve(arch, reduced_cfg=False, n_requests=8, prompt_len=512,
                 gen_len=32, max_slots=8, page_size=16,
                 cache_dtype="bfloat16", device="cuda", seed=0, verbose=True,
-                **FRONTEND.get(arch, {}))
+                kv_layout=kv_layout, **FRONTEND.get(arch, {}))
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -1029,10 +1064,12 @@ def phase_serve_full(torch, ops, serve, get_arch, smi: str, arch: str) -> dict:
     want = {name: 0 for name in counts}
     want.update({name: n * (a * pf + b * ds)
                  for name, (n, a, b) in per.items()})
-    if counts != want or min(want[name] for name in per) <= 0:
-        raise AssertionError(f"{arch}: launch counts {counts} != {want} "
-                             f"(prefill calls {pf}, decode steps {ds})")
-    log(f"serve {arch} full ({what}): {out['requests']} requests "
+    if counts != want or any(want[name] <= 0 for name in per):
+        raise AssertionError(f"{arch} {kv_layout}: launch counts {counts} != "
+                             f"{want} (prefill calls {pf}, decode steps "
+                             f"{ds})")
+    log(f"serve {arch} full ({what}) kv_layout={kv_layout}: "
+        f"{out['requests']} requests "
         f"x 512 prompt x 32 new tokens; prefill_calls={pf} decode_steps={ds} "
         f"launches={counts}; init_seconds={out['init_seconds']} "
         f"throughput_tok_s={out['throughput_tok_s']} "
@@ -1041,6 +1078,70 @@ def phase_serve_full(torch, ops, serve, get_arch, smi: str, arch: str) -> dict:
         f"prefill_seconds={out['prefill_seconds']} "
         f"decode_seconds={out['decode_seconds']} "
         f"peak_mem_bytes={peak} on {smi}")
+    return counts, toks
+
+
+def log_profile(arch: str, prof: dict, smi: str) -> None:
+    """One line of ``launch/profile.py``'s ``profile_serve`` result."""
+    log(f"profile {arch} (launch/profile.py profile_serve): prefill wall_s="
+        f"{prof['prefill_wall_s']} device_s={prof['prefill_device_s']} busy="
+        f"{prof['prefill_busy_share']:.4f} events="
+        f"{prof['prefill_device_events']} device_us_by_group="
+        f"{json.dumps(prof['prefill_device_us_by_group'])}; decode step "
+        f"wall_s={prof['decode_step_wall_s']} device_s="
+        f"{prof['decode_step_device_s']} idle="
+        f"{prof['decode_idle_share']:.4f} events_per_step="
+        f"{prof['decode_launches_per_step']} device_us_by_group="
+        f"{json.dumps(prof['decode_step_device_us_by_group'])} "
+        f"top_kernels_us={json.dumps(prof['decode_step_top_kernels_us'])} "
+        f"on {smi}")
+
+
+def phase_xlstm_serve(torch, ops, serve, get_arch, smi: str) -> None:
+    """Phase 4i: full xlstm-125m on the paged and the slab layouts, no
+    kernel launched, equal tokens; then one profiled prefill and decode
+    steps (paged)."""
+    from repro_torch.launch.profile import profile_serve
+
+    _, paged = phase_serve_full(torch, ops, serve, get_arch, smi,
+                                "xlstm-125m", "paged")
+    _, slab = phase_serve_full(torch, ops, serve, get_arch, smi,
+                               "xlstm-125m", "slab")
+    if not torch.equal(paged, slab):
+        raise AssertionError(f"xlstm-125m: paged and slab tokens differ:\n"
+                             f"{paged.tolist()}\n{slab.tolist()}")
+    log(f"serve xlstm-125m full: paged tokens == slab tokens "
+        f"({paged.numel()} tokens)")
+    gc.collect()
+    ops.reset_launch_counts()
+    prof = profile_serve("xlstm-125m")
+    if any(ops.launch_counts().values()) or prof["decode_step_device_s"] <= 0:
+        raise AssertionError(f"xlstm-125m profile: launches "
+                             f"{ops.launch_counts()}, device time "
+                             f"{prof['decode_step_device_s']}")
+    log_profile("xlstm-125m", prof, smi)
+
+
+def phase_slab_qwen3(torch, ops, serve, get_arch, smi: str,
+                     paged_tokens) -> dict:
+    """Phase 4j: full qwen3-0.6b at phase 4's shape on the slab layout
+    (flash 28 x prefill calls, paged decode 0); the share of its greedy
+    tokens equal to phase 4's paged run; then the slab decode step under
+    ``profile_serve``.  Returns the launch counts."""
+    from repro_torch.launch.profile import profile_serve
+
+    counts, toks = phase_serve_full(torch, ops, serve, get_arch, smi,
+                                    "qwen3-0.6b", "slab")
+    same = float((toks == paged_tokens).float().mean())
+    first = [int(row.ne(ref).nonzero()[0]) if bool(row.ne(ref).any())
+             else len(row) for row, ref in zip(toks, paged_tokens)]
+    log(f"serve qwen3-0.6b full slab vs phase 4's paged run: share of equal "
+        f"greedy tokens {same} (first differing position per request "
+        f"{first}; slab rounds the attention weights to bf16, the paged "
+        f"kernel keeps them fp32)")
+    gc.collect()
+    prof = profile_serve("qwen3-0.6b", kv_layout="slab")
+    log_profile("qwen3-0.6b slab", prof, smi)
     return counts
 
 
@@ -1051,21 +1152,23 @@ REDUCED_FRONTEND = {"seamless-m4t-medium": dict(enc_len=300),
                     "pixtral-12b": dict(stub_len=16)}
 
 
-def phase_cpu_parity(torch, serve, arch: str) -> None:
+def phase_cpu_parity(torch, serve, arch: str,
+                     kv_layout: str = "paged") -> None:
     """Reduced ``arch`` in fp32 from one seed, 4 requests in 4 slots (all
-    live at every step): the kernels on ``cuda`` give the plain path's
-    tokens on ``cpu``."""
+    live at every step), on ``kv_layout``: the kernels on ``cuda`` give
+    the plain path's tokens on ``cpu``."""
     front = REDUCED_FRONTEND.get(arch, {})
     kw = dict(reduced_cfg=True, n_requests=4, prompt_len=300, gen_len=16,
               max_slots=4, page_size=16, cache_dtype="float32", replan="off",
-              seed=3, verbose=False, **front)
+              seed=3, verbose=False, kv_layout=kv_layout, **front)
     gpu = serve(arch, device="cuda", **kw)["tokens"]
     cpu = serve(arch, device="cpu", **kw)["tokens"]
     if not torch.equal(gpu.cpu(), cpu.cpu()):
         raise AssertionError(f"reduced {arch} fp32 tokens differ cuda vs cpu:"
                              f"\n{gpu.tolist()}\n{cpu.tolist()}")
-    log(f"reduced {arch} fp32 (4 requests, prompt 300{front or ''}, 16 new): "
-        f"cuda tokens == cpu tokens ({cpu.numel()} tokens)")
+    log(f"reduced {arch} fp32 {kv_layout} (4 requests, prompt 300"
+        f"{front or ''}, 16 new): cuda tokens == cpu tokens ({cpu.numel()} "
+        f"tokens)")
 
 
 def check_launches(what: str, counts: dict, per: dict, calls: dict) -> None:
@@ -1595,6 +1698,115 @@ def phase_moe_hybrid_train_parity(torch, ops, train) -> None:
             f"final params max diff {sp} (tol {TRAIN_PARITY_TOL})")
 
 
+# phase 6h: the tied embedding's gradient of the reduced xlstm is
+# ill-conditioned (the mLSTM normaliser max(|l|, e^-m) divides by a signed
+# sum): on the CPU a 1e-7 relative change of the params moves it by 4.9e-4
+# (largest entry 1.5), so each leaf is held within TRAIN_PARITY_TOL plus
+# XLSTM_GRAD_RTOL of its largest entry
+XLSTM_GRAD_RTOL = 1e-3
+XLSTM_TRAIN = dict(steps=3, batch=4, seq=1024, lr=1e-3, seed=0)
+
+
+def phase_xlstm_train(torch, ops, train, smi: str) -> None:
+    """Phase 6h: reduced xlstm in fp32, one loss and every gradient at S
+    320 and three ``train`` steps at lr 1e-5 on ``cuda`` against ``cpu``;
+    then full xlstm-125m for :data:`XLSTM_TRAIN` steps, the last on the
+    first step's batch (its loss below the first), no kernel launched."""
+    from functools import partial
+
+    from repro_torch.config import ShardingConfig, default_sharding, \
+        get_arch, reduced
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.train import make_train_state, train_step
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import dtype_of
+    from repro_torch.optim import AdamW, warmup_cosine
+
+    arch = "xlstm-125m"
+    cfg = reduced(get_arch(arch))
+    toks = np.random.default_rng(29).integers(0, cfg.vocab, (2, 321))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        m = build_model(cfg, ShardingConfig(use_kernels=True), device=dev,
+                        train=True).init(5)
+        ops.reset_launch_counts()
+        loss, _ = m.loss({"tokens": torch.as_tensor(toks[:, :-1], device=dev),
+                          "labels": torch.as_tensor(toks[:, 1:], device=dev)})
+        named = list(m.impl.named_parameters())
+        grads = torch.autograd.grad(loss, [p for _, p in named])
+        out[dev] = (float(loss.detach()),
+                    {n: g.cpu() for (n, _), g in zip(named, grads)},
+                    ops.launch_counts())
+    dl = abs(out["cuda"][0] - out["cpu"][0])
+    excess = {n: float((g - out["cpu"][1][n]).abs().max())
+              - XLSTM_GRAD_RTOL * float(out["cpu"][1][n].abs().max())
+              for n, g in out["cuda"][1].items()}
+    dg = max(float((g - out["cpu"][1][n]).abs().max())
+             for n, g in out["cuda"][1].items())
+    if not (dl <= TRAIN_PARITY_TOL and max(excess.values()) <= TRAIN_PARITY_TOL
+            and not any(out["cuda"][2].values())):
+        raise AssertionError(f"reduced {arch} train cuda vs cpu: loss diff "
+                             f"{dl}, grad excess {max(excess.values())}, "
+                             f"launches {out['cuda'][2]}")
+    kw = dict(reduced_cfg=True, steps=3, batch=2, seq=320,
+              lr=MOE_HYBRID_PARITY_LR, seed=5, verbose=False)
+    gpu = train(arch, device="cuda", **kw)
+    cpu = train(arch, device="cpu", **kw)
+    sl = max(abs(a - b) for a, b in zip(gpu["history"], cpu["history"]))
+    sp = max(float((gpu["params"][k].detach().cpu() - v.detach()).abs().max())
+             for k, v in cpu["params"].items())
+    if not (sl <= TRAIN_PARITY_TOL and sp <= TRAIN_PARITY_TOL):
+        raise AssertionError(f"reduced {arch} train steps cuda vs cpu: loss "
+                             f"diff {sl}, param diff {sp}")
+    log(f"reduced {arch} fp32 loss + grads at S 320 (no kernel launched): "
+        f"loss diff {dl}, {len(excess)} gradient leaves max diff {dg} (tol "
+        f"{TRAIN_PARITY_TOL} + {XLSTM_GRAD_RTOL} x the leaf's largest "
+        f"entry); 3 train steps at lr {MOE_HYBRID_PARITY_LR}: cuda losses "
+        f"{gpu['history']} vs cpu {cpu['history']} (max diff {sl}), final "
+        f"params max diff {sp} (tol {TRAIN_PARITY_TOL})")
+
+    r = XLSTM_TRAIN
+    B, S, steps = r["batch"], r["seq"], r["steps"]
+    cfg = get_arch(arch)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=S, global_batch=B,
+                                  seed=r["seed"]))
+    batches = [{k: v.to("cuda") for k, v in data.batch(i).items()}
+               for i in list(range(steps - 1)) + [0]]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, default_sharding(cfg, use_kernels=True),
+                        device="cuda", train=True)
+    # no warm-up step at lr 0: both steps before the replay update
+    opt = AdamW(lr=partial(warmup_cosine, peak_lr=r["lr"], warmup_steps=0,
+                           total_steps=steps),
+                moment_dtype=dtype_of(cfg.opt_dtype))
+    params, state = make_train_state(model, opt, r["seed"])
+    n = sum(p.numel() for p in params.values())
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    hist, secs = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        state, loss = train_step(model, opt, params, state, b)
+        hist.append(float(loss))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    del model, opt, params, state
+    if any(counts.values()) or not all(math.isfinite(x) for x in hist) \
+            or not hist[-1] < hist[0]:
+        raise AssertionError(f"train {arch} full: losses {hist} not finite "
+                             f"and falling, or launches {counts}")
+    log(f"train {arch} full ({n} params, 12L d768, bf16 compute, fp32 "
+        f"masters and moments, block remat): batch {B} x seq {S}, {steps} "
+        f"steps (the last on the first batch); losses={hist} "
+        f"step_ms={[t * 1e3 for t in secs]} "
+        f"tok_s={[B * S / t for t in secs]} launches={counts} "
+        f"peak_mem_bytes={peak} on {smi}")
+
+
 def _engine_delta(torch, session) -> tuple:
     """Engine loss and grads against autograd of ``reference_loss`` on the
     session's current params and batches."""
@@ -1720,26 +1932,35 @@ def main(argv=None) -> int:
         phase_spec(torch, smi)
         phase_planner(torch, ops, smi)
 
-        phase_serve_full(torch, ops, serve, get_arch, smi, "qwen3-0.6b")
-        moe = phase_serve_full(torch, ops, serve, get_arch, smi,
-                               "qwen2-moe-a2.7b")
-        hybrid = phase_serve_full(torch, ops, serve, get_arch, smi,
-                                  "recurrentgemma-9b")
+        _, qwen3_tokens = phase_serve_full(torch, ops, serve, get_arch, smi,
+                                           "qwen3-0.6b")
+        moe, _ = phase_serve_full(torch, ops, serve, get_arch, smi,
+                                  "qwen2-moe-a2.7b")
+        hybrid, _ = phase_serve_full(torch, ops, serve, get_arch, smi,
+                                     "recurrentgemma-9b")
         counts.update({name: moe[name] for name in
                        ("paged_attention", "flash_attention",
                         "grouped_matmul")})
         counts["rglru_scan"] = hybrid["rglru_scan"]
         phase_chunked_full(torch, ops, serve, get_arch, smi)
         phase_moe_chunked(torch, ops, serve, get_arch, smi)
-        encdec = phase_serve_full(torch, ops, serve, get_arch, smi,
-                                  "seamless-m4t-medium")
+        encdec, _ = phase_serve_full(torch, ops, serve, get_arch, smi,
+                                     "seamless-m4t-medium")
         phase_serve_full(torch, ops, serve, get_arch, smi, "pixtral-12b")
         phase_serve_full(torch, ops, serve, get_arch, smi, "glm4-9b")
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_xlstm_serve(torch, ops, serve, get_arch, smi)
+        slab = phase_slab_qwen3(torch, ops, serve, get_arch, smi,
+                                qwen3_tokens)
         gc.collect()
         torch.cuda.empty_cache()
         for arch in ("qwen3-0.6b", "qwen2-moe-a2.7b", "recurrentgemma-9b",
                      "seamless-m4t-medium", "pixtral-12b"):
             phase_cpu_parity(torch, serve, arch)
+        phase_cpu_parity(torch, serve, "qwen3-0.6b", "slab")
+        phase_cpu_parity(torch, serve, "xlstm-125m", "paged")
+        phase_cpu_parity(torch, serve, "xlstm-125m", "slab")
         phase_chunk_parity(torch, "qwen3-0.6b")
         phase_chunk_parity(torch, "qwen2-moe-a2.7b")
 
@@ -1754,6 +1975,7 @@ def main(argv=None) -> int:
         moe_train = phase_train_cut(torch, ops, smi, "qwen2-moe-a2.7b")
         hybrid_train = phase_train_cut(torch, ops, smi, "recurrentgemma-9b")
         phase_moe_hybrid_train_parity(torch, ops, train)
+        phase_xlstm_train(torch, ops, train, smi)
 
     # one row per kernel: attention and the grouped matmul at qwen2-moe's
     # bf16 shapes (the grouped matmul at its decode shape, where most of
@@ -1788,6 +2010,10 @@ def main(argv=None) -> int:
         row("flash_attention",
             checks[("flash_attention", "bfloat16", "cross")],
             encdec["flash_attention"], path="encdec")
+        # flash at qwen3's prefill shape with phase 4j's slab launches
+        row("flash_attention",
+            checks[("flash_attention", "bfloat16", "qwen3")],
+            slab["flash_attention"], path="slab")
         # the grouped matmul's dx and the scan's reverse scan at phases 6e
         # and 6f's shapes, with those phases' launches (forward, recompute
         # and backward together)

@@ -8,12 +8,15 @@
         --arch seamless-m4t-medium --enc-len 1024         # enc-dec
     PYTHONPATH=src python -m repro_torch.launch.profile --arch pixtral-12b \\
         --stub-len 1024                                   # VLM, one image
+    PYTHONPATH=src python -m repro_torch.launch.profile --arch xlstm-125m
+    PYTHONPATH=src python -m repro_torch.launch.profile --slab  # slab KV
     PYTHONPATH=src python -m repro_torch.launch.profile --train  # one train step
 
 Serving: serves the ``chip_smoke.py`` cell (8 requests × 512-token prompts
 × 32 new tokens, bf16, page size 16; an enc-dec arch's requests carry
 ``enc_len`` frames and a VLM's ``stub_len`` patch embeddings, as
-:func:`repro_torch.launch.serve.serve` builds them) once to warm every
+:func:`repro_torch.launch.serve.serve` builds them; ``kv_layout`` paged or
+slab) once to warm every
 kernel and library handle, then on a fresh session over the same model measures:
 
 * the stacked prefill (one ``admit_many``) under the profiler: wall time,
@@ -116,13 +119,14 @@ def profile_serve(arch: str = "qwen3-0.6b", *, reduced_cfg: bool = False,
                   n_requests: int = 8, prompt_len: int = 512,
                   gen_len: int = 32, seed: int = 0, warm_steps: int = 3,
                   steps: int = 12, enc_len: int = 0,
-                  stub_len: int = 0) -> dict:
+                  stub_len: int = 0, kv_layout: str = "paged") -> dict:
     if 1 + warm_steps + 2 * steps > gen_len:
         raise ValueError("gen_len too short for the warm + measured steps")
     enc, stub = frontend_lens(get_arch(arch), prompt_len, enc_len, stub_len)
     cfg = ServingConfig(arch=arch, reduced_cfg=reduced_cfg, seed=seed,
                         device="cuda", max_slots=n_requests,
-                        cache_len=prompt_len + stub + gen_len, enc_len=enc)
+                        cache_len=prompt_len + stub + gen_len, enc_len=enc,
+                        kv_layout=kv_layout)
     warm = ServingSession(cfg)
     reqs = _build_requests(warm.model.cfg, n_requests=n_requests,
                            prompt_len=prompt_len, gen_len=gen_len, seed=seed,
@@ -325,6 +329,8 @@ def main() -> int:
                     help="enc-dec archs: frames per request")
     ap.add_argument("--stub-len", type=int, default=0,
                     help="VLM archs: patch embeddings per request")
+    ap.add_argument("--slab", action="store_true",
+                    help="per-slot KV slabs instead of the page pool")
     args = ap.parse_args()
     if args.train:
         out = profile_train(args.arch, seed=args.seed)
@@ -339,7 +345,8 @@ def main() -> int:
         print(json.dumps(out))
         return 0
     out = profile_serve(args.arch, reduced_cfg=args.reduced, seed=args.seed,
-                        enc_len=args.enc_len, stub_len=args.stub_len)
+                        enc_len=args.enc_len, stub_len=args.stub_len,
+                        kv_layout="slab" if args.slab else "paged")
     if out["prefill_device_s"] <= 0 or out["decode_step_device_s"] <= 0:
         print("[profile] FAILED: the profiler recorded no device time",
               file=sys.stderr)

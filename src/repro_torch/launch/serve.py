@@ -11,6 +11,10 @@
         --arch seamless-m4t-medium --prompt-len 512 --enc-len 1024  # enc-dec
     PYTHONPATH=src python -m repro_torch.launch.serve --arch pixtral-12b \\
         --prompt-len 512 --stub-len 1024                      # VLM, one image
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m \\
+        --prompt-len 512 --gen-len 32                         # ssm
+    PYTHONPATH=src python -m repro_torch.launch.serve --slab \\
+        --prompt-len 512 --gen-len 32                         # slab KV
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
         --prefix-smoke --shared-prefix 16 --prefill-chunk 8 --page-size 8
@@ -22,8 +26,9 @@ the same generator after the prompts); the weights are random from
 d) and VLM requests ``embeds`` of (``--stub-len``, d), random normals
 from the same generator; by default ``enc_len = max(prompt_len // 4, 1)``
 and the stub is ``min(frontend_stub_len, 8)`` positions, which
-``cache_len`` counts, as the JAX CLI has them.  KV memory is the paged layout, admission prefills are stacked
-per prompt length (``--no-batched-prefill`` restores batch-1 joins),
+``cache_len`` counts, as the JAX CLI has them.  KV memory is the paged
+layout (``--slab`` gives each slot its own ``cache_len`` slab instead),
+admission prefills are stacked per prompt length (``--no-batched-prefill`` restores batch-1 joins),
 ``--prefill-chunk N`` streams long prompts into the page pool in N-token
 chunks interleaved with decode steps (``--prefill-duty`` sets the
 chunk:decode duty cycle), ``--prefix-sharing`` maps hot prompt prefixes
@@ -116,6 +121,7 @@ def serve(
     prefix_sharing: bool = False,
     kv_admission: str = "reserve",
     shared_prefix: int = 0,
+    kv_layout: str = "paged",
     cache_dtype: str = "bfloat16",
     device: str = "cuda",
     enc_len: int = 0,
@@ -145,6 +151,7 @@ def serve(
             batched_prefill=batched_prefill,
             prefix_sharing=prefix_sharing,
             kv_admission=kv_admission,
+            kv_layout=kv_layout,
             cache_dtype=cache_dtype,
         )
     )
@@ -177,11 +184,13 @@ def serve(
               f"({b.chunk_steps} chunk steps, {b.interleaved_chunks} "
               f"interleaved with decode) in {metrics['prefill_seconds']:.4f}"
               f" s; decode {metrics['decode_seconds']:.4f} s")
-        print(
-            f"[serve] kv pages: high-water {metrics['kv_page_hw_tokens']} "
-            f"tokens over a {metrics['kv_slab_tokens']}-token slab footprint "
-            f"({100 * metrics['kv_mem_saving']:.0f}% saved)"
-        )
+        if metrics.get("kv_page_hw") is not None:  # a page pool ran
+            print(
+                f"[serve] kv pages: high-water "
+                f"{metrics['kv_page_hw_tokens']} tokens over a "
+                f"{metrics['kv_slab_tokens']}-token slab footprint "
+                f"({100 * metrics['kv_mem_saving']:.0f}% saved)"
+            )
         if metrics.get("prefix_sharing"):
             print(
                 f"[serve] prefix sharing: prefix_hit_rate="
@@ -192,7 +201,7 @@ def serve(
                 f"{metrics['kv_shared_maps']} shared maps, "
                 f"{metrics['kv_cow_forks']} cow forks"
             )
-        if metrics["kv_admission"] == "grow":
+        if metrics.get("kv_admission") == "grow":
             print(
                 f"[serve] grow admission: {metrics['kv_grow_allocs']} "
                 f"pages grown, {metrics['kv_grow_defers']} paused steps, "
@@ -281,6 +290,8 @@ def main() -> None:
                     help="serve a shared-prefix trace with and without "
                          "sharing; fail unless hits > 0, the KV high-water "
                          "shrinks, and tokens match exactly")
+    ap.add_argument("--slab", action="store_true",
+                    help="per-slot KV slabs instead of the page pool")
     ap.add_argument("--cache-dtype", choices=("bfloat16", "float32"),
                     default="bfloat16")
     ap.add_argument("--device", default="cuda",
@@ -313,6 +324,7 @@ def main() -> None:
         prefix_sharing=args.prefix_sharing,
         kv_admission=args.kv_admission,
         shared_prefix=args.shared_prefix,
+        kv_layout="slab" if args.slab else "paged",
         cache_dtype=args.cache_dtype,
         device=args.device,
         enc_len=args.enc_len,

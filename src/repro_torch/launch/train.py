@@ -1,7 +1,7 @@
 """Training entry point — a thin CLI shell over the model, optimizer and data
 stream (port of ``repro/launch/train.py``).
 
-Trains a registered arch — dense, MoE, hybrid, VLM or enc-dec (full or
+Trains a registered arch — dense, MoE, ssm, hybrid, VLM or enc-dec (full or
 ``--reduced`` smoke size) — on the deterministic synthetic LM stream with
 AdamW and straggler detection, on the GPU unless ``--device cpu`` is
 given (``cuda`` without a GPU raises).  The model is built in the
@@ -11,7 +11,8 @@ too): on the GPU the attention of every layer with S > 256 is the flash
 kernel, forward and remat recompute alike, and its gradient recomputes
 the plain version; an MoE layer's expert products are the grouped-matmul
 kernel (forward, recompute and dx) and an rglru layer's recurrence the
-scan kernel (forward, recompute and the reverse scan of its gradient).
+scan kernel (forward, recompute and the reverse scan of its gradient);
+an xLSTM layer's cells are plain PyTorch under autograd.
 The loss adds the MoE router's aux loss, weighted, as JAX's does.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\

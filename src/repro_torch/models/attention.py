@@ -9,16 +9,16 @@ are on, ``window == 0`` and ``S > 256``; otherwise naive when ``S <=
 256``, ``local_attention`` when ``window > 0`` and ``chunked_attention``
 else — ``impl="naive"`` always takes the naive path — and ``kv_override``
 for cross-attention), ``paged_gather``, ``page_slots``/``paged_scatter``,
-three branches of ``attn_decode`` — the paged one (the paged-decode kernel
-when kernels are on, the reference gather otherwise), the slab one of a
-local layer, a circular buffer of the last ``W`` tokens per row, and the
-cross one over a fixed slot-major encoder memory — and
+four branches of ``attn_decode`` — the paged one (the paged-decode kernel
+when kernels are on, the reference gather otherwise), the full-attention
+slab one (plain arithmetic over the per-row cache, as in JAX: no kernel),
+the slab one of a local layer, a circular buffer of the last ``W`` tokens
+per row, and the cross one over a fixed slot-major encoder memory — and
 ``attn_prefill_chunk``, one chunk of a chunked prefill against the page
-pool (plain PyTorch, as the JAX one is plain XLA).  Full-attention slab
-decode comes with ROADMAP queue 1, item 4b.  The JAX code is functional
-and returns new caches; here ``paged_scatter``, the chunk's scatter and
-the circular write update the caches in place (``index_put_``), where the
-JAX decode step donates them.
+pool (plain PyTorch, as the JAX one is plain XLA).  The JAX code is
+functional and returns new caches; here ``paged_scatter``, the chunk's
+scatter and the slab writes update the caches in place (``index_put_``),
+where the JAX decode step donates them.
 """
 
 from __future__ import annotations
@@ -33,8 +33,6 @@ from .layers import apply_rope, dense_init, rms_normalize
 
 NEG_INF = -1e30
 IMPLS = ("naive", "chunked", "kernels")
-_SLAB = ("ROADMAP queue 1, item 4b (the xLSTM cells, full-attention slab "
-         "decode and kv_layout='slab')")
 
 
 def attn_init(gen: torch.Generator, d: int, n_heads: int, n_kv: int,
@@ -294,6 +292,15 @@ def attn_decode(
     ``impl="kernels"``, else by gathering the row's pages back into the slab
     layout.
 
+    Slab, full attention (no ``page_table``, ``window == 0``): cache_k/v
+    (B, K, S, hd) hold each row's positions ``0..S-1``.  The new token is
+    written at the row's own position, clamped to S-1 as JAX's
+    ``dynamic_update_slice`` clamps it (a freed slot's stale row rides
+    along at ``pos == S``: the clamp keeps the write inside the row, so
+    the cache equals JAX's leaf for leaf), and scored over the whole
+    cache with keys ``<= pos`` valid, ``p`` rounded to the cache's dtype.
+    No kernel runs on this branch, as in JAX.
+
     Slab (a local layer, ``window > 0``): cache_k/v (B, K, W, hd) are a
     circular buffer per row holding its last ``min(pos+1, window)`` tokens.
     The new token is written at ``pos % W``, W the buffer's own length.  For
@@ -311,10 +318,6 @@ def attn_decode(
     paged = page_table is not None
     if paged and (cross or window > 0):
         raise ValueError("paged KV applies to full causal self-attention only")
-    if not (paged or cross or window > 0):
-        raise NotImplementedError(
-            f"full-attention slab decode is not ported yet: {_SLAB}; pass "
-            f"page_table")
     if impl not in IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}; one of {IMPLS}")
     B = x.shape[0]
@@ -358,13 +361,17 @@ def attn_decode(
     else:
         W = cache_k.shape[2]
         rows = torch.arange(B, device=x.device)
-        slot = pos_b.long().remainder(W)
+        kpos = torch.arange(W, device=x.device)[None, :]
+        if window > 0:
+            slot = pos_b.long().remainder(W)
+            # circular buffer: slots hold the last min(pos+1, window) tokens
+            valid = kpos < torch.clamp(pos_b + 1, max=window)[:, None]
+        else:
+            slot = pos_b.long().clamp(0, W - 1)
+            valid = kpos <= pos_b[:, None]
         cache_k[rows, :, slot] = k[:, 0].to(cache_k.dtype)
         cache_v[rows, :, slot] = v[:, 0].to(cache_v.dtype)
         view_k, view_v = cache_k, cache_v
-        # circular buffer: slots hold the last min(pos+1, window) tokens
-        valid = (torch.arange(W, device=x.device)[None, :]
-                 < torch.clamp(pos_b + 1, max=window)[:, None])
     y = _decode_attend(params, q, view_k, view_v, valid, n_heads, head_dim)
     return y, cache_k, cache_v
 

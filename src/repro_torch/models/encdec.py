@@ -25,9 +25,10 @@ its query length exceeds 256, and the paged-decode kernel serves decoder
 self-attention in decode.  Kernels off: ``chunked_attention`` and the
 reference gather, which is what the JAX model runs (it passes no ``impl``,
 so it never reaches a Pallas kernel).  Cross-attention decode is plain
-arithmetic either way, as in JAX.  Decoder self-attention decodes through
-the paged pools only (full-attention slab decode is ROADMAP queue 1,
-item 4b).
+arithmetic either way, as in JAX.  Decoder self-attention decodes
+through the paged pools, or, given no page table, through its slab
+(``self_k``/``self_v`` (B, K, cache_len, hd) beside the slot-major cross
+memory; plain arithmetic, as in JAX).
 """
 
 from __future__ import annotations
@@ -230,7 +231,8 @@ class EncDecTransformer(SeededParams):
 
     def decode_step(self, token, cache, pos, *, pages=None):
         """token (B,) ids; pos scalar or (B,) positions; ``pages`` the page
-        table of the self-attention pools.  Pools are updated in place;
+        table of the self-attention pools (None: the slab cache of
+        :meth:`init_cache`).  Pools and slabs are updated in place;
         returns (logits (B,V) fp32, cache)."""
         x = embed_lookup(self.tok_embed, token).to(self._cdt)[:, None, :]
         pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)

@@ -7,8 +7,8 @@ encoder-decoder (``[audio]``) archs, precomputed patch ``embeds``
 prepended to the tokens for the ``[vlm]`` archs — and forwards to the
 model it holds as ``impl``: an :class:`~repro_torch.models.encdec.
 EncDecTransformer` when ``cfg.is_encdec``, else a :class:`Transformer`.
-The xLSTM mixers come with their slice, and :func:`build_model` refuses
-them.
+Every family of the JAX package is ported; :func:`build_model` refuses a
+mixing kind that is not.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ from ..config import ArchConfig, ShardingConfig, resolve_device
 from .encdec import EncDecTransformer
 from .transformer import KINDS, Transformer, resolve_pattern
 
-FAMILIES = ("dense", "moe", "hybrid", "vlm", "audio")  # the ported ones
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")  # ported
 
 
 class Model(nn.Module):
@@ -99,15 +99,14 @@ def build_model(cfg: ArchConfig, shcfg: Optional[ShardingConfig] = None, *,
                 device: str = "cuda", train: bool = False) -> Model:
     """A model with uninitialized weights on ``device`` (fill it with
     :meth:`Model.init` or :meth:`Model.load_state`).  The dense, MoE,
-    hybrid and VLM decoders (mixing kinds ``attn``, ``local_attn`` and
-    ``rglru``) and the encoder-decoder are ported.  ``train=True`` gives
-    the training layout (fp32 masters with gradients, a cast per layer)."""
+    ssm, hybrid and VLM decoders (mixing kinds ``attn``, ``local_attn``,
+    ``rglru``, ``mlstm`` and ``slstm``) and the encoder-decoder are ported.
+    ``train=True`` gives the training layout (fp32 masters with gradients,
+    a cast per layer)."""
     pattern = resolve_pattern(cfg)
     if cfg.family not in FAMILIES or not set(pattern) <= set(KINDS):
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}, pattern {pattern}): only the "
-            f"{FAMILIES} families over the mixing kinds {KINDS} are ported; "
-            f"the rest waits for ROADMAP queue 1, item 4b (the xLSTM cells, "
-            f"full-attention slab decode and kv_layout='slab')")
+            f"{FAMILIES} families over the mixing kinds {KINDS} are ported")
     return Model(cfg, shcfg or ShardingConfig(), resolve_device(device),
                  train=train)

@@ -1,15 +1,18 @@
 """Decoder-only transformer for the serving slices (port of
 ``repro/models/transformer.py``).
 
-A layer is a sequence mixer followed by an FFN.  The mixer's kind comes
-from the block pattern — ``attn`` (full causal attention over the paged
-KV pools), ``local_attn`` (sliding-window attention with a circular
-per-slot buffer) or ``rglru`` (Griffin's recurrent block,
+A layer is a sequence mixer followed by an FFN (none in xLSTM).  The
+mixer's kind comes from the block pattern — ``attn`` (full causal attention over the paged
+KV pools, or a per-slot slab), ``local_attn`` (sliding-window attention
+with a circular per-slot buffer), ``rglru`` (Griffin's recurrent block) or
+``mlstm``/``slstm`` (xLSTM's cells; both in
 :mod:`repro_torch.models.recurrent`) — so dense decoders such as qwen3,
 MoE decoders such as qwen2-moe (whose FFN is
-:func:`repro_torch.models.moe.moe_apply`), the hybrid recurrentgemma and
-the VLM backbone of pixtral (its stub patch embeddings prepended to the
-token stream, as JAX's ``_embed`` does) run on one stack.  With kernels
+:func:`repro_torch.models.moe.moe_apply`), the hybrid recurrentgemma, the
+ssm xlstm (no FFN: ``d_ff`` 0, so a layer is norm + mixer, as JAX's
+``_has_ffn`` has it) and the VLM backbone of pixtral (its stub patch
+embeddings prepended to the token stream, as JAX's ``_embed`` does) run on
+one stack.  With kernels
 off attention takes the JAX decoder's impl, ``"chunked"``.  The JAX package runs ``n_layers % len(pattern)``
 remainder layers first and then scans over layer groups stacked on a
 leading axis; here each layer is its own :class:`Block` in a
@@ -72,9 +75,11 @@ from .layers import dtype_of, embed_lookup, mlp_apply, rmsnorm
 from .moe import moe_apply
 from .paging import paginate_cache
 from .recurrent import (RGLRU_C, griffin_block_apply, griffin_block_decode,
-                        griffin_state_init)
+                        griffin_state_init, mlstm_apply, mlstm_decode,
+                        mlstm_state_init, slstm_apply, slstm_decode,
+                        slstm_state_init)
 
-KINDS = ("attn", "local_attn", "rglru")  # the mixing kinds ported
+KINDS = ("attn", "local_attn", "rglru", "mlstm", "slstm")  # mixing kinds
 #: leaves held in fp32 with the compute dtype's values (see the module doc)
 WIDENED = ("w_r", "w_i")
 #: leaves kept fp32 whatever the compute policy (JAX ``layers._KEEP_F32``)
@@ -138,6 +143,11 @@ class Leaves(nn.Module):
         return hasattr(self, name)
 
 
+def has_ffn(cfg: ArchConfig) -> bool:
+    """Whether a layer has an FFN (JAX ``_has_ffn``): not xLSTM's."""
+    return cfg.d_ff > 0 or cfg.is_moe
+
+
 def _mlp_leaves(d: int, d_ff: int, dtype, device) -> Leaves:
     return Leaves({
         "w_gate": _param((d, d_ff), dtype, device),
@@ -167,10 +177,14 @@ def _ffn_leaves(cfg: ArchConfig, dtype, device) -> Leaves:
 
 
 def _mix_leaves(cfg: ArchConfig, kind: str, dtype, device):
-    """``_mix_init``'s leaves: attention projections, or the Griffin
-    block's (``griffin_block_init``: conv width 4, ``lam`` and the widened
-    gate matrices in fp32)."""
+    """``_mix_init``'s leaves: attention projections, the Griffin block's
+    (``griffin_block_init``: conv width 4, ``lam`` and the widened gate
+    matrices in fp32), or an xLSTM cell's (``mlstm_init``: q/k/v, the input
+    and forget gates' (d, 2H), out and output gate; ``slstm_init``: the
+    (z, i, f, o) input projection, the block-diagonal recurrent weights
+    (4, H, hd, hd) and out)."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
+    dh = cfg.n_heads * hd
     if kind in ("attn", "local_attn"):
         H, K = cfg.n_heads, cfg.n_kv_heads
         return nn.ParameterDict({
@@ -190,6 +204,21 @@ def _mix_leaves(cfg: ArchConfig, kind: str, dtype, device):
                              "w_r": _param((r, r), f32, device),
                              "w_i": _param((r, r), f32, device)}),
             "w_out": _param((r, d), dtype, device),
+        })
+    if kind == "mlstm":
+        return nn.ParameterDict({
+            "wq": _param((d, dh), dtype, device),
+            "wk": _param((d, dh), dtype, device),
+            "wv": _param((d, dh), dtype, device),
+            "w_if": _param((d, 2 * cfg.n_heads), dtype, device),
+            "wo": _param((dh, d), dtype, device),
+            "ogate": _param((d, dh), dtype, device),
+        })
+    if kind == "slstm":
+        return nn.ParameterDict({
+            "w_in": _param((d, 4 * dh), dtype, device),
+            "r": _param((4, cfg.n_heads, hd, hd), dtype, device),
+            "wo": _param((dh, d), dtype, device),
         })
     raise ValueError(f"mixing kind {kind!r} is not ported; one of {KINDS}")
 
@@ -213,15 +242,17 @@ def cast_leaves(mod: nn.Module, dtype):
 
 
 class Block(nn.Module):
-    """One pre-norm (mixer + FFN) layer: ``_layer_init``'s leaves."""
+    """One pre-norm (mixer [+ FFN]) layer: ``_layer_init``'s leaves."""
 
     def __init__(self, cfg: ArchConfig, kind: str, dtype, device):
         super().__init__()
         d = cfg.d_model
         self.norm1 = nn.ParameterDict({"scale": _param((d,), dtype, device)})
         self.mix = _mix_leaves(cfg, kind, dtype, device)
-        self.norm2 = nn.ParameterDict({"scale": _param((d,), dtype, device)})
-        self.ffn = _ffn_leaves(cfg, dtype, device)
+        if has_ffn(cfg):
+            self.norm2 = nn.ParameterDict({"scale": _param((d,), dtype,
+                                                           device)})
+            self.ffn = _ffn_leaves(cfg, dtype, device)
 
 
 def ffn_apply(p, h, cfg: ArchConfig, *, impl: str):
@@ -236,7 +267,8 @@ def ffn_apply(p, h, cfg: ArchConfig, *, impl: str):
 def _mix_apply(p, h, cfg: ArchConfig, kind: str, *, impl: str):
     """Prefill sequence mixing on (B,S,d). Returns (y, raw decode state):
     {"k", "v"} of shape (B,S,K,hd) for attention, {"h", "conv"} for
-    rglru."""
+    rglru, and the xLSTM cells' decode states as they are."""
+    hd = cfg.resolved_head_dim
     if kind in ("attn", "local_attn"):
         y, kv = attn_apply(
             p, h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
@@ -248,28 +280,39 @@ def _mix_apply(p, h, cfg: ArchConfig, kind: str, *, impl: str):
         return y, {"k": kv[0], "v": kv[1]}
     if kind == "rglru":
         return griffin_block_apply(p, h, use_kernels=impl == "kernels")
+    if kind == "mlstm":
+        return mlstm_apply(p, h, n_heads=cfg.n_heads, head_dim=hd,
+                           return_state=True)
+    if kind == "slstm":
+        return slstm_apply(p, h, n_heads=cfg.n_heads, head_dim=hd)
     raise ValueError(kind)
 
 
 def _mix_decode(p, x_t, state, pos, cfg: ArchConfig, kind: str, pages,
                 slots, impl: str):
     """One-token mixing. x_t: (B, d). Returns (y (B,d), state).  Full
-    attention goes through the paged pools; window and recurrent state is
-    slot-major (O(W) / O(d) per slot — nothing to page)."""
+    attention goes through the paged pools when ``pages`` is given, else
+    through its slab; window and recurrent state is slot-major (O(W) /
+    O(d) per slot — nothing to page)."""
+    hd = cfg.resolved_head_dim
     if kind in ("attn", "local_attn"):
-        paged = kind == "attn"
+        paged = kind == "attn" and pages is not None
         y, ck, cv = attn_decode(
             p, x_t[:, None, :], state["k"], state["v"], pos,
             n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
             head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
             qk_norm=cfg.qk_norm,
-            window=0 if paged else cfg.local_window,
+            window=cfg.local_window if kind == "local_attn" else 0,
             page_table=pages if paged else None,
             slots=slots if paged else None, impl=impl,
         )
         return y[:, 0], {"k": ck, "v": cv}
     if kind == "rglru":
         return griffin_block_decode(p, x_t, state)
+    if kind == "mlstm":
+        return mlstm_decode(p, x_t, state, n_heads=cfg.n_heads, head_dim=hd)
+    if kind == "slstm":
+        return slstm_decode(p, x_t, state, n_heads=cfg.n_heads, head_dim=hd)
     raise ValueError(kind)
 
 
@@ -278,6 +321,8 @@ def _layer_apply(p: Block, h, cfg: ArchConfig, kind: str, *, impl: str):
     state)."""
     y, state = _mix_apply(p.mix, rmsnorm(p.norm1, h), cfg, kind, impl=impl)
     h = h + y
+    if not has_ffn(cfg):
+        return h, 0.0, state
     y, aux = ffn_apply(p.ffn, rmsnorm(p.norm2, h), cfg, impl=impl)
     return h + y, aux, state
 
@@ -287,8 +332,9 @@ def _layer_decode(p: Block, x_t, state, pos, cfg: ArchConfig, kind: str,
     y, state = _mix_decode(p.mix, rmsnorm(p.norm1, x_t), state, pos, cfg,
                            kind, pages, slots, impl)
     h = x_t + y
-    h = h + ffn_apply(p.ffn, rmsnorm(p.norm2, h[:, None, :]), cfg,
-                      impl=impl)[0][:, 0]
+    if has_ffn(cfg):
+        h = h + ffn_apply(p.ffn, rmsnorm(p.norm2, h[:, None, :]), cfg,
+                          impl=impl)[0][:, 0]
     return h, state
 
 
@@ -311,10 +357,17 @@ def _layer_chunk(p: Block, x, pool, page_table, pos0: int, cfg: ArchConfig,
 
 def _state_init(cfg: ArchConfig, kind: str, batch: int, cache_len: int,
                 cache_dtype, device):
-    """One layer's slab decode state (JAX ``_state_init``)."""
+    """One layer's slab decode state (JAX ``_state_init``); the xLSTM
+    states are fp32 whatever ``cache_dtype``."""
     if kind == "rglru":
         return griffin_state_init(batch, _rnn_width(cfg), dtype=cache_dtype,
                                   device=device)
+    if kind == "mlstm":
+        return mlstm_state_init(batch, cfg.n_heads, cfg.resolved_head_dim,
+                                device=device)
+    if kind == "slstm":
+        return slstm_state_init(batch, cfg.n_heads, cfg.resolved_head_dim,
+                                device=device)
     length = cache_len
     if kind == "local_attn":
         length = min(cfg.local_window or cache_len, cache_len)
@@ -416,10 +469,13 @@ class Decoder(nn.Module):
         (B,S,K,hd) → (B,K,cache_len,hd), zero-padded; local K/V → the
         circular buffer (B,K,W,hd), W = min(window, cache_len) — the last
         W tokens rolled so that position p sits at p % W once S >= W,
-        zero-padded below; rglru keeps ``h`` fp32 and casts ``conv``."""
+        zero-padded below; rglru keeps ``h`` fp32 and casts ``conv``; the
+        xLSTM states are already in the decode layout (fp32)."""
         cfg = self.cfg
 
         def pack_one(kind, st):
+            if kind in ("mlstm", "slstm"):
+                return st
             if kind == "rglru":
                 return {"h": st["h"], "conv": st["conv"].to(cache_dtype)}
             W = cache_len
@@ -463,8 +519,9 @@ class Decoder(nn.Module):
 
     def decode_step(self, x_t, cache, pos, *, pages=None):
         """x_t: (B,d); pos: scalar or (B,) positions; ``pages`` the (B, n_pp)
-        page table of the full-attention layers.  Pools and window buffers
-        are updated in place; returns (x_t, cache)."""
+        page table of the full-attention layers (None: their slabs).  Pools,
+        slabs and window buffers are updated in place; returns (x_t,
+        cache)."""
         pos = torch.as_tensor(pos, dtype=torch.int32, device=x_t.device)
         pos = pos if pos.dim() else pos.expand(x_t.shape[0])
         slots = None

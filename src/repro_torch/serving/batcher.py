@@ -1,12 +1,20 @@
-"""Continuous batcher: slot map + paged KV pool over one decode batch (port of
-``repro/serving/batcher.py`` for the paged layout).
+"""Continuous batcher: slot map + paged or slab KV over one decode batch
+(port of ``repro/serving/batcher.py``).
 
 The decode batch is a fixed array of ``max_slots`` rows; each row is a
-**slot** holding one request's decode state.  Full-attention KV lives in a
+**slot** holding one request's decode state.  Under the paged layout
+(``kv_layout="paged"``, the port's default) full-attention KV lives in a
 shared page pool (:mod:`repro_torch.serving.pages`): joining *maps*
 physical pages through a per-slot page table and evicting *unmaps* them.
-Window and recurrent state (a hybrid model's local-attention buffers and
-RG-LRU state) is slot-major: joining overwrites the slot's rows.
+A model with no full-attention layer (recurrentgemma, xlstm) has no KV to
+page: it gets no pool and no page table, and admission waits on free
+slots only, as in JAX.  Under the slab layout (``kv_layout="slab"``; the
+JAX batcher's default) every leaf of :meth:`init_cache`'s cache, the
+full-attention K/V (max_slots, K, cache_len, hd) included, is slot-major.
+Window and recurrent state (local-attention buffers, RG-LRU and xLSTM
+state) is slot-major under both: joining overwrites the slot's rows.
+Every prefill map-in goes through :class:`CacheIO`, the one place that
+tells the layouts apart.
 Admission is **stacked**: :meth:`ContinuousBatcher.admit_many` prefills all
 same-length queued requests in ONE call.  Long prompts of an all-attention
 model are **chunked**: admission only maps pages and queues a
@@ -70,9 +78,41 @@ import torch
 from .pages import PagePool, PrefixHit, PrefixIndex, pages_needed
 from .queue import Request
 
+KV_LAYOUTS = ("paged", "slab")
+
 
 @torch.no_grad()
-def write_pages(cache, page, slots, rows: np.ndarray, layout) -> None:
+def write_slot(cache, page, slot: int) -> None:
+    """Write a batch-1 prefill cache into slab row ``slot`` of every leaf,
+    in place, each cast to the destination's dtype (JAX
+    ``_write_slot_impl``)."""
+    for dst_layer, src_layer in zip(cache, page):
+        for key, dst in dst_layer.items():
+            dst[slot] = src_layer[key][0].to(dst.dtype)
+
+
+@torch.no_grad()
+def write_slots(cache, page, slots) -> None:
+    """Scatter a batch-k prefill cache into slab rows ``slots`` (k,) of
+    every leaf, in place — the stacked form of :func:`write_slot` (JAX
+    ``_write_slots_impl``)."""
+    device = next(iter(cache[0].values())).device
+    idx = torch.as_tensor(np.asarray(slots), dtype=torch.long, device=device)
+    for dst_layer, src_layer in zip(cache, page):
+        for key, dst in dst_layer.items():
+            dst[idx] = src_layer[key].to(dst.dtype)
+
+
+def read_slot(cache, slot: int):
+    """The batch-1 cache held at slab row ``slot`` (views, one dict per
+    layer; JAX ``_read_slot_impl``)."""
+    return [{key: leaf[slot:slot + 1] for key, leaf in layer.items()}
+            for layer in cache]
+
+
+@torch.no_grad()
+def write_pages(cache, page, slots, rows: Optional[np.ndarray],
+                layout) -> None:
     """Map a packed batch-k prefill cache into the paged cache, in place,
     following the per-leaf layout codes (JAX ``_write_pages_impl``).
 
@@ -84,15 +124,17 @@ def write_pages(cache, page, slots, rows: np.ndarray, layout) -> None:
     A ``"kv0"`` pool takes the (k, K, cache_len, hd) K or V through the
     page table; only mapped logical pages (nonzero ids) are written (the
     JAX map-in also scatters the zero-padded tail of unmapped pages into
-    the trash page, which nothing reads)."""
+    the trash page, which nothing reads).  ``rows`` may be None for a
+    layout without ``"kv0"`` leaves."""
     device = next(iter(cache[0].values())).device
     slot_ids = torch.as_tensor(np.asarray(slots), dtype=torch.long,
                                device=device)
-    ii, lp = np.nonzero(rows)
-    phys = torch.as_tensor(rows[ii, lp], dtype=torch.long, device=device)
-    ii = torch.as_tensor(ii, device=device)
-    lp = torch.as_tensor(lp, device=device)
-    n_pp = rows.shape[1]
+    if rows is not None:
+        ii, lp = np.nonzero(rows)
+        phys = torch.as_tensor(rows[ii, lp], dtype=torch.long, device=device)
+        ii = torch.as_tensor(ii, device=device)
+        lp = torch.as_tensor(lp, device=device)
+        n_pp = rows.shape[1]
     for src_layer, dst_layer, codes in zip(page, cache, layout):
         for key, code in codes.items():
             dst, src = dst_layer[key], src_layer[key]
@@ -101,6 +143,9 @@ def write_pages(cache, page, slots, rows: np.ndarray, layout) -> None:
                 continue
             if code != "kv0":
                 raise ValueError(f"write_pages: unknown layout code {code!r}")
+            if rows is None:
+                raise ValueError("write_pages: a KV pool needs rows (page "
+                                 "ids)")
             if phys.numel() == 0:
                 continue
             ps = dst.shape[2]
@@ -121,6 +166,38 @@ def copy_page(cache, layout, src: int, dst: int) -> None:
         for key, code in codes.items():
             if code == "kv0":
                 layer[key][dst] = layer[key][src]
+
+
+class CacheIO:
+    """The one dispatch point between the slab and paged layouts (JAX
+    ``CacheIO``): built with the per-leaf layout codes of
+    ``model.init_paged_cache``, or ``None`` for a slab cache."""
+
+    def __init__(self, layout: Any = None):
+        self.layout = layout
+
+    @property
+    def paged(self) -> bool:
+        return self.layout is not None
+
+    def write_prefill(self, cache, page, slots, rows=None) -> None:
+        """Map a batch-k prefill cache into ``cache`` in place: through
+        the page table ``rows`` (k, pages_per_slot) when paged, else into
+        slab rows ``slots`` — batch-1 :func:`write_slot` for one request,
+        the stacked :func:`write_slots` for more."""
+        if self.layout is not None:
+            write_pages(cache, page, slots, rows, self.layout)
+        elif len(slots) == 1:
+            write_slot(cache, page, int(slots[0]))
+        else:
+            write_slots(cache, page, slots)
+
+    def read_slot(self, cache, slot: int):
+        """The batch-1 cache at slab row ``slot`` (slab only: paged KV is
+        read through page tables)."""
+        if self.layout is not None:
+            raise ValueError("read_slot is slab-only; paged KV is pooled")
+        return read_slot(cache, slot)
 
 
 @dataclass
@@ -171,7 +248,11 @@ class PrefillJob:
 
 
 class ContinuousBatcher:
-    """Fixed-slot continuous batching over one served model."""
+    """Fixed-slot continuous batching over one served model.  The layout
+    defaults to ``"paged"`` (the serving session passes its own
+    explicitly); JAX's ``ContinuousBatcher`` defaults to ``"slab"``.
+    Chunked prefill, grow admission and prefix sharing need the paged
+    layout, as in JAX."""
 
     def __init__(
         self,
@@ -181,6 +262,7 @@ class ContinuousBatcher:
         cache_len: int = 128,
         enc_len: int = 0,
         cache_dtype=torch.bfloat16,
+        kv_layout: str = "paged",
         page_size: int = 16,
         kv_pages: int = 0,
         prefill_chunk: int = 0,
@@ -188,8 +270,16 @@ class ContinuousBatcher:
         prefix_sharing: bool = False,
         kv_admission: str = "reserve",
     ):
+        if kv_layout not in KV_LAYOUTS:
+            raise ValueError(f"unknown kv_layout {kv_layout!r}")
+        if prefill_chunk and kv_layout != "paged":
+            raise ValueError("chunked prefill requires kv_layout='paged'")
         if kv_admission not in ("reserve", "grow"):
             raise ValueError(f"unknown kv_admission {kv_admission!r}")
+        if kv_admission == "grow" and kv_layout != "paged":
+            raise ValueError("kv_admission='grow' requires kv_layout='paged'")
+        if prefix_sharing and kv_layout != "paged":
+            raise ValueError("prefix_sharing requires kv_layout='paged'")
         self.model = model
         self.device = model.device
         self.max_slots = max_slots
@@ -197,33 +287,48 @@ class ContinuousBatcher:
         # encoder memory length of an enc-dec arch (frames per request)
         self.enc_len = enc_len or max(cache_len // 4, 1)
         self.cache_dtype = cache_dtype
+        self.kv_layout = kv_layout
         self.page_size = page_size
         self.batched_prefill = batched_prefill
         chunkable = model.supports_chunked_prefill
         self.prefill_chunk = prefill_chunk if chunkable else 0
-        self.pages_per_slot = pages_needed(cache_len, page_size)
-        n_pages = kv_pages or max_slots * self.pages_per_slot + 1
-        self.cache, self._layout = model.init_paged_cache(
-            max_slots, cache_len, n_pages=n_pages, page_size=page_size,
-            enc_len=self.enc_len, cache_dtype=cache_dtype,
-        )
-        # a model without full-attention layers maps pages that hold no KV:
-        # grow admission and sharing apply to KV pools only, as in JAX
-        has_kv = any(code == "kv0" for codes in self._layout
-                     for code in codes.values())
-        self.pool = PagePool(n_pages, page_size)
-        # physical page ids per (slot, logical page); 0 = trash
-        self._tables = np.zeros((max_slots, max(self.pages_per_slot, 1)),
-                                np.int32)
-        # the table the decode step sees: prefilling and paused slots stay
-        # zeroed (their decode-lane writes must hit the trash page)
-        self._visible_dev = torch.as_tensor(self._tables, device=self.device)
-        self.grow = kv_admission == "grow" and has_kv
+        self.pool: Optional[PagePool] = None
+        self._layout = None
+        self._tables = self._visible_dev = None
+        if kv_layout == "paged":
+            self.pages_per_slot = pages_needed(cache_len, page_size)
+            n_pages = kv_pages or max_slots * self.pages_per_slot + 1
+            self.cache, self._layout = model.init_paged_cache(
+                max_slots, cache_len, n_pages=n_pages, page_size=page_size,
+                enc_len=self.enc_len, cache_dtype=cache_dtype,
+            )
+            # a model without full-attention layers has no KV to page: no
+            # pool, no page table, and admission waits on slots only, as
+            # in JAX (grow admission and sharing apply to KV pools only)
+            if any(code == "kv0" for codes in self._layout
+                   for code in codes.values()):
+                self.pool = PagePool(n_pages, page_size)
+                # physical page ids per (slot, logical page); 0 = trash
+                self._tables = np.zeros(
+                    (max_slots, max(self.pages_per_slot, 1)), np.int32)
+                # the table the decode step sees: prefilling and paused
+                # slots stay zeroed (their decode-lane writes must hit the
+                # trash page)
+                self._visible_dev = torch.as_tensor(self._tables,
+                                                    device=self.device)
+        else:
+            self.pages_per_slot = 0
+            self.cache = model.init_cache(
+                max_slots, cache_len, enc_len=self.enc_len,
+                cache_dtype=cache_dtype)
+        self.io = CacheIO(self._layout)
+        self.grow = kv_admission == "grow" and self.pool is not None
         self.kv_admission = "grow" if self.grow else "reserve"
         # sharing rides the chunked-prefill path (the suffix prefill is one
         # chunk at base offset), so it needs a KV pool and an all-attention
         # model
-        self.prefix_sharing = prefix_sharing and has_kv and chunkable
+        self.prefix_sharing = (prefix_sharing and self.pool is not None
+                               and chunkable)
         self.index: Optional[PrefixIndex] = (
             PrefixIndex(self.pool) if self.prefix_sharing else None)
         self._preempted: List[Request] = []
@@ -272,31 +377,39 @@ class ContinuousBatcher:
 
     @property
     def kv_page_bytes(self) -> int:
-        """Device bytes one KV page costs across all pool leaves."""
+        """Device bytes one KV page costs across all pool leaves (0 without
+        a pool: a slab layout, or a model with no full-attention KV)."""
+        if self.pool is None:
+            return 0
         from ..models.paging import kv_page_bytes
 
         return kv_page_bytes(self.cache, self._layout)
 
     def kv_stats(self) -> Dict[str, Any]:
-        """Page-pool occupancy vs. the slab footprint (token positions)."""
+        """Page-pool occupancy vs. the slab footprint (token positions);
+        without a pool only the layout, the slab footprint and the host
+        loss preemptions, as JAX's."""
         slab_tokens = self.max_slots * self.cache_len
-        hw = self.pool.high_water_tokens()
         out: Dict[str, Any] = {
-            "kv_layout": "paged",
+            "kv_layout": self.kv_layout,
             "kv_slab_tokens": slab_tokens,
             "kv_host_loss_preemptions": self.host_loss_preemptions,
-            "kv_admission": self.kv_admission,
-            "kv_page_size": self.page_size,
-            "kv_pages": self.pool.n_pages,
-            "kv_pages_in_use": self.pool.in_use,
-            "kv_page_hw": self.pool.high_water,
-            "kv_page_hw_tokens": hw,
-            "kv_mem_saving": 1.0 - hw / max(slab_tokens, 1),
-            "kv_defers": self.pool.defers,
-            "kv_grow_allocs": self.pool.grow_allocs,
-            "kv_grow_defers": self.pool.grow_defers,
-            "kv_preemptions": self.preemptions,
         }
+        if self.pool is not None:
+            hw = self.pool.high_water_tokens()
+            out.update(
+                kv_admission=self.kv_admission,
+                kv_page_size=self.page_size,
+                kv_pages=self.pool.n_pages,
+                kv_pages_in_use=self.pool.in_use,
+                kv_page_hw=self.pool.high_water,
+                kv_page_hw_tokens=hw,
+                kv_mem_saving=1.0 - hw / max(slab_tokens, 1),
+                kv_defers=self.pool.defers,
+                kv_grow_allocs=self.pool.grow_allocs,
+                kv_grow_defers=self.pool.grow_defers,
+                kv_preemptions=self.preemptions,
+            )
         if self.index is not None:
             out.update(
                 prefix_sharing=True,
@@ -337,6 +450,8 @@ class ContinuousBatcher:
                     f"request {req.rid}: frames length {got} != batcher "
                     f"enc_len {self.enc_len}"
                 )
+        if self.pool is None:
+            return
         pages = min(pages_needed(need, self.page_size), self.pages_per_slot)
         if pages > self.pool.capacity:
             # a reservation no pool state can ever satisfy must fail loudly
@@ -368,11 +483,14 @@ class ContinuousBatcher:
                    self.pages_per_slot)
 
     def can_admit(self, req: Request) -> bool:
-        """A free slot AND enough pool pages — free or reclaimable from the
-        prefix index — for the admission mapping.  Conservative: ignores
-        the prefix credit an actual lookup might grant."""
+        """A free slot AND (with a pool) enough pool pages — free or
+        reclaimable from the prefix index — for the admission mapping.
+        Conservative: ignores the prefix credit an actual lookup might
+        grant."""
         if not self.free_slots():
             return False
+        if self.pool is None:
+            return True
         need = self._admit_pages(req)
         avail = self.pool.capacity - self.pool.in_use
         if self.index is not None:
@@ -407,6 +525,8 @@ class ContinuousBatcher:
     def _note_logical(self) -> None:
         """Track the logical-page high water: every slot's mapping counted
         per reader — what an unshared, reserve-free run would hold."""
+        if self.pool is None:
+            return
         live = sum(len(p) for p in self._slot_pages.values())
         if live > self.logical_hw:
             self.logical_hw = live
@@ -432,43 +552,8 @@ class ContinuousBatcher:
                 break
             hit = self._lookup(req)
             slot = self.free_slots()[0]
-            shared = list(hit.pages) if hit else []
-            fork = hit.fork if hit else None
-            # hold the matched pages (and the fork source) while the
-            # private pages are allocated: the index reclaim that covers a
-            # shortfall must not free them and hand them back as this
-            # request's own pages (the JAX batcher takes no hold here,
-            # ROADMAP queue 3)
-            held = shared + ([fork] if fork is not None else [])
-            for p in held:
-                self.pool.pin(p)
-            n_new = self._admit_pages(req) - len(shared)
-            pages = self._admit_alloc(n_new, req)
-            if pages is None:
-                self.pool.release(held)
-                # pool pressure defers the tail, FIFO preserved; count
-                # deferral EVENTS, not per-step admission polls
-                if req.rid != self._last_defer_rid:
-                    self.pool.defers += 1
-                    self._last_defer_rid = req.rid
+            if self.pool is not None and not self._map_pages(req, slot, hit):
                 break
-            for p in shared:
-                self.pool.ref(p)  # read-shared map-in: refcount only
-            self.pool.release(shared)  # the holds became the map-ins
-            if fork is not None:
-                # CoW fork: the divergence page's matched head is valid
-                # prefix KV, but this request's own writes land in the same
-                # logical page — it is copied into the first private page
-                # at this request's first chunk (the donor may not have
-                # written it yet; FIFO prefill order guarantees it has by
-                # then).  The hold on the source stays until the copy, so
-                # eviction/reclaim cannot free it in between.
-                self.pool.cow_forks += 1
-                self._pending_forks[slot] = (fork, pages[0])
-            row = shared + pages  # logical order: prefix, then private
-            self._slot_pages[slot] = row
-            self._tables[slot] = 0
-            self._tables[slot, : len(row)] = row
             state = SlotState(
                 req=req, slot=slot,
                 prompt_total=req.prompt_len + self._stub(req),
@@ -534,24 +619,75 @@ class ContinuousBatcher:
         self._refresh_tables()
         return [slot for _, slot in admitted]
 
+    def _map_pages(self, req: Request, slot: int,
+                   hit: Optional[PrefixHit]) -> bool:
+        """Map ``req``'s pages into ``slot``'s table: the prefix hit's
+        pages read-shared, then private ones.  False (pool pressure: the
+        caller defers) when they cannot be allocated."""
+        shared = list(hit.pages) if hit else []
+        fork = hit.fork if hit else None
+        # hold the matched pages (and the fork source) while the private
+        # pages are allocated: the index reclaim that covers a shortfall
+        # must not free them and hand them back as this request's own
+        # pages (the JAX batcher takes no hold here, ROADMAP queue 3)
+        held = shared + ([fork] if fork is not None else [])
+        for p in held:
+            self.pool.pin(p)
+        n_new = self._admit_pages(req) - len(shared)
+        pages = self._admit_alloc(n_new, req)
+        if pages is None:
+            self.pool.release(held)
+            # pool pressure defers the tail, FIFO preserved; count
+            # deferral EVENTS, not per-step admission polls
+            if req.rid != self._last_defer_rid:
+                self.pool.defers += 1
+                self._last_defer_rid = req.rid
+            return False
+        for p in shared:
+            self.pool.ref(p)  # read-shared map-in: refcount only
+        self.pool.release(shared)  # the holds became the map-ins
+        if fork is not None:
+            # CoW fork: the divergence page's matched head is valid prefix
+            # KV, but this request's own writes land in the same logical
+            # page — it is copied into the first private page at this
+            # request's first chunk (the donor may not have written it
+            # yet; FIFO prefill order guarantees it has by then).  The
+            # hold on the source stays until the copy, so eviction/reclaim
+            # cannot free it in between.
+            self.pool.cow_forks += 1
+            self._pending_forks[slot] = (fork, pages[0])
+        row = shared + pages  # logical order: prefix, then private
+        self._slot_pages[slot] = row
+        self._tables[slot] = 0
+        self._tables[slot, : len(row)] = row
+        return True
+
     def _release(self, state: SlotState) -> None:
         """Return a slot's capacity without completion bookkeeping (error
         rollback, preemption)."""
         if self.slots[state.slot] is state:
             self.slots[state.slot] = None
-        pf = self._pending_forks.pop(state.slot, None)
+        self._unmap(state.slot)
+
+    def _unmap(self, slot: int) -> None:
+        """Return ``slot``'s pages (and an uncopied CoW source's hold) to
+        the pool."""
+        pf = self._pending_forks.pop(slot, None)
         if pf is not None:
             self.pool.release([pf[0]])  # unpin the never-copied CoW source
-        pages = self._slot_pages.pop(state.slot, None)
+        pages = self._slot_pages.pop(slot, None)
         if pages is not None:
             self.pool.free(pages)
-            self._tables[state.slot] = 0
+            self._tables[slot] = 0
 
     def _refresh_tables(self) -> None:
         """Rebuild the decode-visible page table: occupied decoding slots
         expose their mapping; everything else — free, still prefilling, or
         paused on grow pressure — points at trash, so its fixed-shape
-        decode write cannot corrupt a mapped (possibly shared) page."""
+        decode write cannot corrupt a mapped (possibly shared) page.  No
+        table without a pool."""
+        if self._tables is None:
+            return
         visible = self._tables.copy()
         for i, s in enumerate(self.slots):
             if s is None or s.prefilling or s.paused:
@@ -575,8 +711,9 @@ class ContinuousBatcher:
             batch, cache_len=self.cache_len, cache_dtype=self.cache_dtype,
         )
         firsts = logits.argmax(dim=-1)
-        write_pages(self.cache, page, slot_list,
-                    self._tables[np.asarray(slot_list)], self._layout)
+        rows = (self._tables[np.asarray(slot_list)]
+                if self._tables is not None else None)
+        self.io.write_prefill(self.cache, page, slot_list, rows=rows)
         slot_ids = torch.as_tensor(slot_list, device=self.device)
         self.tokens[slot_ids] = firsts
         self.pos[slot_ids] = torch.as_tensor(
@@ -714,7 +851,8 @@ class ContinuousBatcher:
         batch-independent, so they cannot perturb live rows; in an MoE
         model they share expert capacity with them); their KV writes land
         in the trash page, or go there when a stale position lies past the
-        page table.
+        page table, and in a slab cache at their own row's position
+        (clamped to its last one), which the next join overwrites.
         """
         finished, self._finished = self._finished, []
         if self._grow_pages():
@@ -725,8 +863,7 @@ class ContinuousBatcher:
                   for s in self.slots]
         t0 = time.perf_counter()
         logits, self.cache = self.model.decode_step(
-            self.tokens, self.cache, self.pos, pages=self._visible_dev,
-        )
+            self.tokens, self.cache, self.pos, pages=self._visible_dev)
         next_tok = logits.argmax(dim=-1)
         act = torch.as_tensor(active, device=self.device)
         self.tokens = torch.where(act, next_tok, self.tokens)
@@ -875,10 +1012,4 @@ class ContinuousBatcher:
         state.t_done = time.perf_counter()
         if self.slots[state.slot] is state:
             self.slots[state.slot] = None
-            pf = self._pending_forks.pop(state.slot, None)
-            if pf is not None:
-                self.pool.release([pf[0]])
-            pages = self._slot_pages.pop(state.slot, None)
-            if pages is not None:
-                self.pool.free(pages)
-                self._tables[state.slot] = 0
+            self._unmap(state.slot)

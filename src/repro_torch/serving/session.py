@@ -33,12 +33,12 @@ coalesces bursty mix churn into one planner turn per window.  Admission is
 ``"continuous"`` (join whenever a slot is free) or ``"static"`` (wait until
 the batch drains, then refill).
 
-The KV layout is paged, with chunked prefill (``prefill_chunk``,
-``prefill_duty``), prefix sharing and ``"reserve"`` or ``"grow"``
-admission; :meth:`ServingSession.host_failed` requeues every resident
-request after a host loss.  ``kv_layout="slab"`` is accepted by name and
-raises ``NotImplementedError`` naming the ROADMAP item that brings it,
-rather than serving quietly in another mode.
+The KV layout is paged (the default), with chunked prefill
+(``prefill_chunk``, ``prefill_duty``), prefix sharing and ``"reserve"`` or
+``"grow"`` admission, or ``"slab"``: per-slot caches of ``cache_len``
+positions, which none of those three apply to (the config raises JAX's
+``ValueError`` for each).  :meth:`ServingSession.host_failed` requeues
+every resident request after a host loss.
 """
 
 from __future__ import annotations
@@ -67,9 +67,6 @@ from .mix import DEFAULT_PROMPT_BUCKETS, MixTracker, tower_from_arch
 from .queue import Request, RequestQueue
 
 __all__ = ["RequestResult", "ServingConfig", "ServingSession"]
-
-_SLAB = ("ROADMAP queue 1, item 4b (the xLSTM cells, full-attention slab "
-         "decode and kv_layout='slab')")
 
 
 @dataclass(frozen=True)
@@ -139,16 +136,28 @@ class ServingConfig:
             raise ValueError(f"unknown kv_layout {self.kv_layout!r}")
         if self.page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {self.page_size}")
-        if self.kv_layout == "slab":
-            raise NotImplementedError(
-                f"kv_layout='slab' is not ported to repro_torch yet: {_SLAB}")
         if self.prefill_chunk < 0 or self.prefill_duty <= 0:
             raise ValueError(
                 f"prefill_chunk must be >= 0 and prefill_duty > 0, got "
                 f"{self.prefill_chunk}/{self.prefill_duty}"
             )
+        if self.prefill_chunk and self.kv_layout != "paged":
+            raise ValueError(
+                "prefill_chunk requires kv_layout='paged' (chunks stream "
+                "into the page pool)"
+            )
         if self.kv_admission not in ("reserve", "grow"):
             raise ValueError(f"unknown kv_admission {self.kv_admission!r}")
+        if self.kv_admission == "grow" and self.kv_layout != "paged":
+            raise ValueError(
+                "kv_admission='grow' requires kv_layout='paged' (growth "
+                "maps pool pages)"
+            )
+        if self.prefix_sharing and self.kv_layout != "paged":
+            raise ValueError(
+                "prefix_sharing requires kv_layout='paged' (shared prefixes "
+                "are page mappings)"
+            )
         if self.cache_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unknown cache_dtype {self.cache_dtype!r}")
         if self.max_prompt_len < 0 or self.max_new_tokens < 0:
@@ -216,6 +225,7 @@ class ServingSession:
             cache_len=cfg.cache_len,
             enc_len=cfg.enc_len,
             cache_dtype=dtype_of(cfg.cache_dtype),
+            kv_layout=cfg.kv_layout,
             page_size=cfg.page_size,
             kv_pages=cfg.kv_pages,
             prefill_chunk=cfg.prefill_chunk,

@@ -172,11 +172,25 @@ def test_attn_decode_paged_matches_jax(impl):
 
 
 def test_attn_decode_requires_a_page_table():
+    """Full-attention slab decode is ported: without a page table the
+    slab path runs (no kernel), equal to JAX's slab branch, the new K/V
+    written in place at each row's position, the stale row's (pos == S)
+    clamped to the last position as JAX's ``dynamic_update_slice``."""
     rng = np.random.default_rng(8)
-    with pytest.raises(NotImplementedError, match="slab"):
-        tatt.attn_decode(_t(_attn_params(rng)), torch.zeros(1, 1, D),
-                         torch.zeros(1, KV, 8, HD), torch.zeros(1, KV, 8, HD),
-                         0, n_heads=H, n_kv=KV, head_dim=HD, rope_theta=THETA)
+    p = _attn_params(rng)
+    x = _np(rng, (3, 1, D))
+    ck, cv = _np(rng, (3, KV, 8, HD)), _np(rng, (3, KV, 8, HD))
+    pos = np.asarray([3, 0, 8], np.int32)
+    kw = dict(n_heads=H, n_kv=KV, head_dim=HD, rope_theta=THETA)
+    yj, kj, vj = jatt.attn_decode(_j(p), jnp.asarray(x), jnp.asarray(ck),
+                                  jnp.asarray(cv), jnp.asarray(pos), **kw)
+    tk, tv = torch.from_numpy(ck.copy()), torch.from_numpy(cv.copy())
+    y, k2, v2 = tatt.attn_decode(_t(p), torch.from_numpy(x), tk, tv,
+                                 torch.from_numpy(pos), impl="kernels", **kw)
+    assert k2 is tk and v2 is tv
+    _close(y, yj)
+    _close(tk, kj)
+    _close(tv, vj)
 
 
 # ------------------------------------------------------- sliding window

@@ -215,10 +215,32 @@ def test_decode_matches_own_forward(jax_side):
 
 
 def test_slab_self_attention_decode_raises_naming_item_4b(jax_side):
-    model = _port(jax_side[2], False)
-    cache = model.init_cache(2, 16, enc_len=4, cache_dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="item 4b"):
-        model.decode_step(torch.zeros(2, dtype=torch.long), cache, 0)
+    """Ported: the decoder's self-attention decodes through its slab
+    beside the slot-major cross memory (``tests/test_serving.py:95``'s
+    seamless leg).  Prefill into a slab, then decode steps at ragged
+    per-row positions: logits (5e-4) and every cache leaf against JAX's
+    slab decode."""
+    _, params, np_params, fns = jax_side
+    model = _port(np_params, False)
+    B, P, T, E = 2, 6, 12, 4
+    toks, frames = _inputs(9, B, P, E)
+    jl, jc = fns["prefill"](params, {"tokens": jnp.asarray(toks),
+                                     "frames": jnp.asarray(frames)},
+                            cache_len=T, cache_dtype=jnp.float32)
+    tl, tc = model.prefill({"tokens": torch.from_numpy(toks).long(),
+                            "frames": torch.from_numpy(frames)},
+                           cache_len=T, cache_dtype=torch.float32)
+    pos = np.asarray([P, P - 2], np.int32)
+    for _ in range(3):
+        tok = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)
+        jl, jc = fns["decode"](params, jnp.asarray(tok), jc, jnp.asarray(pos))
+        tl, tc = model.decode_step(torch.from_numpy(tok).long(), tc,
+                                   torch.from_numpy(pos))
+        assert _err(tl, jl) < 5e-4
+        pos = pos + 1
+    for i, layer in enumerate(tc):
+        for key, leaf in layer.items():
+            assert _err(leaf, np.asarray(jc[key])[i]) < 5e-4, (i, key)
 
 
 @pytest.mark.parametrize("vocab,S,use_kernels", [

@@ -29,7 +29,8 @@ from repro_torch.serving import Request, ServingConfig, ServingSession
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "examples" / "wavefront_mt_training_torch.py"
+    ROOT / "chip_smoke.py", ROOT / "examples" / "wavefront_mt_training_torch.py",
+    ROOT / "examples" / "serve_multiarch_torch.py",
 ]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
@@ -108,6 +109,16 @@ def test_unported_serving_options_raise(kw):
                "kv_admission": "kv_grow_allocs"}[next(iter(kw))]
         assert m[key] > 0, (key, m)
         return
+    if "kv_layout" in kw:  # ported: the slab session constructs and serves
+        sess = ServingSession(ServingConfig(device="cpu", cache_len=48,
+                                            replan="off", **kw))
+        b = sess.batcher
+        assert (b.kv_layout, b.pool, b.kv_page_bytes) == ("slab", None, 0)
+        sess.run([Request(rid=rid, tokens=np.arange(5 + rid),
+                          max_new_tokens=6) for rid in range(3)])
+        assert sorted(sess.results) == [0, 1, 2]
+        assert sess.metrics()["kv_layout"] == "slab"
+        return
     if "replan" in kw:  # ported: the session constructs and plans
         sess = ServingSession(ServingConfig(device="cpu", cache_len=32, **kw))
         assert sess.planner_session is not None
@@ -145,19 +156,19 @@ def test_unported_families_raise(family):
                             device="cpu")
         assert type(model.impl).__name__ == "EncDecTransformer"
         assert not model.supports_chunked_prefill
-    else:  # xlstm-125m, the JAX package's one ssm arch, is not registered
-        ref = jax_get_arch("xlstm-125m")
-        cfg = ArchConfig(**{f.name: getattr(ref, f.name)
-                            for f in dataclasses.fields(ArchConfig)
-                            if f.name != "moe"})
-        with pytest.raises(NotImplementedError, match="item 4b"):
-            build_model(cfg, device="cpu")
-        with pytest.raises(KeyError):
-            get_arch("xlstm-125m")
+    else:  # ported: xlstm-125m, the JAX package's one ssm arch, builds
+        model = build_model(reduced(get_arch("xlstm-125m")), device="cpu")
+        layers = model.impl.decoder.layers
+        assert model.cfg.family == "ssm" and "w_if" in layers[0].mix
+        assert "r" in layers[3].mix and not hasattr(layers[0], "ffn")
+    # ported: an xLSTM cell beside attention builds; an unknown kind raises
     pattern = dataclasses.replace(reduced(get_arch("qwen3-0.6b")),
                                   block_pattern=("mlstm", "attn"))
-    with pytest.raises(NotImplementedError, match="item 4b"):
-        build_model(pattern, device="cpu")
+    kinds = build_model(pattern, device="cpu").impl.decoder.kinds
+    assert kinds == ("mlstm", "attn")
+    unknown = dataclasses.replace(pattern, block_pattern=("mamba", "attn"))
+    with pytest.raises(NotImplementedError, match="mixing kinds"):
+        build_model(unknown, device="cpu")
 
 
 @pytest.mark.parametrize("arch,shrink", [
@@ -165,7 +176,7 @@ def test_unported_families_raise(family):
                  id=str(shrink) if arch == "qwen3-0.6b" else f"{arch}-{shrink}")
     for arch in ("qwen3-0.6b", "qwen2-moe-a2.7b", "qwen3-moe-30b-a3b",
                  "recurrentgemma-9b", "seamless-m4t-medium", "pixtral-12b",
-                 "glm4-9b")
+                 "glm4-9b", "xlstm-125m")
     for shrink in (False, True)
 ])
 def test_arch_config_matches_jax(arch, shrink):

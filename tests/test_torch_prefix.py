@@ -45,6 +45,17 @@ PS = 8
 TIMELESS = ("seconds", "latency", "throughput", "cache", "planned_makespan")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread while this module runs (restored after): its
+    small CPU ops gain nothing from more, and under parallel test workers
+    every op's thread team would contend for the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _sides(arch, seed):
     jmodel = jax_build_model(jax_reduced(jax_get_arch(arch)))
     params = jmodel.init(jax.random.PRNGKey(seed))
@@ -298,11 +309,10 @@ def test_grow_admission_under_pool_pressure(qwen3):
 
 
 def test_prefix_sharing_acceptance_hit_rate_and_memory(qwen3):
-    """tests/test_serving.py:487 (the paged half; the slab comparison waits
-    for ROADMAP queue 1, item 4): on the bursty shared-prefix trace,
-    sharing with grow admission gives the unshared paged run's tokens, a
-    hit rate above 0.5 and a lower page high-water, and every kv_stats()
-    and metrics() counter of each run is JAX's."""
+    """tests/test_serving.py:487: on the bursty shared-prefix trace,
+    sharing with grow admission gives the unshared paged run's tokens and
+    the slab run's, a hit rate above 0.5 and a lower page high-water, and
+    every kv_stats() and metrics() counter of each paged run is JAX's."""
     specs = shared_prefix_specs()
     paged = dict(max_slots=6, cache_len=CACHE_LEN, prefill_chunk=8)
     shared, m_shared, jshared, mj_shared = _run_pair(
@@ -310,6 +320,13 @@ def test_prefix_sharing_acceptance_hit_rate_and_memory(qwen3):
     plain, m_plain, jplain, mj_plain = _run_pair(qwen3, specs, **paged)
     assert _tokens(shared) == _tokens(plain) == _tokens(jshared)
     assert _tokens(plain) == _tokens(jplain)
+    slab = ServingSession(ServingConfig(
+        device="cpu", max_slots=6, cache_len=CACHE_LEN, replan="off",
+        cache_dtype="float32", kv_layout="slab"), model=qwen3[2]())
+    slab.run([Request(rid=s[0], tokens=s[1], max_new_tokens=s[2],
+                      arrival=s[3], family=s[4]) for s in specs],
+             max_steps=1000)
+    assert _tokens(slab) == _tokens(shared)
     assert m_shared["prefix_hit_rate"] > 0.5
     assert m_shared["kv_page_hw"] < m_plain["kv_page_hw"]
     assert m_shared["kv_cow_forks"] >= 1

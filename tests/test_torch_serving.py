@@ -56,6 +56,17 @@ KV_KEYS = ("kv_slab_tokens", "kv_page_size", "kv_pages", "kv_pages_in_use",
            "kv_page_hw", "kv_page_hw_tokens", "kv_defers")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread while this module runs (restored after): its
+    small CPU ops gain nothing from more, and under parallel test workers
+    every op's thread team would contend for the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def models():
     jmodel = jax_build_model(jax_reduced(jax_get_arch("qwen3-0.6b")))
@@ -252,7 +263,7 @@ def test_serving_config_cache_geometry_validation(models):
     with pytest.raises(ValueError, match="cache_len"):
         ServingConfig(cache_len=32, max_prompt_len=24, max_new_tokens=16)
     ServingConfig(cache_len=39, max_prompt_len=24, max_new_tokens=16)
-    with pytest.raises(NotImplementedError, match="slab"):
+    with pytest.raises(ValueError, match="requires kv_layout='paged'"):
         ServingConfig(kv_layout="slab", prefill_chunk=16)
     with pytest.raises(ValueError, match="kv_layout"):
         ServingConfig(kv_layout="Paged")
@@ -744,3 +755,39 @@ def test_glm4_continuous_equivalence_vs_jax(glm4_models, use_kernels):
     assert len(got) == 6 and got == want
     for key in KV_KEYS + ("decode_steps", "prefill_calls", "output_tokens"):
         assert m[key] == m_jax[key], key
+
+
+# ------------------------------------------- models with no KV to page
+# JAX builds no page pool for a paged layout without a full-attention KV
+# leaf (repro/serving/batcher.py:444-466): admission waits on free slots
+# only, and kv_stats() holds three keys.  A 3-page pool must not defer such
+# a model's requests.
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "xlstm-125m"])
+def test_kv_less_model_gets_no_page_pool_like_jax(arch):
+    jmodel = jax_build_model(jax_reduced(jax_get_arch(arch)))
+    params = jax.jit(jmodel.init)(jax.random.PRNGKey(4))
+    model = bridge.load_jax_params(
+        build_model(reduced(get_arch(arch)), ShardingConfig(use_kernels=True),
+                    device="cpu"),
+        jax.tree.map(np.asarray, params))
+    specs = _specs(5)
+    kw = dict(max_slots=2, cache_len=CACHE_LEN, replan="off", kv_pages=3,
+              kv_layout="paged", cache_dtype="float32")
+    jsess = JaxServingSession(JaxServingConfig(**kw), model=jmodel,
+                              params=params)
+    m_jax = jsess.run(_jax_reqs(specs), max_steps=500)
+    sess = ServingSession(ServingConfig(device="cpu", **kw), model=model)
+    m = sess.run(_port_reqs(specs), max_steps=500)
+    got = {r: sess.results[r].tokens for r in sess.results}
+    assert len(got) == 5
+    assert got == {r: jsess.results[r].tokens for r in jsess.results}
+    for key in ("decode_steps", "prefill_calls", "output_tokens"):
+        assert m[key] == m_jax[key], key
+    b = sess.batcher
+    assert b.kv_stats() == jsess.batcher.kv_stats() == {
+        "kv_layout": "paged", "kv_slab_tokens": 2 * CACHE_LEN,
+        "kv_host_loss_preemptions": 0}
+    assert b.pool is None and b.kv_page_bytes == 0
+    assert b.can_admit(_port_reqs(specs)[0])

@@ -56,6 +56,17 @@ from repro_torch.models.transformer import chunked_xent
 from repro_torch.optim import AdamW, warmup_cosine
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread while this module runs (restored after): its
+    small CPU ops gain nothing from more, and under parallel test workers
+    every op's thread team would contend for the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a):
     return torch.from_numpy(np.asarray(a))
 
