@@ -182,6 +182,34 @@ caught):
    full xlstm-125m (bf16 compute, fp32 masters and moments, block remat)
    at batch 4 x seq 1,024, the last step replaying the first batch: the
    loss must fall, no kernel launched; step ms and peak memory;
+6i. checkpoints on the card: full xlstm-125m through ``train`` at batch 4
+   x seq 256, one 6-step schedule run (a) through, (b) with
+   ``ckpt_dir``, ``ckpt_every=3`` and ``stop_at_step=4`` (saves at steps 0
+   and 3, no final save) and (c) resumed from step 3 (steps 4-5, the final
+   save at 5): (c)'s losses equal (a)'s within 1e-5 relative (the
+   reference's ``test_train_resume_exact``), the loss and final-param
+   diffs printed with whether they are bitwise equal, no kernel launched;
+   the bytes of one step on disk and the seconds of each save and of the
+   restore (host clock); then an ``AsyncCheckpointManager`` snapshot of a
+   live full xlstm state, timed on the step turn (the device-to-host
+   copy) against the writer's time to durability, followed at once by an
+   in-place train step: the restored snapshot equals the pre-step params
+   and moments bit for bit; then reduced qwen2-moe in fp32 (the grouped
+   matmul forward, recompute and dx) interrupted and resumed the same way
+   at lr 1e-5: launches as ``train_launches_per_step`` predicts, (c)
+   within 1e-4 of (a). Each checkpoint lives in its own
+   ``tempfile.mkdtemp()`` directory, deleted at the end;
+6j. crash recovery on the wavefront path: ``crash_smoke`` (a bound
+   session planned for a simulated 8-device cluster of 4 hosts, the
+   engine on the one card; host 1 killed after step 3 of 8, async
+   snapshots every 2 steps) prints ``[crash] OK`` on ``cuda`` and on
+   ``cpu`` (history equal to the uninterrupted run on the survivors within
+   1e-6, rollback steps = 3 - restored step, the dead devices unplaced, a
+   durable snapshot), the two histories within 1e-5; the cooperative
+   straggler restore on ``cuda`` (mode ``"restore"`` at step 1, the next
+   loss equal to ``reference_loss`` on the snapshot within 1e-6); a
+   transient flap of host 1 (two restores, the cluster whole at the end);
+   no kernel launched;
 7. print a ``{"kernels": [...]}`` line (attention and grouped matmul at
    qwen2-moe's shapes with phase 4b's launches, the scan at recurrentgemma's
    fp32 prefill shape with phase 4c's, flash again at phase 6's
@@ -1807,6 +1835,311 @@ def phase_xlstm_train(torch, ops, train, smi: str) -> None:
         f"peak_mem_bytes={peak} on {smi}")
 
 
+# phase 6i: checkpoint and resume of full xlstm-125m through ``train``; one
+# 6-step schedule run (a) through, (b) with saves every 3 steps and stopped
+# after step 3, (c) resumed from step 3.  Batch 4 x 256: a checkpoint's size
+# does not depend on seq, and 6h's seq 1,024 costs 8-14 s a step
+CKPT_RUN = dict(steps=6, batch=4, seq=256, lr=1e-3, seed=0)
+CKPT_EVERY, CKPT_STOP = 3, 4
+RESUME_RTOL = 1e-5  # tests/test_train_serve_drivers.py:30
+
+
+def _dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def _interrupt_and_resume(train, arch: str, **kw) -> tuple:
+    """Runs (a), (b) and (c) of one schedule; (b) and (c) share a fresh
+    ``tempfile.mkdtemp()`` directory, deleted at the end.  Returns the three
+    results, the steps on disk after (b) and after (c), and the bytes of
+    (b)'s last step."""
+    import shutil
+    import tempfile
+
+    from repro_torch.ckpt import all_steps
+
+    full = train(arch, **kw)
+    ck = tempfile.mkdtemp(prefix="ckpt_")
+    try:
+        cut = train(arch, ckpt_dir=ck, ckpt_every=CKPT_EVERY,
+                    stop_at_step=CKPT_STOP, **kw)
+        after_cut = all_steps(ck)
+        step_bytes = _dir_bytes(Path(ck) / f"step_{after_cut[-1]:09d}")
+        resumed = train(arch, ckpt_dir=ck, ckpt_every=CKPT_EVERY,
+                        **{**kw, "verbose": True})
+        after_resume = all_steps(ck)
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    want_cut = list(range(0, CKPT_STOP, CKPT_EVERY))
+    last = kw["steps"] - 1
+    if not (after_cut == want_cut and len(cut["history"]) == CKPT_STOP
+            and resumed["resumed_from"] == want_cut[-1]
+            and len(resumed["history"]) == kw["steps"] - CKPT_STOP
+            and after_resume[-1] == last):
+        raise AssertionError(f"{arch} interrupt/resume: steps on disk "
+                             f"{after_cut} then {after_resume}, resumed "
+                             f"from {resumed['resumed_from']}")
+    return full, cut, resumed, after_cut, after_resume, step_bytes
+
+
+def _resume_diffs(torch, full, resumed) -> tuple:
+    """(max |loss diff| over the resumed steps, the worst excess over
+    ``RESUME_RTOL`` relative, max |param diff|, losses bitwise, params
+    bitwise)."""
+    tail = full["history"][CKPT_STOP:]
+    dl = max(abs(a - b) for a, b in zip(resumed["history"], tail))
+    excess = max(abs(a - b) - RESUME_RTOL * abs(b)
+                 for a, b in zip(resumed["history"], tail))
+    dp = max(float((resumed["params"][k].detach() - v.detach()).abs().max())
+             for k, v in full["params"].items())
+    same_p = all(torch.equal(resumed["params"][k], v)
+                 for k, v in full["params"].items())
+    return dl, excess, dp, resumed["history"] == tail, same_p
+
+
+def phase_ckpt_resume(torch, ops, train, smi: str) -> dict:
+    """Phase 6i: full xlstm-125m interrupted and resumed through ``train``
+    equals the uninterrupted run (losses within ``RESUME_RTOL`` relative),
+    no kernel launched; the bytes of one step on disk and the seconds of a
+    save and a restore.  Then an ``AsyncCheckpointManager`` snapshot of a
+    live full xlstm state on the card, followed at once by an in-place
+    train step, must restore bit for bit to the pre-step state.  Then
+    reduced qwen2-moe in fp32 (the grouped matmul forward, recompute and
+    dx) interrupted and resumed within ``TRAIN_PARITY_TOL``, with the
+    launches :func:`train_launches_per_step` predicts."""
+    import shutil
+    import tempfile
+    from functools import partial
+
+    from repro_torch.ckpt import AsyncCheckpointManager
+    from repro_torch.config import default_sharding, get_arch, reduced
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.train import make_train_state, train_step
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import dtype_of
+    from repro_torch.optim import AdamW, warmup_cosine
+
+    arch = "xlstm-125m"
+    gc.collect()
+    torch.cuda.empty_cache()
+    kw = dict(reduced_cfg=False, device="cuda", verbose=False, **CKPT_RUN)
+    ops.reset_launch_counts()
+    full, cut, resumed, on_disk, after, step_bytes = _interrupt_and_resume(
+        train, arch, **kw)
+    counts = ops.launch_counts()
+    dl, excess, dp, same_l, same_p = _resume_diffs(torch, full, resumed)
+    n = sum(p.numel() for p in full["params"].values())
+    if any(counts.values()) or not excess <= 0:
+        raise AssertionError(f"{arch} resume: losses {resumed['history']} vs "
+                             f"{full['history'][CKPT_STOP:]} (max diff {dl}, "
+                             f"rel tol {RESUME_RTOL}), launches {counts}")
+    log(f"ckpt {arch} full ({n} params, fp32 masters and moments, bf16 "
+        f"compute), batch {CKPT_RUN['batch']} x seq {CKPT_RUN['seq']}, "
+        f"{CKPT_RUN['steps']} steps: (b) saved steps {on_disk} and stopped, "
+        f"(c) resumed from step {resumed['resumed_from']} and saved through "
+        f"{after}; resumed losses {resumed['history']} vs uninterrupted "
+        f"{full['history'][CKPT_STOP:]}: max loss diff {dl} (rel tol "
+        f"{RESUME_RTOL}), losses bitwise equal {same_l}; final params max "
+        f"diff {dp}, bitwise equal {same_p}; one step on disk "
+        f"{step_bytes} bytes; save_s {cut['ckpt_save_seconds']} + "
+        f"{resumed['ckpt_save_seconds']} (the last off the cadence), "
+        f"restore_s {resumed['ckpt_restore_seconds']} (read + copy into the "
+        f"live params and moments), host clock; launches {counts} on {smi}")
+    out = dict(step_bytes=step_bytes,
+               save_s=cut["ckpt_save_seconds"] + resumed["ckpt_save_seconds"],
+               restore_s=resumed["ckpt_restore_seconds"], loss_diff=dl,
+               param_diff=dp)
+    del full, cut, resumed
+
+    # the async snapshot on the step turn against an in-place step
+    cfg = get_arch(arch)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=CKPT_RUN["seq"],
+                                  global_batch=CKPT_RUN["batch"], seed=0))
+    batches = [{k: v.to("cuda") for k, v in data.batch(i).items()}
+               for i in range(2)]
+    model = build_model(cfg, default_sharding(cfg, use_kernels=True),
+                        device="cuda", train=True)
+    opt = AdamW(lr=partial(warmup_cosine, peak_lr=1e-3, warmup_steps=0,
+                           total_steps=2),
+                moment_dtype=dtype_of(cfg.opt_dtype))
+    params, state = make_train_state(model, opt, 0)
+    state, _ = train_step(model, opt, params, state, batches[0])
+    torch.cuda.synchronize()
+    before = {"params": {k: v.detach().cpu().clone()
+                         for k, v in params.items()},
+              "mu": {k: v.cpu().clone() for k, v in state.mu.items()},
+              "nu": {k: v.cpu().clone() for k, v in state.nu.items()}}
+    d = tempfile.mkdtemp(prefix="async_")
+    try:
+        mgr = AsyncCheckpointManager(d, every=1)
+        t0 = time.perf_counter()
+        mgr.save(1, {"params": params, "opt": state})
+        turn_s = time.perf_counter() - t0
+        state, _ = train_step(model, opt, params, state, batches[1])
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0 - turn_s
+        restored, manifest = mgr.restore_latest({"params": params,
+                                                 "opt": state})
+        mgr.close()
+        write_s = mgr.write_seconds
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    moved = sum(not torch.equal(params[k].detach().cpu(), v)
+                for k, v in before["params"].items())
+    equal = all(torch.equal(restored["params"][k], v)
+                for k, v in before["params"].items()) and all(
+        torch.equal(restored["opt"].mu[k], before["mu"][k])
+        and torch.equal(restored["opt"].nu[k], before["nu"][k])
+        for k in before["mu"])
+    if not (equal and moved and manifest["step"] == 1
+            and restored["opt"].count == 1 and len(write_s) == 1):
+        raise AssertionError(f"async snapshot of {arch}: equal to the "
+                             f"pre-step state {equal}, {moved} params moved "
+                             f"by the next step, count "
+                             f"{restored['opt'].count}")
+    log(f"async snapshot {arch} full on cuda: save on the step turn "
+        f"(device-to-host copy of params + 2 moments) {turn_s} s, the next "
+        f"train step {step_s} s, the writer to durability {write_s[0]} s; "
+        f"the in-place step moved {moved} of {len(params)} param leaves, "
+        f"the snapshot restored bit for bit equal to the pre-step state "
+        f"(host clock) on {smi}")
+    out.update(async_turn_s=turn_s, async_write_s=write_s[0])
+    del model, opt, params, state, restored, before
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # reduced MoE in fp32: no kernel path keeps a stale copy of a weight
+    arch = "qwen2-moe-a2.7b"
+    per_step = train_launches_per_step(reduced(get_arch(arch)))
+    kw = dict(reduced_cfg=True, device="cuda", verbose=False, steps=6,
+              batch=2, seq=320, lr=MOE_HYBRID_PARITY_LR, seed=5)
+    ops.reset_launch_counts()
+    full, cut, resumed, on_disk, after, _ = _interrupt_and_resume(
+        train, arch, **kw)
+    counts = ops.launch_counts()
+    # (a) runs every step, (b) and (c) share them between them
+    want = {k: v * 2 * kw["steps"] for k, v in per_step.items()}
+    dl, _, dp, same_l, same_p = _resume_diffs(torch, full, resumed)
+    if not (counts == want and dl <= TRAIN_PARITY_TOL
+            and dp <= TRAIN_PARITY_TOL):
+        raise AssertionError(f"reduced {arch} resume: loss diff {dl}, param "
+                             f"diff {dp}, launches {counts} (want {want})")
+    log(f"ckpt reduced {arch} fp32 at lr {MOE_HYBRID_PARITY_LR}: saved "
+        f"{on_disk}, resumed from {resumed['resumed_from']}, through "
+        f"{after}; launches {counts} (per step {per_step}); resumed losses "
+        f"{resumed['history']} vs {full['history'][CKPT_STOP:]}: max diff "
+        f"{dl}, bitwise {same_l}; params max diff {dp}, bitwise {same_p} "
+        f"(tol {TRAIN_PARITY_TOL})")
+    return out
+
+
+def phase_crash(torch, ops, smi: str) -> None:
+    """Phase 6j: crash recovery on the wavefront path on ``cuda``:
+    ``crash_smoke`` (kill host 1 after step 3 of 8, async snapshots every 2
+    steps) prints ``[crash] OK`` (history equal to the uninterrupted run on
+    the survivors within 1e-6, rollback steps = kill step - restored step,
+    the dead devices unplaced, a durable snapshot) on ``cuda`` and on
+    ``cpu``, the two histories within ``MT_TOL``; the cooperative
+    straggler restore (mode "restore", restored step 1, the next loss equal
+    to ``reference_loss`` on the snapshot within 1e-6); a transient flap of
+    host 1 (two restores, the cluster whole at the end).  No kernel."""
+    import shutil
+    import tempfile
+
+    from repro_torch.ckpt import (AsyncCheckpointManager, CheckpointManager,
+                                  restore_checkpoint, restore_to_mesh)
+    from repro_torch.ckpt.remesh import fresh_module
+    from repro_torch.core import ClusterSpec
+    from repro_torch.launch.events import StragglerDetected
+    from repro_torch.launch.faults import FaultInjector, FaultScript
+    from repro_torch.launch.train import CRASH_CLUSTER, crash_smoke
+    from repro_torch.runtime import tiny_multitask_clip
+    from repro_torch.session import (CheckpointCallbacks, SessionConfig,
+                                     SpindleSession)
+
+    kill_at = 3
+    ops.reset_launch_counts()
+    runs = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        runs[device] = crash_smoke(device=device, steps=8, kill_at=kill_at,
+                                   kill_hosts=(1,), ckpt_every=2,
+                                   verbose=False)
+        runs[device]["seconds"] = time.perf_counter() - t0
+        rec = [r for r in runs[device]["replans"] if r.mode == "restore"][0]
+        if rec.rollback_steps != kill_at - rec.restored_step:
+            raise AssertionError(f"crash {device}: rollback "
+                                 f"{rec.rollback_steps} from step "
+                                 f"{rec.restored_step}")
+    diff = max(abs(a - b) for a, b in zip(runs["cuda"]["history"],
+                                          runs["cpu"]["history"]))
+    if not diff <= MT_TOL:
+        raise AssertionError(f"crash cuda vs cpu: histories differ by {diff}")
+
+    cluster = ClusterSpec(**CRASH_CLUSTER)
+    tasks = ("img_text", "audio_text", "audio_vision")
+
+    def session(**kw):
+        config = kw.pop("config", {})
+        return SpindleSession(
+            SessionConfig(cluster=cluster, device="cuda", **config),
+            model_factory=lambda ts: tiny_multitask_clip(n_tasks=len(ts)),
+            tasks=tasks, **kw).bind()
+
+    d = tempfile.mkdtemp(prefix="straggler_")
+    try:
+        sess = session(config={"straggler_shrink": True},
+                       callbacks=[CheckpointCallbacks(
+                           CheckpointManager(d, every=0))])
+        sess.run(2)
+        sess.signal(StragglerDetected((1,)))
+        rec = sess.replans[-1]
+        ref, _ = restore_checkpoint(d, {"params": sess.params,
+                                        "opt": sess.opt_state})
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    module = fresh_module(sess.params, restore_to_mesh(ref["params"], "cuda"))
+    batches = {t: {k: v.to("cuda") for k, v in b.items()}
+               for t, b in sess.batches.items()}
+    ref_loss = float(sess.model.reference_loss(module, batches).detach())
+    loss = sess.step()
+    if not (rec.mode == "restore" and rec.restored_step == 1
+            and abs(loss - ref_loss) <= 1e-6):
+        raise AssertionError(f"straggler restore on cuda: {rec.mode} at "
+                             f"{rec.restored_step}, loss {loss} vs "
+                             f"reference {ref_loss}")
+
+    d = tempfile.mkdtemp(prefix="flap_")
+    try:
+        mgr = AsyncCheckpointManager(d, every=1)
+        inj = FaultInjector(cluster.n_hosts, retry_window=1, schedule=[
+            FaultScript(step=1, hosts=(1,), down_for=4)])
+        flap = session(callbacks=[CheckpointCallbacks(mgr)],
+                       event_sources=[inj])
+        flap.run(8)
+        mgr.close()
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    modes = [r.mode for r in flap.replans]
+    counts = ops.launch_counts()
+    if modes != ["restore", "restore"] or flap.cluster != cluster \
+            or any(counts.values()):
+        raise AssertionError(f"flap on cuda: replans {modes}, cluster whole "
+                             f"{flap.cluster == cluster}, launches {counts}")
+    g = runs["cuda"]
+    log(f"crash recovery (wavefront session, simulated 8-device cluster, "
+        f"engine on one card): kill host 1 after step {kill_at} of 8 -> "
+        f"[crash] OK on cuda and cpu (rollback "
+        f"{[(r.restored_step, r.rollback_steps) for r in g['replans']]}, "
+        f"durable steps {g['durable_steps']}, max err vs the survivors' run "
+        f"{g['max_err']}); cuda vs cpu histories max diff {diff} (tol "
+        f"{MT_TOL}); {runs['cuda']['seconds']} s on cuda, "
+        f"{runs['cpu']['seconds']} s on cpu (host clock); straggler restore "
+        f"at step {rec.restored_step}: next loss {loss} vs reference "
+        f"{ref_loss}; flap replans {modes}, cluster whole again; launches "
+        f"{counts} on {smi}")
+
+
 def _engine_delta(torch, session) -> tuple:
     """Engine loss and grads against autograd of ``reference_loss`` on the
     session's current params and batches."""
@@ -1976,6 +2309,8 @@ def main(argv=None) -> int:
         hybrid_train = phase_train_cut(torch, ops, smi, "recurrentgemma-9b")
         phase_moe_hybrid_train_parity(torch, ops, train)
         phase_xlstm_train(torch, ops, train, smi)
+        phase_ckpt_resume(torch, ops, train, smi)
+        phase_crash(torch, ops, smi)
 
     # one row per kernel: attention and the grouped matmul at qwen2-moe's
     # bf16 shapes (the grouped matmul at its decode shape, where most of

@@ -1,7 +1,28 @@
-"""Straggler detection (port of ``repro.ckpt.straggler``).  Checkpoints,
-asynchronous snapshots and elastic re-mesh restores come with multi-GPU
-runs and checkpoints (ROADMAP queue 1, item 5)."""
+"""Checkpointing, re-mesh restore and straggler mitigation (port of
+``repro.ckpt``; in one process — a mesh target is item 5c)."""
 
+from .async_snap import AsyncCheckpointManager
+from .checkpoint import (
+    CheckpointManager,
+    all_steps,
+    latest_step,
+    load_shard_group,
+    restore_checkpoint,
+    save_checkpoint,
+)
+from .remesh import reshard, restore_to_mesh
 from .straggler import StragglerDetector, TimingCollector
 
-__all__ = ["StragglerDetector", "TimingCollector"]
+__all__ = [
+    "AsyncCheckpointManager",
+    "CheckpointManager",
+    "save_checkpoint",
+    "restore_checkpoint",
+    "load_shard_group",
+    "all_steps",
+    "latest_step",
+    "reshard",
+    "restore_to_mesh",
+    "StragglerDetector",
+    "TimingCollector",
+]

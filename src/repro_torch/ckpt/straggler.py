@@ -17,7 +17,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-ITEM_5 = "ROADMAP queue 1, item 5 (multi-GPU, fleet and checkpoints)"
+ITEM_5C = "ROADMAP queue 1, item 5c (multi-GPU)"
 
 
 def world_size() -> int:
@@ -91,6 +91,6 @@ class TimingCollector:
         if world_size() > 1:
             raise NotImplementedError(
                 f"TimingCollector across processes is not ported yet: "
-                f"{ITEM_5}")
+                f"{ITEM_5C}")
         return [local_seconds * self.skew.get(h, 1.0)
                 for h in range(self.n_hosts)]

@@ -2,7 +2,7 @@
 
 Only the architectures the port serves are registered: the dense
 deepseek-67b and llama3-405b, which no single card holds, join with
-multi-GPU (ROADMAP queue 1, item 5).
+multi-GPU (ROADMAP queue 1, item 5c).
 """
 
 from . import glm4_9b  # noqa: F401  — import side-effect: register_arch()

@@ -1,6 +1,6 @@
 """Synthetic data pipeline: deterministic and restartable (port of
 ``repro/data/pipeline.py``; ``shard_batch`` comes with multi-GPU data
-parallelism, ROADMAP queue 1, item 5).
+parallelism, ROADMAP queue 1, item 5c).
 
 Every batch is a pure function of ``(seed, step)``, so a run restarted at
 step ``k`` sees the batches it would have seen.  Tokens follow a Markov

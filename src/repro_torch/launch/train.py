@@ -21,6 +21,20 @@ The loss adds the MoE router's aux loss, weighted, as JAX's does.
         --device cpu --steps 3 --seq 320
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-moe-a2.7b \\
         --reduced --device cpu --steps 3 --seq 64   # or recurrentgemma-9b
+    PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-125m \\
+        --reduced --device cpu --steps 20 --ckpt-dir ck --ckpt-every 5
+    PYTHONPATH=src python -m repro_torch.launch.train --crash-smoke \\
+        --device cpu --steps 6 --kill-at 3          # drop --device on the GPU
+
+With ``--ckpt-dir`` the run saves its params, moments and step count every
+``--ckpt-every`` steps (and once more at the end of a completed run off
+that cadence) and resumes from the latest restorable step when started
+again with the same directory: the restored values are copied into the
+model's own parameters and moments, so the resumed run continues the
+uninterrupted one step for step.  ``--crash-smoke`` kills a host of a
+simulated cluster under a bound wavefront session and requires the
+rollback to the last durable snapshot plus the replay of the lost steps to
+reproduce an uninterrupted run on the survivors (:func:`crash_smoke`).
 
 With ``--plan-workload`` the trainer also stands up a plan-only
 :class:`repro_torch.session.SpindleSession` for the named MT workload: the
@@ -28,9 +42,9 @@ training loop feeds its step times into a
 :class:`repro_torch.launch.events.StragglerEventSource` (through an
 in-process :class:`repro_torch.ckpt.straggler.TimingCollector`), and the
 session polls it every step, so a detected straggler fires the §5.5
-re-plan hook.  Checkpoints (``--ckpt-dir``), the fault-injection smokes
-(``--elastic-smoke``, ``--crash-smoke``) and compressed data-parallel
-gradients come with multi-GPU runs and raise (ROADMAP queue 1, item 5).
+re-plan hook.  The elastic smoke (``--elastic-smoke``: a re-mesh over a
+device mesh) and compressed data-parallel gradients come with multi-GPU
+runs and raise (ROADMAP queue 1, item 5c).
 """
 
 from __future__ import annotations
@@ -38,11 +52,12 @@ from __future__ import annotations
 import argparse
 import time
 from functools import partial
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from ..ckpt.straggler import (ITEM_5, StragglerDetector, TimingCollector,
+from ..ckpt import CheckpointManager
+from ..ckpt.straggler import (ITEM_5C, StragglerDetector, TimingCollector,
                               world_size)
 from ..config import default_sharding, get_arch, reduced, resolve_device
 from ..data import DataConfig, SyntheticLM
@@ -109,6 +124,25 @@ def train_step(model, optimizer: AdamW, params, opt_state, batch):
     return opt_state, loss.detach()
 
 
+@torch.no_grad()
+def _load_into(live: Dict[str, torch.Tensor], restored: Dict[str, torch.Tensor],
+               what: str) -> None:
+    """Copy restored CPU tensors into the live ones, which the model (or
+    the optimizer) holds — rebinding the names instead would leave the
+    model training from its fresh weights.  Names, shapes and dtypes must
+    match."""
+    if set(live) != set(restored):
+        raise KeyError(f"restore {what}: names differ: "
+                       f"{sorted(set(live) ^ set(restored))}")
+    for name, t in live.items():
+        r = restored[name]
+        if r.dtype != t.dtype or r.shape != t.shape:
+            raise ValueError(f"restore {what} {name!r}: checkpoint "
+                             f"{r.dtype} {tuple(r.shape)} != live {t.dtype} "
+                             f"{tuple(t.shape)}")
+        t.copy_(r)
+
+
 def train(
     arch: str = "qwen3-0.6b",
     *,
@@ -118,6 +152,7 @@ def train(
     seq: int = 128,
     lr: float = 3e-4,
     ckpt_dir: Optional[str] = None,
+    ckpt_every: int = 50,
     log_every: int = 10,
     seed: int = 0,
     stop_at_step: Optional[int] = None,  # simulate an interrupt
@@ -130,16 +165,17 @@ def train(
 ) -> Dict[str, Any]:
     """Train ``arch`` for ``steps`` steps on ``device``.  ``use_kernels``
     (default: on the GPU) routes attention through the CUDA kernels; off,
-    attention is plain PyTorch on either device.  Returns the loss history,
-    each step's seconds (host clock, ending in a device sync), the params
-    and the MT plan of ``plan_workload``."""
-    if ckpt_dir is not None:
-        raise NotImplementedError(
-            f"checkpoint/resume (ckpt_dir) is not ported yet: {ITEM_5}")
+    attention is plain PyTorch on either device.  With ``ckpt_dir`` the
+    run resumes from that directory's latest step and saves every
+    ``ckpt_every`` steps.  Returns the loss history (this run's steps),
+    each step's seconds (host clock, ending in a device sync), the step it
+    resumed from (or ``None``) and the seconds of that restore and of each
+    save (host clock), the params and optimizer state and the MT plan of
+    ``plan_workload``."""
     if compress_grads:
         raise NotImplementedError(
             f"int8-compressed data-parallel gradients are not ported yet: "
-            f"{ITEM_5}")
+            f"{ITEM_5C}")
     dev = resolve_device(device)
     n_hosts = max(world_size(), 1)
     straggler_src = StragglerEventSource(
@@ -175,9 +211,30 @@ def train(
                                   global_batch=batch, seed=seed))
     params, opt_state = make_train_state(model, optimizer, seed)
 
+    start_step, resumed_from = 0, None
+    mgr = None
+    save_seconds, restore_seconds = [], None
+    if ckpt_dir:
+        mgr = CheckpointManager(ckpt_dir, every=ckpt_every, keep=3)
+        t0 = time.perf_counter()
+        restored, manifest = mgr.restore_latest({"params": params,
+                                                 "opt": opt_state})
+        if restored is not None:
+            _load_into(params, restored["params"], "params")
+            _load_into(opt_state.mu, restored["opt"].mu, "first moments")
+            _load_into(opt_state.nu, restored["opt"].nu, "second moments")
+            opt_state.count = restored["opt"].count
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            restore_seconds = time.perf_counter() - t0
+            resumed_from = int(manifest["step"])
+            start_step = resumed_from + 1
+            if verbose:
+                print(f"[train] resumed from step {resumed_from}")
+
     history, step_seconds = [], []
     t_start = time.perf_counter()
-    for step in range(steps):
+    for step in range(start_step, steps):
         if stop_at_step is not None and step >= stop_at_step:
             break  # simulated interruption (schedule still sized by `steps`)
         b = {k: v.to(dev) for k, v in data.batch(step).items()}
@@ -194,6 +251,11 @@ def train(
         if verbose and (step % log_every == 0 or step == steps - 1):
             print(f"[train] step {step:5d}  loss {loss:.4f}  "
                   f"{dt*1e3:7.1f} ms  {batch * seq / dt:9.0f} tok/s")
+        if mgr:
+            t0 = time.perf_counter()
+            if mgr.maybe_save(step, {"params": params, "opt": opt_state},
+                              extra={"loss": loss, "arch": arch}):
+                save_seconds.append(time.perf_counter() - t0)
         if session is not None:
             # the session drains the straggler source and replans the MT
             # workload through its cache (§5.5 hook, one production path)
@@ -205,18 +267,168 @@ def train(
                           f"— re-plan trigger")
                 elif verbose:
                     print("[train] stragglers recovered")
+    wall = time.perf_counter() - t_start
+    interrupted = stop_at_step is not None and stop_at_step < steps
+    if mgr and history and not interrupted and (
+            ckpt_every <= 0 or (steps - 1) % ckpt_every != 0):
+        # off-cadence final step of a COMPLETED schedule: save
+        # unconditionally (maybe_save skips it by construction).  An
+        # interrupted run must not stamp steps-1 onto older state — a real
+        # crash saves nothing either, and resume would skip the tail.
+        t0 = time.perf_counter()
+        mgr.save(steps - 1, {"params": params, "opt": opt_state},
+                 extra={"loss": history[-1]})
+        save_seconds.append(time.perf_counter() - t0)
     return {
         "arch": arch,
         "steps": steps,
         "device": str(dev),
         "first_loss": history[0] if history else None,
         "final_loss": history[-1] if history else None,
-        "wall_seconds": time.perf_counter() - t_start,
+        "wall_seconds": wall,
         "params": params,
+        "opt_state": opt_state,
         "history": history,
         "step_seconds": step_seconds,
+        "resumed_from": resumed_from,
+        "ckpt_save_seconds": save_seconds,
+        "ckpt_restore_seconds": restore_seconds,
         "mt_plan": session.current_plan if session is not None else None,
         "mt_session": session,
+    }
+
+
+#: the simulated cluster of the crash smoke: four hosts of two devices in
+#: two islands, so killing a host removes a block the planner routes around
+CRASH_CLUSTER = dict(n_devices=8, island_size=4, devices_per_host=2,
+                     mem_bytes=96e9)
+
+
+def crash_smoke(
+    *,
+    steps: int = 8,
+    kill_at: int = 4,
+    kill_hosts: Tuple[int, ...] = (1,),
+    ckpt_every: int = 2,
+    ckpt_dir: Optional[str] = None,
+    verbose: bool = True,
+    device: str = "cuda",
+) -> Dict[str, Any]:
+    """Hard-failure scenario: a bound session survives a host KILL through
+    the async-snapshot → rollback → replan → replay path.
+
+    The planner plans for a simulated cluster (:data:`CRASH_CLUSTER`, eight
+    devices on four hosts); the engine runs every step on the one
+    ``device``.  A :class:`repro_torch.launch.faults.FaultInjector`
+    hard-kills ``kill_hosts`` after step ``kill_at`` while an
+    :class:`repro_torch.ckpt.AsyncCheckpointManager` snapshots every
+    ``ckpt_every`` steps off the step turn.  The session must roll back to
+    the last durable snapshot, evict the dead hosts' devices, replan over
+    the survivors and replay the lost steps: the loss history must equal
+    an uninterrupted run planned for the surviving topology within 1e-6,
+    and the final plan must not place the dead devices.  Any violation
+    raises ``SystemExit``; success prints ``[crash] OK``.
+    """
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from ..ckpt import AsyncCheckpointManager, all_steps
+    from ..core.placement import ClusterSpec
+    from ..runtime import tiny_multitask_clip
+    from ..session import CheckpointCallbacks, SessionConfig, SpindleSession
+    from .faults import FaultInjector, FaultScript
+
+    cluster = ClusterSpec(**CRASH_CLUSTER)
+    bad = tuple(h for h in kill_hosts if 0 <= h < cluster.n_hosts)
+    if not bad or len(bad) >= cluster.n_hosts:
+        raise SystemExit("[crash] no valid host to kill")
+    if not 0 < kill_at < steps:
+        raise SystemExit(f"[crash] --kill-at must be in 1..{steps - 1}")
+    tasks = ("img_text", "audio_text", "audio_vision")
+    factory = lambda ts: tiny_multitask_clip(n_tasks=len(ts))  # noqa: E731
+
+    # uninterrupted reference on the surviving topology — the ground truth
+    # the recovered run must reproduce loss for loss
+    ref = SpindleSession(
+        SessionConfig(cluster=cluster.shrink(bad), device=device),
+        model_factory=factory, tasks=tasks,
+    ).bind()
+    ref_hist = [ref.step() for _ in range(steps)]
+
+    base = ckpt_dir or tempfile.mkdtemp(prefix="crash_")
+    mgr = AsyncCheckpointManager(base, every=max(ckpt_every, 1), keep=3)
+    inj = FaultInjector(cluster.n_hosts,
+                        schedule=[FaultScript(step=kill_at, hosts=bad)])
+    try:
+        session = SpindleSession(
+            SessionConfig(cluster=cluster, device=device),
+            model_factory=factory,
+            tasks=tasks,
+            callbacks=[CheckpointCallbacks(mgr)],
+            event_sources=[inj],
+        ).bind()
+        announced = 0
+        for k in range(steps):
+            loss = session.step()
+            if verbose:
+                phase = "recovered" if any(
+                    r.mode == "restore" for r in session.replans
+                ) else "healthy"
+                print(f"[crash] step {k:3d}  loss {loss:.4f}  ({phase})")
+            for r in session.replans[announced:]:
+                if r.mode == "restore" and verbose:
+                    print(f"[crash] host kill {list(bad)} -> rollback to "
+                          f"step {r.restored_step}, replayed "
+                          f"{r.rollback_steps} lost step(s), replanned on "
+                          f"{len(session.cluster.healthy_devices())} devices")
+            announced = len(session.replans)
+        mgr.wait()
+        durable = all_steps(mgr.base)
+    finally:
+        mgr.close()
+        if ckpt_dir is None:
+            shutil.rmtree(base, ignore_errors=True)
+
+    restores = [r for r in session.replans if r.mode == "restore"]
+    if not restores:
+        raise SystemExit("[crash] FAIL: no rollback-restore replan occurred")
+    dead_devs = {d for h in bad for d in cluster.devices_of(h)}
+    plan_devs = {d for s in session.current_plan.steps for d in s.devices}
+    if plan_devs & dead_devs:
+        raise SystemExit(
+            f"[crash] FAIL: dead devices {sorted(plan_devs & dead_devs)} "
+            "still placed after recovery"
+        )
+    if len(session.history) != steps:
+        raise SystemExit(
+            f"[crash] FAIL: {len(session.history)} steps recorded, "
+            f"expected {steps}"
+        )
+    err = float(np.max(np.abs(np.asarray(session.history)
+                              - np.asarray(ref_hist))))
+    if err > 1e-6:
+        raise SystemExit(
+            f"[crash] FAIL: recovered losses diverge from the "
+            f"uninterrupted reference (max abs err {err:.2e})"
+        )
+    if not durable:
+        raise SystemExit("[crash] FAIL: no restorable checkpoint on disk")
+    print(f"[crash] OK: rollback_steps={restores[0].rollback_steps} "
+          f"restored_step={restores[0].restored_step} "
+          f"loss-exact vs reference (max err {err:.1e}), "
+          f"{len(durable)} durable snapshot(s), async saves "
+          f"{mgr.saves_written} written / {mgr.saves_dropped} dropped, "
+          f"on {device}")
+    return {
+        "steps": session.step_count,
+        "history": session.history,
+        "ref_history": ref_hist,
+        "replans": session.replans,
+        "durable_steps": durable,
+        "max_err": err,
+        "session": session,
     }
 
 
@@ -236,20 +448,43 @@ def main() -> None:
     ap.add_argument("--planner", default="spindle",
                     help="planner strategy for --plan-workload")
     ap.add_argument("--ckpt-dir", default=None,
-                    help="not ported yet (ROADMAP queue 1, item 5)")
+                    help="save here, and resume from the latest step here")
+    ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--elastic-smoke", action="store_true",
-                    help="not ported yet (ROADMAP queue 1, item 5)")
+                    help="not ported yet (ROADMAP queue 1, item 5c)")
     ap.add_argument("--crash-smoke", action="store_true",
-                    help="not ported yet (ROADMAP queue 1, item 5)")
+                    help="hard-failure scenario: scripted host kill -> "
+                         "async-snapshot rollback + replay; uses "
+                         "--steps/--kill-at/--kill-hosts/--ckpt-every")
+    ap.add_argument("--kill-at", type=int, default=4,
+                    help="crash-smoke: hard-kill after this step")
+    ap.add_argument("--kill-hosts", default="1",
+                    help="crash-smoke: comma-separated host ids to kill")
     args = ap.parse_args()
-    if args.elastic_smoke or args.crash_smoke:
+    if args.elastic_smoke:
         raise NotImplementedError(
-            f"the fault-injection smokes (checkpoint → re-mesh → restore, "
-            f"rollback → replay) are not ported yet: {ITEM_5}")
+            f"the elastic smoke (checkpoint → re-mesh over a device mesh → "
+            f"restore) is not ported yet: {ITEM_5C}")
+    if args.crash_smoke:
+        crash_smoke(
+            steps=args.steps,
+            kill_at=args.kill_at,
+            kill_hosts=tuple(int(h) for h in args.kill_hosts.split(",")
+                             if h != ""),
+            ckpt_every=max(args.ckpt_every, 1),
+            ckpt_dir=args.ckpt_dir,
+            device=args.device,
+        )
+        return
     out = train(args.arch, reduced_cfg=args.reduced, steps=args.steps,
                 batch=args.batch, seq=args.seq, lr=args.lr,
-                ckpt_dir=args.ckpt_dir, seed=args.seed, device=args.device,
+                ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+                seed=args.seed, device=args.device,
                 plan_workload=args.plan_workload, planner=args.planner)
+    if not out["history"]:  # resumed from the schedule's last step
+        print(f"[train] nothing left to train: the checkpoint is at step "
+              f"{out['resumed_from']} of {args.steps}")
+        return
     print(f"[train] done on {out['device']}: loss {out['first_loss']:.4f} → "
           f"{out['final_loss']:.4f} in {out['wall_seconds']:.1f}s")
 

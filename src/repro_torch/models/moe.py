@@ -18,7 +18,7 @@ Switch aux loss reaches the fp32 router through the softmax probs.  A
 padded (dead) expert is never routed and gets a zero gradient.
 
 Only the local branch of ``moe_apply`` is ported: the ``shard_map``
-expert parallelism comes with multi-GPU (ROADMAP queue 1, item 5).  The
+expert parallelism comes with multi-GPU (ROADMAP queue 1, item 5c).  The
 layer never waits on the device: the capacity is a Python int from
 shapes, and the dispatch is index arithmetic on device tensors.
 """

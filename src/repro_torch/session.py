@@ -31,21 +31,23 @@ Sessions come in two flavours:
     :data:`repro_torch.core.workloads.WORKLOADS` entry or a
     ``graph_factory``); ``plan`` / ``signal`` still work.
 
-Checkpoints, elastic restores and rollback after a host failure come with
-multi-GPU runs (ROADMAP queue 1, item 5): :class:`CheckpointCallbacks`
-raises, and so does a cluster-changing event on a bound session that
-carries a checkpoint manager through its callbacks.
+A :class:`CheckpointCallbacks` threads a checkpoint manager
+(:mod:`repro_torch.ckpt`) through a bound session: periodic snapshots, a
+snapshot-and-restore around a cooperative cluster change, and rollback to
+the last durable snapshot plus a replay of the lost steps after a hard
+host failure.  All of it runs in one process: the planner's cluster is a
+spec, the engine runs on ``SessionConfig.device``.
 """
 
 from __future__ import annotations
 
 import inspect
 import time
+import warnings
 from dataclasses import dataclass
 from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
                     Union)
 
-from .ckpt.straggler import ITEM_5
 from .core.costmodel import ICI_BW, H100, HardwareSpec
 from .core.estimator import TimeFn
 from .core.graph import TaskGraph
@@ -146,12 +148,35 @@ class SessionCallbacks:
 
 
 class CheckpointCallbacks(SessionCallbacks):
-    """The JAX package's checkpoint ↔ lifecycle seam (periodic saves,
-    elastic restore, rollback after a host failure): not ported yet."""
+    """A :class:`repro_torch.ckpt.CheckpointManager` threaded through the
+    session callbacks — the checkpoint ↔ lifecycle seam.
+
+    ``on_step_end`` runs the manager's periodic ``maybe_save`` over the
+    bound session's live ``(params, opt_state)``.  Attaching one of these
+    ALSO arms the restore paths: a cluster-changing ``StragglerDetected``
+    (or a flapped host's return) snapshots through this manager, replans
+    around the hole and restores the snapshot onto the session's device
+    (``ReplanRecord(mode="restore")``); a :class:`HostFailed` event with a
+    newly dead host (no cooperative snapshot turn possible) rolls back to
+    this manager's last *durable* snapshot and replays the lost steps
+    (``ReplanRecord.rollback_steps``).  Pair it with an
+    :class:`repro_torch.ckpt.AsyncCheckpointManager` to keep the periodic
+    saves off the step turn.
+    """
 
     def __init__(self, manager: Any, *, save_extra: Optional[Dict] = None):
-        raise NotImplementedError(
-            f"CheckpointCallbacks is not ported to repro_torch yet: {ITEM_5}")
+        self.manager = manager
+        self.save_extra = dict(save_extra or {})
+
+    def on_step_end(self, session: "SpindleSession", step: int,
+                    loss: float, dt: float) -> None:
+        if session.params is None:
+            return  # plan-only sessions have no state to snapshot
+        self.manager.maybe_save(
+            step,
+            {"params": session.params, "opt": session.opt_state},
+            extra={"loss": loss, **self.save_extra},
+        )
 
 
 @dataclass
@@ -162,16 +187,23 @@ class ReplanRecord:
     event: Event
     #: every effective event folded into this single replan
     events: Tuple[Event, ...] = ()
-    #: "hit" (exact cache hit) | "incremental" | "full" | "fallback"
+    #: "hit" (exact cache hit) | "incremental" | "full" | "fallback" |
+    #: "restore" (checkpoint → replan → restore around a cluster change)
     mode: str = "full"
-    #: how the underlying plan itself was obtained (== ``mode``: the
-    #: JAX session's "restore" mode comes with checkpoints, item 5)
+    #: how the underlying plan itself was obtained (== ``mode`` except on
+    #: restore replans, where the planner mode is recorded here)
     plan_mode: str = ""
     #: wall time THIS replan spent in the cache/planner (≈0 on exact hits)
     planning_seconds: float = 0.0
     #: engine closures retained across the rebind (bound sessions only)
     closures_cached: Optional[int] = None
     model_rebuilt: bool = False
+    #: checkpoint step the restore path restored (restore only)
+    restored_step: Optional[int] = None
+    #: hard-failure recovery only: completed steps rolled back to reach the
+    #: last durable snapshot and replayed on the surviving topology (0 on
+    #: cooperative restores, which snapshot the live state and lose nothing)
+    rollback_steps: int = 0
 
 
 #: a model factory returns an MTModel or an (MTModel, batches) pair
@@ -240,6 +272,7 @@ class SpindleSession:
         #: a new request family) to force the next plan to be full, not
         #: incremental, when its signature misses the cache
         self.incremental = True
+        self._warned_plan_only_ckpt = False
         self.step_count = 0
         self.history: List[float] = []
         self.replans: List[ReplanRecord] = []
@@ -368,6 +401,18 @@ class SpindleSession:
         everything else plans from scratch via the registered pipeline.
         Fires ``on_plan`` when the current plan actually changed.
         """
+        if (self._checkpoint_manager() is not None and self.model is None
+                and self.model_factory is None
+                and not self._warned_plan_only_ckpt):
+            self._warned_plan_only_ckpt = True
+            warnings.warn(
+                "session carries a CheckpointManager through its callbacks "
+                "but is plan-only (no model or model_factory): periodic "
+                "snapshots and failure recovery will silently not run "
+                "until a model is bind()-ed explicitly",
+                RuntimeWarning,
+                stacklevel=2,
+            )
         p = self._get_or_plan()
         if p is not self.current_plan:
             self.current_plan = p
@@ -434,21 +479,8 @@ class SpindleSession:
         """
         if self.engine is None:
             raise RuntimeError("bind() a model before calling step()")
-        import torch
-
-        dev = self._device()
-        b = batches if batches is not None else self._step_batches()
-        b = {t: {k: v.to(dev) for k, v in tb.items()} for t, tb in b.items()}
-        t0 = time.perf_counter()
-        self.params, self.opt_state, loss = self.engine.train_step(
-            self.params, self.opt_state, b, self.optimizer,
-            on_wave=self._fire_wave,
-        )
-        loss = float(loss)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        dt = time.perf_counter() - t0
-        self.history.append(loss)
+        loss, dt = self._train_step(
+            batches if batches is not None else self._step_batches())
         step_idx = self.step_count
         self.step_count += 1
         for src in self.event_sources:
@@ -464,6 +496,25 @@ class SpindleSession:
         self._fire("on_step_end", step_idx, loss, dt)
         self.poll()
         return loss
+
+    def _train_step(self, batches: Dict[str, Dict]) -> Tuple[float, float]:
+        """One engine step on the session's device; appends the loss to
+        ``history``.  Returns (loss, seconds, including the device wait)."""
+        import torch
+
+        dev = self._device()
+        b = {t: {k: v.to(dev) for k, v in tb.items()}
+             for t, tb in batches.items()}
+        t0 = time.perf_counter()
+        self.params, self.opt_state, loss = self.engine.train_step(
+            self.params, self.opt_state, b, self.optimizer,
+            on_wave=self._fire_wave,
+        )
+        loss = float(loss)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        self.history.append(loss)
+        return loss, time.perf_counter() - t0
 
     def _step_batches(self) -> Dict[str, Dict]:
         """The current step's batches: the ``batch_fn`` data cursor (keyed
@@ -642,12 +693,10 @@ class SpindleSession:
         cluster_changed = (flagged != self._straggler_hosts
                            or dead != self._dead_hosts
                            or lease is not self._lease)
-        if (cluster_changed and self.engine is not None
-                and self.step_count > 0
-                and self._checkpoint_manager() is not None):
-            raise NotImplementedError(
-                f"elastic restore and rollback through a checkpoint manager "
-                f"are not ported to repro_torch yet: {ITEM_5}")
+        #: hosts newly LOST this burst (not a flap recovery): their device
+        #: state is gone, so a bound session must roll back to the last
+        #: durable snapshot instead of snapshotting live state
+        hard_lost = dead - self._dead_hosts
         # Commit the simulated membership/cluster state — and roll it ALL
         # back if the factory, planner, params refresh or rebind below
         # raises, so a failed burst leaves the session exactly on its
@@ -673,15 +722,45 @@ class SpindleSession:
             base = lease if lease is not None else self.config.cluster
             self.cluster = base.shrink(flagged | dead)
         event = effective[-1]  # the record's headline event
+
+        # Restore path: a cluster change on a bound session with a
+        # checkpoint manager threaded through the callbacks snapshots the
+        # live state, replans around the hole and restores the snapshot.
+        # A HARD failure (new dead hosts) cannot snapshot — it restores
+        # the last durable snapshot and replays the lost steps instead.
+        ckpt_mgr = (
+            self._checkpoint_manager()
+            if cluster_changed and self.engine is not None
+            and self.step_count > 0 else None
+        )  # nothing trained yet → plain shrink replan, nothing to restore
+        hard = bool(hard_lost) and ckpt_mgr is not None
+        restored_step: Optional[int] = None
         old_plan, old_model = self.current_plan, self.model
         try:
             if model_shift and self.model is not None:
                 self._build_model()  # rebuild for the shifted task set
+            if ckpt_mgr is not None and not hard:
+                # label = index of the last COMPLETED step — the convention
+                # of the periodic path (on_step_end) and of the train
+                # trainer's resume (start_step = manifest step + 1)
+                ckpt_mgr.save(
+                    self.step_count - 1,
+                    {"params": self.params, "opt": self.opt_state},
+                    extra={
+                        "flagged_hosts": sorted(flagged),
+                        "tasks": list(self.tasks or ()),
+                    },
+                )
             s = self.cache.stats
             before = (s.hits, s.incremental, s.fallbacks)
             t0 = time.perf_counter()
             p = self._get_or_plan()
             plan_seconds = time.perf_counter() - t0
+            if ckpt_mgr is not None:
+                restored_step = (
+                    self._rollback_restore(ckpt_mgr) if hard
+                    else self._remesh_restore(ckpt_mgr)
+                )
             if self.engine is not None:
                 if self.model is not old_model:
                     self._refresh_params()
@@ -696,6 +775,12 @@ class SpindleSession:
         if p is not self.current_plan:
             self.current_plan = p
             self._fire("on_plan", p)
+        rollback_steps = 0
+        if hard and restored_step is not None:
+            # the session is committed onto the surviving topology; now
+            # replay the steps the rollback lost, so post-recovery state is
+            # what an uninterrupted run on the survivors would have produced
+            rollback_steps = self._replay_lost_steps(restored_step)
         if s.fallbacks > before[2]:
             plan_mode = "fallback"
         elif s.hits > before[0]:
@@ -707,10 +792,12 @@ class SpindleSession:
         info = ReplanRecord(
             event=event,
             events=tuple(effective),
-            mode=plan_mode,
+            mode="restore" if restored_step is not None else plan_mode,
             plan_mode=plan_mode,
             planning_seconds=plan_seconds,
             model_rebuilt=self.model is not old_model,
+            restored_step=restored_step,
+            rollback_steps=rollback_steps,
         )
         if self.engine is not None:
             info.closures_cached = rebind_stats["closures_cached"]
@@ -727,3 +814,75 @@ class SpindleSession:
                     hasattr(mgr, "restore_latest")):
                 return mgr
         return None
+
+    # --------------------------------------------------------------- restore
+    def _restore(self, mgr: Any) -> Optional[int]:
+        """Load ``mgr``'s latest durable snapshot onto the session's device
+        into a NEW instance ``ModuleDict`` and ``OptState`` (the live ones,
+        which the optimizer updates in place, stay as they are for the
+        turn's rollback).  Returns the restored step, or ``None`` when the
+        manager holds no snapshot."""
+        from .ckpt.remesh import fresh_module, restore_to_mesh
+
+        tree, manifest = mgr.restore_latest(
+            {"params": self.params, "opt": self.opt_state})
+        if tree is None:
+            return None
+        placed = restore_to_mesh(tree, self._device())
+        self.params = fresh_module(self.params, placed["params"])
+        self.opt_state = placed["opt"]
+        return int(manifest["step"])
+
+    def _remesh_restore(self, mgr: Any) -> int:
+        """Restore the snapshot just taken (cooperative cluster change)."""
+        step = self._restore(mgr)
+        if step is None:
+            raise RuntimeError(
+                "elastic restore: checkpoint manager has no snapshot")
+        return step
+
+    def _rollback_restore(self, mgr: Any) -> Optional[int]:
+        """Hard-failure restore: load the last DURABLE snapshot (no save —
+        the dead host's state is gone).
+
+        Returns the restored step, or ``None`` (with a warning) when the
+        manager holds no snapshot yet — the in-process simulation then
+        degrades to a plain shrink replan on the live state; a real cluster
+        would have lost the run.
+        """
+        step = self._restore(mgr)
+        if step is None:
+            warnings.warn(
+                "hard host failure with no durable snapshot to roll back "
+                "to: recovering from live in-process state (a real "
+                "deployment would have lost the run) — attach a "
+                "CheckpointManager with every >= 1 before training",
+                RuntimeWarning,
+                stacklevel=3,
+            )
+        return step
+
+    def _replay_lost_steps(self, restored_step: int) -> int:
+        """Re-run the steps between the restored snapshot and the failure
+        point on the already-rebound surviving engine.
+
+        Rolling ``step_count`` back to ``restored_step + 1`` IS the
+        data-cursor restore: params and moments come from the snapshot, and
+        each replayed step refetches its batches through the step-indexed
+        ``batch_fn`` (or reuses the static batches).  Observers see the
+        replayed steps through ``on_step_end`` — so periodic snapshots keep
+        their cadence — but event sources are NOT polled (recovery must not
+        recursively replan mid-replay).
+        """
+        target = self.step_count
+        resume = restored_step + 1
+        if resume >= target:
+            return 0
+        del self.history[resume:]
+        self.step_count = resume
+        for _ in range(target - resume):
+            loss, dt = self._train_step(self._step_batches())
+            step_idx = self.step_count
+            self.step_count += 1
+            self._fire("on_step_end", step_idx, loss, dt)
+        return target - resume

@@ -1,9 +1,10 @@
 """Guards of the PyTorch port's boundaries.
 
 * No file of ``src/repro_torch``, ``chip_smoke.py`` or the port's example
-  ``examples/wavefront_mt_training_torch.py`` imports ``jax`` or the JAX
-  package ``repro`` (checked on the AST, and by importing the port in a
-  fresh interpreter).
+  ``examples/wavefront_mt_training_torch.py`` imports ``jax``, the JAX
+  package ``repro`` or ``ml_dtypes`` (JAX's dtype package, which the card's
+  machine lacks; checked on the AST, and by importing the port in a fresh
+  interpreter).
 * The port's entry points default to the GPU and never fall back: asking
   for ``cuda`` without one raises; every unported serving option raises
   ``NotImplementedError``; the ported ones construct and run.
@@ -32,7 +33,7 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "wavefront_mt_training_torch.py",
     ROOT / "examples" / "serve_multiarch_torch.py",
 ]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 def _imported_roots(path: Path):
@@ -60,9 +61,10 @@ def test_port_imports_without_jax_in_a_fresh_interpreter():
         "import repro_torch.kernels.ops, repro_torch.launch.train\n"
         "import repro_torch.launch.profile, repro_torch.session\n"
         "import repro_torch.runtime, repro_torch.optim, repro_torch.data\n"
-        "import repro_torch.models.encdec\n"
+        "import repro_torch.models.encdec, repro_torch.ckpt\n"
+        "import repro_torch.launch.faults\n"
         "bad = sorted(m for m in sys.modules "
-        "if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'ml_dtypes'))\n"
         "assert not bad, bad\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

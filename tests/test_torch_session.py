@@ -177,42 +177,39 @@ def test_failed_replan_rolls_back_session_state():
         assert s.tasks == ("t0",) and s.current_plan is p0 and not s.replans
 
 
-def test_checkpoint_options_raise_naming_item_5(monkeypatch):
-    """The JAX session's checkpoint, restore and rollback branches, and the
-    trainer's checkpoint and fault-injection options, come with
-    multi-GPU runs: each raises naming ROADMAP queue 1, item 5.  The
-    plan-only path still works."""
+def test_checkpoint_options_raise_naming_item_5(monkeypatch, tmp_path):
+    """What still raises names ROADMAP queue 1, item 5c (multi-GPU):
+    int8-compressed gradients, the elastic smoke (a re-mesh over a device
+    mesh) and a mesh or DTensor target of ``restore_to_mesh``.  A
+    cluster-changing event on a bound session that carries a checkpoint
+    manager no longer raises: it snapshots and restores, as the JAX
+    session does.  The plan-only path still works."""
+    import torch
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.ckpt import CheckpointManager, restore_to_mesh
     from repro_torch.launch import train as train_mod
 
-    with pytest.raises(NotImplementedError, match="item 5"):
-        session.CheckpointCallbacks(object())
-    for kw in ({"ckpt_dir": "ck"}, {"compress_grads": True}):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            train_mod.train(steps=1, device="cpu", verbose=False, **kw)
-    for flag in ("--elastic-smoke", "--crash-smoke"):
-        monkeypatch.setattr("sys.argv", ["train", flag])
-        with pytest.raises(NotImplementedError, match="item 5"):
-            train_mod.main()
+    with pytest.raises(NotImplementedError, match="item 5c"):
+        train_mod.train(steps=1, device="cpu", verbose=False,
+                        compress_grads=True)
+    monkeypatch.setattr("sys.argv", ["train", "--elastic-smoke"])
+    with pytest.raises(NotImplementedError, match="item 5c"):
+        train_mod.main()
+    with pytest.raises(NotImplementedError, match="item 5c"):
+        restore_to_mesh({"w": torch.ones(2)}, Replicate())
 
-    class Manager:  # what the JAX session recognizes as a checkpoint manager
-        def save(self, *a, **kw):
-            pass
-
-        def restore_latest(self, *a, **kw):
-            pass
-
-    class WithManager(session.SessionCallbacks):
-        manager = Manager()
-
-    s = _bound(callbacks=[WithManager()],
+    mgr = CheckpointManager(str(tmp_path), every=0)  # periodic saves off
+    s = _bound(callbacks=[session.CheckpointCallbacks(mgr)],
                config={"straggler_shrink": True,
                        "cluster": ClusterSpec(n_devices=8, island_size=4,
                                               devices_per_host=1,
                                               mem_bytes=96e9)})
     s.step()
-    with pytest.raises(NotImplementedError, match="item 5"):
-        s.signal(events.StragglerDetected((6,)))
-    assert s.cluster == s.config.cluster and not s.replans
+    s.signal(events.StragglerDetected((6,)))
+    rec = s.replans[-1]
+    assert rec.mode == "restore" and rec.restored_step == 0
+    assert s.cluster.flagged_hosts == (6,) and len(s.replans) == 1
     assert session.SpindleSession(
         session.SessionConfig(workload="qwen_val")).plan().steps
     with pytest.raises(ValueError, match="no workload"):

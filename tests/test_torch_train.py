@@ -420,6 +420,43 @@ def test_train_loss_decreases():
     assert len(out["step_seconds"]) == 120 and out["device"] == "cpu"
 
 
+def test_train_resume_exact(tmp_path):
+    """Checkpoint/restart reproduces the uninterrupted run
+    (``tests/test_train_serve_drivers.py:18``, rel 1e-5): the interrupted
+    run saves at steps 0 and 9 and not at its end, the resumed one restores
+    into the model's own parameters and moments (and the step count) and
+    saves at 18 and, off the cadence, at 19."""
+    from repro_torch.ckpt import all_steps
+
+    ck = str(tmp_path / "ck")
+    kw = dict(reduced_cfg=True, steps=20, batch=4, seq=32, verbose=False,
+              seed=1, device="cpu")
+    full = train("xlstm-125m", **kw)
+    cut = train("xlstm-125m", ckpt_dir=ck, ckpt_every=9, stop_at_step=10,
+                **kw)
+    assert len(cut["history"]) == 10 and all_steps(ck) == [0, 9]
+    resumed = train("xlstm-125m", ckpt_dir=ck, ckpt_every=9, **kw)
+    assert resumed["resumed_from"] == 9 and len(resumed["history"]) == 10
+    assert resumed["history"][-1] == pytest.approx(full["history"][-1],
+                                                   rel=1e-5)
+    assert resumed["history"] == pytest.approx(full["history"][10:],
+                                               rel=1e-5)
+    assert resumed["opt_state"].count == full["opt_state"].count == 20
+    assert max(float((resumed["params"][k] - p).detach().abs().max())
+               for k, p in full["params"].items()) <= 1e-6
+    assert all_steps(ck) == [9, 18, 19]  # keep 3
+
+
+def test_crash_smoke_cli_recovers_on_cpu(monkeypatch, capsys):
+    from repro_torch.launch import train as train_mod
+
+    monkeypatch.setattr("sys.argv", ["train", "--crash-smoke", "--device",
+                                     "cpu", "--steps", "6", "--kill-at", "3"])
+    train_mod.main()
+    out = capsys.readouterr().out
+    assert "[crash] OK: rollback_steps=3 restored_step=0" in out
+
+
 def test_train_defaults_to_cuda_and_never_falls_back(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
