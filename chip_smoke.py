@@ -210,13 +210,41 @@ caught):
    loss equal to ``reference_loss`` on the snapshot within 1e-6); a
    transient flap of host 1 (two restores, the cluster whole at the end);
    no kernel launched;
-7. print a ``{"kernels": [...]}`` line (attention and grouped matmul at
+7. the fleet (``repro_torch.fleet.FleetScheduler``) on 8 hosts of 4
+   cards under ``FleetConfig``'s defaults (the H100 spec, 80 GB): the
+   smoke mix of ``launch/fleet.py`` (two duplicate multitask_clip train
+   jobs) and a serve job of full-width, full-depth qwen3-0.6b passed in
+   through ``model_cache`` (bf16; 8 requests, one admitted per serving
+   step, prompt 512, 32 new tokens, 8 slots, cache 544, page size 16),
+   host 7 flagged a straggler at tick 6: every job drains, the arbiter's
+   invariants hold, at least one rebalance, post-rebalance steps for every
+   survivor, a cross-job plan-cache hit; launches counted from 0 over the
+   run: flash 28 x prefill calls, paged 28 x decode steps, the rest 0; wall
+   seconds, the serve job's tok/s (output tokens over busy seconds), the
+   virtual makespan, device idle share and ticks;
+7b. the ``colocate`` policy at full width: one multitask_clip train job
+   (24 steps) hosting phase 7's serve job as a co-resident tenant, whose
+   first step (before it has a plan) is priced by its planner: at
+   least one tenant step inside a training idle window, no grant held at
+   any tenant step, its KV page high-water within the window headroom it
+   was budgeted against, the launch rule, and its tokens equal to a solo
+   ``ServingSession`` (``replan="off"``) on the same model and trace;
+   windows seen and deferred, the KV budget in bytes;
+7c. host loss: ``tests/test_faults.py:440``'s fleet (multitask_clip x 12,
+   a reduced qwen3 fp32 serve job, hosts 4 and 5 killed at step 6) on
+   ``cuda`` and on ``cpu``: one host failure, requests requeued, identical
+   ``metrics()`` and tokens; then phase 7's mix with host 7 killed at tick
+   6: the serve job requeues, and the share of its tokens equal to phase
+   7's is reported (a re-prefill in another batch may flip a bf16 greedy
+   token);
+8. print a ``{"kernels": [...]}`` line (attention and grouped matmul at
    qwen2-moe's shapes with phase 4b's launches, the scan at recurrentgemma's
    fp32 prefill shape with phase 4c's, flash again at phase 6's
    training shape B8 H16 K8 S1024 with phase 6's launches, and at
    seamless's cross-attention shape with phase 4f's, at qwen3's prefill
    shape with phase 4j's slab launches, the grouped matmul's dx at 6e's
-   shape with 6e's launches and the scan's reverse at 6f's with 6f's),
+   shape with 6e's launches and the scan's reverse at 6f's with 6f's,
+   paged decode at the served qwen3 shape with phase 7's fleet launches),
    the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
 Phase 3 also holds flash at the training shape (S 1,024) and the flash
@@ -2219,6 +2247,256 @@ def phase_wavefront(torch, smi: str) -> None:
         f"{[t * 1e3 for t in secs]}, losses {sess.history} on {smi}")
 
 
+# phases 7-7c: the fleet's serve job at phase 4's trace (one request
+# admitted per serving step); phase 7b's train job runs long enough for the
+# tenant to drain inside its idle windows (on the CPU, full width: 38 tenant
+# steps ride 24 host steps); the host-failure scenario of
+# tests/test_faults.py:440 on its cluster (:355)
+FLEET_SERVE = dict(kind="serve", arch="qwen3-0.6b", requests=8,
+                   prompt_len=512, gen_len=32, slots=8, cache_len=544)
+COLOC_TRAIN_STEPS = 24
+FAULTS_CLUSTER = dict(n_devices=32, island_size=4, devices_per_host=4,
+                      mem_bytes=96e9)
+
+
+def _fleet_tokens(fleet, name: str) -> dict:
+    return {rid: list(r.tokens)
+            for rid, r in fleet.jobs[name].session.results.items()}
+
+
+def _check_fleet_launches(what: str, counts: dict, session) -> None:
+    """Flash 28 x prefill calls and paged decode 28 x decode steps of the
+    fleet's full qwen3 serve session; every other kernel 0."""
+    sm = session.metrics()
+    check_launches(what, counts, SERVED["qwen3-0.6b"][1],
+                   {"chunk_steps": sm["prefill_calls"],
+                    "decode_steps": sm["decode_steps"]})
+
+
+def phase_fleet_full(torch, ops, model, smi: str):
+    """Phase 7: ``launch/fleet.py``'s smoke mix (two duplicate
+    multitask_clip train jobs) and a serve job of full qwen3-0.6b through
+    ``model_cache``, on 8 hosts of 4 H100s (``FleetConfig``'s defaults: the
+    H100 spec, 80 GB cards), a straggler flagged at tick 6: every job
+    drains, the arbiter's invariants hold, a rebalance, post-rebalance steps
+    for every survivor, a cross-job hit, the launch rule.  Returns (paged
+    launches, the serve job's tokens per rid)."""
+    from repro_torch.fleet import FleetConfig, FleetScheduler, JobSpec
+    from repro_torch.launch.events import ScriptedEventSource, StragglerDetected
+    from repro_torch.launch.fleet import FleetPrinter, smoke_jobs
+
+    jobs = smoke_jobs()[:2] + [JobSpec(name="serve0", **FLEET_SERVE)]
+    printer = FleetPrinter(verbose=False)
+    fleet = FleetScheduler(
+        FleetConfig(), jobs, callbacks=[printer],
+        event_sources=[ScriptedEventSource([StragglerDetected((7,))],
+                                           fire_at=[6])],
+        model_cache={"qwen3-0.6b": model})
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    m = fleet.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    fleet.arbiter.check()
+    stalled = [n for live in printer.survivors_at_rebalance for n in live
+               if fleet.jobs[n].post_rebalance_steps < 1]
+    if (any(r["state"] != "done" for r in m["jobs"]) or m["rebalances"] < 1
+            or stalled or m["cross_job_hits"] < 1):
+        raise AssertionError(f"fleet full: states "
+                             f"{[(r['name'], r['state']) for r in m['jobs']]}"
+                             f", rebalances {m['rebalances']}, stalled "
+                             f"{stalled}, cross-job hits "
+                             f"{m['cross_job_hits']}")
+    sess = fleet.jobs["serve0"].session
+    _check_fleet_launches("fleet serve0 (phase 7)", counts, sess)
+    sm = sess.metrics()
+    log(f"fleet (launch/fleet.py smoke mix + full qwen3-0.6b serve job, 8 x "
+        f"512 prompt x 32 new, 8 slots; 8 hosts x 4 cards, hw=H100, "
+        f"straggler host 7 at tick 6): wall_s={wall} serve0 "
+        f"throughput_tok_s={sm['throughput_tok_s']} (output tokens "
+        f"{sm['output_tokens']} / busy_s {sm['busy_seconds']}) "
+        f"prefill_calls={sm['prefill_calls']} decode_steps="
+        f"{sm['decode_steps']} launches={counts}; virtual makespan_s="
+        f"{m['makespan_s']} device_idle_frac={m['device_idle_frac']} "
+        f"ticks={m['ticks']} rebalances={m['rebalances']} cross_job_hits="
+        f"{m['cross_job_hits']} lease={json.dumps(m['lease'])} on {smi}")
+    return counts["paged_attention"], _fleet_tokens(fleet, "serve0")
+
+
+def phase_colocate_full(torch, ops, model, smi: str) -> None:
+    """Phase 7b: the ``colocate`` policy at full width: one multitask_clip
+    train job and phase 7's serve job as its tenant, whose first step (taken
+    before it has a plan) is priced by its planner
+    (``launch.fleet.first_serve_step_dt``).  At least one tenant
+    step inside a training window, the tenant holding no grant at any of
+    its steps, its KV high-water within its window headroom, the launch
+    rule, and its tokens equal to a solo ``ServingSession`` (``replan=
+    "off"``) on the same model and trace."""
+    from repro_torch.fleet import (FleetCallbacks, FleetConfig,
+                                   FleetScheduler, JobSpec)
+    from repro_torch.launch.fleet import (_tenant_kv_high_water_bytes,
+                                          first_serve_step_dt)
+    from repro_torch.serving import ServingConfig, ServingSession
+
+    class GrantWatch(FleetCallbacks):
+        held = 0  # tenant steps taken while the arbiter granted it hosts
+
+        def on_job_step(self, fleet, handle, step, dt):
+            if handle.name in fleet.arbiter.granted and \
+                    handle.spec.kind == "serve":
+                self.held += 1
+
+    spec = JobSpec(name="tenant", **FLEET_SERVE)
+    jobs = [JobSpec(name="train0", kind="train", workload="multitask_clip",
+                    steps=COLOC_TRAIN_STEPS), spec]
+    watch = GrantWatch()
+    config = FleetConfig(policy="colocate")
+    first_dt = first_serve_step_dt(spec, config, model.cfg)
+    fleet = FleetScheduler(
+        dataclasses.replace(config, serve_fallback_dt=first_dt), jobs,
+        callbacks=[watch], model_cache={"qwen3-0.6b": model})
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    m = fleet.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    fleet.arbiter.check()
+    tenant = fleet.jobs["tenant"]
+    kv_hw = _tenant_kv_high_water_bytes(tenant)
+    if (any(r["state"] != "done" for r in m["jobs"])
+            or tenant.colocated_steps < 1 or tenant.co_host != "train0"
+            or watch.held or "tenant" in fleet.arbiter.granted
+            or not 0 < kv_hw <= tenant.window_headroom_bytes):
+        raise AssertionError(f"colocate full: {tenant.summary()}, grant held "
+                             f"at {watch.held} steps, kv high-water {kv_hw}")
+    _check_fleet_launches("colocate tenant (phase 7b)", counts,
+                          tenant.session)
+    solo = ServingSession(ServingConfig(arch="qwen3-0.6b", device="cuda",
+                                        max_slots=spec.slots,
+                                        cache_len=spec.cache_len,
+                                        replan="off"), model=model)
+    pending = fleet._make_requests(spec)
+    while pending or solo.busy:
+        while pending and pending[0].arrival <= solo.steps:
+            solo.submit(pending.pop(0))
+        solo.step()
+    got = _fleet_tokens(fleet, "tenant")
+    want = {rid: list(r.tokens) for rid, r in solo.results.items()}
+    if got != want:
+        raise AssertionError(f"colocated tenant tokens != solo session's:\n"
+                             f"{got}\n{want}")
+    sm = tenant.session.metrics()
+    widest = sorted(w.duration for w in fleet.jobs["train0"].session
+                    .current_plan.timeline().gang_windows(k=1))[-3:]
+    log(f"colocate full (multitask_clip x {COLOC_TRAIN_STEPS} steps hosting "
+        f"the full qwen3-0.6b tenant): host plan's widest windows (k=1) "
+        f"{widest} s, tenant's first step priced at {first_dt} s, its "
+        f"planned decode step {fleet._serve_dt(tenant)} s (virtual); wall_s={wall} colocated_steps="
+        f"{tenant.colocated_steps} of {tenant.steps_done} windows_seen="
+        f"{tenant.windows_seen} deferred_windows={tenant.deferred_windows} "
+        f"kv_budget_bytes={tenant.kv_budget_bytes} kv_high_water_bytes="
+        f"{kv_hw} window_headroom_bytes={tenant.window_headroom_bytes}; "
+        f"tokens == solo session's ({sum(map(len, got.values()))} tokens); "
+        f"tenant throughput_tok_s={sm['throughput_tok_s']} launches={counts}"
+        f"; virtual makespan_s={m['makespan_s']} device_idle_frac="
+        f"{m['device_idle_frac']} ticks={m['ticks']} on {smi}")
+
+
+def _host_failure_fleet(device: str):
+    """tests/test_faults.py:440: multitask_clip x 12 and a reduced qwen3
+    (fp32) serve job; a FaultInjector kills hosts 4 and 5 at step 6."""
+    from repro_torch.core import ClusterSpec
+    from repro_torch.fleet import FleetConfig, FleetScheduler, JobSpec
+    from repro_torch.launch.faults import FaultInjector, FaultScript
+
+    jobs = [JobSpec(name="t0", kind="train", workload="multitask_clip",
+                    steps=12),
+            JobSpec(name="s0", kind="serve", arch="qwen3-0.6b", requests=6,
+                    prompt_len=8, gen_len=4, slots=2, cache_len=32)]
+    inj = FaultInjector(8, schedule=[FaultScript(step=6, hosts=(4, 5))])
+    fleet = FleetScheduler(
+        FleetConfig(cluster=ClusterSpec(**FAULTS_CLUSTER), device=device),
+        jobs, event_sources=[inj])
+    m = fleet.run()
+    fleet.arbiter.check()
+    return m, _fleet_tokens(fleet, "s0")
+
+
+def phase_fleet_faults(torch, ops, model, smi: str,
+                       full_tokens: dict) -> None:
+    """Phase 7c: the host-failure fleet on the card and on the CPU from
+    the same seed: one host failure, requests requeued, identical
+    ``metrics()`` and tokens.  Then phase 7's mix with host 7 (the serve
+    job's) killed at tick 6 instead of flagged: the serve job requeues and
+    re-prefills; the share of its tokens equal to phase 7's is reported (in
+    bf16 a re-prefill in another batch may flip a greedy token)."""
+    from repro_torch.fleet import FleetConfig, FleetScheduler, JobSpec
+    from repro_torch.launch.faults import FaultInjector, FaultScript
+    from repro_torch.launch.fleet import smoke_jobs
+
+    t0 = time.perf_counter()
+    (gm, gtok), (cm, ctok) = (_host_failure_fleet("cuda"),
+                              _host_failure_fleet("cpu"))
+    secs = time.perf_counter() - t0
+    if not (gm["host_failures"] == 1 and gm["requeued_requests"] >= 1
+            and gm == cm and gtok == ctok):
+        raise AssertionError(f"host-failure fleet cuda vs cpu: metrics "
+                             f"equal {gm == cm}, tokens equal {gtok == ctok}"
+                             f", host_failures {gm['host_failures']}, "
+                             f"requeued {gm['requeued_requests']}")
+    jobs = smoke_jobs()[:2] + [JobSpec(name="serve0", **FLEET_SERVE)]
+    inj = FaultInjector(8, schedule=[FaultScript(step=6, hosts=(7,))])
+    fleet = FleetScheduler(FleetConfig(), jobs, event_sources=[inj],
+                           model_cache={"qwen3-0.6b": model})
+    ops.reset_launch_counts()
+    m = fleet.run()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    fleet.arbiter.check()
+    serve0 = fleet.jobs["serve0"]
+    if (any(r["state"] != "done" for r in m["jobs"])
+            or m["host_failures"] != 1 or serve0.requeued_requests < 1):
+        raise AssertionError(f"full-width kill: {m['jobs']}, host failures "
+                             f"{m['host_failures']}")
+    _check_fleet_launches("full-width kill (phase 7c)", counts,
+                          serve0.session)
+    got = _fleet_tokens(fleet, "serve0")
+    pairs = [(a, b) for rid in full_tokens
+             for a, b in zip(got[rid], full_tokens[rid])]
+    same = sum(a == b for a, b in pairs) / len(pairs)
+    log(f"fleet host loss: reduced qwen3 fp32 (tests/test_faults.py:440, "
+        f"hosts 4, 5 killed at step 6) on cuda and cpu: host_failures="
+        f"{gm['host_failures']} requeued_requests="
+        f"{gm['requeued_requests']}, metrics() identical, tokens identical "
+        f"({sum(map(len, gtok.values()))} tokens; {secs} s both runs); "
+        f"full qwen3 serve job with host 7 killed at tick 6: requeued "
+        f"{serve0.requeued_requests}, prefill_calls="
+        f"{serve0.session.metrics()['prefill_calls']} launches={counts}, "
+        f"share of tokens equal to phase 7's {same} on {smi}")
+
+
+def phases_fleet(torch, ops, smi: str) -> int:
+    """Phases 7-7c on one full-width qwen3-0.6b (random weights, seed 0),
+    freed at the end.  Returns phase 7's paged-decode launches."""
+    from repro_torch.config import default_sharding, get_arch
+    from repro_torch.models import build_model
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_arch("qwen3-0.6b")
+    model = build_model(cfg, default_sharding(cfg, use_kernels=True),
+                        device="cuda").init(0)
+    paged_launches, tokens = phase_fleet_full(torch, ops, model, smi)
+    phase_colocate_full(torch, ops, model, smi)
+    phase_fleet_faults(torch, ops, model, smi, tokens)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paged_launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("kernels",), default=None,
@@ -2311,6 +2589,7 @@ def main(argv=None) -> int:
         phase_xlstm_train(torch, ops, train, smi)
         phase_ckpt_resume(torch, ops, train, smi)
         phase_crash(torch, ops, smi)
+        fleet_paged = phases_fleet(torch, ops, smi)
 
     # one row per kernel: attention and the grouped matmul at qwen2-moe's
     # bf16 shapes (the grouped matmul at its decode shape, where most of
@@ -2359,6 +2638,11 @@ def main(argv=None) -> int:
         row("rglru_scan", checks[("rglru_scan_backward", "float32")],
             hybrid_train["counts"]["rglru_scan"], path="train_reverse",
             launches_per_step=hybrid_train["per_step"]["rglru_scan"])
+        # paged decode at the served qwen3 shape with phase 7's launches
+        # (the fleet's full-width serve job)
+        row("paged_attention",
+            checks[("paged_attention", "bfloat16", "served", 8)],
+            fleet_paged, path="fleet")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -50,7 +50,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..config import default_sharding, get_arch, reduced, resolve_device
-from ..core.costmodel import ICI_BW
+from ..core.costmodel import ICI_BW, H100, HardwareSpec
 from ..core.placement import ClusterSpec
 from ..core.workloads import serving_mix_workload
 from ..launch.events import (
@@ -117,6 +117,8 @@ class ServingConfig:
     replan_cooldown: int = 0
     planner: str = "spindle"
     placement_strategy: str = "spindle"
+    #: the planner's hardware spec (forwarded to the inner SpindleSession)
+    hw: HardwareSpec = H100
     #: two 8-card H100 NVLink islands
     cluster: ClusterSpec = ClusterSpec(
         n_devices=16, island_size=8, mem_bytes=80e9, intra_island_bw=ICI_BW
@@ -245,6 +247,7 @@ class ServingSession:
                     cluster=cfg.cluster,
                     planner=cfg.planner,
                     placement_strategy=cfg.placement_strategy,
+                    hw=cfg.hw,
                     cache_maxsize=cfg.cache_maxsize,
                     replan_on=(
                         "request_arrived", "request_completed",

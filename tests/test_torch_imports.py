@@ -1,7 +1,7 @@
 """Guards of the PyTorch port's boundaries.
 
-* No file of ``src/repro_torch``, ``chip_smoke.py`` or the port's example
-  ``examples/wavefront_mt_training_torch.py`` imports ``jax``, the JAX
+* No file of ``src/repro_torch``, ``chip_smoke.py`` or the port's examples
+  (``examples/*_torch.py``) imports ``jax``, the JAX
   package ``repro`` or ``ml_dtypes`` (JAX's dtype package, which the card's
   machine lacks; checked on the AST, and by importing the port in a fresh
   interpreter).
@@ -32,6 +32,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "wavefront_mt_training_torch.py",
     ROOT / "examples" / "serve_multiarch_torch.py",
+    ROOT / "examples" / "quickstart_torch.py",
 ]
 FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
