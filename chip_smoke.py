@@ -32,7 +32,8 @@ caught):
    prefill, skinny for the decode step in both dtypes, fp32 for the fp32
    prefill), and at a chunked prefill's capacities (phase 4e's 8 rows x
    256 tokens: C 170, gate/up and down, wgmma in bf16; one row x 256
-   tokens: C 21, wmma); the
+   tokens: C 21, wmma; phase 8a's rank of 32 local experts, 28 live, at
+   C 341, bf16); the
    RG-LRU scan at recurrentgemma-9b's prefill shape (8, 512, 4096), a
    ragged (3, 300, 130) and a long decay (a = 0.999, S = 2048); and the
    modal families' shapes in bf16 (``FLASH_CASES``, ``PAGED_CASES``):
@@ -40,7 +41,8 @@ caught):
    cross-attention (Sq 512 x Sk 1,024, also fp32) and causal at its
    decoder (S 512 hd64), causal at pixtral's B8 H32 K8 S1,536 hd128, paged
    decode at seamless's step (MHA K16 hd64) and glm4's (H32 K2 hd128, two
-   head groups per KV head), each with SDPA's time beside it where one
+   head groups per KV head), flash causal at phase 8b's data-parallel
+   rank (B4 H16 K8 S1,024), each with SDPA's time beside it where one
    exists; and SDPA's forward + backward at phase 6's training shape, the
    flash gradient's library yardstick;
 3b. the cost model's spec: bf16 ``torch.matmul`` device times over
@@ -237,15 +239,43 @@ caught):
    6: the serve job requeues, and the share of its tokens equal to phase
    7's is reported (a re-prefill in another batch may flip a bf16 greedy
    token);
-8. print a ``{"kernels": [...]}`` line (attention and grouped matmul at
+8. training on a mesh of ranks (``train(mesh=)``; ``parallel.mesh.
+   run_ranks`` spawns the ranks, each counting its own launches from 0
+   and reporting its step ms, peak memory, collective bytes and a
+   sha256 of every parameter it holds after the run; in 8a-8c every
+   replicated parameter must hash alike on all ranks): a world
+   of one process on NCCL, a (1, 1) mesh, reduced qwen2-moe fp32 for 3
+   steps, equal to ``train(mesh=None)`` bit for bit, and one NCCL
+   all-reduce;
+8a. expert parallelism at full width: 6e's qwen2-moe cut to 4 layers
+   (bf16 params, 4 x 1,024, 3 steps) on two ranks that share the card
+   through gloo, mesh (data 1, model 2): 32 experts a rank, the grouped
+   matmul at E 32, C 341, 36 launches a step on each rank (9 a MoE
+   layer) and flash 8; against two one-process runs (their spread
+   printed): the first loss bit-equal, each within 5e-3; the ranks'
+   peaks together below 76 GB;
+8b. data parallelism at full width: full qwen3-0.6b, phase 6's global
+   batch 8 x 1,024 split over two ranks (data 2), 4 steps: flash 56
+   launches a rank and step, the losses within 1e-3 of two one-process
+   runs; then ``compress_grads=True`` (int8 sync): the first losses
+   equal and the last within 0.05 (``tests/test_compressed_dp.py``);
+8c. re-mesh across world sizes: reduced qwen2-moe fp32 on two ranks
+   (model 2) for 2 of 4 steps, checkpointing the logical arrays; one
+   process resumes (``restore_to_mesh``) and trains steps 2-3 equal to
+   the uninterrupted 2-rank run's within 1e-5; the EP checkpoint's names
+   and shapes equal the one-process checkpoint's;
+9. print a ``{"kernels": [...]}`` line (attention and grouped matmul at
    qwen2-moe's shapes with phase 4b's launches, the scan at recurrentgemma's
    fp32 prefill shape with phase 4c's, flash again at phase 6's
    training shape B8 H16 K8 S1024 with phase 6's launches, and at
    seamless's cross-attention shape with phase 4f's, at qwen3's prefill
    shape with phase 4j's slab launches, the grouped matmul's dx at 6e's
    shape with 6e's launches and the scan's reverse at 6f's with 6f's,
-   paged decode at the served qwen3 shape with phase 7's fleet launches),
-   the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
+   paged decode at the served qwen3 shape with phase 7's fleet launches,
+   the grouped matmul at 8a's E 32 x C 341 with 8a's launches over both
+   ranks, ``path: "ep"``, and flash at 8b's per-rank B4 S1,024 with 8b's,
+   ``path: "dp"``), the ``nvidia-smi`` line, and last ``{"ok": true,
+   "device": {...}}``.
 
 Phase 3 also holds flash at the training shape (S 1,024) and the flash
 gradient there — the plain version recomputed and differentiated, as the
@@ -310,7 +340,12 @@ GMM_SHAPES = {
     "chunk_gate_up": (64, 170, 2048, 1408, 2048),
     "chunk_down": (64, 170, 1408, 2048, 2048),
     "chunk_row": (64, 21, 2048, 1408, 256),
+    # phase 8a's expert parallelism: model rank 1's 32 local experts (28
+    # live of global experts 32-59, 4 dead) at the one-process capacity
+    "ep_gate_up": (32, 341, 2048, 1408, 4096),
 }
+# the first global expert of a GMM_SHAPES case that holds a rank's experts
+GMM_EXPERT_BASE = {"ep_gate_up": 32}
 # paged decode: (rows, pages per row, row positions, rows whose table is all
 # trash, KV heads, query heads, head dim): phase 3's ragged set and the
 # served decode (8 requests of 512-token prompts, 32 new tokens: positions
@@ -343,6 +378,8 @@ FLASH_CASES = {
     "cross": (8, 16, 16, 512, 1024, 64, False, BOTH),
     "dec_self": (8, 16, 16, 512, 512, 64, True, ("bfloat16",)),
     "pixtral": (8, 32, 8, 1536, 1536, 128, True, ("bfloat16",)),
+    # phase 8b's data-parallel rank: half of phase 6's batch
+    "dp": (4, 16, 8, 1024, 1024, 128, True, ("bfloat16",)),
 }
 # the RG-LRU scan: (B, S, D, decay) — recurrentgemma-9b's 8 x 512-token
 # prefill at d 4096, a ragged shape, and a decay of 0.999 over 2048 steps
@@ -364,8 +401,11 @@ MIX_TRACE = [(0, 300, 40, "chat", 0), (1, 300, 40, "chat", 0),
              (4, 400, 4, "code", 2)]
 
 
+T_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(f"[smoke] {msg}", flush=True)
+    print(f"[smoke +{time.perf_counter() - T_START:.1f}s] {msg}", flush=True)
 
 
 def nvidia_smi_line() -> str:
@@ -646,15 +686,16 @@ def check_gmm(torch, ops, ref, gmm, dtype_name: str, shape: str) -> dict:
     dt = getattr(torch, dtype_name)
     dev = torch.device("cuda")
     E, C, d, f, tokens = GMM_SHAPES[shape]
-    sizes_np = routed_sizes(60, E, C, tokens, 4, seed=13)
+    base = GMM_EXPERT_BASE.get(shape, 0)
+    sizes_np = routed_sizes(60, base + E, C, tokens, 4, seed=13)[base:]
     sizes = torch.as_tensor(sizes_np, dtype=torch.int32, device=dev)
-    g = torch.Generator(device=dev).manual_seed(14 + C + d)
+    g = torch.Generator(device=dev).manual_seed(14 + C + d + base)
 
     def make():
         x = torch.randn(E, C, d, generator=g, device=dev).to(dt)
         w = (torch.randn(E, d, f, generator=g, device=dev)
              / math.sqrt(d)).to(dt)
-        w[60:] = 0  # dead experts, as the model pads them
+        w[max(60 - base, 0):] = 0  # dead experts, as the model pads them
         return x, w, sizes
 
     first = make()
@@ -869,6 +910,8 @@ def phase_kernels(torch, ops, ref, gmm, paged) -> dict:
                 f"forward + backward)")
             results[("flash_backward", dtn, 1024, 8)] = r
         for shape, (E, C, d, f, tokens) in GMM_SHAPES.items():
+            if dtn == "float32" and shape in GMM_EXPERT_BASE:
+                continue  # the EP rank trains in bf16
             r = check_gmm(torch, ops, ref, gmm, dtn, shape)
             log(f"grouped_matmul {dtn} {shape} E={E} C={C} d={d} f={f} "
                 f"({tokens} tokens routed: {r['live_rows']} live rows in {r['nonempty']} groups): "
@@ -2497,6 +2540,334 @@ def phases_fleet(torch, ops, smi: str) -> int:
     return paged_launches
 
 
+# phases 8-8c: training on a mesh of ranks.  The ranks share the one card
+# through gloo (NCCL refuses two ranks on one device: pick_backend);
+# phase 8 starts NCCL on a world of one.  8a is 6e's cut (4 of 24
+# layers) at 3 steps, 8b phase 6's model and global batch at 4
+MESH_MOE_RUN = dict(reduced_cfg=False, steps=3, batch=4, seq=64, lr=1e-3,
+                    seed=0)
+EP_RUN = dict(reduced_cfg=False, steps=3, batch=4, seq=1024, lr=1e-3, seed=0)
+DP_RUN = dict(reduced_cfg=False, steps=4, batch=8, seq=1024, lr=1e-3, seed=0)
+# 8a, 8b: a mesh run against one process, per step (|diff| above it
+# fails): about twice 8a's reading of 2.53e-3 and five times 8b's of
+# 2.07e-4 (NVIDIA H100 80GB HBM3, 700 W; the same in three runs)
+EP_LOSS_TOL = 5e-3
+DP_LOSS_TOL = 1e-3
+COMPRESS_LAST_TOL = 0.05  # tests/test_compressed_dp.py:41
+REMESH_TOL = 1e-5  # 8c, reduced fp32
+
+
+def _rank_train(rank: int, jobs) -> dict:
+    """A spawned rank (``parallel.mesh.run_ranks``): each job (name, mesh
+    shape over (data, model), arch config, ``train`` kwargs) through
+    ``train(mesh=)`` on the card, its launch counts zeroed just before
+    and read just after; its history, step seconds, peak memory, counts
+    and a sha256 of each parameter this rank holds after the run (an
+    expert stack: its shard).  Under NCCL one all-reduce shows that the
+    backend carries a collective (a world of one runs none on the main
+    path)."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train
+    from repro_torch.parallel import collectives, make_mesh
+
+    def sha(t):
+        raw = t.detach().contiguous().reshape(-1).view(torch.uint8).cpu()
+        return hashlib.sha256(raw.numpy().tobytes()).hexdigest()
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"backend": dist.get_backend()}
+    if out["backend"] == "nccl":
+        t = torch.ones(1, device="cuda")
+        dist.all_reduce(t)
+        out["all_reduce"] = float(t)
+    for name, shape, cfg, kw in jobs:
+        mesh = make_mesh(shape, ("data", "model"), "cuda")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        collectives.reset_traffic()
+        r = train(cfg, device="cuda", verbose=False, mesh=mesh, **kw)
+        torch.cuda.synchronize()
+        out[name] = dict(history=r["history"], step_s=r["step_seconds"],
+                         counts=ops.launch_counts(),
+                         traffic=dict(collectives.TRAFFIC),
+                         peak=torch.cuda.max_memory_allocated(),
+                         coord=list(mesh.get_coordinate()),
+                         sha={k: sha(v) for k, v in r["params"].items()})
+        del r
+    return out
+
+
+def _one_process(torch, train, cfg, kw, runs: int) -> list:
+    """``runs`` one-process ``train`` runs of ``cfg`` on the card: (history,
+    step seconds, peak memory) each; the model freed after each."""
+    out = []
+    for _ in range(runs):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        r = train(cfg, device="cuda", verbose=False, **kw)
+        torch.cuda.synchronize()
+        out.append((r["history"], r["step_seconds"],
+                    torch.cuda.max_memory_allocated()))
+        del r
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _max_diff(a, b) -> float:
+    return max(abs(x - y) for x, y in zip(a, b))
+
+
+def phase_mesh_nccl(torch, smi: str) -> None:
+    """Phase 8: a world of one process on NCCL, a (1, 1) mesh, reduced
+    qwen2-moe in fp32 for 3 steps: the history equals ``train(mesh=None)``
+    bit for bit."""
+    from repro_torch.config import get_arch, reduced
+    from repro_torch.launch.train import train
+    from repro_torch.parallel.mesh import run_ranks
+
+    cfg = reduced(get_arch("qwen2-moe-a2.7b"))
+    ((one, _, _),) = _one_process(torch, train, cfg, MESH_MOE_RUN, 1)
+    t0 = time.perf_counter()
+    (r,) = run_ranks(_rank_train, 1, "cuda",
+                     args=([("mesh", (1, 1), cfg, MESH_MOE_RUN)],))
+    secs = time.perf_counter() - t0
+    if r["backend"] != "nccl" or r["all_reduce"] != 1.0:
+        raise AssertionError(f"phase 8: backend {r['backend']}, all-reduce "
+                             f"{r.get('all_reduce')}")
+    if r["mesh"]["history"] != one:
+        raise AssertionError(f"phase 8: (1, 1) mesh on NCCL {r['mesh']} != "
+                             f"one process {one}")
+    log(f"mesh (1, 1) on a one-rank {r['backend']} group (reduced "
+        f"qwen2-moe fp32, 3 steps): history {one} equal bit for bit to "
+        f"train(mesh=None); launches {r['mesh']['counts']}; {secs} s with "
+        f"the spawn, on {smi}")
+
+
+def _check_replicas(what: str, ranks, name: str) -> int:
+    """Every replicated parameter (all but the expert stacks, which a
+    model axis shards) hashes alike on all ranks: the history is the loss
+    already averaged over the ranks, so only the parameters show a faulty
+    sync.  Returns the number of replicated parameters compared."""
+    from repro_torch.models.moe import EXPERT_STACKS
+
+    shas = [r[name]["sha"] for r in ranks]
+    replicated = [k for k in shas[0]
+                  if k.rsplit(".", 1)[-1] not in EXPERT_STACKS]
+    apart = [k for k in replicated if any(h[k] != shas[0][k] for h in shas)]
+    if apart:
+        raise AssertionError(f"{what}: {len(apart)} of {len(replicated)} "
+                             f"replicated parameters differ across ranks, "
+                             f"e.g. {apart[:4]}")
+    return len(replicated)
+
+
+def _check_ranks(what: str, ranks, name: str, want_counts: dict) -> int:
+    """Every rank reports one history and ``want_counts``, and the
+    replicas agree (:func:`_check_replicas`, whose count it returns)."""
+    hists = [r[name]["history"] for r in ranks]
+    if any(h != hists[0] for h in hists):
+        raise AssertionError(f"{what}: ranks report different histories "
+                             f"{hists}")
+    for r in ranks:
+        if r["backend"] != "gloo":
+            raise AssertionError(f"{what}: backend {r['backend']}")
+        if r[name]["counts"] != want_counts:
+            raise AssertionError(f"{what} rank {r[name]['coord']}: launch "
+                                 f"counts {r[name]['counts']} != "
+                                 f"{want_counts}")
+    return _check_replicas(what, ranks, name)
+
+
+def _rank_line(ranks, name: str) -> str:
+    return "; ".join(
+        f"rank {i} coord {r[name]['coord']}: step_ms="
+        f"{[t * 1e3 for t in r[name]['step_s']]} peak_mem_bytes="
+        f"{r[name]['peak']} launches={r[name]['counts']} "
+        f"collective_bytes_per_step="
+        f"{ {k: v / len(r[name]['step_s']) for k, v in r[name]['traffic'].items()} }"
+        for i, r in enumerate(ranks))
+
+
+def phase_ep_full(torch, smi: str) -> dict:
+    """Phase 8a: qwen2-moe-a2.7b at full width cut to 4 layers (bf16
+    params), 4 x 1,024, 3 steps on two ranks sharing the card through
+    gloo, mesh (data 1, model 2): each rank holds experts 32·r..32·r+31
+    and runs the grouped matmul at E 32, C 341, 9 times per MoE layer and
+    step (forward, recompute, dx).  The first loss equals two one-process
+    runs' bit for bit (the partial outputs are summed in fp32 and rounded
+    once), every later one within ``EP_LOSS_TOL`` (backward sums the
+    ranks' bf16 partial gradients: another rounding order); every
+    replicated parameter hashes alike on both ranks; the one-process
+    run-to-run spread is printed; the ranks' peaks sum below
+    ``PEAK_LIMIT``."""
+    from repro_torch.config import get_arch
+    from repro_torch.launch.train import train
+    from repro_torch.parallel.mesh import run_ranks
+
+    cfg = dataclasses.replace(get_arch("qwen2-moe-a2.7b"),
+                              n_layers=TRAIN_CUT["qwen2-moe-a2.7b"])
+    steps = EP_RUN["steps"]
+    per_step = train_launches_per_step(cfg)
+    want = {k: v * steps for k, v in per_step.items()}
+    t0 = time.perf_counter()
+    ones = _one_process(torch, train, cfg, EP_RUN, 2)
+    one_s = time.perf_counter() - t0
+    spread = _max_diff(ones[0][0], ones[1][0])
+    t0 = time.perf_counter()
+    ranks = run_ranks(_rank_train, 2, "cuda",
+                      args=([("ep", (1, 2), cfg, EP_RUN)],))
+    secs = time.perf_counter() - t0
+    n_rep = _check_ranks("phase 8a", ranks, "ep", want)
+    ep = ranks[0]["ep"]["history"]
+    diff = _max_diff(ep, ones[0][0])
+    peak = sum(r["ep"]["peak"] for r in ranks)
+    if (ep[0] != ones[0][0][0] or not diff <= EP_LOSS_TOL
+            or not peak < PEAK_LIMIT):
+        raise AssertionError(f"phase 8a: EP losses {ep} vs one process "
+                             f"{ones[0][0]} (max diff {diff}), peaks "
+                             f"{peak} bytes")
+    log(f"EP qwen2-moe-a2.7b full width cut to {cfg.n_layers} layers (64 "
+        f"experts, 32 a rank; bf16 params; 4 x 1,024, {steps} steps) on 2 "
+        f"ranks sharing the card through {ranks[0]['backend']}, mesh (data "
+        f"1, model 2): losses {ep}; one process {ones[0][0]} and "
+        f"{ones[1][0]} (run-to-run spread {spread}; one-process step_ms "
+        f"{[t * 1e3 for t in ones[0][1]]}, peak {ones[0][2]}, both runs "
+        f"{one_s} s); first loss bit-equal, EP vs one process max |diff| "
+        f"{diff} (limit {EP_LOSS_TOL}); {n_rep} replicated params "
+        f"sha256-equal on both ranks; predicted launches per step and rank "
+        f"{per_step}; ranks' peaks together {peak} bytes; {_rank_line(ranks, 'ep')}; "
+        f"{secs} s with the spawn, on {smi}")
+    return {"launches": sum(r["ep"]["counts"]["grouped_matmul"]
+                            for r in ranks),
+            "per_step": per_step["grouped_matmul"]}
+
+
+def phase_dp_full(torch, smi: str) -> dict:
+    """Phase 8b: full qwen3-0.6b, global batch 8 x 1,024 on two ranks
+    sharing the card through gloo, mesh (data 2, model 1), 4 steps: 56
+    flash launches per rank and step; the losses equal two one-process
+    runs over the global batch within ``DP_LOSS_TOL``.  Then
+    ``compress_grads=True``: JAX's two conditions
+    (``tests/test_compressed_dp.py:40-41``), the first losses equal and
+    the last within ``COMPRESS_LAST_TOL``.  In both runs every parameter
+    hashes alike on both ranks."""
+    from repro_torch.config import get_arch
+    from repro_torch.launch.train import train
+    from repro_torch.parallel.mesh import run_ranks
+
+    cfg = get_arch("qwen3-0.6b")
+    steps = DP_RUN["steps"]
+    per_rank = {k: 0 for k in ("paged_attention", "flash_attention",
+                               "grouped_matmul", "rglru_scan")}
+    per_rank["flash_attention"] = 2 * cfg.n_layers * steps
+    t0 = time.perf_counter()
+    ones = _one_process(torch, train, cfg, DP_RUN, 2)
+    one_s = time.perf_counter() - t0
+    spread = _max_diff(ones[0][0], ones[1][0])
+    t0 = time.perf_counter()
+    ranks = run_ranks(_rank_train, 2, "cuda", args=(
+        [("dp", (2, 1), cfg, DP_RUN),
+         ("int8", (2, 1), cfg, dict(DP_RUN, compress_grads=True))],))
+    secs = time.perf_counter() - t0
+    n_rep = _check_ranks("phase 8b", ranks, "dp", per_rank)
+    _check_ranks("phase 8b int8", ranks, "int8", per_rank)
+    dp, q = ranks[0]["dp"]["history"], ranks[0]["int8"]["history"]
+    diff = _max_diff(dp, ones[0][0])
+    if not diff <= DP_LOSS_TOL:
+        raise AssertionError(f"phase 8b: DP losses {dp} vs one process "
+                             f"{ones[0][0]} (max diff {diff})")
+    if q[0] != dp[0] or not abs(q[-1] - dp[-1]) < COMPRESS_LAST_TOL:
+        raise AssertionError(f"phase 8b: compressed {q} vs uncompressed "
+                             f"{dp}: first equal and last within "
+                             f"{COMPRESS_LAST_TOL} required")
+    log(f"DP qwen3-0.6b full (28 layers) global batch 8 x 1,024, 4 x 1,024 "
+        f"a rank, {steps} steps on 2 ranks sharing the card through "
+        f"{ranks[0]['backend']}, mesh (data 2, model 1): losses {dp}; one "
+        f"process {ones[0][0]} and {ones[1][0]} (run-to-run spread "
+        f"{spread}; one-process step_ms {[t * 1e3 for t in ones[0][1]]}, "
+        f"peak {ones[0][2]}, both runs {one_s} s); DP vs one process max "
+        f"|diff| {diff} (limit {DP_LOSS_TOL}); {n_rep} params sha256-equal "
+        f"on both ranks in both runs; "
+        f"{_rank_line(ranks, 'dp')}; int8-compressed gradients: losses {q} "
+        f"(first equal, last {abs(q[-1] - dp[-1])} from the uncompressed "
+        f"run, limit {COMPRESS_LAST_TOL}); {_rank_line(ranks, 'int8')}; "
+        f"{secs} s with the spawn, on {smi}")
+    return {"launches": sum(r["dp"]["counts"]["flash_attention"]
+                            for r in ranks),
+            "per_step": 2 * cfg.n_layers}
+
+
+def phase_remesh(torch, smi: str) -> None:
+    """Phase 8c: reduced qwen2-moe in fp32 on two ranks (model 2) for 2
+    of 4 steps, a checkpoint of its logical arrays each step; then one
+    process resumes from it (``train``'s restore places it through
+    ``restore_to_mesh``) and trains steps 2-3: their losses equal an
+    uninterrupted 2-rank run's within ``REMESH_TOL``, and the EP
+    checkpoint's names and shapes equal the one-process checkpoint's."""
+    import shutil
+    import tempfile
+
+    from repro_torch.ckpt.checkpoint import _read_manifest
+    from repro_torch.config import get_arch, reduced
+    from repro_torch.launch.train import train
+    from repro_torch.parallel.mesh import run_ranks
+
+    cfg = reduced(get_arch("qwen2-moe-a2.7b"))
+    kw = dict(MESH_MOE_RUN, steps=4)
+    d = tempfile.mkdtemp(prefix="remesh_")
+    try:
+        ck = dict(kw, ckpt_dir=f"{d}/ck", ckpt_every=1, stop_at_step=2)
+        ranks = run_ranks(_rank_train, 2, "cuda", args=(
+            [("cut", (1, 2), cfg, ck), ("whole", (1, 2), cfg, kw)],))
+        whole = ranks[0]["whole"]["history"]
+        n_rep = _check_replicas("phase 8c", ranks, "whole")
+        res = train(cfg, device="cuda", verbose=False, ckpt_dir=f"{d}/ck",
+                    ckpt_every=1, **kw)
+
+        def layout(step):
+            man = _read_manifest(f"{d}/ck", step)
+            return {l["name"]: l["shape"] for l in man["leaves"]}
+
+        ep, one = layout(1), layout(3)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    diff = _max_diff(res["history"], whole[2:])
+    if (res["resumed_from"] != 1 or len(res["history"]) != 2
+            or not diff <= REMESH_TOL or ep != one):
+        raise AssertionError(f"phase 8c: resumed from {res['resumed_from']}"
+                             f", losses {res['history']} vs {whole[2:]} "
+                             f"(diff {diff}), layouts equal {ep == one}")
+    log(f"re-mesh (reduced qwen2-moe fp32): 2 ranks (model 2) trained steps "
+        f"0-1 {ranks[0]['cut']['history']} and saved the logical arrays; "
+        f"one process restored step 1 through restore_to_mesh and trained "
+        f"steps 2-3 {res['history']} == the uninterrupted 2-rank run's "
+        f"{whole[2:]} (max diff {diff}, tol {REMESH_TOL}); the 2-rank "
+        f"run's {n_rep} replicated params sha256-equal on both ranks; the EP "
+        f"checkpoint's {len(ep)} names and shapes equal the one-process "
+        f"checkpoint's, on {smi}")
+
+
+def phases_mesh(torch, smi: str) -> tuple:
+    """Phases 8-8c.  Returns 8a's and 8b's launch records."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_mesh_nccl(torch, smi)
+    ep = phase_ep_full(torch, smi)
+    dp = phase_dp_full(torch, smi)
+    phase_remesh(torch, smi)
+    return ep, dp
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("kernels",), default=None,
@@ -2590,6 +2961,7 @@ def main(argv=None) -> int:
         phase_ckpt_resume(torch, ops, train, smi)
         phase_crash(torch, ops, smi)
         fleet_paged = phases_fleet(torch, ops, smi)
+        ep_rec, dp_rec = phases_mesh(torch, smi)
 
     # one row per kernel: attention and the grouped matmul at qwen2-moe's
     # bf16 shapes (the grouped matmul at its decode shape, where most of
@@ -2643,6 +3015,16 @@ def main(argv=None) -> int:
         row("paged_attention",
             checks[("paged_attention", "bfloat16", "served", 8)],
             fleet_paged, path="fleet")
+        # the grouped matmul at 8a's local experts (E 32, C 341) and flash
+        # at 8b's per-rank batch, with those phases' launches over both
+        # ranks
+        row("grouped_matmul",
+            checks[("grouped_matmul", "bfloat16", "ep_gate_up")],
+            ep_rec["launches"], path="ep", ranks=2,
+            launches_per_step_per_rank=ep_rec["per_step"])
+        row("flash_attention", checks[("flash_attention", "bfloat16", "dp")],
+            dp_rec["launches"], path="dp", ranks=2,
+            launches_per_step_per_rank=dp_rec["per_step"])
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

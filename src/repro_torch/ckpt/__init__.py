@@ -1,5 +1,7 @@
 """Checkpointing, re-mesh restore and straggler mitigation (port of
-``repro.ckpt``; in one process — a mesh target is item 5c)."""
+``repro.ckpt``): a restore places onto devices or onto a mesh of ranks,
+and the timing collector gathers over the ranks; the straggler re-mesh of
+a distributed WaveEngine is ROADMAP queue 1, item 5d."""
 
 from .async_snap import AsyncCheckpointManager
 from .checkpoint import (

@@ -1,11 +1,14 @@
-"""Re-mesh restore: place a restored checkpoint onto devices (port of
-``repro/ckpt/remesh.py``, one process).
+"""Re-mesh restore: place a restored checkpoint onto devices or a mesh
+(port of ``repro/ckpt/remesh.py``).
 
 Checkpoints store logical (unsharded) arrays, so restoring after losing or
-gaining hosts is just placement: each leaf goes to its target device.  In
-one process a target is a ``torch.device`` (or a name such as ``"cuda"``);
-a ``DeviceMesh`` or a DTensor placement is the multi-GPU path and raises
-(ROADMAP queue 1, item 5c) rather than quietly staying on one device.
+gaining hosts is placement: each leaf goes to its target.  A target is a
+``torch.device`` (or a name such as ``"cuda"``), or a ``(DeviceMesh,
+placements)`` pair — what :func:`repro_torch.parallel.tree_param_shardings`
+gives — under which the leaf becomes a DTensor holding this rank's shard.
+Every rank holds the whole restored array, so the placement is local: no
+collective runs.  A rank outside the target mesh gets a DTensor with an
+empty local tensor.
 """
 
 from __future__ import annotations
@@ -14,17 +17,42 @@ import copy
 from typing import Any, Dict
 
 import torch
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, Shard
 
 from ..optim.adamw import OptState
-from .straggler import ITEM_5C
+from ..parallel.collectives import full_tensor
+
+
+def _is_sharding(target) -> bool:
+    return (isinstance(target, tuple) and len(target) == 2
+            and isinstance(target[0], DeviceMesh))
 
 
 def _device(target) -> torch.device:
     if isinstance(target, (torch.device, str)):
         return torch.device(target)
-    raise NotImplementedError(
-        f"restore onto {type(target).__name__} (a mesh or DTensor placement) "
-        f"is not ported yet: {ITEM_5C}")
+    raise TypeError(f"restore target {target!r} is neither a device nor a "
+                    f"(DeviceMesh, placements) pair")
+
+
+def _distribute(x: torch.Tensor, mesh: DeviceMesh, places) -> DTensor:
+    """``x`` as a DTensor on ``mesh``: this rank's chunk of every
+    ``Shard`` mesh dim, taken major to minor (torch's chunk layout)."""
+    dev = torch.device(mesh.device_type)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    coord = mesh.get_coordinate()
+    if coord is None:
+        local = x.new_empty((0,), device=dev)
+    else:
+        local = x
+        for i, p in enumerate(places):
+            if isinstance(p, Shard):
+                local = local.chunk(mesh.size(i), dim=p.dim)[coord[i]]
+        local = local.to(dev, copy=True).contiguous()
+    return DTensor.from_local(local, mesh, tuple(places), run_check=False,
+                              shape=x.shape, stride=x.contiguous().stride())
 
 
 def _place(x, target):
@@ -37,23 +65,37 @@ def _place(x, target):
         return {k: _place(v, target[k] if isinstance(target, dict)
                           else target) for k, v in x.items()}
     if isinstance(x, (list, tuple)):
-        ts = target if isinstance(target, (list, tuple)) else [target] * len(x)
+        each = isinstance(target, (list, tuple)) and not _is_sharding(target)
+        ts = target if each else [target] * len(x)
         return type(x)(_place(v, t) for v, t in zip(x, ts))
     if isinstance(x, torch.Tensor):
+        if _is_sharding(target):
+            return _distribute(x, *target)
         return x.to(_device(target))
     return x  # a Python scalar (an OptState count) has no device
 
 
 def restore_to_mesh(tree, targets) -> Any:
-    """Place ``tree`` (restored CPU tensors) onto ``targets``: a pytree of
-    the same structure holding a device per leaf, or one device for all."""
+    """Place ``tree`` (restored CPU tensors) onto ``targets``: a tree of the
+    same structure holding a target per leaf, or one target for all."""
     return _place(tree, targets)
 
 
 def reshard(tree, new_targets) -> Any:
-    """Live re-placement of device tensors onto new targets (the source
-    devices are implicit in the tensors themselves)."""
-    return restore_to_mesh(tree, new_targets)
+    """Live re-placement onto new targets: every DTensor is gathered to its
+    logical tensor (a collective over its mesh: every rank calls this),
+    then placed.  The old layout is implicit in the tensors themselves."""
+    return restore_to_mesh(_gather(tree), new_targets)
+
+
+def _gather(x):
+    if isinstance(x, OptState):
+        return OptState(mu=_gather(x.mu), nu=_gather(x.nu), count=x.count)
+    if isinstance(x, dict):
+        return {k: _gather(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_gather(v) for v in x)
+    return full_tensor(x)
 
 
 def fresh_module(module: torch.nn.Module,

@@ -17,7 +17,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-ITEM_5C = "ROADMAP queue 1, item 5c (multi-GPU)"
+ITEM_5D = "ROADMAP queue 1, item 5d (the distributed WaveEngine)"
 
 
 def world_size() -> int:
@@ -72,16 +72,24 @@ class StragglerDetector:
 
 @dataclass
 class TimingCollector:
-    """Per-host timing stream for the detector, in-process.
+    """Aggregated per-host timing stream for the detector (rank-0 pattern).
 
     The detector compares per-host medians, so it can flag only when one
-    instance sees every host's times.  In one process the caller IS every
-    host: :meth:`gather` returns the local time once per host, scaled by
-    ``skew`` (host index → step-time multiplier), so a deterministic
-    degradation can be injected.  The JAX collector's multi-process path
-    (an allgather, rank 0 feeding the detector) comes with multi-GPU runs:
-    under a ``torch.distributed`` group of more than one process,
-    :meth:`gather` raises.
+    instance sees every host's times.  Each process contributes its local
+    step time through :meth:`gather`:
+
+    * **multi-process** (a ``torch.distributed`` group of more than one
+      process) — the local time is all-gathered over the world and only
+      rank 0 receives the per-host vector (its first ``n_hosts``
+      entries); every other rank gets ``None`` and feeds nothing, so
+      exactly one detector flags;
+    * **in-process** — the caller IS every host: the local time once per
+      host, scaled by ``skew`` (host index → step-time multiplier), so a
+      deterministic degradation can be injected.
+
+    This aggregates the observations; broadcasting a flag before anyone
+    replans comes with the distributed WaveEngine (ROADMAP queue 1, item
+    5d).
     """
 
     n_hosts: int
@@ -89,8 +97,15 @@ class TimingCollector:
 
     def gather(self, local_seconds: float) -> Optional[List[float]]:
         if world_size() > 1:
-            raise NotImplementedError(
-                f"TimingCollector across processes is not ported yet: "
-                f"{ITEM_5C}")
+            dist = torch.distributed
+            dev = "cuda" if dist.get_backend() == "nccl" else "cpu"
+            mine = torch.tensor([local_seconds], dtype=torch.float32,
+                                device=dev)
+            parts = [torch.empty_like(mine)
+                     for _ in range(dist.get_world_size())]
+            dist.all_gather(parts, mine)
+            if dist.get_rank() != 0:
+                return None  # rank-0 collector: only one detector feed
+            return [float(t) for t in torch.cat(parts)[:self.n_hosts].cpu()]
         return [local_seconds * self.skew.get(h, 1.0)
                 for h in range(self.n_hosts)]

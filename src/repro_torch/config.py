@@ -3,10 +3,12 @@
 ``ArchConfig`` and ``MoEConfig`` are field-for-field copies of the JAX
 package's, so an architecture has the same numbers in both packages
 (``tests/test_torch_imports.py`` pins that for the registered archs).
-``ShardingConfig`` keeps the knobs one card reads: ``use_kernels`` (the
+``ShardingConfig`` keeps the knobs the port reads: ``use_kernels`` (the
 JAX package's ``use_pallas``) routes attention and the MoE expert
-products through the hand-written CUDA kernels, and ``remat`` sets the
-training forward's activation checkpoints.  :func:`resolve_device` is the port's single
+products through the hand-written CUDA kernels, ``remat`` sets the
+training forward's activation checkpoints, and ``fsdp``,
+``fsdp_over_pod``, ``shard_experts`` and ``seq_shard_acts`` are the
+sharding rules' knobs (:mod:`repro_torch.parallel.sharding`).  :func:`resolve_device` is the port's single
 device policy: asking for CUDA without a GPU raises, it never falls back.
 """
 
@@ -85,6 +87,14 @@ class ShardingConfig:
     version."""
 
     use_kernels: bool = False
+    # the rules' knobs (``parallel/sharding.py``), JAX's defaults: FSDP over
+    # the data axis (and over "pod" too with ``fsdp_over_pod``), experts
+    # over "model" (EP; ``moe_apply``'s mesh branch), long activations
+    # sequence-sharded over "model"
+    fsdp: bool = True
+    fsdp_over_pod: bool = False
+    shard_experts: bool = True
+    seq_shard_acts: bool = True
     # activation checkpoint policy of a training forward: "block" (each
     # block-pattern repetition recomputed in backward) | "sqrt" (JAX's
     # two-level checkpointed groups) | "none"
@@ -118,9 +128,9 @@ def _ensure_registered() -> None:
 def default_sharding(cfg: ArchConfig, **overrides) -> ShardingConfig:
     """The arch's default ShardingConfig: its ``sharding_defaults`` that
     name a field of the port's ShardingConfig, then ``overrides``.  The
-    JAX knob it leaves out, ``grad_accum`` of the MoE configs, is read
+    JAX knobs it leaves out, ``grad_accum`` and ``accum_dtype``, are read
     only by the JAX package's XLA step functions (``launch/steps.py``),
-    not by its ``train``: it comes with them (ROADMAP queue 1, item 6)."""
+    not by its ``train``: they come with them (ROADMAP queue 1, item 6)."""
     names = {f.name for f in fields(ShardingConfig)}
     kw = {k: v for k, v in cfg.sharding_defaults if k in names}
     kw.update(overrides)

@@ -1,11 +1,14 @@
 """Architecture configs of the port (importing this package registers them).
 
-Only the architectures the port serves are registered: the dense
-deepseek-67b and llama3-405b, which no single card holds, join with
-multi-GPU (ROADMAP queue 1, item 5c).
+All ten of the JAX package's architectures.  The dense deepseek-67b and
+llama3-405b fit no single card: they are registered for the sharding
+rules (``parallel/sharding.py``) and run nowhere yet; training them from
+a state placed by the rules is ROADMAP queue 1, item 5e.
 """
 
-from . import glm4_9b  # noqa: F401  — import side-effect: register_arch()
+from . import deepseek_67b  # noqa: F401  — import side-effect: register_arch()
+from . import glm4_9b  # noqa: F401
+from . import llama3_405b  # noqa: F401
 from . import pixtral_12b  # noqa: F401
 from . import qwen2_moe_a2_7b  # noqa: F401
 from . import qwen3_0_6b  # noqa: F401

@@ -1,5 +1,7 @@
 """Deterministic synthetic data pipeline (multi-task, multi-modal)."""
 
-from .pipeline import DataConfig, MultiTaskMixture, SyntheticLM, TaskStream
+from .pipeline import (DataConfig, MultiTaskMixture, SyntheticLM, TaskStream,
+                       shard_batch)
 
-__all__ = ["DataConfig", "SyntheticLM", "TaskStream", "MultiTaskMixture"]
+__all__ = ["DataConfig", "SyntheticLM", "TaskStream", "MultiTaskMixture",
+           "shard_batch"]

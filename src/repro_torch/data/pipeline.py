@@ -1,6 +1,6 @@
 """Synthetic data pipeline: deterministic and restartable (port of
-``repro/data/pipeline.py``; ``shard_batch`` comes with multi-GPU data
-parallelism, ROADMAP queue 1, item 5c).
+``repro/data/pipeline.py``), and :func:`shard_batch`, a rank's rows of a
+global batch under a mesh.
 
 Every batch is a pure function of ``(seed, step)``, so a run restarted at
 step ``k`` sees the batches it would have seen.  Tokens follow a Markov
@@ -118,3 +118,33 @@ class MultiTaskMixture:
                 b[sname] = torch.from_numpy(x).to(dtype)
             out[t.name] = b
         return out
+
+
+# ---------------------------------------------------------------------------
+# Mesh placement
+# ---------------------------------------------------------------------------
+
+
+def shard_batch(batch, mesh, batch_axes: Sequence[str]):
+    """This rank's rows of a global batch dict, its leading dim split over
+    ``batch_axes`` in the order JAX's ``NamedSharding`` lays a tuple of
+    axes (the first axis major: pod-major, then data).  Ranks that differ
+    only along other axes (one model group) get the same rows.  A batch
+    dim the axes' size does not divide stays whole, as ``batch_spec``
+    leaves it."""
+    names = tuple(mesh.mesh_dim_names)
+    shape = tuple(mesh.shape)
+    coord = tuple(mesh.get_coordinate())
+    n, i = 1, 0
+    for a in batch_axes:
+        if a in names:
+            k = names.index(a)
+            n, i = n * shape[k], i * shape[k] + coord[k]
+
+    def rows(x):
+        B = x.shape[0]
+        if n == 1 or B % n:
+            return x
+        return x[i * (B // n):(i + 1) * (B // n)]
+
+    return {k: rows(v) for k, v in batch.items()}

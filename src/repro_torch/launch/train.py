@@ -42,9 +42,26 @@ training loop feeds its step times into a
 :class:`repro_torch.launch.events.StragglerEventSource` (through an
 in-process :class:`repro_torch.ckpt.straggler.TimingCollector`), and the
 session polls it every step, so a detected straggler fires the §5.5
-re-plan hook.  The elastic smoke (``--elastic-smoke``: a re-mesh over a
-device mesh) and compressed data-parallel gradients come with multi-GPU
-runs and raise (ROADMAP queue 1, item 5c).
+re-plan hook.
+
+``train(mesh=)`` trains on a mesh of ``torch.distributed`` ranks
+(:func:`repro_torch.parallel.make_mesh`; axes ``"pod"``, ``"data"``,
+``"model"``): every rank runs the same call.  The batch is split over the
+batch axes (:func:`repro_torch.data.shard_batch`), an MoE layer shards
+its experts over ``"model"`` (expert parallelism:
+:func:`repro_torch.models.moe.moe_apply`), each rank backpropagates the
+mean loss of its rows, the gradients are SUM all-reduced over the batch
+axes and divided by their size, and the history holds the loss averaged
+over them — JAX's global mean, the same on every rank.  With
+``compress_grads`` the data-parallel sync is int8
+(:func:`repro_torch.optim.compressed_mean` over ``"data"``) and the loss
+runs without the mesh, as JAX's ``_make_compressed_dp_step`` does.  A
+caller starts the ranks itself (``torchrun``, or ``torch.multiprocessing``
+with the ``spawn`` start method, which CUDA needs), joins the group
+(:func:`repro_torch.parallel.mesh.init_rank`) and builds the mesh; the
+CLI trains in one process.  The elastic smoke (``--elastic-smoke``:
+straggler re-meshes of a distributed WaveEngine) raises (ROADMAP queue 1,
+item 5d).
 """
 
 from __future__ import annotations
@@ -55,15 +72,21 @@ from functools import partial
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..ckpt import CheckpointManager
-from ..ckpt.straggler import (ITEM_5C, StragglerDetector, TimingCollector,
+from ..ckpt.straggler import (ITEM_5D, StragglerDetector, TimingCollector,
                               world_size)
-from ..config import default_sharding, get_arch, reduced, resolve_device
-from ..data import DataConfig, SyntheticLM
+from ..config import (ArchConfig, default_sharding, get_arch, reduced,
+                      resolve_device)
+from ..data import DataConfig, SyntheticLM, shard_batch
 from ..models import build_model
 from ..models.layers import dtype_of
-from ..optim import AdamW, warmup_cosine
+from ..models.moe import shard_expert_stacks
+from ..optim import AdamW, OptState, compressed_mean, warmup_cosine
+from ..parallel.collectives import (all_gather_cat, all_reduce_,
+                                    global_norm, mean_grads)
+from ..parallel.mesh import DATA, MODEL, axis_group, batch_axes
 from .events import StragglerEventSource
 
 
@@ -107,27 +130,126 @@ def plan_preview(workload: str, *, planner: str = "spindle",
     return session
 
 
-def make_train_state(model, optimizer: AdamW, seed: int):
+def make_train_state(model, optimizer: AdamW, seed: int, mesh=None):
     """Random weights from ``seed`` (fp32 masters) and fresh optimizer
-    state.  Returns (params by name, optimizer state)."""
+    state.  Under ``mesh`` the MoE expert stacks become DTensors sharded
+    over ``"model"`` (:func:`repro_torch.models.moe.shard_expert_stacks`;
+    drawn whole from the seed first, so every mesh trains the one model).
+    Returns (params by name — this rank's local tensors, which the
+    optimizer updates in place —, optimizer state)."""
     model.init(seed)
-    params = dict(model.impl.named_parameters())
+    if mesh is not None:
+        shard_expert_stacks(model.impl, model.cfg, mesh)
+    params = _local_params(model)
     return params, optimizer.init(params)
 
 
-def train_step(model, optimizer: AdamW, params, opt_state, batch):
+def _local_params(model) -> Dict[str, torch.Tensor]:
+    """The model's parameters by name, a DTensor as its local tensor (the
+    same storage: an in-place update reaches the DTensor)."""
+    from torch.distributed.tensor import DTensor
+
+    with torch.no_grad():
+        return {n: p.to_local() if isinstance(p, DTensor) else p
+                for n, p in model.impl.named_parameters()}
+
+
+def _sharded_names(model) -> Tuple[str, ...]:
+    from torch.distributed.tensor import DTensor
+
+    return tuple(n for n, p in model.impl.named_parameters()
+                 if isinstance(p, DTensor))
+
+
+def train_step(model, optimizer: AdamW, params, opt_state, batch, *,
+               mesh=None, compress_grads: bool = False):
     """Loss, backward, AdamW update (in place on ``params``).  Returns
-    (new optimizer state, loss as a 0-d tensor)."""
-    loss, _ = model.loss(batch)
-    grads = torch.autograd.grad(loss, list(params.values()))
-    opt_state = optimizer.update(dict(zip(params, grads)), opt_state, params)
-    return opt_state, loss.detach()
+    (new optimizer state, loss as a 0-d tensor).  Under ``mesh`` (every
+    rank calls this) ``batch`` is this rank's rows: the gradients are
+    synced over the batch axes (their mean; int8 over ``"data"`` with
+    ``compress_grads``, whose loss runs without the mesh), the clip norm
+    counts every expert shard once, and the loss returned is the mean
+    over the batch axes.  Without a mesh every collective is the
+    identity."""
+    loss, _ = model.loss(batch, mesh=None if compress_grads else mesh)
+    live = dict(model.impl.named_parameters())
+    grads = dict(zip(live, torch.autograd.grad(loss, list(live.values()))))
+    sharded = _sharded_names(model)
+    for n in sharded:
+        grads[n] = grads[n].to_local()
+    if compress_grads:
+        group, nb = axis_group(mesh, (DATA,))
+        grads = {n: compressed_mean(g, group) for n, g in grads.items()}
+    else:
+        group, nb = axis_group(mesh, batch_axes(mesh))
+        grads = mean_grads(grads, group, nb)
+    gnorm = None
+    if sharded and optimizer.grad_clip > 0:
+        gnorm = global_norm(grads, sharded, axis_group(mesh, (MODEL,))[0])
+    opt_state = optimizer.update(grads, opt_state, params, gnorm=gnorm)
+    return opt_state, all_reduce_(loss.detach().clone(), group) / nb
+
+
+def _logical(model, params, opt_state, mesh):
+    """The checkpoint tree with every sharded leaf gathered over
+    ``"model"`` (a collective: every rank calls it), so that the files
+    equal one process's name for name and shape for shape."""
+    sharded = _sharded_names(model)
+    if not sharded:
+        return {"params": params, "opt": opt_state}
+    group = axis_group(mesh, (MODEL,))[0]
+
+    def full(d):
+        return {n: all_gather_cat(t, group) if n in sharded else t
+                for n, t in d.items()}
+
+    return {"params": full(params),
+            "opt": OptState(mu=full(opt_state.mu), nu=full(opt_state.nu),
+                            count=opt_state.count)}
+
+
+def _logical_like(model, params, opt_state):
+    """What a checkpoint of this run holds: the logical shapes (a sharded
+    leaf as a ``"meta"`` tensor of its whole shape)."""
+    shapes = {n: p.shape for n, p in model.impl.named_parameters()}
+
+    def like(d):
+        return {n: t if tuple(t.shape) == tuple(shapes[n])
+                else torch.empty(shapes[n], dtype=t.dtype, device="meta")
+                for n, t in d.items()}
+
+    return {"params": like(params),
+            "opt": OptState(mu=like(opt_state.mu), nu=like(opt_state.nu),
+                            count=opt_state.count)}
+
+
+def _placed_locals(model, restored, dev):
+    """A restored logical tree placed as the live params are, through
+    :func:`repro_torch.ckpt.restore_to_mesh` (a sharded leaf onto its
+    mesh and placements, the rest onto ``dev``), as local tensors."""
+    from torch.distributed.tensor import DTensor
+
+    from ..ckpt import restore_to_mesh
+
+    targets = {n: (p.device_mesh, p.placements) if isinstance(p, DTensor)
+               else dev for n, p in model.impl.named_parameters()}
+    placed = restore_to_mesh(restored, {"params": targets, "opt": OptState(
+        mu=targets, nu=targets, count=0)})
+
+    def local(d):
+        return {n: t.to_local() if isinstance(t, DTensor) else t
+                for n, t in d.items()}
+
+    opt = placed["opt"]
+    return {"params": local(placed["params"]),
+            "opt": OptState(mu=local(opt.mu), nu=local(opt.nu),
+                            count=opt.count)}
 
 
 @torch.no_grad()
 def _load_into(live: Dict[str, torch.Tensor], restored: Dict[str, torch.Tensor],
                what: str) -> None:
-    """Copy restored CPU tensors into the live ones, which the model (or
+    """Copy restored tensors into the live ones, which the model (or
     the optimizer) holds — rebinding the names instead would leave the
     model training from its fresh weights.  Names, shapes and dtypes must
     match."""
@@ -144,7 +266,7 @@ def _load_into(live: Dict[str, torch.Tensor], restored: Dict[str, torch.Tensor],
 
 
 def train(
-    arch: str = "qwen3-0.6b",
+    arch: "str | ArchConfig" = "qwen3-0.6b",
     *,
     reduced_cfg: bool = True,
     steps: int = 100,
@@ -156,6 +278,7 @@ def train(
     log_every: int = 10,
     seed: int = 0,
     stop_at_step: Optional[int] = None,  # simulate an interrupt
+    mesh=None,
     compress_grads: bool = False,
     verbose: bool = True,
     plan_workload: Optional[str] = None,
@@ -163,20 +286,24 @@ def train(
     device: str = "cuda",
     use_kernels: Optional[bool] = None,
 ) -> Dict[str, Any]:
-    """Train ``arch`` for ``steps`` steps on ``device``.  ``use_kernels``
+    """Train ``arch`` (a registered name, or an ``ArchConfig`` such as a
+    depth cut) for ``steps`` steps on ``device``.  ``use_kernels``
     (default: on the GPU) routes attention through the CUDA kernels; off,
     attention is plain PyTorch on either device.  With ``ckpt_dir`` the
     run resumes from that directory's latest step and saves every
-    ``ckpt_every`` steps.  Returns the loss history (this run's steps),
-    each step's seconds (host clock, ending in a device sync), the step it
-    resumed from (or ``None``) and the seconds of that restore and of each
-    save (host clock), the params and optimizer state and the MT plan of
-    ``plan_workload``."""
-    if compress_grads:
-        raise NotImplementedError(
-            f"int8-compressed data-parallel gradients are not ported yet: "
-            f"{ITEM_5C}")
+    ``ckpt_every`` steps (under a mesh, world rank 0 writes the logical
+    arrays).  ``mesh``: train on a mesh of ranks (see the module doc);
+    ``compress_grads`` takes effect under a mesh with a ``"data"`` axis,
+    as in JAX.  Returns the loss history (this run's steps), each step's
+    seconds (host clock, ending in a device sync), the step it resumed
+    from (or ``None``) and the seconds of that restore and of each save
+    (host clock), the params (this rank's local tensors) and optimizer
+    state and the MT plan of ``plan_workload``."""
     dev = resolve_device(device)
+    compress = bool(compress_grads and mesh is not None
+                    and DATA in mesh.mesh_dim_names)
+    lead = mesh is None or dist.get_rank() == 0  # prints and saves
+    verbose = verbose and lead
     n_hosts = max(world_size(), 1)
     straggler_src = StragglerEventSource(
         StragglerDetector(n_hosts=n_hosts),
@@ -195,7 +322,8 @@ def train(
         session = plan_preview(plan_workload, planner=planner,
                                verbose=verbose, event_sources=[straggler_src],
                                callbacks=[_ReplanLogger()])
-    cfg = get_arch(arch)
+    cfg = arch if isinstance(arch, ArchConfig) else get_arch(arch)
+    arch = cfg.name
     if reduced_cfg:
         cfg = reduced(cfg)
     if use_kernels is None:
@@ -209,17 +337,23 @@ def train(
     )
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq,
                                   global_batch=batch, seed=seed))
-    params, opt_state = make_train_state(model, optimizer, seed)
+    ep_mesh = None if compress else mesh
+    params, opt_state = make_train_state(model, optimizer, seed, ep_mesh)
 
     start_step, resumed_from = 0, None
     mgr = None
     save_seconds, restore_seconds = [], None
     if ckpt_dir:
         mgr = CheckpointManager(ckpt_dir, every=ckpt_every, keep=3)
+        if mesh is not None:
+            # every rank restores one step: none reads the directory while
+            # world rank 0 may still be writing an earlier run's last save
+            dist.barrier()
         t0 = time.perf_counter()
-        restored, manifest = mgr.restore_latest({"params": params,
-                                                 "opt": opt_state})
+        like = _logical_like(model, params, opt_state)
+        restored, manifest = mgr.restore_latest(like)
         if restored is not None:
+            restored = _placed_locals(model, restored, dev)
             _load_into(params, restored["params"], "params")
             _load_into(opt_state.mu, restored["opt"].mu, "first moments")
             _load_into(opt_state.nu, restored["opt"].nu, "second moments")
@@ -237,9 +371,13 @@ def train(
     for step in range(start_step, steps):
         if stop_at_step is not None and step >= stop_at_step:
             break  # simulated interruption (schedule still sized by `steps`)
-        b = {k: v.to(dev) for k, v in data.batch(step).items()}
+        b = data.batch(step)
+        if mesh is not None:
+            b = shard_batch(b, mesh, (DATA,) if compress else batch_axes(mesh))
+        b = {k: v.to(dev) for k, v in b.items()}
         t0 = time.perf_counter()
-        opt_state, loss = train_step(model, optimizer, params, opt_state, b)
+        opt_state, loss = train_step(model, optimizer, params, opt_state, b,
+                                     mesh=mesh, compress_grads=compress)
         loss = float(loss)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
@@ -251,10 +389,11 @@ def train(
         if verbose and (step % log_every == 0 or step == steps - 1):
             print(f"[train] step {step:5d}  loss {loss:.4f}  "
                   f"{dt*1e3:7.1f} ms  {batch * seq / dt:9.0f} tok/s")
-        if mgr:
+        if mgr and mgr.every > 0 and step % mgr.every == 0:
             t0 = time.perf_counter()
-            if mgr.maybe_save(step, {"params": params, "opt": opt_state},
-                              extra={"loss": loss, "arch": arch}):
+            tree = _logical(model, params, opt_state, ep_mesh)
+            if lead:
+                mgr.save(step, tree, extra={"loss": loss, "arch": arch})
                 save_seconds.append(time.perf_counter() - t0)
         if session is not None:
             # the session drains the straggler source and replans the MT
@@ -276,9 +415,10 @@ def train(
         # interrupted run must not stamp steps-1 onto older state — a real
         # crash saves nothing either, and resume would skip the tail.
         t0 = time.perf_counter()
-        mgr.save(steps - 1, {"params": params, "opt": opt_state},
-                 extra={"loss": history[-1]})
-        save_seconds.append(time.perf_counter() - t0)
+        tree = _logical(model, params, opt_state, ep_mesh)
+        if lead:
+            mgr.save(steps - 1, tree, extra={"loss": history[-1]})
+            save_seconds.append(time.perf_counter() - t0)
     return {
         "arch": arch,
         "steps": steps,
@@ -451,7 +591,7 @@ def main() -> None:
                     help="save here, and resume from the latest step here")
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--elastic-smoke", action="store_true",
-                    help="not ported yet (ROADMAP queue 1, item 5c)")
+                    help="not ported yet (ROADMAP queue 1, item 5d)")
     ap.add_argument("--crash-smoke", action="store_true",
                     help="hard-failure scenario: scripted host kill -> "
                          "async-snapshot rollback + replay; uses "
@@ -463,8 +603,8 @@ def main() -> None:
     args = ap.parse_args()
     if args.elastic_smoke:
         raise NotImplementedError(
-            f"the elastic smoke (checkpoint → re-mesh over a device mesh → "
-            f"restore) is not ported yet: {ITEM_5C}")
+            f"the elastic smoke (straggler re-meshes of the distributed "
+            f"WaveEngine) is not ported yet: {ITEM_5D}")
     if args.crash_smoke:
         crash_smoke(
             steps=args.steps,

@@ -43,22 +43,28 @@ class Model(nn.Module):
         self.impl.load_state(tensors)
         return self
 
-    def loss(self, batch):
+    def loss(self, batch, *, mesh=None):
         """(loss, {"nll", "aux"}) of a batch dict (see
-        :meth:`Transformer.loss` and :meth:`EncDecTransformer.loss`)."""
-        return self.impl.loss(batch)
+        :meth:`Transformer.loss` and :meth:`EncDecTransformer.loss`).
+        ``mesh`` reaches a decoder's MoE layers (expert parallelism); the
+        encoder-decoder takes none (JAX's uses it only for layout
+        constraints, which have no counterpart here)."""
+        if self.cfg.is_encdec:
+            return self.impl.loss(batch)
+        return self.impl.loss(batch, mesh=mesh)
 
     def _enc_len(self, cache_len: int, enc_len: int) -> int:
         return enc_len or max(cache_len // 4, 1)
 
     def prefill(self, batch, *, cache_len: Optional[int] = None,
-                cache_dtype=torch.bfloat16):
+                cache_dtype=torch.bfloat16, mesh=None):
         if self.cfg.is_encdec:
             return self.impl.prefill(batch["tokens"], batch["frames"],
                                      cache_len=cache_len,
                                      cache_dtype=cache_dtype)
         return self.impl.prefill(batch["tokens"], batch.get("embeds"),
-                                 cache_len=cache_len, cache_dtype=cache_dtype)
+                                 cache_len=cache_len, cache_dtype=cache_dtype,
+                                 mesh=mesh)
 
     def init_cache(self, batch: int, cache_len: int, *, enc_len: int = 0,
                    cache_dtype=torch.bfloat16):
@@ -88,11 +94,15 @@ class Model(nn.Module):
         by chunk — only all-attention decoder-only stacks qualify."""
         return self.impl.supports_chunked_prefill
 
-    def decode_step(self, token, cache, pos, *, pages=None):
-        return self.impl.decode_step(token, cache, pos, pages=pages)
+    def decode_step(self, token, cache, pos, *, pages=None, mesh=None):
+        if self.cfg.is_encdec:
+            return self.impl.decode_step(token, cache, pos, pages=pages)
+        return self.impl.decode_step(token, cache, pos, pages=pages,
+                                     mesh=mesh)
 
-    def prefill_chunk(self, tokens, cache, pos0: int, *, pages):
-        return self.impl.prefill_chunk(tokens, cache, pos0, pages=pages)
+    def prefill_chunk(self, tokens, cache, pos0: int, *, pages, mesh=None):
+        return self.impl.prefill_chunk(tokens, cache, pos0, pages=pages,
+                                       mesh=mesh)
 
 
 def build_model(cfg: ArchConfig, shcfg: Optional[ShardingConfig] = None, *,

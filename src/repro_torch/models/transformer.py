@@ -255,12 +255,13 @@ class Block(nn.Module):
             self.ffn = _ffn_leaves(cfg, dtype, device)
 
 
-def ffn_apply(p, h, cfg: ArchConfig, *, impl: str):
+def ffn_apply(p, h, cfg: ArchConfig, *, impl: str, mesh=None):
     """``_ffn_apply`` on (B, S, d): (the MoE FFN, its router's aux loss) or
     (the SwiGLU, 0.0 — a Python zero, so a dense layer launches nothing
-    for it).  The serving paths drop the aux loss, as JAX's do."""
+    for it).  The serving paths drop the aux loss, as JAX's do.  ``mesh``
+    reaches the MoE layer only (its expert parallelism)."""
     if cfg.is_moe:
-        return moe_apply(p, h, cfg, use_kernels=impl == "kernels")
+        return moe_apply(p, h, cfg, use_kernels=impl == "kernels", mesh=mesh)
     return mlp_apply(p, h), 0.0
 
 
@@ -316,30 +317,31 @@ def _mix_decode(p, x_t, state, pos, cfg: ArchConfig, kind: str, pages,
     raise ValueError(kind)
 
 
-def _layer_apply(p: Block, h, cfg: ArchConfig, kind: str, *, impl: str):
+def _layer_apply(p: Block, h, cfg: ArchConfig, kind: str, *, impl: str,
+                 mesh=None):
     """One layer over a sequence. Returns (h, aux loss, raw decode
     state)."""
     y, state = _mix_apply(p.mix, rmsnorm(p.norm1, h), cfg, kind, impl=impl)
     h = h + y
     if not has_ffn(cfg):
         return h, 0.0, state
-    y, aux = ffn_apply(p.ffn, rmsnorm(p.norm2, h), cfg, impl=impl)
+    y, aux = ffn_apply(p.ffn, rmsnorm(p.norm2, h), cfg, impl=impl, mesh=mesh)
     return h + y, aux, state
 
 
 def _layer_decode(p: Block, x_t, state, pos, cfg: ArchConfig, kind: str,
-                  pages, slots, impl):
+                  pages, slots, impl, mesh=None):
     y, state = _mix_decode(p.mix, rmsnorm(p.norm1, x_t), state, pos, cfg,
                            kind, pages, slots, impl)
     h = x_t + y
     if has_ffn(cfg):
         h = h + ffn_apply(p.ffn, rmsnorm(p.norm2, h[:, None, :]), cfg,
-                          impl=impl)[0][:, 0]
+                          impl=impl, mesh=mesh)[0][:, 0]
     return h, state
 
 
 def _layer_chunk(p: Block, x, pool, page_table, pos0: int, cfg: ArchConfig,
-                 impl: str):
+                 impl: str, mesh=None):
     """One (attn + FFN) layer over a prefill chunk x (B, C, d) against the
     paged cache (JAX ``_layer_chunk``): attention stays plain; an MoE FFN
     takes the grouped-matmul kernel with kernels on, at the chunk's
@@ -351,7 +353,8 @@ def _layer_chunk(p: Block, x, pool, page_table, pos0: int, cfg: ArchConfig,
         qk_norm=cfg.qk_norm,
     )
     h = x + y
-    h = h + ffn_apply(p.ffn, rmsnorm(p.norm2, h), cfg, impl=impl)[0]
+    h = h + ffn_apply(p.ffn, rmsnorm(p.norm2, h), cfg, impl=impl,
+                      mesh=mesh)[0]
     return h, {"k": pk, "v": pv}
 
 
@@ -393,33 +396,34 @@ class Decoder(nn.Module):
         self.layers = nn.ModuleList(
             Block(cfg, kind, dtype, device) for kind in self.kinds)
 
-    def _layer(self, i: int, h):
+    def _layer(self, i: int, h, mesh=None):
         layer = self.layers[i]
         if self.cast_dtype is not None:
             layer = SimpleNamespace(**cast_leaves(layer, self.cast_dtype))
         return _layer_apply(layer, h, self.cfg, self.kinds[i],
-                            impl=self.attn_impl)
+                            impl=self.attn_impl, mesh=mesh)
 
-    def _layers(self, h, lo: int, hi: int):
+    def _layers(self, h, lo: int, hi: int, mesh=None):
         """Layers ``lo..hi-1``. Returns (h, their summed aux loss)."""
         aux = 0.0
         for i in range(lo, hi):
-            h, a, _ = self._layer(i, h)
+            h, a, _ = self._layer(i, h, mesh)
             aux = aux + a
         return h, aux
 
-    def _groups(self, h, starts):
+    def _groups(self, h, starts, mesh=None):
         """The groups starting at ``starts``, each checkpointed (block
         remat). Returns (h, their summed aux loss)."""
         L = len(resolve_pattern(self.cfg))
         aux = 0.0
         for g0 in starts:
-            h, a = checkpoint(self._layers, h, g0, g0 + L,
+            h, a = checkpoint(self._layers, h, g0, g0 + L, mesh,
                               use_reentrant=False)
             aux = aux + a
         return h, aux
 
-    def forward(self, h, *, return_cache: bool = False, remat: str = "none"):
+    def forward(self, h, *, return_cache: bool = False, remat: str = "none",
+                mesh=None):
         """h: (B,S,d) → (h, aux loss, raw per-layer decode states | None),
         the aux loss the MoE layers' router losses summed (a Python 0.0
         in a stack without MoE), as JAX's ``Decoder.forward`` returns.
@@ -435,31 +439,33 @@ class Decoder(nn.Module):
         (each layer then runs three times, but the last group of a
         segment twice: the non-reentrant checkpoint stops a recompute once
         what backward needs is back); with g1 ≤ 1 (G prime) it is block
-        remat.  Remat applies to a forward without a cache."""
+        remat.  Remat applies to a forward without a cache.  ``mesh``
+        reaches the MoE layers (their expert parallelism); the recompute
+        runs their collectives again, on every rank alike."""
         if remat not in REMATS:
             raise ValueError(f"unknown remat {remat!r}; one of {REMATS}")
         n = len(self.layers)
         if return_cache or remat == "none":
             states, aux = [], 0.0
             for i in range(n):
-                h, a, st = self._layer(i, h)
+                h, a, st = self._layer(i, h, mesh)
                 aux = aux + a
                 if return_cache:
                     states.append(st)
             return h, aux, (states if return_cache else None)
         L = len(resolve_pattern(self.cfg))
         n_rem = n % L
-        h, aux = self._layers(h, 0, n_rem)
+        h, aux = self._layers(h, 0, n_rem, mesh)
         starts = list(range(n_rem, n, L))
         g1 = _sqrt_factor(len(starts)) if remat == "sqrt" else 0
         if g1 > 1:
             g2 = len(starts) // g1
             for k in range(g1):
                 h, a = checkpoint(self._groups, h, starts[k * g2:(k + 1) * g2],
-                                  use_reentrant=False)
+                                  mesh, use_reentrant=False)
                 aux = aux + a
         else:
-            h, a = self._groups(h, starts)
+            h, a = self._groups(h, starts, mesh)
             aux = aux + a
         return h, aux, None
 
@@ -517,7 +523,7 @@ class Decoder(nn.Module):
         return paginate_cache(slab, layout, n_pages=n_pages,
                               page_size=page_size, device=device)
 
-    def decode_step(self, x_t, cache, pos, *, pages=None):
+    def decode_step(self, x_t, cache, pos, *, pages=None, mesh=None):
         """x_t: (B,d); pos: scalar or (B,) positions; ``pages`` the (B, n_pp)
         page table of the full-attention layers (None: their slabs).  Pools,
         slabs and window buffers are updated in place; returns (x_t,
@@ -534,11 +540,11 @@ class Decoder(nn.Module):
         new = []
         for layer, kind, state in zip(self.layers, self.kinds, cache):
             x_t, st = _layer_decode(layer, x_t, state, pos, self.cfg, kind,
-                                    pages, slots, self.attn_impl)
+                                    pages, slots, self.attn_impl, mesh)
             new.append(st)
         return x_t, new
 
-    def decode_chunk(self, x, cache, pos0: int, *, pages):
+    def decode_chunk(self, x, cache, pos0: int, *, pages, mesh=None):
         """One prefill chunk x (B, C, d) at base position ``pos0`` through
         the paged cache (all-attention stacks only, see :attr:`chunkable`);
         the pools are updated in place.  Returns (h (B, C, d), cache)."""
@@ -548,7 +554,7 @@ class Decoder(nn.Module):
         new = []
         for layer, state in zip(self.layers, cache):
             x, st = _layer_chunk(layer, x, state, pages, pos0, self.cfg,
-                                 self.attn_impl)
+                                 self.attn_impl, mesh)
             new.append(st)
         return x, new
 
@@ -697,30 +703,35 @@ class Transformer(SeededParams):
                           dim=1)
         return h
 
-    def _forward(self, tokens, embeds=None, *, return_cache: bool = False):
+    def _forward(self, tokens, embeds=None, *, return_cache: bool = False,
+                 mesh=None):
         """(final-normed h, aux loss, cache | None): JAX's ``forward``."""
         remat = "none" if return_cache else self.shcfg.remat
         h, aux, cache = self.decoder(self._embed(tokens, embeds),
-                                     return_cache=return_cache, remat=remat)
+                                     return_cache=return_cache, remat=remat,
+                                     mesh=mesh)
         return rmsnorm(self.final_norm, h), aux, cache
 
-    def forward(self, tokens, embeds=None, *, return_cache: bool = False):
+    def forward(self, tokens, embeds=None, *, return_cache: bool = False,
+                mesh=None):
         """tokens (B,S) [and stub embeds (B,P,d), prepended: RoPE positions
         run over stub and text] → (final-normed h (B,P+S,d), cache | None);
         the MoE aux loss is dropped, as serving drops it.  Without a cache
         the decoder runs under ``shcfg.remat``, as JAX's does."""
-        h, _, cache = self._forward(tokens, embeds, return_cache=return_cache)
+        h, _, cache = self._forward(tokens, embeds, return_cache=return_cache,
+                                    mesh=mesh)
         return h, cache
 
-    def loss(self, batch):
+    def loss(self, batch, *, mesh=None):
         """batch: {tokens (B,S), labels (B,S), [embeds (B,P,d)], [mask
         (B,S)]} → (nll + ``router_aux_weight``·aux, {"nll", "aux"}) with
         :func:`chunked_xent` over :data:`LOGITS_CHUNK` positions at a time
         (JAX's default ``logits_chunk``) on the text positions (the stub's
         P are dropped), and aux the MoE layers' summed router loss (0 for
-        a stack without MoE): JAX's ``Transformer.loss``."""
+        a stack without MoE): JAX's ``Transformer.loss``.  Under ``mesh``
+        the batch is this rank's rows, and the loss their mean."""
         embeds = batch.get("embeds")
-        h, aux, _ = self._forward(batch["tokens"], embeds)
+        h, aux, _ = self._forward(batch["tokens"], embeds, mesh=mesh)
         if embeds is not None:
             h = h[:, embeds.shape[1]:]
         nll = chunked_xent(h, self.head(), batch["labels"], batch.get("mask"),
@@ -730,10 +741,10 @@ class Transformer(SeededParams):
         return loss, {"nll": nll, "aux": aux}
 
     def prefill(self, tokens, embeds=None, *, cache_len: Optional[int] = None,
-                cache_dtype=torch.bfloat16):
+                cache_dtype=torch.bfloat16, mesh=None):
         """Forward + cache build over the stub (if any) and the prompt.
         Returns (last-position logits (B,V) fp32, cache)."""
-        h, cache = self.forward(tokens, embeds, return_cache=True)
+        h, cache = self.forward(tokens, embeds, return_cache=True, mesh=mesh)
         prompt_len = h.shape[1]
         cache = self.decoder.pack_cache(cache, prompt_len,
                                         cache_len or prompt_len, cache_dtype)
@@ -757,22 +768,23 @@ class Transformer(SeededParams):
     def supports_chunked_prefill(self) -> bool:
         return self.decoder.chunkable
 
-    def decode_step(self, token, cache, pos, *, pages=None):
+    def decode_step(self, token, cache, pos, *, pages=None, mesh=None):
         """token: (B,) ids; pos: scalar or (B,) positions; ``pages`` the page
         table.  Returns (logits (B,V) fp32, cache)."""
         x = self._embed(token)
-        x, cache = self.decoder.decode_step(x, cache, pos, pages=pages)
+        x, cache = self.decoder.decode_step(x, cache, pos, pages=pages,
+                                            mesh=mesh)
         x = rmsnorm(self.final_norm, x[:, None, :])[:, 0]
         logits = (x @ self.head().to(x.dtype)).float()
         return logits, cache
 
-    def prefill_chunk(self, tokens, cache, pos0: int, *, pages):
+    def prefill_chunk(self, tokens, cache, pos0: int, *, pages, mesh=None):
         """One chunk of a paged prefill: tokens (B, C) at positions
         ``pos0..pos0+C-1``.  Returns (logits at the chunk's last position
         (B, V) fp32, cache) — the batcher takes the final chunk's logits as
         each request's first token."""
         h, cache = self.decoder.decode_chunk(self._embed(tokens), cache, pos0,
-                                             pages=pages)
+                                             pages=pages, mesh=mesh)
         h = rmsnorm(self.final_norm, h)
         logits = (h[:, -1] @ self.head().to(h.dtype)).float()
         return logits, cache

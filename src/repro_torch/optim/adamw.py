@@ -15,7 +15,7 @@ the same.  ``torch.optim.AdamW`` is not used: its arithmetic differs
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Mapping, Union
+from typing import Callable, Dict, Mapping, Optional, Union
 
 import torch
 
@@ -60,10 +60,14 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, grads: Mapping[str, torch.Tensor], state: OptState,
-               params: Mapping[str, torch.Tensor]) -> OptState:
+               params: Mapping[str, torch.Tensor], *,
+               gnorm: Optional[torch.Tensor] = None) -> OptState:
         """One step: ``params`` and the moments are updated in place;
         returns the state with the count advanced.  No weight decay on 1-D
-        leaves (norms, gates)."""
+        leaves (norms, gates).  ``gnorm`` is the gradients' global norm
+        where they are shards of larger leaves (a rank's experts; see
+        :func:`repro_torch.parallel.collectives.global_norm`); by default
+        it is computed from ``grads``."""
         if set(grads) != set(params):
             raise KeyError(f"AdamW.update: grads for "
                            f"{sorted(set(grads) ^ set(params))} do not match "
@@ -71,7 +75,8 @@ class AdamW:
         count = state.count + 1
         scale = None
         if self.grad_clip > 0:
-            gnorm = global_norm(grads.values())
+            if gnorm is None:
+                gnorm = global_norm(grads.values())
             scale = torch.clamp(self.grad_clip / (gnorm + 1e-9), max=1.0)
         b1, b2 = self.b1, self.b2
         bc1, bc2 = 1 - b1 ** count, 1 - b2 ** count

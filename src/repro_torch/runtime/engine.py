@@ -21,8 +21,8 @@ The paper's four runtime steps, on one process:
 
 Steps of one wave run one after another on the one device; dispatching
 them onto disjoint device groups (and the parameter broadcast and
-activation transfers between groups) comes with multi-GPU runs (ROADMAP
-queue 1, item 5c).
+activation transfers between groups) comes with the distributed
+WaveEngine (ROADMAP queue 1, item 5d).
 
 Numerical contract (tested): ``loss_and_grads`` ≡ autograd of
 ``MTModel.reference_loss`` for ANY planner-produced plan.

@@ -105,8 +105,9 @@ def test_ckpt_tmp_dir_never_visible(tmp_path):
 
 def test_restore_to_device_and_mesh_targets_raise(tmp_path):
     """One process: each leaf goes to its target device (a pytree of
-    devices, or one device); a DTensor placement is the multi-GPU path and
-    raises naming item 5c."""
+    devices, or one device); a bare DTensor placement, without its mesh,
+    is no target and raises (a ``(DeviceMesh, placements)`` pair is one:
+    ``tests/test_torch_parallel.py``)."""
     from torch.distributed.tensor import Replicate
 
     tree = {"w": torch.arange(16.0).reshape(4, 4), "n": [torch.ones(2)]}
@@ -117,7 +118,7 @@ def test_restore_to_device_and_mesh_targets_raise(tmp_path):
     placed = restore_to_mesh(restored, {"w": cpu, "n": ["cpu"]})
     assert torch.equal(placed["w"], tree["w"]) and placed["w"].device == cpu
     assert torch.equal(reshard(placed, cpu)["n"][0], tree["n"][0])
-    with pytest.raises(NotImplementedError, match="item 5c"):
+    with pytest.raises(TypeError, match="DeviceMesh, placements"):
         restore_to_mesh(restored, {"w": Replicate(), "n": [cpu]})
 
 

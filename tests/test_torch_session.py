@@ -178,9 +178,11 @@ def test_failed_replan_rolls_back_session_state():
 
 
 def test_checkpoint_options_raise_naming_item_5(monkeypatch, tmp_path):
-    """What still raises names ROADMAP queue 1, item 5c (multi-GPU):
-    int8-compressed gradients, the elastic smoke (a re-mesh over a device
-    mesh) and a mesh or DTensor target of ``restore_to_mesh``.  A
+    """What still raises names ROADMAP queue 1, item 5d (the distributed
+    WaveEngine): the elastic smoke.  int8-compressed gradients without a
+    mesh train as without them (JAX's ``train`` compresses only under a
+    mesh with a "data" axis), and a bare placement is no target of
+    ``restore_to_mesh`` (a ``(DeviceMesh, placements)`` pair is).  A
     cluster-changing event on a bound session that carries a checkpoint
     manager no longer raises: it snapshots and restores, as the JAX
     session does.  The plan-only path still works."""
@@ -190,13 +192,13 @@ def test_checkpoint_options_raise_naming_item_5(monkeypatch, tmp_path):
     from repro_torch.ckpt import CheckpointManager, restore_to_mesh
     from repro_torch.launch import train as train_mod
 
-    with pytest.raises(NotImplementedError, match="item 5c"):
-        train_mod.train(steps=1, device="cpu", verbose=False,
-                        compress_grads=True)
+    kw = dict(steps=1, batch=2, seq=32, device="cpu", verbose=False)
+    assert (train_mod.train(compress_grads=True, **kw)["history"]
+            == train_mod.train(**kw)["history"])
     monkeypatch.setattr("sys.argv", ["train", "--elastic-smoke"])
-    with pytest.raises(NotImplementedError, match="item 5c"):
+    with pytest.raises(NotImplementedError, match="item 5d"):
         train_mod.main()
-    with pytest.raises(NotImplementedError, match="item 5c"):
+    with pytest.raises(TypeError, match="DeviceMesh, placements"):
         restore_to_mesh({"w": torch.ones(2)}, Replicate())
 
     mgr = CheckpointManager(str(tmp_path), every=0)  # periodic saves off
