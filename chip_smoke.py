@@ -264,6 +264,24 @@ caught):
    process resumes (``restore_to_mesh``) and trains steps 2-3 equal to
    the uninterrupted 2-rank run's within 1e-5; the EP checkpoint's names
    and shapes equal the one-process checkpoint's;
+8d. the distributed wavefront engine: four ranks share the card through
+   gloo (each move staged through host memory), plan device ``d`` is rank
+   ``d`` of ``ClusterSpec(n_devices=4, island_size=2, devices_per_host=1)``;
+   (a) ``tiny_multitask_clip`` and ``tiny_ofasys`` (3 tasks, d 512, batch
+   16) in fp32: every rank's loss and gradients equal autograd of
+   ``reference_loss`` on the card within 1e-5 / 1e-4; (b) a distributed
+   clip session with a checkpoint manager in a directory the ranks share
+   and a scripted straggler on host 1 after step 2, 6 steps: one restore of
+   step 2, no step on rank 1 after it, live mesh ``[0, 2, 3]`` (its
+   3-rank groups run on their lowest rank), losses within 1e-4 of a
+   one-process session on the card driven by the same events; (c) every
+   parameter hashes alike on the live ranks; (d) the JAX CI gate's
+   command, ``python -m repro_torch.launch.train --elastic-smoke --steps 8
+   --straggler-at 3 --straggler-hosts 1 --ranks 4``, as a subprocess: its
+   transcript holds ``replan mode=restore`` and ``loss <x>  (post-restore)``.
+   Each rank's step ms, the plan steps and waves it ran, its bytes a step
+   (moves and all-reduce apart) and peak memory are printed; no kernel is
+   on this path (its launch counts must stay 0);
 9. print a ``{"kernels": [...]}`` line (attention and grouped matmul at
    qwen2-moe's shapes with phase 4b's launches, the scan at recurrentgemma's
    fp32 prefill shape with phase 4c's, flash again at phase 6's
@@ -2857,14 +2875,222 @@ def phase_remesh(torch, smi: str) -> None:
         f"checkpoint's, on {smi}")
 
 
+# phase 8d: the distributed wavefront engine, four ranks sharing the card
+WAVE_CLUSTER = dict(n_devices=4, island_size=2, devices_per_host=1,
+                    mem_bytes=80e9)
+WAVE_WIDTH = dict(n_tasks=3, d=512, batch=16)  # phase 6c's wide clip
+WAVE_STEPS, WAVE_STRAGGLER_AT = 6, 2
+WAVE_LOSS_TOL, WAVE_GRAD_TOL = 1e-5, 1e-4  # tests/test_engine_distributed.py
+WAVE_HIST_TOL = 1e-4
+
+
+def _wave_session(mesh, ckpt_dir: str):
+    """The 8d straggler session: wide clip, a checkpoint manager in
+    ``ckpt_dir``, host 1 flagged after step ``WAVE_STRAGGLER_AT``; on the
+    ranks of ``mesh`` (None: one process)."""
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.core import ClusterSpec
+    from repro_torch.launch.events import ScriptedEventSource, StragglerDetected
+    from repro_torch.runtime import tiny_multitask_clip
+    from repro_torch.session import (CheckpointCallbacks, SessionConfig,
+                                     SpindleSession)
+
+    kw = dict(WAVE_WIDTH)
+    kw.pop("n_tasks")
+    return SpindleSession(
+        SessionConfig(cluster=ClusterSpec(**WAVE_CLUSTER),
+                      straggler_shrink=True, mesh=mesh, device="cuda"),
+        model_factory=lambda ts: tiny_multitask_clip(n_tasks=len(ts), **kw),
+        tasks=("img_text", "audio_text", "audio_vision"),
+        callbacks=[CheckpointCallbacks(CheckpointManager(ckpt_dir, every=0))],
+        event_sources=[ScriptedEventSource([StragglerDetected((1,))],
+                                           fire_at=[WAVE_STRAGGLER_AT])],
+    ).bind()
+
+
+def _rank_wavefront(rank: int, ckpt_dir: str) -> dict:
+    """A spawned 8d rank: (a) the engine against the reference on both
+    models, then (b) the straggler session; per step its host ms (ending
+    in a device sync), the plan steps and waves it ran, its bytes sent
+    (moves, all-reduce) and its peak memory; the launch counts over both."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import ClusterSpec, plan
+    from repro_torch.kernels import ops
+    from repro_torch.parallel import collectives, mesh_over_devices
+    from repro_torch.runtime import WaveEngine, tiny_multitask_clip, tiny_ofasys
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ops.reset_launch_counts()
+    mesh = mesh_over_devices(range(4), device="cuda")
+    out = {"backend": dist.get_backend()}
+    for name, maker in (("clip", tiny_multitask_clip),
+                        ("ofasys", tiny_ofasys)):
+        model, batches = maker(**WAVE_WIDTH)
+        params = model.init(0, device="cuda")
+        batches = {t: {k: v.cuda() for k, v in b.items()}
+                   for t, b in batches.items()}
+        eng = WaveEngine(model, plan(model.graph, ClusterSpec(**WAVE_CLUSTER)),
+                         distributed=True, mesh=mesh)
+        eng.loss_and_grads(params, batches)  # warm-up
+        collectives.reset_traffic()
+        eng.ran.update(steps=0, waves=0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, grads = eng.loss_and_grads(params, batches)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        ref_l, ref_g = model.reference_loss_and_grads(params, batches)
+        out[name] = dict(
+            dloss=abs(float(loss) - float(ref_l)),
+            dgrad=max(float((grads[n] - g).abs().max())
+                      for n, g in ref_g.items()),
+            ms=ms, ran=dict(eng.ran), traffic=dict(collectives.TRAFFIC),
+            peak=torch.cuda.max_memory_allocated(),
+            steps=len(eng.plan.steps), waves=len(eng.plan.waves()))
+        del params, grads, ref_g
+    sess = _wave_session(mesh, ckpt_dir)
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for _ in range(WAVE_STEPS):
+        collectives.reset_traffic()
+        before = dict(sess.engine.ran)
+        t0 = time.perf_counter()
+        sess.step()
+        torch.cuda.synchronize()
+        steps.append(dict(
+            ms=(time.perf_counter() - t0) * 1e3,
+            ran={k: sess.engine.ran[k] - before[k] for k in before},
+            traffic=dict(collectives.TRAFFIC)))
+    restores = [r for r in sess.replans if r.mode == "restore"]
+    out["session"] = dict(
+        history=list(sess.history), steps=steps,
+        restores=[r.restored_step for r in restores],
+        live=list(sess.engine.live), peak=torch.cuda.max_memory_allocated(),
+        sha={n: hashlib.sha256(p.detach().cpu().numpy().tobytes()).hexdigest()
+             for n, p in sess.params.named_parameters()})
+    out["counts"] = ops.launch_counts()
+    return out
+
+
+def phase_wavefront_distributed(torch, smi: str) -> None:
+    """Phase 8d (see the module docstring)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.parallel.mesh import run_ranks
+
+    d = tempfile.mkdtemp(prefix="wave8d_")
+    try:
+        one = _wave_session(None, f"{d}/one")
+        one.run(WAVE_STEPS)
+        one_hist = list(one.history)
+        del one
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = run_ranks(_rank_wavefront, 4, "cuda", args=(f"{d}/ranks",))
+        secs = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    for i, r in enumerate(ranks):
+        if r["backend"] != "gloo":
+            raise AssertionError(f"phase 8d rank {i}: backend {r['backend']}")
+        for name in ("clip", "ofasys"):
+            e = r[name]
+            if not (e["dloss"] <= WAVE_LOSS_TOL and e["dgrad"] <= WAVE_GRAD_TOL):
+                raise AssertionError(f"phase 8d (a) {name} rank {i}: engine "
+                                     f"vs reference (loss, grad) "
+                                     f"{e['dloss']}, {e['dgrad']}")
+        if any(r["counts"].values()):
+            raise AssertionError(f"phase 8d rank {i}: kernel launches "
+                                 f"{r['counts']} on a path without kernels")
+        got = r["session"]
+        after = got["steps"][WAVE_STRAGGLER_AT + 1:]
+        ran_after = sum(s["ran"]["steps"] for s in after)
+        if (got["restores"] != [WAVE_STRAGGLER_AT] or got["live"] != [0, 2, 3]
+                or (i == 1) != (ran_after == 0)):
+            raise AssertionError(f"phase 8d (b) rank {i}: restores "
+                                 f"{got['restores']}, live {got['live']}, "
+                                 f"steps run after the restore {ran_after}")
+        if got["history"] != ranks[0]["session"]["history"]:
+            raise AssertionError(f"phase 8d (b): rank {i} history "
+                                 f"{got['history']} != rank 0's")
+    hist = ranks[0]["session"]["history"]
+    diff = _max_diff(hist, one_hist)
+    if not diff <= WAVE_HIST_TOL:
+        raise AssertionError(f"phase 8d (b): losses {hist} vs one process "
+                             f"{one_hist} (max diff {diff})")
+    shas = [ranks[i]["session"]["sha"] for i in (0, 2, 3)]
+    apart = [k for k in shas[0] if any(h[k] != shas[0][k] for h in shas)]
+    if apart:
+        raise AssertionError(f"phase 8d (c): {len(apart)} params differ "
+                             f"across the live ranks, e.g. {apart[:4]}")
+    for name in ("clip", "ofasys"):
+        e = ranks[0][name]
+        log(f"distributed wavefront (a) {name} (3 tasks, d 512, batch 16, "
+            f"fp32; {e['steps']} plan steps in {e['waves']} waves) on 4 "
+            f"ranks sharing the card through gloo: engine == reference on "
+            f"every rank (loss, grad deltas "
+            f"{[(r[name]['dloss'], r[name]['dgrad']) for r in ranks]}); "
+            + "; ".join(
+                f"rank {i}: loss_and_grads_ms={r[name]['ms']} "
+                f"steps_run={r[name]['ran']['steps']} "
+                f"waves_run={r[name]['ran']['waves']} "
+                f"bytes_sent={r[name]['traffic']} "
+                f"peak_mem_bytes={r[name]['peak']}"
+                for i, r in enumerate(ranks))
+            + f", on {smi}")
+    log(f"distributed wavefront (b) clip session, straggler on host 1 after "
+        f"step {WAVE_STRAGGLER_AT}: restored step "
+        f"{ranks[0]['session']['restores']}, live ranks "
+        f"{ranks[0]['session']['live']}; losses {hist} == one process "
+        f"{one_hist} (max diff {diff}, limit {WAVE_HIST_TOL}); (c) "
+        f"{len(shas[0])} params sha256-equal on ranks 0, 2, 3; "
+        + "; ".join(
+            f"rank {i}: step_ms={[s['ms'] for s in r['session']['steps']]} "
+            f"steps_run={[s['ran']['steps'] for s in r['session']['steps']]} "
+            f"waves_run={[s['ran']['waves'] for s in r['session']['steps']]} "
+            f"moves_bytes={[s['traffic']['moves'] for s in r['session']['steps']]} "
+            f"all_reduce_bytes="
+            f"{[s['traffic']['all_reduce'] for s in r['session']['steps']]} "
+            f"peak_mem_bytes={r['session']['peak']}"
+            for i, r in enumerate(ranks))
+        + f"; {secs} s with the spawn, on {smi}")
+    env = dict(__import__("os").environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--elastic-smoke",
+         "--steps", "8", "--straggler-at", "3", "--straggler-hosts", "1",
+         "--ranks", "4"], cwd=str(ROOT), env=env, capture_output=True,
+        text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    if (cli.returncode != 0
+            or not re.search(r"replan mode=restore", cli.stdout)
+            or not re.search(r"loss [0-9.]+ +\(post-restore\)", cli.stdout)):
+        raise AssertionError(f"phase 8d (d): the elastic smoke exited "
+                             f"{cli.returncode}: {cli.stdout[-2000:]} "
+                             f"{cli.stderr[-3000:]}")
+    ok = [line for line in cli.stdout.splitlines() if "replan mode=restore"
+          in line or "[elastic] OK" in line]
+    log(f"distributed wavefront (d) launch.train --elastic-smoke --ranks 4 "
+        f"on the card: {ok}; {secs} s, on {smi}")
+
+
 def phases_mesh(torch, smi: str) -> tuple:
-    """Phases 8-8c.  Returns 8a's and 8b's launch records."""
+    """Phases 8-8d.  Returns 8a's and 8b's launch records."""
     gc.collect()
     torch.cuda.empty_cache()
     phase_mesh_nccl(torch, smi)
     ep = phase_ep_full(torch, smi)
     dp = phase_dp_full(torch, smi)
     phase_remesh(torch, smi)
+    phase_wavefront_distributed(torch, smi)
     return ep, dp
 
 

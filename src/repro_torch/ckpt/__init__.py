@@ -1,7 +1,7 @@
 """Checkpointing, re-mesh restore and straggler mitigation (port of
-``repro.ckpt``): a restore places onto devices or onto a mesh of ranks,
-and the timing collector gathers over the ranks; the straggler re-mesh of
-a distributed WaveEngine is ROADMAP queue 1, item 5d."""
+``repro.ckpt``): a restore places onto devices or onto a mesh of ranks
+(a distributed session's straggler re-mesh restores onto its new live
+mesh), and the timing collector gathers over the ranks."""
 
 from .async_snap import AsyncCheckpointManager
 from .checkpoint import (

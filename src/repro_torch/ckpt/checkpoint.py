@@ -379,8 +379,9 @@ class CheckpointManager:
             shard_groups=self.shard_groups,
         )
 
-    def wait(self) -> None:
-        """Synchronous saves are durable on return; nothing to drain."""
+    def wait(self, *, raise_errors: bool = True) -> None:
+        """Synchronous saves are durable on return; nothing to drain (the
+        signature is :class:`AsyncCheckpointManager`'s)."""
 
     def restore_latest(self, tree_like):
         step = latest_step(self.base)

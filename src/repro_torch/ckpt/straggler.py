@@ -17,8 +17,6 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-ITEM_5D = "ROADMAP queue 1, item 5d (the distributed WaveEngine)"
-
 
 def world_size() -> int:
     """Processes of the ``torch.distributed`` group (1 without one)."""
@@ -87,9 +85,9 @@ class TimingCollector:
       host, scaled by ``skew`` (host index → step-time multiplier), so a
       deterministic degradation can be injected.
 
-    This aggregates the observations; broadcasting a flag before anyone
-    replans comes with the distributed WaveEngine (ROADMAP queue 1, item
-    5d).
+    This aggregates the observations; a distributed
+    :class:`repro_torch.session.SpindleSession` then broadcasts rank 0's
+    events to every rank before anyone replans (``SpindleSession.poll``).
     """
 
     n_hosts: int

@@ -59,9 +59,17 @@ runs without the mesh, as JAX's ``_make_compressed_dp_step`` does.  A
 caller starts the ranks itself (``torchrun``, or ``torch.multiprocessing``
 with the ``spawn`` start method, which CUDA needs), joins the group
 (:func:`repro_torch.parallel.mesh.init_rank`) and builds the mesh; the
-CLI trains in one process.  The elastic smoke (``--elastic-smoke``:
-straggler re-meshes of a distributed WaveEngine) raises (ROADMAP queue 1,
-item 5d).
+CLI trains in one process.
+
+``--elastic-smoke`` runs the straggler scenario on the distributed
+WaveEngine (:func:`elastic_smoke`): ``--ranks`` spawned ranks (gloo on the
+CPU or on one shared card, NCCL with a card a rank) run one bound
+wavefront session; a scripted straggler after ``--straggler-at`` must take
+the checkpoint → re-mesh → restore path and training must go on without
+the flagged hosts' ranks.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --elastic-smoke \\
+        --device cpu --ranks 4 --steps 8 --straggler-at 3
 """
 
 from __future__ import annotations
@@ -75,8 +83,7 @@ import torch
 import torch.distributed as dist
 
 from ..ckpt import CheckpointManager
-from ..ckpt.straggler import (ITEM_5D, StragglerDetector, TimingCollector,
-                              world_size)
+from ..ckpt.straggler import StragglerDetector, TimingCollector, world_size
 from ..config import (ArchConfig, default_sharding, get_arch, reduced,
                       resolve_device)
 from ..data import DataConfig, SyntheticLM, shard_batch
@@ -438,6 +445,142 @@ def train(
     }
 
 
+ELASTIC_TASKS = ("img_text", "audio_text", "audio_vision")
+
+
+def elastic_cluster(ranks: int):
+    """The elastic smoke's cluster: one device a rank, two a host from four
+    ranks on (one below), islands of two hosts."""
+    from ..core.placement import ClusterSpec
+
+    per_host = 2 if ranks >= 4 else 1
+    return ClusterSpec(n_devices=ranks, island_size=max(per_host * 2, 2),
+                       devices_per_host=per_host, mem_bytes=80e9)
+
+
+def elastic_rank(rank: int, steps: int, straggler_at: int,
+                 bad: Tuple[int, ...], ckpt_dir: str, device: str,
+                 verbose: bool = True) -> Dict[str, Any]:
+    """One rank of :func:`elastic_smoke` (every rank of the world calls
+    it): a bound distributed session over ``tiny_multitask_clip`` with 3
+    tasks, a :class:`repro_torch.ckpt.CheckpointManager` in the shared
+    ``ckpt_dir`` saving every ``straggler_at`` steps, and hosts ``bad``
+    flagged after step ``straggler_at``.  Rank 0 prints the transcript.
+    Returns what :func:`check_elastic` reads."""
+    from ..ckpt import CheckpointManager
+    from ..parallel import mesh_over_devices
+    from ..runtime import tiny_multitask_clip
+    from ..session import CheckpointCallbacks, SessionConfig, SpindleSession
+    from .events import ScriptedEventSource, StragglerDetected
+
+    world = dist.get_world_size()
+    say = verbose and rank == 0
+    mgr = CheckpointManager(ckpt_dir, every=max(straggler_at, 1), keep=3)
+    session = SpindleSession(
+        SessionConfig(cluster=elastic_cluster(world), straggler_shrink=True,
+                      mesh=mesh_over_devices(range(world), device=device),
+                      device=device),
+        model_factory=lambda tasks: tiny_multitask_clip(n_tasks=len(tasks)),
+        tasks=ELASTIC_TASKS,
+        callbacks=[CheckpointCallbacks(mgr)],
+        event_sources=[ScriptedEventSource([StragglerDetected(bad)],
+                                           fire_at=[straggler_at])],
+    ).bind()
+    announced = 0
+    for k in range(steps):
+        loss = session.step()
+        restored = any(r.mode == "restore" for r in session.replans)
+        if say:
+            print(f"[elastic] step {k:3d}  loss {loss:.4f}  "
+                  f"({'post-restore' if restored else 'healthy'})",
+                  flush=True)
+        for r in session.replans[announced:]:
+            if r.mode == "restore" and say:
+                print(f"[elastic] straggler {list(bad)} -> replan "
+                      f"mode=restore plan_mode={r.plan_mode} "
+                      f"restored_step={r.restored_step} healthy_devices="
+                      f"{len(session.cluster.healthy_devices())} live "
+                      f"ranks {list(session.engine.live)}", flush=True)
+        announced = len(session.replans)
+    return {
+        "rank": rank,
+        "steps": session.step_count,
+        "history": list(session.history),
+        "replans": [(r.mode, r.plan_mode, r.restored_step)
+                    for r in session.replans],
+        "plan_devices": sorted({d for s in session.current_plan.steps
+                                for d in s.devices}),
+        "live": list(session.engine.live),
+    }
+
+
+def check_elastic(results, bad: Tuple[int, ...], straggler_at: int
+                  ) -> Dict[str, Any]:
+    """The elastic smoke's conditions on its ranks' results; any violation
+    raises ``SystemExit``, success prints ``[elastic] OK``."""
+    cluster = elastic_cluster(len(results))
+    r0 = results[0]
+    for r in results[1:]:
+        if (r["history"], r["replans"], r["live"]) != (
+                r0["history"], r0["replans"], r0["live"]):
+            raise SystemExit(f"[elastic] FAIL: rank {r['rank']} disagrees "
+                             f"with rank 0")
+    restores = [r for r in r0["replans"] if r[0] == "restore"]
+    if not restores:
+        raise SystemExit("[elastic] FAIL: no restore replan occurred")
+    flagged = {d for h in bad for d in cluster.devices_of(h)}
+    if set(r0["plan_devices"]) & flagged or set(r0["live"]) & flagged:
+        raise SystemExit(
+            f"[elastic] FAIL: flagged devices "
+            f"{sorted((set(r0['plan_devices']) | set(r0['live'])) & flagged)}"
+            " still placed after the restore replan")
+    if r0["steps"] <= straggler_at + 1:
+        raise SystemExit("[elastic] FAIL: no post-restore training step")
+    print(f"[elastic] OK: {len(restores)} restore replan(s), "
+          f"{r0['steps'] - straggler_at - 1} post-restore steps on live "
+          f"ranks {r0['live']} of {len(results)}, final loss "
+          f"{r0['history'][-1]:.4f}", flush=True)
+    return {"steps": r0["steps"], "history": r0["history"],
+            "replans": r0["replans"], "live": r0["live"], "ranks": results}
+
+
+def elastic_smoke(
+    *,
+    steps: int = 10,
+    straggler_at: int = 4,
+    straggler_hosts: Tuple[int, ...] = (1,),
+    ckpt_dir: Optional[str] = None,
+    ranks: int = 8,
+    device: str = "cuda",
+    verbose: bool = True,
+) -> Dict[str, Any]:
+    """Straggler scenario on the distributed WaveEngine: ``ranks`` spawned
+    ranks (:func:`repro_torch.parallel.mesh.run_ranks`) run
+    :func:`elastic_rank` over :func:`elastic_cluster`, and a scripted
+    straggler flags ``straggler_hosts`` after step ``straggler_at``.  The
+    run must produce a ``ReplanRecord(mode="restore")`` whose plan and
+    live mesh exclude exactly the flagged hosts' devices, then keep
+    training; any violation raises ``SystemExit`` (:func:`check_elastic`).
+    """
+    import shutil
+    import tempfile
+
+    from ..parallel.mesh import run_ranks
+
+    cluster = elastic_cluster(ranks)
+    bad = tuple(h for h in straggler_hosts if 0 <= h < cluster.n_hosts)
+    if not bad or len(bad) >= cluster.n_hosts:
+        raise SystemExit("[elastic] no valid straggler host to inject")
+    base = ckpt_dir or tempfile.mkdtemp(prefix="elastic_")
+    try:
+        results = run_ranks(elastic_rank, ranks, device, args=(
+            steps, straggler_at, bad, base, device, verbose))
+    finally:
+        if ckpt_dir is None:
+            shutil.rmtree(base, ignore_errors=True)
+    return check_elastic(results, bad, straggler_at)
+
+
 #: the simulated cluster of the crash smoke: four hosts of two devices in
 #: two islands, so killing a host removes a block the planner routes around
 CRASH_CLUSTER = dict(n_devices=8, island_size=4, devices_per_host=2,
@@ -591,7 +734,17 @@ def main() -> None:
                     help="save here, and resume from the latest step here")
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--elastic-smoke", action="store_true",
-                    help="not ported yet (ROADMAP queue 1, item 5d)")
+                    help="straggler scenario on the distributed engine: "
+                         "scripted straggler -> checkpointed re-mesh "
+                         "restore; uses --steps/--straggler-at/"
+                         "--straggler-hosts/--ranks/--ckpt-dir")
+    ap.add_argument("--straggler-at", type=int, default=4,
+                    help="elastic-smoke: flag the stragglers after this step")
+    ap.add_argument("--straggler-hosts", default="1",
+                    help="elastic-smoke: comma-separated host ids to flag")
+    ap.add_argument("--ranks", type=int, default=8,
+                    help="elastic-smoke: ranks to spawn (two devices a host "
+                         "from four on)")
     ap.add_argument("--crash-smoke", action="store_true",
                     help="hard-failure scenario: scripted host kill -> "
                          "async-snapshot rollback + replay; uses "
@@ -602,9 +755,16 @@ def main() -> None:
                     help="crash-smoke: comma-separated host ids to kill")
     args = ap.parse_args()
     if args.elastic_smoke:
-        raise NotImplementedError(
-            f"the elastic smoke (straggler re-meshes of the distributed "
-            f"WaveEngine) is not ported yet: {ITEM_5D}")
+        elastic_smoke(
+            steps=args.steps,
+            straggler_at=args.straggler_at,
+            straggler_hosts=tuple(int(h) for h in
+                                  args.straggler_hosts.split(",") if h != ""),
+            ckpt_dir=args.ckpt_dir,
+            ranks=args.ranks,
+            device=args.device,
+        )
+        return
     if args.crash_smoke:
         crash_smoke(
             steps=args.steps,

@@ -42,8 +42,10 @@ import torch.distributed as dist
 
 
 #: bytes this process has sent into each collective (its tensors' sizes),
-#: since the last :func:`reset_traffic`
-TRAFFIC = {"all_reduce": 0, "all_gather": 0}
+#: and as the payload of the wavefront engine's point-to-point moves
+#: (:class:`repro_torch.runtime.moves.Wire`), since the last
+#: :func:`reset_traffic`
+TRAFFIC = {"all_reduce": 0, "all_gather": 0, "moves": 0}
 
 
 def reset_traffic() -> None:
@@ -146,10 +148,9 @@ def _buckets(ts: Sequence[torch.Tensor]) -> List[List[int]]:
     return out
 
 
-def mean_grads(grads: Dict[str, torch.Tensor], group,
-               n: int) -> Dict[str, torch.Tensor]:
-    """The data-parallel sync: each gradient SUM all-reduced over the
-    batch-axes ``group`` and divided by its size ``n``, in buckets of
+def sum_grads(grads: Dict[str, torch.Tensor],
+              group) -> Dict[str, torch.Tensor]:
+    """Each gradient SUM all-reduced over ``group``, in buckets of
     :data:`BUCKET` elements (one call each).  Returns new tensors."""
     if group is None:
         return dict(grads)
@@ -159,9 +160,19 @@ def mean_grads(grads: Dict[str, torch.Tensor], group,
     for idx in _buckets(ts):
         flat = torch.cat([ts[i].reshape(-1) for i in idx])
         all_reduce_(flat, group)
-        flat /= n
         for i, piece in zip(idx, flat.split([ts[i].numel() for i in idx])):
             out[names[i]] = piece.view_as(ts[i])
+    return out
+
+
+def mean_grads(grads: Dict[str, torch.Tensor], group,
+               n: int) -> Dict[str, torch.Tensor]:
+    """The data-parallel sync: :func:`sum_grads` over the batch-axes
+    ``group``, each gradient divided by its size ``n``."""
+    out = sum_grads(grads, group)
+    if group is not None:
+        for g in out.values():
+            g /= n
     return out
 
 

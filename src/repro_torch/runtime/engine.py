@@ -1,7 +1,7 @@
 """WaveEngine — executes a Spindle ExecutionPlan on an MTModel (§3.6; port
-of the single-process ``repro/runtime/engine.py``).
+of ``repro/runtime/engine.py``).
 
-The paper's four runtime steps, on one process:
+The paper's four runtime steps:
 
   (1) **Localization** — every PlanStep (a sliced MetaOp on a device
       group) becomes a segment function over the owning component
@@ -19,49 +19,102 @@ The paper's four runtime steps, on one process:
       optimizer update.  The plan's order is the point: the backward is not
       one ``loss.backward()`` over a joined graph.
 
-Steps of one wave run one after another on the one device; dispatching
-them onto disjoint device groups (and the parameter broadcast and
-activation transfers between groups) comes with the distributed
-WaveEngine (ROADMAP queue 1, item 5d).
+On one process the steps of a wave run one after another on the one
+device: the code below with one rank, which holds every row, so nothing
+moves and nothing is summed. With ``distributed=True`` in a
+``torch.distributed`` world of more than one rank the engine is SPMD —
+every rank runs the same plan, as the paper's runtime does with
+per-group NCCL: plan device ``d`` is rank ``d``, and a step runs on its
+**group**, its devices that are ranks of the live ``mesh`` (the lowest
+live rank when none is). Its rows are split over the group
+(:mod:`repro_torch.runtime.moves`: each task's batch contiguously when
+the group size divides it, else all on the group's lowest rank; a
+contrastive join, whose logits span the batch, always whole there).
+Activations move between groups point to point before the step that
+reads them, and their cotangents take the reverse route in the backward,
+summed where several consumers read one activation. A decoder loss split
+over ranks scales each rank's mean by its share of the rows. Every rank
+of the live mesh keeps a whole replica of every instance: after the
+backward each gradient is summed over the live mesh (ranks that did not
+use an instance add zeros), so every replica takes the same update. The
+loss is the sum of the ranks' parts, the same on every rank of the
+world. A rank outside the live mesh (a flagged or dead host's) runs no
+step, sums no gradient and skips the update.
 
 Numerical contract (tested): ``loss_and_grads`` ≡ autograd of
-``MTModel.reference_loss`` for ANY planner-produced plan.
+``MTModel.reference_loss`` for ANY planner-produced plan, on one process
+and on every rank.
 """
 
 from __future__ import annotations
 
+import hashlib
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
+from ..ckpt.straggler import world_size
 from ..core.plan import ExecutionPlan, PlanStep
+from ..parallel.collectives import all_reduce_, sum_grads
+from .moves import Layout, Piece, Wire, pieces, row_layout
 from .mtmodel import ExecComponent, MTModel
 
 
 @dataclass
 class _StepRecord:
+    """One plan step as this rank saw it: the MetaOps it reads (by input
+    position) and the pieces of each input, the local activations this
+    rank sent rows of (their shapes size the cotangents coming back), and,
+    when this rank ran a part of the step, its detached input leaves and
+    its output (``out`` None otherwise)."""
+
     meta_id: int
     inst: str
-    kind: str  # entry | mid
-    pred_order: List[int]  # meta_ids whose activations were inputs
-    ins: List[torch.Tensor]  # the detached input leaves
-    out: torch.Tensor
     is_loss: bool
+    srcs: List[int]
+    moves: List[List[Piece]]
+    sent_from: Dict[int, torch.Tensor]  # input position → local activation
+    ins: List[torch.Tensor]
+    out: Optional[torch.Tensor]
 
 
 class WaveEngine:
-    def __init__(self, model: MTModel, plan: ExecutionPlan):
+    def __init__(self, model: MTModel, plan: ExecutionPlan, *,
+                 distributed: bool = False, mesh: Any = None):
         self.model = model
+        self.distributed = distributed and world_size() > 1
+        #: the live mesh (a ``DeviceMesh`` over ranks; None: every rank)
+        self.mesh = mesh
         # Step-closure cache, keyed by plan-id-independent step identity
         # (instance, component, layer range, predecessor roles) — survives
         # rebind() so replanned plans reuse closures for unchanged steps.
         self._fn_cache: Dict[Tuple, Callable] = {}
+        # process groups by rank tuple, made once by every rank in the
+        # same order (``dist.new_group`` is collective over the world)
+        self._groups: Dict[Tuple[int, ...], Any] = {}
+        #: plan steps and waves this rank ran a part of, since construction
+        #: or the caller's last reset
+        self.ran = {"steps": 0, "waves": 0}
+        if self.distributed:
+            self._check_plan(plan)
         self._bind(plan)
 
     # ------------------------------------------------------------------
     def _bind(self, plan: ExecutionPlan) -> None:
         """Derive all plan-dependent lookup structures."""
+        if self.distributed:
+            world = world_size()
+            ranks = (range(world) if self.mesh is None
+                     else self.mesh.mesh.flatten().tolist())
+            self.me = dist.get_rank()
+            self.live = tuple(sorted(r for r in ranks if r < world))
+            self._world = dist.group.WORLD
+            self._wire = Wire()
+        else:  # one rank: every layout is {0: all rows}, nothing moves
+            self.me, self.live, self._world, self._wire = 0, (0,), None, None
+        self._sum_group = self._group(self.live)
         self.plan = plan
         self.mg = plan.meta_graph
         self._preds = self.mg.predecessors()
@@ -77,8 +130,8 @@ class WaveEngine:
         # flow-order task list (merged-batch concat order)
         self.flow_order = [f.task for f in self.model.flows]
 
-    def rebind(self, plan: ExecutionPlan,
-               model: Optional[MTModel] = None) -> Dict[str, int]:
+    def rebind(self, plan: ExecutionPlan, model: Optional[MTModel] = None,
+               *, mesh: Any = None) -> Dict[str, int]:
         """Swap in a replanned/cached plan — and optionally a shifted model.
 
         Only the plan-derived lookups are rebuilt; the per-step closures in
@@ -90,7 +143,8 @@ class WaveEngine:
         engine rebinds to it and keeps the cache: closures resolve the
         model and the component spec at call time.  The plan is validated
         against the model BEFORE anything changes, so a raise leaves the
-        engine on its previous (model, plan) pairing.
+        engine on its previous (model, plan) pairing.  With ``mesh`` the
+        engine also moves to that live mesh (every rank calls this).
         """
         ref_model = model if model is not None else self.model
         if plan.meta_graph is not self.mg or model is not None:
@@ -100,8 +154,12 @@ class WaveEngine:
                         "rebind: plan references operators unknown to this "
                         "model — replan against the same task graph first"
                     )
+        if self.distributed:
+            self._check_plan(plan)
         if model is not None:
             self.model = model
+        if mesh is not None:
+            self.mesh = mesh
         cached = len(self._fn_cache)
         self._bind(plan)
         return {"closures_cached": cached}
@@ -135,56 +193,52 @@ class WaveEngine:
         """Wave-by-wave forward + reverse-wave backward.  ``params`` is the
         instance ``ModuleDict``; returns (loss, grads), the loss a detached
         0-d tensor and ``grads`` a dict keyed like
-        ``params.named_parameters()``.
+        ``params.named_parameters()``.  On one process every step is this
+        rank's whole and no move or sum runs.
 
         ``on_wave(wave_index, steps)`` fires after each forward wave — the
         session's observer hook for per-wave metrics."""
-        model = self.model
+        dev = next(params.parameters()).device
         acts: Dict[int, torch.Tensor] = {}
+        held: Dict[int, Layout] = {}
         records: List[_StepRecord] = []
         waves = self.plan.waves()
         with torch.enable_grad():
             for widx in sorted(waves):
+                ran = 0
                 for step in waves[widx]:
-                    records.append(self._forward_step(step, params, batches,
-                                                      acts))
+                    rec = self._forward_step(step, params, batches, acts, held)
+                    records.append(rec)
+                    ran += rec.out is not None
+                self.ran["steps"] += ran
+                self.ran["waves"] += ran > 0
                 if on_wave is not None:
                     on_wave(widx, waves[widx])
 
-            losses = [r.out for r in records if r.is_loss]
-            n_losses = len(losses)
-            total = torch.stack([l.detach() for l in losses]).sum() / n_losses
+            n_losses = sum(r.is_loss for r in records)
+            parts = [r.out.detach() for r in records
+                     if r.is_loss and r.out is not None]
+            local = (torch.stack(parts).sum() if parts
+                     else torch.zeros((), device=dev))
 
             # ------------- backward: reverse wave order -------------
-            leaves = {inst: list(params[inst].named_parameters())
-                      for inst in {r.inst for r in records}}
             grads = {name: torch.zeros_like(p)
                      for name, p in params.named_parameters()}
             cot: Dict[int, torch.Tensor] = {}
             for rec in reversed(records):
-                mid = rec.meta_id
-                if rec.is_loss:
-                    g_out = torch.full_like(rec.out, 1.0 / n_losses)
-                elif mid in cot:
-                    g_out = cot.pop(mid)
-                else:
-                    continue  # activation never used (defensive)
-                named = leaves[rec.inst]
-                pulls = torch.autograd.grad(
-                    rec.out, [p for _, p in named] + rec.ins, g_out,
-                    allow_unused=True)
-                for (name, _), d in zip(named, pulls):
-                    if d is not None:
-                        grads[f"{rec.inst}.{name}"] += d
-                d_ins = pulls[len(named):]
-                srcs = [mid] if rec.kind == "mid" else rec.pred_order
-                for p, d in zip(srcs, d_ins):
-                    if d is not None:
-                        cot[p] = cot[p] + d if p in cot else d
+                d_ins = self._backward_step(rec, params, grads, cot, n_losses)
+                self._return_cotangents(rec, d_ins, cot)
+        total = all_reduce_((local / n_losses).reshape(1), self._world)[0]
+        if self.active:
+            grads = sum_grads(grads, self._sum_group)
         return total, grads
 
     def _forward_step(self, step: PlanStep, params, batches,
-                      acts: Dict[int, torch.Tensor]) -> _StepRecord:
+                      acts: Dict[int, torch.Tensor],
+                      held: Dict[int, Layout]) -> _StepRecord:
+        """Moves the step's input rows to the ranks of its group and runs
+        this rank's part of it."""
+        me = self.me
         mid = step.meta_id
         inst, comp, task = self.meta_info[mid]
         c = self.model.components[comp]
@@ -192,21 +246,152 @@ class WaveEngine:
         m = self.mg.meta_ops[mid]
         is_loss = (not self._succs[mid] and hi == m.L
                    and c.kind in ("contrastive", "decoder"))
+        layout = self._step_layout(step, batches)
         if lo == 0:
-            preds, pred_info = self._entry_preds(mid)
-            ins = [acts[p].detach().requires_grad_() for p in preds]
-            fn = self._make_entry_fn(c, inst, pred_info, lo, hi, is_loss,
-                                     task)
-            kind = "entry"
+            srcs, pred_info = self._entry_preds(mid)
         else:
-            preds = []
-            ins = [acts[mid].detach().requires_grad_()]
-            fn = self._make_mid_fn(c, inst, lo, hi, is_loss, task)
-            kind = "mid"
-        out = fn(batches, params[inst], *ins)
-        if not is_loss:
-            acts[mid] = out
-        return _StepRecord(mid, inst, kind, preds, ins, out, is_loss)
+            srcs, pred_info = [mid], ()
+        # the pieces of each input, for every consumer rank in rank order
+        moves: List[List[Piece]] = []
+        for p in srcs:
+            ptasks = set(self.meta_info[p][2].split("+"))
+            moves.append([
+                pc for r in sorted(layout)
+                for pc in pieces(held[p], r, [sg for sg in layout[r]
+                                              if sg[0] in ptasks])])
+        like = next(params[inst].parameters())
+        sent_from: Dict[int, torch.Tensor] = {}
+        ins: List[torch.Tensor] = []
+        for i, p in enumerate(srcs):
+            parts = []
+            for pc in moves[i]:
+                if pc.src == me:
+                    sent_from[i] = acts[p]
+                    rows = acts[p][pc.src_lo:pc.src_hi]
+                    if pc.dst == me:
+                        parts.append(rows)
+                    else:
+                        self._wire.send(rows, pc.dst, header=True)
+                elif pc.dst == me:
+                    parts.append(self._wire.recv(pc.src, like))
+            if me in layout:
+                x = parts[0] if len(parts) == 1 else torch.cat(parts)
+                ins.append(x.detach().requires_grad_())
+        held[mid] = layout
+        out = None
+        if me in layout:
+            segs = layout[me]
+            local = {t: {k: v[a:b] for k, v in batches[t].items()}
+                     for t, a, b in segs}
+            if lo == 0:
+                fn = self._make_entry_fn(c, inst, pred_info, lo, hi, is_loss,
+                                         task)
+            else:
+                fn = self._make_mid_fn(c, inst, lo, hi, is_loss, task)
+            out = fn(local, params[inst], *ins)
+            if is_loss and len(layout) > 1:
+                # this rank's mean over its rows, weighted by their share
+                total = sum(len(next(iter(batches[t].values())))
+                            for t, _, _ in segs)
+                out = out * (sum(b - a for _, a, b in segs) / total)
+            if not is_loss:
+                acts[mid] = out
+        else:
+            acts.pop(mid, None)
+        return _StepRecord(mid, inst, is_loss, srcs, moves, sent_from, ins,
+                           out)
+
+    def _backward_step(self, rec: _StepRecord, params, grads,
+                       cot: Dict[int, torch.Tensor],
+                       n_losses: int) -> List[torch.Tensor]:
+        """This rank's part of one step's backward (one
+        ``torch.autograd.grad``): its parameters' gradients added to
+        ``grads``; returns its inputs' cotangents."""
+        mid = rec.meta_id
+        if rec.out is None:
+            return []
+        if rec.is_loss:
+            g_out = torch.full_like(rec.out, 1.0 / n_losses)
+        elif mid in cot:
+            g_out = cot.pop(mid)
+        else:  # activation never used (defensive)
+            return [torch.zeros_like(x) for x in rec.ins]
+        named = list(params[rec.inst].named_parameters())
+        pulls = torch.autograd.grad(rec.out, [p for _, p in named] + rec.ins,
+                                    g_out, allow_unused=True)
+        for (name, _), d in zip(named, pulls):
+            if d is not None:
+                grads[f"{rec.inst}.{name}"] += d
+        return [torch.zeros_like(x) if d is None else d
+                for x, d in zip(rec.ins, pulls[len(named):])]
+
+    def _return_cotangents(self, rec: _StepRecord, d_ins: List[torch.Tensor],
+                           cot: Dict[int, torch.Tensor]) -> None:
+        """Each input piece's cotangent back to the rank that sent the
+        rows, summed into its cotangent of that activation."""
+        me = self.me
+        for i, p in enumerate(rec.srcs):
+            for pc in rec.moves[i]:
+                if pc.dst == me:
+                    g = d_ins[i][pc.dst_lo:pc.dst_hi]
+                    if pc.src != me:
+                        self._wire.send(g, pc.src, header=False)
+                        continue
+                elif pc.src == me:
+                    act = rec.sent_from[i]
+                    g = self._wire.recv(
+                        pc.dst, act, (pc.src_hi - pc.src_lo, *act.shape[1:]))
+                else:
+                    continue
+                if p not in cot:
+                    cot[p] = torch.zeros_like(rec.sent_from[i])
+                cot[p][pc.src_lo:pc.src_hi] += g
+
+    # ------------------------------------------------- plan and rank groups
+    @property
+    def active(self) -> bool:
+        """This rank is in the live mesh (always, on one process)."""
+        return self.me in self.live
+
+    def _check_plan(self, plan: ExecutionPlan) -> None:
+        """Every rank must run the same plan: a digest of each step's
+        (wave, MetaOp, operators, devices) is all-gathered and compared;
+        a mismatch raises on every rank (rather than hanging in a move)."""
+        items = [(w, s.meta_id, tuple(s.op_ids), tuple(s.devices))
+                 for w, steps in sorted(plan.waves().items()) for s in steps]
+        digest = hashlib.sha256(repr(items).encode()).digest()[:8]
+        mine = torch.tensor([int.from_bytes(digest, "little", signed=True)],
+                            device=Wire().ctrl)
+        parts = [torch.empty_like(mine) for _ in range(world_size())]
+        dist.all_gather(parts, mine)
+        if len({int(p) for p in parts}) > 1:
+            raise RuntimeError("WaveEngine: the ranks hold different plans "
+                               f"(digests {[int(p) for p in parts]})")
+
+    def _group(self, ranks: Tuple[int, ...]):
+        """The process group of ``ranks`` (None for one rank), made once."""
+        if len(ranks) == 1:
+            return None
+        if ranks == tuple(range(world_size())):
+            return dist.group.WORLD
+        if ranks not in self._groups:
+            self._groups[ranks] = dist.new_group(list(ranks))
+        return self._groups[ranks]
+
+    def _step_group(self, step: PlanStep) -> Tuple[int, ...]:
+        """The ranks a step runs on: its devices in the live mesh, or the
+        lowest live rank when none is."""
+        live = set(self.live)
+        return tuple(d for d in step.devices if d in live) or self.live[:1]
+
+    def _step_layout(self, step: PlanStep, batches) -> Layout:
+        """Which rows of the step's activation each rank of its group
+        holds (:func:`repro_torch.runtime.moves.row_layout`)."""
+        inst, comp, task = self.meta_info[step.meta_id]
+        sizes = {t: len(next(iter(batches[t].values())))
+                 for t in self._tasks_of(task)}
+        whole = self.model.components[comp].kind == "contrastive"
+        return row_layout(self._step_group(step), sizes, whole)
 
     # ------------------------------------------------------------------
     def _tasks_of(self, task_str: str) -> List[str]:
@@ -288,8 +473,11 @@ class WaveEngine:
                    on_wave=None):
         """One full §3.6 iteration: forward + backward wave by wave, then the
         optimizer update (in place on ``params``).  Returns (params, new
-        optimizer state, loss)."""
+        optimizer state, loss).  A rank outside the live mesh takes no
+        update."""
         loss, grads = self.loss_and_grads(params, batches, on_wave=on_wave)
+        if not self.active:
+            return params, opt_state, loss
         new_state = optimizer.update(grads, opt_state,
                                      dict(params.named_parameters()))
         return params, new_state, loss

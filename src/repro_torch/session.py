@@ -35,8 +35,20 @@ A :class:`CheckpointCallbacks` threads a checkpoint manager
 (:mod:`repro_torch.ckpt`) through a bound session: periodic snapshots, a
 snapshot-and-restore around a cooperative cluster change, and rollback to
 the last durable snapshot plus a replay of the lost steps after a hard
-host failure.  All of it runs in one process: the planner's cluster is a
-spec, the engine runs on ``SessionConfig.device``.
+host failure.
+
+Without ``SessionConfig.mesh`` all of it runs in one process: the
+planner's cluster is a spec, the engine runs on ``SessionConfig.device``.
+With a mesh (a ``DeviceMesh`` over the ranks of a ``torch.distributed``
+world, :func:`repro_torch.parallel.mesh_over_devices`) every rank runs the
+same session and a bound one stands up the distributed
+:class:`repro_torch.runtime.engine.WaveEngine`: plan device ``d`` is rank
+``d``.  The live mesh follows the cluster: a straggler or a host failure
+flattens it to 1-D over the healthy devices, full recovery restores the
+configured mesh.  Rank 0's drained events are broadcast to every rank, so
+every rank replans alike; checkpoints are written by the lowest rank of
+the live mesh into a directory the ranks share and restored by every rank
+of the new live mesh.
 """
 
 from __future__ import annotations
@@ -112,6 +124,11 @@ class SessionConfig:
     #: where a bound session's params, batches and steps live ("cpu" only
     #: when asked for; "cuda" without a GPU raises at bind)
     device: str = "cuda"
+    #: a ``DeviceMesh`` over the ranks (``parallel.mesh_over_devices``):
+    #: bound sessions then stand up ``WaveEngine(distributed=True)``, every
+    #: rank running the same session, and a cluster change re-meshes over
+    #: the healthy devices.  ``None`` = the one-process engine.
+    mesh: Any = None
 
 
 class SessionCallbacks:
@@ -170,8 +187,8 @@ class CheckpointCallbacks(SessionCallbacks):
 
     def on_step_end(self, session: "SpindleSession", step: int,
                     loss: float, dt: float) -> None:
-        if session.params is None:
-            return  # plan-only sessions have no state to snapshot
+        if session.params is None or not session.writes_checkpoints:
+            return  # no state to snapshot, or another rank writes it
         self.manager.maybe_save(
             step,
             {"params": session.params, "opt": session.opt_state},
@@ -250,6 +267,9 @@ class SpindleSession:
         #: from — straggler shrinks then apply to the lease's own host
         #: indices (view-local), and the arbiter owns the physical mapping
         self._lease: Optional[ClusterSpec] = None
+        #: live mesh — flattened over the healthy devices on a cluster
+        #: change, the configured one again on full recovery
+        self.mesh = self.config.mesh
         self._straggler_hosts: frozenset = frozenset()
         #: hosts confirmed dead by HostFailed events (hard failures), kept
         #: apart from the straggler flags: eviction is unconditional (not
@@ -322,6 +342,17 @@ class SpindleSession:
         from .config import resolve_device
 
         return resolve_device(self.config.device)
+
+    @property
+    def distributed(self) -> bool:
+        """A bound session on the distributed engine (every rank runs it)."""
+        return self.engine is not None and self.engine.distributed
+
+    @property
+    def writes_checkpoints(self) -> bool:
+        """This process writes the session's snapshots: always on one
+        process; the lowest rank of the live mesh when distributed."""
+        return self.engine is None or self.engine.me == self.engine.live[0]
 
     def _build_model(self) -> None:
         if self.model_factory is None:
@@ -456,7 +487,9 @@ class SpindleSession:
             if model_changed or self.params is None:
                 self._refresh_params()
             if self.engine is None:
-                self.engine = WaveEngine(self.model, p)
+                self.engine = WaveEngine(
+                    self.model, p, distributed=self.config.mesh is not None,
+                    mesh=self.mesh)
             else:
                 self.engine.rebind(
                     p, model=self.model if model_changed else None)
@@ -542,10 +575,20 @@ class SpindleSession:
 
     def poll(self) -> List[Event]:
         """Drain every event source; everything that fired in this cycle is
-        coalesced into ONE replan (see :meth:`signal_all`)."""
+        coalesced into ONE replan (see :meth:`signal_all`).  When
+        distributed, every rank drains its own sources and then applies
+        rank 0's events, broadcast to the world (the straggler detector
+        sees every host's times on rank 0 alone), so every rank replans
+        alike."""
         fired: List[Event] = []
         for src in self.event_sources:
             fired.extend(src.poll())
+        if self.distributed:
+            import torch.distributed as dist
+
+            box = [fired]
+            dist.broadcast_object_list(box, src=0)
+            fired = box[0]
         if fired:
             self.signal_all(fired)
         return fired
@@ -705,7 +748,7 @@ class SpindleSession:
         # observers are notified (on_plan/on_replan) only after the whole
         # turn succeeded.
         rollback = (
-            self.tasks, self.cluster, self._straggler_hosts,
+            self.tasks, self.cluster, self.mesh, self._straggler_hosts,
             self._dead_hosts, self._lease, self.model, self.batches,
             self.params, self.opt_state,
         )
@@ -736,21 +779,34 @@ class SpindleSession:
         hard = bool(hard_lost) and ckpt_mgr is not None
         restored_step: Optional[int] = None
         old_plan, old_model = self.current_plan, self.model
+        old_live = self.engine.live if self.distributed else None
         try:
             if model_shift and self.model is not None:
                 self._build_model()  # rebuild for the shifted task set
+            if cluster_changed and self.config.mesh is not None:
+                self.mesh = self._remesh()
             if ckpt_mgr is not None and not hard:
                 # label = index of the last COMPLETED step — the convention
                 # of the periodic path (on_step_end) and of the train
-                # trainer's resume (start_step = manifest step + 1)
-                ckpt_mgr.save(
-                    self.step_count - 1,
-                    {"params": self.params, "opt": self.opt_state},
-                    extra={
-                        "flagged_hosts": sorted(flagged),
-                        "tasks": list(self.tasks or ()),
-                    },
-                )
+                # trainer's resume (start_step = manifest step + 1); the
+                # old live mesh's lowest rank writes
+                if self.writes_checkpoints:
+                    ckpt_mgr.save(
+                        self.step_count - 1,
+                        {"params": self.params, "opt": self.opt_state},
+                        extra={
+                            "flagged_hosts": sorted(flagged),
+                            "tasks": list(self.tasks or ()),
+                        },
+                    )
+            if ckpt_mgr is not None and self.distributed:
+                # what any rank restores must be durable before it reads:
+                # the writer drains its saves, then every rank meets
+                import torch.distributed as dist
+
+                if self.writes_checkpoints:
+                    ckpt_mgr.wait(raise_errors=False)
+                dist.barrier()
             s = self.cache.stats
             before = (s.hits, s.incremental, s.fallbacks)
             t0 = time.perf_counter()
@@ -766,9 +822,11 @@ class SpindleSession:
                     self._refresh_params()
                 rebind_stats = self.engine.rebind(
                     p, model=self.model if self.model is not old_model
-                    else None)
+                    else None, mesh=self.mesh)
+            if ckpt_mgr is None and old_live is not None and cluster_changed:
+                self._share_state(old_live)
         except BaseException:
-            (self.tasks, self.cluster, self._straggler_hosts,
+            (self.tasks, self.cluster, self.mesh, self._straggler_hosts,
              self._dead_hosts, self._lease, self.model, self.batches,
              self.params, self.opt_state) = rollback
             raise
@@ -816,18 +874,61 @@ class SpindleSession:
         return None
 
     # --------------------------------------------------------------- restore
+    def _remesh(self) -> Any:
+        """The live mesh for the just-committed cluster: 1-D over its
+        healthy devices (the configured mesh's first axis) while hosts are
+        evicted, the configured mesh itself on full recovery.  Every rank
+        builds it (a ``DeviceMesh`` makes its groups collectively)."""
+        if not (self._straggler_hosts or self._dead_hosts):
+            return self.config.mesh
+        from .parallel.mesh import mesh_over_devices
+
+        return mesh_over_devices(
+            self.cluster.healthy_devices(),
+            axes=(self.config.mesh.mesh_dim_names[0],),
+            device=self.config.mesh.device_type)
+
+    def _share_state(self, old_live: Tuple[int, ...]) -> None:
+        """A live mesh that grew without a checkpoint to restore: the
+        params and moments are broadcast from the lowest rank that is in
+        both the old and the new mesh (ranks that sat outside skipped the
+        updates meanwhile)."""
+        import torch
+        import torch.distributed as dist
+
+        new = self.engine.live  # already rebound to the new mesh
+        if set(new) <= set(old_live):
+            return  # shrunk: every survivor already holds the state
+        both = sorted(set(new) & set(old_live))
+        if not both:
+            raise RuntimeError(f"re-mesh: no rank of {old_live} is in the "
+                               f"new live mesh {new}")
+        tensors = (list(self.params.parameters())
+                   + list(self.opt_state.mu.values())
+                   + list(self.opt_state.nu.values()))
+        with torch.no_grad():
+            for t in tensors:
+                dist.broadcast(t, both[0])
+        box = [self.opt_state.count]
+        dist.broadcast_object_list(box, src=both[0])
+        self.opt_state.count = box[0]
+
     def _restore(self, mgr: Any) -> Optional[int]:
         """Load ``mgr``'s latest durable snapshot onto the session's device
         into a NEW instance ``ModuleDict`` and ``OptState`` (the live ones,
         which the optimizer updates in place, stay as they are for the
         turn's rollback).  Returns the restored step, or ``None`` when the
-        manager holds no snapshot."""
+        manager holds no snapshot.  When distributed, every rank of the
+        live mesh loads its whole replica from the shared directory; a
+        rank outside the live mesh keeps its state."""
         from .ckpt.remesh import fresh_module, restore_to_mesh
 
         tree, manifest = mgr.restore_latest(
             {"params": self.params, "opt": self.opt_state})
         if tree is None:
             return None
+        if self.distributed and self.mesh.get_coordinate() is None:
+            return int(manifest["step"])
         placed = restore_to_mesh(tree, self._device())
         self.params = fresh_module(self.params, placed["params"])
         self.opt_state = placed["opt"]

@@ -178,9 +178,11 @@ def test_failed_replan_rolls_back_session_state():
 
 
 def test_checkpoint_options_raise_naming_item_5(monkeypatch, tmp_path):
-    """What still raises names ROADMAP queue 1, item 5d (the distributed
-    WaveEngine): the elastic smoke.  int8-compressed gradients without a
-    mesh train as without them (JAX's ``train`` compresses only under a
+    """The elastic smoke's CLI hands ``--steps``, ``--straggler-at``,
+    ``--straggler-hosts``, ``--ranks``, ``--ckpt-dir`` and ``--device`` to
+    ``elastic_smoke`` (whose run on four ranks is
+    ``tests/test_torch_engine_distributed.py``'s).  int8-compressed
+    gradients without a mesh train as without them (JAX's ``train`` compresses only under a
     mesh with a "data" axis), and a bare placement is no target of
     ``restore_to_mesh`` (a ``(DeviceMesh, placements)`` pair is).  A
     cluster-changing event on a bound session that carries a checkpoint
@@ -195,9 +197,15 @@ def test_checkpoint_options_raise_naming_item_5(monkeypatch, tmp_path):
     kw = dict(steps=1, batch=2, seq=32, device="cpu", verbose=False)
     assert (train_mod.train(compress_grads=True, **kw)["history"]
             == train_mod.train(**kw)["history"])
-    monkeypatch.setattr("sys.argv", ["train", "--elastic-smoke"])
-    with pytest.raises(NotImplementedError, match="item 5d"):
-        train_mod.main()
+    calls = []
+    monkeypatch.setattr(train_mod, "elastic_smoke",
+                        lambda **kw: calls.append(kw))
+    monkeypatch.setattr("sys.argv", [
+        "train", "--elastic-smoke", "--steps", "8", "--straggler-at", "3",
+        "--straggler-hosts", "1,2", "--ranks", "4", "--device", "cpu"])
+    train_mod.main()
+    assert calls == [dict(steps=8, straggler_at=3, straggler_hosts=(1, 2),
+                          ckpt_dir=None, ranks=4, device="cpu")]
     with pytest.raises(TypeError, match="DeviceMesh, placements"):
         restore_to_mesh({"w": torch.ones(2)}, Replicate())
 
