@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --only kernels
+    python3 chip_smoke.py --only placed   # the kernel checks, then 8e
 
 Phases, one summary line each (any failure exits non-zero, nothing is
 caught):
@@ -88,7 +89,8 @@ caught):
 4e. full qwen2-moe-a2.7b chunked through ``serve``: 8 requests x
    512-token prompts x 16 new tokens in 256-token chunks, one job (C 170):
    flash 0, paged 24 x decode steps, grouped matmul 72 x (chunk steps +
-   decode steps), the scan 0;
+   decode steps), the scan 0 (run right after 4b, on 4b's model: the
+   weights are drawn once);
 4f. serve full seamless-m4t-medium (12 + 12 layers, d 1,024, MHA hd 64,
    vocab 256,206; bf16) through ``serve``: 8 requests at once, each 512
    prompt tokens and 1,024 frames (``enc_len`` 1,024), 32 new tokens, 8
@@ -282,6 +284,19 @@ caught):
    Each rank's step ms, the plan steps and waves it ran, its bytes a step
    (moves and all-reduce apart) and peak memory are printed; no kernel is
    on this path (its launch counts must stay 0);
+8e. the placed steps (``launch/steps.py``): four ranks share the card
+   through gloo on (data 2, model 2); full qwen3-0.6b placed by the rules
+   (FSDP over data; heads, FFN and vocab over model), 3 train steps at 8 x
+   1,024 (each step's loss within ``PLACED_LOSS_TOL`` of one process's
+   train steps on the same batches; flash 56 launches a rank and step at
+   B4 H8 K4 S1024), a prefill of 8 x 512 (flash 28 a rank; logits within
+   ``PLACED_LOGITS_TOL`` of one process's, two controls above it) and 8
+   greedy serve steps (a share of at least ``PLACED_TOKENS_MIN`` of the
+   tokens equal to one process's); each rank's step
+   ms, peak memory and bytes by collective kind are printed; then reduced
+   fp32 qwen3, qwen2-moe (the grouped matmul on each rank's 4 local
+   experts) and llama3-405b (a decode cache split over the sequence) on
+   the card against four CPU ranks, within ``TRAIN_PARITY_TOL``;
 9. print a ``{"kernels": [...]}`` line (attention and grouped matmul at
    qwen2-moe's shapes with phase 4b's launches, the scan at recurrentgemma's
    fp32 prefill shape with phase 4c's, flash again at phase 6's
@@ -291,9 +306,11 @@ caught):
    shape with 6e's launches and the scan's reverse at 6f's with 6f's,
    paged decode at the served qwen3 shape with phase 7's fleet launches,
    the grouped matmul at 8a's E 32 x C 341 with 8a's launches over both
-   ranks, ``path: "ep"``, and flash at 8b's per-rank B4 S1,024 with 8b's,
-   ``path: "dp"``), the ``nvidia-smi`` line, and last ``{"ok": true,
-   "device": {...}}``.
+   ranks, ``path: "ep"``, flash at 8b's per-rank B4 S1,024 with 8b's,
+   ``path: "dp"``, and at 8e's per-rank B4 H8 K4 S1,024 and S512 with
+   8e's train and prefill launches over the four ranks, ``path:
+   "tp_train"`` and ``"tp_prefill"``), the ``nvidia-smi`` line, and last
+   ``{"ok": true, "device": {...}}``.
 
 Phase 3 also holds flash at the training shape (S 1,024) and the flash
 gradient there — the plain version recomputed and differentiated, as the
@@ -398,6 +415,10 @@ FLASH_CASES = {
     "pixtral": (8, 32, 8, 1536, 1536, 128, True, ("bfloat16",)),
     # phase 8b's data-parallel rank: half of phase 6's batch
     "dp": (4, 16, 8, 1024, 1024, 128, True, ("bfloat16",)),
+    # phase 8e's (data 2, model 2) rank: half the batch and half the heads
+    # of phase 6's training shape, and of an 8 x 512 prefill
+    "tp": (4, 8, 4, 1024, 1024, 128, True, ("bfloat16",)),
+    "tp_prefill": (4, 8, 4, 512, 512, 128, True, ("bfloat16",)),
 }
 # the RG-LRU scan: (B, S, D, decay) — recurrentgemma-9b's 8 x 512-token
 # prefill at d 4096, a ragged shape, and a decay of 0.999 over 2048 steps
@@ -1149,13 +1170,24 @@ FRONTEND = {"seamless-m4t-medium": dict(enc_len=1024),
             "pixtral-12b": dict(stub_len=1024)}
 
 
+def built_model(torch, cfg):
+    """The full ``cfg`` as ``launch.serve.serve`` builds it: kernels on,
+    on the card, weights drawn from seed 0."""
+    from repro_torch.config import default_sharding
+    from repro_torch.models import build_model
+
+    return build_model(cfg, default_sharding(cfg, use_kernels=True),
+                       device="cuda").init(0)
+
+
 def phase_serve_full(torch, ops, serve, get_arch, smi: str, arch: str,
-                     kv_layout: str = "paged"):
+                     kv_layout: str = "paged", model=None):
     """Serve the full ``arch`` on ``kv_layout``; every kernel of its path
     must have been launched, exactly layers x (per prefill call, per
-    decode step) times, and every other kernel never.  The model is freed
-    when ``serve`` returns (the session holds no reference cycle).
-    Returns (the launch counts, the (8, 32) tokens)."""
+    decode step) times, and every other kernel never.  The model (built
+    by ``serve`` unless ``model`` gives it) is freed when ``serve``
+    returns (the session holds no reference cycle).  Returns (the launch
+    counts, the (8, 32) tokens)."""
     what, per = SERVED[arch]
     if kv_layout == "slab":
         per = SLAB_SERVED[arch]
@@ -1167,7 +1199,7 @@ def phase_serve_full(torch, ops, serve, get_arch, smi: str, arch: str,
     out = serve(arch, reduced_cfg=False, n_requests=8, prompt_len=512,
                 gen_len=32, max_slots=8, page_size=16,
                 cache_dtype="bfloat16", device="cuda", seed=0, verbose=True,
-                kv_layout=kv_layout, **FRONTEND.get(arch, {}))
+                kv_layout=kv_layout, model=model, **FRONTEND.get(arch, {}))
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -1379,16 +1411,19 @@ def phase_chunked_full(torch, ops, serve, get_arch, smi: str) -> None:
             f"high-water {a['kv_page_hw']} vs {b['kv_page_hw']} unshared")
 
 
-def phase_moe_chunked(torch, ops, serve, get_arch, smi: str) -> None:
+def phase_moe_chunked(torch, ops, serve, get_arch, smi: str,
+                      model=None) -> None:
     """Full qwen2-moe-a2.7b, 8 x 512-token prompts in 256-token chunks, all
-    in one job: the grouped matmul at the chunks' capacity."""
+    in one job: the grouped matmul at the chunks' capacity (``model``:
+    phase 4b's, whose weights the same seed draws)."""
     vocab = get_arch("qwen2-moe-a2.7b").vocab
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     m = serve("qwen2-moe-a2.7b", reduced_cfg=False, n_requests=8,
               prompt_len=512, gen_len=16, prefill_chunk=256, page_size=16,
-              cache_dtype="bfloat16", device="cuda", seed=0, verbose=True)
+              cache_dtype="bfloat16", device="cuda", seed=0, verbose=True,
+              model=model)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     check_launches("4e", counts, {"paged_attention": (24, 0, 1),
@@ -3082,8 +3117,245 @@ def phase_wavefront_distributed(torch, smi: str) -> None:
         f"on the card: {ok}; {secs} s, on {smi}")
 
 
+# phase 8e: the placed steps of launch/steps.py, four ranks sharing the card
+PLACED_FULL = dict(arch="qwen3-0.6b", reduced_cfg=False, mesh_shape=(2, 2),
+                   batch=8, seq=1024, steps=3, prompt_len=512, gen=8, seed=0)
+# each train step's loss of the placed run against one process's on the
+# same batches: both bf16 compute; the placed sums run over four ranks in
+# another order (the vocab-parallel logsumexp, the row-parallel partial
+# products summed by gloo), so they agree to bf16 noise, not bit for bit
+PLACED_LOSS_TOL = 1e-2
+# the prefill logits (fp32 out of bf16 compute, (8, 151,936)) against one
+# process's: sound runs read 0.0703125 on the H100 (the same bits in every
+# run); a wrong answer reads far above (the script's two controls:
+# the logits with the vocab shards' order swapped, and another data
+# group's rows)
+PLACED_LOGITS_TOL = 0.25
+# the share of greedy tokens equal to one process's: sound runs 102 of 144
+# (a random-init qwen3's logits are nearly flat, so bf16 noise flips some
+# argmaxes and a row then decodes its own continuation); the controls'
+# wrong rows share next to none
+PLACED_TOKENS_MIN = 0.5
+PLACED_REDUCED = {"qwen3-0.6b": {}, "qwen2-moe-a2.7b": {"grad_accum": 2},
+                  "llama3-405b": {}}
+PLACED_REDUCED_RUN = dict(reduced_cfg=True, mesh_shape=(2, 2), batch=8,
+                          seq=32, steps=3, prompt_len=64, gen=2, seed=0,
+                          keep_params=True, cache_dtype="float32")
+
+
+def _placed_ranks(rank: int, kws) -> list:
+    """A spawned 8e rank running several placed runs in turn (one spawn
+    for the three reduced archs)."""
+    from repro_torch.launch.steps import placed_run
+
+    return [placed_run(rank, **kw) for kw in kws]
+
+
+def _one_process_placed_reference(torch, cfg, kw) -> dict:
+    """Phase 8e's one-process run on the card: the unplaced training-layout
+    model from the same seed, with the kernels: a prefill of the same
+    prompts with greedy decode steps (the placed run's logits and tokens
+    are held against them), then the same train steps on the same global
+    batches with the same optimizer (their losses, likewise)."""
+    from repro_torch.config import default_sharding
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.steps import make_optimizer
+    from repro_torch.launch.train import make_train_state, train_step
+    from repro_torch.models import build_model
+
+    model = build_model(cfg, default_sharding(cfg, use_kernels=True),
+                        device="cuda", train=True)
+    opt = make_optimizer(cfg)
+    params, state = make_train_state(model, opt, kw["seed"])
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=kw["seq"],
+                                  global_batch=kw["batch"], seed=kw["seed"]))
+    g = torch.Generator().manual_seed(kw["seed"])
+    prompts = torch.randint(0, cfg.vocab, (kw["batch"], kw["prompt_len"]),
+                            generator=g).cuda()
+    with torch.no_grad():
+        logits, cache = model.prefill(
+            {"tokens": prompts}, cache_len=kw["prompt_len"] + kw["gen"])
+        tok = logits.argmax(-1)
+        first_logits, tokens = logits.float().cpu(), [tok]
+        for i in range(kw["gen"]):
+            logits, cache = model.decode_step(tok, cache, kw["prompt_len"] + i)
+            tok = logits.argmax(-1)
+            tokens.append(tok)
+    del cache
+    losses = []
+    for step in range(kw["steps"]):
+        b = {k: v.cuda() for k, v in data.batch(step).items()}
+        state, loss = train_step(model, opt, params, state, b)
+        losses.append(float(loss))
+    out = {"losses": losses, "logits": first_logits,
+           "tokens": torch.stack(tokens, 1).cpu()}
+    del model, params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _placed_rows(r, batch: int, ranks: int = 2):
+    """The global rows a rank of a (data 2, model 2) mesh holds."""
+    per = batch // ranks
+    return slice(r["coord"][0] * per, (r["coord"][0] + 1) * per)
+
+
+def phase_placed(torch, smi: str) -> dict:
+    """Phase 8e (see the module docstring).  Returns its flash launch
+    records."""
+    from repro_torch.config import get_arch
+    from repro_torch.launch.steps import _placed_rank
+    from repro_torch.parallel.mesh import run_ranks
+
+    cfg = get_arch(PLACED_FULL["arch"])
+    t0 = time.perf_counter()
+    one = _one_process_placed_reference(torch, cfg, PLACED_FULL)
+    one_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = run_ranks(_placed_rank, 4, "cuda",
+                      args=(dict(PLACED_FULL, device="cuda"),))
+    secs = time.perf_counter() - t0
+    L, steps = cfg.n_layers, PLACED_FULL["steps"]
+    zero = {k: 0 for k in ranks[0]["train"]["counts"]}
+    want = {"train": dict(zero, flash_attention=2 * L * steps),
+            "prefill": dict(zero, flash_attention=L), "serve": zero}
+    hist = ranks[0]["train"]["losses"]
+    for i, r in enumerate(ranks):
+        if r["backend"] != "gloo":
+            raise AssertionError(f"phase 8e rank {i}: backend {r['backend']}")
+        for part, counts in want.items():
+            if r[part]["counts"] != counts:
+                raise AssertionError(f"phase 8e rank {i} {part}: launch "
+                                     f"counts {r[part]['counts']} != "
+                                     f"{counts}")
+        if r["train"]["losses"] != hist:
+            raise AssertionError(f"phase 8e rank {i}: losses "
+                                 f"{r['train']['losses']} != rank 0's {hist}")
+    if not all(math.isfinite(x) for x in hist):
+        raise AssertionError(f"phase 8e: losses {hist}")
+    dloss = max(abs(a - b) for a, b in zip(hist, one["losses"]))
+    if not dloss <= PLACED_LOSS_TOL:
+        raise AssertionError(f"phase 8e: losses {hist} vs one process "
+                             f"{one['losses']} (max diff {dloss} > "
+                             f"{PLACED_LOSS_TOL})")
+    half = cfg.vocab // 2  # the vocab shard of model rank 0
+    same, total, dlog, ctl_swap, ctl_rows, ctl_same = 0, 0, 0.0, 0.0, 0.0, 0
+    for r in ranks:
+        rows = _placed_rows(r, PLACED_FULL["batch"])
+        other = _placed_rows({"coord": [1 - r["coord"][0]]},
+                             PLACED_FULL["batch"])
+        got, ref = r["serve"]["tokens"], one["tokens"][rows]
+        if got.shape != ref.shape:
+            raise AssertionError(f"phase 8e: tokens {tuple(got.shape)} vs "
+                                 f"{tuple(ref.shape)}")
+        same += int((got == ref).sum())
+        ctl_same += int((got == one["tokens"][other]).sum())
+        total += got.numel()
+        lg, ref_lg = r["prefill"]["logits"], one["logits"][rows]
+        if tuple(lg.shape) != tuple(ref_lg.shape) or not bool(
+                torch.isfinite(lg).all()):
+            raise AssertionError(f"phase 8e: prefill logits {tuple(lg.shape)}"
+                                 f" not finite or not {tuple(ref_lg.shape)}")
+        dlog = max(dlog, float((lg - ref_lg).abs().max()))
+        swapped = torch.cat([lg[:, half:], lg[:, :half]], dim=-1)
+        ctl_swap = max(ctl_swap, float((swapped - ref_lg).abs().max()))
+        ctl_rows = max(ctl_rows,
+                       float((lg - one["logits"][other]).abs().max()))
+    if not dlog <= PLACED_LOGITS_TOL < min(ctl_swap, ctl_rows):
+        raise AssertionError(f"phase 8e: prefill logits max |diff| {dlog} vs "
+                             f"one process, limit {PLACED_LOGITS_TOL}, "
+                             f"controls {ctl_swap} (vocab shards swapped), "
+                             f"{ctl_rows} (other rows)")
+    if not same >= PLACED_TOKENS_MIN * total > ctl_same:
+        raise AssertionError(f"phase 8e: {same} of {total} greedy tokens "
+                             f"equal to one process's (min share "
+                             f"{PLACED_TOKENS_MIN}; other rows {ctl_same})")
+    log(f"placed steps (launch/steps.py) qwen3-0.6b full (28 layers, bf16 "
+        f"compute, fp32 masters) on 4 ranks sharing the card through gloo, "
+        f"mesh (data 2, model 2): FSDP over data, heads / FFN / vocab over "
+        f"model; train 8 x 1,024 (4 x 1,024 a rank, 8 query and 4 KV heads "
+        f"a rank), {steps} steps: losses {hist}; one process {one['losses']}"
+        f" (max diff {dloss}, limit {PLACED_LOSS_TOL}); flash "
+        f"{2 * L} launches a rank and step, prefill 8 x 512 {L} a rank; "
+        f"prefill logits max |diff| {dlog} (limit {PLACED_LOGITS_TOL}; "
+        f"controls: vocab shards swapped {ctl_swap}, other rows {ctl_rows}); "
+        f"{PLACED_FULL['gen']} greedy serve steps: {same} of {total} tokens "
+        f"equal to one process's (min share {PLACED_TOKENS_MIN}; other rows "
+        f"{ctl_same}); "
+        + "; ".join(
+            f"rank {i} coord {r['coord']}: train step_ms="
+            f"{[t * 1e3 for t in r['train']['step_s']]} peak_mem_bytes="
+            f"{r['train']['peak']} collective_bytes_per_step="
+            f"{r['train']['traffic_per_step']} prefill_ms="
+            f"{r['prefill']['s'] * 1e3} prefill_bytes={r['prefill']['traffic']}"
+            f" serve_ms_per_step={r['serve']['s'] * 1e3 / PLACED_FULL['gen']}"
+            f" serve_bytes={r['serve']['traffic']}"
+            for i, r in enumerate(ranks))
+        + f"; one process {one_s} s, the ranks {secs} s with the spawn, on "
+        f"{smi}")
+    rec = {"train_launches": sum(r["train"]["counts"]["flash_attention"]
+                                 for r in ranks),
+           "prefill_launches": sum(r["prefill"]["counts"]["flash_attention"]
+                                   for r in ranks),
+           "per_step": 2 * L, "per_prefill": L}
+    phase_placed_parity(torch, smi)
+    return rec
+
+
+def phase_placed_parity(torch, smi: str) -> None:
+    """Phase 8e's reduced fp32 runs: placed qwen3, qwen2-moe (the grouped
+    matmul on each rank's 4 local experts) and llama3-405b (its one KV
+    head split over "model", the decode cache over the sequence) on four
+    ranks on the card against four CPU ranks: losses, trained local
+    blocks, prefill and serve logits within ``TRAIN_PARITY_TOL``."""
+    from repro_torch.parallel.mesh import run_ranks
+
+    kws = [dict(PLACED_REDUCED_RUN, arch=arch, sharding=over)
+           for arch, over in PLACED_REDUCED.items()]
+    t0 = time.perf_counter()
+    gpus = run_ranks(_placed_ranks, 4, "cuda",
+                     args=([dict(kw, device="cuda") for kw in kws],))
+    cpus = run_ranks(_placed_ranks, 4, "cpu",
+                     args=([dict(kw, device="cpu") for kw in kws],))
+    secs = time.perf_counter() - t0
+    for k, (arch, over) in enumerate(PLACED_REDUCED.items()):
+        gpu, cpu = [r[k] for r in gpus], [r[k] for r in cpus]
+        worst = 0.0
+        for g, c in zip(gpu, cpu):
+            if g["coord"] != c["coord"]:
+                raise AssertionError(f"phase 8e {arch}: coords differ")
+            diffs = [_max_diff(g["train"]["losses"], c["train"]["losses"])]
+            diffs += [float((g["train"]["params"][n].float()
+                             - c["train"]["params"][n].float()).abs().max())
+                      for n in c["train"]["params"]]
+            diffs.append(float((g["prefill"]["logits"]
+                                - c["prefill"]["logits"]).abs().max()))
+            diffs += [float((a - b).abs().max()) for a, b in
+                      zip(g["serve"]["logits"], c["serve"]["logits"])]
+            worst = max(worst, max(diffs))
+            if not torch.equal(g["serve"]["tokens"], c["serve"]["tokens"]):
+                raise AssertionError(f"phase 8e {arch}: greedy tokens "
+                                     f"differ cuda vs cpu")
+        if not worst <= TRAIN_PARITY_TOL:
+            raise AssertionError(f"phase 8e {arch}: cuda vs cpu max diff "
+                                 f"{worst} > {TRAIN_PARITY_TOL}")
+        gmm = [r["train"]["counts"]["grouped_matmul"] for r in gpu]
+        if ("moe" in arch) != all(n > 0 for n in gmm):
+            raise AssertionError(f"phase 8e {arch}: grouped matmul launches "
+                                 f"{gmm}")
+        log(f"placed reduced {arch} fp32, fp32 cache (mesh (2, 2), "
+            f"{over or 'defaults'}, grad_accum "
+            f"{gpu[0]['train']['grad_accum']}): cuda losses "
+            f"{gpu[0]['train']['losses']}, cpu {cpu[0]['train']['losses']}; "
+            f"losses, trained blocks, prefill and serve logits max diff "
+            f"{worst} (tol {TRAIN_PARITY_TOL}), greedy tokens equal; "
+            f"grouped matmul launches a rank {gmm}, on {smi}")
+    log(f"placed reduced runs: {secs} s with both spawns")
+
+
 def phases_mesh(torch, smi: str) -> tuple:
-    """Phases 8-8d.  Returns 8a's and 8b's launch records."""
+    """Phases 8-8e.  Returns 8a's, 8b's and 8e's launch records."""
     gc.collect()
     torch.cuda.empty_cache()
     phase_mesh_nccl(torch, smi)
@@ -3091,13 +3363,17 @@ def phases_mesh(torch, smi: str) -> tuple:
     dp = phase_dp_full(torch, smi)
     phase_remesh(torch, smi)
     phase_wavefront_distributed(torch, smi)
-    return ep, dp
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp = phase_placed(torch, smi)
+    return ep, dp, tp
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=("kernels",), default=None,
-                    help="run the build and kernel checks only")
+    ap.add_argument("--only", choices=("kernels", "placed"), default=None,
+                    help="run the build and kernel checks only (and with "
+                         "'placed', phase 8e after them)")
     args = ap.parse_args(argv)
 
     import torch
@@ -3133,6 +3409,9 @@ def main(argv=None) -> int:
 
     checks = phase_kernels(torch, ops, ref, gmm, paged)
     counts = {name: 0 for name in ops.KERNELS}
+    tp_rec = None
+    if args.only == "placed":
+        tp_rec = phase_placed(torch, smi)
     if args.only is None:
         from repro_torch.config import get_arch
         from repro_torch.launch.serve import serve
@@ -3142,8 +3421,16 @@ def main(argv=None) -> int:
 
         _, qwen3_tokens = phase_serve_full(torch, ops, serve, get_arch, smi,
                                            "qwen3-0.6b")
+        # full qwen2-moe-a2.7b is drawn once (15.1 B values on the host:
+        # most of a serve phase's time) and served by 4b and 4e
+        t0 = time.perf_counter()
+        moe_model = built_model(torch, get_arch("qwen2-moe-a2.7b"))
+        log(f"qwen2-moe-a2.7b full built for 4b and 4e in "
+            f"{time.perf_counter() - t0} s")
         moe, _ = phase_serve_full(torch, ops, serve, get_arch, smi,
-                                  "qwen2-moe-a2.7b")
+                                  "qwen2-moe-a2.7b", model=moe_model)
+        phase_moe_chunked(torch, ops, serve, get_arch, smi, moe_model)
+        del moe_model
         hybrid, _ = phase_serve_full(torch, ops, serve, get_arch, smi,
                                      "recurrentgemma-9b")
         counts.update({name: moe[name] for name in
@@ -3151,7 +3438,6 @@ def main(argv=None) -> int:
                         "grouped_matmul")})
         counts["rglru_scan"] = hybrid["rglru_scan"]
         phase_chunked_full(torch, ops, serve, get_arch, smi)
-        phase_moe_chunked(torch, ops, serve, get_arch, smi)
         encdec, _ = phase_serve_full(torch, ops, serve, get_arch, smi,
                                      "seamless-m4t-medium")
         phase_serve_full(torch, ops, serve, get_arch, smi, "pixtral-12b")
@@ -3187,7 +3473,7 @@ def main(argv=None) -> int:
         phase_ckpt_resume(torch, ops, train, smi)
         phase_crash(torch, ops, smi)
         fleet_paged = phases_fleet(torch, ops, smi)
-        ep_rec, dp_rec = phases_mesh(torch, smi)
+        ep_rec, dp_rec, tp_rec = phases_mesh(torch, smi)
 
     # one row per kernel: attention and the grouped matmul at qwen2-moe's
     # bf16 shapes (the grouped matmul at its decode shape, where most of
@@ -3251,6 +3537,16 @@ def main(argv=None) -> int:
         row("flash_attention", checks[("flash_attention", "bfloat16", "dp")],
             dp_rec["launches"], path="dp", ranks=2,
             launches_per_step_per_rank=dp_rec["per_step"])
+    if tp_rec is not None:
+        # flash on a (data 2, model 2) rank's local heads, with 8e's
+        # launches over the four ranks: its train steps and its prefill
+        row("flash_attention", checks[("flash_attention", "bfloat16", "tp")],
+            tp_rec["train_launches"], path="tp_train", ranks=4,
+            launches_per_step_per_rank=tp_rec["per_step"])
+        row("flash_attention",
+            checks[("flash_attention", "bfloat16", "tp_prefill")],
+            tp_rec["prefill_launches"], path="tp_prefill", ranks=4,
+            launches_per_prefill_per_rank=tp_rec["per_prefill"])
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -6,16 +6,20 @@ package's, so an architecture has the same numbers in both packages
 ``ShardingConfig`` keeps the knobs the port reads: ``use_kernels`` (the
 JAX package's ``use_pallas``) routes attention and the MoE expert
 products through the hand-written CUDA kernels, ``remat`` sets the
-training forward's activation checkpoints, and ``fsdp``,
-``fsdp_over_pod``, ``shard_experts`` and ``seq_shard_acts`` are the
-sharding rules' knobs (:mod:`repro_torch.parallel.sharding`).  :func:`resolve_device` is the port's single
-device policy: asking for CUDA without a GPU raises, it never falls back.
+training forward's activation checkpoints, ``fsdp``, ``fsdp_over_pod``,
+``shard_experts`` and ``seq_shard_acts`` are the sharding rules' knobs
+(:mod:`repro_torch.parallel.sharding`), ``logits_chunk`` the vocab loss's
+chunk, and ``grad_accum`` and ``accum_dtype`` the placed train step's
+microbatching (:mod:`repro_torch.launch.steps`).  ``ShapeConfig``,
+``SHAPES`` and :func:`applicable_shapes` are the JAX package's shape
+cells.  :func:`resolve_device` is the port's single device policy: asking
+for CUDA without a GPU raises, it never falls back.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, fields, replace
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -77,6 +81,35 @@ class ArchConfig:
     def is_encdec(self) -> bool:
         return self.n_enc_layers > 0
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """True if the arch supports O(1)-state / windowed decode (long_500k)."""
+        return self.family in ("ssm", "hybrid")
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+def applicable_shapes(arch: ArchConfig) -> List[str]:
+    """Shape cells for an arch per the spec's skip rules (DESIGN.md §5)."""
+    out = ["train_4k", "prefill_32k", "decode_32k"]
+    if arch.sub_quadratic:
+        out.append("long_500k")
+    return out
+
 
 @dataclass(frozen=True)
 class ShardingConfig:
@@ -99,6 +132,15 @@ class ShardingConfig:
     # block-pattern repetition recomputed in backward) | "sqrt" (JAX's
     # two-level checkpointed groups) | "none"
     remat: str = "block"
+    logits_chunk: int = 0  # 0 → 1,024; else the vocab loss's seq chunk
+    # Megatron-style sequence parallelism of the residual stream (JAX
+    # ``transformer.py:144-170, 327-350``): not ported; a placed step with
+    # a model axis > 1 raises (ROADMAP queue 1, item 5g)
+    seq_parallel: bool = False
+    # the placed train step's microbatch gradient accumulation (1 = off)
+    # and its accumulator dtype ("float32" | "bfloat16")
+    grad_accum: int = 1
+    accum_dtype: str = "float32"
 
 
 _REGISTRY: Dict[str, ArchConfig] = {}
@@ -127,10 +169,9 @@ def _ensure_registered() -> None:
 
 def default_sharding(cfg: ArchConfig, **overrides) -> ShardingConfig:
     """The arch's default ShardingConfig: its ``sharding_defaults`` that
-    name a field of the port's ShardingConfig, then ``overrides``.  The
-    JAX knobs it leaves out, ``grad_accum`` and ``accum_dtype``, are read
-    only by the JAX package's XLA step functions (``launch/steps.py``),
-    not by its ``train``: they come with them (ROADMAP queue 1, item 6)."""
+    name a field of the port's ShardingConfig (every knob the configs set
+    does, ``grad_accum`` and ``accum_dtype`` included), then
+    ``overrides``."""
     names = {f.name for f in fields(ShardingConfig)}
     kw = {k: v for k, v in cfg.sharding_defaults if k in names}
     kw.update(overrides)

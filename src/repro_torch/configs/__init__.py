@@ -1,9 +1,11 @@
 """Architecture configs of the port (importing this package registers them).
 
 All ten of the JAX package's architectures.  The dense deepseek-67b and
-llama3-405b fit no single card: they are registered for the sharding
-rules (``parallel/sharding.py``) and run nowhere yet; training them from
-a state placed by the rules is ROADMAP queue 1, item 5e.
+llama3-405b fit no single card: they train, prefill and serve from a
+state placed by the sharding rules (``launch/steps.py``: FSDP over
+``"data"``, tensor parallelism over ``"model"``) on a mesh large enough
+to hold them; on the production (16, 16) mesh their local shapes are
+held against JAX's specs on a ``"meta"`` build.
 """
 
 from . import deepseek_67b  # noqa: F401  — import side-effect: register_arch()

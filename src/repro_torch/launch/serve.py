@@ -126,11 +126,14 @@ def serve(
     device: str = "cuda",
     enc_len: int = 0,
     stub_len: int = 0,
+    model: Any = None,
 ) -> Dict[str, Any]:
     """Serve ``n_requests`` random prompts; returns tokens + metrics
     (``init_seconds``: building and initializing the model).  ``enc_len``
     and ``stub_len`` size the enc-dec frames and the VLM patch embeddings
-    (:func:`frontend_lens`)."""
+    (:func:`frontend_lens`).  ``model``: an already built model of
+    ``arch`` to serve as it is (``ServingSession``'s ``model``), so that
+    several runs share one set of weights."""
     enc, stub = frontend_lens(get_arch(arch), prompt_len, enc_len, stub_len)
     t_init = time.perf_counter()
     session = ServingSession(
@@ -153,7 +156,8 @@ def serve(
             kv_admission=kv_admission,
             kv_layout=kv_layout,
             cache_dtype=cache_dtype,
-        )
+        ),
+        model=model,
     )
     init_seconds = time.perf_counter() - t_init
     reqs = _build_requests(

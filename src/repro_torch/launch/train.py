@@ -61,6 +61,12 @@ with the ``spawn`` start method, which CUDA needs), joins the group
 (:func:`repro_torch.parallel.mesh.init_rank`) and builds the mesh; the
 CLI trains in one process.
 
+``make_train_state(mesh=, rules=)`` places a state by the sharding rules
+(``parallel.sharding.place_module``: FSDP over ``"data"``, tensor and
+expert parallelism over ``"model"``, each leaf drawn whole from the seed
+and sliced), and :func:`placed_train_step` trains it: the step of
+``launch/steps.py``'s train step, with its microbatches.
+
 ``--elastic-smoke`` runs the straggler scenario on the distributed
 WaveEngine (:func:`elastic_smoke`): ``--ranks`` spawned ranks (gloo on the
 CPU or on one shared card, NCCL with a card a rank) run one bound
@@ -91,9 +97,10 @@ from ..models import build_model
 from ..models.layers import dtype_of
 from ..models.moe import shard_expert_stacks
 from ..optim import AdamW, OptState, compressed_mean, warmup_cosine
-from ..parallel.collectives import (all_gather_cat, all_reduce_,
-                                    global_norm, mean_grads)
-from ..parallel.mesh import DATA, MODEL, axis_group, batch_axes
+from ..parallel.collectives import (all_reduce_, full_tensor, sharded_norm,
+                                    sum_grads)
+from ..parallel.mesh import DATA, axis_group, batch_axes
+from ..parallel.sharding import place_module
 from .events import StragglerEventSource
 
 
@@ -137,18 +144,34 @@ def plan_preview(workload: str, *, planner: str = "spindle",
     return session
 
 
-def make_train_state(model, optimizer: AdamW, seed: int, mesh=None):
+def make_train_state(model, optimizer: Optional[AdamW], seed: int, mesh=None,
+                     rules=None, weights=None):
     """Random weights from ``seed`` (fp32 masters) and fresh optimizer
-    state.  Under ``mesh`` the MoE expert stacks become DTensors sharded
-    over ``"model"`` (:func:`repro_torch.models.moe.shard_expert_stacks`;
-    drawn whole from the seed first, so every mesh trains the one model).
-    Returns (params by name — this rank's local tensors, which the
-    optimizer updates in place —, optimizer state)."""
-    model.init(seed)
-    if mesh is not None:
-        shard_expert_stacks(model.impl, model.cfg, mesh)
+    state.  With ``rules`` (a :class:`~repro_torch.parallel.ShardingRules`
+    over the mesh) every parameter becomes a DTensor placed by its spec
+    (:func:`repro_torch.parallel.sharding.place_module`) on the model's
+    device: each leaf is drawn whole from the seed on the CPU — or taken
+    from ``weights`` (``{name: whole tensor}``, e.g. through
+    ``bridge.from_jax``) — and this rank keeps its block, so every mesh
+    trains the one model; a model built on ``"meta"`` gets only the local
+    shapes.  The moments are placed like the params (JAX's
+    ``launch/steps.py:98-99``).  Without rules, under ``mesh`` only the
+    MoE expert stacks become DTensors sharded over ``"model"``
+    (:func:`repro_torch.models.moe.shard_expert_stacks`).  Returns (params
+    by name — this rank's local tensors, which the optimizer updates in
+    place —, optimizer state: None without an ``optimizer``)."""
+    if rules is not None:
+        impl = model.impl
+        source = ((lambda i, name, p: torch.as_tensor(weights[name]))
+                  if weights is not None else
+                  (lambda i, name, p: impl.draw(seed, i, name, p)))
+        place_module(impl, rules, source=source, device=impl.device)
+    else:
+        model.init(seed)
+        if mesh is not None:
+            shard_expert_stacks(model.impl, model.cfg, mesh)
     params = _local_params(model)
-    return params, optimizer.init(params)
+    return params, None if optimizer is None else optimizer.init(params)
 
 
 def _local_params(model) -> Dict[str, torch.Tensor]:
@@ -161,54 +184,132 @@ def _local_params(model) -> Dict[str, torch.Tensor]:
                 for n, p in model.impl.named_parameters()}
 
 
-def _sharded_names(model) -> Tuple[str, ...]:
-    from torch.distributed.tensor import DTensor
+def _split_axes(model) -> Dict[str, Tuple[str, ...]]:
+    """``{name: the mesh axes the parameter is split over}`` (in mesh
+    order; () for a plain tensor), read from the DTensors' placements."""
+    from torch.distributed.tensor import DTensor, Shard
 
-    return tuple(n for n, p in model.impl.named_parameters()
-                 if isinstance(p, DTensor))
+    out = {}
+    for n, p in model.impl.named_parameters():
+        names = (tuple(p.device_mesh.mesh_dim_names)
+                 if isinstance(p, DTensor) else ())
+        out[n] = tuple(names[i] for i, pl in enumerate(
+            p.placements if names else ()) if isinstance(pl, Shard))
+    return out
 
 
 def train_step(model, optimizer: AdamW, params, opt_state, batch, *,
                mesh=None, compress_grads: bool = False):
-    """Loss, backward, AdamW update (in place on ``params``).  Returns
-    (new optimizer state, loss as a 0-d tensor).  Under ``mesh`` (every
-    rank calls this) ``batch`` is this rank's rows: the gradients are
-    synced over the batch axes (their mean; int8 over ``"data"`` with
-    ``compress_grads``, whose loss runs without the mesh), the clip norm
-    counts every expert shard once, and the loss returned is the mean
-    over the batch axes.  Without a mesh every collective is the
-    identity."""
-    loss, _ = model.loss(batch, mesh=None if compress_grads else mesh)
+    """Loss, backward, AdamW update (in place on ``params``): the step of
+    :func:`placed_train_step` without microbatches.  Returns (new
+    optimizer state, loss as a 0-d tensor)."""
+    _, opt_state, loss, _ = placed_train_step(
+        model, optimizer, params, opt_state, batch, mesh=mesh,
+        compress_grads=compress_grads)
+    return opt_state, loss
+
+
+def placed_train_step(model, optimizer: AdamW, params, opt_state, batch, *,
+                      mesh=None, grad_accum: int = 1,
+                      accum_dtype=torch.float32,
+                      compress_grads: bool = False):
+    """One train step (every rank calls it with its rows of the batch;
+    without a mesh every collective is the identity): loss and backward —
+    a leaf placed by the rules enters its layer gathered over its data
+    axes, so its gradient comes back reduce-scattered onto this rank's
+    block —, the gradients reduced over the batch axes only (SUM over
+    those a leaf is not split on, then divided by their size: the mean,
+    never a sum over the axes a leaf is sharded on, read from its
+    placements), the clip norm over every distinct shard once
+    (:func:`~repro_torch.parallel.collectives.sharded_norm`; the
+    optimizer's own norm when no leaf is split), and AdamW on the local
+    shards in place.  ``compress_grads``: the loss runs without the mesh
+    and the gradients are averaged int8 over ``"data"``
+    (:func:`~repro_torch.optim.compressed_mean`).  With ``grad_accum`` >
+    1 the rows are split strided (microbatch m takes local rows m, m + ga,
+    …: JAX's global rows i·ga + m, shard by shard) and the synced
+    gradients summed in ``accum_dtype``, then divided by ``grad_accum``,
+    as JAX's scan does.  Returns (params, optimizer state, loss, {"nll",
+    "aux"}), the loss and metrics the global means, the same on every
+    rank."""
+    from torch.distributed.tensor import DTensor
+
     live = dict(model.impl.named_parameters())
-    grads = dict(zip(live, torch.autograd.grad(loss, list(live.values()))))
-    sharded = _sharded_names(model)
-    for n in sharded:
-        grads[n] = grads[n].to_local()
-    if compress_grads:
-        group, nb = axis_group(mesh, (DATA,))
-        grads = {n: compressed_mean(g, group) for n, g in grads.items()}
+    names = list(live)
+    split = _split_axes(model)
+    bgroup, nb = axis_group(mesh, (DATA,) if compress_grads
+                            else batch_axes(mesh))
+    rest: Dict[Tuple[str, ...], list] = {}
+    for n in names:
+        ax = tuple(a for a in batch_axes(mesh) if a not in split[n])
+        rest.setdefault(ax, []).append(n)
+
+    def grads_of(b):
+        loss, metrics = model.loss(b, mesh=None if compress_grads else mesh)
+        gs = torch.autograd.grad(loss, [live[n] for n in names])
+        gs = {n: g.to_local() if isinstance(g, DTensor) else g
+              for n, g in zip(names, gs)}
+        if compress_grads:
+            return loss.detach(), metrics, {
+                n: compressed_mean(g, bgroup) for n, g in gs.items()}
+        out = {}
+        for ax, group in rest.items():
+            out.update(sum_grads({n: gs[n] for n in group},
+                                 axis_group(mesh, ax)[0]))
+        if bgroup is not None:
+            for g in out.values():
+                g /= nb
+        return loss.detach(), metrics, out
+
+    def global_mean(x):
+        return all_reduce_(x.detach().float().clone(), bgroup) / nb
+
+    ga = max(grad_accum, 1)
+    if ga > 1:
+        grads, loss = None, torch.zeros((), device=batch["tokens"].device)
+        for m in range(ga):
+            lm, _, g = grads_of({k: v[m::ga] for k, v in batch.items()})
+            if grads is None:
+                grads = {n: t.to(accum_dtype) for n, t in g.items()}
+            else:
+                for n, t in g.items():
+                    grads[n] += t.to(accum_dtype)
+            loss = loss + global_mean(lm)
+        grads = {n: t / ga for n, t in grads.items()}
+        loss = loss / ga
+        metrics = {"nll": loss, "aux": torch.zeros_like(loss)}
     else:
-        group, nb = axis_group(mesh, batch_axes(mesh))
-        grads = mean_grads(grads, group, nb)
+        loss, metrics, grads = grads_of(batch)
+        loss = global_mean(loss)
+        metrics = {"nll": global_mean(metrics["nll"]),
+                   "aux": metrics["aux"].detach()}
     gnorm = None
-    if sharded and optimizer.grad_clip > 0:
-        gnorm = global_norm(grads, sharded, axis_group(mesh, (MODEL,))[0])
+    if optimizer.grad_clip > 0 and any(split.values()):
+        gnorm = sharded_norm(grads, split, mesh)
     opt_state = optimizer.update(grads, opt_state, params, gnorm=gnorm)
-    return opt_state, all_reduce_(loss.detach().clone(), group) / nb
+    return params, opt_state, loss, metrics
 
 
-def _logical(model, params, opt_state, mesh):
-    """The checkpoint tree with every sharded leaf gathered over
+def _logical(model, params, opt_state):
+    """The checkpoint tree with every placed leaf gathered to its logical
+    shape over every axis it is split on, ``"data"`` as well as
     ``"model"`` (a collective: every rank calls it), so that the files
     equal one process's name for name and shape for shape."""
-    sharded = _sharded_names(model)
-    if not sharded:
+    from torch.distributed.tensor import DTensor
+
+    placed = {n: p for n, p in model.impl.named_parameters()
+              if isinstance(p, DTensor)}
+    if not placed:
         return {"params": params, "opt": opt_state}
-    group = axis_group(mesh, (MODEL,))[0]
+
+    def whole(n, t):
+        p = placed[n]
+        return full_tensor(DTensor.from_local(
+            t, p.device_mesh, p.placements, run_check=False, shape=p.shape,
+            stride=p.stride()))
 
     def full(d):
-        return {n: all_gather_cat(t, group) if n in sharded else t
-                for n, t in d.items()}
+        return {n: whole(n, t) if n in placed else t for n, t in d.items()}
 
     return {"params": full(params),
             "opt": OptState(mu=full(opt_state.mu), nu=full(opt_state.nu),
@@ -398,7 +499,7 @@ def train(
                   f"{dt*1e3:7.1f} ms  {batch * seq / dt:9.0f} tok/s")
         if mgr and mgr.every > 0 and step % mgr.every == 0:
             t0 = time.perf_counter()
-            tree = _logical(model, params, opt_state, ep_mesh)
+            tree = _logical(model, params, opt_state)
             if lead:
                 mgr.save(step, tree, extra={"loss": loss, "arch": arch})
                 save_seconds.append(time.perf_counter() - t0)
@@ -422,7 +523,7 @@ def train(
         # interrupted run must not stamp steps-1 onto older state — a real
         # crash saves nothing either, and resume would skip the tail.
         t0 = time.perf_counter()
-        tree = _logical(model, params, opt_state, ep_mesh)
+        tree = _logical(model, params, opt_state)
         if lead:
             mgr.save(steps - 1, tree, extra={"loss": history[-1]})
             save_seconds.append(time.perf_counter() - t0)

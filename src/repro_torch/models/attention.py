@@ -19,6 +19,19 @@ pool (plain PyTorch, as the JAX one is plain XLA).  The JAX code is
 functional and returns new caches; here ``paged_scatter``, the chunk's
 scatter and the slab writes update the caches in place (``index_put_``),
 where the JAX decode step donates them.
+
+Tensor parallelism (``tp``, a :class:`~repro_torch.parallel.mesh.
+ModelShard`, with the projections placed by the rules): ``wq``/``wk``/
+``wv`` are column-parallel (the input enters through ``replicated_in``),
+``wo`` row-parallel (the output leaves through ``sum_out``), and each
+rank attends over its own query heads, read from the local shapes.  A
+``"model"`` shard that splits a head (``wk`` of 8 KV heads on a 16-way
+axis) is all-gathered over ``"model"`` before attention, and a
+replicated ``wk`` enters through ``replicated_in``, so every rank picks
+the KV heads its query heads read.  In a decode whose slab cache is split
+over ``"model"`` along the sequence, every rank scores all query heads
+over its positions and the partials are merged by log-sum-exp over
+``"model"``.  GSPMD computes the same functions from the same specs.
 """
 
 from __future__ import annotations
@@ -29,6 +42,8 @@ from typing import Optional
 import torch
 
 from ..kernels import ops
+from ..parallel.collectives import (all_reduce_, gather_shards, max_over,
+                                    replicated_in, sum_out)
 from .layers import apply_rope, dense_init, rms_normalize
 
 NEG_INF = -1e30
@@ -162,6 +177,27 @@ def local_attention(q, k, v, *, window: int, q_chunk: int = 512):
     return torch.cat(outs, dim=1)
 
 
+def _attend(q, k, v, *, causal: bool, window: int, impl: str):
+    """JAX's dispatch on q (B,S,H,hd) over k/v (B,Sk,K,hd): the flash
+    kernel when kernels are on, ``window == 0`` and ``S > 256``;
+    otherwise naive when ``S <= 256`` (or ``impl="naive"``),
+    ``local_attention`` when ``window > 0``, ``chunked_attention`` else.
+    Returns (B,S,H,hd)."""
+    S, H = q.shape[1], q.shape[2]
+    if impl == "kernels" and window == 0 and S > 256:
+        # flash kernel: head-major views, GQA-native (no KV repeat)
+        return ops.flash_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=causal,
+        ).transpose(1, 2)
+    kfull, vfull = _repeat_kv(k, H), _repeat_kv(v, H)
+    if impl == "naive" or S <= 256:
+        return naive_attention(q, kfull, vfull, causal=causal, window=window)
+    if window > 0:
+        return local_attention(q, kfull, vfull, window=window)
+    return chunked_attention(q, kfull, vfull, causal=causal)
+
+
 def attn_apply(
     params,
     x,
@@ -177,51 +213,108 @@ def attn_apply(
     impl: str = "naive",
     kv_override=None,
     return_kv: bool = False,
+    tp=None,
 ):
     """Full (``window == 0``) or sliding-window attention block on (B, S,
     d). Optionally returns (k, v) for caches.  ``kv_override=(k, v)``
     (B, Sk, K, hd) supplies externally computed keys and values
     (cross-attention): only q is projected, normed and, when ``rope_theta
-    > 0``, rotated.  The dispatch reads the query length ``S``."""
+    > 0``, rotated.  The dispatch reads the query length ``S``.  Under
+    ``tp`` with a model-sharded ``wq`` (see the module doc) the returned
+    (k, v) are the KV heads this rank holds."""
     if impl not in IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}; one of {IMPLS}")
     B, S, _ = x.shape
-    q = _split_heads(x @ params["wq"], n_heads, head_dim)
     pos = (positions if positions is not None
            else torch.arange(S, device=x.device)[None, :])
+    tp = tp if tp_sharded(params, n_heads, head_dim, tp) else None
+    if tp is not None and (kv_override is not None or window > 0):
+        raise NotImplementedError(
+            "tensor-parallel cross or windowed attention is not ported "
+            "(ROADMAP queue 1, item 5g)")
     if kv_override is None:
-        k = _split_heads(x @ params["wk"], n_kv, head_dim)
-        v = _split_heads(x @ params["wv"], n_kv, head_dim)
+        q, k, v, q0, k0 = _project(params, x, n_kv, head_dim, tp)
         if qk_norm:
             q, k = rms_normalize(q), rms_normalize(k)
         if rope_theta > 0:
             q = apply_rope(q, pos, rope_theta)
             k = apply_rope(k, pos, rope_theta)
+        g = n_heads // n_kv
+        ka, va = (_kv_for(k, q0, q.shape[2], k0, g),
+                  _kv_for(v, q0, q.shape[2], k0, g))
     else:
-        k, v = kv_override
+        q, q0 = _split_heads(x @ params["wq"], n_heads, head_dim), 0
+        ka, va = k, v = kv_override
         if qk_norm:
             q = rms_normalize(q)
         if rope_theta > 0:
             q = apply_rope(q, pos, rope_theta)
-    if impl == "kernels" and window == 0 and S > 256:
-        # flash kernel: head-major views, GQA-native (no KV repeat)
-        out = ops.flash_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            causal=causal,
-        ).transpose(1, 2)
-    else:
-        kfull, vfull = _repeat_kv(k, n_heads), _repeat_kv(v, n_heads)
-        if impl == "naive" or S <= 256:
-            out = naive_attention(q, kfull, vfull, causal=causal,
-                                  window=window)
-        elif window > 0:
-            out = local_attention(q, kfull, vfull, window=window)
-        else:
-            out = chunked_attention(q, kfull, vfull, causal=causal)
-    y = out.reshape(B, S, n_heads * head_dim) @ params["wo"]
+    out = _attend(q, ka, va, causal=causal, window=window, impl=impl)
+    y = _out_proj(out, params["wo"], q0, tp)
     if return_kv:
         return y, (k, v)
     return y
+
+
+def tp_sharded(params, n_heads: int, head_dim: int, tp) -> bool:
+    """Whether this layer's attention is tensor-parallel: a ``"model"``
+    axis and a ``wq`` holding less than all the query heads' columns."""
+    return tp is not None and params["wq"].shape[-1] != n_heads * head_dim
+
+
+def _project(params, x, n_kv: int, hd: int, tp, *, all_q: bool = False):
+    """The projections of x (B, S, d): (q (B,S,Hq,hd) of the global query
+    heads from ``q0``, k, v (B,S,Kh,hd) of the KV heads from ``k0``, q0,
+    k0); without ``tp`` every head, from 0.  Under ``tp`` a shard that
+    splits heads is all-gathered (so are q's with ``all_q``) and a
+    replicated ``wk``/``wv``'s output enters through ``replicated_in``."""
+    group, rank = (tp.group, tp.rank) if tp is not None else (None, 0)
+    x_in = replicated_in(x, group)
+    q = x_in @ params["wq"]
+    if all_q or q.shape[-1] % hd:
+        q, q0 = gather_shards(q, group, -1), 0
+    else:
+        q0 = rank * (q.shape[-1] // hd)
+
+    def kv(w):
+        if w.shape[-1] == n_kv * hd:  # every KV head (replicated)
+            return replicated_in(x @ w, group), 0
+        y = x_in @ w
+        if y.shape[-1] % hd:  # the shard splits a head
+            return gather_shards(y, group, -1), 0
+        return y, rank * (y.shape[-1] // hd)
+
+    (k, k0), (v, _) = kv(params["wk"]), kv(params["wv"])
+    return (_split_heads(q, q.shape[-1] // hd, hd),
+            _split_heads(k, k.shape[-1] // hd, hd),
+            _split_heads(v, v.shape[-1] // hd, hd), q0, k0)
+
+
+def _kv_for(k, q0: int, n_q: int, k0: int, group: int, dim: int = 2):
+    """The KV heads (along ``dim``) that query heads ``q0 .. q0+n_q-1`` read,
+    of the heads ``k0 ..`` held in ``k`` (``group`` query heads per KV
+    head): ``k`` itself when they are all of them, a slice when they map
+    as GQA lays them out, else one KV head a query head."""
+    idx = [(q0 + j) // group - k0 for j in range(n_q)]
+    lo, hi = idx[0], idx[-1] + 1
+    if n_q % (hi - lo) == 0 and idx == [lo + j // (n_q // (hi - lo))
+                                        for j in range(n_q)]:
+        return k if hi - lo == k.shape[dim] else k.narrow(dim, lo, hi - lo)
+    return k.index_select(dim, torch.tensor(idx, device=k.device))
+
+
+def _out_proj(out, wo, q0: int, tp):
+    """out (B, S, Hq, hd), global query head ``q0`` first, through ``wo``
+    (operands promoted as JAX promotes them).  Under ``tp`` ``wo`` is
+    row-parallel: only the columns of out that meet this rank's rows
+    enter, and the product leaves through ``sum_out``."""
+    B, S, hq, hd = out.shape
+    out = out.reshape(B, S, hq * hd)
+    if tp is not None:
+        lo = tp.rank * wo.shape[0] - q0 * hd
+        out = out[..., lo:lo + wo.shape[0]]
+    y = out.to(torch.promote_types(out.dtype, wo.dtype)) @ wo
+    return sum_out(y, tp.group if tp is not None else None)
 
 
 def paged_gather(pool, page_table):
@@ -279,6 +372,7 @@ def attn_decode(
     page_table: Optional[torch.Tensor] = None,
     slots=None,
     impl: str = "naive",
+    tp=None,
 ):
     """One-token decode. x (B,1,d); pos is a scalar or a (B,) vector of
     per-row positions.  Returns (y, cache_k, cache_v), the caches updated
@@ -314,7 +408,12 @@ def attn_decode(
     slot-major encoder memory.  Nothing is written, q is not rotated, and
     keys below ``cross_len`` (all of them when it is None) are valid.  As
     in JAX this path is plain arithmetic (no kernel), with the same fp32
-    scores and ``p`` rounded to the memory's dtype."""
+    scores and ``p`` rounded to the memory's dtype.
+
+    Under ``tp`` with a model-sharded ``wq`` only the slab full-attention
+    branch is ported: the cache holds this rank's KV heads, or (with
+    ``tp.seq_cache``) all KV heads at this rank's block of positions, and
+    then only the rank holding the new position writes it."""
     paged = page_table is not None
     if paged and (cross or window > 0):
         raise ValueError("paged KV applies to full causal self-attention only")
@@ -323,21 +422,25 @@ def attn_decode(
     B = x.shape[0]
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
     pos_b = pos if pos.dim() else pos.expand(B)  # (B,) per-row positions
-    q = _split_heads(x @ params["wq"], n_heads, head_dim)  # (B,1,H,hd)
-    if qk_norm:
-        q = rms_normalize(q)
+    tp = tp if tp_sharded(params, n_heads, head_dim, tp) else None
+    if tp is not None and (paged or cross or window > 0):
+        raise NotImplementedError(
+            "tensor-parallel paged, cross or windowed decode is not "
+            "ported (ROADMAP queue 1, item 5g)")
     if cross:
+        q = _split_heads(x @ params["wq"], n_heads, head_dim)  # (B,1,H,hd)
+        if qk_norm:
+            q = rms_normalize(q)
         S = cache_k.shape[2]
         lim = (S if cross_len is None else
                torch.as_tensor(cross_len, device=x.device).reshape(-1, 1))
         valid = (torch.arange(S, device=x.device)[None, :] < lim).expand(B, S)
-        y = _decode_attend(params, q, cache_k, cache_v, valid, n_heads,
-                           head_dim)
-        return y, cache_k, cache_v
-    k = _split_heads(x @ params["wk"], n_kv, head_dim)
-    v = _split_heads(x @ params["wv"], n_kv, head_dim)
+        out = _decode_attend(q, cache_k, cache_v, valid)
+        return _out_proj(out, params["wo"], 0, None), cache_k, cache_v
+    seq = tp is not None and tp.seq_cache
+    q, k, v, q0, k0 = _project(params, x, n_kv, head_dim, tp, all_q=seq)
     if qk_norm:
-        k = rms_normalize(k)
+        q, k = rms_normalize(q), rms_normalize(k)
     if rope_theta > 0:
         q = apply_rope(q, pos_b[:, None], rope_theta)
         k = apply_rope(k, pos_b[:, None], rope_theta)
@@ -352,8 +455,8 @@ def attn_decode(
                 q[:, 0].contiguous(), cache_k, cache_v,
                 page_table.to(torch.int32), pos_b.contiguous(),
             )
-            y = ctx.reshape(B, 1, n_heads * head_dim) @ params["wo"]
-            return y, cache_k, cache_v
+            ctx = ctx.reshape(B, 1, n_heads, head_dim)
+            return _out_proj(ctx, params["wo"], 0, None), cache_k, cache_v
         view_k = paged_gather(cache_k, page_table)
         view_v = paged_gather(cache_v, page_table)
         S = view_k.shape[2]
@@ -361,41 +464,55 @@ def attn_decode(
     else:
         W = cache_k.shape[2]
         rows = torch.arange(B, device=x.device)
-        kpos = torch.arange(W, device=x.device)[None, :]
+        base = tp.rank * W if seq else 0
+        kpos = torch.arange(W, device=x.device)[None, :] + base
         if window > 0:
             slot = pos_b.long().remainder(W)
             # circular buffer: slots hold the last min(pos+1, window) tokens
             valid = kpos < torch.clamp(pos_b + 1, max=window)[:, None]
         else:
-            slot = pos_b.long().clamp(0, W - 1)
+            last = W * tp.n - 1 if seq else W - 1
+            slot = pos_b.long().clamp(0, last) - base
             valid = kpos <= pos_b[:, None]
-        cache_k[rows, :, slot] = k[:, 0].to(cache_k.dtype)
-        cache_v[rows, :, slot] = v[:, 0].to(cache_v.dtype)
+        if seq:
+            own = (slot >= 0) & (slot < W)
+            slot = slot.clamp(0, W - 1)
+        for cache, new in ((cache_k, k), (cache_v, v)):
+            new = new[:, 0].to(cache.dtype)
+            if seq:
+                new = torch.where(own[:, None, None], new, cache[rows, :, slot])
+            cache[rows, :, slot] = new
         view_k, view_v = cache_k, cache_v
-    y = _decode_attend(params, q, view_k, view_v, valid, n_heads, head_dim)
-    return y, cache_k, cache_v
+    g = n_heads // n_kv
+    view_k = _kv_for(view_k, q0, q.shape[2], k0, g, dim=1)
+    view_v = _kv_for(view_v, q0, q.shape[2], k0, g, dim=1)
+    out = _decode_attend(q, view_k, view_v, valid, tp.group if seq else None)
+    return _out_proj(out, params["wo"], q0, tp), cache_k, cache_v
 
 
-def _decode_attend(params, q, view_k, view_v, valid, n_heads: int,
-                   head_dim: int):
+def _decode_attend(q, view_k, view_v, valid, group=None):
     """The reference decode's scoring of q (B,1,H,hd) over a slab view (B,
-    K, S, hd) with per-row validity (B, S), then the output projection:
-    y (B, 1, d)."""
-    B = q.shape[0]
-    rep = n_heads // view_k.shape[1]
+    K, S, hd) with per-row validity (B, S): the attention output (B, 1, H,
+    hd).  With ``group`` the view holds this rank's positions only: the
+    partial softmaxes are merged by log-sum-exp over ``group``."""
+    rep = q.shape[2] // view_k.shape[1]
     kk = view_k.repeat_interleave(rep, dim=1) if rep > 1 else view_k
     vv = view_v.repeat_interleave(rep, dim=1) if rep > 1 else view_v
     # JAX promotes mixed operands (e.g. fp32 compute over a bf16 cache);
     # torch's matmuls do not, so promote explicitly at the same places
     dt = torch.promote_types(q.dtype, kk.dtype)
     s = torch.einsum("bqhd,bhkd->bhqk", q.to(dt), kk.to(dt)).float()
-    s = s / math.sqrt(head_dim)
+    s = s / math.sqrt(q.shape[3])
     s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    if group is not None:
+        m = max_over(s.amax(dim=-1), group)
+        e = torch.exp(s - m[..., None])
+        den = all_reduce_(e.sum(dim=-1), group)
+        acc = all_reduce_(torch.einsum("bhqk,bhkd->bqhd", e, vv.float()),
+                          group)
+        return (acc / den.transpose(1, 2)[..., None]).to(dt)
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhqk,bhkd->bqhd", p.to(vv.dtype), vv)
-    wo = params["wo"]
-    out = out.reshape(B, 1, n_heads * head_dim)
-    return out.to(torch.promote_types(out.dtype, wo.dtype)) @ wo
+    return torch.einsum("bhqk,bhkd->bqhd", p.to(vv.dtype), vv)
 
 
 def attn_prefill_chunk(

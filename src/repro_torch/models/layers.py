@@ -88,10 +88,20 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     return out.to(x.dtype)
 
 
-def mlp_apply(params, x):
+def mlp_apply(params, x, tp=None):
+    """SwiGLU.  ``tp`` (a :class:`~repro_torch.parallel.mesh.ModelShard`,
+    given when the hidden dim is split over ``"model"``): ``w_gate`` and
+    ``w_up`` column-parallel, the input entering through
+    ``replicated_in``; ``w_down`` row-parallel, the output leaving
+    through ``sum_out``."""
+    if tp is not None:
+        from ..parallel.collectives import replicated_in, sum_out
+
+        x = replicated_in(x, tp.group)
     gate = F.silu(x @ params["w_gate"])
     up = x @ params["w_up"]
-    return (gate * up) @ params["w_down"]
+    y = (gate * up) @ params["w_down"]
+    return y if tp is None else sum_out(y, tp.group)
 
 
 def embed_lookup(table, tokens):

@@ -94,11 +94,12 @@ class Model(nn.Module):
         by chunk — only all-attention decoder-only stacks qualify."""
         return self.impl.supports_chunked_prefill
 
-    def decode_step(self, token, cache, pos, *, pages=None, mesh=None):
+    def decode_step(self, token, cache, pos, *, pages=None, mesh=None,
+                    seq_cache: bool = False):
         if self.cfg.is_encdec:
             return self.impl.decode_step(token, cache, pos, pages=pages)
         return self.impl.decode_step(token, cache, pos, pages=pages,
-                                     mesh=mesh)
+                                     mesh=mesh, seq_cache=seq_cache)
 
     def prefill_chunk(self, tokens, cache, pos0: int, *, pages, mesh=None):
         return self.impl.prefill_chunk(tokens, cache, pos0, pages=pages,

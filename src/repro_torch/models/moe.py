@@ -22,7 +22,9 @@ the layer is JAX's ``shard_map`` branch (expert parallelism): the tokens
 (sharded over the batch axes only) and the router are replicated over
 ``"model"``; model rank r routes its rank's tokens over all experts,
 dispatches to its experts ``[r·E/n, (r+1)·E/n)`` (the expert stacks are
-DTensors, ``Shard(0)`` on ``"model"``: :func:`shard_expert_stacks`) at
+DTensors, ``Shard(0)`` on ``"model"``: :func:`shard_expert_stacks`, or
+this rank's experts already gathered over ``"data"`` from a state placed
+by the rules, ``parallel.sharding.place_module``) at
 the capacity of its own token count, applies them — through the
 grouped-matmul kernel on the local ``(E/n, C, d)`` buffer with
 ``use_kernels`` — and the partial outputs are summed over ``"model"``.
@@ -48,7 +50,8 @@ from ..config import ArchConfig
 from ..kernels import ops
 from ..parallel.collectives import (mean_over_replicas, mean_over_shards,
                                     replicated_in, sum_out)
-from ..parallel.mesh import DATA, MODEL, POD, axis_group, axis_size
+from ..parallel.mesh import (DATA, MODEL, POD, axis_group, axis_size,
+                             model_shard)
 from .layers import mlp_apply
 
 EXPERT_STACKS = ("we_gate", "we_up", "we_down")
@@ -156,13 +159,19 @@ def _ep_apply(params, x, cfg: ArchConfig, mesh, n: int, use_kernels: bool):
     x2d = replicated_in(x.reshape(-1, d), model_group)
     router = replicated_in(params["router"], model_group)
     gates, idx, aux = route(router, x2d, m.n_experts, m.top_k)
-    wg, wu, wd = (params[k].to_local() for k in EXPERT_STACKS)
+    wg, wu, wd = (_local(params[k]) for k in EXPERT_STACKS)
     part = dispatch_compute_combine(
         x2d, gates, idx, wg, wu, wd, capacity(x2d.shape[0], cfg),
         use_kernels=use_kernels, e_base=e_base)
     out = sum_out(part, model_group).to(x.dtype).reshape(x.shape)
     aux = mean_over_replicas(aux, model_group, n)
     return out, mean_over_shards(aux, batch_group, nb)
+
+
+def _local(w):
+    from torch.distributed.tensor import DTensor
+
+    return w.to_local() if isinstance(w, DTensor) else w
 
 
 def moe_apply(params, x, cfg: ArchConfig, *, use_kernels: bool = False,
@@ -183,7 +192,10 @@ def moe_apply(params, x, cfg: ArchConfig, *, use_kernels: bool = False,
             use_kernels=use_kernels,
         ).reshape(x.shape)
     if m.n_shared_experts > 0:
-        out = out + mlp_apply(params["shared"], x)
+        sh = params["shared"]
+        tp = (model_shard(mesh) if sh["w_gate"].shape[-1]
+              != m.d_ff_expert * m.n_shared_experts else None)
+        out = out + mlp_apply(sh, x, tp)
     return out, aux
 
 
@@ -193,26 +205,20 @@ def shard_expert_stacks(module: nn.Module, cfg: ArchConfig, mesh) -> int:
     ``Shard(0)`` on ``"model"`` and replicated over the other mesh axes:
     this rank keeps only its own experts (a copy of its slice; the whole
     stacks are freed).  A no-op without EP under ``mesh``.  Returns the
-    number of stacks replaced."""
+    number of stacks replaced.  Each goes through
+    ``parallel.sharding.place_param``, as every leaf of a state placed by
+    the rules does."""
     from torch.distributed.tensor import DTensor
 
-    from ..parallel.sharding import placements
+    from ..parallel.sharding import place_param
 
-    n = ep_size(cfg, mesh)
-    if n == 1:
+    if ep_size(cfg, mesh) == 1:
         return 0
-    e_loc = cfg.moe.n_physical // n
-    e_base = mesh.get_local_rank(MODEL) * e_loc
-    place = placements((MODEL, None, None), mesh)
     done = 0
-    for mod in list(module.modules()):
-        for name in EXPERT_STACKS:
-            p = mod._parameters.get(name)
-            if p is None or isinstance(p, DTensor):
-                continue
-            local = p[e_base:e_base + e_loc].clone()
-            dt = DTensor.from_local(local, mesh, place, run_check=False,
-                                    shape=p.shape, stride=p.stride())
-            setattr(mod, name, nn.Parameter(dt, requires_grad=p.requires_grad))
+    for name, p in list(module.named_parameters()):
+        if name.rsplit(".", 1)[-1] in EXPERT_STACKS and not isinstance(
+                p, DTensor):
+            place_param(module, name, p, (MODEL,) + (None,) * (p.dim() - 1),
+                        mesh, p.device)
             done += 1
     return done

@@ -53,6 +53,19 @@ fp32 with the compute dtype's values (:data:`WIDENED`), rounded once at
 load — the same products, for 2 × 4 bytes instead of 2 × 2 per element
 (+1.7 GB at recurrentgemma-9b's full width) and no cast per call.  A
 training model keeps them fp32 masters and rounds them per call.
+
+A model placed by the sharding rules (``parallel.sharding.place_module``:
+every parameter a DTensor holding this rank's block) runs under its
+``mesh``: each layer's leaves are gathered over their data axes just
+before the layer uses them (:func:`local_leaves`, inside the layer's
+activation checkpoint, so the gather runs again in recompute and its
+gradient reduce-scatters), and the ``"model"`` split stays: attention and
+the SwiGLU are tensor-parallel (:mod:`repro_torch.models.attention`,
+``layers.mlp_apply``), the embedding, the head and :func:`chunked_xent`
+vocab-parallel, and the logits of a prefill or a decode step are
+all-gathered over ``"model"``.  Whether a layer is tensor-parallel is
+read from its local shapes, so an unplaced model under a mesh (the
+expert parallelism of ``train(mesh=)``) computes as before.
 """
 
 from __future__ import annotations
@@ -69,6 +82,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..config import ArchConfig, ShardingConfig
+from ..parallel.collectives import (all_gather_cat, max_over, replicated_in,
+                                    sum_out)
+from ..parallel.mesh import model_shard
+from ..parallel.sharding import gather_data
 from .attention import (attn_apply, attn_decode, attn_prefill_chunk,
                         page_slots)
 from .layers import dtype_of, embed_lookup, mlp_apply, rmsnorm
@@ -225,20 +242,43 @@ def _mix_leaves(cfg: ArchConfig, kind: str, dtype, device):
 
 def cast_leaves(mod: nn.Module, dtype):
     """``cast_floats`` of one module's leaves: a nested dict (by leaf name)
-    of the leaves cast to ``dtype``, :data:`KEEP_F32` leaves as they are
-    and :data:`WIDENED` ones rounded to ``dtype`` and widened back to fp32
+    of the leaves cast to ``dtype`` (None: as they are held), a placed
+    leaf first gathered over its data axes (``parallel.sharding.
+    gather_data``), :data:`KEEP_F32` leaves as they are and
+    :data:`WIDENED` ones rounded to ``dtype`` and widened back to fp32
     (JAX casts them and ``_rglru_gates`` widens them at use).  The casts
-    are differentiable: gradients flow back to the fp32 leaves."""
+    and gathers are differentiable: gradients flow back to the fp32
+    leaves."""
     out = {name: cast_leaves(child, dtype)
            for name, child in mod.named_children()}
     for name, p in mod.named_parameters(recurse=False):
-        if name in KEEP_F32:
+        p = gather_data(p)
+        if dtype is None or name in KEEP_F32:
             out[name] = p
         elif name in WIDENED:
             out[name] = p.to(dtype).float()
         else:
             out[name] = p.to(dtype)
     return out
+
+
+def _placed_leaf(p) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(p, DTensor)
+
+
+def _placed(mod: nn.Module) -> bool:
+    return any(_placed_leaf(p) for p in mod.parameters())
+
+
+def local_leaves(mod: nn.Module, dtype):
+    """A layer as its functions take it: the module itself when it holds
+    its leaves as they compute (no cast, not placed), else
+    :func:`cast_leaves`' dicts."""
+    if dtype is None and not _placed(mod):
+        return mod
+    return SimpleNamespace(**cast_leaves(mod, dtype))
 
 
 class Block(nn.Module):
@@ -259,16 +299,19 @@ def ffn_apply(p, h, cfg: ArchConfig, *, impl: str, mesh=None):
     """``_ffn_apply`` on (B, S, d): (the MoE FFN, its router's aux loss) or
     (the SwiGLU, 0.0 — a Python zero, so a dense layer launches nothing
     for it).  The serving paths drop the aux loss, as JAX's do.  ``mesh``
-    reaches the MoE layer only (its expert parallelism)."""
+    reaches the MoE layer (its expert parallelism) and a SwiGLU whose
+    hidden dim is split over ``"model"`` (tensor parallelism)."""
     if cfg.is_moe:
         return moe_apply(p, h, cfg, use_kernels=impl == "kernels", mesh=mesh)
-    return mlp_apply(p, h), 0.0
+    tp = model_shard(mesh) if p["w_gate"].shape[-1] != cfg.d_ff else None
+    return mlp_apply(p, h, tp), 0.0
 
 
-def _mix_apply(p, h, cfg: ArchConfig, kind: str, *, impl: str):
+def _mix_apply(p, h, cfg: ArchConfig, kind: str, *, impl: str, tp=None):
     """Prefill sequence mixing on (B,S,d). Returns (y, raw decode state):
-    {"k", "v"} of shape (B,S,K,hd) for attention, {"h", "conv"} for
-    rglru, and the xLSTM cells' decode states as they are."""
+    {"k", "v"} of shape (B,S,K,hd) for attention (the KV heads this rank
+    holds under ``tp``), {"h", "conv"} for rglru, and the xLSTM cells'
+    decode states as they are."""
     hd = cfg.resolved_head_dim
     if kind in ("attn", "local_attn"):
         y, kv = attn_apply(
@@ -276,7 +319,7 @@ def _mix_apply(p, h, cfg: ArchConfig, kind: str, *, impl: str):
             head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
             causal=True, qk_norm=cfg.qk_norm,
             window=cfg.local_window if kind == "local_attn" else 0,
-            impl=impl, return_kv=True,
+            impl=impl, return_kv=True, tp=tp,
         )
         return y, {"k": kv[0], "v": kv[1]}
     if kind == "rglru":
@@ -290,7 +333,7 @@ def _mix_apply(p, h, cfg: ArchConfig, kind: str, *, impl: str):
 
 
 def _mix_decode(p, x_t, state, pos, cfg: ArchConfig, kind: str, pages,
-                slots, impl: str):
+                slots, impl: str, tp=None):
     """One-token mixing. x_t: (B, d). Returns (y (B,d), state).  Full
     attention goes through the paged pools when ``pages`` is given, else
     through its slab; window and recurrent state is slot-major (O(W) /
@@ -305,7 +348,7 @@ def _mix_decode(p, x_t, state, pos, cfg: ArchConfig, kind: str, pages,
             qk_norm=cfg.qk_norm,
             window=cfg.local_window if kind == "local_attn" else 0,
             page_table=pages if paged else None,
-            slots=slots if paged else None, impl=impl,
+            slots=slots if paged else None, impl=impl, tp=tp,
         )
         return y[:, 0], {"k": ck, "v": cv}
     if kind == "rglru":
@@ -321,7 +364,8 @@ def _layer_apply(p: Block, h, cfg: ArchConfig, kind: str, *, impl: str,
                  mesh=None):
     """One layer over a sequence. Returns (h, aux loss, raw decode
     state)."""
-    y, state = _mix_apply(p.mix, rmsnorm(p.norm1, h), cfg, kind, impl=impl)
+    y, state = _mix_apply(p.mix, rmsnorm(p.norm1, h), cfg, kind, impl=impl,
+                          tp=model_shard(mesh))
     h = h + y
     if not has_ffn(cfg):
         return h, 0.0, state
@@ -330,9 +374,10 @@ def _layer_apply(p: Block, h, cfg: ArchConfig, kind: str, *, impl: str,
 
 
 def _layer_decode(p: Block, x_t, state, pos, cfg: ArchConfig, kind: str,
-                  pages, slots, impl, mesh=None):
+                  pages, slots, impl, mesh=None, seq_cache: bool = False):
     y, state = _mix_decode(p.mix, rmsnorm(p.norm1, x_t), state, pos, cfg,
-                           kind, pages, slots, impl)
+                           kind, pages, slots, impl,
+                           model_shard(mesh, seq_cache=seq_cache))
     h = x_t + y
     if has_ffn(cfg):
         h = h + ffn_apply(p.ffn, rmsnorm(p.norm2, h[:, None, :]), cfg,
@@ -397,9 +442,7 @@ class Decoder(nn.Module):
             Block(cfg, kind, dtype, device) for kind in self.kinds)
 
     def _layer(self, i: int, h, mesh=None):
-        layer = self.layers[i]
-        if self.cast_dtype is not None:
-            layer = SimpleNamespace(**cast_leaves(layer, self.cast_dtype))
+        layer = local_leaves(self.layers[i], self.cast_dtype)
         return _layer_apply(layer, h, self.cfg, self.kinds[i],
                             impl=self.attn_impl, mesh=mesh)
 
@@ -523,11 +566,13 @@ class Decoder(nn.Module):
         return paginate_cache(slab, layout, n_pages=n_pages,
                               page_size=page_size, device=device)
 
-    def decode_step(self, x_t, cache, pos, *, pages=None, mesh=None):
+    def decode_step(self, x_t, cache, pos, *, pages=None, mesh=None,
+                    seq_cache: bool = False):
         """x_t: (B,d); pos: scalar or (B,) positions; ``pages`` the (B, n_pp)
         page table of the full-attention layers (None: their slabs).  Pools,
         slabs and window buffers are updated in place; returns (x_t,
-        cache)."""
+        cache).  ``seq_cache``: a placed slab cache split over ``"model"``
+        along its sequence."""
         pos = torch.as_tensor(pos, dtype=torch.int32, device=x_t.device)
         pos = pos if pos.dim() else pos.expand(x_t.shape[0])
         slots = None
@@ -539,8 +584,9 @@ class Decoder(nn.Module):
                 slots = page_slots(pages, pos, page_size)
         new = []
         for layer, kind, state in zip(self.layers, self.kinds, cache):
-            x_t, st = _layer_decode(layer, x_t, state, pos, self.cfg, kind,
-                                    pages, slots, self.attn_impl, mesh)
+            x_t, st = _layer_decode(local_leaves(layer, self.cast_dtype), x_t,
+                                    state, pos, self.cfg, kind, pages, slots,
+                                    self.attn_impl, mesh, seq_cache)
             new.append(st)
         return x_t, new
 
@@ -551,6 +597,9 @@ class Decoder(nn.Module):
         if not self.chunkable:
             raise ValueError(f"chunked prefill needs an all-attention "
                              f"pattern, got {self.kinds}")
+        if _placed(self):
+            raise NotImplementedError("chunked prefill of a placed model is "
+                                      "not ported")
         new = []
         for layer, state in zip(self.layers, cache):
             x, st = _layer_chunk(layer, x, state, pages, pos0, self.cfg,
@@ -559,20 +608,38 @@ class Decoder(nn.Module):
         return x, new
 
 
-def _xent_chunk(hc, w, lc, mc):
+def _xent_chunk(hc, w, lc, mc, tp=None):
     with torch.profiler.record_function("repro.chunked_xent"):
-        logits = (hc @ w).float()  # (B, c, V)
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(-1, lc[..., None])[..., 0]
+        if tp is not None:
+            hc = replicated_in(hc, tp.group)
+        logits = (hc @ w).float()  # (B, c, V) or this rank's vocab slice
+        if tp is None:  # fused: one (B, c, V) buffer fewer in backward
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = logits.gather(-1, lc[..., None])[..., 0]
+        else:  # vocab-parallel: max, sum and gold logit over "model"
+            m = max_over(logits.amax(dim=-1), tp.group)
+            se = sum_out(torch.exp(logits - m[..., None]).sum(dim=-1),
+                         tp.group)
+            logz = m + torch.log(se)
+            vl = logits.shape[-1]
+            loc = lc - tp.rank * vl
+            own = (loc >= 0) & (loc < vl)
+            gold = logits.gather(-1, loc.clamp(0, vl - 1)[..., None])[..., 0]
+            gold = sum_out(torch.where(own, gold, torch.zeros_like(gold)),
+                           tp.group)
         return ((logz - gold) * mc).sum(), mc.sum()
 
 
-def chunked_xent(h, w_head, labels, mask=None, chunk: int = 1024):
+def chunked_xent(h, w_head, labels, mask=None, chunk: int = 1024, tp=None):
     """h (B,S,d), w_head (d,V), labels (B,S) → mean token NLL (fp32), over
     sequence chunks of ``chunk`` positions (the last padded to a whole
     chunk and masked).  The head product runs in h's dtype, the loss math
     in fp32, and each chunk's (B, chunk, V) logits are recomputed in
-    backward (an activation checkpoint per chunk), never stored."""
+    backward (an activation checkpoint per chunk), never stored.  With
+    ``tp`` (a :class:`~repro_torch.parallel.mesh.ModelShard`) ``w_head``
+    is this rank's (d, V/n) vocab slice: the logsumexp's max and sum and
+    the gold logit are reduced over ``"model"``, h enters through
+    ``replicated_in``, and every rank gets the whole loss."""
     B, S, _ = h.shape
     chunk = min(chunk, S)
     labels = labels.long()
@@ -589,7 +656,7 @@ def chunked_xent(h, w_head, labels, mask=None, chunk: int = 1024):
     for c0 in range(0, S, chunk):
         t, n = checkpoint(_xent_chunk, h[:, c0:c0 + chunk], w,
                           labels[:, c0:c0 + chunk], mask[:, c0:c0 + chunk],
-                          use_reentrant=False)
+                          tp, use_reentrant=False)
         tot, cnt = tot + t, cnt + n
     return tot / torch.clamp(cnt, min=1.0)
 
@@ -632,33 +699,41 @@ class SeededParams(nn.Module):
         and cast there, so only its own dtype crosses to the device; the
         draws run in threads (torch releases the GIL), since a full-width
         MoE model holds ~15 B values."""
-        n_live = self.cfg.moe.n_experts
+        params = list(self.named_parameters())
 
         @torch.no_grad()
         def fill(i: int, name: str, p: nn.Parameter) -> None:
-            leaf = _leaf(name)
-            if leaf == "scale":
-                p.fill_(1.0)
-                return
-            g = torch.Generator(device="cpu").manual_seed((seed << 20) + i)
-            if leaf == "lam":
-                u = torch.rand(p.shape, generator=g) * 0.099 + 0.9
-                p.copy_(torch.log(torch.expm1(-torch.log(u) / RGLRU_C)))
-                return
-            std = 0.02 if leaf == "tok_embed" else 1.0 / math.sqrt(p.shape[-2])
-            if p.dim() == 3:  # expert stack: live experts drawn, dead zero
-                p.zero_()
-                p = p[:n_live]
-            w = torch.randn(p.shape, generator=g) * std
-            if leaf in WIDENED and not self.train_layout:
-                w = w.to(self._cdt)
-            p.copy_(w.to(p.dtype))
+            p.copy_(self.draw(seed, i, name, p))
 
-        params = list(self.named_parameters())
         with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as ex:
             for fut in [ex.submit(fill, i, n, p)
                         for i, (n, p) in enumerate(params)]:
                 fut.result()  # re-raises a failed draw
+
+    def draw(self, seed: int, i: int, name: str, p) -> torch.Tensor:
+        """Parameter ``i`` (``name``, shaped and typed as ``p``) drawn whole
+        on the CPU from ``seed``, as :meth:`init` fills it:
+        ``parallel.sharding.place_module`` takes each rank's block of it."""
+        leaf = _leaf(name)
+        if leaf == "scale":
+            return torch.ones(p.shape, dtype=p.dtype)
+        g = torch.Generator(device="cpu").manual_seed((seed << 20) + i)
+        if leaf == "lam":
+            u = torch.rand(p.shape, generator=g) * 0.099 + 0.9
+            return torch.log(torch.expm1(-torch.log(u) / RGLRU_C)).to(p.dtype)
+        std = 0.02 if leaf == "tok_embed" else 1.0 / math.sqrt(p.shape[-2])
+        shape = tuple(p.shape)
+        n_live = self.cfg.moe.n_experts
+        if len(shape) == 3:  # expert stack: live experts drawn, dead zero
+            shape = (n_live,) + shape[1:]
+        w = torch.randn(shape, generator=g) * std
+        if leaf in WIDENED and not self.train_layout:
+            w = w.to(self._cdt)
+        w = w.to(p.dtype)
+        if shape != tuple(p.shape):
+            w = torch.cat([w, w.new_zeros((p.shape[0] - n_live,)
+                                          + shape[1:])])
+        return w
 
 
 class Transformer(SeededParams):
@@ -689,15 +764,49 @@ class Transformer(SeededParams):
             self.requires_grad_(True)
 
     def head(self):
+        """The (d, V) head — this rank's (d, V/n) vocab slice when placed
+        with the vocab over ``"model"``."""
         if self.cfg.tie_embeddings:
-            return self.tok_embed.T
-        return self.lm_head
+            return gather_data(self.tok_embed).T
+        return gather_data(self.lm_head)
+
+    def _vocab_tp(self, mesh):
+        """The ``"model"`` shard when the vocab is split over it."""
+        tp = model_shard(mesh)
+        table = self.tok_embed
+        return tp if tp is not None and (
+            table.to_local().shape[0] if _placed_leaf(table)
+            else table.shape[0]) != self.cfg.vocab else None
+
+    def _logits(self, x, mesh):
+        """fp32 logits (B, V) of final-normed x (B, d): the vocab slices
+        all-gathered over ``"model"`` when the head is split."""
+        logits = (x @ self.head().to(x.dtype)).float()
+        tp = self._vocab_tp(mesh)
+        return logits if tp is None else all_gather_cat(logits, tp.group, -1)
+
+    def _final_norm(self, h):
+        return rmsnorm({"scale": gather_data(self.final_norm["scale"])}, h)
 
     # ----------------------------------------------------------- forward
-    def _embed(self, tokens, embeds=None):
+    def _embed(self, tokens, embeds=None, mesh=None):
         """Token embeddings in the compute dtype, with the VLM's stub patch
-        embeddings ``embeds`` (B, P, d) prepended (JAX ``_embed``)."""
-        h = embed_lookup(self.tok_embed, tokens).to(self._cdt)
+        embeddings ``embeds`` (B, P, d) prepended (JAX ``_embed``).  A
+        vocab split over ``"model"``: each rank looks up the ids of its
+        slice (zero rows for the others) and the rows are summed over
+        ``"model"``."""
+        table = gather_data(self.tok_embed)
+        tp = self._vocab_tp(mesh)
+        if tp is None:
+            h = embed_lookup(table, tokens)
+        else:
+            vl = table.shape[0]
+            loc = tokens.long() - tp.rank * vl
+            own = ((loc >= 0) & (loc < vl))[..., None]
+            rows = embed_lookup(table, loc.clamp(0, vl - 1))
+            h = sum_out(torch.where(own, rows, torch.zeros_like(rows)),
+                        tp.group)
+        h = h.to(self._cdt)
         if embeds is not None:
             h = torch.cat([embeds.to(device=h.device, dtype=self._cdt), h],
                           dim=1)
@@ -707,10 +816,10 @@ class Transformer(SeededParams):
                  mesh=None):
         """(final-normed h, aux loss, cache | None): JAX's ``forward``."""
         remat = "none" if return_cache else self.shcfg.remat
-        h, aux, cache = self.decoder(self._embed(tokens, embeds),
+        h, aux, cache = self.decoder(self._embed(tokens, embeds, mesh),
                                      return_cache=return_cache, remat=remat,
                                      mesh=mesh)
-        return rmsnorm(self.final_norm, h), aux, cache
+        return self._final_norm(h), aux, cache
 
     def forward(self, tokens, embeds=None, *, return_cache: bool = False,
                 mesh=None):
@@ -725,17 +834,19 @@ class Transformer(SeededParams):
     def loss(self, batch, *, mesh=None):
         """batch: {tokens (B,S), labels (B,S), [embeds (B,P,d)], [mask
         (B,S)]} → (nll + ``router_aux_weight``·aux, {"nll", "aux"}) with
-        :func:`chunked_xent` over :data:`LOGITS_CHUNK` positions at a time
-        (JAX's default ``logits_chunk``) on the text positions (the stub's
-        P are dropped), and aux the MoE layers' summed router loss (0 for
-        a stack without MoE): JAX's ``Transformer.loss``.  Under ``mesh``
-        the batch is this rank's rows, and the loss their mean."""
+        :func:`chunked_xent` over ``shcfg.logits_chunk`` positions at a
+        time (0: :data:`LOGITS_CHUNK`, JAX's default) on the text
+        positions (the stub's P are dropped), and aux the MoE layers'
+        summed router loss (0 for a stack without MoE): JAX's
+        ``Transformer.loss``.  Under ``mesh`` the batch is this rank's
+        rows, and the loss their mean."""
         embeds = batch.get("embeds")
         h, aux, _ = self._forward(batch["tokens"], embeds, mesh=mesh)
         if embeds is not None:
             h = h[:, embeds.shape[1]:]
         nll = chunked_xent(h, self.head(), batch["labels"], batch.get("mask"),
-                           chunk=LOGITS_CHUNK)
+                           chunk=self.shcfg.logits_chunk or LOGITS_CHUNK,
+                           tp=self._vocab_tp(mesh))
         aux = torch.as_tensor(aux, dtype=torch.float32, device=h.device)
         loss = nll + self.cfg.moe.router_aux_weight * aux
         return loss, {"nll": nll, "aux": aux}
@@ -748,8 +859,7 @@ class Transformer(SeededParams):
         prompt_len = h.shape[1]
         cache = self.decoder.pack_cache(cache, prompt_len,
                                         cache_len or prompt_len, cache_dtype)
-        logits = (h[:, -1] @ self.head().to(h.dtype)).float()
-        return logits, cache
+        return self._logits(h[:, -1], mesh), cache
 
     def init_cache(self, batch: int, cache_len: int,
                    cache_dtype=torch.bfloat16):
@@ -768,15 +878,16 @@ class Transformer(SeededParams):
     def supports_chunked_prefill(self) -> bool:
         return self.decoder.chunkable
 
-    def decode_step(self, token, cache, pos, *, pages=None, mesh=None):
+    def decode_step(self, token, cache, pos, *, pages=None, mesh=None,
+                    seq_cache: bool = False):
         """token: (B,) ids; pos: scalar or (B,) positions; ``pages`` the page
-        table.  Returns (logits (B,V) fp32, cache)."""
-        x = self._embed(token)
+        table; ``seq_cache``: a placed slab cache split over ``"model"``
+        along its sequence.  Returns (logits (B,V) fp32, cache)."""
+        x = self._embed(token, mesh=mesh)
         x, cache = self.decoder.decode_step(x, cache, pos, pages=pages,
-                                            mesh=mesh)
-        x = rmsnorm(self.final_norm, x[:, None, :])[:, 0]
-        logits = (x @ self.head().to(x.dtype)).float()
-        return logits, cache
+                                            mesh=mesh, seq_cache=seq_cache)
+        x = self._final_norm(x[:, None, :])[:, 0]
+        return self._logits(x, mesh), cache
 
     def prefill_chunk(self, tokens, cache, pos0: int, *, pages, mesh=None):
         """One chunk of a paged prefill: tokens (B, C) at positions
@@ -785,6 +896,5 @@ class Transformer(SeededParams):
         each request's first token."""
         h, cache = self.decoder.decode_chunk(self._embed(tokens), cache, pos0,
                                              pages=pages, mesh=mesh)
-        h = rmsnorm(self.final_norm, h)
-        logits = (h[:, -1] @ self.head().to(h.dtype)).float()
-        return logits, cache
+        h = self._final_norm(h)
+        return self._logits(h[:, -1], mesh), cache

@@ -21,6 +21,17 @@ transpose rules decide the gradients, so each function states its own:
   backward.  The data-parallel sync (:func:`mean_grads`) divides every
   gradient by the group size already: dividing here too would average
   the aux loss's gradient twice.
+* :func:`gather_shards` — the FSDP pair: a tensor split along ``dim``
+  over a group, all-gathered whole just before its use; backward
+  reduce-scatters (SUMs) the cotangent back onto each rank's slice.  A
+  placed parameter enters its layer through it over its data axes (the
+  caller divides the summed gradient by the batch axes' size), and a
+  projection whose ``"model"`` shard splits a head through it over
+  ``"model"``.  Under gloo, which has no reduce-scatter of CUDA tensors
+  to rely on, the scatter is a SUM all-reduce and a slice (twice the
+  bytes of a ring reduce-scatter); under NCCL it is
+  ``reduce_scatter_tensor``.  The choice follows from the group's
+  backend, never from an error.
 
 Without a group (a size-1 axis) each is the identity.  Ranks that share
 one card run the ``gloo`` backend with CUDA tensors: on the H100 (torch
@@ -35,7 +46,7 @@ a DTensor: :func:`full_tensor` gathers with ``all_gather``.  Gloo has no
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -45,7 +56,8 @@ import torch.distributed as dist
 #: and as the payload of the wavefront engine's point-to-point moves
 #: (:class:`repro_torch.runtime.moves.Wire`), since the last
 #: :func:`reset_traffic`
-TRAFFIC = {"all_reduce": 0, "all_gather": 0, "moves": 0}
+TRAFFIC = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0,
+           "moves": 0}
 
 
 def reset_traffic() -> None:
@@ -70,6 +82,48 @@ def all_gather_cat(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, src, group=group)
     return torch.cat(parts, dim=dim)
+
+
+def reduce_scatter_sum(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """``t`` SUMmed over ``group``, this rank's slice along ``dim`` (its
+    size divided by the group's, in group-rank order).  Counted under
+    ``"reduce_scatter"``: under gloo the SUM all-reduce's whole tensor."""
+    if group is None:
+        return t
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    src = t.movedim(dim, 0).contiguous()
+    TRAFFIC["reduce_scatter"] += src.numel() * src.element_size()
+    if dist.get_backend(group) == "nccl":
+        out = src.new_empty((src.shape[0] // n,) + src.shape[1:])
+        dist.reduce_scatter_tensor(out, src, group=group)
+    else:
+        src = src.clone()  # the cotangent may be shared: reduce a copy
+        dist.all_reduce(src, group=group)
+        out = src.chunk(n)[r].contiguous()
+    return out.movedim(0, dim)
+
+
+class _GatherShards(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather_cat(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter_sum(g, ctx.group, ctx.dim), None, None
+
+
+def gather_shards(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The FSDP pair (see the module doc): all-gather forward,
+    reduce-scatter backward."""
+    return x if group is None else _GatherShards.apply(x, group, dim)
+
+
+def max_over(x: torch.Tensor, group) -> torch.Tensor:
+    """MAX all-reduce of a detached copy of ``x`` (no gradient: the
+    log-sum-exp shifts it feeds are invariant to it)."""
+    return all_reduce_(x.detach().clone(), group, dist.ReduceOp.MAX)
 
 
 class _ReplicatedIn(torch.autograd.Function):
@@ -176,18 +230,25 @@ def mean_grads(grads: Dict[str, torch.Tensor], group,
     return out
 
 
-def global_norm(grads: Dict[str, torch.Tensor], sharded: Sequence[str],
-                group) -> torch.Tensor:
-    """√(Σ‖g‖²) in fp32 of a gradient tree whose ``sharded`` leaves are
-    this rank's shard of a leaf split over ``group`` (their squares are
-    summed over it); the other leaves are whole on every rank.  Every
-    rank of the group gets the same value."""
-    sq = [g.float().square().sum() for k, g in grads.items()
-          if k not in sharded]
-    total = sum(sq) if sq else torch.zeros(())
-    part = [grads[k].float().square().sum() for k in sharded]
-    if part:
-        total = total + all_reduce_(torch.stack(part).sum(), group)
+def sharded_norm(grads: Dict[str, torch.Tensor],
+                 axes: Dict[str, Tuple[str, ...]], mesh) -> torch.Tensor:
+    """√(Σ‖g‖²) in fp32 of a placed gradient tree: ``grads`` are this
+    rank's shards, ``axes[name]`` the mesh axes leaf ``name`` is split
+    over.  Each leaf's squares are summed over its own axes' group, so
+    every distinct shard counts once and a replica not again.  The
+    leaves are summed per set of axes in one fixed order, so every rank
+    gets the same bits."""
+    from .mesh import axis_group
+
+    by_axes: Dict[Tuple[str, ...], List[str]] = {}
+    for name in grads:
+        by_axes.setdefault(tuple(axes.get(name, ())), []).append(name)
+    total = None
+    for ax in sorted(by_axes):
+        part = torch.stack([grads[n].float().square().sum()
+                            for n in by_axes[ax]]).sum()
+        part = all_reduce_(part, axis_group(mesh, ax)[0])
+        total = part if total is None else total + part
     return torch.sqrt(total)
 
 

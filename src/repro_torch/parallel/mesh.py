@@ -26,7 +26,8 @@ from __future__ import annotations
 
 import logging
 import math
-from typing import Iterable, Optional, Sequence, Tuple
+from dataclasses import dataclass
+from typing import Any, Iterable, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -171,3 +172,26 @@ def axis_group(mesh: Optional[DeviceMesh], axes: Sequence[str]):
                 mine = g
         cache[axes] = mine
     return cache[axes], size
+
+
+@dataclass(frozen=True)
+class ModelShard:
+    """This rank's place on the ``"model"`` axis, as the tensor-parallel
+    layers read it: the axis' process group, its size and this rank's
+    index along it.  ``seq_cache`` marks a decode whose KV cache is split
+    over ``"model"`` along the sequence (the rules' choice where the KV
+    heads do not divide the axis)."""
+
+    group: Any
+    n: int
+    rank: int
+    seq_cache: bool = False
+
+
+def model_shard(mesh, *, seq_cache: bool = False) -> Optional[ModelShard]:
+    """The :class:`ModelShard` of this rank under ``mesh`` (None without a
+    mesh or with a ``"model"`` axis of size 1)."""
+    group, n = axis_group(mesh, (MODEL,))
+    if group is None:
+        return None
+    return ModelShard(group, n, mesh.get_local_rank(MODEL), seq_cache)

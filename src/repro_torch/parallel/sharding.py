@@ -20,7 +20,12 @@ Layout summary (MaxText-style):
   * vocab embedding: vocab dim over "model" (Megatron vocab-parallel).
 
 :func:`placements` turns a spec into DTensor placements, one per mesh
-dim.  JAX's ``constrain`` (``with_sharding_constraint``) has no
+dim.  :func:`place_module` applies the rules to a module: every
+parameter becomes a DTensor holding only this rank's block of the whole
+leaf (drawn from a seed or handed over whole, e.g. from
+``bridge.from_jax``; on a ``"meta"`` device only its shape), and
+:func:`gather_data` is the FSDP gather of such a leaf before its layer
+uses it.  JAX's ``constrain`` (``with_sharding_constraint``) has no
 counterpart: every rank holds local tensors, so GSPMD's layout pins have
 nothing to pin.
 """
@@ -32,10 +37,13 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Mapping, Tuple
 
 import numpy as np
-from torch.distributed.tensor import Replicate, Shard
+import torch
+from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..config import ShardingConfig
-from .mesh import DATA, MODEL, POD, axis_size, batch_axes
+from .collectives import gather_shards
+from .mesh import DATA, MODEL, POD, axis_group, axis_size, batch_axes
 
 Spec = Tuple[Any, ...]
 
@@ -226,6 +234,92 @@ def placements(spec: Spec, mesh) -> tuple:
         for p in pos:
             out[p] = Shard(i)
     return tuple(out)
+
+
+def spec_axes(spec: Spec) -> Tuple[str, ...]:
+    """The mesh axes ``spec`` splits its tensor over, in spec order."""
+    out: list = []
+    for entry in spec:
+        if entry is not None:
+            out += [entry] if isinstance(entry, str) else list(entry)
+    return tuple(out)
+
+
+def local_block(x: torch.Tensor, mesh, places) -> torch.Tensor:
+    """This rank's block of the whole tensor ``x`` under ``places``: its
+    chunk of every ``Shard`` mesh dim, taken major to minor (DTensor's
+    layout, JAX's for the divisible dims the rules shard)."""
+    coord = mesh.get_coordinate()
+    for i, p in enumerate(places):
+        if isinstance(p, Shard):
+            x = x.chunk(mesh.size(i), dim=p.dim)[coord[i]]
+    return x
+
+
+@torch.no_grad()
+def place_module(module: nn.Module, rules: "ShardingRules", *, source=None,
+                 device=None) -> Dict[str, Spec]:
+    """Replace every parameter of ``module`` by a DTensor with the
+    placements of its spec under ``rules``, holding only this rank's
+    block.  ``source(i, name, param)`` gives parameter ``i`` whole on the
+    CPU (a seeded draw, or a tensor carried across by the bridge), so
+    every mesh holds blocks of the one model; the block is copied to
+    ``device`` (default: the mesh's device type).  On ``"meta"`` nothing
+    is drawn: only the local shapes are made.  Returns ``{name: spec}``."""
+    mesh = rules.mesh
+    dev = torch.device(device or mesh.device_type)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    specs: Dict[str, Spec] = {}
+    for i, (name, p) in enumerate(list(module.named_parameters())):
+        if isinstance(p, DTensor):
+            raise ValueError(f"place_module: {name} is placed already")
+        spec = specs[name] = rules.param_spec(name, tuple(p.shape))
+        whole = (torch.empty(p.shape, dtype=p.dtype, device="meta")
+                 if dev.type == "meta" else source(i, name, p))
+        place_param(module, name, whole, spec, mesh, dev)
+    return specs
+
+
+@torch.no_grad()
+def place_param(module: nn.Module, name: str, whole: torch.Tensor,
+                spec: Spec, mesh, device) -> None:
+    """Replace parameter ``name`` of ``module`` by a DTensor with the
+    placements of ``spec`` on ``mesh``, holding this rank's block of
+    ``whole`` (the leaf's logical value) on ``device``."""
+    p = module.get_parameter(name)
+    places = placements(spec, mesh)
+    local = local_block(whole, mesh, places).to(
+        device, dtype=p.dtype, copy=True).contiguous()
+    owner, leaf = ((module.get_submodule(name.rsplit(".", 1)[0]),
+                    name.rsplit(".", 1)[1]) if "." in name
+                   else (module, name))
+    dt = DTensor.from_local(local, mesh, places, run_check=False,
+                            shape=p.shape,
+                            stride=torch.empty(p.shape,
+                                               device="meta").stride())
+    setattr(owner, leaf, nn.Parameter(dt, requires_grad=p.requires_grad))
+
+
+def gather_data(p) -> torch.Tensor:
+    """A placed leaf as its layer uses it: the local tensor of a DTensor
+    with every dim split over non-``"model"`` axes all-gathered whole
+    over them (:func:`~repro_torch.parallel.collectives.gather_shards`:
+    its gradient reduce-scatters back), the ``"model"`` split kept (the
+    tensor-parallel layers compute on it).  A plain tensor is returned
+    as it is."""
+    if not isinstance(p, DTensor):
+        return p
+    mesh = p.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    dims: Dict[int, list] = {}
+    for i, pl in enumerate(p.placements):
+        if isinstance(pl, Shard) and names[i] != MODEL:
+            dims.setdefault(pl.dim, []).append(names[i])
+    out = p.to_local()
+    for d, axes in dims.items():
+        out = gather_shards(out, axis_group(mesh, tuple(axes))[0], d)
+    return out
 
 
 def _is_shape(x) -> bool:

@@ -523,6 +523,25 @@ def test_serve_entry_point_on_cpu():
     assert torch.equal(a["tokens"], b["tokens"])
 
 
+def test_serve_entry_point_serves_a_given_model_twice():
+    """``serve(model=)`` serves the model it is given, twice alike (the
+    sessions leave its weights as they were): built from ``serve``'s own
+    seed it gives ``serve``'s tokens, from another seed other tokens."""
+    from repro_torch.config import default_sharding
+    from repro_torch.launch.serve import serve
+
+    cfg = reduced(get_arch("qwen3-0.6b"))
+    kw = dict(reduced_cfg=True, n_requests=2, prompt_len=40, gen_len=4,
+              seed=5, verbose=False, device="cpu")
+    want = serve("qwen3-0.6b", **kw)["tokens"]
+    for seed, same in ((5, True), (6, False)):
+        model = build_model(cfg, default_sharding(cfg, use_kernels=True),
+                            device="cpu").init(seed)
+        for _ in range(2):
+            got = serve("qwen3-0.6b", model=model, **kw)["tokens"]
+            assert torch.equal(got, want) == same
+
+
 # ----------------------------------------------------------- recurrentgemma
 # tests/test_serving.py:95 on the hybrid arch: two remainder-free groups of
 # (rglru, rglru, local_attn), window 64.  Its decode state is slot-major

@@ -177,26 +177,13 @@ def test_failed_replan_rolls_back_session_state():
         assert s.tasks == ("t0",) and s.current_plan is p0 and not s.replans
 
 
-def test_checkpoint_options_raise_naming_item_5(monkeypatch, tmp_path):
+def test_elastic_smoke_cli_passes_its_options(monkeypatch):
     """The elastic smoke's CLI hands ``--steps``, ``--straggler-at``,
     ``--straggler-hosts``, ``--ranks``, ``--ckpt-dir`` and ``--device`` to
     ``elastic_smoke`` (whose run on four ranks is
-    ``tests/test_torch_engine_distributed.py``'s).  int8-compressed
-    gradients without a mesh train as without them (JAX's ``train`` compresses only under a
-    mesh with a "data" axis), and a bare placement is no target of
-    ``restore_to_mesh`` (a ``(DeviceMesh, placements)`` pair is).  A
-    cluster-changing event on a bound session that carries a checkpoint
-    manager no longer raises: it snapshots and restores, as the JAX
-    session does.  The plan-only path still works."""
-    import torch
-    from torch.distributed.tensor import Replicate
-
-    from repro_torch.ckpt import CheckpointManager, restore_to_mesh
+    ``tests/test_torch_engine_distributed.py``'s)."""
     from repro_torch.launch import train as train_mod
 
-    kw = dict(steps=1, batch=2, seq=32, device="cpu", verbose=False)
-    assert (train_mod.train(compress_grads=True, **kw)["history"]
-            == train_mod.train(**kw)["history"])
     calls = []
     monkeypatch.setattr(train_mod, "elastic_smoke",
                         lambda **kw: calls.append(kw))
@@ -206,8 +193,35 @@ def test_checkpoint_options_raise_naming_item_5(monkeypatch, tmp_path):
     train_mod.main()
     assert calls == [dict(steps=8, straggler_at=3, straggler_hosts=(1, 2),
                           ckpt_dir=None, ranks=4, device="cpu")]
+
+
+def test_compress_grads_without_a_mesh_trains_as_without():
+    """int8-compressed gradients without a mesh train as without them
+    (JAX's ``train`` compresses only under a mesh with a "data" axis)."""
+    from repro_torch.launch import train as train_mod
+
+    kw = dict(steps=1, batch=2, seq=32, device="cpu", verbose=False)
+    assert (train_mod.train(compress_grads=True, **kw)["history"]
+            == train_mod.train(**kw)["history"])
+
+
+def test_bare_placement_is_no_restore_target():
+    """A bare placement is no target of ``restore_to_mesh`` (a
+    ``(DeviceMesh, placements)`` pair is)."""
+    import torch
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.ckpt import restore_to_mesh
+
     with pytest.raises(TypeError, match="DeviceMesh, placements"):
         restore_to_mesh({"w": torch.ones(2)}, Replicate())
+
+
+def test_checkpointed_straggler_restores(tmp_path):
+    """A cluster-changing event on a bound session that carries a
+    checkpoint manager snapshots and restores, as the JAX session does.
+    The plan-only path still works."""
+    from repro_torch.ckpt import CheckpointManager
 
     mgr = CheckpointManager(str(tmp_path), every=0)  # periodic saves off
     s = _bound(callbacks=[session.CheckpointCallbacks(mgr)],
