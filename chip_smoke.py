@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --only kernels
-    python3 chip_smoke.py --only placed   # the kernel checks, then 8e
+    python3 chip_smoke.py --only placed   # the kernel checks, then 8e, 8f
 
 Phases, one summary line each (any failure exits non-zero, nothing is
 caught):
@@ -297,6 +297,12 @@ caught):
    fp32 qwen3, qwen2-moe (the grouped matmul on each rank's 4 local
    experts) and llama3-405b (a decode cache split over the sequence) on
    the card against four CPU ranks, within ``TRAIN_PARITY_TOL``;
+8f. the dry run (``launch/dryrun.py``) of 8e's three cells, traced
+   shape-only on the host as rank 0 of a fake (2, 2) group: collective
+   bytes by kind a step, kernel launches and argument bytes exactly equal
+   to 8e's rank 0's; the ranks' lowest measured train peak over the
+   predicted one (the dry run's peak plus the copy of the initial blocks
+   the run keeps) within ``PLACED_PEAK_RATIO``;
 9. print a ``{"kernels": [...]}`` line (attention and grouped matmul at
    qwen2-moe's shapes with phase 4b's launches, the scan at recurrentgemma's
    fp32 prefill shape with phase 4c's, flash again at phase 6's
@@ -594,9 +600,7 @@ def check_paged(torch, ops, ref, paged, dtype_name: str, K: int,
     host = host_us(torch, ops.paged_attention, first)
     plain_ms = time_ms(torch, ref.paged_attention_ref, sets, iters=10)
     live = sum(min(int(x) + 1, n_pp * ps) for x in lengths.tolist())
-    nbytes = (2 * live * K * hd * itemsize + 2 * B * H * hd * itemsize
-              + table.numel() * 4 + B * 4)
-    flops = 4.0 * live * H * hd
+    flops, nbytes = paged.work(B, H, K, hd, itemsize, live, table.numel())
     bms, bby = bound_ms(nbytes, flops, dtype_name)
     splits = paged.num_splits(B, K, n_pp, torch.cuda.get_device_properties(
         0).multi_processor_count, paged.head_groups(H, K))
@@ -609,6 +613,8 @@ def check_flash(torch, ops, ref, dtype_name: str, case: str) -> dict:
     """Flash forward at ``FLASH_CASES[case]``: (B, H, K, Sq, Sk, hd,
     causal).  The causal cases have Sq == Sk (top-left mask)."""
     import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as flash_k
 
     dt = getattr(torch, dtype_name)
     dev = torch.device("cuda")
@@ -643,9 +649,8 @@ def check_flash(torch, ops, ref, dtype_name: str, case: str) -> dict:
     library_ms = time_ms(
         torch, lambda q, k, v: F.scaled_dot_product_attention(
             q, k, v, is_causal=causal), rsets)
-    nbytes = 2 * first[0].numel() * itemsize + 2 * first[1].numel() * itemsize
-    pairs = Sq * (Sq + 1) / 2 if causal else Sq * Sk  # scored (q, k) pairs
-    bms, bby = bound_ms(nbytes, 4.0 * B * H * hd * pairs, dtype_name)
+    flops, nbytes = flash_k.work(B, H, K, Sq, Sk, hd, causal, itemsize)
+    bms, bby = bound_ms(nbytes, flops, dtype_name)
     return dict(max_abs_err=err, tol=TOL_TEXT[dtype_name], ms=ms,
                 plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
                 library_ms=library_ms, host_us=host)
@@ -754,9 +759,8 @@ def check_gmm(torch, ops, ref, gmm, dtype_name: str, shape: str) -> dict:
     library_ms = time_ms(torch, lambda x, w, _: torch.bmm(x, w), sets)
     live_rows = int(sizes_np.sum())
     nonempty = int((sizes_np > 0).sum())
-    nbytes = ((live_rows * d + nonempty * d * f + E * C * f) * itemsize
-              + E * 4)
-    flops = 2.0 * live_rows * d * f
+    flops, nbytes = gmm.work(E, C, d, f, itemsize, live_rows=live_rows,
+                             nonempty=nonempty)
     bms, bby = bound_ms(nbytes, flops, dtype_name)
     return dict(max_abs_err=err, tol=TOL_TEXT[dtype_name], ms=ms,
                 plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
@@ -770,6 +774,8 @@ def check_scan(torch, ops, ref, dtype_name: str, shape: str) -> dict:
     1)) and N(0, 1) inputs, or a constant decay with inputs 0.01.  In fp32
     the JAX kernel tests' tolerances (1e-4; 1e-3 for the long decay), in
     bf16 the one-ulp rule; timed at the prefill shape only."""
+    from repro_torch.kernels import rglru_scan as scan_k
+
     dt = getattr(torch, dtype_name)
     dev = torch.device("cuda")
     B, S, D, decay = SCAN_SHAPES[shape]
@@ -801,9 +807,8 @@ def check_scan(torch, ops, ref, dtype_name: str, shape: str) -> dict:
         n_copies(torch, 2 * first[0].numel() * itemsize) - 1)]
     ms = time_ms(torch, ops.rglru_scan, sets)
     plain_ms = time_ms(torch, ref.rglru_scan_ref, sets, iters=10)
-    # a and b read once, h written once; a multiply and an add per element
-    bms, bby = bound_ms(3.0 * B * S * D * itemsize, 2.0 * B * S * D,
-                        dtype_name)
+    flops, nbytes = scan_k.work(B, S, D, itemsize)
+    bms, bby = bound_ms(nbytes, flops, dtype_name)
     r.update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
              library_ms=None)
     return r
@@ -818,6 +823,8 @@ def check_gmm_backward(torch, ops, ref, shape: str) -> dict:
     Device times: the dx launch (w's transposed copy made outside), that
     copy, dw's ``bmm`` and the whole backward; the plain version and
     ``torch.bmm`` at the dx shape."""
+    from repro_torch.kernels import grouped_matmul as gmm_k
+
     dt = torch.bfloat16
     dev = torch.device("cuda")
     E, C, d, f, tokens = GMM_SHAPES[shape]
@@ -858,10 +865,11 @@ def check_gmm_backward(torch, ops, ref, shape: str) -> dict:
     backward_ms = time_ms(torch, ops.grouped_matmul_backward, sets)
     plain_ms = time_ms(torch, ref.grouped_matmul_ref, tsets, iters=10)
     library_ms = time_ms(torch, lambda gy, wt, _: torch.bmm(gy, wt), tsets)
+    # dx: the grouped product of the (E, C, f) cotangent with w transposed
     live_rows = int(sizes_np.sum())
-    nonempty = int((sizes_np > 0).sum())
-    nbytes = (live_rows * f + nonempty * f * d + E * C * d) * 2 + E * 4
-    bms, bby = bound_ms(nbytes, 2.0 * live_rows * d * f, "bfloat16")
+    flops, nbytes = gmm_k.work(E, C, f, d, 2, live_rows=live_rows,
+                               nonempty=int((sizes_np > 0).sum()))
+    bms, bby = bound_ms(nbytes, flops, "bfloat16")
     return dict(max_abs_err=err, tol=TOL_TEXT["bfloat16"], ms=ms,
                 plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
                 library_ms=library_ms, transpose_ms=transpose_ms,
@@ -879,6 +887,8 @@ def check_scan_backward(torch, ops, ref) -> dict:
     the plain version on the card, within 2e-4.  Device times: the reverse
     scan's launch (on flipped copies made outside) and the whole backward;
     the plain version's scan at the same shape."""
+    from repro_torch.kernels import rglru_scan as scan_k
+
     dev = torch.device("cuda")
     B, S, D = SCAN_TRAIN
     g = torch.Generator(device=dev).manual_seed(19)
@@ -906,7 +916,8 @@ def check_scan_backward(torch, ops, ref) -> dict:
     hsets = [(a, ops.rglru_scan(a, b), gy) for a, b, gy in sets]
     backward_ms = time_ms(torch, ops.rglru_scan_backward, hsets)
     plain_ms = time_ms(torch, ref.rglru_scan_ref, rsets, iters=10)
-    bms, bby = bound_ms(3.0 * B * S * D * 4, 2.0 * B * S * D, "float32")
+    flops, nbytes = scan_k.work(B, S, D, 4)
+    bms, bby = bound_ms(nbytes, flops, "float32")
     return dict(max_abs_err=err, tol="2e-4", ms=ms, plain_ms=plain_ms,
                 bound_ms=bms, bound_by=bby, library_ms=None,
                 backward_ms=backward_ms)
@@ -3300,6 +3311,7 @@ def phase_placed(torch, smi: str) -> dict:
                                    for r in ranks),
            "per_step": 2 * L, "per_prefill": L}
     phase_placed_parity(torch, smi)
+    phase_dryrun(torch, smi, ranks)
     return rec
 
 
@@ -3354,6 +3366,107 @@ def phase_placed_parity(torch, smi: str) -> None:
     log(f"placed reduced runs: {secs} s with both spawns")
 
 
+# phase 8f: 8e's cells dry-run on the host (launch/dryrun.py): full
+# qwen3-0.6b as rank 0 of a fake (2, 2) group, shape-only.  8e's ranks
+# hold a copy of their initial blocks through the train steps beside what
+# the step's trace counts, so the measured peak is held against the dry
+# run's peak plus those bytes; their ratio must lie in PLACED_PEAK_RATIO
+# (PERF.md states the prediction and its reasons: the caching allocator
+# rounds each block up to 512 bytes and may hand out a cached block up to
+# 1 MB larger than asked, and cuBLAS's workspace is allocated on the card
+# but never traced).  The measured peak is the lowest of the four ranks':
+# they run one program on rows of one shape, and one rank's allocator can
+# read above the program's peak by buffers held outside it (one of 32
+# rank readings did, by 934,598,144 bytes: PERF.md, Findings)
+PLACED_PEAK_RATIO = (0.9, 1.1)
+
+
+def phase_dryrun(torch, smi: str, ranks: list) -> None:
+    """Phase 8f: 8e's train, prefill and serve cells traced by the dry run
+    must give rank 0's measured collective bytes by kind, its kernel
+    launches and its argument bytes exactly, and the ranks' train peak
+    within :data:`PLACED_PEAK_RATIO`."""
+    from repro_torch.config import ShapeConfig, get_arch
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.op_analysis import KINDS
+
+    r0 = ranks[0]
+    cfg = get_arch(PLACED_FULL["arch"])
+    B, S, steps = (PLACED_FULL[k] for k in ("batch", "seq", "steps"))
+    P, G = PLACED_FULL["prompt_len"], PLACED_FULL["gen"]
+    t0 = time.perf_counter()
+    cells = {"train": ShapeConfig("train", S, B, "train"),
+             "prefill": ShapeConfig("prefill", P, B, "prefill"),
+             "serve": ShapeConfig("decode", P + G, B, "decode")}
+    recs = {part: run_cell(cfg, shp, mesh_shape=(2, 2), verbose=False)
+            for part, shp in cells.items()}
+    secs = time.perf_counter() - t0
+    for part, rec in recs.items():
+        if not rec["ok"]:
+            raise AssertionError(f"phase 8f {part}: {rec['error']}")
+
+    def kinds(traffic, n=1):
+        out = {k: 0.0 for k in recs["train"]["collectives"]}
+        for key, v in traffic.items():
+            out[KINDS[key]] += v / n
+        return out
+
+    # (measured, the number of steps it spans)
+    measured = {"train": [(t, 1) for t in r0["train"]["traffic_per_step"]],
+                "prefill": [(r0["prefill"]["traffic"], 1)],
+                "serve": [(r0["serve"]["traffic"], G)]}
+    runs = {"train": steps, "prefill": 1, "serve": G}
+    for part, rec in recs.items():
+        for traffic, n in measured[part]:
+            if kinds(traffic, n) != rec["collectives"]:
+                raise AssertionError(
+                    f"phase 8f {part}: dry-run collective bytes "
+                    f"{rec['collectives']} != measured per step "
+                    f"{kinds(traffic, n)}")
+        want = {k: v * runs[part] for k, v in rec["launches"].items()}
+        if want != r0[part]["counts"]:
+            raise AssertionError(f"phase 8f {part}: dry-run launches "
+                                 f"{rec['launches']} x {runs[part]} != "
+                                 f"measured {r0[part]['counts']}")
+    mem = recs["train"]["memory"]
+    # the dry run's arguments besides params and moments: this rank's rows
+    # of tokens and labels as JAX's int32 (the data pipeline's are int64)
+    # and the int32 step count
+    rows = 2 * (B // 2) * S * 4 + 4
+    held = r0["train"]["param_bytes"] + r0["train"]["moment_bytes"]
+    if mem["argument_size_in_bytes"] - rows != held:
+        raise AssertionError(f"phase 8f: dry-run argument bytes "
+                             f"{mem['argument_size_in_bytes']} less {rows} "
+                             f"(rows, count) != rank 0's params and moments "
+                             f"{held}")
+    predicted = (mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+                 + r0["train"]["param_bytes"])
+    peaks = [r["train"]["peak"] for r in ranks]
+    ratio = min(peaks) / predicted
+    lo, hi = PLACED_PEAK_RATIO
+    if not lo <= ratio <= hi:
+        raise AssertionError(f"phase 8f: measured train peak {min(peaks)} "
+                             f"(ranks {peaks}) / predicted {predicted} = "
+                             f"{ratio} outside {PLACED_PEAK_RATIO}")
+    log(f"dry run of 8e's cells (qwen3-0.6b full, rank 0 of a fake (2, 2) "
+        f"group, shape-only on the host, {secs} s): collective bytes by "
+        f"kind equal rank 0's measured (train per step "
+        f"{recs['train']['collectives']}, prefill "
+        f"{recs['prefill']['collectives']}, serve per step "
+        f"{recs['serve']['collectives']}); launches equal (train "
+        f"{recs['train']['launches']} a step, prefill "
+        f"{recs['prefill']['launches']}); argument bytes "
+        f"{mem['argument_size_in_bytes']} = rank 0's params and moments "
+        f"{held} + rows and count {rows}; train peak measured "
+        f"{min(peaks)} bytes (ranks {peaks}, ratios "
+        f"{[p / predicted for p in peaks]}) vs predicted {predicted} (dry-run "
+        f"peak {mem['argument_size_in_bytes'] + mem['temp_size_in_bytes']} "
+        f"+ the initial blocks' copy {r0['train']['param_bytes']}): ratio "
+        f"{ratio} (bound {PLACED_PEAK_RATIO}); dry-run flops a step "
+        f"{recs['train']['hlo_flops']}, bytes {recs['train']['hlo_bytes']};"
+        f" measured on {smi}")
+
+
 def phases_mesh(torch, smi: str) -> tuple:
     """Phases 8-8e.  Returns 8a's, 8b's and 8e's launch records."""
     gc.collect()
@@ -3373,7 +3486,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("kernels", "placed"), default=None,
                     help="run the build and kernel checks only (and with "
-                         "'placed', phase 8e after them)")
+                         "'placed', phases 8e and 8f after them)")
     args = ap.parse_args(argv)
 
     import torch

@@ -86,6 +86,41 @@ class ArchConfig:
         """True if the arch supports O(1)-state / windowed decode (long_500k)."""
         return self.family in ("ssm", "hybrid")
 
+    def _attn_params(self) -> int:
+        d, hd = self.d_model, self.resolved_head_dim
+        return (d * (self.n_heads * hd) + 2 * d * (self.n_kv_heads * hd)
+                + (self.n_heads * hd) * d)
+
+    def _emb_params(self) -> int:
+        return self.vocab * self.d_model * (1 if self.tie_embeddings else 2)
+
+    def n_params(self) -> int:
+        """Approximate parameter count (embeddings + blocks): JAX's
+        formula, which the dry run's ``model_flops`` reads."""
+        d, dff = self.d_model, self.d_ff
+        if self.is_moe:
+            m = self.moe
+            ffn = ((m.n_experts + m.n_shared_experts) * 3 * d * m.d_ff_expert
+                   + d * m.n_experts)  # + router
+        elif dff > 0:
+            ffn = 3 * d * dff
+        else:  # xLSTM-style blocks: internal projections ≈ 8·d²
+            ffn = 8 * d * d
+        per_layer = self._attn_params() + ffn + 2 * d
+        return int(per_layer * (self.n_layers + self.n_enc_layers)
+                   + self._emb_params())
+
+    def n_active_params(self) -> int:
+        """Active (per-token) parameter count — MoE activates top-k only
+        (and counts no encoder layer, as JAX's does not)."""
+        if not self.is_moe:
+            return self.n_params()
+        d, m = self.d_model, self.moe
+        ffn = ((m.top_k + m.n_shared_experts) * 3 * d * m.d_ff_expert
+               + d * m.n_experts)
+        per_layer = self._attn_params() + ffn + 2 * d
+        return int(per_layer * self.n_layers + self._emb_params())
+
 
 @dataclass(frozen=True)
 class ShapeConfig:

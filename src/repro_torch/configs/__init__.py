@@ -18,3 +18,17 @@ from . import qwen3_moe_30b_a3b  # noqa: F401
 from . import recurrentgemma_9b  # noqa: F401
 from . import seamless_m4t_medium  # noqa: F401
 from . import xlstm_125m  # noqa: F401
+
+#: the JAX package's assignment list, in its order (the dry run's cells)
+ASSIGNED = [
+    "qwen2-moe-a2.7b",
+    "qwen3-moe-30b-a3b",
+    "llama3-405b",
+    "qwen3-0.6b",
+    "deepseek-67b",
+    "glm4-9b",
+    "seamless-m4t-medium",
+    "xlstm-125m",
+    "pixtral-12b",
+    "recurrentgemma-9b",
+]

@@ -41,6 +41,18 @@ DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
 
 
+def work(B: int, H: int, K: int, Sq: int, Sk: int, hd: int, causal: bool,
+         itemsize: int):
+    """(FLOPs, bytes) of one call: q read and the output written once
+    (B,H,Sq,hd), k and v read once (B,K,Sk,hd); two products of ``hd``
+    (scores and values) for each scored (query, key) pair, where the
+    causal mask, aligned top-left, lets query i score keys 0..i."""
+    n = min(Sq, Sk)
+    pairs = n * (n + 1) / 2 + (Sq - n) * Sk if causal else Sq * Sk
+    return (4.0 * B * H * hd * pairs,
+            float((2 * B * H * Sq + 2 * B * K * Sk) * hd * itemsize))
+
+
 def tma_strides(t: torch.Tensor):
     """(b, h, s) strides of a (B, heads, S, hd) tensor, in elements.  A dim
     of size 1 is never stepped along, so its stride (whatever the view

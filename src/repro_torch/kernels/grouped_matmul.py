@@ -37,6 +37,23 @@ SKINNY_MAX_ROWS = 16  # decode: C = 4 at 8 slots
 MAX_SMEM = 227 * 1024
 
 
+def work(E: int, C: int, d: int, f: int, itemsize: int, *,
+         live_rows: Optional[int] = None, nonempty: Optional[int] = None,
+         sized: bool = True):
+    """(FLOPs, bytes) of one call on x (E,C,d) and w (E,d,f): the live
+    rows of x and the weights of each non-empty group read once, the
+    whole (E,C,f) output written, the (E,) int32 group sizes read when
+    ``sized``; a product of ``d`` for each live row and output column.
+    ``live_rows`` and ``nonempty`` are what the routing gave this call;
+    ``None`` (a shape-only call, which has no data) counts every row and
+    every group live."""
+    live = E * C if live_rows is None else live_rows
+    groups = E if nonempty is None else nonempty
+    return (2.0 * live * d * f,
+            float((live * d + groups * d * f + E * C * f) * itemsize
+                  + (4 * E if sized else 0)))
+
+
 def _skinny_smem(C: int, d: int, itemsize: int) -> int:
     """Shared memory of the skinny kernel: x[e] as fp32 with C rounded up
     to 4, 8 or 16 rows (or the partial sums of 128 columns, if larger),

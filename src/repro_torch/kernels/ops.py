@@ -28,6 +28,17 @@ A forward run again by an activation checkpoint launches its kernel
 again, and counts again.  With no input that requires a gradient a
 Function records no graph, so serving pays nothing for this.  Paged
 decode has no gradient in either package: it raises when asked for one.
+
+Inputs all on ``"meta"`` (the dry run's shape-only trace,
+:mod:`repro_torch.launch.op_analysis`) take a third branch in flash
+attention, the grouped matmul (forward and dx) and the scan (forward and
+reverse): an empty ``"meta"`` output of the kernel's shape and dtype, and
+one call in :data:`SHAPE_ONLY` under the kernel's name with the FLOPs and
+bytes of its ``work`` formula (the one ``chip_smoke.py``'s bounds read).
+A meta tensor holds no data, so nothing computed from it can reach a real
+result: this is the kernel's shape, not a fallback.  Paged decode has no
+such branch (no step the dry run traces decodes from pages).  Mixed
+devices raise.
 """
 
 from __future__ import annotations
@@ -51,14 +62,40 @@ KERNELS: Dict[str, CudaKernel] = {
 }
 
 
-def _on_cpu(*tensors) -> bool:
+#: shape-only calls by kernel name since the last
+#: :func:`reset_shape_only`: ``{"calls", "flops", "bytes"}`` of the
+#: launches they stand for.  Never :attr:`CudaKernel.launches`, which
+#: counts the card's real launches only.
+SHAPE_ONLY: Dict[str, Dict[str, float]] = {}
+
+
+def reset_shape_only() -> None:
+    SHAPE_ONLY.clear()
+    SHAPE_ONLY.update({name: {"calls": 0, "flops": 0.0, "bytes": 0.0}
+                       for name in KERNELS})
+
+
+reset_shape_only()
+
+
+def _device_type(*tensors) -> str:
+    """``"cpu"``, ``"cuda"`` or ``"meta"``: the one device type of a
+    kernel's inputs.  Mixed devices raise."""
     devs = {t.device.type for t in tensors}
-    if devs == {"cpu"}:
-        return True
-    if devs == {"cuda"}:
-        return False
-    raise ValueError(f"kernel inputs must all be on the CPU or all on CUDA, "
-                     f"got {sorted(devs)}")
+    if len(devs) == 1 and devs <= {"cpu", "cuda", "meta"}:
+        return devs.pop()
+    raise ValueError(f"kernel inputs must all be on the CPU, all on CUDA or "
+                     f"all on meta, got {sorted(devs)}")
+
+
+def _shape_only(name: str, out: torch.Tensor, work) -> torch.Tensor:
+    """Record one shape-only call of kernel ``name`` doing ``work``
+    (FLOPs, bytes) and return its empty meta output ``out``."""
+    rec = SHAPE_ONLY[name]
+    rec["calls"] += 1
+    rec["flops"] += work[0]
+    rec["bytes"] += work[1]
+    return out
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -68,8 +105,16 @@ class _FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal: bool):
         ctx.causal = causal
         ctx.save_for_backward(q, k, v)
-        if _on_cpu(q, k, v):
+        where = _device_type(q, k, v)
+        if where == "cpu":
             return ref.flash_attention_ref(q, k, v, causal=causal)
+        if where == "meta":
+            B, H, Sq, hd = q.shape
+            return _shape_only(
+                "flash_attention",
+                torch.empty((B, H, Sq, hd), dtype=q.dtype, device="meta"),
+                _flash.work(B, H, k.shape[1], Sq, k.shape[2], hd, causal,
+                            q.element_size()))
         return _flash.flash_attention(q, k, v, causal=causal)
 
     @staticmethod
@@ -104,15 +149,27 @@ def paged_attention(q, k_pool, v_pool, page_table, lengths):
             t.requires_grad for t in (q, k_pool, v_pool)):
         raise RuntimeError("paged_attention has no gradient (decode only, in "
                            "either package); call it under torch.no_grad()")
-    if _on_cpu(q, k_pool, v_pool, page_table, lengths):
+    where = _device_type(q, k_pool, v_pool, page_table, lengths)
+    if where == "meta":
+        raise ValueError("paged_attention has no shape-only branch: no step "
+                         "the dry run traces decodes from pages")
+    if where == "cpu":
         return ref.paged_attention_ref(q, k_pool, v_pool, page_table, lengths)
     return _paged.paged_attention(q, k_pool, v_pool, page_table, lengths)
 
 
 def _grouped_matmul(x, w, group_sizes):
     tensors = (x, w) if group_sizes is None else (x, w, group_sizes)
-    if _on_cpu(*tensors):
+    where = _device_type(*tensors)
+    if where == "cpu":
         return ref.grouped_matmul_ref(x, w, group_sizes)
+    if where == "meta":
+        (E, C, d), f = x.shape, w.shape[2]
+        return _shape_only(
+            "grouped_matmul",
+            torch.empty((E, C, f), dtype=x.dtype, device="meta"),
+            _gmm.work(E, C, d, f, x.element_size(),
+                      sized=group_sizes is not None))
     return _gmm.grouped_matmul(x, w, group_sizes)
 
 
@@ -165,8 +222,14 @@ def grouped_matmul(x, w, group_sizes=None):
 
 
 def _rglru_scan(a, b):
-    if _on_cpu(a, b):
+    where = _device_type(a, b)
+    if where == "cpu":
         return ref.rglru_scan_ref(a, b)
+    if where == "meta":
+        return _shape_only(
+            "rglru_scan",
+            torch.empty(a.shape, dtype=a.dtype, device="meta"),
+            _scan.work(*a.shape, a.element_size()))
     return _scan.rglru_scan(a, b)
 
 

@@ -48,6 +48,18 @@ _SM_COUNT: Dict[int, int] = {}
 _COUNTERS: Dict[Tuple[int, int], Tuple[torch.Tensor, bool]] = {}
 
 
+def work(B: int, H: int, K: int, hd: int, itemsize: int, live: int,
+         table_entries: int):
+    """(FLOPs, bytes) of one call: the ``live`` cached positions of all
+    rows (the sum of each row's ``length + 1``, capped at its pages) read
+    once from the K and V pools, q read and the output written (B,H,hd),
+    the int32 page table and lengths read; two products of ``hd`` for
+    each (query head, live position)."""
+    return (4.0 * live * H * hd,
+            float(2 * live * K * hd * itemsize + 2 * B * H * hd * itemsize
+                  + 4 * table_entries + 4 * B))
+
+
 def head_groups(H: int, K: int) -> int:
     """Blocks per (row, KV head) along the query heads: ``rep = H/K`` heads
     share one block up to ``HEADS_PER_BLOCK``."""

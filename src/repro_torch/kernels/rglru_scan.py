@@ -31,6 +31,12 @@ KERNEL = CudaKernel(
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def work(B: int, S: int, D: int, itemsize: int):
+    """(FLOPs, bytes) of one call: a and b read once, h written once; a
+    multiply and an add per element."""
+    return 2.0 * B * S * D, 3.0 * B * S * D * itemsize
+
+
 def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``h_t = a_t * h_{t-1} + b_t`` from a zero state over a, b (B,S,D)
     of one dtype (float32 or bfloat16); the carry is fp32, the result

@@ -37,7 +37,20 @@ not divide ``"model"`` the cache's sequence is split over it, and the
 partial softmaxes are merged by log-sum-exp.  The dense, MoE and VLM
 families are ported; the hybrid, ssm and enc-dec ones, and
 ``seq_parallel``, raise under a mesh that shards anything (ROADMAP queue
-1, item 5g).  JAX's ``lower_step`` has no counterpart yet (item 5f).
+1, item 5g).
+
+:func:`lower_step` is JAX's ``lower_step`` without a compiler: it makes
+one rank's inputs of a step built on ``"meta"`` (the placed state and
+this rank's blocks of the batch, token and cache), and its
+``.compile()`` runs the step once on them under
+:func:`~repro_torch.launch.op_analysis.analyze` — the dry run's trace
+(:mod:`repro_torch.launch.dryrun`), which needs no GPU:
+
+    cfg = get_arch("qwen3-0.6b")
+    spec = build_step(cfg, "train_4k", mesh, device="meta",
+                      shcfg=default_sharding(cfg, use_kernels=True))
+    compiled = lower_step(spec, mesh).compile()
+    compiled.memory_analysis().temp_size_in_bytes, compiled.stats.flops
 """
 
 from __future__ import annotations
@@ -56,9 +69,11 @@ from ..models.moe import ep_size
 from ..models.transformer import layer_kinds
 from ..optim import AdamW, OptState, warmup_cosine
 from ..parallel.mesh import MODEL, axis_size
-from ..parallel.sharding import (ShardingRules, Spec, tree_batch_specs,
+from ..parallel.sharding import (ShardingRules, Spec, local_block,
+                                 placements, tree_batch_specs,
                                  tree_cache_specs, tree_param_specs)
-from .train import placed_train_step
+from .op_analysis import OpStats, analyze
+from .train import make_train_state, placed_train_step
 
 #: the families whose placed steps are ported
 FAMILIES = ("dense", "moe", "vlm")
@@ -302,6 +317,115 @@ def _serve_step(model, shp: ShapeConfig, mesh, rules: ShardingRules,
 
 
 # ---------------------------------------------------------------------------
+# lowering without a compiler: one rank's step traced on "meta"
+
+
+def tree_bytes(tree) -> int:
+    """Bytes of a step's inputs or outputs as this rank holds them (dicts,
+    lists, tuples and an :class:`~repro_torch.optim.OptState`): each
+    tensor's (a DTensor's local block), and 4 for each Python int (the
+    optimizer count and the decode position, int32 scalars in JAX)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(tree, DTensor):
+        tree = tree.to_local()
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, int):
+        return 4
+    if isinstance(tree, OptState):
+        tree = (tree.mu, tree.nu, tree.count)
+    if isinstance(tree, dict):
+        tree = tree.values()
+    return sum(tree_bytes(x) for x in tree)
+
+
+def _local_meta(whole: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+    """This rank's block of ``whole`` under ``spec``, as a new meta
+    tensor."""
+    block = local_block(whole, mesh, placements(spec, mesh))
+    return torch.empty(block.shape, dtype=whole.dtype, device="meta")
+
+
+@dataclass(frozen=True)
+class MemoryAnalysis:
+    """JAX's ``compiled.memory_analysis()`` fields, per rank.  Argument
+    and output bytes are this rank's blocks; alias is what the step
+    donates (a train step its params and optimizer state, a serve step its
+    cache: JAX's ``donate_argnums``); temp is the traced peak of live
+    bytes less the arguments."""
+
+    argument_size_in_bytes: int
+    output_size_in_bytes: int
+    temp_size_in_bytes: int
+    alias_size_in_bytes: int
+
+
+@dataclass
+class Compiled:
+    """A traced step: its :class:`MemoryAnalysis`, its cost and its
+    :class:`~repro_torch.launch.op_analysis.OpStats`."""
+
+    memory: MemoryAnalysis
+    stats: OpStats
+
+    def memory_analysis(self) -> MemoryAnalysis:
+        return self.memory
+
+    def cost_analysis(self) -> Dict[str, float]:
+        return {"flops": self.stats.flops,
+                "bytes accessed": self.stats.hbm_bytes}
+
+
+@dataclass
+class Lowered:
+    spec: StepSpec
+    args: Tuple[Any, ...]
+    donate: Tuple[int, ...]
+
+    def compile(self) -> Compiled:
+        """Run the step once on the meta inputs under
+        :func:`~repro_torch.launch.op_analysis.analyze`."""
+        out, stats = analyze(self.spec.fn, *self.args)
+        arg = tree_bytes(self.args)
+        return Compiled(
+            MemoryAnalysis(
+                argument_size_in_bytes=arg,
+                output_size_in_bytes=tree_bytes(out),
+                temp_size_in_bytes=stats.peak_bytes - arg,
+                alias_size_in_bytes=sum(tree_bytes(self.args[i])
+                                        for i in self.donate)),
+            stats)
+
+
+def lower_step(spec: StepSpec, mesh) -> Lowered:
+    """One rank's inputs of ``spec`` (built with ``device="meta"`` under
+    ``mesh``, a ``DeviceMesh`` over a real or ``fake`` group) as meta
+    tensors: the state :func:`~repro_torch.launch.train.make_train_state`
+    places, and this rank's blocks of the batch (train, prefill) or of
+    the token and cache (serve, decoding the cache's last position).
+    Train steps donate (params, optimizer state), serve steps the cache,
+    as JAX's do."""
+    if spec.model.device.type != "meta":
+        raise ValueError("lower_step: the step must be built on 'meta'")
+    params, opt = make_train_state(spec.model, spec.optimizer, 0,
+                                   mesh=mesh, rules=spec.rules)
+    if spec.name == "train_step":
+        batch = {k: _local_meta(t, spec.in_specs[2][k], mesh)
+                 for k, t in spec.in_shapes[2].items()}
+        return Lowered(spec, (params, opt, batch), (0, 1))
+    if spec.name == "prefill_step":
+        batch = {k: _local_meta(t, spec.in_specs[1][k], mesh)
+                 for k, t in spec.in_shapes[1].items()}
+        return Lowered(spec, (params, batch), ())
+    token = _local_meta(spec.in_shapes[1], spec.in_specs[1], mesh)
+    cache = [{k: _local_meta(t, sp[k], mesh) for k, t in layer.items()}
+             for layer, sp in zip(spec.in_shapes[2], spec.in_specs[2])]
+    pos = spec.in_shapes[2][0]["k"].shape[2] - 1
+    return Lowered(spec, (params, token, cache, pos), (2,))
+
+
+# ---------------------------------------------------------------------------
 # a placed run on spawned ranks: the CLI, the chip smoke and the GPU tests
 
 
@@ -352,7 +476,9 @@ def placed_run(rank: int, arch: str, *, reduced_cfg: bool = True,
     before each part and read after it.  Returns host data: per part the
     losses or logits and tokens, seconds (host clock, ending in a device
     sync), launch counts, collective bytes, and on the GPU the peak
-    memory; ``keep_params`` adds the trained local blocks."""
+    memory; the train part also this rank's bytes of params and moments
+    (what the dry run's argument bytes count besides the batch);
+    ``keep_params`` adds the trained local blocks."""
     import time
 
     import torch.distributed as dist
@@ -361,7 +487,6 @@ def placed_run(rank: int, arch: str, *, reduced_cfg: bool = True,
     from ..kernels import ops
     from ..parallel import collectives, make_mesh
     from ..parallel.mesh import batch_axes
-    from .train import make_train_state
 
     dev = resolve_device(device)
     cuda = dev.type == "cuda"
@@ -426,7 +551,9 @@ def placed_run(rank: int, arch: str, *, reduced_cfg: bool = True,
         per_step.append({k: v - before[k]
                          for k, v in collectives.TRAFFIC.items()})
     out["train"] = part(losses=losses, step_s=secs, traffic_per_step=per_step,
-                        grad_accum=spec.grad_accum)
+                        grad_accum=spec.grad_accum,
+                        param_bytes=tree_bytes(params),
+                        moment_bytes=tree_bytes((opt.mu, opt.nu)))
     if keep_params:
         out["train"]["params"] = {n: t.detach().cpu()
                                   for n, t in params.items()}

@@ -148,7 +148,9 @@ def _inputs():
 _JAX = r"""
 import dataclasses, os, pickle, sys
 from functools import partial
-os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=4 "
+                           "--xla_backend_optimization_level=0 "
+                           "--xla_llvm_disable_expensive_passes=true")
 import jax, jax.numpy as jnp, numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from repro.config import get_arch, reduced
@@ -204,6 +206,7 @@ for name, (arch, shape, steps, compress, aux, lr) in inp["train_cases"].items():
     flat = {k: jnp.asarray(v)
             for k, v in bridge.from_jax(inp["init"][name], cfg).items()}
     state = opt.init(flat)
+    update = jax.jit(opt.update)  # eager, each op of it compiles apart
     if compress:
         grads_fn = _make_compressed_dp_step(model, Grab(), m)
     else:
@@ -220,7 +223,7 @@ for name, (arch, shape, steps, compress, aux, lr) in inp["train_cases"].items():
         else:
             (loss, _), g = grads_fn(p, b)
         g = {k: jnp.asarray(v) for k, v in bridge.from_jax(tree(g), cfg).items()}
-        flat, state = opt.update(g, state, flat)
+        flat, state = update(g, state, flat)
         hist.append(float(loss))
     out[name] = hist
 

@@ -79,7 +79,7 @@ def _run_pair(sides, specs, port_kw=None, **kw):
     """Serve ``specs`` ((rid, tokens, max_new, arrival[, family])) through
     the JAX session and the port's with the same config; returns (port
     session, port metrics, JAX session, JAX metrics)."""
-    jmodel, params, port = sides
+    jmodel, params, _ = sides
     port_kw = port_kw or {}
     kw.setdefault("replan", "off")
     kw.setdefault("cache_dtype", "float32")
@@ -90,13 +90,22 @@ def _run_pair(sides, specs, port_kw=None, **kw):
                                   max_new_tokens=s[2], arrival=s[3],
                                   family=(s[4] if len(s) > 4 else "default"))
                        for s in specs], max_steps=1000)
-    sess = ServingSession(ServingConfig(device="cpu", **kw, **port_kw),
-                          model=port())
+    sess, m = _run_port(sides, specs, **kw, **port_kw)
+    return sess, m, jsess, m_jax
+
+
+def _run_port(sides, specs, **kw):
+    """The port's half of :func:`_run_pair`: (session, metrics)."""
+    kw.setdefault("replan", "off")
+    kw.setdefault("cache_dtype", "float32")
+    kw.setdefault("page_size", PS)
+    sess = ServingSession(ServingConfig(device="cpu", **kw),
+                          model=sides[2]())
     m = sess.run([Request(rid=s[0], tokens=s[1], max_new_tokens=s[2],
                           arrival=s[3],
                           family=(s[4] if len(s) > 4 else "default"))
                   for s in specs], max_steps=1000)
-    return sess, m, jsess, m_jax
+    return sess, m
 
 
 def _tokens(sess):
@@ -348,7 +357,7 @@ def test_shared_trace_under_grow_pressure_keeps_solo_tokens(qwen3):
     kw = dict(max_slots=6, cache_len=CACHE_LEN, prefill_chunk=8,
               prefix_sharing=True, kv_admission="grow")
     sess, m, jsess, m_jax = _run_pair(qwen3, specs, kv_pages=12, **kw)
-    free, _, _, _ = _run_pair(qwen3, specs, **kw)
+    free, _ = _run_port(qwen3, specs, **kw)
     assert m["kv_preemptions"] > 0 and m["prefix_index_reclaimed"] > 0
     solo = {r: _solo(jmodel, params, t, g) for r, t, g, _, _ in specs}
     assert _tokens(sess) == _tokens(free) == solo
