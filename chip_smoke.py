@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --only kernels
-    python3 chip_smoke.py --only placed   # the kernel checks, then 8e, 8f
+    python3 chip_smoke.py --only placed   # the kernel checks, then 8e-8g
 
 Phases, one summary line each (any failure exits non-zero, nothing is
 caught):
@@ -184,10 +184,10 @@ caught):
    ill-conditioned through the mLSTM normaliser: on the CPU a 1e-7
    relative change of the params moves it by 4.9e-4); then 3 steps of
    full xlstm-125m (bf16 compute, fp32 masters and moments, block remat)
-   at batch 4 x seq 1,024, the last step replaying the first batch: the
+   at batch 4 x seq 512, the last step replaying the first batch: the
    loss must fall, no kernel launched; step ms and peak memory;
 6i. checkpoints on the card: full xlstm-125m through ``train`` at batch 4
-   x seq 256, one 6-step schedule run (a) through, (b) with
+   x seq 128, one 6-step schedule run (a) through, (b) with
    ``ckpt_dir``, ``ckpt_every=3`` and ``stop_at_step=4`` (saves at steps 0
    and 3, no final save) and (c) resumed from step 3 (steps 4-5, the final
    save at 5): (c)'s losses equal (a)'s within 1e-5 relative (the
@@ -253,13 +253,12 @@ caught):
    (bf16 params, 4 x 1,024, 3 steps) on two ranks that share the card
    through gloo, mesh (data 1, model 2): 32 experts a rank, the grouped
    matmul at E 32, C 341, 36 launches a step on each rank (9 a MoE
-   layer) and flash 8; against two one-process runs (their spread
-   printed): the first loss bit-equal, each within 5e-3; the ranks'
-   peaks together below 76 GB;
+   layer) and flash 8; against one one-process run: the first loss
+   bit-equal, each within 5e-3; the ranks' peaks together below 76 GB;
 8b. data parallelism at full width: full qwen3-0.6b, phase 6's global
    batch 8 x 1,024 split over two ranks (data 2), 4 steps: flash 56
-   launches a rank and step, the losses within 1e-3 of two one-process
-   runs; then ``compress_grads=True`` (int8 sync): the first losses
+   launches a rank and step, the losses within 1e-3 of one one-process
+   run; then ``compress_grads=True`` (int8 sync): the first losses
    equal and the last within 0.05 (``tests/test_compressed_dp.py``);
 8c. re-mesh across world sizes: reduced qwen2-moe fp32 on two ranks
    (model 2) for 2 of 4 steps, checkpointing the logical arrays; one
@@ -295,14 +294,33 @@ caught):
    tokens equal to one process's); each rank's step
    ms, peak memory and bytes by collective kind are printed; then reduced
    fp32 qwen3, qwen2-moe (the grouped matmul on each rank's 4 local
-   experts) and llama3-405b (a decode cache split over the sequence) on
-   the card against four CPU ranks, within ``TRAIN_PARITY_TOL``;
-8f. the dry run (``launch/dryrun.py``) of 8e's three cells, traced
+   experts), llama3-405b (a decode cache split over the sequence),
+   recurrentgemma (the scan on each rank's features, decoding past its
+   window of 64: the circular buffer's writes wrap across the ranks'
+   blocks of positions), xlstm and seamless on the card against the same
+   four ranks on the CPU (one spawn), within ``TRAIN_PARITY_TOL``;
+8g. the placed steps of the hybrid, ssm and enc-dec families, in one spawn
+   of four ranks sharing the card on (data 2, model 2), each arch drawn
+   once on the host and read by the ranks from a file
+   (``PLACED_FAMILIES``): recurrentgemma-9b at full width cut to one
+   (rglru, rglru, local_attn) repetition (the RG-LRU scan on a rank's
+   2,048 features; a 2,100-token prompt past its window of 2,048),
+   xlstm-125m whole and seamless-m4t-medium at full width cut to 2 + 2
+   layers (flash on a rank's 8 heads in its encoder, decoder self and
+   cross attention); 2 train steps, a prefill and greedy serve steps,
+   each held against one process's run as 8e is (losses, prefill logits
+   within ``PLACED_FAMILY_LOGITS_TOL`` with three controls above it: 8e's
+   two and one process's prefill with two blocks of one "model"-split
+   leaf swapped, ``PLACED_FAULT``; the share of equal greedy tokens),
+   launches a rank as ``PLACED_FAMILY_LAUNCHES`` says, the reversed scans
+   counted apart;
+8f. the dry run (``launch/dryrun.py``) of 8e's and 8g's cells, traced
    shape-only on the host as rank 0 of a fake (2, 2) group: collective
    bytes by kind a step, kernel launches and argument bytes exactly equal
-   to 8e's rank 0's; the ranks' lowest measured train peak over the
+   to their rank 0's; 8e's ranks' lowest measured train peak over the
    predicted one (the dry run's peak plus the copy of the initial blocks
-   the run keeps) within ``PLACED_PEAK_RATIO``;
+   the run keeps) within ``PLACED_PEAK_RATIO`` (8g's peaks are printed
+   beside their dry run's);
 9. print a ``{"kernels": [...]}`` line (attention and grouped matmul at
    qwen2-moe's shapes with phase 4b's launches, the scan at recurrentgemma's
    fp32 prefill shape with phase 4c's, flash again at phase 6's
@@ -315,7 +333,15 @@ caught):
    ranks, ``path: "ep"``, flash at 8b's per-rank B4 S1,024 with 8b's,
    ``path: "dp"``, and at 8e's per-rank B4 H8 K4 S1,024 and S512 with
    8e's train and prefill launches over the four ranks, ``path:
-   "tp_train"`` and ``"tp_prefill"``), the ``nvidia-smi`` line, and last
+   "tp_train"`` and ``"tp_prefill"``; the scan and flash at each shape
+   8g's ranks launched them at, each with that shape's launches over the
+   four ranks (``ops.launch_keys``): the scan forward at B2 D2,048 and S
+   1,024 (train) and 2,100 (prefill), reversed at S 1,024, ``path:
+   "tp_hybrid"``, ``"tp_hybrid_prefill"``, ``"tp_hybrid_reverse"``, and
+   flash at seamless's encoder, decoder self and cross attention of a
+   train row and of a prompt, ``path: "tp_encdec_encoder"``,
+   ``"tp_encdec_prefill_cross"`` and so on), the ``nvidia-smi`` line, and
+   last
    ``{"ok": true, "device": {...}}``.
 
 Phase 3 also holds flash at the training shape (S 1,024) and the flash
@@ -324,11 +350,13 @@ JAX package's ``custom_vjp`` does (no TPU kernel) — against autograd of
 the plain version, with its device time per layer; the grouped matmul's
 gradient at 6e's expert shapes (E64 C341, gate/up and down, bf16: dx
 through the kernel, dw one ``torch.bmm``) and the scan's at 6f's (B4
-S1,024 D4,096, fp32: the reverse scan through the kernel) against
-autograd of the plain versions, with the device time of the dx launch,
-w's transposed copy, dw and the whole backward (``torch.bmm`` at the dx
-shape as the library yardstick), and of the reverse scan and the whole
-scan backward.
+S1,024 D4,096, fp32: the reverse scan through the kernel) and at 8g's rank
+shape (B2 S1,024 D2,048) against autograd of the plain versions, with the
+device time of the dx launch, w's transposed copy, dw and the whole
+backward (``torch.bmm`` at the dx shape as the library yardstick), and of
+the reverse scan and the whole scan backward; and flash at 8g's seamless
+rank's encoder (B2 H8 S320 hd64, non-causal), decoder self (S1,280,
+causal) and cross attention (Sq1,280 Sk320) shapes.
 """
 
 from __future__ import annotations
@@ -425,6 +453,16 @@ FLASH_CASES = {
     # of phase 6's training shape, and of an 8 x 512 prefill
     "tp": (4, 8, 4, 1024, 1024, 128, True, ("bfloat16",)),
     "tp_prefill": (4, 8, 4, 512, 512, 128, True, ("bfloat16",)),
+    # phase 8g's seamless rank: half the batch and 8 of 16 heads of a
+    # 4 x 1,280-token train batch with 320 frames: encoder, decoder self
+    # and cross attention
+    "tp_encoder": (2, 8, 8, 320, 320, 64, False, ("bfloat16",)),
+    "tp_dec_self": (2, 8, 8, 1280, 1280, 64, True, ("bfloat16",)),
+    "tp_cross": (2, 8, 8, 1280, 320, 64, False, ("bfloat16",)),
+    # and of its 4 x 1,040-token prompt with 260 frames
+    "tp_prefill_encoder": (2, 8, 8, 260, 260, 64, False, ("bfloat16",)),
+    "tp_prefill_dec_self": (2, 8, 8, 1040, 1040, 64, True, ("bfloat16",)),
+    "tp_prefill_cross": (2, 8, 8, 1040, 260, 64, False, ("bfloat16",)),
 }
 # the RG-LRU scan: (B, S, D, decay) — recurrentgemma-9b's 8 x 512-token
 # prefill at d 4096, a ragged shape, and a decay of 0.999 over 2048 steps
@@ -432,7 +470,14 @@ SCAN_SHAPES = {
     "prefill": (8, 512, 4096, None),
     "ragged": (3, 300, 130, None),
     "long_decay": (1, 2048, 4096, 0.999),
+    # phase 8g's (data 2, model 2) rank: half of a 4 x 1,024 batch on half
+    # of the 4,096 features (timed, and its reverse), and of its 4 x
+    # 2,100-token prompt
+    "tp": (2, 1024, 2048, None),
+    "tp_prefill": (2, 2100, 2048, None),
 }
+#: the shapes whose forward scan is timed
+SCAN_TIMED = ("prefill", "tp", "tp_prefill")
 # the cost model's sweep: bf16 (M, K, N) products from a decode step's few
 # rows to a long prefill's, at a small and a large model's widths
 SPEC_SHAPES = [(m, k, n) for m in (16, 128, 1024, 8192)
@@ -773,7 +818,7 @@ def check_scan(torch, ops, ref, dtype_name: str, shape: str) -> dict:
     """The RG-LRU scan at one of ``SCAN_SHAPES``: decay gates sigmoid(N(0,
     1)) and N(0, 1) inputs, or a constant decay with inputs 0.01.  In fp32
     the JAX kernel tests' tolerances (1e-4; 1e-3 for the long decay), in
-    bf16 the one-ulp rule; timed at the prefill shape only."""
+    bf16 the one-ulp rule; timed at ``SCAN_TIMED``'s shapes."""
     from repro_torch.kernels import rglru_scan as scan_k
 
     dt = getattr(torch, dtype_name)
@@ -800,7 +845,7 @@ def check_scan(torch, ops, ref, dtype_name: str, shape: str) -> dict:
         raise AssertionError(f"rglru_scan {shape} {dtype_name}: not finite")
     r = dict(max_abs_err=err, tol=tol[2] if tol else TOL_TEXT[dtype_name],
              max_abs_out=float(want.float().abs().max()))
-    if shape != "prefill":
+    if shape not in SCAN_TIMED:
         return r
     itemsize = first[0].element_size()
     sets = [first] + [make() for _ in range(
@@ -880,8 +925,8 @@ def check_gmm_backward(torch, ops, ref, shape: str) -> dict:
 SCAN_TRAIN = (4, 1024, 4096)
 
 
-def check_scan_backward(torch, ops, ref) -> dict:
-    """The RG-LRU scan's gradient at :data:`SCAN_TRAIN` in fp32 (the
+def check_scan_backward(torch, ops, ref, shape=SCAN_TRAIN) -> dict:
+    """The RG-LRU scan's gradient at ``shape`` (B, S, D) in fp32 (the
     model's gates are fp32): the reverse scan through the kernel and the
     elementwise da, db (``ops.rglru_scan_backward``) against autograd of
     the plain version on the card, within 2e-4.  Device times: the reverse
@@ -890,7 +935,7 @@ def check_scan_backward(torch, ops, ref) -> dict:
     from repro_torch.kernels import rglru_scan as scan_k
 
     dev = torch.device("cuda")
-    B, S, D = SCAN_TRAIN
+    B, S, D = shape
     g = torch.Generator(device=dev).manual_seed(19)
 
     def make():
@@ -989,12 +1034,14 @@ def phase_kernels(torch, ops, ref, gmm, paged) -> dict:
                 log(f"{what}: max_err={r['max_abs_err']:.3e} (tol {r['tol']}) "
                     f"max|h|={r['max_abs_out']:.4g}")
             results[("rglru_scan", dtn, shape)] = r
-        if dtn == "float32":  # phase 6f's recurrence, backward
-            r = check_scan_backward(torch, ops, ref)
-            log(f"rglru_scan backward {dtn} B={SCAN_TRAIN[0]} "
-                f"S={SCAN_TRAIN[1]} D={SCAN_TRAIN[2]}: reverse scan "
-                f"{_line(r)} whole_backward_ms={r['backward_ms']:.5f}")
-            results[("rglru_scan_backward", dtn)] = r
+        if dtn == "float32":  # phase 6f's and 8g's recurrence, backward
+            for key, shape in (((), SCAN_TRAIN),
+                               (("tp",), SCAN_SHAPES["tp"][:3])):
+                r = check_scan_backward(torch, ops, ref, shape)
+                log(f"rglru_scan backward {dtn} {' '.join(key)} "
+                    f"B={shape[0]} S={shape[1]} D={shape[2]}: reverse scan "
+                    f"{_line(r)} whole_backward_ms={r['backward_ms']:.5f}")
+                results[("rglru_scan_backward", dtn) + key] = r
     return results
 
 
@@ -1867,7 +1914,9 @@ def phase_moe_hybrid_train_parity(torch, ops, train) -> None:
 # (largest entry 1.5), so each leaf is held within TRAIN_PARITY_TOL plus
 # XLSTM_GRAD_RTOL of its largest entry
 XLSTM_GRAD_RTOL = 1e-3
-XLSTM_TRAIN = dict(steps=3, batch=4, seq=1024, lr=1e-3, seed=0)
+# 3 full xlstm-125m steps at seq 512: the sLSTM is a host loop over the
+# tokens (a step at seq 1,024 took 8-14 s)
+XLSTM_TRAIN = dict(steps=3, batch=4, seq=512, lr=1e-3, seed=0)
 
 
 def phase_xlstm_train(torch, ops, train, smi: str) -> None:
@@ -1972,9 +2021,9 @@ def phase_xlstm_train(torch, ops, train, smi: str) -> None:
 
 # phase 6i: checkpoint and resume of full xlstm-125m through ``train``; one
 # 6-step schedule run (a) through, (b) with saves every 3 steps and stopped
-# after step 3, (c) resumed from step 3.  Batch 4 x 256: a checkpoint's size
-# does not depend on seq, and 6h's seq 1,024 costs 8-14 s a step
-CKPT_RUN = dict(steps=6, batch=4, seq=256, lr=1e-3, seed=0)
+# after step 3, (c) resumed from step 3.  Batch 4 x 128: a checkpoint's size
+# does not depend on seq, and the sLSTM's host loop runs over every token
+CKPT_RUN = dict(steps=6, batch=4, seq=128, lr=1e-3, seed=0)
 CKPT_EVERY, CKPT_STOP = 3, 4
 RESUME_RTOL = 1e-5  # tests/test_train_serve_drivers.py:30
 
@@ -2767,13 +2816,12 @@ def phase_ep_full(torch, smi: str) -> dict:
     params), 4 x 1,024, 3 steps on two ranks sharing the card through
     gloo, mesh (data 1, model 2): each rank holds experts 32·r..32·r+31
     and runs the grouped matmul at E 32, C 341, 9 times per MoE layer and
-    step (forward, recompute, dx).  The first loss equals two one-process
-    runs' bit for bit (the partial outputs are summed in fp32 and rounded
+    step (forward, recompute, dx).  The first loss equals one one-process
+    run's bit for bit (the partial outputs are summed in fp32 and rounded
     once), every later one within ``EP_LOSS_TOL`` (backward sums the
     ranks' bf16 partial gradients: another rounding order); every
-    replicated parameter hashes alike on both ranks; the one-process
-    run-to-run spread is printed; the ranks' peaks sum below
-    ``PEAK_LIMIT``."""
+    replicated parameter hashes alike on both ranks; the ranks' peaks sum
+    below ``PEAK_LIMIT``."""
     from repro_torch.config import get_arch
     from repro_torch.launch.train import train
     from repro_torch.parallel.mesh import run_ranks
@@ -2784,9 +2832,8 @@ def phase_ep_full(torch, smi: str) -> dict:
     per_step = train_launches_per_step(cfg)
     want = {k: v * steps for k, v in per_step.items()}
     t0 = time.perf_counter()
-    ones = _one_process(torch, train, cfg, EP_RUN, 2)
+    ones = _one_process(torch, train, cfg, EP_RUN, 1)
     one_s = time.perf_counter() - t0
-    spread = _max_diff(ones[0][0], ones[1][0])
     t0 = time.perf_counter()
     ranks = run_ranks(_rank_train, 2, "cuda",
                       args=([("ep", (1, 2), cfg, EP_RUN)],))
@@ -2803,10 +2850,10 @@ def phase_ep_full(torch, smi: str) -> dict:
     log(f"EP qwen2-moe-a2.7b full width cut to {cfg.n_layers} layers (64 "
         f"experts, 32 a rank; bf16 params; 4 x 1,024, {steps} steps) on 2 "
         f"ranks sharing the card through {ranks[0]['backend']}, mesh (data "
-        f"1, model 2): losses {ep}; one process {ones[0][0]} and "
-        f"{ones[1][0]} (run-to-run spread {spread}; one-process step_ms "
-        f"{[t * 1e3 for t in ones[0][1]]}, peak {ones[0][2]}, both runs "
-        f"{one_s} s); first loss bit-equal, EP vs one process max |diff| "
+        f"1, model 2): losses {ep}; one process {ones[0][0]} "
+        f"(one-process step_ms {[t * 1e3 for t in ones[0][1]]}, peak "
+        f"{ones[0][2]}, {one_s} s); first loss bit-equal, EP vs one "
+        f"process max |diff| "
         f"{diff} (limit {EP_LOSS_TOL}); {n_rep} replicated params "
         f"sha256-equal on both ranks; predicted launches per step and rank "
         f"{per_step}; ranks' peaks together {peak} bytes; {_rank_line(ranks, 'ep')}; "
@@ -2819,8 +2866,8 @@ def phase_ep_full(torch, smi: str) -> dict:
 def phase_dp_full(torch, smi: str) -> dict:
     """Phase 8b: full qwen3-0.6b, global batch 8 x 1,024 on two ranks
     sharing the card through gloo, mesh (data 2, model 1), 4 steps: 56
-    flash launches per rank and step; the losses equal two one-process
-    runs over the global batch within ``DP_LOSS_TOL``.  Then
+    flash launches per rank and step; the losses equal one one-process
+    run over the global batch within ``DP_LOSS_TOL``.  Then
     ``compress_grads=True``: JAX's two conditions
     (``tests/test_compressed_dp.py:40-41``), the first losses equal and
     the last within ``COMPRESS_LAST_TOL``.  In both runs every parameter
@@ -2835,9 +2882,8 @@ def phase_dp_full(torch, smi: str) -> dict:
                                "grouped_matmul", "rglru_scan")}
     per_rank["flash_attention"] = 2 * cfg.n_layers * steps
     t0 = time.perf_counter()
-    ones = _one_process(torch, train, cfg, DP_RUN, 2)
+    ones = _one_process(torch, train, cfg, DP_RUN, 1)
     one_s = time.perf_counter() - t0
-    spread = _max_diff(ones[0][0], ones[1][0])
     t0 = time.perf_counter()
     ranks = run_ranks(_rank_train, 2, "cuda", args=(
         [("dp", (2, 1), cfg, DP_RUN),
@@ -2857,9 +2903,9 @@ def phase_dp_full(torch, smi: str) -> dict:
     log(f"DP qwen3-0.6b full (28 layers) global batch 8 x 1,024, 4 x 1,024 "
         f"a rank, {steps} steps on 2 ranks sharing the card through "
         f"{ranks[0]['backend']}, mesh (data 2, model 1): losses {dp}; one "
-        f"process {ones[0][0]} and {ones[1][0]} (run-to-run spread "
-        f"{spread}; one-process step_ms {[t * 1e3 for t in ones[0][1]]}, "
-        f"peak {ones[0][2]}, both runs {one_s} s); DP vs one process max "
+        f"process {ones[0][0]} (one-process step_ms "
+        f"{[t * 1e3 for t in ones[0][1]]}, peak {ones[0][2]}, {one_s} s); "
+        f"DP vs one process max "
         f"|diff| {diff} (limit {DP_LOSS_TOL}); {n_rep} params sha256-equal "
         f"on both ranks in both runs; "
         f"{_rank_line(ranks, 'dp')}; int8-compressed gradients: losses {q} "
@@ -3148,10 +3194,60 @@ PLACED_LOGITS_TOL = 0.25
 # wrong rows share next to none
 PLACED_TOKENS_MIN = 0.5
 PLACED_REDUCED = {"qwen3-0.6b": {}, "qwen2-moe-a2.7b": {"grad_accum": 2},
-                  "llama3-405b": {}}
+                  "llama3-405b": {}, "recurrentgemma-9b": {},
+                  "xlstm-125m": {}, "seamless-m4t-medium": {}}
 PLACED_REDUCED_RUN = dict(reduced_cfg=True, mesh_shape=(2, 2), batch=8,
                           seq=32, steps=3, prompt_len=64, gen=2, seed=0,
                           keep_params=True, cache_dtype="float32")
+# reduced recurrentgemma decodes at positions 100-101 of its circular
+# window of 64, split over "model" by positions: the writes wrap onto
+# slots 36-37, model rank 1's block
+PLACED_REDUCED_AT = {"recurrentgemma-9b": dict(prompt_len=100)}
+
+# phase 8g: the placed steps of the hybrid, ssm and enc-dec families, four
+# ranks sharing the card on (data 2, model 2) as in 8e; arch: (config
+# overrides, run).  recurrentgemma-9b at full width cut to one (rglru,
+# rglru, local_attn) repetition, its prompt of 2,100 past the window of
+# 2,048 (the decode writes wrap onto model rank 0's block of positions);
+# xlstm-125m whole; seamless-m4t-medium at full width cut to 2 + 2 layers,
+# 1,280 tokens and 320 frames a train row and a 1,040-token prompt with 260
+# frames (every attention longer than 256: the flash kernel)
+PLACED_FAMILIES = {
+    "recurrentgemma-9b": ({"n_layers": 3},
+                          dict(batch=4, seq=1024, prompt_len=2100, gen=2)),
+    "xlstm-125m": (None, dict(batch=4, seq=128, prompt_len=128, gen=4)),
+    "seamless-m4t-medium": ({"n_layers": 2, "n_enc_layers": 2},
+                            dict(batch=4, seq=1280, prompt_len=1040, gen=3)),
+}
+PLACED_FAMILY_RUN = dict(reduced_cfg=False, mesh_shape=(2, 2), steps=2,
+                         seed=0)
+# a rank's launches: (kernel, a train step, a prefill, of a train step's
+# those on inputs reversed in time).  recurrentgemma's two rglru layers run
+# the scan forward, in remat recompute and reversed in backward; seamless's
+# encoder, decoder self and cross attention (2 layers each, no remat: JAX's
+# enc-dec has none) run flash forward, its backward the plain version
+PLACED_FAMILY_LAUNCHES = {"recurrentgemma-9b": ("rglru_scan", 6, 2, 2),
+                          "xlstm-125m": (None, 0, 0, 0),
+                          "seamless-m4t-medium": ("flash_attention", 6, 6, 0)}
+# the prefill logits' bound, PLACED_LOGITS_TOL unless named here.  xlstm:
+# the placed run read 0.27734375 from one process in each of five runs on
+# the H100 (the same bits); one process's own bf16 logits lie 0.605 from
+# its fp32 run of the same draw (the exponential gates amplify bf16
+# rounding); the controls read 3.19 and 3.33 (PERF.md, Findings)
+PLACED_FAMILY_LOGITS_TOL = {"xlstm-125m": 0.5}
+# the control nearest a real fault: one process's prefill with the first
+# two blocks of a "model"-split leaf swapped (as if model rank 0 took its
+# features or heads in the wrong order), against the sound prefill; arch:
+# (leaf, the split axis, the block's width).  recurrentgemma: two 256-row
+# blocks of the first Griffin block's w_out (its features); xlstm: two
+# heads of the first mLSTM's query columns; seamless: two 64-column blocks
+# of the first decoder layer's FFN up projection.  A query-head swap in
+# recurrentgemma's local attention moved its logits by 0.1016 only, under
+# the bound (PERF.md, Findings): with one KV head and near-uniform
+# attention at random init every head's output is about the mean of V
+PLACED_FAULT = {"recurrentgemma-9b": ("decoder.layers.0.mix.w_out", 0, 256),
+                "xlstm-125m": ("decoder.layers.0.mix.wq", 1, 192),
+                "seamless-m4t-medium": ("dec_blocks.0.ffn.w_up", 1, 64)}
 
 
 def _placed_ranks(rank: int, kws) -> list:
@@ -3162,44 +3258,70 @@ def _placed_ranks(rank: int, kws) -> list:
     return [placed_run(rank, **kw) for kw in kws]
 
 
-def _one_process_placed_reference(torch, cfg, kw) -> dict:
-    """Phase 8e's one-process run on the card: the unplaced training-layout
-    model from the same seed, with the kernels: a prefill of the same
-    prompts with greedy decode steps (the placed run's logits and tokens
-    are held against them), then the same train steps on the same global
-    batches with the same optimizer (their losses, likewise)."""
+def _one_process_placed_reference(torch, cfg, kw, weights,
+                                  fault=None) -> dict:
+    """Phase 8e's and 8g's one-process run on the card: the unplaced
+    training-layout model loaded from the placed run's draw ``weights``,
+    with the kernels: a prefill of the same prompts (an encoder-decoder's
+    with the same frames) with greedy decode steps (the placed run's
+    logits and tokens are held against them), then the same train steps
+    on the same global batches with the same optimizer (their losses,
+    likewise).  With ``fault`` (a ``PLACED_FAULT`` entry), the prefill
+    again with that leaf's first two blocks swapped: the logits
+    ``logits_fault``, a control."""
     from repro_torch.config import default_sharding
     from repro_torch.data import DataConfig, SyntheticLM
-    from repro_torch.launch.steps import make_optimizer
-    from repro_torch.launch.train import make_train_state, train_step
+    from repro_torch.launch.steps import (PROMPT_FRAMES, frames_for,
+                                          make_optimizer)
+    from repro_torch.launch.train import train_step
     from repro_torch.models import build_model
 
     model = build_model(cfg, default_sharding(cfg, use_kernels=True),
                         device="cuda", train=True)
     opt = make_optimizer(cfg)
-    params, state = make_train_state(model, opt, kw["seed"])
+    model.load_state(weights)
+    params = dict(model.impl.named_parameters())
+    state = opt.init(params)
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=kw["seq"],
                                   global_batch=kw["batch"], seed=kw["seed"]))
     g = torch.Generator().manual_seed(kw["seed"])
-    prompts = torch.randint(0, cfg.vocab, (kw["batch"], kw["prompt_len"]),
-                            generator=g).cuda()
+    prompts = {"tokens": torch.randint(0, cfg.vocab,
+                                       (kw["batch"], kw["prompt_len"]),
+                                       generator=g).cuda()}
+    if cfg.is_encdec:
+        prompts["frames"] = frames_for(
+            cfg, kw["batch"], kw["prompt_len"] + kw["gen"], kw["seed"],
+            PROMPT_FRAMES).cuda()
     with torch.no_grad():
         logits, cache = model.prefill(
-            {"tokens": prompts}, cache_len=kw["prompt_len"] + kw["gen"])
+            prompts, cache_len=kw["prompt_len"] + kw["gen"])
         tok = logits.argmax(-1)
         first_logits, tokens = logits.float().cpu(), [tok]
         for i in range(kw["gen"]):
             logits, cache = model.decode_step(tok, cache, kw["prompt_len"] + i)
             tok = logits.argmax(-1)
             tokens.append(tok)
-    del cache
+        del cache
+        out = {"logits": first_logits, "tokens": torch.stack(tokens, 1).cpu()}
+        if fault is not None:
+            leaf, axis, n = fault
+            w = params[leaf] if axis == 0 else params[leaf].t()
+            blocks = w[:2 * n].clone()
+            w[:n], w[n:2 * n] = blocks[n:], blocks[:n]
+            logits, _ = model.prefill(
+                prompts, cache_len=kw["prompt_len"] + kw["gen"])
+            out["logits_fault"] = logits.float().cpu()
+            w[:2 * n] = blocks
     losses = []
     for step in range(kw["steps"]):
-        b = {k: v.cuda() for k, v in data.batch(step).items()}
+        b = data.batch(step)
+        if cfg.is_encdec:
+            b["frames"] = frames_for(cfg, kw["batch"], kw["seq"], kw["seed"],
+                                     step)
+        b = {k: v.cuda() for k, v in b.items()}
         state, loss = train_step(model, opt, params, state, b)
         losses.append(float(loss))
-    out = {"losses": losses, "logits": first_logits,
-           "tokens": torch.stack(tokens, 1).cpu()}
+    out["losses"] = losses
     del model, params, state
     gc.collect()
     torch.cuda.empty_cache()
@@ -3212,76 +3334,109 @@ def _placed_rows(r, batch: int, ranks: int = 2):
     return slice(r["coord"][0] * per, (r["coord"][0] + 1) * per)
 
 
-def phase_placed(torch, smi: str) -> dict:
-    """Phase 8e (see the module docstring).  Returns its flash launch
-    records."""
-    from repro_torch.config import get_arch
-    from repro_torch.launch.steps import _placed_rank
-    from repro_torch.parallel.mesh import run_ranks
-
-    cfg = get_arch(PLACED_FULL["arch"])
-    t0 = time.perf_counter()
-    one = _one_process_placed_reference(torch, cfg, PLACED_FULL)
-    one_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    ranks = run_ranks(_placed_rank, 4, "cuda",
-                      args=(dict(PLACED_FULL, device="cuda"),))
-    secs = time.perf_counter() - t0
-    L, steps = cfg.n_layers, PLACED_FULL["steps"]
-    zero = {k: 0 for k in ranks[0]["train"]["counts"]}
-    want = {"train": dict(zero, flash_attention=2 * L * steps),
-            "prefill": dict(zero, flash_attention=L), "serve": zero}
+def _hold_placed(tag: str, cfg, ranks, one, kw, want,
+                 bound: float = PLACED_LOGITS_TOL) -> dict:
+    """8e's and 8g's checks of a placed run's ranks against one process's
+    run ``one`` on the same batches: every rank's launch counts per part
+    ``want``, the same losses on every rank (gloo), each step's loss within
+    ``PLACED_LOSS_TOL`` of one process's, the prefill logits within
+    ``bound`` with the controls above it (the vocab halves swapped,
+    another data group's rows, and where ``one`` holds them, the logits
+    of a prefill with two blocks of a split leaf swapped,
+    ``logits_fault``), and a share
+    of at least ``PLACED_TOKENS_MIN`` of the greedy tokens equal to one
+    process's, above the other rows' share.  Returns the readings."""
     hist = ranks[0]["train"]["losses"]
     for i, r in enumerate(ranks):
         if r["backend"] != "gloo":
-            raise AssertionError(f"phase 8e rank {i}: backend {r['backend']}")
+            raise AssertionError(f"{tag} rank {i}: backend {r['backend']}")
         for part, counts in want.items():
             if r[part]["counts"] != counts:
-                raise AssertionError(f"phase 8e rank {i} {part}: launch "
+                raise AssertionError(f"{tag} rank {i} {part}: launch "
                                      f"counts {r[part]['counts']} != "
                                      f"{counts}")
         if r["train"]["losses"] != hist:
-            raise AssertionError(f"phase 8e rank {i}: losses "
+            raise AssertionError(f"{tag} rank {i}: losses "
                                  f"{r['train']['losses']} != rank 0's {hist}")
     if not all(math.isfinite(x) for x in hist):
-        raise AssertionError(f"phase 8e: losses {hist}")
+        raise AssertionError(f"{tag}: losses {hist}")
     dloss = max(abs(a - b) for a, b in zip(hist, one["losses"]))
     if not dloss <= PLACED_LOSS_TOL:
-        raise AssertionError(f"phase 8e: losses {hist} vs one process "
+        raise AssertionError(f"{tag}: losses {hist} vs one process "
                              f"{one['losses']} (max diff {dloss} > "
                              f"{PLACED_LOSS_TOL})")
+    ctl_fault = (float((one["logits_fault"] - one["logits"]).abs().max())
+                 if "logits_fault" in one else math.inf)
     half = cfg.vocab // 2  # the vocab shard of model rank 0
     same, total, dlog, ctl_swap, ctl_rows, ctl_same = 0, 0, 0.0, 0.0, 0.0, 0
     for r in ranks:
-        rows = _placed_rows(r, PLACED_FULL["batch"])
-        other = _placed_rows({"coord": [1 - r["coord"][0]]},
-                             PLACED_FULL["batch"])
+        rows = _placed_rows(r, kw["batch"])
+        other = _placed_rows({"coord": [1 - r["coord"][0]]}, kw["batch"])
         got, ref = r["serve"]["tokens"], one["tokens"][rows]
         if got.shape != ref.shape:
-            raise AssertionError(f"phase 8e: tokens {tuple(got.shape)} vs "
+            raise AssertionError(f"{tag}: tokens {tuple(got.shape)} vs "
                                  f"{tuple(ref.shape)}")
         same += int((got == ref).sum())
         ctl_same += int((got == one["tokens"][other]).sum())
         total += got.numel()
         lg, ref_lg = r["prefill"]["logits"], one["logits"][rows]
         if tuple(lg.shape) != tuple(ref_lg.shape) or not bool(
-                torch.isfinite(lg).all()):
-            raise AssertionError(f"phase 8e: prefill logits {tuple(lg.shape)}"
+                lg.isfinite().all()):
+            raise AssertionError(f"{tag}: prefill logits {tuple(lg.shape)}"
                                  f" not finite or not {tuple(ref_lg.shape)}")
         dlog = max(dlog, float((lg - ref_lg).abs().max()))
-        swapped = torch.cat([lg[:, half:], lg[:, :half]], dim=-1)
+        swapped = lg.roll(-half, dims=-1)  # [half:] then [:half]
         ctl_swap = max(ctl_swap, float((swapped - ref_lg).abs().max()))
         ctl_rows = max(ctl_rows,
                        float((lg - one["logits"][other]).abs().max()))
-    if not dlog <= PLACED_LOGITS_TOL < min(ctl_swap, ctl_rows):
-        raise AssertionError(f"phase 8e: prefill logits max |diff| {dlog} vs "
-                             f"one process, limit {PLACED_LOGITS_TOL}, "
-                             f"controls {ctl_swap} (vocab shards swapped), "
-                             f"{ctl_rows} (other rows)")
+    if not dlog <= bound < min(ctl_swap, ctl_rows, ctl_fault):
+        raise AssertionError(f"{tag}: prefill logits max |diff| {dlog} vs "
+                             f"one process, limit {bound}, controls "
+                             f"{ctl_swap} (vocab shards swapped), {ctl_rows}"
+                             f" (other rows), {ctl_fault} (two blocks "
+                             f"swapped)")
     if not same >= PLACED_TOKENS_MIN * total > ctl_same:
-        raise AssertionError(f"phase 8e: {same} of {total} greedy tokens "
+        raise AssertionError(f"{tag}: {same} of {total} greedy tokens "
                              f"equal to one process's (min share "
                              f"{PLACED_TOKENS_MIN}; other rows {ctl_same})")
+    return dict(hist=hist, dloss=dloss, dlog=dlog, ctl_swap=ctl_swap,
+                ctl_rows=ctl_rows, same=same, total=total,
+                ctl_same=ctl_same, ctl_fault=ctl_fault)
+
+
+def phase_placed(torch, smi: str) -> dict:
+    """Phase 8e (see the module docstring).  Returns its flash launch
+    records."""
+    import tempfile
+
+    from repro_torch.config import get_arch
+    from repro_torch.launch.steps import _placed_rank, draw_weights
+    from repro_torch.parallel.mesh import run_ranks
+
+    cfg = get_arch(PLACED_FULL["arch"])
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="placed_") as tmp:
+        # one host draw: the one process loads it, the ranks read their
+        # blocks of it from a file
+        weights = draw_weights(cfg, PLACED_FULL["seed"])
+        path = f"{tmp}/{cfg.name}.pt"
+        torch.save(weights, path)
+        one = _one_process_placed_reference(torch, cfg, PLACED_FULL, weights)
+        del weights
+        one_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks = run_ranks(_placed_rank, 4, "cuda",
+                          args=(dict(PLACED_FULL, device="cuda",
+                                     weights=path),))
+        secs = time.perf_counter() - t0
+    L, steps = cfg.n_layers, PLACED_FULL["steps"]
+    zero = {k: 0 for k in ranks[0]["train"]["counts"]}
+    want = {"train": dict(zero, flash_attention=2 * L * steps),
+            "prefill": dict(zero, flash_attention=L), "serve": zero}
+    h = _hold_placed("phase 8e", cfg, ranks, one, PLACED_FULL, want)
+    hist, dloss, dlog = h["hist"], h["dloss"], h["dlog"]
+    ctl_swap, ctl_rows = h["ctl_swap"], h["ctl_rows"]
+    same, total, ctl_same = h["same"], h["total"], h["ctl_same"]
     log(f"placed steps (launch/steps.py) qwen3-0.6b full (28 layers, bf16 "
         f"compute, fp32 masters) on 4 ranks sharing the card through gloo, "
         f"mesh (data 2, model 2): FSDP over data, heads / FFN / vocab over "
@@ -3303,33 +3458,43 @@ def phase_placed(torch, smi: str) -> dict:
             f" serve_ms_per_step={r['serve']['s'] * 1e3 / PLACED_FULL['gen']}"
             f" serve_bytes={r['serve']['traffic']}"
             for i, r in enumerate(ranks))
-        + f"; one process {one_s} s, the ranks {secs} s with the spawn, on "
+        + f"; host draw, save and one process {one_s} s, the ranks "
+        f"(reading their blocks of the draw) {secs} s with the spawn, on "
         f"{smi}")
     rec = {"train_launches": sum(r["train"]["counts"]["flash_attention"]
                                  for r in ranks),
            "prefill_launches": sum(r["prefill"]["counts"]["flash_attention"]
                                    for r in ranks),
            "per_step": 2 * L, "per_prefill": L}
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["families"] = phase_placed_families(torch, smi)
     phase_placed_parity(torch, smi)
-    phase_dryrun(torch, smi, ranks)
+    phase_dryrun(torch, smi, ranks, rec["families"])
     return rec
 
 
 def phase_placed_parity(torch, smi: str) -> None:
-    """Phase 8e's reduced fp32 runs: placed qwen3, qwen2-moe (the grouped
-    matmul on each rank's 4 local experts) and llama3-405b (its one KV
-    head split over "model", the decode cache over the sequence) on four
-    ranks on the card against four CPU ranks: losses, trained local
-    blocks, prefill and serve logits within ``TRAIN_PARITY_TOL``."""
+    """Phase 8e's and 8g's reduced fp32 runs: placed qwen3, qwen2-moe (the
+    grouped matmul on each rank's 4 local experts), llama3-405b (its one
+    KV head split over "model", the decode cache over the sequence),
+    recurrentgemma (the scan on each rank's features; decode past its
+    window), xlstm and seamless, four ranks on the card against the same
+    four ranks on the CPU: losses, trained local blocks, prefill and serve
+    logits within ``TRAIN_PARITY_TOL``, the greedy tokens equal."""
     from repro_torch.parallel.mesh import run_ranks
 
-    kws = [dict(PLACED_REDUCED_RUN, arch=arch, sharding=over)
+    kws = [dict(PLACED_REDUCED_RUN, arch=arch, sharding=over,
+                **PLACED_REDUCED_AT.get(arch, {}))
            for arch, over in PLACED_REDUCED.items()]
     t0 = time.perf_counter()
-    gpus = run_ranks(_placed_ranks, 4, "cuda",
-                     args=([dict(kw, device="cuda") for kw in kws],))
-    cpus = run_ranks(_placed_ranks, 4, "cpu",
-                     args=([dict(kw, device="cpu") for kw in kws],))
+    # one spawn: each rank runs every arch on the card, then on the CPU
+    runs = run_ranks(_placed_ranks, 4, "cuda",
+                     args=([dict(kw, device=d) for d in ("cuda", "cpu")
+                            for kw in kws],))
+    gpus = [r[:len(kws)] for r in runs]
+    cpus = [r[len(kws):] for r in runs]
     secs = time.perf_counter() - t0
     for k, (arch, over) in enumerate(PLACED_REDUCED.items()):
         gpu, cpu = [r[k] for r in gpus], [r[k] for r in cpus]
@@ -3356,14 +3521,113 @@ def phase_placed_parity(torch, smi: str) -> None:
         if ("moe" in arch) != all(n > 0 for n in gmm):
             raise AssertionError(f"phase 8e {arch}: grouped matmul launches "
                                  f"{gmm}")
+        scans = [r["train"]["counts"]["rglru_scan"] for r in gpu]
+        if (arch == "recurrentgemma-9b") != all(n > 0 for n in scans):
+            raise AssertionError(f"phase 8e {arch}: scan launches {scans}")
         log(f"placed reduced {arch} fp32, fp32 cache (mesh (2, 2), "
             f"{over or 'defaults'}, grad_accum "
             f"{gpu[0]['train']['grad_accum']}): cuda losses "
             f"{gpu[0]['train']['losses']}, cpu {cpu[0]['train']['losses']}; "
             f"losses, trained blocks, prefill and serve logits max diff "
             f"{worst} (tol {TRAIN_PARITY_TOL}), greedy tokens equal; "
-            f"grouped matmul launches a rank {gmm}, on {smi}")
-    log(f"placed reduced runs: {secs} s with both spawns")
+            f"grouped matmul launches a rank {gmm}, scan {scans}, prompt "
+            f"{PLACED_REDUCED_AT.get(arch, PLACED_REDUCED_RUN)['prompt_len']}"
+            f" + {PLACED_REDUCED_RUN['gen']} decode steps, on {smi}")
+    log(f"placed reduced runs: {secs} s with the spawn")
+
+
+def phase_placed_families(torch, smi: str) -> dict:
+    """Phase 8g (see the module docstring): each of ``PLACED_FAMILIES``
+    drawn once on the host, held in one process on the card, then placed
+    by the rules on four ranks sharing the card, all three in one spawn
+    (each rank reads its blocks of the draw from a file).  Returns per
+    arch its config, run and ranks, and its kernel's launches over the
+    four ranks."""
+    import tempfile
+
+    from repro_torch.launch.steps import draw_weights, placed_config
+    from repro_torch.parallel.mesh import run_ranks
+
+    kws, ones, cfgs, host = [], {}, {}, {}
+    with tempfile.TemporaryDirectory(prefix="placed_") as tmp:
+        for arch, (over, run) in PLACED_FAMILIES.items():
+            kw = dict(PLACED_FAMILY_RUN, arch=arch, cfg_overrides=over,
+                      **run)
+            cfg = cfgs[arch] = placed_config(arch, kw["reduced_cfg"], over)
+            t0 = time.perf_counter()
+            weights = draw_weights(cfg, kw["seed"])
+            path = f"{tmp}/{arch}.pt"
+            torch.save(weights, path)
+            t1 = time.perf_counter()
+            ones[arch] = _one_process_placed_reference(
+                torch, cfg, kw, weights, PLACED_FAULT[arch])
+            host[arch] = (t1 - t0, time.perf_counter() - t1)
+            del weights
+            gc.collect()
+            torch.cuda.empty_cache()
+            kws.append(dict(kw, device="cuda", weights=path))
+        t0 = time.perf_counter()
+        runs = run_ranks(_placed_ranks, 4, "cuda", args=(kws,))
+        secs = time.perf_counter() - t0
+    out = {}
+    for k, arch in enumerate(PLACED_FAMILIES):
+        cfg, kw, ranks = cfgs[arch], kws[k], [r[k] for r in runs]
+        kernel, per_step, per_prefill, per_reverse = (
+            PLACED_FAMILY_LAUNCHES[arch])
+        zero = {n: 0 for n in ranks[0]["train"]["counts"]}
+        want = {"train": dict(zero), "prefill": dict(zero), "serve": zero}
+        if kernel is not None:
+            want["train"][kernel] = per_step * kw["steps"]
+            want["prefill"][kernel] = per_prefill
+        h = _hold_placed(f"phase 8g {arch}", cfg, ranks, ones[arch], kw,
+                         want, PLACED_FAMILY_LOGITS_TOL.get(
+                             arch, PLACED_LOGITS_TOL))
+        # the launches by key (shape, dtype and, for the scan, whether its
+        # inputs were reversed), summed over the ranks' train and prefill
+        keys = {}
+        for r in ranks if kernel else ():
+            for p in ("train", "prefill"):
+                for key, n in r[p]["keys"][kernel].items():
+                    keys[key] = keys.get(key, 0) + n
+        reverse = [sum(n for key, n in r["train"]["keys"]["rglru_scan"].items()
+                       if key[-1]) for r in ranks]
+        if reverse != [per_reverse * kw["steps"]] * len(ranks):
+            raise AssertionError(f"phase 8g {arch}: reversed scans a rank "
+                                 f"{reverse} != {per_reverse} a step")
+        out[arch] = dict(cfg=cfg, kw=kw, ranks=ranks, kernel=kernel,
+                         keys=keys)
+        log(f"placed steps {arch} full width ({cfg.n_layers} layers"
+            f"{f' + {cfg.n_enc_layers} encoder' if cfg.is_encdec else ''}, "
+            f"{cfg.compute_dtype} compute, {cfg.param_dtype} params) on 4 "
+            f"ranks sharing the card through gloo, mesh (data 2, model 2), "
+            f"the whole draw read from one file: train {kw['batch']} x "
+            f"{kw['seq']}, {kw['steps']} steps: losses {h['hist']}; one "
+            f"process {ones[arch]['losses']} (max diff {h['dloss']}, limit "
+            f"{PLACED_LOSS_TOL}); {kernel or 'no kernel'} "
+            f"{per_step} launches a rank and step ({per_reverse} reversed), "
+            f"{per_prefill} a prefill; by key over the ranks {keys}; "
+            f"prefill {kw['batch']} x {kw['prompt_len']} logits max |diff| "
+            f"{h['dlog']} (limit {PLACED_FAMILY_LOGITS_TOL.get(arch, PLACED_LOGITS_TOL)}; "
+            f"controls: vocab shards swapped {h['ctl_swap']}, other rows "
+            f"{h['ctl_rows']}, {PLACED_FAULT[arch][0]}'s first two blocks "
+            f"swapped {h['ctl_fault']}); "
+            f"{kw['gen']} greedy serve steps: {h['same']} of {h['total']} "
+            f"tokens equal to one process's (min share {PLACED_TOKENS_MIN}; "
+            f"other rows {h['ctl_same']}); "
+            + "; ".join(
+                f"rank {i} coord {r['coord']}: train step_ms="
+                f"{[t * 1e3 for t in r['train']['step_s']]} peak_mem_bytes="
+                f"{r['train'].get('peak')} collective_bytes_per_step="
+                f"{r['train']['traffic_per_step']} prefill_ms="
+                f"{r['prefill']['s'] * 1e3} prefill_bytes="
+                f"{r['prefill']['traffic']} serve_ms_per_step="
+                f"{r['serve']['s'] * 1e3 / kw['gen']} serve_bytes="
+                f"{r['serve']['traffic']}"
+                for i, r in enumerate(ranks))
+            + f"; host draw and save {host[arch][0]} s, one process (with "
+            f"its faulted prefill) {host[arch][1]} s, on {smi}")
+    log(f"placed families: the ranks' spawn of all three {secs} s")
+    return out
 
 
 # phase 8f: 8e's cells dry-run on the host (launch/dryrun.py): full
@@ -3381,19 +3645,22 @@ def phase_placed_parity(torch, smi: str) -> None:
 PLACED_PEAK_RATIO = (0.9, 1.1)
 
 
-def phase_dryrun(torch, smi: str, ranks: list) -> None:
-    """Phase 8f: 8e's train, prefill and serve cells traced by the dry run
-    must give rank 0's measured collective bytes by kind, its kernel
-    launches and its argument bytes exactly, and the ranks' train peak
-    within :data:`PLACED_PEAK_RATIO`."""
-    from repro_torch.config import ShapeConfig, get_arch
+def _dryrun_hold(tag: str, cfg, kw, r0) -> tuple:
+    """8f's equalities of one placed run's three cells: each traced by the
+    dry run (rank 0 of a fake (2, 2) group, shape-only on the host) must
+    give rank 0's measured collective bytes by kind (each train step, the
+    prefill, each serve step), its kernel launches and its argument bytes
+    (params and moments, plus this rank's rows of tokens and labels as
+    JAX's int32, an encoder-decoder's frames in the compute dtype, and the
+    int32 step count).  Returns (the records, the params' and moments'
+    bytes, the trace seconds)."""
+    from repro_torch.config import ShapeConfig
     from repro_torch.launch.dryrun import run_cell
     from repro_torch.launch.op_analysis import KINDS
+    from repro_torch.launch.steps import enc_len
 
-    r0 = ranks[0]
-    cfg = get_arch(PLACED_FULL["arch"])
-    B, S, steps = (PLACED_FULL[k] for k in ("batch", "seq", "steps"))
-    P, G = PLACED_FULL["prompt_len"], PLACED_FULL["gen"]
+    B, S, steps = (kw[k] for k in ("batch", "seq", "steps"))
+    P, G = kw["prompt_len"], kw["gen"]
     t0 = time.perf_counter()
     cells = {"train": ShapeConfig("train", S, B, "train"),
              "prefill": ShapeConfig("prefill", P, B, "prefill"),
@@ -3403,7 +3670,7 @@ def phase_dryrun(torch, smi: str, ranks: list) -> None:
     secs = time.perf_counter() - t0
     for part, rec in recs.items():
         if not rec["ok"]:
-            raise AssertionError(f"phase 8f {part}: {rec['error']}")
+            raise AssertionError(f"{tag} {part}: {rec['error']}")
 
     def kinds(traffic, n=1):
         out = {k: 0.0 for k in recs["train"]["collectives"]}
@@ -3420,25 +3687,42 @@ def phase_dryrun(torch, smi: str, ranks: list) -> None:
         for traffic, n in measured[part]:
             if kinds(traffic, n) != rec["collectives"]:
                 raise AssertionError(
-                    f"phase 8f {part}: dry-run collective bytes "
+                    f"{tag} {part}: dry-run collective bytes "
                     f"{rec['collectives']} != measured per step "
                     f"{kinds(traffic, n)}")
         want = {k: v * runs[part] for k, v in rec["launches"].items()}
         if want != r0[part]["counts"]:
-            raise AssertionError(f"phase 8f {part}: dry-run launches "
+            raise AssertionError(f"{tag} {part}: dry-run launches "
                                  f"{rec['launches']} x {runs[part]} != "
                                  f"measured {r0[part]['counts']}")
     mem = recs["train"]["memory"]
-    # the dry run's arguments besides params and moments: this rank's rows
-    # of tokens and labels as JAX's int32 (the data pipeline's are int64)
-    # and the int32 step count
     rows = 2 * (B // 2) * S * 4 + 4
+    if cfg.is_encdec:
+        itemsize = 2 if cfg.compute_dtype == "bfloat16" else 4
+        rows += (B // 2) * enc_len(S) * cfg.d_model * itemsize
     held = r0["train"]["param_bytes"] + r0["train"]["moment_bytes"]
     if mem["argument_size_in_bytes"] - rows != held:
-        raise AssertionError(f"phase 8f: dry-run argument bytes "
+        raise AssertionError(f"{tag}: dry-run argument bytes "
                              f"{mem['argument_size_in_bytes']} less {rows} "
-                             f"(rows, count) != rank 0's params and moments "
-                             f"{held}")
+                             f"(rows, frames, count) != rank 0's params and "
+                             f"moments {held}")
+    return recs, held, secs
+
+
+def phase_dryrun(torch, smi: str, ranks: list, families=None) -> None:
+    """Phase 8f: 8e's train, prefill and serve cells traced by the dry run
+    must give rank 0's measured collective bytes by kind, its kernel
+    launches and its argument bytes exactly, and the ranks' train peak
+    within :data:`PLACED_PEAK_RATIO`; and 8g's cells (``families``, phase
+    8g's records) rank 0's bytes by kind, launches and argument bytes."""
+    from repro_torch.config import get_arch
+
+    r0 = ranks[0]
+    cfg = get_arch(PLACED_FULL["arch"])
+    recs, held, secs = _dryrun_hold("phase 8f", cfg, PLACED_FULL, r0)
+    B, S = PLACED_FULL["batch"], PLACED_FULL["seq"]
+    mem = recs["train"]["memory"]
+    rows = 2 * (B // 2) * S * 4 + 4
     predicted = (mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
                  + r0["train"]["param_bytes"])
     peaks = [r["train"]["peak"] for r in ranks]
@@ -3465,6 +3749,26 @@ def phase_dryrun(torch, smi: str, ranks: list) -> None:
         f"{ratio} (bound {PLACED_PEAK_RATIO}); dry-run flops a step "
         f"{recs['train']['hlo_flops']}, bytes {recs['train']['hlo_bytes']};"
         f" measured on {smi}")
+    for arch, fam in (families or {}).items():
+        recs, held, secs = _dryrun_hold(f"phase 8f {arch}", fam["cfg"],
+                                        fam["kw"], fam["ranks"][0])
+        mem = recs["train"]["memory"]
+        peaks = [r["train"].get("peak") for r in fam["ranks"]]
+        log(f"dry run of 8g's {arch} cells (rank 0 of a fake (2, 2) group, "
+            f"shape-only on the host, {secs} s): collective bytes by kind "
+            f"equal rank 0's measured (train per step "
+            f"{recs['train']['collectives']}, prefill "
+            f"{recs['prefill']['collectives']}, serve per step "
+            f"{recs['serve']['collectives']}); launches equal (train "
+            f"{recs['train']['launches']} a step, prefill "
+            f"{recs['prefill']['launches']}); argument bytes "
+            f"{mem['argument_size_in_bytes']} = rank 0's params and moments "
+            f"{held} + rows, frames and count; train peak measured "
+            f"(ranks {peaks}) beside the dry run's "
+            f"{mem['argument_size_in_bytes'] + mem['temp_size_in_bytes']} "
+            f"+ the initial blocks' copy {fam['ranks'][0]['train']['param_bytes']}"
+            f" (reported, not held); dry-run flops a step "
+            f"{recs['train']['hlo_flops']}; measured on {smi}")
 
 
 def phases_mesh(torch, smi: str) -> tuple:
@@ -3480,6 +3784,26 @@ def phases_mesh(torch, smi: str) -> tuple:
     torch.cuda.empty_cache()
     tp = phase_placed(torch, smi)
     return ep, dp, tp
+
+
+def _tp_family_check(kernel: str, key: tuple) -> tuple:
+    """Phase 3's check of an 8g launch key (``ops.launch_keys``), and its
+    kernels-line path: the scan's ``SCAN_SHAPES`` case (its reverse's
+    check for a reversed scan), flash's ``FLASH_CASES`` case."""
+    if kernel == "rglru_scan":
+        B, S, D, dtn, reverse = key
+        for case, shape in SCAN_SHAPES.items():
+            if case.startswith("tp") and shape[:3] == (B, S, D):
+                if reverse:
+                    return (("rglru_scan_backward", dtn, case),
+                            f"tp_hybrid{case[2:]}_reverse")
+                return ("rglru_scan", dtn, case), f"tp_hybrid{case[2:]}"
+    else:
+        for case, spec in FLASH_CASES.items():
+            if case.startswith("tp_") and spec[:7] == key[:7]:
+                return ("flash_attention", key[7], case), f"tp_encdec{case[2:]}"
+    raise AssertionError(f"phase 8g: {kernel} ran at {key}, which phase 3 "
+                         f"does not check")
 
 
 def main(argv=None) -> int:
@@ -3660,6 +3984,18 @@ def main(argv=None) -> int:
             checks[("flash_attention", "bfloat16", "tp_prefill")],
             tp_rec["prefill_launches"], path="tp_prefill", ranks=4,
             launches_per_prefill_per_rank=tp_rec["per_prefill"])
+        # 8g: the scan on a (data 2, model 2) rank's features of
+        # recurrentgemma and flash on a rank's local heads of seamless, one
+        # row for each key its launches took (shape, dtype, a reversed
+        # scan), with the launches of that key over the four ranks
+        for fam in tp_rec["families"].values():
+            for key, n in sorted(fam["keys"].items()):
+                check, path = _tp_family_check(fam["kernel"], key)
+                if check not in checks:
+                    raise AssertionError(f"phase 8g: {fam['kernel']} ran "
+                                         f"at {key}, which phase 3 does not "
+                                         f"check")
+                row(fam["kernel"], checks[check], n, path=path, ranks=4)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

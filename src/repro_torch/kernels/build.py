@@ -60,7 +60,9 @@ class CudaKernel:
     ``argtypes`` maps the C entry point's name to its ctypes signature.
     :meth:`launch` calls the entry point, raises on a nonzero
     ``cudaError_t`` and adds one to :attr:`launches` — the only place the
-    count moves, so a run's count is the number of kernels it launched.
+    count moves, so a run's count is the number of kernels it launched —
+    and, where the wrapper names the call's ``key`` (its shape, dtype and
+    mode), to that key's entry of :attr:`by_key`.
     """
 
     def __init__(self, name: str, source: str, symbol: str,
@@ -70,6 +72,7 @@ class CudaKernel:
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.launches = 0
+        self.by_key: Dict[tuple, int] = {}
         self.ptxas_log = ""
         self._fn = None
 
@@ -98,7 +101,7 @@ class CudaKernel:
             return
         build_all([self])
 
-    def launch(self, *args) -> None:
+    def launch(self, *args, key: Optional[tuple] = None) -> None:
         if self._fn is None:
             self.build()
         rc = self._fn(*args)
@@ -107,6 +110,8 @@ class CudaKernel:
                 f"{self.name}: CUDA launch failed with cudaError_t {rc}"
             )
         self.launches += 1
+        if key is not None:
+            self.by_key[key] = self.by_key.get(key, 0) + 1
 
 
 def build_all(kernels: Iterable[CudaKernel]) -> Dict[str, float]:

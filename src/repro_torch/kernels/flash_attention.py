@@ -111,5 +111,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             B, H, K, Sq, Sk, hd,
             *strides[0], *strides[1], *strides[2],
             int(causal), scale, DTYPE_CODE[q.dtype], stream,
+            key=(B, H, K, Sq, Sk, hd, bool(causal),
+                 str(q.dtype).removeprefix("torch.")),
         )
     return out

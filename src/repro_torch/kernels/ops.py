@@ -221,7 +221,7 @@ def grouped_matmul(x, w, group_sizes=None):
     return _GroupedMatmul.apply(x, w, group_sizes)
 
 
-def _rglru_scan(a, b):
+def _rglru_scan(a, b, reverse=False):
     where = _device_type(a, b)
     if where == "cpu":
         return ref.rglru_scan_ref(a, b)
@@ -230,7 +230,7 @@ def _rglru_scan(a, b):
             "rglru_scan",
             torch.empty(a.shape, dtype=a.dtype, device="meta"),
             _scan.work(*a.shape, a.element_size()))
-    return _scan.rglru_scan(a, b)
+    return _scan.rglru_scan(a, b, reverse)
 
 
 class _RGLRUScan(torch.autograd.Function):
@@ -257,7 +257,8 @@ def rglru_scan_backward(a, h, g):
         # a_{t+1} beside g_t (the last step has no successor), flipped
         a_next = torch.cat([a[:, 1:], torch.zeros_like(a[:, :1])], dim=1)
         dh = _rglru_scan(a_next.flip(1).contiguous(),
-                         g.to(a.dtype).flip(1).contiguous()).flip(1)
+                         g.to(a.dtype).flip(1).contiguous(),
+                         reverse=True).flip(1)
         h_prev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], dim=1)
         return dh * h_prev, dh
 
@@ -273,6 +274,14 @@ def launch_counts() -> Dict[str, int]:
     return {name: k.launches for name, k in KERNELS.items()}
 
 
+def launch_keys() -> Dict[str, Dict[tuple, int]]:
+    """Each kernel's launches by the key its wrapper names: flash's
+    (B, H, K, Sq, Sk, hd, causal, dtype), the scan's (B, S, D, dtype,
+    reverse); empty for the other kernels."""
+    return {name: dict(k.by_key) for name, k in KERNELS.items()}
+
+
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0
+        k.by_key.clear()

@@ -37,10 +37,13 @@ def work(B: int, S: int, D: int, itemsize: int):
     return 2.0 * B * S * D, 3.0 * B * S * D * itemsize
 
 
-def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def rglru_scan(a: torch.Tensor, b: torch.Tensor,
+               reverse: bool = False) -> torch.Tensor:
     """``h_t = a_t * h_{t-1} + b_t`` from a zero state over a, b (B,S,D)
     of one dtype (float32 or bfloat16); the carry is fp32, the result
-    (B,S,D) in a's dtype."""
+    (B,S,D) in a's dtype.  ``reverse`` marks a call on inputs the caller
+    flipped in time (the backward's): the same launch, counted under its
+    own key."""
     for name, t in (("a", a), ("b", b)):
         if not t.is_cuda or t.device != a.device:
             raise ValueError(f"rglru_scan: {name} must be on {a.device} "
@@ -62,5 +65,7 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
         KERNEL.launch(a.data_ptr(), b.data_ptr(), h.data_ptr(), B, S, D,
-                      DTYPE_CODE[a.dtype], stream)
+                      DTYPE_CODE[a.dtype], stream,
+                      key=(B, S, D, str(a.dtype).removeprefix("torch."),
+                           reverse))
     return h

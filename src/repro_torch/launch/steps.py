@@ -33,11 +33,15 @@ microbatches (:func:`~repro_torch.launch.train.placed_train_step`); the
 prefill step returns the fp32 logits (B, V), whole over ``"model"``, and
 this rank's block of the bf16 cache; the serve step decodes one token
 from a slab cache placed by ``tree_cache_specs`` — where the KV heads do
-not divide ``"model"`` the cache's sequence is split over it, and the
-partial softmaxes are merged by log-sum-exp.  The dense, MoE and VLM
-families are ported; the hybrid, ssm and enc-dec ones, and
-``seq_parallel``, raise under a mesh that shards anything (ROADMAP queue
-1, item 5g).
+not divide ``"model"`` the cache's sequence is split over it (a local
+layer's circular buffer too), and the partial softmaxes are merged by
+log-sum-exp.  Every family is ported: the dense, MoE and VLM decoders,
+the hybrid (the Griffin block on each rank's features, the RG-LRU scan
+kernel on (B, S, d_rnn / n)), the ssm (the xLSTM cells on each rank's
+heads, or on every head where a shard splits one) and the enc-dec (its
+inputs JAX's ``input_specs``: ``frames`` (B, S // 4, d) beside the
+tokens).  ``seq_parallel`` under a model axis raises (ROADMAP queue 1,
+item 5h), and so does MoE without expert parallelism under a split batch.
 
 :func:`lower_step` is JAX's ``lower_step`` without a compiler: it makes
 one rank's inputs of a step built on ``"meta"`` (the placed state and
@@ -66,17 +70,18 @@ from ..config import (ArchConfig, SHAPES, ShapeConfig, ShardingConfig,
 from ..models.layers import dtype_of
 from ..models.model import Model
 from ..models.moe import ep_size
-from ..models.transformer import layer_kinds
 from ..optim import AdamW, OptState, warmup_cosine
 from ..parallel.mesh import MODEL, axis_size
 from ..parallel.sharding import (ShardingRules, Spec, local_block,
-                                 placements, tree_batch_specs,
+                                 placements, spec_axes, tree_batch_specs,
                                  tree_cache_specs, tree_param_specs)
 from .op_analysis import OpStats, analyze
 from .train import make_train_state, placed_train_step
 
-#: the families whose placed steps are ported
-FAMILIES = ("dense", "moe", "vlm")
+#: the cache leaves whose dim 2 is a sequence of positions: attention K/V
+#: (a local layer's circular buffer too) and the enc-dec's self and cross
+#: slabs
+KV_KEYS = ("k", "v", "self_k", "self_v", "cross_k", "cross_v")
 
 
 @dataclass
@@ -90,6 +95,7 @@ class StepSpec:
     rules: ShardingRules
     optimizer: Optional[AdamW] = None  # the train step's
     grad_accum: int = 1  # the train step's, clamped
+    cache_len: int = 0  # the serve step's cache positions
 
 
 def make_optimizer(cfg: ArchConfig, *, total_steps: int = 10000) -> AdamW:
@@ -119,45 +125,57 @@ def _stub_len(cfg: ArchConfig, seq_len: int) -> int:
     return 0
 
 
+def enc_len(seq_len: int) -> int:
+    """The encoder-decoder's frames a cell of ``seq_len`` carries (JAX's
+    ``Model._enc_len``)."""
+    return max(seq_len // 4, 1)
+
+
+def cache_shapes(model, batch: int, seq_len: int, cache_dtype):
+    """The slab decode cache of a cell as meta tensors (an encoder-decoder
+    cell's cross memory holds :func:`enc_len` positions)."""
+    if model.cfg.is_encdec:
+        return model.impl.init_cache(batch, seq_len, enc_len(seq_len),
+                                     cache_dtype, "meta")
+    return model.impl.decoder.init_cache(batch, seq_len, cache_dtype, "meta")
+
+
 def input_shapes(model, shp: ShapeConfig,
                  cache_dtype=torch.bfloat16) -> Dict[str, Any]:
     """JAX's ``Model.input_specs`` as meta tensors: the batch dict of a
-    train or prefill cell, ``{token, cache, pos}`` of a decode cell."""
+    train or prefill cell (an encoder-decoder's ``frames`` beside its
+    tokens), ``{token, cache, pos}`` of a decode cell."""
     cfg = model.cfg
     B, S = shp.global_batch, shp.seq_len
-    i32 = torch.int32
+    i32, cdt = torch.int32, dtype_of(cfg.compute_dtype)
+
+    def meta(shape, dtype=i32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
     if shp.kind in ("train", "prefill"):
         P = _stub_len(cfg, S)
-        batch = {"tokens": torch.empty((B, S - P), dtype=i32, device="meta")}
+        batch = {}
+        if cfg.is_encdec:
+            batch["frames"] = meta((B, enc_len(S), cfg.d_model), cdt)
+        batch["tokens"] = meta((B, S - P))
         if P:
-            batch["embeds"] = torch.empty((B, P, cfg.d_model),
-                                          dtype=dtype_of(cfg.compute_dtype),
-                                          device="meta")
+            batch["embeds"] = meta((B, P, cfg.d_model), cdt)
         if shp.kind == "train":
-            batch["labels"] = torch.empty((B, S - P), dtype=i32,
-                                          device="meta")
+            batch["labels"] = meta((B, S - P))
         return batch
-    cache = model.impl.decoder.init_cache(B, S, cache_dtype, "meta")
-    return {"token": torch.empty((B,), dtype=i32, device="meta"),
-            "cache": cache,
-            "pos": torch.empty((), dtype=i32, device="meta")}
+    return {"token": meta((B,)),
+            "cache": cache_shapes(model, B, S, cache_dtype),
+            "pos": meta(())}
 
 
-def _check_ported(model, rules: ShardingRules, specs) -> None:
+def _check_ported(model, rules: ShardingRules) -> None:
     """Raise for what the placed steps do not run yet, never falling back
     to replicated weights without saying so."""
     cfg, mesh = model.cfg, rules.mesh
     if rules.cfg.seq_parallel and axis_size(mesh, MODEL) > 1:
         raise NotImplementedError(
             "seq_parallel (Megatron-SP) under a model axis > 1 is not "
-            "ported (ROADMAP queue 1, item 5g)")
-    shards = any(e is not None for sp in specs.values() for e in sp)
-    if shards and (cfg.family not in FAMILIES or cfg.is_encdec
-                   or set(layer_kinds(cfg)) != {"attn"}):
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}): placed steps of the hybrid, ssm "
-            f"and enc-dec families are not ported (ROADMAP queue 1, item "
-            f"5g); only {FAMILIES} under a mesh that shards anything")
+            "ported (ROADMAP queue 1, item 5h)")
     if cfg.is_moe and ep_size(cfg, mesh) == 1 and rules._axsize(
             rules.batch) > 1:
         raise NotImplementedError(
@@ -211,7 +229,7 @@ def _train_step(model, shp: ShapeConfig, mesh, rules: ShardingRules):
     optimizer = make_optimizer(model.cfg)
     params_shape, opt_shape = param_and_opt_shapes(model, optimizer)
     p_specs = tree_param_specs(rules, params_shape)
-    _check_ported(model, rules, p_specs)
+    _check_ported(model, rules)
     batch_shape = input_shapes(model, shp)
     o_specs = OptState(mu=p_specs, nu=dict(p_specs), count=())
     b_specs = tree_batch_specs(rules, batch_shape)
@@ -263,11 +281,11 @@ def _prefill_step(model, shp: ShapeConfig, mesh, rules: ShardingRules,
                   cache_dtype):
     params_shape = {n: _meta(p) for n, p in model.impl.named_parameters()}
     p_specs = tree_param_specs(rules, params_shape)
-    _check_ported(model, rules, p_specs)
+    _check_ported(model, rules)
     batch_shape = input_shapes(model, shp)
     b_specs = tree_batch_specs(rules, batch_shape)
-    cache_out = model.impl.decoder.init_cache(
-        shp.global_batch, shp.seq_len, cache_dtype, "meta")
+    cache_out = cache_shapes(model, shp.global_batch, shp.seq_len,
+                             cache_dtype)
     c_specs = tree_cache_specs(rules, cache_out)
 
     @torch.no_grad()
@@ -290,16 +308,16 @@ def _serve_step(model, shp: ShapeConfig, mesh, rules: ShardingRules,
                 cache_dtype):
     params_shape = {n: _meta(p) for n, p in model.impl.named_parameters()}
     p_specs = tree_param_specs(rules, params_shape)
-    _check_ported(model, rules, p_specs)
+    _check_ported(model, rules)
     specs_in = input_shapes(model, shp, cache_dtype)
     token_shape, cache_shape, pos_shape = (
         specs_in["token"], specs_in["cache"], specs_in["pos"])
     c_specs = tree_cache_specs(rules, cache_shape)
     t_spec = rules.batch_spec("token", tuple(token_shape.shape))
-    # a cache whose sequence (dim 2 of a layer's (B, K, S, hd)) is split
-    # over "model": the decode merges its partial softmaxes over it
-    seq_cache = any(MODEL in (sp["k"][2] if isinstance(sp["k"][2], tuple)
-                              else (sp["k"][2],)) for sp in c_specs)
+    # a cache whose sequence (dim 2 of a layer's (B, K, S, hd) K/V) is
+    # split over "model": the decode merges its partial softmaxes over it
+    seq_cache = any(MODEL in spec_axes(sp[key][2:3]) for sp in c_specs
+                    for key in sp if key in KV_KEYS)
 
     @torch.no_grad()
     def serve_step(params, token, cache, pos):
@@ -313,7 +331,7 @@ def _serve_step(model, shp: ShapeConfig, mesh, rules: ShardingRules,
                     out_specs=(logits_spec, c_specs),
                     in_shapes=(params_shape, token_shape, cache_shape,
                                pos_shape),
-                    model=model, rules=rules)
+                    model=model, rules=rules, cache_len=shp.seq_len)
 
 
 # ---------------------------------------------------------------------------
@@ -421,42 +439,83 @@ def lower_step(spec: StepSpec, mesh) -> Lowered:
     token = _local_meta(spec.in_shapes[1], spec.in_specs[1], mesh)
     cache = [{k: _local_meta(t, sp[k], mesh) for k, t in layer.items()}
              for layer, sp in zip(spec.in_shapes[2], spec.in_specs[2])]
-    pos = spec.in_shapes[2][0]["k"].shape[2] - 1
-    return Lowered(spec, (params, token, cache, pos), (2,))
+    return Lowered(spec, (params, token, cache, spec.cache_len - 1), (2,))
 
 
 # ---------------------------------------------------------------------------
 # a placed run on spawned ranks: the CLI, the chip smoke and the GPU tests
 
 
-def _regrow_cache(cache, old, new, mesh, length: int):
-    """A prefill's cache blocks (specs ``old``) as a longer serve cache's
-    (specs ``new``, ``length`` positions): a sequence split over
-    ``"model"`` is gathered, the sequence zero-padded to ``length`` and
-    split again as ``new`` says (the batch and KV-head splits are the
-    same in both)."""
+def _regrow_cache(cache, old, new, shapes, mesh):
+    """A prefill's cache blocks (specs ``old``) as a serve cache's (specs
+    ``new``, whole meta shapes ``shapes``): each K/V leaf's sequence (dim
+    2), gathered where ``old`` splits it over ``"model"``, is zero-padded
+    to its serve length and split again as ``new`` says (the batch and
+    KV-head splits are the same in both; a local layer's buffer grows
+    only while the prompt is shorter than its window, when no slot has
+    wrapped); recurrent states pass as they are."""
     import torch.nn.functional as F
 
     from ..parallel.collectives import all_gather_cat
     from ..parallel.mesh import axis_group
 
-    def axes(entry):
-        return () if entry is None else (
-            (entry,) if isinstance(entry, str) else tuple(entry))
-
     out = []
-    for layer, so, sn in zip(cache, old, new):
+    for layer, so, sn, whole in zip(cache, old, new, shapes):
         grown = {}
         for key, t in layer.items():
-            if axes(so[key][2]):
-                t = all_gather_cat(t, axis_group(mesh, axes(so[key][2]))[0], 2)
-            t = F.pad(t, (0, 0, 0, length - t.shape[2]))
-            if axes(sn[key][2]):
-                group, n = axis_group(mesh, axes(sn[key][2]))
-                t = t.chunk(n, dim=2)[torch.distributed.get_rank(group)]
+            if key in KV_KEYS:
+                if spec_axes(so[key][2:3]):
+                    t = all_gather_cat(
+                        t, axis_group(mesh, spec_axes(so[key][2:3]))[0], 2)
+                t = F.pad(t, (0, 0, 0, whole[key].shape[2] - t.shape[2]))
+                if spec_axes(sn[key][2:3]):
+                    group, n = axis_group(mesh, spec_axes(sn[key][2:3]))
+                    t = t.chunk(n, dim=2)[torch.distributed.get_rank(group)]
             grown[key] = t.contiguous()
         out.append(grown)
     return out
+
+
+#: ``frames_for``'s stream of a placed run's prompts (its train steps
+#: take the step's index)
+PROMPT_FRAMES = 0xFFFF
+
+
+def frames_for(cfg: ArchConfig, batch: int, seq_len: int, seed: int,
+               stream: int) -> torch.Tensor:
+    """An encoder-decoder cell's stub frames (batch, :func:`enc_len`
+    (seq_len), d), fp32 on the CPU from ``seed`` and ``stream`` (a placed
+    run's train step, or :data:`PROMPT_FRAMES`): the same on every rank
+    and in a one-process reference."""
+    g = torch.Generator().manual_seed((seed << 16) + stream)
+    return torch.randn((batch, enc_len(seq_len), cfg.d_model), generator=g)
+
+
+def draw_weights(cfg: ArchConfig, seed: int) -> Dict[str, torch.Tensor]:
+    """Every param of ``cfg``'s training layout, whole on the CPU, drawn
+    from ``seed`` as :func:`~repro_torch.launch.train.make_train_state`
+    draws it (``SeededParams.draw_into``): one draw that a one-process
+    model loads (``load_state``) and :func:`placed_run`'s ranks read from
+    a file (``weights``)."""
+    impl = Model(cfg, default_sharding(cfg), torch.device("meta"),
+                 train=True).impl
+    out = {n: torch.empty(p.shape, dtype=p.dtype)
+           for n, p in impl.named_parameters()}
+    impl.draw_into(seed, out)
+    return out
+
+
+def placed_config(arch: str, reduced_cfg: bool = True,
+                  cfg_overrides=None) -> ArchConfig:
+    """The config :func:`placed_run` runs: ``arch`` (reduced with
+    ``reduced_cfg``), its fields replaced by ``cfg_overrides``."""
+    from dataclasses import replace
+
+    from ..config import reduced
+
+    cfg = get_arch(arch)
+    cfg = reduced(cfg) if reduced_cfg else cfg
+    return replace(cfg, **cfg_overrides) if cfg_overrides else cfg
 
 
 def placed_run(rank: int, arch: str, *, reduced_cfg: bool = True,
@@ -464,21 +523,30 @@ def placed_run(rank: int, arch: str, *, reduced_cfg: bool = True,
                seq: int = 64, steps: int = 3, prompt_len: int = 64,
                gen: int = 2, seed: int = 0, sharding=None,
                keep_params: bool = False,
-               cache_dtype: str = "bfloat16") -> Dict[str, Any]:
+               cache_dtype: str = "bfloat16",
+               cfg_overrides=None,
+               weights: Optional[str] = None) -> Dict[str, Any]:
     """One rank of a placed run (every rank of the default group calls it;
     :func:`main` spawns them): ``steps`` train steps of ``arch`` on a
     ``(data, model)`` mesh of ``mesh_shape`` from a state placed by the
     rules (this rank's rows of the ``SyntheticLM`` stream at ``batch`` x
-    ``seq``), then, from the same state put back to its initial blocks, a
-    prefill of ``batch`` random prompts of ``prompt_len`` tokens and
-    ``gen`` greedy serve steps on its slab cache (in ``cache_dtype``).  The kernel
-    launch counts are zeroed
+    ``seq``, an encoder-decoder's with :func:`frames_for`'s frames), then,
+    from the same state put back to its initial blocks, a prefill of
+    ``batch`` random prompts of ``prompt_len`` tokens (an encoder-decoder's
+    with the frames of the serve cell, ``enc_len(prompt_len + gen)``) and
+    ``gen`` greedy serve steps on its slab cache (in ``cache_dtype``).  The
+    kernel launch counts are zeroed
     before each part and read after it.  Returns host data: per part the
     losses or logits and tokens, seconds (host clock, ending in a device
     sync), launch counts, collective bytes, and on the GPU the peak
     memory; the train part also this rank's bytes of params and moments
     (what the dry run's argument bytes count besides the batch);
-    ``keep_params`` adds the trained local blocks."""
+    ``keep_params`` adds the trained local blocks.  ``cfg_overrides``
+    replace fields of the (reduced) config, e.g. a depth cut.
+    ``weights``: a file of the whole params (``torch.save`` of ``{name:
+    tensor}``, drawn once from ``seed`` by the caller), read memory-mapped:
+    each rank copies only its blocks, where by default every rank draws
+    every leaf whole."""
     import time
 
     import torch.distributed as dist
@@ -501,11 +569,7 @@ def placed_run(rank: int, arch: str, *, reduced_cfg: bool = True,
         dev = torch.device("cuda", torch.cuda.current_device())
     mesh = make_mesh(tuple(mesh_shape), ("data", "model")[-len(mesh_shape):],
                      device)
-    cfg = get_arch(arch)
-    if reduced_cfg:
-        from ..config import reduced
-
-        cfg = reduced(cfg)
+    cfg = placed_config(arch, reduced_cfg, cfg_overrides)
     shcfg = default_sharding(cfg, use_kernels=cuda, **(sharding or {}))
     bax = batch_axes(mesh)
     out: Dict[str, Any] = {"coord": [int(c) for c in mesh.get_coordinate()],
@@ -524,24 +588,34 @@ def placed_run(rank: int, arch: str, *, reduced_cfg: bool = True,
         return time.perf_counter()
 
     def part(**kw):
-        kw.update(counts=ops.launch_counts(), traffic=dict(
-            collectives.TRAFFIC))
+        kw.update(counts=ops.launch_counts(), keys=ops.launch_keys(),
+                  traffic=dict(collectives.TRAFFIC))
         if cuda:
             kw["peak"] = torch.cuda.max_memory_allocated(dev)
         return kw
 
     spec = build_step(cfg, ShapeConfig("train", seq, batch, "train"), mesh,
                       shcfg=shcfg, device=device)
+    if weights is not None:
+        weights = torch.load(weights, mmap=True, weights_only=True)
     params, opt = make_train_state(spec.model, spec.optimizer, seed,
-                                   mesh=mesh, rules=spec.rules)
+                                   mesh=mesh, rules=spec.rules,
+                                   weights=weights)
+    del weights
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq,
                                   global_batch=batch, seed=seed))
+
+    def rows(b):
+        return {k: v.to(dev) for k, v in shard_batch(b, mesh, bax).items()}
+
     init = {n: t.detach().clone() for n, t in params.items()}
     losses, secs, per_step = [], [], []
     begin()
     for step in range(steps):
-        b = {k: v.to(dev) for k, v in
-             shard_batch(data.batch(step), mesh, bax).items()}
+        b = data.batch(step)
+        if cfg.is_encdec:
+            b["frames"] = frames_for(cfg, batch, seq, seed, step)
+        b = rows(b)
         before = dict(collectives.TRAFFIC)
         t0 = time.perf_counter()
         params, opt, loss, _ = spec.fn(params, opt, b)
@@ -573,15 +647,19 @@ def placed_run(rank: int, arch: str, *, reduced_cfg: bool = True,
                                       "decode"), mesh, shcfg=shcfg,
                      device=device, model=pre.model, cache_dtype=cdt)
     g = torch.Generator().manual_seed(seed)
-    prompts = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=g)
-    rows = shard_batch({"tokens": prompts}, mesh, bax)["tokens"].to(dev)
+    prompts = {"tokens": torch.randint(0, cfg.vocab, (batch, prompt_len),
+                                       generator=g)}
+    if cfg.is_encdec:
+        prompts["frames"] = frames_for(cfg, batch, prompt_len + gen, seed,
+                                       PROMPT_FRAMES)
+    prompts = rows(prompts)
     t0 = begin()
-    logits, cache = pre.fn(state, {"tokens": rows})
+    logits, cache = pre.fn(state, prompts)
     sync()
     out["prefill"] = part(logits=logits.float().cpu(),
                           s=time.perf_counter() - t0)
-    cache = _regrow_cache(cache, pre.out_specs[1], srv.in_specs[2], mesh,
-                          prompt_len + gen)
+    cache = _regrow_cache(cache, pre.out_specs[1], srv.in_specs[2],
+                          srv.in_shapes[2], mesh)
     tok = logits.argmax(dim=-1)
     tokens, served = [tok], []
     t0 = begin()

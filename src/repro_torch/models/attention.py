@@ -28,10 +28,16 @@ rank attends over its own query heads, read from the local shapes.  A
 ``"model"`` shard that splits a head (``wk`` of 8 KV heads on a 16-way
 axis) is all-gathered over ``"model"`` before attention, and a
 replicated ``wk`` enters through ``replicated_in``, so every rank picks
-the KV heads its query heads read.  In a decode whose slab cache is split
-over ``"model"`` along the sequence, every rank scores all query heads
-over its positions and the partials are merged by log-sum-exp over
-``"model"``.  GSPMD computes the same functions from the same specs.
+the KV heads its query heads read.  Windowed attention runs on the
+local heads as full attention does; cross attention projects q
+column-parallel and reads the KV heads of the encoder memory this rank
+holds (:func:`kv_project`, the caller's).  In a decode whose slab cache
+is split over ``"model"`` along the sequence (a local layer's circular
+buffer or a cross memory likewise), every rank scores all query heads
+over its positions, only the rank holding the new position writes it,
+and the partials are merged by log-sum-exp over ``"model"``.  Paged
+decode under ``tp`` raises: the placed serve step decodes from a slab,
+as JAX's does.  GSPMD computes the same functions from the same specs.
 """
 
 from __future__ import annotations
@@ -228,27 +234,24 @@ def attn_apply(
     pos = (positions if positions is not None
            else torch.arange(S, device=x.device)[None, :])
     tp = tp if tp_sharded(params, n_heads, head_dim, tp) else None
-    if tp is not None and (kv_override is not None or window > 0):
-        raise NotImplementedError(
-            "tensor-parallel cross or windowed attention is not ported "
-            "(ROADMAP queue 1, item 5g)")
     if kv_override is None:
         q, k, v, q0, k0 = _project(params, x, n_kv, head_dim, tp)
         if qk_norm:
             q, k = rms_normalize(q), rms_normalize(k)
         if rope_theta > 0:
-            q = apply_rope(q, pos, rope_theta)
             k = apply_rope(k, pos, rope_theta)
-        g = n_heads // n_kv
-        ka, va = (_kv_for(k, q0, q.shape[2], k0, g),
-                  _kv_for(v, q0, q.shape[2], k0, g))
-    else:
-        q, q0 = _split_heads(x @ params["wq"], n_heads, head_dim), 0
-        ka, va = k, v = kv_override
+    else:  # the KV heads of the memory this rank holds
+        q, q0 = _q_project(params, replicated_in(
+            x, tp.group if tp is not None else None), head_dim, tp)
+        k, v = kv_override
+        k0 = _first_head(k.shape[2], n_kv, tp)
         if qk_norm:
             q = rms_normalize(q)
-        if rope_theta > 0:
-            q = apply_rope(q, pos, rope_theta)
+    if rope_theta > 0:
+        q = apply_rope(q, pos, rope_theta)
+    g = n_heads // n_kv
+    ka, va = (_kv_for(k, q0, q.shape[2], k0, g),
+              _kv_for(v, q0, q.shape[2], k0, g))
     out = _attend(q, ka, va, causal=causal, window=window, impl=impl)
     y = _out_proj(out, params["wo"], q0, tp)
     if return_kv:
@@ -262,32 +265,52 @@ def tp_sharded(params, n_heads: int, head_dim: int, tp) -> bool:
     return tp is not None and params["wq"].shape[-1] != n_heads * head_dim
 
 
-def _project(params, x, n_kv: int, hd: int, tp, *, all_q: bool = False):
-    """The projections of x (B, S, d): (q (B,S,Hq,hd) of the global query
-    heads from ``q0``, k, v (B,S,Kh,hd) of the KV heads from ``k0``, q0,
-    k0); without ``tp`` every head, from 0.  Under ``tp`` a shard that
-    splits heads is all-gathered (so are q's with ``all_q``) and a
-    replicated ``wk``/``wv``'s output enters through ``replicated_in``."""
+def _q_project(params, x_in, hd: int, tp, *, all_q: bool = False):
+    """(q (B,S,Hq,hd) of the global query heads from ``q0``, q0) of x_in
+    (B, S, d, entered through ``replicated_in`` under ``tp``);
+    column-parallel, all-gathered where the shard splits a head (or with
+    ``all_q``)."""
     group, rank = (tp.group, tp.rank) if tp is not None else (None, 0)
-    x_in = replicated_in(x, group)
     q = x_in @ params["wq"]
     if all_q or q.shape[-1] % hd:
         q, q0 = gather_shards(q, group, -1), 0
     else:
         q0 = rank * (q.shape[-1] // hd)
+    return _split_heads(q, q.shape[-1] // hd, hd), q0
 
-    def kv(w):
-        if w.shape[-1] == n_kv * hd:  # every KV head (replicated)
-            return replicated_in(x @ w, group), 0
-        y = x_in @ w
+
+def kv_project(x, w, n_kv: int, hd: int, tp, x_in=None):
+    """x (B, S, d) @ ``wk`` or ``wv`` as (B, S, Kh, hd), the KV heads this
+    rank holds under ``tp`` (see :func:`_first_head`): its columns of
+    ``x_in`` (x through ``replicated_in``, made here unless given), all of
+    them all-gathered where the shard splits a head, or a replicated
+    ``w``'s product entering through ``replicated_in``."""
+    group = tp.group if tp is not None else None
+    if w.shape[-1] == n_kv * hd:  # every KV head (replicated)
+        y = replicated_in(x @ w, group)
+    else:
+        y = (replicated_in(x, group) if x_in is None else x_in) @ w
         if y.shape[-1] % hd:  # the shard splits a head
-            return gather_shards(y, group, -1), 0
-        return y, rank * (y.shape[-1] // hd)
+            y = gather_shards(y, group, -1)
+    return _split_heads(y, y.shape[-1] // hd, hd)
 
-    (k, k0), (v, _) = kv(params["wk"]), kv(params["wv"])
-    return (_split_heads(q, q.shape[-1] // hd, hd),
-            _split_heads(k, k.shape[-1] // hd, hd),
-            _split_heads(v, v.shape[-1] // hd, hd), q0, k0)
+
+def _first_head(n_held: int, n_kv: int, tp) -> int:
+    """The global index of the first of ``n_held`` KV heads a rank holds:
+    0 when it holds all ``n_kv``, else its block's."""
+    return 0 if tp is None or n_held == n_kv else tp.rank * n_held
+
+
+def _project(params, x, n_kv: int, hd: int, tp, *, all_q: bool = False):
+    """The projections of x (B, S, d): (q (B,S,Hq,hd) of the global query
+    heads from ``q0``, k, v (B,S,Kh,hd) of the KV heads from ``k0``, q0,
+    k0); without ``tp`` every head, from 0 (see :func:`_q_project` and
+    :func:`kv_project`)."""
+    x_in = replicated_in(x, tp.group if tp is not None else None)
+    q, q0 = _q_project(params, x_in, hd, tp, all_q=all_q)
+    k = kv_project(x, params["wk"], n_kv, hd, tp, x_in)
+    v = kv_project(x, params["wv"], n_kv, hd, tp, x_in)
+    return q, k, v, q0, _first_head(k.shape[2], n_kv, tp)
 
 
 def _kv_for(k, q0: int, n_q: int, k0: int, group: int, dim: int = 2):
@@ -410,10 +433,13 @@ def attn_decode(
     in JAX this path is plain arithmetic (no kernel), with the same fp32
     scores and ``p`` rounded to the memory's dtype.
 
-    Under ``tp`` with a model-sharded ``wq`` only the slab full-attention
-    branch is ported: the cache holds this rank's KV heads, or (with
-    ``tp.seq_cache``) all KV heads at this rank's block of positions, and
-    then only the rank holding the new position writes it."""
+    Under ``tp`` with a model-sharded ``wq`` (slab and cross only: paged
+    raises) the cache holds this rank's KV heads, or (with
+    ``tp.seq_cache``) all KV heads at this rank's block of positions (of
+    the whole buffer, the circular one of a local layer, or the cross
+    memory): then only the rank holding the new position's slot writes
+    it, every rank scores all query heads over its positions and the
+    partial softmaxes are merged by log-sum-exp over ``"model"``."""
     paged = page_table is not None
     if paged and (cross or window > 0):
         raise ValueError("paged KV applies to full causal self-attention only")
@@ -423,28 +449,32 @@ def attn_decode(
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
     pos_b = pos if pos.dim() else pos.expand(B)  # (B,) per-row positions
     tp = tp if tp_sharded(params, n_heads, head_dim, tp) else None
-    if tp is not None and (paged or cross or window > 0):
+    if tp is not None and paged:
         raise NotImplementedError(
-            "tensor-parallel paged, cross or windowed decode is not "
-            "ported (ROADMAP queue 1, item 5g)")
+            "tensor-parallel paged decode is not ported: the placed serve "
+            "step decodes from a slab, as JAX's does")
+    seq = tp is not None and tp.seq_cache
+    W = cache_k.shape[2]  # this rank's positions of the slab or memory
+    base = tp.rank * W if seq else 0
+    kpos = torch.arange(W, device=x.device)[None, :] + base
     if cross:
-        q = _split_heads(x @ params["wq"], n_heads, head_dim)  # (B,1,H,hd)
+        q, q0 = _q_project(params, replicated_in(
+            x, tp.group if tp is not None else None), head_dim, tp,
+            all_q=seq)
+        k0 = 0 if seq else _first_head(cache_k.shape[1], n_kv, tp)
         if qk_norm:
             q = rms_normalize(q)
-        S = cache_k.shape[2]
-        lim = (S if cross_len is None else
+        lim = (W * (tp.n if seq else 1) if cross_len is None else
                torch.as_tensor(cross_len, device=x.device).reshape(-1, 1))
-        valid = (torch.arange(S, device=x.device)[None, :] < lim).expand(B, S)
-        out = _decode_attend(q, cache_k, cache_v, valid)
-        return _out_proj(out, params["wo"], 0, None), cache_k, cache_v
-    seq = tp is not None and tp.seq_cache
-    q, k, v, q0, k0 = _project(params, x, n_kv, head_dim, tp, all_q=seq)
-    if qk_norm:
-        q, k = rms_normalize(q), rms_normalize(k)
-    if rope_theta > 0:
-        q = apply_rope(q, pos_b[:, None], rope_theta)
-        k = apply_rope(k, pos_b[:, None], rope_theta)
-
+        valid = (kpos < lim).expand(B, W)
+        view_k, view_v = cache_k, cache_v
+    else:
+        q, k, v, q0, k0 = _project(params, x, n_kv, head_dim, tp, all_q=seq)
+        if qk_norm:
+            q, k = rms_normalize(q), rms_normalize(k)
+        if rope_theta > 0:
+            q = apply_rope(q, pos_b[:, None], rope_theta)
+            k = apply_rope(k, pos_b[:, None], rope_theta)
     if paged:
         if slots is None:
             slots = page_slots(page_table, pos_b, cache_k.shape[2])
@@ -461,18 +491,15 @@ def attn_decode(
         view_v = paged_gather(cache_v, page_table)
         S = view_k.shape[2]
         valid = torch.arange(S, device=x.device)[None, :] <= pos_b[:, None]
-    else:
-        W = cache_k.shape[2]
+    elif not cross:
         rows = torch.arange(B, device=x.device)
-        base = tp.rank * W if seq else 0
-        kpos = torch.arange(W, device=x.device)[None, :] + base
+        whole = W * (tp.n if seq else 1)  # the buffer's length on all ranks
         if window > 0:
-            slot = pos_b.long().remainder(W)
+            slot = pos_b.long().remainder(whole) - base
             # circular buffer: slots hold the last min(pos+1, window) tokens
             valid = kpos < torch.clamp(pos_b + 1, max=window)[:, None]
         else:
-            last = W * tp.n - 1 if seq else W - 1
-            slot = pos_b.long().clamp(0, last) - base
+            slot = pos_b.long().clamp(0, whole - 1) - base
             valid = kpos <= pos_b[:, None]
         if seq:
             own = (slot >= 0) & (slot < W)

@@ -29,11 +29,23 @@ arithmetic either way, as in JAX.  Decoder self-attention decodes
 through the paged pools, or, given no page table, through its slab
 (``self_k``/``self_v`` (B, K, cache_len, hd) beside the slot-major cross
 memory; plain arithmetic, as in JAX).
+
+Under a ``mesh`` (a model placed by the sharding rules: every parameter a
+DTensor of this rank's block) each layer's leaves are gathered over their
+data axes before use (:func:`~repro_torch.models.transformer.
+local_leaves`), and the ``"model"`` split stays: the encoder's and the
+decoder's self-attention, the cross attention and the SwiGLUs are
+tensor-parallel on this rank's heads and hidden columns (the encoder
+memory enters each layer's cross K/V projection through one
+``replicated_in``, so its gradient is summed over ``"model"`` once), and
+the embedding, the head and the loss are vocab-parallel where the vocab
+divides the axis, else replicated over it (seamless-m4t-medium's 256,206
+on 16).  The prefill's and the decode's cache is this rank's KV heads of
+the self and cross slabs.
 """
 
 from __future__ import annotations
 
-from types import SimpleNamespace
 from typing import Optional
 
 import torch
@@ -41,11 +53,16 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import ArchConfig, ShardingConfig
-from .attention import _split_heads, attn_apply, attn_decode, page_slots
-from .layers import dtype_of, embed_lookup, mlp_apply, rmsnorm
+from ..parallel.collectives import replicated_in
+from ..parallel.mesh import model_shard
+from ..parallel.sharding import gather_data
+from .attention import (attn_apply, attn_decode, kv_project, page_slots,
+                        tp_sharded)
+from .layers import dtype_of, mlp_apply, rmsnorm
 from .paging import paginate_cache
 from .transformer import (LOGITS_CHUNK, SeededParams, _mix_leaves,
-                          _mlp_leaves, _param, cast_leaves, chunked_xent)
+                          _mlp_leaves, _param, chunked_xent, local_leaves,
+                          vocab_embed, vocab_logits, vocab_tp)
 
 #: per-layer decode cache leaves and their paged layout codes: the
 #: decoder's self-attention KV pools, and the slot-major cross memory
@@ -113,10 +130,9 @@ class EncDecTransformer(SeededParams):
 
     def _leaves(self, layer: nn.Module):
         """A layer's leaves in the compute dtype (a training model casts its
-        fp32 masters here, differentiably)."""
-        if self.train_layout:
-            return SimpleNamespace(**cast_leaves(layer, self._cdt))
-        return layer
+        fp32 masters here, differentiably; a placed one gathers them over
+        their data axes)."""
+        return local_leaves(layer, self._cdt if self.train_layout else None)
 
     def _attn_kw(self, rope: bool = True):
         cfg = self.cfg
@@ -125,67 +141,97 @@ class EncDecTransformer(SeededParams):
                     rope_theta=cfg.rope_theta if rope else 0.0,
                     impl=self.attn_impl)
 
+    def _ffn(self, lp, h, tp):
+        """The SwiGLU, tensor-parallel where its hidden dim is split."""
+        return mlp_apply(lp.ffn, rmsnorm(lp.norm2, h),
+                         tp if lp.ffn["w_gate"].shape[-1] != self.cfg.d_ff
+                         else None)
+
+    def _norm(self, norm, h):
+        return rmsnorm({"scale": gather_data(norm["scale"])}, h)
+
+    def _head_tp(self, mesh):
+        return vocab_tp(self.lm_head, self.cfg.vocab, mesh, dim=-1)
+
     # ------------------------------------------------------------ encoder
-    def encode(self, frames):
+    def encode(self, frames, mesh=None):
         """frames (B, S_enc, d) stub embeddings → encoder memory (B, S_enc,
         d) in the compute dtype."""
-        cdt = self._cdt
-        h = frames.to(device=self.device, dtype=cdt) @ self.frame_proj.to(cdt)
+        cdt, tp = self._cdt, model_shard(mesh)
+        h = (frames.to(device=self.device, dtype=cdt)
+             @ gather_data(self.frame_proj).to(cdt))
         for layer in self.enc_blocks:
             lp = self._leaves(layer)
             h = h + attn_apply(lp.attn, rmsnorm(lp.norm1, h), causal=False,
-                               **self._attn_kw())
-            h = h + mlp_apply(lp.ffn, rmsnorm(lp.norm2, h))
-        return rmsnorm(self.enc_norm, h)
+                               tp=tp, **self._attn_kw())
+            h = h + self._ffn(lp, h, tp)
+        return self._norm(self.enc_norm, h)
 
     # ------------------------------------------------------------ decoder
-    def _dec_layer(self, lp, h, memory):
+    def _dec_layer(self, lp, h, memory, mem_in, tp=None):
         """One decoder layer over a sequence.  Returns (h, ((k, v), (mk,
         mv))): the self-attention K/V (B,S,K,hd) and the cross memory's
-        (B,S_enc,K,hd)."""
+        (B,S_enc,K,hd), the KV heads this rank holds under ``tp``
+        (``mem_in`` is ``memory`` through ``replicated_in``)."""
         cfg = self.cfg
         K, hd = cfg.n_kv_heads, cfg.resolved_head_dim
         y, kv = attn_apply(lp.self_attn, rmsnorm(lp.norm1, h), causal=True,
-                           return_kv=True, **self._attn_kw())
+                           return_kv=True, tp=tp, **self._attn_kw())
         h = h + y
         # cross attention: K/V from the encoder memory, no RoPE
-        mk = _split_heads(memory @ lp.cross_attn["wk"], K, hd)
-        mv = _split_heads(memory @ lp.cross_attn["wv"], K, hd)
-        h = h + attn_apply(lp.cross_attn, rmsnorm(lp.norm_x, h), causal=False,
-                           kv_override=(mk, mv), **self._attn_kw(rope=False))
-        h = h + mlp_apply(lp.ffn, rmsnorm(lp.norm2, h))
+        ca = lp.cross_attn
+        tpc = tp if tp_sharded(ca, cfg.n_heads, hd, tp) else None
+        mk = kv_project(memory, ca["wk"], K, hd, tpc, mem_in)
+        mv = kv_project(memory, ca["wv"], K, hd, tpc, mem_in)
+        h = h + attn_apply(ca, rmsnorm(lp.norm_x, h), causal=False,
+                           kv_override=(mk, mv), tp=tp,
+                           **self._attn_kw(rope=False))
+        h = h + self._ffn(lp, h, tp)
         return h, (kv, (mk, mv))
 
-    def decode_forward(self, tokens, memory, *, return_cache: bool = False):
+    def decode_forward(self, tokens, memory, *, return_cache: bool = False,
+                       mesh=None):
         """tokens (B,S) against ``memory`` → (final-normed h (B,S,d), the
         per-layer ``((k, v), (mk, mv))`` | None)."""
-        h = embed_lookup(self.tok_embed, tokens).to(self._cdt)
+        tp = model_shard(mesh)
+        table = gather_data(self.tok_embed)
+        h = vocab_embed(table, tokens, vocab_tp(self.tok_embed,
+                                                self.cfg.vocab, mesh))
+        h = h.to(self._cdt)
+        mem_in = replicated_in(memory, tp.group if tp is not None else None)
         states = []
         for layer in self.dec_blocks:
-            h, st = self._dec_layer(self._leaves(layer), h, memory)
+            h, st = self._dec_layer(self._leaves(layer), h, memory, mem_in,
+                                    tp)
             if return_cache:
                 states.append(st)
-        return rmsnorm(self.final_norm, h), (states if return_cache else None)
+        return (self._norm(self.final_norm, h),
+                (states if return_cache else None))
 
-    def loss(self, batch):
+    def loss(self, batch, *, mesh=None):
         """batch: {frames (B,S_enc,d), tokens (B,S), labels (B,S), [mask]}
-        → (nll, {"nll", "aux"}), the NLL by :func:`chunked_xent`."""
-        memory = self.encode(batch["frames"])
-        h, _ = self.decode_forward(batch["tokens"], memory)
-        nll = chunked_xent(h, self.lm_head, batch["labels"],
-                           batch.get("mask"), chunk=LOGITS_CHUNK)
+        → (nll, {"nll", "aux"}), the NLL by :func:`chunked_xent` over
+        ``shcfg.logits_chunk`` positions (0: :data:`LOGITS_CHUNK`); under
+        ``mesh`` the batch is this rank's rows."""
+        memory = self.encode(batch["frames"], mesh)
+        h, _ = self.decode_forward(batch["tokens"], memory, mesh=mesh)
+        nll = chunked_xent(h, gather_data(self.lm_head), batch["labels"],
+                           batch.get("mask"),
+                           chunk=self.shcfg.logits_chunk or LOGITS_CHUNK,
+                           tp=self._head_tp(mesh))
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         return nll, {"nll": nll, "aux": aux}
 
     # ------------------------------------------------------------ serving
     def prefill(self, tokens, frames, *, cache_len: Optional[int] = None,
-                cache_dtype=torch.bfloat16):
+                cache_dtype=torch.bfloat16, mesh=None):
         """Encode, then run the decoder over the prompt.  Returns
         (last-position logits (B,V) fp32, cache): per layer ``self_k`` /
         ``self_v`` (B,K,cache_len,hd), zero-padded, and ``cross_k`` /
-        ``cross_v`` (B,K,S_enc,hd)."""
-        memory = self.encode(frames)
-        h, states = self.decode_forward(tokens, memory, return_cache=True)
+        ``cross_v`` (B,K,S_enc,hd) — this rank's KV heads under ``mesh``."""
+        memory = self.encode(frames, mesh)
+        h, states = self.decode_forward(tokens, memory, return_cache=True,
+                                        mesh=mesh)
         cache_len = cache_len or tokens.shape[1]
 
         def pack(x, length=None):  # (B,S,K,hd) -> (B,K,length,hd)
@@ -196,7 +242,8 @@ class EncDecTransformer(SeededParams):
         cache = [{"self_k": pack(k, cache_len), "self_v": pack(v, cache_len),
                   "cross_k": pack(mk), "cross_v": pack(mv)}
                  for (k, v), (mk, mv) in states]
-        logits = (h[:, -1] @ self.lm_head.to(h.dtype)).float()
+        logits = vocab_logits(h[:, -1], gather_data(self.lm_head),
+                              self._head_tp(mesh))
         return logits, cache
 
     def init_cache(self, batch: int, cache_len: int, enc_len: int,
@@ -229,12 +276,17 @@ class EncDecTransformer(SeededParams):
     def supports_chunked_prefill(self) -> bool:
         return False  # the encoder memory is not rebuilt chunk by chunk
 
-    def decode_step(self, token, cache, pos, *, pages=None):
+    def decode_step(self, token, cache, pos, *, pages=None, mesh=None,
+                    seq_cache: bool = False):
         """token (B,) ids; pos scalar or (B,) positions; ``pages`` the page
         table of the self-attention pools (None: the slab cache of
-        :meth:`init_cache`).  Pools and slabs are updated in place;
-        returns (logits (B,V) fp32, cache)."""
-        x = embed_lookup(self.tok_embed, token).to(self._cdt)[:, None, :]
+        :meth:`init_cache`); ``seq_cache``: a placed slab cache split over
+        ``"model"`` along its sequence.  Pools and slabs are updated in
+        place; returns (logits (B,V) fp32, cache)."""
+        tp = model_shard(mesh, seq_cache=seq_cache)
+        x = vocab_embed(gather_data(self.tok_embed), token,
+                        vocab_tp(self.tok_embed, self.cfg.vocab, mesh))
+        x = x.to(self._cdt)[:, None, :]
         pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
         pos = pos if pos.dim() else pos.expand(x.shape[0])
         slots = None
@@ -245,15 +297,16 @@ class EncDecTransformer(SeededParams):
             lp = self._leaves(layer)
             y, sk, sv = attn_decode(
                 lp.self_attn, rmsnorm(lp.norm1, x), st["self_k"],
-                st["self_v"], pos, page_table=pages, slots=slots,
+                st["self_v"], pos, page_table=pages, slots=slots, tp=tp,
                 **self._attn_kw())
             x = x + y
             y, _, _ = attn_decode(
                 lp.cross_attn, rmsnorm(lp.norm_x, x), st["cross_k"],
-                st["cross_v"], pos, cross=True, **self._attn_kw(rope=False))
+                st["cross_v"], pos, cross=True, tp=tp,
+                **self._attn_kw(rope=False))
             x = x + y
-            x = x + mlp_apply(lp.ffn, rmsnorm(lp.norm2, x))
+            x = x + self._ffn(lp, x, tp)
             new.append(dict(st, self_k=sk, self_v=sv))
-        x = rmsnorm(self.final_norm, x)[:, 0]
-        logits = (x @ self.lm_head.to(x.dtype)).float()
-        return logits, new
+        x = self._norm(self.final_norm, x)[:, 0]
+        return vocab_logits(x, gather_data(self.lm_head),
+                            self._head_tp(mesh)), new

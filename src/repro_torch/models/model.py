@@ -46,11 +46,8 @@ class Model(nn.Module):
     def loss(self, batch, *, mesh=None):
         """(loss, {"nll", "aux"}) of a batch dict (see
         :meth:`Transformer.loss` and :meth:`EncDecTransformer.loss`).
-        ``mesh`` reaches a decoder's MoE layers (expert parallelism); the
-        encoder-decoder takes none (JAX's uses it only for layout
-        constraints, which have no counterpart here)."""
-        if self.cfg.is_encdec:
-            return self.impl.loss(batch)
+        ``mesh`` reaches a decoder's MoE layers (expert parallelism) and a
+        placed model's layers (tensor parallelism over ``"model"``)."""
         return self.impl.loss(batch, mesh=mesh)
 
     def _enc_len(self, cache_len: int, enc_len: int) -> int:
@@ -61,7 +58,7 @@ class Model(nn.Module):
         if self.cfg.is_encdec:
             return self.impl.prefill(batch["tokens"], batch["frames"],
                                      cache_len=cache_len,
-                                     cache_dtype=cache_dtype)
+                                     cache_dtype=cache_dtype, mesh=mesh)
         return self.impl.prefill(batch["tokens"], batch.get("embeds"),
                                  cache_len=cache_len, cache_dtype=cache_dtype,
                                  mesh=mesh)
@@ -96,8 +93,6 @@ class Model(nn.Module):
 
     def decode_step(self, token, cache, pos, *, pages=None, mesh=None,
                     seq_cache: bool = False):
-        if self.cfg.is_encdec:
-            return self.impl.decode_step(token, cache, pos, pages=pages)
         return self.impl.decode_step(token, cache, pos, pages=pages,
                                      mesh=mesh, seq_cache=seq_cache)
 

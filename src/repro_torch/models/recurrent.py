@@ -32,17 +32,52 @@ product, ``F`` (the cumulative log forget gate), the stabiliser ``m``, the
 running ``l``/``acc`` and the decode states (mLSTM ``C n m``, sLSTM ``c n
 h m``; ``m`` starts at -1e30) are fp32, and sLSTM's ``r`` is widened at
 every call.  The query-key and value products run in the input's dtype.
+
+Tensor parallelism (``tp``, a :class:`~repro_torch.parallel.mesh.
+ModelShard`, with the leaves placed by the sharding rules; read from the
+local shapes, so an unplaced block under a mesh computes as before):
+
+* Griffin: ``w_x`` and the gate matrices ``w_r``/``w_i`` hold a block of
+  their input features, ``w_gate`` of its output features, ``w_out`` of
+  its rows; ``conv.w`` and ``lam`` are replicated over ``"model"``.  Each
+  rank owns one slice of the recurrence's features: ``x @ w_x`` is this
+  rank's slice of x times its row block, the partial sums leaving through
+  ``sum_scatter`` onto its features; ``w_gate`` is column-parallel; the
+  gate products are row-parallel on the rank's features, reduce-scattered
+  back onto them; the conv, the gates and the scan (the ``rglru_scan``
+  kernel with kernels on) run on (B, S, d_rnn / n); ``w_out`` is
+  row-parallel and the block leaves through ``sum_out``.  The decode
+  state ``h``/``conv`` is the rank's features, as the cache rules split
+  it.
+* mLSTM and sLSTM: ``wo`` holds a block of rows, which fixes the output
+  columns of ``h`` this rank multiplies.  Where that block is whole
+  heads, the rank computes those heads (mLSTM: its ``wq``/``wk``/``wv``
+  columns are them; the decode state is split over heads, as the rules
+  split it).  Where it splits a head (xlstm-125m's 4 heads on a 16-way
+  axis), every rank computes every head and keeps its columns: the q, k
+  and v projections are all-gathered over ``"model"`` (a gather of three
+  (B, S, H·hd) activations a layer), and the state stays whole.  sLSTM's
+  ``w_in`` columns are gate-major, never a head's four gates, so its
+  (B, S, 4·H·hd) pre-activations are always all-gathered over
+  ``"model"`` (one gather a layer) and each rank runs the recurrence of
+  its heads.  Replicated leaves that feed one rank's part only (``ogate``
+  and sLSTM's ``r`` sliced to its heads, the gate pre-activations of
+  ``w_if``) enter through ``replicated_in``, so their gradients sum over
+  ``"model"``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from dataclasses import dataclass
+from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from ..parallel.collectives import (gather_shards, replicated_in, sum_out,
+                                    sum_scatter)
 
 RGLRU_C = 8.0  # Griffin's fixed gate-sharpness constant
 
@@ -51,13 +86,30 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")  # jax.nn.gelu's default
 
 
-def _rglru_gates(params, x):
-    """Returns (log_a, gated_input) in fp32. x: (..., d_rnn)."""
+def _group(tp):
+    return None if tp is None else tp.group
+
+
+def _cols(w, n: int, tp):
+    """This rank's ``n`` trailing-dim entries of a leaf replicated over
+    ``"model"`` (all of it without ``tp``); entering through
+    ``replicated_in``, its gradient sums over the axis."""
+    if tp is None:
+        return w
+    return replicated_in(w, tp.group)[..., tp.rank * n:(tp.rank + 1) * n]
+
+
+def _rglru_gates(params, x, tp=None):
+    """Returns (log_a, gated_input) in fp32. x: (..., d_rnn), this rank's
+    features under ``tp`` (the gate products row-parallel, reduce-scattered
+    back onto them)."""
     x32 = x.float()
-    r = torch.sigmoid(x32 @ params["w_r"].float())
-    i = torch.sigmoid(x32 @ params["w_i"].float())
+    g = _group(tp)
+    r = torch.sigmoid(sum_scatter(x32 @ params["w_r"].float(), g, -1))
+    i = torch.sigmoid(sum_scatter(x32 @ params["w_i"].float(), g, -1))
+    lam = _cols(params["lam"], x.shape[-1], tp)
     # a = exp(-c · r · softplus(Λ));  log_a ≤ 0
-    log_a = -RGLRU_C * r * F.softplus(params["lam"].float())
+    log_a = -RGLRU_C * r * F.softplus(lam.float())
     beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-9))
     return log_a, beta * (i * x32)
 
@@ -76,12 +128,12 @@ def _doubling_scan(a, b):
 
 
 def rglru_apply(params, x, h0: Optional[torch.Tensor] = None, *,
-                use_kernels: bool = False):
+                use_kernels: bool = False, tp=None):
     """Sequence-parallel RG-LRU. x: (B, S, d_rnn); h0: optional (B, d_rnn)
     initial state.  Returns (y (B,S,d_rnn) in x's dtype, h_last (B,d_rnn)
-    fp32)."""
+    fp32).  Under ``tp`` d_rnn is this rank's features."""
     with torch.profiler.record_function("repro.rglru_gates"):
-        log_a, b = _rglru_gates(params, x)  # (B,S,d), fp32
+        log_a, b = _rglru_gates(params, x, tp)  # (B,S,d), fp32
     a = torch.exp(log_a)
     if h0 is not None:
         # fold the initial state into the first input: h1 = a1·h0 + b1
@@ -95,9 +147,9 @@ def rglru_apply(params, x, h0: Optional[torch.Tensor] = None, *,
     return h.to(x.dtype), h[:, -1].clone()
 
 
-def rglru_decode(params, x_t, h):
+def rglru_decode(params, x_t, h, tp=None):
     """One-token update. x_t: (B, d_rnn); h: (B, d_rnn) fp32 state."""
-    log_a, b = _rglru_gates(params, x_t[:, None, :])
+    log_a, b = _rglru_gates(params, x_t[:, None, :], tp)
     h_new = torch.exp(log_a[:, 0]) * h + b[:, 0]
     return h_new.to(x_t.dtype), h_new
 
@@ -123,12 +175,47 @@ def conv1d_decode(params, x_t, buf):
     return y.to(x_t.dtype), hist[:, 1:]
 
 
-def griffin_block_apply(params, x, h0=None, *, use_kernels: bool = False):
-    """x: (B,S,d) -> (y, state) with state = {"h", "conv"} (decode handoff)."""
-    u_pre = x @ params["w_x"]
-    g = _gelu(x @ params["w_gate"])
-    u = conv1d_apply(params["conv"], u_pre)
-    y, h_last = rglru_apply(params["rglru"], u, h0, use_kernels=use_kernels)
+def _griffin_tp(params, d: int, tp):
+    """``tp`` when this Griffin block's leaves are split over ``"model"``
+    (``w_x`` holding fewer than its ``d`` input rows), else None."""
+    if tp is None or params["w_x"].shape[0] == d:
+        return None
+    r = params["conv"]["w"].shape[-1]
+    n_in, n_f = params["w_x"].shape[0], params["w_gate"].shape[-1]
+    if (n_in * tp.n, n_f * tp.n) != (d, r) or tuple(
+            params["w_out"].shape) != (n_f, d):
+        raise NotImplementedError(
+            f"Griffin block split as w_x {tuple(params['w_x'].shape)}, "
+            f"w_gate {tuple(params['w_gate'].shape)}, w_out "
+            f"{tuple(params['w_out'].shape)} over {tp.n}: only input rows, "
+            f"output columns and rows split alike are ported")
+    return tp
+
+
+def _griffin_in(params, x, tp):
+    """(u_pre, g) of x (B, S, d): this rank's features under ``tp``."""
+    if tp is None:
+        return x @ params["w_x"], _gelu(x @ params["w_gate"])
+    x_in = replicated_in(x, tp.group)
+    n = params["w_x"].shape[0]
+    part = x_in[..., tp.rank * n:(tp.rank + 1) * n] @ params["w_x"]
+    return (sum_scatter(part, tp.group, -1),
+            _gelu(x_in @ params["w_gate"]))
+
+
+def _griffin_conv(params, n: int, tp):
+    return {"w": _cols(params["conv"]["w"], n, tp)}
+
+
+def griffin_block_apply(params, x, h0=None, *, use_kernels: bool = False,
+                        tp=None):
+    """x: (B,S,d) -> (y, state) with state = {"h", "conv"} (decode handoff),
+    under ``tp`` this rank's features of it."""
+    tp = _griffin_tp(params, x.shape[-1], tp)
+    u_pre, g = _griffin_in(params, x, tp)
+    u = conv1d_apply(_griffin_conv(params, u_pre.shape[-1], tp), u_pre)
+    y, h_last = rglru_apply(params["rglru"], u, h0, use_kernels=use_kernels,
+                            tp=tp)
     width = params["conv"]["w"].shape[0]
     S = x.shape[1]
     if S >= width - 1:
@@ -136,17 +223,19 @@ def griffin_block_apply(params, x, h0=None, *, use_kernels: bool = False):
     else:
         conv_buf = F.pad(u_pre, (0, 0, width - 1 - S, 0))
     state = {"h": h_last, "conv": conv_buf}
-    return (g * y) @ params["w_out"], state
+    return sum_out((g * y) @ params["w_out"], _group(tp)), state
 
 
-def griffin_block_decode(params, x_t, state):
-    """x_t: (B,d); state = {"h": (B,d_rnn) fp32, "conv": (B,w-1,d_rnn)}.
-    Returns (y (B,d), a new state; the old one is not modified)."""
-    u = x_t @ params["w_x"]
-    g = _gelu(x_t @ params["w_gate"])
-    u, conv_buf = conv1d_decode(params["conv"], u, state["conv"])
-    y, h = rglru_decode(params["rglru"], u, state["h"])
-    out = (g * y) @ params["w_out"]
+def griffin_block_decode(params, x_t, state, tp=None):
+    """x_t: (B,d); state = {"h": (B,d_rnn) fp32, "conv": (B,w-1,d_rnn)}
+    (this rank's features under ``tp``).  Returns (y (B,d), a new state;
+    the old one is not modified)."""
+    tp = _griffin_tp(params, x_t.shape[-1], tp)
+    u, g = _griffin_in(params, x_t, tp)
+    u, conv_buf = conv1d_decode(_griffin_conv(params, u.shape[-1], tp), u,
+                                state["conv"])
+    y, h = rglru_decode(params["rglru"], u, state["h"], tp)
+    out = sum_out((g * y) @ params["w_out"], _group(tp))
     return out, {"h": h, "conv": conv_buf}
 
 
@@ -166,14 +255,77 @@ def griffin_state_init(batch: int, d_rnn: int, conv_width: int = 4,
 NEG = -1e30  # the stabiliser's start and the padded keys' log input gate
 
 
-def _mlstm_qkv_gates(params, x, n_heads: int, head_dim: int):
+@dataclass(frozen=True)
+class HeadShard:
+    """The heads an xLSTM cell computes on this rank under ``tp`` (see the
+    module doc): heads ``h0 .. h0+n-1``, and the columns ``lo ..
+    lo+width-1`` of their (…, n·hd) output that meet this rank's rows of
+    ``wo``.  ``local``: whole heads, the projections' own columns."""
+
+    tp: Any
+    h0: int
+    n: int
+    lo: int
+    width: int
+    local: bool
+
+
+def _xlstm_heads(params, n_heads: int, head_dim: int, tp,
+                proj: str) -> Optional[HeadShard]:
+    """The :class:`HeadShard` of an xLSTM cell whose ``wo`` holds a block
+    of its rows (None when it holds them all, or without ``tp``).
+    ``proj`` names the column-parallel input projection that must split
+    alike (``wq`` of mLSTM, ``w_in`` of sLSTM: 4 gates' columns)."""
+    width, dh = params["wo"].shape[0], n_heads * head_dim
+    if tp is None or width == dh:
+        return None
+    gates = 4 if proj == "w_in" else 1
+    if width * tp.n != dh or params[proj].shape[-1] != gates * width:
+        raise NotImplementedError(
+            f"xLSTM cell split as wo {tuple(params['wo'].shape)}, {proj} "
+            f"{tuple(params[proj].shape)} over {tp.n}: only wo's rows and "
+            f"{proj}'s columns split alike are ported")
+    lo = tp.rank * width
+    if width % head_dim == 0:
+        return HeadShard(tp, lo // head_dim, width // head_dim, 0, width,
+                         True)
+    return HeadShard(tp, 0, n_heads, lo, width, False)
+
+
+def _xlstm_out(params, x, h, hs: Optional[HeadShard], gate: bool):
+    """(σ(x @ ogate) ⊙ h) @ wo (no gate for sLSTM) on h (…, n·hd) in x's
+    dtype; under ``hs`` this rank's columns of h, the row-parallel product
+    leaving through ``sum_out``."""
+    group = None if hs is None else hs.tp.group
+    if hs is not None:
+        h = h[..., hs.lo:hs.lo + hs.width]
+    if gate:
+        og = params["ogate"] if hs is None else _cols(params["ogate"],
+                                                      hs.width, hs.tp)
+        h = torch.sigmoid(replicated_in(x, group) @ og) * h
+    return sum_out(h @ params["wo"], group)
+
+
+def _mlstm_qkv_gates(params, x, n_heads: int, head_dim: int,
+                     hs: Optional[HeadShard] = None):
     """q, k, v (B,S,H,hd) in x's dtype; log_i (the pre-activation ĩ, i =
-    exp(ĩ)) and log_f = log σ(f̃) (B,S,H) in fp32."""
+    exp(ĩ)) and log_f = log σ(f̃) (B,S,H) in fp32 — under ``hs`` of the
+    heads it names."""
     B, S, _ = x.shape
-    q = (x @ params["wq"]).reshape(B, S, n_heads, head_dim)
-    k = (x @ params["wk"]).reshape(B, S, n_heads, head_dim)
-    v = (x @ params["wv"]).reshape(B, S, n_heads, head_dim)
-    gates = (x @ params["w_if"]).float().reshape(B, S, 2, n_heads)
+    group = None if hs is None else hs.tp.group
+    x_in = replicated_in(x, group)
+
+    def proj(name):
+        y = x_in @ params[name]
+        if hs is not None and not hs.local:  # the shard splits a head
+            y = gather_shards(y, group, -1)
+        return y.reshape(B, S, -1, head_dim)
+
+    q, k, v = proj("wq"), proj("wk"), proj("wv")
+    gates = replicated_in((x @ params["w_if"]).float(), group).reshape(
+        B, S, 2, n_heads)
+    if hs is not None:
+        gates = gates[..., hs.h0:hs.h0 + hs.n]
     return q, k, v, gates[:, :, 0], F.logsigmoid(gates[:, :, 1])
 
 
@@ -243,14 +395,16 @@ def mlstm_prefill_state(k, v, log_i, log_f):
 
 
 def mlstm_apply(params, x, *, n_heads: int, head_dim: int,
-                return_state: bool = False, q_chunk: int = 256):
-    """The mLSTM block over (B,S,d): y (B,S,d) [and its decode state]."""
-    q, k, v, log_i, log_f = _mlstm_qkv_gates(params, x, n_heads, head_dim)
+                return_state: bool = False, q_chunk: int = 256, tp=None):
+    """The mLSTM block over (B,S,d): y (B,S,d) [and its decode state, of
+    the heads this rank computes under ``tp``]."""
+    hs = _xlstm_heads(params, n_heads, head_dim, tp, "wq")
+    q, k, v, log_i, log_f = _mlstm_qkv_gates(params, x, n_heads, head_dim,
+                                             hs)
     with torch.profiler.record_function("repro.mlstm_parallel"):
         h = mlstm_parallel(q, k, v, log_i, log_f, q_chunk=q_chunk)
-    o = torch.sigmoid(x @ params["ogate"])
     B, S, _ = x.shape
-    y = (o * h.reshape(B, S, -1)) @ params["wo"]
+    y = _xlstm_out(params, x, h.reshape(B, S, -1), hs, gate=True)
     if return_state:
         return y, mlstm_prefill_state(k, v, log_i, log_f)
     return y
@@ -266,12 +420,14 @@ def mlstm_state_init(batch: int, n_heads: int, head_dim: int, device=None):
     }
 
 
-def mlstm_decode(params, x_t, state, *, n_heads: int, head_dim: int):
+def mlstm_decode(params, x_t, state, *, n_heads: int, head_dim: int,
+                 tp=None):
     """One-token mLSTM update (xLSTM eq. 19, recurrent form). x_t: (B,d).
     Returns (y (B,d), a new state; the old one is not modified)."""
     B = x_t.shape[0]
+    hs = _xlstm_heads(params, n_heads, head_dim, tp, "wq")
     q, k, v, log_i, log_f = _mlstm_qkv_gates(params, x_t[:, None, :],
-                                             n_heads, head_dim)
+                                             n_heads, head_dim, hs)
     q, k, v = q[:, 0].float(), k[:, 0].float(), v[:, 0].float()  # (B,H,hd)
     log_i, log_f = log_i[:, 0], log_f[:, 0]  # (B,H)
     C, n, m = state["C"], state["n"], state["m"]
@@ -286,8 +442,8 @@ def mlstm_decode(params, x_t, state, *, n_heads: int, head_dim: int):
     den = torch.maximum(torch.einsum("bhd,bhd->bh", q, n_new).abs(),
                         torch.exp(-m_new))
     h = num / (den[..., None] + 1e-6)
-    o = torch.sigmoid(x_t @ params["ogate"])
-    y = (o * h.reshape(B, -1).to(x_t.dtype)) @ params["wo"]
+    y = _xlstm_out(params, x_t, h.reshape(B, -1).to(x_t.dtype), hs,
+                   gate=True)
     return y, {"C": C_new, "n": n_new, "m": m_new}
 
 
@@ -296,18 +452,29 @@ def mlstm_decode(params, x_t, state, *, n_heads: int, head_dim: int):
 # ---------------------------------------------------------------------------
 
 
-def slstm_scan(params, x, state, *, n_heads: int, head_dim: int):
+def slstm_scan(params, x, state, *, n_heads: int, head_dim: int, tp=None):
     """Sequential sLSTM over (B,S,d) with stabilised exponential gating
-    (xLSTM eq. 15-17).  state: {c, n, h} (B,H,hd) and m (B,H), fp32.
-    Returns (y (B,S,d), the final state)."""
+    (xLSTM eq. 15-17).  state: {c, n, h} (B,H,hd) and m (B,H), fp32 — of
+    the heads this rank computes under ``tp``.  Returns (y (B,S,d), the
+    final state)."""
     B, S, _ = x.shape
     H, hd = n_heads, head_dim
-    zifo = (x @ params["w_in"]).reshape(B, S, 4, H, hd).float()
+    hs = _xlstm_heads(params, n_heads, head_dim, tp, "w_in")
+    r = params["r"]
+    if hs is None:
+        zifo = (x @ params["w_in"]).reshape(B, S, 4, H, hd).float()
+    else:  # gate-major columns: gathered, then this rank's heads
+        g = hs.tp.group
+        zifo = gather_shards(replicated_in(x, g) @ params["w_in"], g, -1)
+        zifo = zifo.reshape(B, S, 4, H, hd)[:, :, :, hs.h0:hs.h0 + hs.n]
+        zifo = zifo.float()
+        r = replicated_in(r, g)[:, hs.h0:hs.h0 + hs.n]
+        H = hs.n
     # the block-diagonal recurrent weights (4, H, hd, hd) as one (hd, 4·hd)
     # matrix per head: each step's recurrent term is a single bmm
-    r = params["r"].float().permute(1, 2, 0, 3).reshape(H, hd, 4 * hd)
+    r = r.float().permute(1, 2, 0, 3).reshape(H, hd, 4 * hd)
     c, n, h, m = state["c"], state["n"], state["h"], state["m"]
-    hs = []
+    outs = []
     with torch.profiler.record_function("repro.slstm_scan"):
         # unbind: one view per token, and one stack in backward
         for pre in zifo.unbind(1):  # (B, 4, H, hd)
@@ -325,8 +492,9 @@ def slstm_scan(params, x, state, *, n_heads: int, head_dim: int):
             n = f_eff * n + i_eff
             h = o * (c / torch.clamp(n, min=1e-6))
             m = m_new
-            hs.append(h)
-    y = torch.stack(hs, dim=1).reshape(B, S, -1).to(x.dtype) @ params["wo"]
+            outs.append(h)
+    y = _xlstm_out(params, x, torch.stack(outs, dim=1).reshape(B, S, -1).to(
+        x.dtype), hs, gate=False)
     return y, {"c": c, "n": n, "h": h, "m": m}
 
 
@@ -340,12 +508,17 @@ def slstm_state_init(batch: int, n_heads: int, head_dim: int, device=None):
                             device=device)}
 
 
-def slstm_apply(params, x, *, n_heads: int, head_dim: int, state=None):
-    st = state or slstm_state_init(x.shape[0], n_heads, head_dim, x.device)
-    return slstm_scan(params, x, st, n_heads=n_heads, head_dim=head_dim)
+def slstm_apply(params, x, *, n_heads: int, head_dim: int, state=None,
+                tp=None):
+    hs = _xlstm_heads(params, n_heads, head_dim, tp, "w_in")
+    st = state or slstm_state_init(x.shape[0], n_heads if hs is None
+                                   else hs.n, head_dim, x.device)
+    return slstm_scan(params, x, st, n_heads=n_heads, head_dim=head_dim,
+                      tp=tp)
 
 
-def slstm_decode(params, x_t, state, *, n_heads: int, head_dim: int):
+def slstm_decode(params, x_t, state, *, n_heads: int, head_dim: int,
+                 tp=None):
     y, st = slstm_scan(params, x_t[:, None, :], state, n_heads=n_heads,
-                       head_dim=head_dim)
+                       head_dim=head_dim, tp=tp)
     return y[:, 0], st

@@ -52,16 +52,19 @@ widened to fp32 at every use (``_rglru_gates``); the port holds them in
 fp32 with the compute dtype's values (:data:`WIDENED`), rounded once at
 load — the same products, for 2 × 4 bytes instead of 2 × 2 per element
 (+1.7 GB at recurrentgemma-9b's full width) and no cast per call.  A
-training model keeps them fp32 masters and rounds them per call.
+training model holds them in ``param_dtype``, as JAX's params hold them,
+and widens them per call.
 
 A model placed by the sharding rules (``parallel.sharding.place_module``:
 every parameter a DTensor holding this rank's block) runs under its
 ``mesh``: each layer's leaves are gathered over their data axes just
 before the layer uses them (:func:`local_leaves`, inside the layer's
 activation checkpoint, so the gather runs again in recompute and its
-gradient reduce-scatters), and the ``"model"`` split stays: attention and
-the SwiGLU are tensor-parallel (:mod:`repro_torch.models.attention`,
-``layers.mlp_apply``), the embedding, the head and :func:`chunked_xent`
+gradient reduce-scatters), and the ``"model"`` split stays: attention
+(windowed too), the SwiGLU, the Griffin block and the xLSTM cells are
+tensor-parallel (:mod:`repro_torch.models.attention`,
+``layers.mlp_apply``, :mod:`repro_torch.models.recurrent`), the
+embedding, the head and :func:`chunked_xent`
 vocab-parallel, and the logits of a prefill or a decode step are
 all-gathered over ``"model"``.  Whether a layer is tensor-parallel is
 read from its local shapes, so an unplaced model under a mesh (the
@@ -74,7 +77,7 @@ import math
 import os
 from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -193,10 +196,12 @@ def _ffn_leaves(cfg: ArchConfig, dtype, device) -> Leaves:
     return Leaves(leaves)
 
 
-def _mix_leaves(cfg: ArchConfig, kind: str, dtype, device):
+def _mix_leaves(cfg: ArchConfig, kind: str, dtype, device,
+                widened=torch.float32):
     """``_mix_init``'s leaves: attention projections, the Griffin block's
-    (``griffin_block_init``: conv width 4, ``lam`` and the widened gate
-    matrices in fp32), or an xLSTM cell's (``mlstm_init``: q/k/v, the input
+    (``griffin_block_init``: conv width 4, ``lam`` in fp32 and the gate
+    matrices in ``widened``: fp32 in a serving model, see
+    :data:`WIDENED`), or an xLSTM cell's (``mlstm_init``: q/k/v, the input
     and forget gates' (d, 2H), out and output gate; ``slstm_init``: the
     (z, i, f, o) input projection, the block-diagonal recurrent weights
     (4, H, hd, hd) and out)."""
@@ -218,8 +223,8 @@ def _mix_leaves(cfg: ArchConfig, kind: str, dtype, device):
             "w_gate": _param((d, r), dtype, device),
             "conv": Leaves({"w": _param((4, r), dtype, device)}),
             "rglru": Leaves({"lam": _param((r,), f32, device),
-                             "w_r": _param((r, r), f32, device),
-                             "w_i": _param((r, r), f32, device)}),
+                             "w_r": _param((r, r), widened, device),
+                             "w_i": _param((r, r), widened, device)}),
             "w_out": _param((r, d), dtype, device),
         })
     if kind == "mlstm":
@@ -284,11 +289,12 @@ def local_leaves(mod: nn.Module, dtype):
 class Block(nn.Module):
     """One pre-norm (mixer [+ FFN]) layer: ``_layer_init``'s leaves."""
 
-    def __init__(self, cfg: ArchConfig, kind: str, dtype, device):
+    def __init__(self, cfg: ArchConfig, kind: str, dtype, device,
+                 widened=torch.float32):
         super().__init__()
         d = cfg.d_model
         self.norm1 = nn.ParameterDict({"scale": _param((d,), dtype, device)})
-        self.mix = _mix_leaves(cfg, kind, dtype, device)
+        self.mix = _mix_leaves(cfg, kind, dtype, device, widened)
         if has_ffn(cfg):
             self.norm2 = nn.ParameterDict({"scale": _param((d,), dtype,
                                                            device)})
@@ -307,11 +313,14 @@ def ffn_apply(p, h, cfg: ArchConfig, *, impl: str, mesh=None):
     return mlp_apply(p, h, tp), 0.0
 
 
-def _mix_apply(p, h, cfg: ArchConfig, kind: str, *, impl: str, tp=None):
+def _mix_apply(p, h, cfg: ArchConfig, kind: str, *, impl: str, tp=None,
+               state: bool = True):
     """Prefill sequence mixing on (B,S,d). Returns (y, raw decode state):
-    {"k", "v"} of shape (B,S,K,hd) for attention (the KV heads this rank
-    holds under ``tp``), {"h", "conv"} for rglru, and the xLSTM cells'
-    decode states as they are."""
+    {"k", "v"} of shape (B,S,K,hd) for attention, {"h", "conv"} for rglru,
+    and the xLSTM cells' decode states as they are — under ``tp`` the KV
+    heads, features or heads this rank holds.  ``state=False`` (a forward
+    without a cache) skips mLSTM's closed-form state, the one state that
+    costs products of its own (its place is then None)."""
     hd = cfg.resolved_head_dim
     if kind in ("attn", "local_attn"):
         y, kv = attn_apply(
@@ -323,12 +332,14 @@ def _mix_apply(p, h, cfg: ArchConfig, kind: str, *, impl: str, tp=None):
         )
         return y, {"k": kv[0], "v": kv[1]}
     if kind == "rglru":
-        return griffin_block_apply(p, h, use_kernels=impl == "kernels")
+        return griffin_block_apply(p, h, use_kernels=impl == "kernels",
+                                   tp=tp)
     if kind == "mlstm":
-        return mlstm_apply(p, h, n_heads=cfg.n_heads, head_dim=hd,
-                           return_state=True)
+        out = mlstm_apply(p, h, n_heads=cfg.n_heads, head_dim=hd,
+                          return_state=state, tp=tp)
+        return out if state else (out, None)
     if kind == "slstm":
-        return slstm_apply(p, h, n_heads=cfg.n_heads, head_dim=hd)
+        return slstm_apply(p, h, n_heads=cfg.n_heads, head_dim=hd, tp=tp)
     raise ValueError(kind)
 
 
@@ -352,20 +363,22 @@ def _mix_decode(p, x_t, state, pos, cfg: ArchConfig, kind: str, pages,
         )
         return y[:, 0], {"k": ck, "v": cv}
     if kind == "rglru":
-        return griffin_block_decode(p, x_t, state)
+        return griffin_block_decode(p, x_t, state, tp)
     if kind == "mlstm":
-        return mlstm_decode(p, x_t, state, n_heads=cfg.n_heads, head_dim=hd)
+        return mlstm_decode(p, x_t, state, n_heads=cfg.n_heads, head_dim=hd,
+                            tp=tp)
     if kind == "slstm":
-        return slstm_decode(p, x_t, state, n_heads=cfg.n_heads, head_dim=hd)
+        return slstm_decode(p, x_t, state, n_heads=cfg.n_heads, head_dim=hd,
+                            tp=tp)
     raise ValueError(kind)
 
 
 def _layer_apply(p: Block, h, cfg: ArchConfig, kind: str, *, impl: str,
-                 mesh=None):
-    """One layer over a sequence. Returns (h, aux loss, raw decode
-    state)."""
+                 mesh=None, state: bool = True):
+    """One layer over a sequence. Returns (h, aux loss, raw decode state;
+    see :func:`_mix_apply` for ``state``)."""
     y, state = _mix_apply(p.mix, rmsnorm(p.norm1, h), cfg, kind, impl=impl,
-                          tp=model_shard(mesh))
+                          tp=model_shard(mesh), state=state)
     h = h + y
     if not has_ffn(cfg):
         return h, 0.0, state
@@ -439,12 +452,14 @@ class Decoder(nn.Module):
         self.cast_dtype = cast_dtype
         self.kinds = layer_kinds(cfg)
         self.layers = nn.ModuleList(
-            Block(cfg, kind, dtype, device) for kind in self.kinds)
+            Block(cfg, kind, dtype, device,
+                  torch.float32 if cast_dtype is None else dtype)
+            for kind in self.kinds)
 
-    def _layer(self, i: int, h, mesh=None):
+    def _layer(self, i: int, h, mesh=None, state: bool = False):
         layer = local_leaves(self.layers[i], self.cast_dtype)
         return _layer_apply(layer, h, self.cfg, self.kinds[i],
-                            impl=self.attn_impl, mesh=mesh)
+                            impl=self.attn_impl, mesh=mesh, state=state)
 
     def _layers(self, h, lo: int, hi: int, mesh=None):
         """Layers ``lo..hi-1``. Returns (h, their summed aux loss)."""
@@ -491,7 +506,7 @@ class Decoder(nn.Module):
         if return_cache or remat == "none":
             states, aux = [], 0.0
             for i in range(n):
-                h, a, st = self._layer(i, h, mesh)
+                h, a, st = self._layer(i, h, mesh, return_cache)
                 aux = aux + a
                 if return_cache:
                     states.append(st)
@@ -661,6 +676,41 @@ def chunked_xent(h, w_head, labels, mask=None, chunk: int = 1024, tp=None):
     return tot / torch.clamp(cnt, min=1.0)
 
 
+def vocab_tp(leaf, vocab: int, mesh, dim: int = 0):
+    """The ``"model"`` shard when ``leaf`` (a placed leaf or a tensor: the
+    (vocab, d) embedding, or with ``dim=-1`` a (d, vocab) head) holds a
+    slice of the vocab, else None."""
+    tp = model_shard(mesh)
+    rows = (leaf.to_local() if _placed_leaf(leaf) else leaf).shape[dim]
+    return tp if tp is not None and rows != vocab else None
+
+
+def vocab_embed(table, tokens, tp=None):
+    """Rows of ``table`` for ``tokens``; with ``tp`` the table is this
+    rank's vocab slice: each rank looks up the ids of its slice (zero rows
+    for the others) and the rows are summed over ``"model"``."""
+    if tp is None:
+        return embed_lookup(table, tokens)
+    vl = table.shape[0]
+    loc = tokens.long() - tp.rank * vl
+    own = ((loc >= 0) & (loc < vl))[..., None]
+    rows = embed_lookup(table, loc.clamp(0, vl - 1))
+    return sum_out(torch.where(own, rows, torch.zeros_like(rows)), tp.group)
+
+
+def vocab_logits(x, head, tp=None):
+    """fp32 logits (B, V) of x (B, d) through the (d, V) ``head``; with
+    ``tp`` the head is this rank's vocab slice and the slices are
+    all-gathered over ``"model"``."""
+    logits = (x @ head.to(x.dtype)).float()
+    return logits if tp is None else all_gather_cat(logits, tp.group, -1)
+
+
+#: entries of a parameter drawn from one generator
+#: (:meth:`SeededParams.draw_blocks`)
+DRAW_BLOCK = 1 << 24
+
+
 class SeededParams(nn.Module):
     """Loading and seeded initialization of a model's parameters, shared by
     :class:`Transformer` and the encoder-decoder
@@ -693,47 +743,84 @@ class SeededParams(nn.Module):
         also for an ``(E, d_in, d_out)`` expert stack — N(0, 0.02²)
         embeddings, unit norm scales, zero dead experts (``moe_init`` pads
         them), and the RG-LRU's ``lam = softplus⁻¹(-log(u) / c)`` for ``u
-        ~ U[0.9, 0.999]`` (``rglru_init``).  Each parameter is drawn on the
-        CPU from a generator of its own, seeded from ``seed`` and the
-        parameter's index, so one seed gives one model on every device,
-        and cast there, so only its own dtype crosses to the device; the
-        draws run in threads (torch releases the GIL), since a full-width
-        MoE model holds ~15 B values."""
+        ~ U[0.9, 0.999]`` (``rglru_init``), drawn as :meth:`draw_into`
+        draws them."""
+        self.draw_into(seed, dict(self.named_parameters()))
+
+    def draw_blocks(self, name: str, p) -> List[slice]:
+        """The blocks of leading rows parameter ``name`` (shaped as ``p``)
+        is drawn in: at most :data:`DRAW_BLOCK` entries each, one row at
+        least, over its drawn rows (an expert stack's live experts); one
+        block for a norm scale, ``lam`` or a vector."""
+        shape = tuple(p.shape)
+        rows = self.cfg.moe.n_experts if len(shape) == 3 else shape[0]
+        if _leaf(name) in ("scale", "lam") or len(shape) < 2:
+            return [slice(0, rows)]
+        per = max(1, DRAW_BLOCK // math.prod(shape[1:]))
+        blocks = [slice(r, min(r + per, rows)) for r in range(0, rows, per)]
+        if len(blocks) > 256:  # the seeds of :meth:`draw` would repeat
+            raise ValueError(f"{name}: {len(blocks)} draw blocks > 256")
+        return blocks
+
+    def draw_into(self, seed: int, targets: Dict[str, torch.Tensor]) -> None:
+        """Fill ``targets`` (by parameter name, each shaped as its
+        parameter) with the parameters drawn from ``seed``: every block of
+        :meth:`draw_blocks` of every parameter a task of one thread pool
+        (torch releases the GIL; a full-width MoE model holds ~15 B values
+        and an embedding up to 1 B), copied into its rows of the target,
+        so only its own dtype crosses to the target's device.  Dead expert
+        rows are zero."""
         params = list(self.named_parameters())
+        tasks = [(i, n, p, k) for i, (n, p) in enumerate(params)
+                 for k in range(len(self.draw_blocks(n, p)))]
 
         @torch.no_grad()
-        def fill(i: int, name: str, p: nn.Parameter) -> None:
-            p.copy_(self.draw(seed, i, name, p))
+        def fill(i: int, name: str, p, k: int) -> None:
+            out, blocks = targets[name], self.draw_blocks(name, p)
+            out[blocks[k]].copy_(self.draw(seed, i, name, p, k))
+            if k == 0 and blocks[-1].stop < out.shape[0]:
+                out[blocks[-1].stop:].zero_()
 
         with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as ex:
-            for fut in [ex.submit(fill, i, n, p)
-                        for i, (n, p) in enumerate(params)]:
+            for fut in [ex.submit(fill, *t) for t in tasks]:
                 fut.result()  # re-raises a failed draw
 
-    def draw(self, seed: int, i: int, name: str, p) -> torch.Tensor:
-        """Parameter ``i`` (``name``, shaped and typed as ``p``) drawn whole
-        on the CPU from ``seed``, as :meth:`init` fills it:
-        ``parallel.sharding.place_module`` takes each rank's block of it."""
+    def draw(self, seed: int, i: int, name: str, p,
+             block: Optional[int] = None) -> torch.Tensor:
+        """Block ``block`` of :meth:`draw_blocks` of parameter ``i``
+        (``name``, shaped and typed as ``p``), or with ``block=None`` the
+        whole parameter (its blocks in turn, dead experts zero), on the
+        CPU: :meth:`draw_into` fills the model with these, and
+        ``parallel.sharding.place_module`` takes each rank's block of the
+        whole one.  Block ``k`` comes from a generator of its own seeded
+        ``(seed << 20) + i + (k << 24)``, so one seed gives one model on
+        every device, whatever the threads' order, and a parameter of one
+        block is drawn as one ``randn`` of its shape.  The CPU generator
+        keeps a seed's low 32 bits only: ``i < 2^20`` and ``k < 256`` keep
+        every block of a model distinct."""
+        blocks = self.draw_blocks(name, p)
+        if block is None:
+            w = torch.cat([self.draw(seed, i, name, p, k)
+                           for k in range(len(blocks))])
+            if w.shape[0] < p.shape[0]:
+                w = torch.cat([w, w.new_zeros((p.shape[0] - w.shape[0],)
+                                              + tuple(p.shape[1:]))])
+            return w
+        rows = blocks[block]
+        shape = (rows.stop - rows.start,) + tuple(p.shape[1:])
         leaf = _leaf(name)
         if leaf == "scale":
-            return torch.ones(p.shape, dtype=p.dtype)
-        g = torch.Generator(device="cpu").manual_seed((seed << 20) + i)
+            return torch.ones(shape, dtype=p.dtype)
+        g = torch.Generator(device="cpu").manual_seed(
+            (seed << 20) + i + (block << 24))
         if leaf == "lam":
-            u = torch.rand(p.shape, generator=g) * 0.099 + 0.9
+            u = torch.rand(shape, generator=g) * 0.099 + 0.9
             return torch.log(torch.expm1(-torch.log(u) / RGLRU_C)).to(p.dtype)
         std = 0.02 if leaf == "tok_embed" else 1.0 / math.sqrt(p.shape[-2])
-        shape = tuple(p.shape)
-        n_live = self.cfg.moe.n_experts
-        if len(shape) == 3:  # expert stack: live experts drawn, dead zero
-            shape = (n_live,) + shape[1:]
-        w = torch.randn(shape, generator=g) * std
+        w = torch.randn(shape, generator=g).mul_(std)
         if leaf in WIDENED and not self.train_layout:
             w = w.to(self._cdt)
-        w = w.to(p.dtype)
-        if shape != tuple(p.shape):
-            w = torch.cat([w, w.new_zeros((p.shape[0] - n_live,)
-                                          + shape[1:])])
-        return w
+        return w.to(p.dtype)
 
 
 class Transformer(SeededParams):
@@ -772,18 +859,12 @@ class Transformer(SeededParams):
 
     def _vocab_tp(self, mesh):
         """The ``"model"`` shard when the vocab is split over it."""
-        tp = model_shard(mesh)
-        table = self.tok_embed
-        return tp if tp is not None and (
-            table.to_local().shape[0] if _placed_leaf(table)
-            else table.shape[0]) != self.cfg.vocab else None
+        return vocab_tp(self.tok_embed, self.cfg.vocab, mesh)
 
     def _logits(self, x, mesh):
         """fp32 logits (B, V) of final-normed x (B, d): the vocab slices
         all-gathered over ``"model"`` when the head is split."""
-        logits = (x @ self.head().to(x.dtype)).float()
-        tp = self._vocab_tp(mesh)
-        return logits if tp is None else all_gather_cat(logits, tp.group, -1)
+        return vocab_logits(x, self.head(), self._vocab_tp(mesh))
 
     def _final_norm(self, h):
         return rmsnorm({"scale": gather_data(self.final_norm["scale"])}, h)
@@ -791,22 +872,11 @@ class Transformer(SeededParams):
     # ----------------------------------------------------------- forward
     def _embed(self, tokens, embeds=None, mesh=None):
         """Token embeddings in the compute dtype, with the VLM's stub patch
-        embeddings ``embeds`` (B, P, d) prepended (JAX ``_embed``).  A
-        vocab split over ``"model"``: each rank looks up the ids of its
-        slice (zero rows for the others) and the rows are summed over
-        ``"model"``."""
-        table = gather_data(self.tok_embed)
-        tp = self._vocab_tp(mesh)
-        if tp is None:
-            h = embed_lookup(table, tokens)
-        else:
-            vl = table.shape[0]
-            loc = tokens.long() - tp.rank * vl
-            own = ((loc >= 0) & (loc < vl))[..., None]
-            rows = embed_lookup(table, loc.clamp(0, vl - 1))
-            h = sum_out(torch.where(own, rows, torch.zeros_like(rows)),
-                        tp.group)
-        h = h.to(self._cdt)
+        embeddings ``embeds`` (B, P, d) prepended (JAX ``_embed``); a
+        vocab split over ``"model"`` as :func:`vocab_embed` looks it
+        up."""
+        h = vocab_embed(gather_data(self.tok_embed), tokens,
+                        self._vocab_tp(mesh)).to(self._cdt)
         if embeds is not None:
             h = torch.cat([embeds.to(device=h.device, dtype=self._cdt), h],
                           dim=1)

@@ -20,6 +20,10 @@ from typing import Callable, Dict, Mapping, Optional, Union
 import torch
 
 
+#: elements of a leaf :meth:`AdamW.update` handles at once
+CHUNK = 1 << 24
+
+
 @dataclass
 class OptState:
     """Per-leaf first and second moments and the update count."""
@@ -82,16 +86,22 @@ class AdamW:
         bc1, bc2 = 1 - b1 ** count, 1 - b2 ** count
         lr = self._lr(count)
         for name, p in params.items():
-            g = grads[name].float()
-            if scale is not None:
-                g = g * scale
-            m, v = state.mu[name], state.nu[name]
-            m32 = m.float() * b1 + g * (1 - b1)
-            v32 = v.float() * b2 + g.square() * (1 - b2)
-            step = (m32 / bc1) / (torch.sqrt(v32 / bc2) + self.eps)
-            p32 = p.float()
             decay = self.weight_decay if p.dim() > 1 else 0.0
-            p.copy_(p32 - lr * (step + decay * p32))
-            m.copy_(m32)
-            v.copy_(v32)
+            g_all = grads[name].reshape(-1)
+            leaf = (p.view(-1), state.mu[name].view(-1),
+                    state.nu[name].view(-1))
+            # elementwise: a large leaf in slices of CHUNK elements, so its
+            # fp32 temporaries stay that size (the same values)
+            for lo in range(0, p.numel(), CHUNK):
+                pc, m, v = (t[lo:lo + CHUNK] for t in leaf)
+                g = g_all[lo:lo + CHUNK].float()
+                if scale is not None:
+                    g = g * scale
+                m32 = m.float() * b1 + g * (1 - b1)
+                v32 = v.float() * b2 + g.square() * (1 - b2)
+                step = (m32 / bc1) / (torch.sqrt(v32 / bc2) + self.eps)
+                p32 = pc.float()
+                pc.copy_(p32 - lr * (step + decay * p32))
+                m.copy_(m32)
+                v.copy_(v32)
         return OptState(mu=state.mu, nu=state.nu, count=count)

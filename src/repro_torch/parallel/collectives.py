@@ -32,6 +32,12 @@ transpose rules decide the gradients, so each function states its own:
   bytes of a ring reduce-scatter); under NCCL it is
   ``reduce_scatter_tensor``.  The choice follows from the group's
   backend, never from an error.
+* :func:`sum_scatter` — the transpose of :func:`gather_shards`: partial
+  sums of a row-parallel product (each rank's block of the contracted
+  dim) reduce-scattered onto this rank's slice of the output dim;
+  backward all-gathers the cotangent (every rank's partial product
+  feeds every slice).  The Griffin block's input and gate projections
+  leave through it onto each rank's own features.
 
 Without a group (a size-1 axis) each is the identity.  Ranks that share
 one card run the ``gloo`` backend with CUDA tensors: on the H100 (torch
@@ -118,6 +124,23 @@ def gather_shards(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     """The FSDP pair (see the module doc): all-gather forward,
     reduce-scatter backward."""
     return x if group is None else _GatherShards.apply(x, group, dim)
+
+
+class _SumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return reduce_scatter_sum(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_cat(g, ctx.group, ctx.dim), None, None
+
+
+def sum_scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Partial sums onto this rank's slice along ``dim`` (see the module
+    doc): reduce-scatter forward, all-gather backward."""
+    return x if group is None else _SumScatter.apply(x, group, dim)
 
 
 def max_over(x: torch.Tensor, group) -> torch.Tensor:

@@ -359,5 +359,14 @@ def tree_batch_specs(rules: ShardingRules, batch):
 
 def tree_cache_specs(rules: ShardingRules, cache):
     """Specs of a decode cache (the port's per-layer list of dicts), leaf
-    paths ``/``-joined (``3/k``)."""
-    return _map(rules.cache_spec, cache)
+    paths ``/``-joined (``3/k``).  The encoder-decoder's ``self_*`` /
+    ``cross_*`` leaves are JAX's stacked (L, B, K, S, hd) leaves one layer
+    at a time, and :meth:`ShardingRules.cache_spec` reads those names as
+    stacked: each is specced as its stacked form, without the layer
+    entry."""
+    def spec(path: str, shape):
+        if _parts(path)[-1].startswith(("self_", "cross_")):
+            return rules.cache_spec(path, (1,) + tuple(shape))[1:]
+        return rules.cache_spec(path, shape)
+
+    return _map(spec, cache)

@@ -24,13 +24,28 @@
   lookup is masked and summed over "model" (all-reduce), and JAX's CPU
   module sums the weight gradients with all-reduce, where the port's FSDP
   backward reduce-scatters.
+* The hybrid, ssm and enc-dec families: one production cell each on the
+  fake (16, 16) group through the CLI (exit 0; recurrentgemma-9b's
+  ``prefill_32k``, whose 26 RG-LRU scans each count the work of one
+  rank's (2, 32,768, 256) block of features, xlstm-125m's and
+  seamless-m4t-medium's ``decode_32k``), argument bytes equal to JAX's
+  shard bytes; and each family's reduced train cell against the JAX
+  subprocess: argument, output and alias bytes equal, and FLOPs and
+  collective kinds equal up to named causes, each asserted: GSPMD splits
+  the weight-gradient product of a leaf replicated over "model" between
+  the model ranks (xLSTM's ``w_if``, the enc-dec's ``lm_head`` at a
+  vocab 2 does not divide and its ``frame_proj``), where each port rank
+  computes it whole; the port's sLSTM scan skips the gradient of the
+  zero initial state JAX's scan carries; and GSPMD reshards inside the
+  layer scans (all-to-all, collective-permute) where the port's layers
+  never reshard.
 * Launches on reduced qwen3 and qwen2-moe equal what ``chip_smoke.py``
   asserts on the card (``train_launches_per_step``; phase 8e's 2·L flash
   a train step and L a prefill).
 * ``run_planner_dry("multitask_clip")`` on the reference's spec and 96 GB
   cards gives JAX's records (waves, steps, makespan).
-* Unported families: the hybrid's cells and qwen2-moe under
-  ``--baseline`` record the item-5g error, and the CLI exits 1.
+* qwen2-moe under ``--baseline`` (its experts not sharded under a split
+  batch) records its error, and the CLI exits 1.
 
 ``repro.launch.dryrun`` is imported only in the subprocess: it sets
 ``XLA_FLAGS`` to 512 host devices at import.
@@ -65,6 +80,7 @@ from repro_torch.kernels import grouped_matmul as gmm_k
 from repro_torch.kernels import rglru_scan as scan_k
 from repro_torch.launch import dryrun
 from repro_torch.launch.op_analysis import analyze
+from repro_torch.models.transformer import layer_kinds
 
 ROOT = Path(__file__).resolve().parents[1]
 #: JAX's record keys (``repro/launch/dryrun.py:run_cell``)
@@ -73,6 +89,11 @@ JAX_KEYS = {"arch", "shape", "mesh", "variant", "compile_s", "cost",
             "n_devices", "ok"}
 #: the reduced cells compared with JAX: kind → (seq, batch)
 REDUCED = {"train": (64, 8), "prefill": (64, 8), "decode": (64, 8)}
+#: the hybrid, ssm and enc-dec archs' reduced train cells compared with JAX
+#: (seq 64, batch 8): arch → ``reduced`` overrides (the enc-dec at a vocab
+#: 2 does not divide, as 256,206 is not divided by 16)
+FAMILIES = {"recurrentgemma-9b": {}, "xlstm-125m": {},
+            "seamless-m4t-medium": {"vocab": 255}}
 
 _JAX = r"""
 import dataclasses, json, os, re, sys
@@ -85,12 +106,12 @@ from repro.config import ShapeConfig, default_sharding, get_arch, reduced
 from repro.launch.hlo_analysis import analyze
 from repro.launch.steps import build_step, lower_step
 
-cells = json.loads(sys.argv[1])
+cells, families = json.loads(sys.argv[1]), json.loads(sys.argv[2])
 mesh = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("data", "model"))
-cfg = reduced(get_arch("qwen3-0.6b"))
-sh = dataclasses.replace(default_sharding(cfg), use_pallas=False)
-out = {"cells": {}}
-for kind, (S, B) in cells.items():
+
+
+def record(cfg, kind, S, B):
+    sh = dataclasses.replace(default_sharding(cfg), use_pallas=False)
     spec = build_step(cfg, ShapeConfig(kind, S, B, kind), mesh, shcfg=sh)
     with mesh:
         c = lower_step(spec, mesh).compile()
@@ -102,12 +123,21 @@ for kind, (S, B) in cells.items():
             m.group(1) for line in text.splitlines()
             if re.search(rf"\b{kind_}(-start)?\(", line)
             for m in [re.search(r'op_name="([^"]*)"', line)] if m))
-    out["cells"][kind] = dict(
+    return dict(
         arg=ma.argument_size_in_bytes, out=ma.output_size_in_bytes,
         alias=ma.alias_size_in_bytes, flops=st.flops,
         collectives=st.collective_bytes,
         n_out=len(jax.tree.leaves(jax.eval_shape(spec.fn, *spec.in_shapes))),
         op_names=names, reduce_scatter_ops=text.count("reduce-scatter("))
+
+
+cfg = reduced(get_arch("qwen3-0.6b"))
+out = {"cells": {}, "families": {}}
+for kind, (S, B) in cells.items():
+    out["cells"][kind] = record(cfg, kind, S, B)
+for arch, over in families.items():
+    out["families"][arch] = record(reduced(get_arch(arch), **over),
+                                   "train", 64, 8)
 jax.devices()  # the backend is up: the import below cannot change it
 from repro.launch.dryrun import run_planner_dry
 out["plans"] = run_planner_dry("multitask_clip", verbose=False)
@@ -125,7 +155,8 @@ def jax_side():
                    [str(ROOT / "src")]
                    + [p for p in [os.environ.get("PYTHONPATH")] if p]))
     proc = subprocess.Popen(
-        [sys.executable, "-c", _JAX, json.dumps(REDUCED)],
+        [sys.executable, "-c", _JAX, json.dumps(REDUCED),
+         json.dumps(FAMILIES)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
     box = {}
 
@@ -288,6 +319,75 @@ def test_reduced_cell_equals_jax(jax_side, kind):
     assert ours - {"reduce-scatter"} == theirs - embed
 
 
+# ------------------------------------------ the hybrid, ssm and enc-dec
+
+
+@pytest.mark.parametrize("arch,shape", [
+    ("recurrentgemma-9b", "prefill_32k"), ("xlstm-125m", "decode_32k"),
+    ("seamless-m4t-medium", "decode_32k")])
+def test_family_production_cell(tmp_path, arch, shape):
+    """One production cell of each family through the CLI (exit 0) on the
+    fake (16, 16) group: JAX's argument bytes; recurrentgemma's scans on
+    each rank's features."""
+    path = tmp_path / "rec.json"
+    dryrun.main(["--arch", arch, "--shape", shape, "--out", str(path)])
+    rec, = json.loads(path.read_text())
+    assert JAX_KEYS <= set(rec) and rec["ok"], rec.get("error")
+    assert rec["memory"]["argument_size_in_bytes"] == _jax_arg_bytes(
+        arch, shape)
+    if arch == "recurrentgemma-9b":
+        cfg, shp = get_arch(arch), jcfg.SHAPES[shape]
+        n_rglru = sum(k == "rglru" for k in layer_kinds(cfg))
+        assert rec["launches"]["rglru_scan"] == n_rglru == 26
+        # (rows of a data rank, the sequence, the features of a model rank)
+        block = (shp.global_batch // 16, shp.seq_len, cfg.d_model // 16)
+        scans = ops.SHAPE_ONLY["rglru_scan"]  # the CLI's one cell
+        assert [scans["flops"], scans["bytes"]] == pytest.approx(
+            n_rglru * np.array(scan_k.work(*block, 4)))
+
+
+def _named_flops(arch, cfg, B=8, S=64, n=2):
+    """The port's reduced train-cell FLOPs less JAX's, by named cause."""
+    tokens = B // n * S  # a data rank's rows x seq
+    kinds = layer_kinds(cfg)
+    d, H, hd = cfg.d_model, cfg.n_heads, cfg.resolved_head_dim
+    diff = 0
+    if arch == "xlstm-125m":
+        # GSPMD computes half of w_if's (d, 2H) gradient on each model rank
+        diff += kinds.count("mlstm") * tokens * d * 2 * H
+        # JAX differentiates sLSTM's recurrent product at the zero initial
+        # state; the port's autograd skips it: (H/n, B/n, hd) @ (hd, 4·hd)
+        diff -= kinds.count("slstm") * 2 * (H // n) * (B // n) * hd * 4 * hd
+    if arch == "seamless-m4t-medium":
+        # the same split of lm_head's (d, V) gradient (V 255: replicated
+        # over "model") and of frame_proj's (d, d) over its S/4 frames
+        diff += tokens * d * cfg.vocab + B // n * (S // 4) * d * d
+    return diff
+
+
+@pytest.mark.parametrize("arch", list(FAMILIES))
+def test_reduced_family_train_cell_equals_jax(jax_side, arch):
+    cfg = reduced(get_arch(arch), **FAMILIES[arch])
+    rec = dryrun.run_cell(cfg, ShapeConfig("train", 64, 8, "train"),
+                          mesh_shape=(2, 2), verbose=False,
+                          shcfg=default_sharding(cfg, use_kernels=False))
+    assert rec["ok"], rec.get("error")
+    ref = jax_side()["families"][arch]
+    mem = rec["memory"]
+    assert mem["argument_size_in_bytes"] == ref["arg"]
+    assert mem["alias_size_in_bytes"] == ref["alias"]
+    assert mem["output_size_in_bytes"] + 8 * ref["n_out"] == ref["out"]
+    named = _named_flops(arch, cfg)
+    assert rec["hlo_flops"] - ref["flops"] == named
+    assert (named == 0) == (arch == "recurrentgemma-9b")
+    ours = {k for k, v in rec["collectives"].items() if v > 0}
+    theirs = {k for k, v in ref["collectives"].items() if v > 0}
+    reshard = {"all-to-all", "collective-permute"}
+    assert reshard <= theirs and not reshard & ours
+    assert ref["reduce_scatter_ops"] == 0 and "reduce-scatter" in ours
+    assert ours - {"reduce-scatter"} == theirs - reshard
+
+
 # ------------------------------------------------------------ launches
 
 
@@ -331,12 +431,10 @@ def test_planner_dry_run_equals_jax(jax_side):
         {k: r[k] for k in keys} for r in jax_side()["plans"]]
 
 
-# ---------------------------------------------------- unported families
+# ------------------------------------------------------ unported cells
 
 
 @pytest.mark.parametrize("arch,shape,baseline,match", [
-    ("recurrentgemma-9b", "train_4k", False, "item 5g"),
-    ("recurrentgemma-9b", "long_500k", False, "item 5g"),
     ("qwen2-moe-a2.7b", "decode_32k", True, "without expert parallelism")])
 def test_unported_cells_record_the_error(arch, shape, baseline, match):
     rec = dryrun.run_cell(arch, shape, baseline=baseline, verbose=False)

@@ -131,6 +131,34 @@ def test_ops_on_cpu_need_no_nvcc(monkeypatch):
     assert all(k._fn is None for k in ops.KERNELS.values())
 
 
+def test_launch_keys_count_each_launch_by_its_key(monkeypatch):
+    """A launch adds one to its kernel's count and, where the wrapper names
+    a key, to that key's count; the reset clears both.  The scan's
+    backward names its launch reversed, its forward not."""
+    kernel = ops.KERNELS["rglru_scan"]
+    monkeypatch.setattr(kernel, "_fn", lambda *args: 0)
+    ops.reset_launch_counts()
+    kernel.launch(1, 2)
+    kernel.launch(1, 2, key=("a",))
+    kernel.launch(1, 2, key=("a",))
+    assert kernel.launches == 3
+    assert ops.launch_keys()["rglru_scan"] == {("a",): 2}
+    ops.reset_launch_counts()
+    assert kernel.launches == 0 and ops.launch_keys()["rglru_scan"] == {}
+
+    calls = []
+
+    def fake_scan(a, b, reverse=False):
+        calls.append(reverse)
+        return ref.rglru_scan_ref(a, b)
+
+    monkeypatch.setattr(ops, "_device_type", lambda *tensors: "cuda")
+    monkeypatch.setattr(ops._scan, "rglru_scan", fake_scan)
+    a = torch.rand(2, 5, 8, requires_grad=True)
+    ops.rglru_scan(a, torch.randn(2, 5, 8)).sum().backward()
+    assert calls == [False, True]
+
+
 def test_paged_attention_refuses_a_gradient():
     """Paged decode has no gradient in either package: with grad mode on
     and an input that requires one it raises (on the card it would

@@ -3,17 +3,17 @@ package's ``repro/launch/steps.py``, without spawned ranks.
 
 * ``SHAPES`` and ``applicable_shapes`` equal JAX's for all ten archs.
 * Every ``StepSpec``'s ``in_specs`` and ``out_specs`` equal JAX's
-  ``build_step``'s leaf for leaf, for the seven dense, MoE and VLM archs
-  at full size, each at its applicable shapes, on the shape-only (16, 16)
-  and (2, 16, 16) meshes (the port's ``FakeMesh`` of
-  ``tests/test_torch_sharding.py``; on the JAX side an ``AbstractMesh``
-  that also shows its ``devices``' shape, which the rules read and
-  ``shard_map`` accepts).  A param spec is JAX's without its stacked
-  layer entry (``repro_torch.bridge`` names the leaves); a cache spec is
-  JAX's per layer.
+  ``build_step``'s leaf for leaf, for all ten archs at full size, each at
+  its applicable shapes, on the shape-only (16, 16) and (2, 16, 16)
+  meshes (the port's ``FakeMesh`` of ``tests/test_torch_sharding.py``; on
+  the JAX side an ``AbstractMesh`` that also shows its ``devices``'
+  shape, which the rules read and ``shard_map`` accepts).  A param spec
+  is JAX's without its stacked layer entry (``repro_torch.bridge`` names
+  the leaves); a cache spec is JAX's per layer (a decoder's remainder
+  layers unstacked, its groups and the enc-dec's layers stacked).
 * The clamped ``grad_accum`` equals the one JAX's train step closes over.
-* The hybrid, ssm and enc-dec archs, and ``seq_parallel`` under a model
-  axis, raise ``NotImplementedError`` naming their ROADMAP item.
+* ``seq_parallel`` under a model axis raises ``NotImplementedError``
+  naming its ROADMAP item.
 * Full size without memory: on an in-process ``fake`` group of 256 ranks
   over (16, 16), deepseek-67b and llama3-405b built on ``"meta"`` and
   placed by ``make_train_state``: every leaf's local shape — and its
@@ -40,6 +40,7 @@ from repro_torch.optim import OptState
 
 ARCHS = ("qwen3-0.6b", "glm4-9b", "deepseek-67b", "llama3-405b",
          "qwen2-moe-a2.7b", "qwen3-moe-30b-a3b", "pixtral-12b")
+#: the hybrid, ssm and enc-dec archs
 OTHERS = ("recurrentgemma-9b", "xlstm-125m", "seamless-m4t-medium")
 MESHES = {"16x16": ((16, 16), ("data", "model")),
           "2x16x16": ((2, 16, 16), ("pod", "data", "model"))}
@@ -104,10 +105,13 @@ def _cache_specs_equal(arch, port_cache, jax_cache):
     n_rem = cfg.n_layers % L
     assert len(port_cache) == cfg.n_layers
     for i, layer in enumerate(port_cache):
-        if i < n_rem:
+        if cfg.is_encdec:
+            ref, lead = jax_cache, 1
+        elif i < n_rem:
             ref, lead = jax_cache["rem"][i], 0
         else:
             ref, lead = jax_cache["groups"][f"p{(i - n_rem) % L}"], 1
+        assert set(layer) == set(ref), i
         for key, spec in layer.items():
             want = tuple(ref[key])
             assert want[:lead] == (None,) * lead
@@ -135,7 +139,7 @@ def test_sharding_config_keeps_the_step_knobs():
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + OTHERS)
 def test_step_specs_equal_jax(arch, mesh):
     for shape in applicable_shapes(get_arch(arch)):
         port, ref = _steps(arch, shape, mesh)
@@ -194,17 +198,9 @@ def test_grad_accum_clamp_equals_jax(case):
     assert port.grad_accum == _jax_ga(ref)
 
 
-@pytest.mark.parametrize("arch", OTHERS)
-def test_unported_families_raise_under_a_sharding_mesh(arch):
-    for shape in applicable_shapes(get_arch(arch)):
-        with pytest.raises(NotImplementedError, match="item 5g"):
-            build_step(arch, shape, FakeMesh(*MESHES["16x16"]),
-                       device="meta")
-
-
 def test_seq_parallel_raises_under_a_model_axis():
     shcfg = ShardingConfig(seq_parallel=True)
-    with pytest.raises(NotImplementedError, match="item 5g"):
+    with pytest.raises(NotImplementedError, match="item 5h"):
         build_step("qwen3-0.6b", "train_4k", FakeMesh(*MESHES["16x16"]),
                    shcfg=shcfg, device="meta")
     # no model axis: nothing to sequence-split, the step builds

@@ -17,19 +17,35 @@ wrapper on each rank's local heads.
 
 Cases: reduced qwen3-0.6b (tied vocab-parallel head, qk-norm, KV heads
 split over "model"), reduced qwen2-moe-a2.7b at ``grad_accum=2`` (EP and
-FSDP on the expert stacks, the strided microbatches) and reduced
+FSDP on the expert stacks, the strided microbatches), reduced
 llama3-405b (one KV head on a 2-way model axis: the split-head gather and
 a decode cache split over the sequence; its config's ``grad_accum`` 16
-clamps to 4, bf16 accumulators, sqrt remat).
+clamps to 4, bf16 accumulators, sqrt remat), reduced recurrentgemma-9b
+(the Griffin block on each rank's features; its local layers' single KV
+head split over "model", a prompt of 272 past the reduced window of 64,
+and serve steps at positions 70-71 of an 80-position cache, whose
+circular buffer of 64 is split over "model" by positions, so the write
+wraps onto model rank 0's block), reduced xlstm-125m (4 heads: each rank
+computes 2, ``C`` and the sLSTM states split over "model"), xlstm
+overridden to one head of 64 (each "model" shard splits it, as 4 heads do
+on a 16-way axis: the gathered projections, the state whole) and reduced
+seamless-m4t-medium at vocab 255, which 2 does not divide (the head and
+embedding replicated over "model", as 256,206 is on 16; prompts of 272
+tokens beside 300 frames, so the encoder, decoder self and cross
+attention all take the flash route).
 
 * two train steps: every rank's losses within 1e-5 of JAX's; each rank's
   local block of every param equals JAX's addressable shard at its mesh
   coordinate at init (bit for bit) and after the steps (within a quarter
-  of the two steps' summed lr: Adam moves an entry by up to lr a step,
-  and JAX decays its stacked (G, d) norms — ROADMAP queue 3); the first
-  moments within 1e-6 (+1e-4 relative; 2^-7 relative with bf16
-  accumulators): they are the clipped gradients, so a gradient reduced
-  over a wrong axis shows there;
+  of the two steps' summed lr: Adam moves an entry by up to lr a step;
+  JAX decays its stacked (G, d) vectors, which is added back first —
+  ROADMAP queue 3); the first moments within 1e-6 (+1e-4 relative; 2^-7
+  relative with bf16 accumulators): they are the clipped gradients, so a
+  gradient reduced over a wrong axis shows there.  The xLSTM cases hold
+  the tolerances ``tests/test_torch_xlstm.py`` holds the unplaced model
+  to (:data:`XLSTM`: logits 5e-4, moments 1e-5 + 1e-4 relative), and
+  their params Adam's bound of twice the summed lr, 99.9 % of entries
+  within 0.05 of it;
 * leaves replicated over an axis are bit-identical on its replicas;
 * the clamped ``grad_accum`` equals JAX's;
 * the prefill step's logits (each rank's rows, whole vocab) within 1e-5
@@ -53,7 +69,7 @@ import torch
 from repro_torch import bridge
 from repro_torch.config import ShapeConfig, default_sharding, get_arch, reduced
 from repro_torch.data import DataConfig, SyntheticLM, shard_batch
-from repro_torch.launch.steps import build_step
+from repro_torch.launch.steps import build_step, make_optimizer
 from repro_torch.launch.train import make_train_state
 from repro_torch.models import build_model
 from repro_torch.parallel import make_mesh
@@ -62,26 +78,123 @@ from repro_torch.parallel.sharding import local_block, placements, spec_axes
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = 1e-5
-#: name: (arch, ShardingConfig overrides of both packages)
-CASES = {"qwen3": ("qwen3-0.6b", {}),
-         "moe": ("qwen2-moe-a2.7b", {"grad_accum": 2}),
-         "llama": ("llama3-405b", {})}
+#: name: (arch, ShardingConfig overrides, ``reduced`` overrides), the same
+#: in both packages
+CASES = {"qwen3": ("qwen3-0.6b", {}, {}),
+         "moe": ("qwen2-moe-a2.7b", {"grad_accum": 2}, {}),
+         "llama": ("llama3-405b", {}, {}),
+         "rg": ("recurrentgemma-9b", {}, {}),
+         "xlstm": ("xlstm-125m", {}, {}),
+         "xlstm_split": ("xlstm-125m", {},
+                         {"n_heads": 1, "n_kv_heads": 1, "head_dim": 64}),
+         "seamless": ("seamless-m4t-medium", {}, {"vocab": 255})}
 SEED = 3
 B, S, STEPS = 8, 32, 2  # train
 BP, SP = 4, 272  # prefill: S > 256 takes the flash route
+FRAMES = 300  # the enc-dec prefill's frames (> 256: flash in the encoder)
 SC, POS = 16, 9  # serve: cache length, first position
+#: cases that serve from another (cache length, first position)
+SERVE_AT = {"rg": (80, 70)}
+#: xlstm's tolerances where fp32 summation order is amplified by the
+#: exponential gates (ROADMAP queue 3), the ones ``tests/test_torch_xlstm.py``
+#: holds the unplaced model to: logits 5e-4 (one process against JAX's
+#: prefill at S 272 already differs by 4.1e-5), first moments 1e-5 plus
+#: 1e-4 of the leaf's largest entry; and the params after the steps, in
+#: units of the summed lr, within Adam's bound (an entry whose gradient is
+#: near Adam's eps moves by lr·g/(|g| + eps), so summation order can move
+#: it by up to 2·lr a step: measured 0.60) and 99.9 % of the entries
+#: within 0.05 (measured 0.020; an fp32 ulp of a unit norm scale is 0.026)
+XLSTM = {"logits": 5e-4, "mu": (1e-5, 1e-4), "params": (2.0, 0.05)}
 
 
-def _cfg(arch):
-    return reduced(get_arch(arch))
+def _tol(name, what):
+    """The tolerance of ``what`` for case ``name``: the xLSTM cases take
+    :data:`XLSTM`'s, every other case the defaults (logits ``TOL``, first
+    moments 1e-6 + 1e-4 relative, params a quarter of the summed lr, with
+    no quantile)."""
+    arch = CASES[name][0]
+    if arch == "xlstm-125m":
+        return XLSTM[what]
+    return {"logits": TOL, "mu": (1e-6, 1e-4), "params": (0.25, None)}[what]
+
+
+def _cfg(name):
+    arch, _, over = CASES[name]
+    return reduced(get_arch(arch), **over)
+
+
+def _enc_len(seq):
+    return max(seq // 4, 1)
+
+
+def _serve_at(name):
+    return SERVE_AT.get(name, (SC, POS))
+
+
+def _jax_cache_leaf(cfg, tree, i, key):
+    """(leaf, stacked entries, index in the stack) of port layer ``i``'s
+    cache leaf ``key`` in a JAX-layout cache tree (or one of its structure:
+    blocks, specs): the enc-dec's leaves stacked over its layers, a
+    decoder's remainder layers unstacked and its groups stacked."""
+    if cfg.is_encdec:
+        return tree[key], 1, i
+    L = len(cfg.block_pattern) or 1
+    n_rem = cfg.n_layers % L
+    if i < n_rem:
+        return tree["rem"][i][key], 0, None
+    return tree["groups"][f"p{(i - n_rem) % L}"][key], 1, (i - n_rem) // L
+
+
+def _jax_cache_keys(cfg, tree, i):
+    """The leaf names of port layer ``i``'s cache in a JAX-layout tree."""
+    if cfg.is_encdec:
+        return set(tree)
+    L = len(cfg.block_pattern) or 1
+    n_rem = cfg.n_layers % L
+    if i < n_rem:
+        return set(tree["rem"][i])
+    return set(tree["groups"][f"p{(i - n_rem) % L}"])
+
+
+def _to_jax_cache(cfg, layers):
+    """The port's per-layer cache (numpy) in JAX's layout."""
+    if cfg.is_encdec:
+        return {k: np.stack([lay[k] for lay in layers]) for k in layers[0]}
+    L = len(cfg.block_pattern) or 1
+    n_rem = cfg.n_layers % L
+    G = (cfg.n_layers - n_rem) // L
+    groups = {f"p{j}": {k: np.stack([layers[n_rem + g * L + j][k]
+                                     for g in range(G)])
+                        for k in layers[n_rem + j]} for j in range(L)}
+    return {"groups": groups if G else None, "rem": layers[:n_rem]}
+
+
+def _serve_cache(cfg, rng, cache_len):
+    """Random fp32 serve caches shaped as the port's slab cache (an
+    xLSTM normaliser ``n`` positive)."""
+    model = build_model(cfg, device="cpu")
+    if cfg.is_encdec:
+        cache = model.impl.init_cache(BP, cache_len, _enc_len(cache_len),
+                                      torch.float32, "cpu")
+    else:
+        cache = model.impl.decoder.init_cache(BP, cache_len, torch.float32,
+                                              "cpu")
+    out = []
+    for layer in cache:
+        vals = {}
+        for k, t in layer.items():
+            x = rng.standard_normal(tuple(t.shape)).astype(np.float32)
+            vals[k] = np.abs(x) + 0.5 if k == "n" else x
+        out.append(vals)
+    return out
 
 
 def _inputs():
     rng = np.random.default_rng(0)
-    out = {"cases": CASES, "flat": {}, "tree": {}, "batches": {},
-           "prompts": {}, "serve": {}}
-    for name, (arch, _) in CASES.items():
-        cfg = _cfg(arch)
+    out = {"cases": CASES, "serve_at": SERVE_AT, "flat": {}, "tree": {},
+           "batches": {}, "prompts": {}, "serve": {}}
+    for name in CASES:
+        cfg = _cfg(name)
         model = build_model(cfg, device="cpu", train=True).init(SEED)
         flat = {n: p.detach().numpy().copy()
                 for n, p in model.impl.named_parameters()}
@@ -89,16 +202,24 @@ def _inputs():
         out["tree"][name] = bridge.to_jax(flat, cfg)
         data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=S,
                                       global_batch=B, seed=SEED))
-        out["batches"][name] = [{k: v.numpy().astype(np.int32)
-                                 for k, v in data.batch(s).items()}
-                                for s in range(STEPS)]
-        out["prompts"][name] = rng.integers(0, cfg.vocab, (BP, SP)).astype(
-            np.int32)
-        K, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+        batches = []
+        for step in range(STEPS):
+            b = {k: v.numpy().astype(np.int32)
+                 for k, v in data.batch(step).items()}
+            if cfg.is_encdec:
+                b["frames"] = rng.standard_normal(
+                    (B, _enc_len(S), cfg.d_model)).astype(np.float32)
+            batches.append(b)
+        out["batches"][name] = batches
+        prompt = {"tokens": rng.integers(0, cfg.vocab, (BP, SP)).astype(
+            np.int32)}
+        if cfg.is_encdec:
+            prompt["frames"] = rng.standard_normal(
+                (BP, FRAMES, cfg.d_model)).astype(np.float32)
+        out["prompts"][name] = prompt
+        cache = _serve_cache(cfg, rng, _serve_at(name)[0])
         out["serve"][name] = {
-            "cache": [{k: rng.standard_normal((BP, K, SC, hd)).astype(
-                np.float32) for k in ("k", "v")}
-                for _ in range(cfg.n_layers)],
+            "cache": cache, "jax_cache": _to_jax_cache(cfg, cache),
             "tokens": rng.integers(0, cfg.vocab, (2, BP)).astype(np.int32)}
     return out
 
@@ -140,8 +261,8 @@ def blocks(specs, shapes):
 
 tree = lambda t: jax.tree.map(np.asarray, t)
 out = {}
-for name, (arch, over) in inp["cases"].items():
-    cfg = reduced(get_arch(arch))
+for name, (arch, over, cfg_over) in inp["cases"].items():
+    cfg = reduced(get_arch(arch), **cfg_over)
     shcfg = dataclasses.replace(default_sharding(cfg), **over)
     res = out[name] = {}
     spec = build_step(cfg, ShapeConfig("t", %(S)d, %(B)d, "train"), mesh,
@@ -162,28 +283,27 @@ for name, (arch, over) in inp["cases"].items():
     pre = build_step(cfg, ShapeConfig("p", %(SP)d, %(BP)d, "prefill"), mesh,
                      shcfg=shcfg)
     logits, cache = jitted(pre)(put(params, pre.in_specs[0]), put(
-        {"tokens": inp["prompts"][name]}, pre.in_specs[1]))
+        inp["prompts"][name], pre.in_specs[1]))
     res["prefill"] = (np.asarray(logits), tree(cache),
                       blocks(pre.out_specs[1], cache))
-    srv = build_step(cfg, ShapeConfig("d", %(SC)d, %(BP)d, "decode"), mesh,
+    sc, pos = inp["serve_at"].get(name, (%(SC)d, %(POS)d))
+    srv = build_step(cfg, ShapeConfig("d", sc, %(BP)d, "decode"), mesh,
                      shcfg=shcfg)
-    layers = inp["serve"][name]["cache"]
-    cache = {"groups": {"p0": {k: np.stack([l[k] for l in layers])
-                               for k in ("k", "v")}}, "rem": []}
-    fn, c = jitted(srv), put(cache, srv.in_specs[2])
+    fn = jitted(srv)
+    c = put(inp["serve"][name]["jax_cache"], srv.in_specs[2])
     ps = put(params, srv.in_specs[0])
     served = []
     for i, tok in enumerate(inp["serve"][name]["tokens"]):
         logits, c = fn(ps, put(tok, srv.in_specs[1]), c,
-                       jnp.asarray(%(POS)d + i, jnp.int32))
+                       jnp.asarray(pos + i, jnp.int32))
         served.append(np.asarray(logits))
     res["serve"] = served
 pickle.dump(out, open(os.path.join(d, "jax.pkl"), "wb"))
 """ % dict(S=S, B=B, SP=SP, BP=BP, SC=SC, POS=POS)
 
 
-def _shcfg(arch, over):
-    return default_sharding(_cfg(arch), use_kernels=True, **over)
+def _shcfg(name):
+    return default_sharding(_cfg(name), use_kernels=True, **CASES[name][1])
 
 
 def _state(spec, mesh, inp, name, with_opt=True):
@@ -227,8 +347,8 @@ def _rank_main(rank, d):
     inp = pickle.load(open(os.path.join(d, "inputs.pkl"), "rb"))
     mesh = make_mesh((2, 2), ("data", "model"), "cpu")
     res = {"coord": tuple(int(c) for c in mesh.get_coordinate())}
-    for name, (arch, over) in CASES.items():
-        cfg, shcfg = _cfg(arch), _shcfg(arch, over)
+    for name in CASES:
+        cfg, shcfg = _cfg(name), _shcfg(name)
         spec = build_step(cfg, ShapeConfig("t", S, B, "train"), mesh,
                           shcfg=shcfg, device="cpu")
         params, opt = _state(spec, mesh, inp, name)
@@ -246,12 +366,13 @@ def _rank_main(rank, d):
         pre = build_step(cfg, ShapeConfig("p", SP, BP, "prefill"), mesh,
                          shcfg=shcfg, device="cpu")
         pp, _ = _state(pre, mesh, inp, name, with_opt=False)
-        toks = shard_batch({"tokens": torch.from_numpy(
-            inp["prompts"][name])}, mesh, ("data",))
-        logits, cache = pre.fn(pp, toks)
+        prompt = shard_batch({k: torch.from_numpy(v) for k, v in
+                              inp["prompts"][name].items()}, mesh, ("data",))
+        logits, cache = pre.fn(pp, prompt)
         r["prefill"] = (logits.numpy(), [{k: v.float().numpy() for k, v in
                                           layer.items()} for layer in cache])
-        srv = build_step(cfg, ShapeConfig("d", SC, BP, "decode"), mesh,
+        sc, pos = _serve_at(name)
+        srv = build_step(cfg, ShapeConfig("d", sc, BP, "decode"), mesh,
                          shcfg=shcfg, device="cpu")
         sp, _ = _state(srv, mesh, inp, name, with_opt=False)
         cache = [{k: local_block(torch.from_numpy(v), mesh, placements(
@@ -262,7 +383,7 @@ def _rank_main(rank, d):
         for i, tok in enumerate(inp["serve"][name]["tokens"]):
             tok = shard_batch({"t": torch.from_numpy(tok)}, mesh,
                               ("data",))["t"]
-            logits, cache = srv.fn(sp, tok, cache, POS + i)
+            logits, cache = srv.fn(sp, tok, cache, pos + i)
             served.append(logits.numpy())
         r["serve"] = served
     return res
@@ -307,7 +428,7 @@ def _jax_leaves(name, tree):
             (-1,) + (1,) * (x.ndim - 1)), x.shape)
         for i, x in enumerate(flat)])
     out = {}
-    for n, a in bridge.from_jax(ids, _cfg(CASES[name][0])).items():
+    for n, a in bridge.from_jax(ids, _cfg(name)).items():
         i, g = divmod(int(np.asarray(a).flat[0]), 10_000)
         stacked = flat[i].ndim - np.ndim(a)
         out[n] = (i, stacked, g if stacked else None)
@@ -355,7 +476,7 @@ def test_train_losses_match_jax(runs, name):
 def test_grad_accum_clamped_as_jax(runs, name):
     want = runs["jax"][name]["ga"]
     assert all(r[name]["ga"] == want for r in runs["ranks"])
-    assert want == {"qwen3": 1, "moe": 2, "llama": 4}[name]
+    assert want == {"moe": 2, "llama": 4}.get(name, 1)
 
 
 @pytest.mark.parametrize("name", list(CASES))
@@ -363,20 +484,34 @@ def test_local_shards_equal_jax_addressable_shards(runs, leaves, name):
     """Each rank's block of every param at init is JAX's addressable shard
     at the rank's coordinate, bit for bit; after two steps within a
     quarter of the summed lr; the first moments within the gradient
-    tolerance."""
+    tolerance.  JAX decays a per-layer vector that its layer stack holds
+    as a (G, d) leaf (``_decay_mask`` reads the stacked rank: ROADMAP
+    queue 3) and the port does not: its ``lr · wd · p`` a step is added
+    back to JAX's value first (RG-LRU's ``lam``, near -5, moves by 2e-6
+    over the two steps; a norm's scale of 1 by 5e-7)."""
     lr = 3e-4 / 200 * (1 + 2)  # warmup: lr(1) + lr(2)
-    rel = 2.0 ** -7 if name == "llama" else 1e-4  # bf16 accumulators
+    wd = make_optimizer(_cfg(name)).weight_decay
+    atol, rel = _tol(name, "mu")
+    rel = 2.0 ** -7 if name == "llama" else rel  # bf16 accumulators
+    most, share = _tol(name, "params")
+    moved = []
     for r in runs["ranks"]:
         coord, got = r["coord"], r[name]
         for n, (whole, blocks, fin, mu, st, g) in leaves[name].items():
             want0 = _jax_block(whole, blocks, coord, st, g)
             assert got["init"][n].shape == want0.shape, n
             assert np.array_equal(got["init"][n], want0), n
-            _close(got["params"][n], _jax_block(fin, blocks, coord, st, g),
-                   lr / 4, f"{n} after {STEPS} steps")
+            want = _jax_block(fin, blocks, coord, st, g)
+            if st and want0.ndim == 1:  # decayed as a stacked (G, d) leaf
+                want = want + lr * wd * want0
+            _close(got["params"][n], want, most * lr,
+                   f"{n} after {STEPS} steps")
+            moved.append(np.abs(got["params"][n] - want).ravel() / lr)
             want_mu = _jax_block(mu, blocks, coord, st, g)
             _close(got["mu"][n], want_mu,
-                   1e-6 + rel * float(np.abs(want_mu).max()), f"mu {n}")
+                   atol + rel * float(np.abs(want_mu).max()), f"mu {n}")
+    if share is not None:
+        assert float(np.quantile(np.concatenate(moved), 0.999)) <= share
 
 
 @pytest.mark.parametrize("name", list(CASES))
@@ -411,18 +546,20 @@ def test_prefill_matches_jax(runs, name):
     import jax
 
     logits, cache, blocks = runs["jax"][name]["prefill"]
-    cfg = _cfg(CASES[name][0])
+    cfg = _cfg(name)
     for r in runs["ranks"]:
         coord = r["coord"]
         rows = slice(coord[0] * BP // 2, (coord[0] + 1) * BP // 2)
         got_logits, got_cache = r[name]["prefill"]
-        _close(got_logits, logits[rows], TOL, "prefill logits")
+        _close(got_logits, logits[rows], _tol(name, "logits"),
+               "prefill logits")
         assert len(got_cache) == cfg.n_layers
         for i, layer in enumerate(got_cache):
+            assert set(layer) == _jax_cache_keys(cfg, cache, i), i
             for k, v in layer.items():
-                whole = cache["groups"]["p0"][k]
-                want = _jax_block(whole, blocks["groups"]["p0"][k], coord,
-                                  1, i)
+                whole, st, g = _jax_cache_leaf(cfg, cache, i, k)
+                want = _jax_block(whole, _jax_cache_leaf(cfg, blocks, i, k)[0],
+                                  coord, st, g)
                 assert v.shape == want.shape, (i, k)
                 want = np.asarray(want, np.float32)
                 _close(v, want, 2.0 ** -8 * float(np.abs(want).max()),
@@ -436,4 +573,5 @@ def test_serve_steps_match_jax(runs, name):
         data = r["coord"][0]
         rows = slice(data * BP // 2, (data + 1) * BP // 2)
         for step, (got, want) in enumerate(zip(r[name]["serve"], ref)):
-            _close(got, want[rows], TOL, f"serve step {step}")
+            _close(got, want[rows], _tol(name, "logits"),
+                   f"serve step {step}")

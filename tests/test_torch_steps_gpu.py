@@ -11,8 +11,11 @@ Four ranks share the card through gloo on a (data 2, model 2) mesh and
 run ``placed_run`` (three train steps, a prefill and two greedy serve
 steps, the kernels on: the grouped matmul on each rank's local experts);
 four CPU ranks run the same with the plain versions.  Reduced qwen3-0.6b,
-qwen2-moe-a2.7b (``grad_accum`` 2) and llama3-405b (its one KV head split
-over "model", the decode cache over the sequence) in fp32, an fp32 cache
+qwen2-moe-a2.7b (``grad_accum`` 2), llama3-405b (its one KV head split
+over "model", the decode cache over the sequence), recurrentgemma-9b (the
+scan on each rank's features; a 100-token prompt, so the decode writes
+wrap around its circular window of 64, split over "model" by positions),
+xlstm-125m and seamless-m4t-medium in fp32, an fp32 cache
 (a bf16 one rounds the decode's probabilities, which the card and the
 CPU then sum in another order): every loss, trained local block and
 logit within 1e-4, the greedy tokens equal.
@@ -29,7 +32,10 @@ RUN = dict(reduced_cfg=True, mesh_shape=(2, 2), batch=8, seq=32, steps=3,
            prompt_len=64, gen=2, seed=0, keep_params=True,
            cache_dtype="float32")
 CASES = {"qwen3-0.6b": {}, "qwen2-moe-a2.7b": {"grad_accum": 2},
-         "llama3-405b": {}}
+         "llama3-405b": {}, "recurrentgemma-9b": {}, "xlstm-125m": {},
+         "seamless-m4t-medium": {}}
+#: runs that take another prompt length
+PROMPT = {"recurrentgemma-9b": 100}
 
 
 @pytest.fixture
@@ -46,7 +52,8 @@ def _diff(a, b) -> float:
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", list(CASES))
 def test_placed_steps_on_the_card_equal_the_cpu(cuda_device, arch):
-    kw = dict(RUN, arch=arch, sharding=CASES[arch])
+    kw = dict(RUN, arch=arch, sharding=CASES[arch],
+              prompt_len=PROMPT.get(arch, RUN["prompt_len"]))
     gpu = run_ranks(_placed_rank, 4, "cuda", args=(dict(kw, device="cuda"),))
     cpu = run_ranks(_placed_rank, 4, "cpu", args=(dict(kw, device="cpu"),))
     for g, c in zip(gpu, cpu):
@@ -61,3 +68,5 @@ def test_placed_steps_on_the_card_equal_the_cpu(cuda_device, arch):
         assert torch.equal(g["serve"]["tokens"], c["serve"]["tokens"])
         gmm = g["train"]["counts"]["grouped_matmul"]
         assert (gmm > 0) == ("moe" in arch), gmm
+        scans = g["train"]["counts"]["rglru_scan"]
+        assert (scans > 0) == (arch == "recurrentgemma-9b"), scans

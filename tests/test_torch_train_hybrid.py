@@ -17,7 +17,7 @@ against the JAX package, on the CPU.
   every gradient finite and at least 70 % of the leaves non-zero
   (``tests/test_arch_smoke.py:14``); S 64 is the reduced window, so no
   ragged q chunk (ROADMAP queue 3);
-* the bridge on the bf16 training layout (fp32 ``lam``, ``w_r``, ``w_i``);
+* the bridge on the bf16 training layout (fp32 ``lam``, the rest bf16);
 * the scan's launches per layer (forward, remat recompute, reverse scan);
 * ``remat="sqrt"`` on reduced qwen3 at 8 layers (8 groups: two outer
   segments of four) and at 7 (a prime count: block remat), equal to
@@ -121,9 +121,10 @@ def test_hybrid_loss_and_grads_match_jax(jax_rg, use_kernels):
 
 def test_bridge_carries_the_bf16_hybrid_training_layout():
     """The full config's dtypes (bf16 params): a training model takes the
-    JAX leaves by name, holds ``lam`` and the widened ``w_r``/``w_i`` in
-    fp32 (``lam`` is fp32 in JAX too; ``w_r``/``w_i`` are bf16 there, and
-    widen exactly) and the rest in bf16, and gives them back exactly."""
+    JAX leaves by name, holds ``lam`` in fp32 and the rest, ``w_r``/``w_i``
+    included, in bf16, as JAX's params hold them (a serving model widens
+    ``w_r``/``w_i`` to fp32 at load; a training model per call), and gives
+    them back exactly."""
     over = dict(n_layers=RG_LAYERS, param_dtype="bfloat16",
                 compute_dtype="bfloat16")
     jcfg = jax_reduced(jax_get_arch("recurrentgemma-9b"), **over)
@@ -134,7 +135,7 @@ def test_bridge_carries_the_bf16_hybrid_training_layout():
     bridge.load_jax_params(m, tree)
     for name, p in m.impl.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
-        want = torch.float32 if leaf in ("lam", "w_r", "w_i") else torch.bfloat16
+        want = torch.float32 if leaf == "lam" else torch.bfloat16
         assert p.dtype == want and p.requires_grad, name
     back = dict(jax.tree_util.tree_leaves_with_path(bridge.jax_params(m)))
     for path, leaf in jax.tree_util.tree_leaves_with_path(tree):

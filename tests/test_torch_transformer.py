@@ -286,3 +286,49 @@ def test_recurrentgemma_decode_steps(rg_side, S, cache_len, use_kernels):
         assert err < ATOL, (step, err)
         tok = np.asarray(jnp.argmax(lj, axis=-1)).astype(np.int32)
         pos = pos + np.asarray([1, 0, 1], np.int32)
+
+
+def _leaf_drawn(name):
+    """A parameter drawn from N(0, std²), not set to ones."""
+    return not name.endswith("scale")
+
+
+def test_seeded_draw_in_blocks(monkeypatch):
+    """A seeded draw fills each parameter block by block: a parameter of
+    one block is one ``randn`` of its shape from the seed ``(seed << 20) +
+    i``; the blocks of a larger one cover its live rows; drawn whole, in
+    the pool (``draw_into``) or by ``init`` it is the same model, dead
+    experts zero."""
+    from repro_torch.launch.steps import draw_weights
+    from repro_torch.models import transformer
+
+    cfg = reduced(get_arch("qwen2-moe-a2.7b"))
+    impl = build_model(cfg, device="cpu", train=True).impl
+    named = list(impl.named_parameters())
+    one = {n: impl.draw(7, i, n, p) for i, (n, p) in enumerate(named)}
+    i, (name, p) = next((i, np_) for i, np_ in enumerate(named)
+                        if np_[0].endswith("wq"))
+    g = torch.Generator().manual_seed((7 << 20) + i)
+    want = torch.randn(tuple(p.shape), generator=g) / np.sqrt(p.shape[0])
+    assert torch.equal(one[name], want.to(p.dtype))
+
+    monkeypatch.setattr(transformer, "DRAW_BLOCK", 1000)
+    blocks = {n: impl.draw_blocks(n, p) for n, p in named}
+    assert max(len(b) for b in blocks.values()) > 1
+    for n, p in named:
+        rows = [r for b in blocks[n] for r in range(b.start, b.stop)]
+        live = cfg.moe.n_experts if p.dim() == 3 else p.shape[0]
+        assert rows == list(range(live))
+    whole = {n: impl.draw(7, i, n, p) for i, (n, p) in enumerate(named)}
+    assert any(not torch.equal(whole[n], one[n]) for n in one)
+    # every block its own values (the generator keeps a seed's low 32 bits)
+    drawn = [impl.draw(7, i, n, p, k).flatten()[:8]
+             for i, (n, p) in enumerate(named)
+             if _leaf_drawn(n) for k in range(len(blocks[n]))]
+    assert len({tuple(d.tolist()) for d in drawn}) == len(drawn)
+    pooled = draw_weights(cfg, 7)
+    impl.init(7)
+    for n, p in named:
+        assert torch.equal(pooled[n], whole[n]) and torch.equal(p, whole[n])
+        if p.dim() == 3:
+            assert not p[cfg.moe.n_experts:].any()
