@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --only kernels
-    python3 chip_smoke.py --only placed   # the kernel checks, then 8e-8g
+    python3 chip_smoke.py --only placed   # the kernel checks, then 8e-8h
 
 Phases, one summary line each (any failure exits non-zero, nothing is
 caught):
@@ -184,7 +184,7 @@ caught):
    ill-conditioned through the mLSTM normaliser: on the CPU a 1e-7
    relative change of the params moves it by 4.9e-4); then 3 steps of
    full xlstm-125m (bf16 compute, fp32 masters and moments, block remat)
-   at batch 4 x seq 512, the last step replaying the first batch: the
+   at batch 4 x seq 256, the last step replaying the first batch: the
    loss must fall, no kernel launched; step ms and peak memory;
 6i. checkpoints on the card: full xlstm-125m through ``train`` at batch 4
    x seq 128, one 6-step schedule run (a) through, (b) with
@@ -250,13 +250,13 @@ caught):
    steps, equal to ``train(mesh=None)`` bit for bit, and one NCCL
    all-reduce;
 8a. expert parallelism at full width: 6e's qwen2-moe cut to 4 layers
-   (bf16 params, 4 x 1,024, 3 steps) on two ranks that share the card
+   (bf16 params, 4 x 1,024, 2 steps) on two ranks that share the card
    through gloo, mesh (data 1, model 2): 32 experts a rank, the grouped
    matmul at E 32, C 341, 36 launches a step on each rank (9 a MoE
    layer) and flash 8; against one one-process run: the first loss
    bit-equal, each within 5e-3; the ranks' peaks together below 76 GB;
 8b. data parallelism at full width: full qwen3-0.6b, phase 6's global
-   batch 8 x 1,024 split over two ranks (data 2), 4 steps: flash 56
+   batch 8 x 1,024 split over two ranks (data 2), 2 steps: flash 56
    launches a rank and step, the losses within 1e-3 of one one-process
    run; then ``compress_grads=True`` (int8 sync): the first losses
    equal and the last within 0.05 (``tests/test_compressed_dp.py``);
@@ -285,7 +285,7 @@ caught):
    on this path (its launch counts must stay 0);
 8e. the placed steps (``launch/steps.py``): four ranks share the card
    through gloo on (data 2, model 2); full qwen3-0.6b placed by the rules
-   (FSDP over data; heads, FFN and vocab over model), 3 train steps at 8 x
+   (FSDP over data; heads, FFN and vocab over model), 2 train steps at 8 x
    1,024 (each step's loss within ``PLACED_LOSS_TOL`` of one process's
    train steps on the same batches; flash 56 launches a rank and step at
    B4 H8 K4 S1024), a prefill of 8 x 512 (flash 28 a rank; logits within
@@ -298,7 +298,24 @@ caught):
    recurrentgemma (the scan on each rank's features, decoding past its
    window of 64: the circular buffer's writes wrap across the ranks'
    blocks of positions), xlstm and seamless on the card against the same
-   four ranks on the CPU (one spawn), within ``TRAIN_PARITY_TOL``;
+   four ranks on the CPU (one spawn), within ``TRAIN_PARITY_TOL``; with
+   them (``PLACED_REDUCED``) the train steps of qwen3, qwen2-moe (expert
+   parallelism under SP) and recurrentgemma at 4 layers (a remainder layer
+   outside SP) with ``seq_parallel=True``, and the paper baseline's MoE
+   (``shard_experts=False``): 8 unpadded experts (the expert-parallel
+   branch re-lays the hidden-split stacks into each rank's experts), 5
+   experts on a model-only (1, 4) mesh (the global batch, the grouped
+   matmul on each rank's 16 of 64 hidden columns, partial sums over
+   "model");
+8h. Megatron-SP at full width, in 8e's spawn: full qwen3-0.6b on (data 2,
+   model 2) from 8e's host draw (its file), 2 train steps at 8 x 1,024
+   with ``seq_parallel=True`` (the residual stream and the remat carries
+   split along the sequence over "model"; each sublayer all-gathers its
+   normed input and reduce-scatters its output): each loss within
+   ``PLACED_LOSS_TOL`` of 8e's one process's first two steps, flash 56
+   launches a rank and step at B4 H8 K4 S1,024 (each rank's heads over the
+   gathered sequence), each rank's step ms, peak memory and bytes by
+   collective kind printed beside 8e's;
 8g. the placed steps of the hybrid, ssm and enc-dec families, in one spawn
    of four ranks sharing the card on (data 2, model 2), each arch drawn
    once on the host and read by the ranks from a file
@@ -307,20 +324,20 @@ caught):
    2,048 features; a 2,100-token prompt past its window of 2,048),
    xlstm-125m whole and seamless-m4t-medium at full width cut to 2 + 2
    layers (flash on a rank's 8 heads in its encoder, decoder self and
-   cross attention); 2 train steps, a prefill and greedy serve steps,
+   cross attention); a train step, a prefill and greedy serve steps,
    each held against one process's run as 8e is (losses, prefill logits
    within ``PLACED_FAMILY_LOGITS_TOL`` with three controls above it: 8e's
    two and one process's prefill with two blocks of one "model"-split
    leaf swapped, ``PLACED_FAULT``; the share of equal greedy tokens),
    launches a rank as ``PLACED_FAMILY_LAUNCHES`` says, the reversed scans
    counted apart;
-8f. the dry run (``launch/dryrun.py``) of 8e's and 8g's cells, traced
-   shape-only on the host as rank 0 of a fake (2, 2) group: collective
-   bytes by kind a step, kernel launches and argument bytes exactly equal
-   to their rank 0's; 8e's ranks' lowest measured train peak over the
-   predicted one (the dry run's peak plus the copy of the initial blocks
-   the run keeps) within ``PLACED_PEAK_RATIO`` (8g's peaks are printed
-   beside their dry run's);
+8f. the dry run (``launch/dryrun.py``) of 8e's, 8h's and 8g's cells,
+   traced shape-only on the host as rank 0 of a fake (2, 2) group:
+   collective bytes by kind a step, kernel launches and argument bytes
+   exactly equal to their rank 0's; 8e's ranks' lowest measured train
+   peak over the predicted one (the dry run's peak plus the copy of the
+   initial blocks the run keeps) within ``PLACED_PEAK_RATIO`` (8h's and
+   8g's peaks are printed beside their dry run's);
 9. print a ``{"kernels": [...]}`` line (attention and grouped matmul at
    qwen2-moe's shapes with phase 4b's launches, the scan at recurrentgemma's
    fp32 prefill shape with phase 4c's, flash again at phase 6's
@@ -333,7 +350,9 @@ caught):
    ranks, ``path: "ep"``, flash at 8b's per-rank B4 S1,024 with 8b's,
    ``path: "dp"``, and at 8e's per-rank B4 H8 K4 S1,024 and S512 with
    8e's train and prefill launches over the four ranks, ``path:
-   "tp_train"`` and ``"tp_prefill"``; the scan and flash at each shape
+   "tp_train"`` and ``"tp_prefill"``, and at 8h's (the same shape: a
+   rank's heads over the gathered sequence) with 8h's train launches over
+   the four ranks, ``path: "sp_train"``; the scan and flash at each shape
    8g's ranks launched them at, each with that shape's launches over the
    four ranks (``ops.launch_keys``): the scan forward at B2 D2,048 and S
    1,024 (train) and 2,100 (prefill), reversed at S 1,024, ``path:
@@ -412,6 +431,11 @@ GMM_SHAPES = {
     # phase 8a's expert parallelism: model rank 1's 32 local experts (28
     # live of global experts 32-59, 4 dead) at the one-process capacity
     "ep_gate_up": (32, 341, 2048, 1408, 4096),
+    # the paper baseline (``--baseline``: 60 unpadded experts, not sharded)
+    # on a 16-way model axis: each rank's 1,408 / 16 = 88 hidden columns
+    # of every expert, gate/up and down, at the 8 x 512 prefill's capacity
+    "base_gate_up": (60, 341, 2048, 88, 4096),
+    "base_down": (60, 341, 88, 2048, 4096),
 }
 # the first global expert of a GMM_SHAPES case that holds a rank's experts
 GMM_EXPERT_BASE = {"ep_gate_up": 32}
@@ -1914,9 +1938,9 @@ def phase_moe_hybrid_train_parity(torch, ops, train) -> None:
 # (largest entry 1.5), so each leaf is held within TRAIN_PARITY_TOL plus
 # XLSTM_GRAD_RTOL of its largest entry
 XLSTM_GRAD_RTOL = 1e-3
-# 3 full xlstm-125m steps at seq 512: the sLSTM is a host loop over the
+# 3 full xlstm-125m steps at seq 256: the sLSTM is a host loop over the
 # tokens (a step at seq 1,024 took 8-14 s)
-XLSTM_TRAIN = dict(steps=3, batch=4, seq=512, lr=1e-3, seed=0)
+XLSTM_TRAIN = dict(steps=3, batch=4, seq=256, lr=1e-3, seed=0)
 
 
 def phase_xlstm_train(torch, ops, train, smi: str) -> None:
@@ -2656,11 +2680,11 @@ def phases_fleet(torch, ops, smi: str) -> int:
 # phases 8-8c: training on a mesh of ranks.  The ranks share the one card
 # through gloo (NCCL refuses two ranks on one device: pick_backend);
 # phase 8 starts NCCL on a world of one.  8a is 6e's cut (4 of 24
-# layers) at 3 steps, 8b phase 6's model and global batch at 4
+# layers) at 2 steps, 8b phase 6's model and global batch at 2
 MESH_MOE_RUN = dict(reduced_cfg=False, steps=3, batch=4, seq=64, lr=1e-3,
                     seed=0)
-EP_RUN = dict(reduced_cfg=False, steps=3, batch=4, seq=1024, lr=1e-3, seed=0)
-DP_RUN = dict(reduced_cfg=False, steps=4, batch=8, seq=1024, lr=1e-3, seed=0)
+EP_RUN = dict(reduced_cfg=False, steps=2, batch=4, seq=1024, lr=1e-3, seed=0)
+DP_RUN = dict(reduced_cfg=False, steps=2, batch=8, seq=1024, lr=1e-3, seed=0)
 # 8a, 8b: a mesh run against one process, per step (|diff| above it
 # fails): about twice 8a's reading of 2.53e-3 and five times 8b's of
 # 2.07e-4 (NVIDIA H100 80GB HBM3, 700 W; the same in three runs)
@@ -2813,7 +2837,7 @@ def _rank_line(ranks, name: str) -> str:
 
 def phase_ep_full(torch, smi: str) -> dict:
     """Phase 8a: qwen2-moe-a2.7b at full width cut to 4 layers (bf16
-    params), 4 x 1,024, 3 steps on two ranks sharing the card through
+    params), 4 x 1,024, 2 steps on two ranks sharing the card through
     gloo, mesh (data 1, model 2): each rank holds experts 32·r..32·r+31
     and runs the grouped matmul at E 32, C 341, 9 times per MoE layer and
     step (forward, recompute, dx).  The first loss equals one one-process
@@ -2865,7 +2889,7 @@ def phase_ep_full(torch, smi: str) -> dict:
 
 def phase_dp_full(torch, smi: str) -> dict:
     """Phase 8b: full qwen3-0.6b, global batch 8 x 1,024 on two ranks
-    sharing the card through gloo, mesh (data 2, model 1), 4 steps: 56
+    sharing the card through gloo, mesh (data 2, model 1), 2 steps: 56
     flash launches per rank and step; the losses equal one one-process
     run over the global batch within ``DP_LOSS_TOL``.  Then
     ``compress_grads=True``: JAX's two conditions
@@ -3176,7 +3200,7 @@ def phase_wavefront_distributed(torch, smi: str) -> None:
 
 # phase 8e: the placed steps of launch/steps.py, four ranks sharing the card
 PLACED_FULL = dict(arch="qwen3-0.6b", reduced_cfg=False, mesh_shape=(2, 2),
-                   batch=8, seq=1024, steps=3, prompt_len=512, gen=8, seed=0)
+                   batch=8, seq=1024, steps=2, prompt_len=512, gen=8, seed=0)
 # each train step's loss of the placed run against one process's on the
 # same batches: both bf16 compute; the placed sums run over four ranks in
 # another order (the vocab-parallel logsumexp, the row-parallel partial
@@ -3193,11 +3217,35 @@ PLACED_LOGITS_TOL = 0.25
 # argmaxes and a row then decodes its own continuation); the controls'
 # wrong rows share next to none
 PLACED_TOKENS_MIN = 0.5
-PLACED_REDUCED = {"qwen3-0.6b": {}, "qwen2-moe-a2.7b": {"grad_accum": 2},
-                  "llama3-405b": {}, "recurrentgemma-9b": {},
-                  "xlstm-125m": {}, "seamless-m4t-medium": {}}
+# phase 8h: 8e's cell with Megatron-SP, in 8e's spawn from 8e's draw; its
+# losses are held against 8e's one process's first two steps
+PLACED_SP = dict(PLACED_FULL, steps=2, sharding={"seq_parallel": True},
+                 serve=False)
+# tag: (arch, sharding overrides, run overrides); a "moe" config override
+# replaces fields of the reduced MoE config.  The SP runs stop after their
+# train steps (SP never runs with a cache)
+SP_RUN = ({"seq_parallel": True}, {"serve": False})
+PLACED_REDUCED = {
+    "qwen3-0.6b": ("qwen3-0.6b", {}, {}),
+    "qwen2-moe-a2.7b": ("qwen2-moe-a2.7b", {"grad_accum": 2}, {}),
+    "llama3-405b": ("llama3-405b", {}, {}),
+    "recurrentgemma-9b": ("recurrentgemma-9b", {}, {}),
+    "xlstm-125m": ("xlstm-125m", {}, {}),
+    "seamless-m4t-medium": ("seamless-m4t-medium", {}, {}),
+    "qwen3-0.6b sp": ("qwen3-0.6b", SP_RUN[0], SP_RUN[1]),
+    "qwen2-moe-a2.7b sp": ("qwen2-moe-a2.7b",
+                           dict(SP_RUN[0], grad_accum=2), SP_RUN[1]),
+    "recurrentgemma-9b sp": ("recurrentgemma-9b", SP_RUN[0],
+                             dict(SP_RUN[1], cfg_overrides={"n_layers": 4})),
+    "qwen2-moe-a2.7b base8": ("qwen2-moe-a2.7b", {"shard_experts": False},
+                              {}),
+    "qwen2-moe-a2.7b base5 1x4": ("qwen2-moe-a2.7b",
+                                  {"shard_experts": False},
+                                  {"cfg_overrides": {"moe": {"n_experts": 5}},
+                                   "mesh_shape": (1, 4)}),
+}
 PLACED_REDUCED_RUN = dict(reduced_cfg=True, mesh_shape=(2, 2), batch=8,
-                          seq=32, steps=3, prompt_len=64, gen=2, seed=0,
+                          seq=32, steps=2, prompt_len=64, gen=2, seed=0,
                           keep_params=True, cache_dtype="float32")
 # reduced recurrentgemma decodes at positions 100-101 of its circular
 # window of 64, split over "model" by positions: the writes wrap onto
@@ -3219,7 +3267,7 @@ PLACED_FAMILIES = {
     "seamless-m4t-medium": ({"n_layers": 2, "n_enc_layers": 2},
                             dict(batch=4, seq=1280, prompt_len=1040, gen=3)),
 }
-PLACED_FAMILY_RUN = dict(reduced_cfg=False, mesh_shape=(2, 2), steps=2,
+PLACED_FAMILY_RUN = dict(reduced_cfg=False, mesh_shape=(2, 2), steps=1,
                          seed=0)
 # a rank's launches: (kernel, a train step, a prefill, of a train step's
 # those on inputs reversed in time).  recurrentgemma's two rglru layers run
@@ -3410,14 +3458,14 @@ def phase_placed(torch, smi: str) -> dict:
     import tempfile
 
     from repro_torch.config import get_arch
-    from repro_torch.launch.steps import _placed_rank, draw_weights
+    from repro_torch.launch.steps import draw_weights
     from repro_torch.parallel.mesh import run_ranks
 
     cfg = get_arch(PLACED_FULL["arch"])
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="placed_") as tmp:
         # one host draw: the one process loads it, the ranks read their
-        # blocks of it from a file
+        # blocks of it from a file (8e's run, then 8h's, in one spawn)
         weights = draw_weights(cfg, PLACED_FULL["seed"])
         path = f"{tmp}/{cfg.name}.pt"
         torch.save(weights, path)
@@ -3425,10 +3473,11 @@ def phase_placed(torch, smi: str) -> dict:
         del weights
         one_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        ranks = run_ranks(_placed_rank, 4, "cuda",
-                          args=(dict(PLACED_FULL, device="cuda",
-                                     weights=path),))
+        runs = run_ranks(_placed_ranks, 4, "cuda", args=([
+            dict(kw, device="cuda", weights=path)
+            for kw in (PLACED_FULL, PLACED_SP)],))
         secs = time.perf_counter() - t0
+    ranks, sp_ranks = [r[0] for r in runs], [r[1] for r in runs]
     L, steps = cfg.n_layers, PLACED_FULL["steps"]
     zero = {k: 0 for k in ranks[0]["train"]["counts"]}
     want = {"train": dict(zero, flash_attention=2 * L * steps),
@@ -3465,14 +3514,75 @@ def phase_placed(torch, smi: str) -> dict:
                                  for r in ranks),
            "prefill_launches": sum(r["prefill"]["counts"]["flash_attention"]
                                    for r in ranks),
-           "per_step": 2 * L, "per_prefill": L}
+           "per_step": 2 * L, "per_prefill": L,
+           "sp_launches": _hold_sp(cfg, sp_ranks, ranks, one, zero, smi)}
     del one
     gc.collect()
     torch.cuda.empty_cache()
     rec["families"] = phase_placed_families(torch, smi)
     phase_placed_parity(torch, smi)
-    phase_dryrun(torch, smi, ranks, rec["families"])
+    phase_dryrun(torch, smi, ranks, rec["families"], sp_ranks)
     return rec
+
+
+def _hold_sp(cfg, ranks, tp_ranks, one, zero, smi: str) -> int:
+    """Phase 8h's checks (see the module docstring) of its ranks against
+    8e's one process's first train steps; prints each rank's step ms, peak
+    and bytes by kind beside 8e's (``tp_ranks``).  Returns its flash
+    launches over the four ranks."""
+    L, steps = cfg.n_layers, PLACED_SP["steps"]
+    want = dict(zero, flash_attention=2 * L * steps)
+    hist = ranks[0]["train"]["losses"]
+    for i, r in enumerate(ranks):
+        if r["train"]["counts"] != want:
+            raise AssertionError(f"phase 8h rank {i}: launch counts "
+                                 f"{r['train']['counts']} != {want}")
+        if r["train"]["losses"] != hist:
+            raise AssertionError(f"phase 8h rank {i}: losses "
+                                 f"{r['train']['losses']} != rank 0's {hist}")
+    ref = one["losses"][:steps]
+    if not all(math.isfinite(x) for x in hist):
+        raise AssertionError(f"phase 8h: losses {hist}")
+    dloss = max(abs(a - b) for a, b in zip(hist, ref))
+    if not dloss <= PLACED_LOSS_TOL:
+        raise AssertionError(f"phase 8h: losses {hist} vs one process {ref} "
+                             f"(max diff {dloss} > {PLACED_LOSS_TOL})")
+    log(f"Megatron-SP placed steps qwen3-0.6b full on 4 ranks sharing the "
+        f"card through gloo, mesh (data 2, model 2), 8e's draw: train 8 x "
+        f"1,024 with seq_parallel (the residual stream and remat carries "
+        f"split along the sequence over model: 4 x 512 a rank), {steps} "
+        f"steps: losses {hist}; one process {ref} (max diff {dloss}, limit "
+        f"{PLACED_LOSS_TOL}); 8e's {tp_ranks[0]['train']['losses'][:steps]};"
+        f" flash {2 * L} launches a rank and step at B4 H8 K4 S1024 (a "
+        f"rank's heads over the gathered sequence); "
+        + "; ".join(
+            f"rank {i} coord {r['coord']}: SP train step_ms="
+            f"{[t * 1e3 for t in r['train']['step_s']]} (8e "
+            f"{[t * 1e3 for t in e['train']['step_s']]}) peak_mem_bytes="
+            f"{r['train']['peak']} (8e {e['train']['peak']}) "
+            f"collective_bytes_per_step={r['train']['traffic_per_step']} (8e "
+            f"{e['train']['traffic_per_step'][:steps]})"
+            for i, (r, e) in enumerate(zip(ranks, tp_ranks)))
+        + f"; on {smi}")
+    return sum(r["train"]["counts"]["flash_attention"] for r in ranks)
+
+
+def _reduced_run(tag: str) -> dict:
+    """``placed_run``'s keywords of a ``PLACED_REDUCED`` entry (its "moe"
+    override made a replaced reduced MoE config)."""
+    import dataclasses
+
+    from repro_torch.config import get_arch, reduced
+
+    arch, over, run = PLACED_REDUCED[tag]
+    run = dict(run)
+    cfg_over = dict(run.pop("cfg_overrides", {}))
+    if "moe" in cfg_over:
+        cfg_over["moe"] = dataclasses.replace(
+            reduced(get_arch(arch)).moe, **cfg_over["moe"])
+    return dict(PLACED_REDUCED_RUN, arch=arch, sharding=over,
+                cfg_overrides=cfg_over or None,
+                **PLACED_REDUCED_AT.get(tag, {}), **run)
 
 
 def phase_placed_parity(torch, smi: str) -> None:
@@ -3480,14 +3590,14 @@ def phase_placed_parity(torch, smi: str) -> None:
     grouped matmul on each rank's 4 local experts), llama3-405b (its one
     KV head split over "model", the decode cache over the sequence),
     recurrentgemma (the scan on each rank's features; decode past its
-    window), xlstm and seamless, four ranks on the card against the same
-    four ranks on the CPU: losses, trained local blocks, prefill and serve
-    logits within ``TRAIN_PARITY_TOL``, the greedy tokens equal."""
+    window), xlstm and seamless, the Megatron-SP train steps of qwen3,
+    qwen2-moe and recurrentgemma, and the paper baseline's MoE (see the
+    module doc), four ranks on the card against the same four ranks on
+    the CPU: losses, trained local blocks, prefill and serve logits within
+    ``TRAIN_PARITY_TOL``, the greedy tokens equal."""
     from repro_torch.parallel.mesh import run_ranks
 
-    kws = [dict(PLACED_REDUCED_RUN, arch=arch, sharding=over,
-                **PLACED_REDUCED_AT.get(arch, {}))
-           for arch, over in PLACED_REDUCED.items()]
+    kws = [_reduced_run(tag) for tag in PLACED_REDUCED]
     t0 = time.perf_counter()
     # one spawn: each rank runs every arch on the card, then on the CPU
     runs = run_ranks(_placed_ranks, 4, "cuda",
@@ -3496,43 +3606,51 @@ def phase_placed_parity(torch, smi: str) -> None:
     gpus = [r[:len(kws)] for r in runs]
     cpus = [r[len(kws):] for r in runs]
     secs = time.perf_counter() - t0
-    for k, (arch, over) in enumerate(PLACED_REDUCED.items()):
+    for k, tag in enumerate(PLACED_REDUCED):
+        arch, kw = kws[k]["arch"], kws[k]
         gpu, cpu = [r[k] for r in gpus], [r[k] for r in cpus]
         worst = 0.0
         for g, c in zip(gpu, cpu):
             if g["coord"] != c["coord"]:
-                raise AssertionError(f"phase 8e {arch}: coords differ")
+                raise AssertionError(f"phase 8e {tag}: coords differ")
             diffs = [_max_diff(g["train"]["losses"], c["train"]["losses"])]
             diffs += [float((g["train"]["params"][n].float()
                              - c["train"]["params"][n].float()).abs().max())
                       for n in c["train"]["params"]]
-            diffs.append(float((g["prefill"]["logits"]
-                                - c["prefill"]["logits"]).abs().max()))
-            diffs += [float((a - b).abs().max()) for a, b in
-                      zip(g["serve"]["logits"], c["serve"]["logits"])]
+            if kw.get("serve", True):  # the SP runs stop after training
+                diffs.append(float((g["prefill"]["logits"]
+                                    - c["prefill"]["logits"]).abs().max()))
+                diffs += [float((a - b).abs().max()) for a, b in
+                          zip(g["serve"]["logits"], c["serve"]["logits"])]
+                if not torch.equal(g["serve"]["tokens"],
+                                   c["serve"]["tokens"]):
+                    raise AssertionError(f"phase 8e {tag}: greedy tokens "
+                                         f"differ cuda vs cpu")
             worst = max(worst, max(diffs))
-            if not torch.equal(g["serve"]["tokens"], c["serve"]["tokens"]):
-                raise AssertionError(f"phase 8e {arch}: greedy tokens "
-                                     f"differ cuda vs cpu")
         if not worst <= TRAIN_PARITY_TOL:
-            raise AssertionError(f"phase 8e {arch}: cuda vs cpu max diff "
+            raise AssertionError(f"phase 8e {tag}: cuda vs cpu max diff "
                                  f"{worst} > {TRAIN_PARITY_TOL}")
         gmm = [r["train"]["counts"]["grouped_matmul"] for r in gpu]
         if ("moe" in arch) != all(n > 0 for n in gmm):
-            raise AssertionError(f"phase 8e {arch}: grouped matmul launches "
+            raise AssertionError(f"phase 8e {tag}: grouped matmul launches "
                                  f"{gmm}")
         scans = [r["train"]["counts"]["rglru_scan"] for r in gpu]
         if (arch == "recurrentgemma-9b") != all(n > 0 for n in scans):
-            raise AssertionError(f"phase 8e {arch}: scan launches {scans}")
-        log(f"placed reduced {arch} fp32, fp32 cache (mesh (2, 2), "
-            f"{over or 'defaults'}, grad_accum "
-            f"{gpu[0]['train']['grad_accum']}): cuda losses "
-            f"{gpu[0]['train']['losses']}, cpu {cpu[0]['train']['losses']}; "
-            f"losses, trained blocks, prefill and serve logits max diff "
-            f"{worst} (tol {TRAIN_PARITY_TOL}), greedy tokens equal; "
-            f"grouped matmul launches a rank {gmm}, scan {scans}, prompt "
-            f"{PLACED_REDUCED_AT.get(arch, PLACED_REDUCED_RUN)['prompt_len']}"
-            f" + {PLACED_REDUCED_RUN['gen']} decode steps, on {smi}")
+            raise AssertionError(f"phase 8e {tag}: scan launches {scans}")
+        serves = kw.get("serve", True)
+        held = ("losses, trained blocks, prefill and serve logits" if serves
+                else "losses and trained blocks")
+        served = (f"prompt {kw['prompt_len']} + {kw['gen']} decode steps, "
+                  f"greedy tokens equal" if serves else "train steps only")
+        config = (f", config {kw['cfg_overrides']}" if kw["cfg_overrides"]
+                  else "")
+        log(f"placed reduced {tag} fp32, fp32 cache (mesh "
+            f"{tuple(kw['mesh_shape'])}, {kw['sharding'] or 'defaults'}"
+            f"{config}, grad_accum {gpu[0]['train']['grad_accum']}): cuda "
+            f"losses {gpu[0]['train']['losses']}, cpu "
+            f"{cpu[0]['train']['losses']}; {held} max diff {worst} (tol "
+            f"{TRAIN_PARITY_TOL}); grouped matmul launches a rank {gmm}, "
+            f"scan {scans}, {served}, on {smi}")
     log(f"placed reduced runs: {secs} s with the spawn")
 
 
@@ -3646,15 +3764,17 @@ PLACED_PEAK_RATIO = (0.9, 1.1)
 
 
 def _dryrun_hold(tag: str, cfg, kw, r0) -> tuple:
-    """8f's equalities of one placed run's three cells: each traced by the
-    dry run (rank 0 of a fake (2, 2) group, shape-only on the host) must
-    give rank 0's measured collective bytes by kind (each train step, the
-    prefill, each serve step), its kernel launches and its argument bytes
-    (params and moments, plus this rank's rows of tokens and labels as
-    JAX's int32, an encoder-decoder's frames in the compute dtype, and the
-    int32 step count).  Returns (the records, the params' and moments'
-    bytes, the trace seconds)."""
-    from repro_torch.config import ShapeConfig
+    """8f's equalities of one placed run's three cells (its train cell
+    alone when it stopped there, ``kw["serve"]`` false), under its
+    sharding overrides: each traced by the dry run (rank 0 of a fake (2,
+    2) group, shape-only on the host) must give rank 0's measured
+    collective bytes by kind (each train step, the prefill, each serve
+    step), its kernel launches and its argument bytes (params and
+    moments, plus this rank's rows of tokens and labels as JAX's int32, an
+    encoder-decoder's frames in the compute dtype, and the int32 step
+    count).  Returns (the records, the params' and moments' bytes, the
+    trace seconds)."""
+    from repro_torch.config import ShapeConfig, default_sharding
     from repro_torch.launch.dryrun import run_cell
     from repro_torch.launch.op_analysis import KINDS
     from repro_torch.launch.steps import enc_len
@@ -3665,7 +3785,12 @@ def _dryrun_hold(tag: str, cfg, kw, r0) -> tuple:
     cells = {"train": ShapeConfig("train", S, B, "train"),
              "prefill": ShapeConfig("prefill", P, B, "prefill"),
              "serve": ShapeConfig("decode", P + G, B, "decode")}
-    recs = {part: run_cell(cfg, shp, mesh_shape=(2, 2), verbose=False)
+    if not kw.get("serve", True):
+        cells = {"train": cells["train"]}
+    shcfg = default_sharding(cfg, use_kernels=True, **(kw.get("sharding")
+                                                        or {}))
+    recs = {part: run_cell(cfg, shp, mesh_shape=(2, 2), verbose=False,
+                           shcfg=shcfg)
             for part, shp in cells.items()}
     secs = time.perf_counter() - t0
     for part, rec in recs.items():
@@ -3679,11 +3804,12 @@ def _dryrun_hold(tag: str, cfg, kw, r0) -> tuple:
         return out
 
     # (measured, the number of steps it spans)
-    measured = {"train": [(t, 1) for t in r0["train"]["traffic_per_step"]],
-                "prefill": [(r0["prefill"]["traffic"], 1)],
-                "serve": [(r0["serve"]["traffic"], G)]}
+    measured = {"train": [(t, 1) for t in r0["train"]["traffic_per_step"]]}
+    if "prefill" in recs:
+        measured.update(prefill=[(r0["prefill"]["traffic"], 1)],
+                        serve=[(r0["serve"]["traffic"], G)])
     runs = {"train": steps, "prefill": 1, "serve": G}
-    for part, rec in recs.items():
+    for part, rec in recs.items():  # the cells of this run
         for traffic, n in measured[part]:
             if kinds(traffic, n) != rec["collectives"]:
                 raise AssertionError(
@@ -3709,12 +3835,14 @@ def _dryrun_hold(tag: str, cfg, kw, r0) -> tuple:
     return recs, held, secs
 
 
-def phase_dryrun(torch, smi: str, ranks: list, families=None) -> None:
+def phase_dryrun(torch, smi: str, ranks: list, families=None,
+                 sp_ranks=None) -> None:
     """Phase 8f: 8e's train, prefill and serve cells traced by the dry run
     must give rank 0's measured collective bytes by kind, its kernel
     launches and its argument bytes exactly, and the ranks' train peak
-    within :data:`PLACED_PEAK_RATIO`; and 8g's cells (``families``, phase
-    8g's records) rank 0's bytes by kind, launches and argument bytes."""
+    within :data:`PLACED_PEAK_RATIO`; 8h's train cell (``sp_ranks``) and
+    8g's cells (``families``, phase 8g's records) rank 0's bytes by kind,
+    launches and argument bytes."""
     from repro_torch.config import get_arch
 
     r0 = ranks[0]
@@ -3749,6 +3877,27 @@ def phase_dryrun(torch, smi: str, ranks: list, families=None) -> None:
         f"{ratio} (bound {PLACED_PEAK_RATIO}); dry-run flops a step "
         f"{recs['train']['hlo_flops']}, bytes {recs['train']['hlo_bytes']};"
         f" measured on {smi}")
+    if sp_ranks is not None:
+        recs, held, secs = _dryrun_hold("phase 8f 8h", cfg, PLACED_SP,
+                                        sp_ranks[0])
+        mem = recs["train"]["memory"]
+        peaks = [r["train"]["peak"] for r in sp_ranks]
+        predicted = (mem["argument_size_in_bytes"]
+                     + mem["temp_size_in_bytes"]
+                     + sp_ranks[0]["train"]["param_bytes"])
+        log(f"dry run of 8h's train cell (qwen3-0.6b full with "
+            f"seq_parallel, rank 0 of a fake (2, 2) group, shape-only on the "
+            f"host, {secs} s): collective bytes by kind equal rank 0's "
+            f"measured (per step {recs['train']['collectives']}); launches "
+            f"equal ({recs['train']['launches']} a step); argument bytes "
+            f"{mem['argument_size_in_bytes']} = rank 0's params and moments "
+            f"{held} + rows and count; train peak measured (ranks {peaks}, "
+            f"ratios {[p / predicted for p in peaks]}) beside the dry run's "
+            f"{mem['argument_size_in_bytes'] + mem['temp_size_in_bytes']} "
+            f"+ the initial blocks' copy "
+            f"{sp_ranks[0]['train']['param_bytes']} = {predicted} (reported,"
+            f" not held); dry-run flops a step {recs['train']['hlo_flops']};"
+            f" measured on {smi}")
     for arch, fam in (families or {}).items():
         recs, held, secs = _dryrun_hold(f"phase 8f {arch}", fam["cfg"],
                                         fam["kw"], fam["ranks"][0])
@@ -3810,7 +3959,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("kernels", "placed"), default=None,
                     help="run the build and kernel checks only (and with "
-                         "'placed', phases 8e and 8f after them)")
+                         "'placed', phases 8e-8h after them)")
     args = ap.parse_args(argv)
 
     import torch
@@ -3984,6 +4133,11 @@ def main(argv=None) -> int:
             checks[("flash_attention", "bfloat16", "tp_prefill")],
             tp_rec["prefill_launches"], path="tp_prefill", ranks=4,
             launches_per_prefill_per_rank=tp_rec["per_prefill"])
+        # 8h: flash at the same shape (a rank's heads over the sequence its
+        # sublayer gathered) with 8h's train launches over the four ranks
+        row("flash_attention", checks[("flash_attention", "bfloat16", "tp")],
+            tp_rec["sp_launches"], path="sp_train", ranks=4,
+            launches_per_step_per_rank=tp_rec["per_step"])
         # 8g: the scan on a (data 2, model 2) rank's features of
         # recurrentgemma and flash on a rank's local heads of seamless, one
         # row for each key its launches took (shape, dtype, a reversed

@@ -169,8 +169,10 @@ class ShardingConfig:
     remat: str = "block"
     logits_chunk: int = 0  # 0 → 1,024; else the vocab loss's seq chunk
     # Megatron-style sequence parallelism of the residual stream (JAX
-    # ``transformer.py:144-170, 327-350``): not ported; a placed step with
-    # a model axis > 1 raises (ROADMAP queue 1, item 5h)
+    # ``transformer.py:144-170, 327-350``): a training forward under a
+    # model axis > 1 keeps the residual stream and the remat carries split
+    # along the sequence over "model" (``models.transformer.
+    # seq_parallel_on`` says where it applies)
     seq_parallel: bool = False
     # the placed train step's microbatch gradient accumulation (1 = off)
     # and its accumulator dtype ("float32" | "bfloat16")

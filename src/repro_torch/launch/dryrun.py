@@ -19,11 +19,13 @@ bytes: :class:`~repro_torch.launch.steps.MemoryAnalysis`), ``hlo_flops``
 and ``hlo_bytes`` (the trace's FLOPs and HBM-traffic proxy per rank),
 ``collectives`` (bytes by JAX's five kinds), ``model_flops``,
 ``n_devices``, ``ok`` and ``error``; and ``launches``, the kernel calls
-of the step by name.  The hybrid, ssm and enc-dec families (and
-qwen2-moe-a2.7b under ``--baseline``, whose experts are then not sharded
-under a split batch) raise item 5g's ``NotImplementedError`` in
-``build_step``: their cells are recorded ``ok: false`` with the error, as
-JAX records a failed cell, and :func:`main` exits 1.
+of the step by name.  Every family's cells run, and so do
+qwen2-moe-a2.7b's under ``--baseline`` (60 unpadded experts, which the
+model axis does not divide: the global-batch MoE with each expert stack's
+hidden dim split over "model").  A cell whose step raises is recorded
+``ok: false`` with the error, as JAX records a failed cell, and
+:func:`main` exits 1.  JAX's CLI has no flag for Megatron-SP and neither
+has this one: ``run_cell(shcfg=...)`` takes a ``seq_parallel`` config.
 
 Left out: JAX's ``collective_bytes(hlo_text)``, an HLO parser nothing
 calls; the collective bytes here are the trace's.

@@ -40,8 +40,12 @@ the hybrid (the Griffin block on each rank's features, the RG-LRU scan
 kernel on (B, S, d_rnn / n)), the ssm (the xLSTM cells on each rank's
 heads, or on every head where a shard splits one) and the enc-dec (its
 inputs JAX's ``input_specs``: ``frames`` (B, S // 4, d) beside the
-tokens).  ``seq_parallel`` under a model axis raises (ROADMAP queue 1,
-item 5h), and so does MoE without expert parallelism under a split batch.
+tokens).  ``seq_parallel`` runs Megatron-SP in the train step's forward
+under a model axis > 1 where JAX's does (``models.transformer.
+seq_parallel_on``; never with a cache, so never in a prefill or serve
+step, and never in the enc-dec), and an MoE layer without expert
+parallelism routes the global batch under a split batch, as JAX's does
+(``models.moe``).
 
 :func:`lower_step` is JAX's ``lower_step`` without a compiler: it makes
 one rank's inputs of a step built on ``"meta"`` (the placed state and
@@ -69,9 +73,8 @@ from ..config import (ArchConfig, SHAPES, ShapeConfig, ShardingConfig,
                       default_sharding, get_arch, resolve_device)
 from ..models.layers import dtype_of
 from ..models.model import Model
-from ..models.moe import ep_size
 from ..optim import AdamW, OptState, warmup_cosine
-from ..parallel.mesh import MODEL, axis_size
+from ..parallel.mesh import MODEL
 from ..parallel.sharding import (ShardingRules, Spec, local_block,
                                  placements, spec_axes, tree_batch_specs,
                                  tree_cache_specs, tree_param_specs)
@@ -168,21 +171,6 @@ def input_shapes(model, shp: ShapeConfig,
             "pos": meta(())}
 
 
-def _check_ported(model, rules: ShardingRules) -> None:
-    """Raise for what the placed steps do not run yet, never falling back
-    to replicated weights without saying so."""
-    cfg, mesh = model.cfg, rules.mesh
-    if rules.cfg.seq_parallel and axis_size(mesh, MODEL) > 1:
-        raise NotImplementedError(
-            "seq_parallel (Megatron-SP) under a model axis > 1 is not "
-            "ported (ROADMAP queue 1, item 5h)")
-    if cfg.is_moe and ep_size(cfg, mesh) == 1 and rules._axsize(
-            rules.batch) > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE without expert parallelism under a split "
-            f"batch (JAX routes the global batch there) is not ported")
-
-
 def build_step(
     arch: "str | ArchConfig",
     shape: "str | ShapeConfig",
@@ -229,7 +217,6 @@ def _train_step(model, shp: ShapeConfig, mesh, rules: ShardingRules):
     optimizer = make_optimizer(model.cfg)
     params_shape, opt_shape = param_and_opt_shapes(model, optimizer)
     p_specs = tree_param_specs(rules, params_shape)
-    _check_ported(model, rules)
     batch_shape = input_shapes(model, shp)
     o_specs = OptState(mu=p_specs, nu=dict(p_specs), count=())
     b_specs = tree_batch_specs(rules, batch_shape)
@@ -281,7 +268,6 @@ def _prefill_step(model, shp: ShapeConfig, mesh, rules: ShardingRules,
                   cache_dtype):
     params_shape = {n: _meta(p) for n, p in model.impl.named_parameters()}
     p_specs = tree_param_specs(rules, params_shape)
-    _check_ported(model, rules)
     batch_shape = input_shapes(model, shp)
     b_specs = tree_batch_specs(rules, batch_shape)
     cache_out = cache_shapes(model, shp.global_batch, shp.seq_len,
@@ -308,7 +294,6 @@ def _serve_step(model, shp: ShapeConfig, mesh, rules: ShardingRules,
                 cache_dtype):
     params_shape = {n: _meta(p) for n, p in model.impl.named_parameters()}
     p_specs = tree_param_specs(rules, params_shape)
-    _check_ported(model, rules)
     specs_in = input_shapes(model, shp, cache_dtype)
     token_shape, cache_shape, pos_shape = (
         specs_in["token"], specs_in["cache"], specs_in["pos"])
@@ -525,7 +510,8 @@ def placed_run(rank: int, arch: str, *, reduced_cfg: bool = True,
                keep_params: bool = False,
                cache_dtype: str = "bfloat16",
                cfg_overrides=None,
-               weights: Optional[str] = None) -> Dict[str, Any]:
+               weights: Optional[str] = None,
+               serve: bool = True) -> Dict[str, Any]:
     """One rank of a placed run (every rank of the default group calls it;
     :func:`main` spawns them): ``steps`` train steps of ``arch`` on a
     ``(data, model)`` mesh of ``mesh_shape`` from a state placed by the
@@ -546,7 +532,8 @@ def placed_run(rank: int, arch: str, *, reduced_cfg: bool = True,
     ``weights``: a file of the whole params (``torch.save`` of ``{name:
     tensor}``, drawn once from ``seed`` by the caller), read memory-mapped:
     each rank copies only its blocks, where by default every rank draws
-    every leaf whole."""
+    every leaf whole.  ``serve=False`` stops after the train steps (a
+    Megatron-SP run: the prefill and serve steps never run SP)."""
     import time
 
     import torch.distributed as dist
@@ -631,6 +618,8 @@ def placed_run(rank: int, arch: str, *, reduced_cfg: bool = True,
     if keep_params:
         out["train"]["params"] = {n: t.detach().cpu()
                                   for n, t in params.items()}
+    if not serve:
+        return out
     with torch.no_grad():
         for n, t in params.items():
             t.copy_(init[n])

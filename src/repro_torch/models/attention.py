@@ -24,7 +24,10 @@ Tensor parallelism (``tp``, a :class:`~repro_torch.parallel.mesh.
 ModelShard`, with the projections placed by the rules): ``wq``/``wk``/
 ``wv`` are column-parallel (the input enters through ``replicated_in``),
 ``wo`` row-parallel (the output leaves through ``sum_out``), and each
-rank attends over its own query heads, read from the local shapes.  A
+rank attends over its own query heads, read from the local shapes.
+Under Megatron-SP (``tp.seq``) the input arrives gathered over the
+sequence and the output is reduce-scattered back onto this rank's
+positions (``collectives.tp_in``/``tp_out``).  A
 ``"model"`` shard that splits a head (``wk`` of 8 KV heads on a 16-way
 axis) is all-gathered over ``"model"`` before attention, and a
 replicated ``wk`` enters through ``replicated_in``, so every rank picks
@@ -49,7 +52,7 @@ import torch
 
 from ..kernels import ops
 from ..parallel.collectives import (all_reduce_, gather_shards, max_over,
-                                    replicated_in, sum_out)
+                                    replicated_in, tp_in, tp_out)
 from .layers import apply_rope, dense_init, rms_normalize
 
 NEG_INF = -1e30
@@ -282,14 +285,20 @@ def _q_project(params, x_in, hd: int, tp, *, all_q: bool = False):
 def kv_project(x, w, n_kv: int, hd: int, tp, x_in=None):
     """x (B, S, d) @ ``wk`` or ``wv`` as (B, S, Kh, hd), the KV heads this
     rank holds under ``tp`` (see :func:`_first_head`): its columns of
-    ``x_in`` (x through ``replicated_in``, made here unless given), all of
-    them all-gathered where the shard splits a head, or a replicated
-    ``w``'s product entering through ``replicated_in``."""
+    ``x_in`` (x through ``tp_in``, made here unless given), all of them
+    all-gathered where the shard splits a head, or a replicated ``w``'s
+    product entering through ``replicated_in`` (under Megatron-SP ``w``
+    itself enters through it: x is the gathered input, whose cotangent
+    each rank holds in part)."""
     group = tp.group if tp is not None else None
-    if w.shape[-1] == n_kv * hd:  # every KV head (replicated)
+    if w.shape[-1] == n_kv * hd and tp is not None and tp.seq:
+        # every KV head from the gathered input (Megatron-SP): each rank's
+        # cotangent is its query heads' part, the weight's gradient summed
+        y = x @ replicated_in(w, group)
+    elif w.shape[-1] == n_kv * hd:  # every KV head (replicated)
         y = replicated_in(x @ w, group)
     else:
-        y = (replicated_in(x, group) if x_in is None else x_in) @ w
+        y = (tp_in(x, tp) if x_in is None else x_in) @ w
         if y.shape[-1] % hd:  # the shard splits a head
             y = gather_shards(y, group, -1)
     return _split_heads(y, y.shape[-1] // hd, hd)
@@ -306,7 +315,7 @@ def _project(params, x, n_kv: int, hd: int, tp, *, all_q: bool = False):
     heads from ``q0``, k, v (B,S,Kh,hd) of the KV heads from ``k0``, q0,
     k0); without ``tp`` every head, from 0 (see :func:`_q_project` and
     :func:`kv_project`)."""
-    x_in = replicated_in(x, tp.group if tp is not None else None)
+    x_in = tp_in(x, tp)
     q, q0 = _q_project(params, x_in, hd, tp, all_q=all_q)
     k = kv_project(x, params["wk"], n_kv, hd, tp, x_in)
     v = kv_project(x, params["wv"], n_kv, hd, tp, x_in)
@@ -330,14 +339,14 @@ def _out_proj(out, wo, q0: int, tp):
     """out (B, S, Hq, hd), global query head ``q0`` first, through ``wo``
     (operands promoted as JAX promotes them).  Under ``tp`` ``wo`` is
     row-parallel: only the columns of out that meet this rank's rows
-    enter, and the product leaves through ``sum_out``."""
+    enter, and the product leaves through ``tp_out``."""
     B, S, hq, hd = out.shape
     out = out.reshape(B, S, hq * hd)
     if tp is not None:
         lo = tp.rank * wo.shape[0] - q0 * hd
         out = out[..., lo:lo + wo.shape[0]]
     y = out.to(torch.promote_types(out.dtype, wo.dtype)) @ wo
-    return sum_out(y, tp.group if tp is not None else None)
+    return tp_out(y, tp)
 
 
 def paged_gather(pool, page_table):

@@ -92,16 +92,16 @@ def mlp_apply(params, x, tp=None):
     """SwiGLU.  ``tp`` (a :class:`~repro_torch.parallel.mesh.ModelShard`,
     given when the hidden dim is split over ``"model"``): ``w_gate`` and
     ``w_up`` column-parallel, the input entering through
-    ``replicated_in``; ``w_down`` row-parallel, the output leaving
-    through ``sum_out``."""
-    if tp is not None:
-        from ..parallel.collectives import replicated_in, sum_out
+    ``collectives.tp_in``; ``w_down`` row-parallel, the output leaving
+    through ``collectives.tp_out`` (all-reduced, or under Megatron-SP
+    reduce-scattered onto this rank's positions)."""
+    from ..parallel.collectives import tp_in, tp_out
 
-        x = replicated_in(x, tp.group)
+    x = tp_in(x, tp)
     gate = F.silu(x @ params["w_gate"])
     up = x @ params["w_up"]
     y = (gate * up) @ params["w_down"]
-    return y if tp is None else sum_out(y, tp.group)
+    return tp_out(y, tp)
 
 
 def embed_lookup(table, tokens):

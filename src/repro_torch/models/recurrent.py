@@ -64,6 +64,13 @@ local shapes, so an unplaced block under a mesh computes as before):
   and sLSTM's ``r`` sliced to its heads, the gate pre-activations of
   ``w_if``) enter through ``replicated_in``, so their gradients sum over
   ``"model"``.
+
+Under Megatron-SP (``tp.seq``) each block's input arrives gathered over
+the sequence and its row-parallel output leaves reduce-scattered onto
+this rank's positions (``collectives.tp_in``/``tp_out``).  Each rank
+then holds its own part of the gathered input's cotangent, so the
+mLSTM's ``w_if`` gates, which every rank computes whole, take ``w_if``
+through ``replicated_in`` instead of their product.
 """
 
 from __future__ import annotations
@@ -76,8 +83,8 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
-from ..parallel.collectives import (gather_shards, replicated_in, sum_out,
-                                    sum_scatter)
+from ..parallel.collectives import (gather_shards, replicated_in,
+                                    sum_scatter, tp_in, tp_out)
 
 RGLRU_C = 8.0  # Griffin's fixed gate-sharpness constant
 
@@ -196,7 +203,7 @@ def _griffin_in(params, x, tp):
     """(u_pre, g) of x (B, S, d): this rank's features under ``tp``."""
     if tp is None:
         return x @ params["w_x"], _gelu(x @ params["w_gate"])
-    x_in = replicated_in(x, tp.group)
+    x_in = tp_in(x, tp)
     n = params["w_x"].shape[0]
     part = x_in[..., tp.rank * n:(tp.rank + 1) * n] @ params["w_x"]
     return (sum_scatter(part, tp.group, -1),
@@ -223,7 +230,7 @@ def griffin_block_apply(params, x, h0=None, *, use_kernels: bool = False,
     else:
         conv_buf = F.pad(u_pre, (0, 0, width - 1 - S, 0))
     state = {"h": h_last, "conv": conv_buf}
-    return sum_out((g * y) @ params["w_out"], _group(tp)), state
+    return tp_out((g * y) @ params["w_out"], tp), state
 
 
 def griffin_block_decode(params, x_t, state, tp=None):
@@ -235,7 +242,7 @@ def griffin_block_decode(params, x_t, state, tp=None):
     u, conv_buf = conv1d_decode(_griffin_conv(params, u.shape[-1], tp), u,
                                 state["conv"])
     y, h = rglru_decode(params["rglru"], u, state["h"], tp)
-    out = sum_out((g * y) @ params["w_out"], _group(tp))
+    out = tp_out((g * y) @ params["w_out"], tp)
     return out, {"h": h, "conv": conv_buf}
 
 
@@ -295,15 +302,15 @@ def _xlstm_heads(params, n_heads: int, head_dim: int, tp,
 def _xlstm_out(params, x, h, hs: Optional[HeadShard], gate: bool):
     """(σ(x @ ogate) ⊙ h) @ wo (no gate for sLSTM) on h (…, n·hd) in x's
     dtype; under ``hs`` this rank's columns of h, the row-parallel product
-    leaving through ``sum_out``."""
-    group = None if hs is None else hs.tp.group
+    leaving through ``tp_out``."""
+    tp = None if hs is None else hs.tp
     if hs is not None:
         h = h[..., hs.lo:hs.lo + hs.width]
     if gate:
         og = params["ogate"] if hs is None else _cols(params["ogate"],
                                                       hs.width, hs.tp)
-        h = torch.sigmoid(replicated_in(x, group) @ og) * h
-    return sum_out(h @ params["wo"], group)
+        h = torch.sigmoid(tp_in(x, tp) @ og) * h
+    return tp_out(h @ params["wo"], tp)
 
 
 def _mlstm_qkv_gates(params, x, n_heads: int, head_dim: int,
@@ -312,8 +319,9 @@ def _mlstm_qkv_gates(params, x, n_heads: int, head_dim: int,
     exp(ĩ)) and log_f = log σ(f̃) (B,S,H) in fp32 — under ``hs`` of the
     heads it names."""
     B, S, _ = x.shape
-    group = None if hs is None else hs.tp.group
-    x_in = replicated_in(x, group)
+    tp = None if hs is None else hs.tp
+    group = None if hs is None else tp.group
+    x_in = tp_in(x, tp)
 
     def proj(name):
         y = x_in @ params[name]
@@ -322,8 +330,11 @@ def _mlstm_qkv_gates(params, x, n_heads: int, head_dim: int,
         return y.reshape(B, S, -1, head_dim)
 
     q, k, v = proj("wq"), proj("wk"), proj("wv")
-    gates = replicated_in((x @ params["w_if"]).float(), group).reshape(
-        B, S, 2, n_heads)
+    if tp is not None and tp.seq:  # x gathered: the weight enters instead
+        gates = (x @ replicated_in(params["w_if"], group)).float()
+    else:
+        gates = replicated_in((x @ params["w_if"]).float(), group)
+    gates = gates.reshape(B, S, 2, n_heads)
     if hs is not None:
         gates = gates[..., hs.h0:hs.h0 + hs.n]
     return q, k, v, gates[:, :, 0], F.logsigmoid(gates[:, :, 1])
@@ -465,7 +476,7 @@ def slstm_scan(params, x, state, *, n_heads: int, head_dim: int, tp=None):
         zifo = (x @ params["w_in"]).reshape(B, S, 4, H, hd).float()
     else:  # gate-major columns: gathered, then this rank's heads
         g = hs.tp.group
-        zifo = gather_shards(replicated_in(x, g) @ params["w_in"], g, -1)
+        zifo = gather_shards(tp_in(x, hs.tp) @ params["w_in"], g, -1)
         zifo = zifo.reshape(B, S, 4, H, hd)[:, :, :, hs.h0:hs.h0 + hs.n]
         zifo = zifo.float()
         r = replicated_in(r, g)[:, hs.h0:hs.h0 + hs.n]

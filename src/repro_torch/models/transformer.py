@@ -68,7 +68,11 @@ embedding, the head and :func:`chunked_xent`
 vocab-parallel, and the logits of a prefill or a decode step are
 all-gathered over ``"model"``.  Whether a layer is tensor-parallel is
 read from its local shapes, so an unplaced model under a mesh (the
-expert parallelism of ``train(mesh=)``) computes as before.
+expert parallelism of ``train(mesh=)``) computes as before.  With
+``ShardingConfig.seq_parallel`` a training forward runs Megatron-SP where
+JAX's does (:func:`seq_parallel_on`): the residual stream between the
+pattern groups, and so each checkpointed group's input, holds this rank's
+block of positions (see :meth:`Decoder.forward` and :func:`_sublayer`).
 """
 
 from __future__ import annotations
@@ -85,16 +89,18 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..config import ArchConfig, ShardingConfig
-from ..parallel.collectives import (all_gather_cat, max_over, replicated_in,
-                                    sum_out)
-from ..parallel.mesh import model_shard
+from ..parallel.collectives import (all_gather_cat, gather_alike,
+                                    gather_shards, max_over, replicated_in,
+                                    sum_out, take_shard)
+from ..parallel.mesh import MODEL, axis_size, model_shard
 from ..parallel.sharding import gather_data
 from .attention import (attn_apply, attn_decode, attn_prefill_chunk,
-                        page_slots)
+                        page_slots, tp_sharded)
 from .layers import dtype_of, embed_lookup, mlp_apply, rmsnorm
 from .moe import moe_apply
 from .paging import paginate_cache
-from .recurrent import (RGLRU_C, griffin_block_apply, griffin_block_decode,
+from .recurrent import (RGLRU_C, _griffin_tp, _xlstm_heads,
+                        griffin_block_apply, griffin_block_decode,
                         griffin_state_init, mlstm_apply, mlstm_decode,
                         mlstm_state_init, slstm_apply, slstm_decode,
                         slstm_state_init)
@@ -301,16 +307,82 @@ class Block(nn.Module):
             self.ffn = _ffn_leaves(cfg, dtype, device)
 
 
-def ffn_apply(p, h, cfg: ArchConfig, *, impl: str, mesh=None):
+def ffn_apply(p, h, cfg: ArchConfig, *, impl: str, mesh=None, tp=None):
     """``_ffn_apply`` on (B, S, d): (the MoE FFN, its router's aux loss) or
     (the SwiGLU, 0.0 — a Python zero, so a dense layer launches nothing
     for it).  The serving paths drop the aux loss, as JAX's do.  ``mesh``
     reaches the MoE layer (its expert parallelism) and a SwiGLU whose
-    hidden dim is split over ``"model"`` (tensor parallelism)."""
+    hidden dim is split over ``"model"`` (tensor parallelism); ``tp`` is
+    this rank's model shard when it differs from ``mesh``'s (Megatron-SP)."""
     if cfg.is_moe:
-        return moe_apply(p, h, cfg, use_kernels=impl == "kernels", mesh=mesh)
-    tp = model_shard(mesh) if p["w_gate"].shape[-1] != cfg.d_ff else None
-    return mlp_apply(p, h, tp), 0.0
+        return moe_apply(p, h, cfg, use_kernels=impl == "kernels", mesh=mesh,
+                         tp=tp)
+    tp = model_shard(mesh) if tp is None else tp
+    return mlp_apply(p, h, tp if _ffn_split(p, cfg) else None), 0.0
+
+
+def _ffn_split(p, cfg: ArchConfig) -> bool:
+    """Whether this layer's FFN is tensor-parallel (an MoE layer always
+    keeps its own split: :func:`~repro_torch.models.moe.moe_apply`)."""
+    return cfg.is_moe or p["w_gate"].shape[-1] != cfg.d_ff
+
+
+def _mix_split(p, cfg: ArchConfig, kind: str, tp) -> bool:
+    """Whether this layer's mixer is tensor-parallel under ``tp``, as each
+    mixer reads it from its local shapes."""
+    hd = cfg.resolved_head_dim
+    if kind in ("attn", "local_attn"):
+        return tp_sharded(p, cfg.n_heads, hd, tp)
+    if kind == "rglru":
+        return _griffin_tp(p, cfg.d_model, tp) is not None
+    proj = "wq" if kind == "mlstm" else "w_in"
+    return _xlstm_heads(p, cfg.n_heads, hd, tp, proj) is not None
+
+
+def seq_parallel_on(mesh, seq_len: int, seq_parallel: bool,
+                    return_cache: bool = False) -> bool:
+    """Whether a forward runs Megatron-SP: JAX's ``Decoder.forward``
+    predicate (``transformer.py:325-331``) — asked for, a forward without
+    a cache (``Transformer.forward``), a mesh whose ``"model"`` axis n >
+    1, and more than one position ``seq_len`` (a VLM's stub positions
+    included) that n divides.  Otherwise SP is off, silently, as in
+    JAX."""
+    if not seq_parallel or return_cache or mesh is None:
+        return False
+    n = axis_size(mesh, MODEL)
+    return n > 1 and seq_len > 1 and seq_len % n == 0
+
+
+def _alike(p, group):
+    """A layer's leaves (a module, a namespace or nested dicts) as nested
+    dicts, each leaf through ``replicated_in`` over ``group``."""
+    if isinstance(p, torch.Tensor):
+        return replicated_in(p, group)
+    if isinstance(p, nn.Module) and not isinstance(p, nn.ParameterDict):
+        items = (list(p.named_children())
+                 + list(p.named_parameters(recurse=False)))
+    else:
+        items = p.items()
+    return {k: _alike(v, group) for k, v in items}
+
+
+def _sublayer(fn, norm, h, tp, split: bool):
+    """``fn`` (a mixer or an FFN on the normed input and a model shard)
+    on ``rmsnorm(norm, h)``.  Under Megatron-SP (``tp.seq``) ``h`` holds
+    this rank's positions: they are normed (the scale through
+    ``replicated_in``: it sees this rank's positions only) and gathered
+    whole with ``gather_shards``; a tensor-parallel ``fn`` (``split``)
+    leaves reduce-scattered onto them; one every rank computes whole gets
+    its leaves through ``replicated_in`` (see :func:`_alike`) and keeps
+    this rank's positions of its output.  Returns ``fn``'s output."""
+    if tp is None or not tp.seq:
+        return fn(rmsnorm(norm, h), tp, None)
+    x = rmsnorm({"scale": replicated_in(norm["scale"], tp.group)}, h)
+    x = gather_shards(x, tp.group, 1)
+    if split:
+        return fn(x, tp, None)
+    y, *rest = fn(x, None, tp.group)
+    return (tp.own_positions(y), *rest)
 
 
 def _mix_apply(p, h, cfg: ArchConfig, kind: str, *, impl: str, tp=None,
@@ -374,15 +446,28 @@ def _mix_decode(p, x_t, state, pos, cfg: ArchConfig, kind: str, pages,
 
 
 def _layer_apply(p: Block, h, cfg: ArchConfig, kind: str, *, impl: str,
-                 mesh=None, state: bool = True):
+                 mesh=None, state: bool = True, sp: bool = False):
     """One layer over a sequence. Returns (h, aux loss, raw decode state;
-    see :func:`_mix_apply` for ``state``)."""
-    y, state = _mix_apply(p.mix, rmsnorm(p.norm1, h), cfg, kind, impl=impl,
-                          tp=model_shard(mesh), state=state)
+    see :func:`_mix_apply` for ``state``).  ``sp``: Megatron-SP, ``h``
+    this rank's positions (JAX ``_layer_apply(seq_dim=)``; see
+    :func:`_sublayer`)."""
+    tp = model_shard(mesh, seq=sp)
+
+    def mix(x, t, alike):
+        leaves = p.mix if alike is None else _alike(p.mix, alike)
+        return _mix_apply(leaves, x, cfg, kind, impl=impl, tp=t, state=state)
+
+    def ffn(x, t, alike):
+        leaves = p.ffn if alike is None else _alike(p.ffn, alike)
+        return ffn_apply(leaves, x, cfg, impl=impl, mesh=mesh,
+                         tp=t if alike is None else None)
+
+    y, state = _sublayer(mix, p.norm1, h, tp, sp and _mix_split(
+        p.mix, cfg, kind, tp))
     h = h + y
     if not has_ffn(cfg):
         return h, 0.0, state
-    y, aux = ffn_apply(p.ffn, rmsnorm(p.norm2, h), cfg, impl=impl, mesh=mesh)
+    y, aux = _sublayer(ffn, p.norm2, h, tp, sp and _ffn_split(p.ffn, cfg))
     return h + y, aux, state
 
 
@@ -456,32 +541,34 @@ class Decoder(nn.Module):
                   torch.float32 if cast_dtype is None else dtype)
             for kind in self.kinds)
 
-    def _layer(self, i: int, h, mesh=None, state: bool = False):
+    def _layer(self, i: int, h, mesh=None, state: bool = False,
+               sp: bool = False):
         layer = local_leaves(self.layers[i], self.cast_dtype)
         return _layer_apply(layer, h, self.cfg, self.kinds[i],
-                            impl=self.attn_impl, mesh=mesh, state=state)
+                            impl=self.attn_impl, mesh=mesh, state=state,
+                            sp=sp)
 
-    def _layers(self, h, lo: int, hi: int, mesh=None):
+    def _layers(self, h, lo: int, hi: int, mesh=None, sp: bool = False):
         """Layers ``lo..hi-1``. Returns (h, their summed aux loss)."""
         aux = 0.0
         for i in range(lo, hi):
-            h, a, _ = self._layer(i, h, mesh)
+            h, a, _ = self._layer(i, h, mesh, sp=sp)
             aux = aux + a
         return h, aux
 
-    def _groups(self, h, starts, mesh=None):
+    def _groups(self, h, starts, mesh=None, sp: bool = False):
         """The groups starting at ``starts``, each checkpointed (block
         remat). Returns (h, their summed aux loss)."""
         L = len(resolve_pattern(self.cfg))
         aux = 0.0
         for g0 in starts:
-            h, a = checkpoint(self._layers, h, g0, g0 + L, mesh,
+            h, a = checkpoint(self._layers, h, g0, g0 + L, mesh, sp,
                               use_reentrant=False)
             aux = aux + a
         return h, aux
 
     def forward(self, h, *, return_cache: bool = False, remat: str = "none",
-                mesh=None):
+                mesh=None, seq_parallel: bool = False):
         """h: (B,S,d) → (h, aux loss, raw per-layer decode states | None),
         the aux loss the MoE layers' router losses summed (a Python 0.0
         in a stack without MoE), as JAX's ``Decoder.forward`` returns.
@@ -498,33 +585,52 @@ class Decoder(nn.Module):
         segment twice: the non-reentrant checkpoint stops a recompute once
         what backward needs is back); with g1 ≤ 1 (G prime) it is block
         remat.  Remat applies to a forward without a cache.  ``mesh``
-        reaches the MoE layers (their expert parallelism); the recompute
-        runs their collectives again, on every rank alike."""
+        reaches the MoE layers (their expert parallelism) and the
+        tensor-parallel ones; the recompute runs their collectives again,
+        on every rank alike.
+
+        ``seq_parallel`` (where :func:`seq_parallel_on` holds): Megatron-SP
+        over ``"model"``, JAX's ``seq_dim``.  The remainder layers run on
+        the whole sequence; then this rank keeps its block of positions
+        (``take_shard``), the groups run with the residual stream and
+        every checkpointed input split along the sequence (each sublayer
+        gathers its normed input and reduce-scatters its output:
+        :func:`_sublayer`), and the blocks are gathered whole at the end
+        (``gather_alike``: every rank's head and loss then compute
+        alike)."""
         if remat not in REMATS:
             raise ValueError(f"unknown remat {remat!r}; one of {REMATS}")
         n = len(self.layers)
-        if return_cache or remat == "none":
+        if return_cache:
             states, aux = [], 0.0
             for i in range(n):
-                h, a, st = self._layer(i, h, mesh, return_cache)
+                h, a, st = self._layer(i, h, mesh, True)
                 aux = aux + a
-                if return_cache:
-                    states.append(st)
-            return h, aux, (states if return_cache else None)
+                states.append(st)
+            return h, aux, states
         L = len(resolve_pattern(self.cfg))
         n_rem = n % L
         h, aux = self._layers(h, 0, n_rem, mesh)
         starts = list(range(n_rem, n, L))
+        sp = bool(starts) and seq_parallel_on(mesh, h.shape[1], seq_parallel)
+        group = model_shard(mesh).group if sp else None
+        if sp:
+            h = take_shard(h, group, 1)
         g1 = _sqrt_factor(len(starts)) if remat == "sqrt" else 0
-        if g1 > 1:
+        if remat == "none":
+            h, a = self._layers(h, n_rem, n, mesh, sp)
+            aux = aux + a
+        elif g1 > 1:
             g2 = len(starts) // g1
             for k in range(g1):
                 h, a = checkpoint(self._groups, h, starts[k * g2:(k + 1) * g2],
-                                  mesh, use_reentrant=False)
+                                  mesh, sp, use_reentrant=False)
                 aux = aux + a
         else:
-            h, a = self._groups(h, starts, mesh)
+            h, a = self._groups(h, starts, mesh, sp)
             aux = aux + a
+        if sp:
+            h = gather_alike(h, group, 1)
         return h, aux, None
 
     def pack_cache(self, cache, prompt_len: int, cache_len: int,
@@ -888,7 +994,8 @@ class Transformer(SeededParams):
         remat = "none" if return_cache else self.shcfg.remat
         h, aux, cache = self.decoder(self._embed(tokens, embeds, mesh),
                                      return_cache=return_cache, remat=remat,
-                                     mesh=mesh)
+                                     mesh=mesh,
+                                     seq_parallel=self.shcfg.seq_parallel)
         return self._final_norm(h), aux, cache
 
     def forward(self, tokens, embeds=None, *, return_cache: bool = False,

@@ -38,6 +38,25 @@ transpose rules decide the gradients, so each function states its own:
   backward all-gathers the cotangent (every rank's partial product
   feeds every slice).  The Griffin block's input and gate projections
   leave through it onto each rank's own features.
+* :func:`take_shard` and :func:`gather_alike` — a value every rank of the
+  group holds alike (and computes alike from) cut to this rank's slice
+  along ``dim`` (backward all-gathers the cotangent), and its inverse
+  (all-gather forward; backward this rank's slice of the cotangent,
+  which every rank holds whole and alike).  Megatron-SP enters and
+  leaves its split of the residual stream through them.
+* :func:`sum_over_shards` — a per-rank sum that every batch shard's loss
+  then holds whole (the global-batch MoE's per-expert sums): SUM
+  all-reduce forward; backward the cotangent times the group size, so
+  that :func:`mean_grads`' division leaves the global value's gradient
+  whole.
+* :func:`tp_in` and :func:`tp_out` — the entry and exit of a
+  tensor-parallel region of one :class:`~repro_torch.parallel.mesh.
+  ModelShard`: :func:`replicated_in` and :func:`sum_out`, or under
+  Megatron-SP (``tp.seq``) nothing and :func:`sum_scatter` along the
+  sequence (dim 1): the layer has gathered the region's input with
+  :func:`gather_shards`, whose reduce-scatter sums each rank's partial
+  cotangent, so a use of the input that every rank computes alike must
+  not enter through :func:`replicated_in` there.
 
 Without a group (a size-1 axis) each is the identity.  Ranks that share
 one card run the ``gloo`` backend with CUDA tensors: on the H100 (torch
@@ -143,6 +162,59 @@ def sum_scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     return x if group is None else _SumScatter.apply(x, group, dim)
 
 
+class _TakeShard(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        n, r = dist.get_world_size(group), dist.get_rank(group)
+        return x.chunk(n, dim)[r].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_cat(g, ctx.group, ctx.dim), None, None
+
+
+class _GatherAlike(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather_cat(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        n, r = dist.get_world_size(ctx.group), dist.get_rank(ctx.group)
+        return g.chunk(n, ctx.dim)[r].contiguous(), None, None
+
+
+def take_shard(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """This rank's slice along ``dim`` of a value the group holds alike
+    (see the module doc): slice forward, all-gather backward."""
+    return x if group is None else _TakeShard.apply(x, group, dim)
+
+
+def gather_alike(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The group's slices along ``dim`` gathered into a value every rank
+    then uses alike (see the module doc): all-gather forward, this rank's
+    slice of the cotangent backward."""
+    return x if group is None else _GatherAlike.apply(x, group, dim)
+
+
+def tp_in(x: torch.Tensor, tp) -> torch.Tensor:
+    """The entry of ``tp``'s tensor-parallel region (see the module doc)."""
+    if tp is None or tp.seq:
+        return x
+    return replicated_in(x, tp.group)
+
+
+def tp_out(y: torch.Tensor, tp) -> torch.Tensor:
+    """The exit of ``tp``'s tensor-parallel region: the partial sums
+    all-reduced, or under Megatron-SP reduce-scattered onto this rank's
+    positions (dim 1)."""
+    if tp is None:
+        return y
+    return sum_scatter(y, tp.group, 1) if tp.seq else sum_out(y, tp.group)
+
+
 def max_over(x: torch.Tensor, group) -> torch.Tensor:
     """MAX all-reduce of a detached copy of ``x`` (no gradient: the
     log-sum-exp shifts it feeds are invariant to it)."""
@@ -181,6 +253,17 @@ class _MeanOverReplicas(torch.autograd.Function):
         return g / ctx.n, None, None
 
 
+class _SumOverShards(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n):
+        ctx.n = n
+        return all_reduce_(x.clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.n, None, None
+
+
 class _MeanOverShards(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, n):
@@ -205,6 +288,10 @@ def mean_over_replicas(x: torch.Tensor, group, n: int) -> torch.Tensor:
 
 def mean_over_shards(x: torch.Tensor, group, n: int) -> torch.Tensor:
     return x if group is None else _MeanOverShards.apply(x, group, n)
+
+
+def sum_over_shards(x: torch.Tensor, group, n: int) -> torch.Tensor:
+    return x if group is None else _SumOverShards.apply(x, group, n)
 
 
 #: elements of one all-reduce bucket of :func:`mean_grads`

@@ -180,18 +180,32 @@ class ModelShard:
     layers read it: the axis' process group, its size and this rank's
     index along it.  ``seq_cache`` marks a decode whose KV cache is split
     over ``"model"`` along the sequence (the rules' choice where the KV
-    heads do not divide the axis)."""
+    heads do not divide the axis).  ``seq`` marks a training forward under
+    Megatron-SP: the residual stream is split over ``"model"`` along the
+    sequence, a tensor-parallel region's input arrives gathered whole by
+    ``gather_shards`` and its row-parallel output leaves through
+    ``sum_scatter`` onto this rank's positions
+    (:func:`repro_torch.parallel.collectives.tp_in`, ``tp_out``)."""
 
     group: Any
     n: int
     rank: int
     seq_cache: bool = False
+    seq: bool = False
+
+    def own_positions(self, y):
+        """This rank's block of positions (dim 1) of ``y``, a value every
+        rank of the axis computes whole (a plain slice: its cotangent is
+        this rank's positions only)."""
+        S = y.shape[1] // self.n
+        return y[:, self.rank * S:(self.rank + 1) * S]
 
 
-def model_shard(mesh, *, seq_cache: bool = False) -> Optional[ModelShard]:
+def model_shard(mesh, *, seq_cache: bool = False,
+                seq: bool = False) -> Optional[ModelShard]:
     """The :class:`ModelShard` of this rank under ``mesh`` (None without a
     mesh or with a ``"model"`` axis of size 1)."""
     group, n = axis_group(mesh, (MODEL,))
     if group is None:
         return None
-    return ModelShard(group, n, mesh.get_local_rank(MODEL), seq_cache)
+    return ModelShard(group, n, mesh.get_local_rank(MODEL), seq_cache, seq)

@@ -44,8 +44,17 @@
   a train step and L a prefill).
 * ``run_planner_dry("multitask_clip")`` on the reference's spec and 96 GB
   cards gives JAX's records (waves, steps, makespan).
-* qwen2-moe under ``--baseline`` (its experts not sharded under a split
-  batch) records its error, and the CLI exits 1.
+* qwen2-moe under ``--baseline`` (60 unpadded experts, not sharded: the
+  global-batch MoE with each stack's hidden dim split over "model")
+  records ``ok``, and the CLI exits 0.
+* Megatron-SP: reduced qwen3's train cell with ``seq_parallel=True``
+  against JAX's compiled one: argument, output and alias bytes and FLOPs
+  equal; collective kinds equal up to GSPMD's resharding (all-to-all and
+  collective-permute, now also inside the layer scans) and the port's
+  reduce-scatters; and the port's bytes by kind with SP less those
+  without equal the formula of its rule (each sublayer's all-reduce of
+  the whole activation becomes a reduce-scatter of it, plus an
+  all-gather of this rank's positions each way).
 
 ``repro.launch.dryrun`` is imported only in the subprocess: it sets
 ``XLA_FLAGS`` to 512 host devices at import.
@@ -110,8 +119,8 @@ cells, families = json.loads(sys.argv[1]), json.loads(sys.argv[2])
 mesh = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("data", "model"))
 
 
-def record(cfg, kind, S, B):
-    sh = dataclasses.replace(default_sharding(cfg), use_pallas=False)
+def record(cfg, kind, S, B, **over):
+    sh = dataclasses.replace(default_sharding(cfg), use_pallas=False, **over)
     spec = build_step(cfg, ShapeConfig(kind, S, B, kind), mesh, shcfg=sh)
     with mesh:
         c = lower_step(spec, mesh).compile()
@@ -135,6 +144,7 @@ cfg = reduced(get_arch("qwen3-0.6b"))
 out = {"cells": {}, "families": {}}
 for kind, (S, B) in cells.items():
     out["cells"][kind] = record(cfg, kind, S, B)
+out["sp"] = record(cfg, "train", 64, 8, seq_parallel=True)
 for arch, over in families.items():
     out["families"][arch] = record(reduced(get_arch(arch), **over),
                                    "train", 64, 8)
@@ -319,6 +329,53 @@ def test_reduced_cell_equals_jax(jax_side, kind):
     assert ours - {"reduce-scatter"} == theirs - embed
 
 
+def test_reduced_sp_cell_equals_jax(jax_side):
+    """Megatron-SP's train cell (reduced qwen3: 2 layers, d 64, fp32; a
+    rank's 4 rows x 64 positions) against JAX's, and against the port's
+    cell without SP."""
+    cfg = reduced(get_arch("qwen3-0.6b"))
+    recs = {sp: dryrun.run_cell(
+        cfg, ShapeConfig("train", 64, 8, "train"), mesh_shape=(2, 2),
+        verbose=False, shcfg=default_sharding(cfg, use_kernels=False,
+                                              seq_parallel=sp))
+        for sp in (False, True)}
+    assert all(r["ok"] for r in recs.values())
+    rec, ref = recs[True], jax_side()["sp"]
+    mem = rec["memory"]
+    assert mem["argument_size_in_bytes"] == ref["arg"]
+    assert mem["alias_size_in_bytes"] == ref["alias"]
+    assert mem["output_size_in_bytes"] + 8 * ref["n_out"] == ref["out"]
+    assert rec["hlo_flops"] == ref["flops"] == recs[False]["hlo_flops"]
+    ours = {k for k, v in rec["collectives"].items() if v > 0}
+    theirs = {k for k, v in ref["collectives"].items() if v > 0}
+    # GSPMD reshards the embedding lookup and, under SP, inside the layer
+    # scan's backward (all-to-all, collective-permute); the port never
+    # reshards, and its SP exits and FSDP backward reduce-scatter
+    reshard = {"all-to-all", "collective-permute"}
+    assert reshard <= theirs and not reshard & ours
+    assert any("while/body" in n for n in ref["op_names"]["all-to-all"])
+    assert ref["reduce_scatter_ops"] == 0 and "reduce-scatter" in ours
+    assert ours - {"reduce-scatter"} == theirs - reshard
+    # the port's rule, per layer (one group: block remat recomputes it, and
+    # the recompute stops before the group's last exit): each sublayer's
+    # exit all-reduced the whole activation X (twice forward but the last,
+    # once backward: 5 X a layer) and now reduce-scatters it; each entry
+    # all-gathers this rank's positions (X / 2) forward, in recompute and
+    # backward (sum_scatter's transpose): 3 X a layer; each norm scale's
+    # gradient is all-reduced over "model" (d fp32); the residual stream
+    # is split once (take_shard: its cotangent all-gathered) and gathered
+    # once (gather_alike): X
+    L, d = cfg.n_layers, cfg.d_model
+    X = 8 // 2 * 64 * d * 4
+    diff = {k: rec["collectives"][k] - recs[False]["collectives"][k]
+            for k in ("all-gather", "all-reduce", "reduce-scatter")}
+    assert diff == {"all-gather": L * 3 * X + X,
+                    "all-reduce": -L * 5 * X + L * 2 * d * 4,
+                    "reduce-scatter": L * 5 * X}
+    assert mem["temp_size_in_bytes"] < recs[False]["memory"][
+        "temp_size_in_bytes"]
+
+
 # ------------------------------------------ the hybrid, ssm and enc-dec
 
 
@@ -431,16 +488,21 @@ def test_planner_dry_run_equals_jax(jax_side):
         {k: r[k] for k in keys} for r in jax_side()["plans"]]
 
 
-# ------------------------------------------------------ unported cells
+# ------------------------------------------------- the baseline's cells
 
 
-@pytest.mark.parametrize("arch,shape,baseline,match", [
-    ("qwen2-moe-a2.7b", "decode_32k", True, "without expert parallelism")])
-def test_unported_cells_record_the_error(arch, shape, baseline, match):
+@pytest.mark.parametrize("arch,shape,baseline", [
+    ("qwen2-moe-a2.7b", "decode_32k", True)])
+def test_unported_cells_record_the_error(tmp_path, arch, shape, baseline):
+    """The cells that recorded ``NotImplementedError`` before the
+    global-batch MoE was ported now run: qwen2-moe under ``--baseline``
+    (60 experts on a 16-way model axis, not sharded) records ``ok`` with
+    the grouped matmul on each rank's (E, C, d) @ (E, d, 1,408 / 16), and
+    the CLI exits 0."""
     rec = dryrun.run_cell(arch, shape, baseline=baseline, verbose=False)
-    assert not rec["ok"] and "NotImplementedError" in rec["error"]
-    assert match in rec["error"]
-    with pytest.raises(SystemExit) as e:
-        dryrun.main(["--arch", arch, "--shape", shape]
-                    + (["--baseline"] if baseline else []))
-    assert e.value.code == 1
+    assert rec["ok"], rec.get("error")
+    assert rec["launches"]["grouped_matmul"] == 3 * get_arch(arch).n_layers
+    path = tmp_path / "rec.json"
+    dryrun.main(["--arch", arch, "--shape", shape, "--out", str(path)]
+                + (["--baseline"] if baseline else []))
+    assert json.loads(path.read_text())[0]["variant"] == "baseline"

@@ -12,8 +12,8 @@ package's ``repro/launch/steps.py``, without spawned ranks.
   the leaves); a cache spec is JAX's per layer (a decoder's remainder
   layers unstacked, its groups and the enc-dec's layers stacked).
 * The clamped ``grad_accum`` equals the one JAX's train step closes over.
-* ``seq_parallel`` under a model axis raises ``NotImplementedError``
-  naming its ROADMAP item.
+* ``seq_parallel`` under a model axis builds, with JAX's specs (the
+  enc-dec's too, which JAX never runs under SP).
 * Full size without memory: on an in-process ``fake`` group of 256 ranks
   over (16, 16), deepseek-67b and llama3-405b built on ``"meta"`` and
   placed by ``make_train_state``: every leaf's local shape — and its
@@ -198,14 +198,29 @@ def test_grad_accum_clamp_equals_jax(case):
     assert port.grad_accum == _jax_ga(ref)
 
 
-def test_seq_parallel_raises_under_a_model_axis():
-    shcfg = ShardingConfig(seq_parallel=True)
-    with pytest.raises(NotImplementedError, match="item 5h"):
-        build_step("qwen3-0.6b", "train_4k", FakeMesh(*MESHES["16x16"]),
-                   shcfg=shcfg, device="meta")
-    # no model axis: nothing to sequence-split, the step builds
-    build_step("qwen3-0.6b", "train_4k", FakeMesh((4,), ("data",)),
-               shcfg=shcfg, device="meta")
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "xlstm-125m",
+                                  "seamless-m4t-medium"])
+def test_seq_parallel_raises_under_a_model_axis(arch):
+    """``seq_parallel`` under a model axis no longer raises: the train step
+    builds with JAX's specs on (16, 16) (Megatron-SP changes no spec: the
+    split of the residual stream lives inside the step), the enc-dec's
+    too, and so does the step without a model axis."""
+    dims, axes = MESHES["16x16"]
+    port = build_step(arch, "train_4k", FakeMesh(dims, axes),
+                      shcfg=default_sharding(get_arch(arch),
+                                             seq_parallel=True),
+                      device="meta")
+    ref = jax_build_step(arch, "train_4k", ShapeMesh(dims, axes),
+                         shcfg=dataclasses.replace(
+                             jcfg.default_sharding(jcfg.get_arch(arch)),
+                             seq_parallel=True))
+    assert port.model.shcfg.seq_parallel
+    _param_specs_equal(arch, port.in_specs[0], ref.in_specs[0],
+                       ref.in_shapes[0])
+    assert port.in_specs[2] == {k: tuple(v) for k, v in
+                                ref.in_specs[2].items()}
+    build_step(arch, "train_4k", FakeMesh((4,), ("data",)),
+               shcfg=ShardingConfig(seq_parallel=True), device="meta")
 
 
 def test_cuda_without_a_gpu_raises():

@@ -18,7 +18,10 @@ wrap around its circular window of 64, split over "model" by positions),
 xlstm-125m and seamless-m4t-medium in fp32, an fp32 cache
 (a bf16 one rounds the decode's probabilities, which the card and the
 CPU then sum in another order): every loss, trained local block and
-logit within 1e-4, the greedy tokens equal.
+logit within 1e-4, the greedy tokens equal.  And the Megatron-SP train
+steps of reduced qwen3, qwen2-moe and recurrentgemma at S 320 (flash on
+each rank's heads over the gathered sequence), losses and trained blocks
+within 1e-4.
 """
 
 import pytest
@@ -70,3 +73,36 @@ def test_placed_steps_on_the_card_equal_the_cpu(cuda_device, arch):
         assert (gmm > 0) == ("moe" in arch), gmm
         scans = g["train"]["counts"]["rglru_scan"]
         assert (scans > 0) == (arch == "recurrentgemma-9b"), scans
+
+
+#: Megatron-SP train steps (``serve=False``: SP never runs with a cache):
+#: arch: (sharding, config overrides, the kernels its step launches)
+SP_CASES = {"qwen3-0.6b": ({"seq_parallel": True}, None,
+                           ("flash_attention",)),
+            "qwen2-moe-a2.7b": ({"seq_parallel": True, "grad_accum": 2},
+                                None, ("flash_attention", "grouped_matmul")),
+            "recurrentgemma-9b": ({"seq_parallel": True}, {"n_layers": 4},
+                                  ("rglru_scan",))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", list(SP_CASES))
+def test_sp_train_steps_on_the_card_equal_the_cpu(cuda_device, arch):
+    """Megatron-SP's train steps (the residual stream split along the
+    sequence over "model"; recurrentgemma at 4 layers runs a remainder
+    layer outside SP): every loss and trained local block within 1e-4 of
+    the CPU ranks', flash on each rank's heads over the gathered sequence
+    at S 320 (> 256: the kernel; recurrentgemma's attention is windowed:
+    its scan on each rank's features instead)."""
+    sharding, over, kernels = SP_CASES[arch]
+    kw = dict(RUN, arch=arch, sharding=sharding, cfg_overrides=over,
+              seq=320, serve=False)
+    gpu = run_ranks(_placed_rank, 4, "cuda", args=(dict(kw, device="cuda"),))
+    cpu = run_ranks(_placed_rank, 4, "cpu", args=(dict(kw, device="cpu"),))
+    for g, c in zip(gpu, cpu):
+        assert g["coord"] == c["coord"] and "prefill" not in g
+        assert max(abs(x - y) for x, y in zip(g["train"]["losses"],
+                                               c["train"]["losses"])) <= TOL
+        for n, t in c["train"]["params"].items():
+            assert _diff(g["train"]["params"][n], t) <= TOL, n
+        assert all(g["train"]["counts"][k] > 0 for k in kernels)
