@@ -44,8 +44,9 @@ caught):
    decode at seamless's step (MHA K16 hd64) and glm4's (H32 K2 hd128, two
    head groups per KV head), flash causal at phase 8b's data-parallel
    rank (B4 H16 K8 S1,024), each with SDPA's time beside it where one
-   exists; and SDPA's forward + backward at phase 6's training shape, the
-   flash gradient's library yardstick;
+   exists; and the flash backward kernel at every training shape its
+   phases launch it at (``FLASH_BWD_CASES``), with SDPA's backward alone
+   as its library yardstick;
 3b. the cost model's spec: bf16 ``torch.matmul`` device times over
    ``SPEC_SHAPES`` and the host time of launching one small op, each
    shape's measured time (device + launch) beside
@@ -141,12 +142,12 @@ caught):
    ``repro_torch.launch.train.train``: batch 8 x seq 1,024 (so every
    layer's attention is the flash kernel), 8 steps on ``SyntheticLM``;
    per step the loss, ms and tok/s, and the peak device memory; flash
-   launches must be 2 x 28 per step (forward and remat recompute) and
-   every other kernel 0; every loss finite, the last below the first;
+   launches must be 2 x 28 per step (forward and remat recompute), the
+   flash backward's 28, and every other kernel 0; every loss finite, the last below the first;
    then the same steps with kernels off (plain attention on the card):
    per-step losses equal within 2^-7 relative (bf16 compute);
 6b. reduced qwen3 in fp32, 3 train steps at seq 320 (the fp32 flash
-   kernel and its plain-recompute gradient) on ``cuda`` against the plain
+   kernel and its fp32 backward kernel) on ``cuda`` against the plain
    path on ``cpu``: losses and final params within 1e-4;
 6c. the wavefront training path: a bound ``SpindleSession`` over
    ``tiny_multitask_clip`` and over ``tiny_ofasys`` on ``cuda``: engine
@@ -157,8 +158,8 @@ caught):
    wider clip (d 512, batch 16) through the same session, step times and
    waves;
 6d. reduced seamless and pixtral in fp32, loss and every gradient at
-   S 300 (frames 300; a 16-position stub) on ``cuda`` (flash forward,
-   plain-recompute gradient) against ``cpu``: within 1e-4;
+   S 300 (frames 300; a 16-position stub) on ``cuda`` (flash forward and
+   backward kernels) against ``cpu``: within 1e-4;
 6e. train qwen2-moe-a2.7b at full width cut to 4 layers (3.04 B params;
    the full 15.1 B do not fit a card with gradients and moments): bf16
    params and compute as the config has them, fp32 moments, block remat,
@@ -166,7 +167,8 @@ caught):
    prefill shape), 4 steps through ``make_train_state`` / ``train_step``,
    kernels on and off; launches per step derived from the layer kinds
    (``train_launches_per_step``: grouped matmul 9 per layer — forward,
-   recompute, dx — and flash 2) and printed before the run, asserted
+   recompute, dx — flash 2 and its backward 1) and printed before the
+   run, asserted
    exactly; losses finite and falling, on/off within 2^-7 relative, peak
    below 76 GB; then one more step under ``launch/profile.py``'s
    ``profile_train_step`` (device time by group);
@@ -257,7 +259,7 @@ caught):
    bit-equal, each within 5e-3; the ranks' peaks together below 76 GB;
 8b. data parallelism at full width: full qwen3-0.6b, phase 6's global
    batch 8 x 1,024 split over two ranks (data 2), 2 steps: flash 56
-   launches a rank and step, the losses within 1e-3 of one one-process
+   and its backward 28 launches a rank and step, the losses within 1e-3 of one one-process
    run; then ``compress_grads=True`` (int8 sync): the first losses
    equal and the last within 0.05 (``tests/test_compressed_dp.py``);
 8c. re-mesh across world sizes: reduced qwen2-moe fp32 on two ranks
@@ -287,8 +289,8 @@ caught):
    through gloo on (data 2, model 2); full qwen3-0.6b placed by the rules
    (FSDP over data; heads, FFN and vocab over model), 2 train steps at 8 x
    1,024 (each step's loss within ``PLACED_LOSS_TOL`` of one process's
-   train steps on the same batches; flash 56 launches a rank and step at
-   B4 H8 K4 S1024), a prefill of 8 x 512 (flash 28 a rank; logits within
+   train steps on the same batches; flash 56 and its backward 28 launches
+   a rank and step at B4 H8 K4 S1024), a prefill of 8 x 512 (flash 28 a rank; logits within
    ``PLACED_LOGITS_TOL`` of one process's, two controls above it) and 8
    greedy serve steps (a share of at least ``PLACED_TOKENS_MIN`` of the
    tokens equal to one process's); each rank's step
@@ -313,7 +315,7 @@ caught):
    split along the sequence over "model"; each sublayer all-gathers its
    normed input and reduce-scatters its output): each loss within
    ``PLACED_LOSS_TOL`` of 8e's one process's first two steps, flash 56
-   launches a rank and step at B4 H8 K4 S1,024 (each rank's heads over the
+   and its backward 28 launches a rank and step at B4 H8 K4 S1,024 (each rank's heads over the
    gathered sequence), each rank's step ms, peak memory and bytes by
    collective kind printed beside 8e's;
 8g. the placed steps of the hybrid, ssm and enc-dec families, in one spawn
@@ -364,9 +366,15 @@ caught):
    ``{"ok": true, "device": {...}}``.
 
 Phase 3 also holds flash at the training shape (S 1,024) and the flash
-gradient there — the plain version recomputed and differentiated, as the
-JAX package's ``custom_vjp`` does (no TPU kernel) — against autograd of
-the plain version, with its device time per layer; the grouped matmul's
+backward kernel (no TPU kernel: the JAX package's ``custom_vjp``
+recomputes its oracle) at phase 6's, 6e's, 8b's and 8e's training shapes,
+bf16 (phase 6's also fp32), and 8g's seamless encoder, decoder self and
+cross attention, fed the forward kernel's output and log-sum-exp: each
+gradient's max error against the plain backward in fp32, relative to its
+largest entry, at most twice SDPA's own bf16 backward error on the same
+inputs (fp32: 1e-5), two calls bit-identical, and its device time beside
+its plain version's, the plain recompute's it replaced, SDPA's backward
+alone and SDPA's forward + backward; the grouped matmul's
 gradient at 6e's expert shapes (E64 C341, gate/up and down, bf16: dx
 through the kernel, dw one ``torch.bmm``) and the scan's at 6f's (B4
 S1,024 D4,096, fp32: the reverse scan through the kernel) and at 8g's rank
@@ -411,6 +419,9 @@ SOURCES = {
                         "src/repro/kernels/paged_attention.py:151"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:142"),
+    # no TPU kernel: JAX's custom_vjp backward recomputes its oracle in XLA
+    "flash_attention_backward": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                                 "src/repro/kernels/ops.py:42"),
     "grouped_matmul": ("src/repro_torch/csrc/grouped_matmul.cu",
                        "src/repro/kernels/moe_gmm.py:98"),
     "rglru_scan": ("src/repro_torch/csrc/rglru_scan.cu",
@@ -488,6 +499,28 @@ FLASH_CASES = {
     "tp_prefill_dec_self": (2, 8, 8, 1040, 1040, 64, True, ("bfloat16",)),
     "tp_prefill_cross": (2, 8, 8, 1040, 260, 64, False, ("bfloat16",)),
 }
+# the flash backward: (B, H, K, Sq, Sk, hd, causal, dtypes) at every shape
+# a training phase launches it at — phase 6's (qwen3-0.6b, 8 x 1,024; also
+# fp32), 6e's (qwen2-moe cut, 4 x 1,024, 16 KV heads), 8b's data-parallel
+# rank, 8e's and 8h's (data 2, model 2) rank, and 8g's seamless rank:
+# encoder, decoder self and cross attention
+FLASH_BWD_CASES = {
+    "train": (8, 16, 8, 1024, 1024, 128, True, BOTH),
+    "moe_train": (4, 16, 16, 1024, 1024, 128, True, ("bfloat16",)),
+    "dp": (4, 16, 8, 1024, 1024, 128, True, ("bfloat16",)),
+    "tp": (4, 8, 4, 1024, 1024, 128, True, ("bfloat16",)),
+    "tp_encoder": (2, 8, 8, 320, 320, 64, False, ("bfloat16",)),
+    "tp_dec_self": (2, 8, 8, 1280, 1280, 64, True, ("bfloat16",)),
+    "tp_cross": (2, 8, 8, 1280, 320, 64, False, ("bfloat16",)),
+}
+# the flash backward's tolerance: each gradient's max error against the
+# plain backward in fp32 on the same inputs, relative to that gradient's
+# largest entry; bf16 at most FLASH_BWD_SDPA_FACTOR times SDPA's own bf16
+# backward error against the same reference (P and dS are rounded to bf16
+# for their products in both, every gradient once on output), fp32 within
+# FLASH_BWD_F32_TOL (sums in another order)
+FLASH_BWD_SDPA_FACTOR = 2.0
+FLASH_BWD_F32_TOL = 1e-5
 # the RG-LRU scan: (B, S, D, decay) — recurrentgemma-9b's 8 x 512-token
 # prefill at d 4096, a ragged shape, and a decay of 0.999 over 2048 steps
 SCAN_SHAPES = {
@@ -725,55 +758,137 @@ def check_flash(torch, ops, ref, dtype_name: str, case: str) -> dict:
                 library_ms=library_ms, host_us=host)
 
 
-def check_flash_backward(torch, ops, ref, dtype_name: str, S: int,
-                         K: int) -> dict:
-    """The flash autograd function's backward (the plain version
-    recomputed and differentiated: no TPU kernel, JAX's is the same
-    recompute in XLA) at the training shape B=8, H=16, K, hd=128: its
-    gradients through ``ops.flash_attention`` must equal autograd of the
-    plain version, and one call's device time per layer; beside it SDPA's
-    forward + backward (one call each) on the same inputs, KV heads
-    repeated outside the timed calls."""
+def check_flash_backward(torch, ops, ref, dtype_name: str, case: str) -> dict:
+    """The flash backward kernel at ``FLASH_BWD_CASES[case]``, fed the
+    forward kernel's output and log-sum-exp: each gradient against the
+    plain backward in fp32 on the same inputs within the stated tolerance
+    (``FLASH_BWD_SDPA_FACTOR`` x SDPA's error in bf16,
+    ``FLASH_BWD_F32_TOL`` in fp32), two calls bit-identical; the device
+    time of one call (a layer), of its plain version
+    (``ref.flash_attention_backward_ref``), of the plain recompute it
+    replaced (autograd of the plain forward), of SDPA's backward alone
+    (the library yardstick: the same function, one call) and of SDPA's
+    forward + backward, KV heads repeated outside the timed calls."""
     import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as flash_k
+    from repro_torch.kernels import flash_attention_bwd as bwd_k
 
     dt = getattr(torch, dtype_name)
     dev = torch.device("cuda")
-    g = torch.Generator(device="cpu").manual_seed(31 + S)
-    B, H, hd = 8, 16, 128
+    B, H, K, Sq, Sk, hd, causal, _ = FLASH_BWD_CASES[case]
+    G = H // K
+    g = torch.Generator(device="cpu").manual_seed(31 + Sq + Sk + hd)
 
     def make():
-        return tuple(torch.randn(shape, generator=g).to(dev, dt)
-                     for shape in ((B, H, S, hd), (B, K, S, hd),
-                                   (B, K, S, hd), (B, H, S, hd)))
+        q = torch.randn(B, H, Sq, hd, generator=g).to(dev, dt)
+        k = torch.randn(B, K, Sk, hd, generator=g).to(dev, dt)
+        v = torch.randn(B, K, Sk, hd, generator=g).to(dev, dt)
+        do = torch.randn(B, H, Sq, hd, generator=g).to(dev, dt)
+        o, lse = flash_k.flash_attention(q, k, v, causal=causal,
+                                         return_lse=True)
+        return q, k, v, o, lse, do
+
+    def kernel(*args):
+        return ops.flash_attention_backward(*args, causal=causal)
+
+    def rel(got, want):
+        return [float((a.float() - b).abs().max()) / float(b.abs().max())
+                for a, b in zip(got, want)]
+
+    def sdpa_leaves(q, k, v):
+        return [q.detach().requires_grad_()] + [
+            t.repeat_interleave(G, 1).detach().requires_grad_()
+            for t in (k, v)]
 
     first = make()
-    q, k, v, gout = first
-    ins = [t.clone().requires_grad_() for t in (q, k, v)]
-    got = torch.autograd.grad(ops.flash_attention(*ins), ins, gout)
-    ins = [t.clone().requires_grad_() for t in (q, k, v)]
-    want = torch.autograd.grad(ref.flash_attention_ref(*ins), ins, gout)
-    err = max(check_close(f"flash backward d{n} S={S}", a, b, dtype_name)
-              for n, a, b in zip("qkv", got, want))
-    sets = [first] + [make() for _ in range(2)]
-    ms = time_ms(torch, lambda q, k, v, g: ops.flash_attention_backward(
-        q, k, v, g), sets, iters=10)
-
-    def sdpa_fwd_bwd(q, k, v, g):
-        out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
-        return torch.autograd.grad(out, (q, k, v), g)
-
-    rsets = [tuple(t.detach().requires_grad_() for t in (
-        q, k.repeat_interleave(H // K, 1), v.repeat_interleave(H // K, 1)))
-        + (g,) for q, k, v, g in sets]
-    library_ms = time_ms(torch, sdpa_fwd_bwd, rsets, iters=10)
+    q, k, v, o, lse, do = first
+    got = kernel(*first)
+    if not all(torch.equal(a, b) for a, b in zip(got, kernel(*first))):
+        raise AssertionError(f"flash backward {case} {dtype_name}: two calls "
+                             f"differ")
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, do))
+    of, lf = ref.flash_attention_ref(qf, kf, vf, causal=causal,
+                                     return_lse=True)
+    want = ref.flash_attention_backward_ref(qf, kf, vf, of, lf, gf,
+                                            causal=causal)
+    errs = rel(got, want)
+    err = max(float((a.float() - b).abs().max()) for a, b in zip(got, want))
+    ins = sdpa_leaves(q, k, v)
+    sd = torch.autograd.grad(F.scaled_dot_product_attention(
+        *ins, is_causal=causal), ins, do)
+    sd = [sd[0]] + [t.float().reshape(B, K, G, Sk, hd).sum(2)
+                    for t in sd[1:]]
+    sdpa_errs = rel(sd, want)
+    del of, lf, want, sd, ins
+    if dtype_name == "bfloat16":
+        limits = [FLASH_BWD_SDPA_FACTOR * e for e in sdpa_errs]
+        tol = f"{FLASH_BWD_SDPA_FACTOR} x SDPA's bf16 error, relative"
+    else:
+        limits = [FLASH_BWD_F32_TOL] * 3
+        tol = f"{FLASH_BWD_F32_TOL} relative"
+    if not all(e <= lim for e, lim in zip(errs, limits)):
+        raise AssertionError(f"flash backward {case} {dtype_name}: dq, dk, "
+                             f"dv relative errors {errs} exceed {limits} "
+                             f"(SDPA's {sdpa_errs})")
     itemsize = q.element_size()
-    nbytes = 2 * (2 * q.numel() + 2 * k.numel()) * itemsize
-    # the scores recomputed, then dV, dP, dQ and dK: five causal products
-    flops = 5 * 2.0 * B * H * hd * S * (S + 1) / 2
+    per = (3 * q.numel() + 2 * k.numel()) * itemsize
+    sets = [first] + [make() for _ in range(n_copies(torch, per) - 1)]
+    ms = time_ms(torch, kernel, sets)
+    plain_ms = time_ms(torch, lambda *a: ref.flash_attention_backward_ref(
+        *a, causal=causal), sets, iters=5)
+
+    def recompute(q, k, v, o, lse, do):
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_() for t in (q, k, v)]
+            return torch.autograd.grad(
+                ref.flash_attention_ref(*ins, causal=causal), ins, do)
+
+    recompute_ms = time_ms(torch, recompute, sets, iters=5)
+    graphs = []
+    for q, k, v, o, lse, do in sets:
+        ins = sdpa_leaves(q, k, v)
+        graphs.append((F.scaled_dot_product_attention(*ins, is_causal=causal),
+                       ins, do))
+    library_ms = time_ms(torch, lambda out, ins, do: torch.autograd.grad(
+        out, ins, do, retain_graph=True), graphs)
+    del graphs
+
+    def sdpa_fwd_bwd(q, k, v, o, lse, do):
+        ins = sdpa_leaves(q, k, v)
+        out = F.scaled_dot_product_attention(*ins, is_causal=causal)
+        return torch.autograd.grad(out, ins, do)
+
+    fwd_bwd_ms = time_ms(torch, sdpa_fwd_bwd, sets)
+    flops, nbytes = bwd_k.work(B, H, K, Sq, Sk, hd, causal, itemsize)
     bms, bby = bound_ms(nbytes, flops, dtype_name)
-    return dict(max_abs_err=err, tol=TOL_TEXT[dtype_name], ms=ms,
-                plain_ms=ms, bound_ms=bms, bound_by=bby,
-                library_ms=library_ms)
+    return dict(max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=bby, library_ms=library_ms,
+                recompute_ms=recompute_ms, sdpa_fwd_bwd_ms=fwd_bwd_ms,
+                rel_errs=errs, sdpa_rel_errs=sdpa_errs,
+                split_ms=kernel_split_ms(torch, kernel, sets, "flash_bwd_"))
+
+
+def kernel_split_ms(torch, fn, arg_sets, prefix: str, iters: int = 10):
+    """Device ms per call of each CUDA kernel named ``prefix...`` that
+    ``fn`` launches (``torch.profiler``, ``iters`` calls cycling through
+    ``arg_sets``), by kernel name without its template arguments."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*arg_sets[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(*arg_sets[i % len(arg_sets)])
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        at = e.name.find(prefix)
+        if e.device_type == torch.autograd.DeviceType.CUDA and at >= 0:
+            name = re.split(r"[<(]", e.name[at:])[0]
+            out[name] = out.get(name, 0.0) + e.time_range.elapsed_us() / (
+                1e3 * iters)
+    return out
 
 
 def routed_sizes(E_live: int, E: int, C: int, tokens: int, top_k: int,
@@ -1019,15 +1134,21 @@ def phase_kernels(torch, ops, ref, gmm, paged) -> dict:
                 f"Sk={Sk} hd={hd} {'causal' if causal else 'non-causal'}: "
                 f"{_line(r)} host_us={r['host_us']:.1f}")
             results[("flash_attention", dtn, case)] = r
-        if dtn == "bfloat16":  # phase 6's training shape
-            r = check_flash_backward(torch, ops, ref, dtn, 1024, 8)
-            log(f"flash_attention backward (plain recompute, not a TPU "
-                f"kernel) {dtn} B=8 H=16 K=8 S=1024 hd=128 causal, per "
-                f"layer: max_err={r['max_abs_err']:.3e} (tol {r['tol']}) "
-                f"ms={r['ms']:.5f} bound_ms={r['bound_ms']:.5f} "
-                f"({r['bound_by']}) library_ms={r['library_ms']:.5f} (SDPA "
-                f"forward + backward)")
-            results[("flash_backward", dtn, 1024, 8)] = r
+        for case, (B, H, K, Sq, Sk, hd, causal, dts) in (
+                FLASH_BWD_CASES.items()):
+            if dtn not in dts:
+                continue
+            r = check_flash_backward(torch, ops, ref, dtn, case)
+            log(f"flash_attention_backward {dtn} {case} B={B} H={H} K={K} "
+                f"Sq={Sq} Sk={Sk} hd={hd} "
+                f"{'causal' if causal else 'non-causal'}, per layer: "
+                f"{_line(r)} (library: SDPA's backward alone); relative "
+                f"errors dq, dk, dv {r['rel_errs']} (SDPA's "
+                f"{r['sdpa_rel_errs']}); plain_recompute_ms="
+                f"{r['recompute_ms']:.5f} sdpa_fwd_bwd_ms="
+                f"{r['sdpa_fwd_bwd_ms']:.5f}; device ms by kernel "
+                f"{r['split_ms']}; two calls bit-identical")
+            results[("flash_backward", dtn, case)] = r
         for shape, (E, C, d, f, tokens) in GMM_SHAPES.items():
             if dtn == "float32" and shape in GMM_EXPERT_BASE:
                 continue  # the EP rank trains in bf16
@@ -1612,10 +1733,10 @@ def train_param_count(cfg) -> int:
 def phase_train_full(torch, ops, train, get_arch, smi: str) -> dict:
     """Train full qwen3-0.6b through ``repro_torch.launch.train.train``:
     flash launches must be 2 x 28 per step (each layer's forward and its
-    remat recompute) and every other kernel 0; every loss finite and the
-    last below the first; then the same steps with kernels off (plain
-    attention on the card) give the same per-step losses within
-    ``TRAIN_LOSS_RTOL``."""
+    remat recompute), the flash backward's 28, and every other kernel 0;
+    every loss finite and the last below the first; then the same steps
+    with kernels off (plain attention on the card) give the same per-step
+    losses within ``TRAIN_LOSS_RTOL``."""
     cfg = get_arch(TRAIN_CELL["arch"])
     B, S, steps = TRAIN_CELL["batch"], TRAIN_CELL["seq"], TRAIN_CELL["steps"]
     n = train_param_count(cfg)
@@ -1637,6 +1758,7 @@ def phase_train_full(torch, ops, train, get_arch, smi: str) -> dict:
         per = 2 * cfg.n_layers if kernels else 0
         want = {name: 0 for name in counts}
         want["flash_attention"] = per * steps
+        want["flash_attention_backward"] = per // 2 * steps
         if counts != want:
             raise AssertionError(f"train kernels={kernels}: launch counts "
                                  f"{counts} != {want}")
@@ -1648,7 +1770,9 @@ def phase_train_full(torch, ops, train, get_arch, smi: str) -> dict:
             f"and moments, block remat) kernels={kernels}: batch {B} x seq "
             f"{S}, {steps} steps; losses={hist} step_ms={[t * 1e3 for t in secs]} "
             f"tok_s={tok_s} flash launches {counts['flash_attention']} "
-            f"({per} per step) peak_mem_bytes={peak} on {smi}")
+            f"({per} per step), flash backward "
+            f"{counts['flash_attention_backward']} ({per // 2} per step) "
+            f"peak_mem_bytes={peak} on {smi}")
         runs[kernels] = dict(history=hist, counts=counts, peak=peak,
                              step_s=secs)
     worst = max(abs(a - b) - TRAIN_LOSS_RTOL * abs(b)
@@ -1686,10 +1810,11 @@ def phase_train_parity(torch, train) -> None:
 def phase_modal_train_parity(torch, ops) -> None:
     """Reduced seamless and pixtral in fp32, one loss and every gradient at
     S 300 (300 frames; a 16-position stub) on ``cuda`` — the flash kernel
-    forward in every attention and its plain-recompute gradient — against
+    forward in every attention and the flash backward kernel — against
     the plain path on ``cpu``, within ``TRAIN_PARITY_TOL``; the flash
     launches are the layers' attentions (enc-dec: encoder, self and cross,
-    no remat; pixtral: forward and remat recompute)."""
+    no remat; pixtral: forward and remat recompute), the backward's one
+    for each attention (enc-dec: 3 a layer; pixtral: 1)."""
     from repro_torch.config import ShardingConfig, get_arch, reduced
     from repro_torch.models import build_model
 
@@ -1713,20 +1838,25 @@ def phase_modal_train_parity(torch, ops) -> None:
                               for k, v in batch.items()})
             named = list(m.impl.named_parameters())
             grads = torch.autograd.grad(loss, [p for _, p in named])
+            counts = ops.launch_counts()
             out[dev] = (float(loss.detach()), {n: g.cpu() for (n, _), g in
                                       zip(named, grads)},
-                        ops.launch_counts()["flash_attention"])
+                        (counts["flash_attention"],
+                         counts["flash_attention_backward"]))
         dl = abs(out["cuda"][0] - out["cpu"][0])
         dg = max(float((g - out["cpu"][1][n]).abs().max())
                  for n, g in out["cuda"][1].items())
-        want = per_layer * cfg.n_layers
+        want = (per_layer * cfg.n_layers,
+                (3 if cfg.is_encdec else 1) * cfg.n_layers)
         if not (dl <= TRAIN_PARITY_TOL and dg <= TRAIN_PARITY_TOL
-                and out["cuda"][2] == want and out["cpu"][2] == 0):
+                and out["cuda"][2] == want and out["cpu"][2] == (0, 0)):
             raise AssertionError(f"reduced {arch} train cuda vs cpu: loss "
-                                 f"diff {dl}, grad diff {dg}, flash launches "
-                                 f"{out['cuda'][2]} (want {want})")
-        log(f"reduced {arch} fp32 loss + grads at S 300 (flash {want} "
-            f"launches on cuda): loss cuda {out['cuda'][0]} == cpu "
+                                 f"diff {dl}, grad diff {dg}, flash and "
+                                 f"backward launches {out['cuda'][2]} (want "
+                                 f"{want})")
+        log(f"reduced {arch} fp32 loss + grads at S 300 (flash {want[0]} "
+            f"and flash backward {want[1]} launches on cuda): loss cuda "
+            f"{out['cuda'][0]} == cpu "
             f"{out['cpu'][0]} (diff {dl}); {len(out['cpu'][1])} gradient "
             f"leaves, max diff {dg} (tol {TRAIN_PARITY_TOL})")
 
@@ -1747,18 +1877,19 @@ def train_launches_per_step(cfg) -> dict:
     runs its forward twice (forward and recompute), a remainder layer
     once; each forward of an ``attn`` layer launches flash, of an MoE FFN
     three grouped matmuls, of an ``rglru`` layer one scan; backward adds
-    three grouped-matmul dx launches per MoE layer and one reverse scan
-    per rglru layer (flash's gradient and the windowed layers launch
-    nothing)."""
+    one flash backward per ``attn`` layer, three grouped-matmul dx
+    launches per MoE layer and one reverse scan per rglru layer (the
+    windowed layers launch nothing)."""
     from repro_torch.models.transformer import layer_kinds, resolve_pattern
 
     n_rem = cfg.n_layers % len(resolve_pattern(cfg))
-    out = {"flash_attention": 0, "grouped_matmul": 0, "rglru_scan": 0,
-           "paged_attention": 0}
+    out = {"flash_attention": 0, "flash_attention_backward": 0,
+           "grouped_matmul": 0, "rglru_scan": 0, "paged_attention": 0}
     for i, kind in enumerate(layer_kinds(cfg)):
         runs = 1 if i < n_rem else 2
         if kind == "attn":
             out["flash_attention"] += runs
+            out["flash_attention_backward"] += 1
         if kind == "rglru":
             out["rglru_scan"] += runs + 1
         if cfg.is_moe:
@@ -2903,8 +3034,10 @@ def phase_dp_full(torch, smi: str) -> dict:
     cfg = get_arch("qwen3-0.6b")
     steps = DP_RUN["steps"]
     per_rank = {k: 0 for k in ("paged_attention", "flash_attention",
-                               "grouped_matmul", "rglru_scan")}
+                               "flash_attention_backward", "grouped_matmul",
+                               "rglru_scan")}
     per_rank["flash_attention"] = 2 * cfg.n_layers * steps
+    per_rank["flash_attention_backward"] = cfg.n_layers * steps
     t0 = time.perf_counter()
     ones = _one_process(torch, train, cfg, DP_RUN, 1)
     one_s = time.perf_counter() - t0
@@ -2938,7 +3071,10 @@ def phase_dp_full(torch, smi: str) -> dict:
         f"{secs} s with the spawn, on {smi}")
     return {"launches": sum(r["dp"]["counts"]["flash_attention"]
                             for r in ranks),
-            "per_step": 2 * cfg.n_layers}
+            "per_step": 2 * cfg.n_layers,
+            "backward_launches": sum(
+                r["dp"]["counts"]["flash_attention_backward"] for r in ranks),
+            "backward_per_step": cfg.n_layers}
 
 
 def phase_remesh(torch, smi: str) -> None:
@@ -3269,14 +3405,16 @@ PLACED_FAMILIES = {
 }
 PLACED_FAMILY_RUN = dict(reduced_cfg=False, mesh_shape=(2, 2), steps=1,
                          seed=0)
-# a rank's launches: (kernel, a train step, a prefill, of a train step's
-# those on inputs reversed in time).  recurrentgemma's two rglru layers run
+# a rank's launches: {kernel: (a train step, a prefill, of a train step's
+# those on inputs reversed in time)}.  recurrentgemma's two rglru layers run
 # the scan forward, in remat recompute and reversed in backward; seamless's
 # encoder, decoder self and cross attention (2 layers each, no remat: JAX's
-# enc-dec has none) run flash forward, its backward the plain version
-PLACED_FAMILY_LAUNCHES = {"recurrentgemma-9b": ("rglru_scan", 6, 2, 2),
-                          "xlstm-125m": (None, 0, 0, 0),
-                          "seamless-m4t-medium": ("flash_attention", 6, 6, 0)}
+# enc-dec has none) run flash forward and the flash backward
+PLACED_FAMILY_LAUNCHES = {
+    "recurrentgemma-9b": {"rglru_scan": (6, 2, 2)},
+    "xlstm-125m": {},
+    "seamless-m4t-medium": {"flash_attention": (6, 6, 0),
+                            "flash_attention_backward": (6, 0, 0)}}
 # the prefill logits' bound, PLACED_LOGITS_TOL unless named here.  xlstm:
 # the placed run read 0.27734375 from one process in each of five runs on
 # the H100 (the same bits); one process's own bf16 logits lie 0.605 from
@@ -3480,7 +3618,8 @@ def phase_placed(torch, smi: str) -> dict:
     ranks, sp_ranks = [r[0] for r in runs], [r[1] for r in runs]
     L, steps = cfg.n_layers, PLACED_FULL["steps"]
     zero = {k: 0 for k in ranks[0]["train"]["counts"]}
-    want = {"train": dict(zero, flash_attention=2 * L * steps),
+    want = {"train": dict(zero, flash_attention=2 * L * steps,
+                          flash_attention_backward=L * steps),
             "prefill": dict(zero, flash_attention=L), "serve": zero}
     h = _hold_placed("phase 8e", cfg, ranks, one, PLACED_FULL, want)
     hist, dloss, dlog = h["hist"], h["dloss"], h["dlog"]
@@ -3492,7 +3631,8 @@ def phase_placed(torch, smi: str) -> dict:
         f"model; train 8 x 1,024 (4 x 1,024 a rank, 8 query and 4 KV heads "
         f"a rank), {steps} steps: losses {hist}; one process {one['losses']}"
         f" (max diff {dloss}, limit {PLACED_LOSS_TOL}); flash "
-        f"{2 * L} launches a rank and step, prefill 8 x 512 {L} a rank; "
+        f"{2 * L} and its backward {L} launches a rank and step, prefill 8 "
+        f"x 512 {L} a rank; "
         f"prefill logits max |diff| {dlog} (limit {PLACED_LOGITS_TOL}; "
         f"controls: vocab shards swapped {ctl_swap}, other rows {ctl_rows}); "
         f"{PLACED_FULL['gen']} greedy serve steps: {same} of {total} tokens "
@@ -3510,12 +3650,16 @@ def phase_placed(torch, smi: str) -> dict:
         + f"; host draw, save and one process {one_s} s, the ranks "
         f"(reading their blocks of the draw) {secs} s with the spawn, on "
         f"{smi}")
+    sp_launches, sp_backward = _hold_sp(cfg, sp_ranks, ranks, one, zero, smi)
     rec = {"train_launches": sum(r["train"]["counts"]["flash_attention"]
                                  for r in ranks),
+           "backward_launches": sum(
+               r["train"]["counts"]["flash_attention_backward"]
+               for r in ranks),
            "prefill_launches": sum(r["prefill"]["counts"]["flash_attention"]
                                    for r in ranks),
-           "per_step": 2 * L, "per_prefill": L,
-           "sp_launches": _hold_sp(cfg, sp_ranks, ranks, one, zero, smi)}
+           "per_step": 2 * L, "per_prefill": L, "backward_per_step": L,
+           "sp_launches": sp_launches, "sp_backward_launches": sp_backward}
     del one
     gc.collect()
     torch.cuda.empty_cache()
@@ -3528,10 +3672,11 @@ def phase_placed(torch, smi: str) -> dict:
 def _hold_sp(cfg, ranks, tp_ranks, one, zero, smi: str) -> int:
     """Phase 8h's checks (see the module docstring) of its ranks against
     8e's one process's first train steps; prints each rank's step ms, peak
-    and bytes by kind beside 8e's (``tp_ranks``).  Returns its flash
-    launches over the four ranks."""
+    and bytes by kind beside 8e's (``tp_ranks``).  Returns its flash and
+    flash backward launches over the four ranks."""
     L, steps = cfg.n_layers, PLACED_SP["steps"]
-    want = dict(zero, flash_attention=2 * L * steps)
+    want = dict(zero, flash_attention=2 * L * steps,
+                flash_attention_backward=L * steps)
     hist = ranks[0]["train"]["losses"]
     for i, r in enumerate(ranks):
         if r["train"]["counts"] != want:
@@ -3553,7 +3698,8 @@ def _hold_sp(cfg, ranks, tp_ranks, one, zero, smi: str) -> int:
         f"split along the sequence over model: 4 x 512 a rank), {steps} "
         f"steps: losses {hist}; one process {ref} (max diff {dloss}, limit "
         f"{PLACED_LOSS_TOL}); 8e's {tp_ranks[0]['train']['losses'][:steps]};"
-        f" flash {2 * L} launches a rank and step at B4 H8 K4 S1024 (a "
+        f" flash {2 * L} and its backward {L} launches a rank and step at "
+        f"B4 H8 K4 S1024 (a "
         f"rank's heads over the gathered sequence); "
         + "; ".join(
             f"rank {i} coord {r['coord']}: SP train step_ms="
@@ -3564,7 +3710,8 @@ def _hold_sp(cfg, ranks, tp_ranks, one, zero, smi: str) -> int:
             f"{e['train']['traffic_per_step'][:steps]})"
             for i, (r, e) in enumerate(zip(ranks, tp_ranks)))
         + f"; on {smi}")
-    return sum(r["train"]["counts"]["flash_attention"] for r in ranks)
+    return tuple(sum(r["train"]["counts"][k] for r in ranks)
+                 for k in ("flash_attention", "flash_attention_backward"))
 
 
 def _reduced_run(tag: str) -> dict:
@@ -3690,30 +3837,32 @@ def phase_placed_families(torch, smi: str) -> dict:
     out = {}
     for k, arch in enumerate(PLACED_FAMILIES):
         cfg, kw, ranks = cfgs[arch], kws[k], [r[k] for r in runs]
-        kernel, per_step, per_prefill, per_reverse = (
-            PLACED_FAMILY_LAUNCHES[arch])
+        kernels = PLACED_FAMILY_LAUNCHES[arch]
         zero = {n: 0 for n in ranks[0]["train"]["counts"]}
         want = {"train": dict(zero), "prefill": dict(zero), "serve": zero}
-        if kernel is not None:
+        for kernel, (per_step, per_prefill, _) in kernels.items():
             want["train"][kernel] = per_step * kw["steps"]
             want["prefill"][kernel] = per_prefill
+        per_reverse = kernels.get("rglru_scan", (0, 0, 0))[2]
         h = _hold_placed(f"phase 8g {arch}", cfg, ranks, ones[arch], kw,
                          want, PLACED_FAMILY_LOGITS_TOL.get(
                              arch, PLACED_LOGITS_TOL))
-        # the launches by key (shape, dtype and, for the scan, whether its
-        # inputs were reversed), summed over the ranks' train and prefill
-        keys = {}
-        for r in ranks if kernel else ():
-            for p in ("train", "prefill"):
-                for key, n in r[p]["keys"][kernel].items():
-                    keys[key] = keys.get(key, 0) + n
+        # each kernel's launches by key (shape, dtype and, for the scan,
+        # whether its inputs were reversed), summed over the ranks' train
+        # and prefill
+        keys = {kernel: {} for kernel in kernels}
+        for kernel, by_key in keys.items():
+            for r in ranks:
+                for p in ("train", "prefill"):
+                    for key, n in r[p]["keys"][kernel].items():
+                        by_key[key] = by_key.get(key, 0) + n
         reverse = [sum(n for key, n in r["train"]["keys"]["rglru_scan"].items()
                        if key[-1]) for r in ranks]
         if reverse != [per_reverse * kw["steps"]] * len(ranks):
             raise AssertionError(f"phase 8g {arch}: reversed scans a rank "
                                  f"{reverse} != {per_reverse} a step")
-        out[arch] = dict(cfg=cfg, kw=kw, ranks=ranks, kernel=kernel,
-                         keys=keys)
+        out[arch] = dict(cfg=cfg, kw=kw, ranks=ranks, keys=keys)
+        per = {k: v[0] for k, v in kernels.items()}
         log(f"placed steps {arch} full width ({cfg.n_layers} layers"
             f"{f' + {cfg.n_enc_layers} encoder' if cfg.is_encdec else ''}, "
             f"{cfg.compute_dtype} compute, {cfg.param_dtype} params) on 4 "
@@ -3721,9 +3870,10 @@ def phase_placed_families(torch, smi: str) -> dict:
             f"the whole draw read from one file: train {kw['batch']} x "
             f"{kw['seq']}, {kw['steps']} steps: losses {h['hist']}; one "
             f"process {ones[arch]['losses']} (max diff {h['dloss']}, limit "
-            f"{PLACED_LOSS_TOL}); {kernel or 'no kernel'} "
-            f"{per_step} launches a rank and step ({per_reverse} reversed), "
-            f"{per_prefill} a prefill; by key over the ranks {keys}; "
+            f"{PLACED_LOSS_TOL}); launches a rank and step {per or 'none'} "
+            f"({per_reverse} reversed), a prefill "
+            f"{ {k: v[1] for k, v in kernels.items()} }; by key over the "
+            f"ranks {keys}; "
             f"prefill {kw['batch']} x {kw['prompt_len']} logits max |diff| "
             f"{h['dlog']} (limit {PLACED_FAMILY_LOGITS_TOL.get(arch, PLACED_LOGITS_TOL)}; "
             f"controls: vocab shards swapped {h['ctl_swap']}, other rows "
@@ -3938,7 +4088,8 @@ def phases_mesh(torch, smi: str) -> tuple:
 def _tp_family_check(kernel: str, key: tuple) -> tuple:
     """Phase 3's check of an 8g launch key (``ops.launch_keys``), and its
     kernels-line path: the scan's ``SCAN_SHAPES`` case (its reverse's
-    check for a reversed scan), flash's ``FLASH_CASES`` case."""
+    check for a reversed scan), flash's ``FLASH_CASES`` case, the flash
+    backward's ``FLASH_BWD_CASES`` case."""
     if kernel == "rglru_scan":
         B, S, D, dtn, reverse = key
         for case, shape in SCAN_SHAPES.items():
@@ -3948,9 +4099,12 @@ def _tp_family_check(kernel: str, key: tuple) -> tuple:
                             f"tp_hybrid{case[2:]}_reverse")
                 return ("rglru_scan", dtn, case), f"tp_hybrid{case[2:]}"
     else:
-        for case, spec in FLASH_CASES.items():
+        backward = kernel == "flash_attention_backward"
+        cases = FLASH_BWD_CASES if backward else FLASH_CASES
+        for case, spec in cases.items():
             if case.startswith("tp_") and spec[:7] == key[:7]:
-                return ("flash_attention", key[7], case), f"tp_encdec{case[2:]}"
+                return (("flash_backward" if backward else "flash_attention",
+                         key[7], case), f"tp_encdec{case[2:]}")
     raise AssertionError(f"phase 8g: {kernel} ran at {key}, which phase 3 "
                          f"does not check")
 
@@ -4047,6 +4201,8 @@ def main(argv=None) -> int:
         from repro_torch.launch.train import train
 
         trained = phase_train_full(torch, ops, train, get_arch, smi)
+        counts["flash_attention_backward"] = trained["counts"][
+            "flash_attention_backward"]
         phase_train_parity(torch, train)
         phase_wavefront(torch, smi)
         phase_modal_train_parity(torch, ops)
@@ -4065,8 +4221,12 @@ def main(argv=None) -> int:
     # bf16 shapes (the grouped matmul at its decode shape, where most of
     # its launches are) with the launches of 4b; the scan at
     # recurrentgemma's fp32 prefill shape (the gates are fp32) with 4c's
+    # and the flash backward at phase 6's training shape with phase 6's
+    # launches
     keys = {"paged_attention": ("paged_attention", "bfloat16", "ragged", 16),
             "flash_attention": ("flash_attention", "bfloat16", "moe"),
+            "flash_attention_backward": ("flash_backward", "bfloat16",
+                                         "train"),
             "grouped_matmul": ("grouped_matmul", "bfloat16", "decode"),
             "rglru_scan": ("rglru_scan", "float32", "prefill")}
     rows = []
@@ -4108,6 +4268,12 @@ def main(argv=None) -> int:
         row("rglru_scan", checks[("rglru_scan_backward", "float32")],
             hybrid_train["counts"]["rglru_scan"], path="train_reverse",
             launches_per_step=hybrid_train["per_step"]["rglru_scan"])
+        # the flash backward at 6e's shape (16 KV heads) with 6e's launches
+        row("flash_attention_backward",
+            checks[("flash_backward", "bfloat16", "moe_train")],
+            moe_train["counts"]["flash_attention_backward"], path="train_moe",
+            launches_per_step=moe_train["per_step"][
+                "flash_attention_backward"])
         # paged decode at the served qwen3 shape with phase 7's launches
         # (the fleet's full-width serve job)
         row("paged_attention",
@@ -4123,6 +4289,10 @@ def main(argv=None) -> int:
         row("flash_attention", checks[("flash_attention", "bfloat16", "dp")],
             dp_rec["launches"], path="dp", ranks=2,
             launches_per_step_per_rank=dp_rec["per_step"])
+        row("flash_attention_backward",
+            checks[("flash_backward", "bfloat16", "dp")],
+            dp_rec["backward_launches"], path="dp", ranks=2,
+            launches_per_step_per_rank=dp_rec["backward_per_step"])
     if tp_rec is not None:
         # flash on a (data 2, model 2) rank's local heads, with 8e's
         # launches over the four ranks: its train steps and its prefill
@@ -4138,18 +4308,26 @@ def main(argv=None) -> int:
         row("flash_attention", checks[("flash_attention", "bfloat16", "tp")],
             tp_rec["sp_launches"], path="sp_train", ranks=4,
             launches_per_step_per_rank=tp_rec["per_step"])
+        # the flash backward at the same shape, 8e's and 8h's launches
+        for path, n in (("tp_train", tp_rec["backward_launches"]),
+                        ("sp_train", tp_rec["sp_backward_launches"])):
+            row("flash_attention_backward",
+                checks[("flash_backward", "bfloat16", "tp")], n, path=path,
+                ranks=4, launches_per_step_per_rank=tp_rec[
+                    "backward_per_step"])
         # 8g: the scan on a (data 2, model 2) rank's features of
         # recurrentgemma and flash on a rank's local heads of seamless, one
         # row for each key its launches took (shape, dtype, a reversed
         # scan), with the launches of that key over the four ranks
         for fam in tp_rec["families"].values():
-            for key, n in sorted(fam["keys"].items()):
-                check, path = _tp_family_check(fam["kernel"], key)
-                if check not in checks:
-                    raise AssertionError(f"phase 8g: {fam['kernel']} ran "
-                                         f"at {key}, which phase 3 does not "
-                                         f"check")
-                row(fam["kernel"], checks[check], n, path=path, ranks=4)
+            for kernel, by_key in fam["keys"].items():
+                for key, n in sorted(by_key.items()):
+                    check, path = _tp_family_check(kernel, key)
+                    if check not in checks:
+                        raise AssertionError(f"phase 8g: {kernel} ran at "
+                                             f"{key}, which phase 3 does not "
+                                             f"check")
+                    row(kernel, checks[check], n, path=path, ranks=4)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

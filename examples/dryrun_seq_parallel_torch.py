@@ -3,7 +3,8 @@
 The dry-run CLI has no flag for ``seq_parallel`` (JAX's has none either);
 this script passes it through ``run_cell(shcfg=...)``.  Each cell is
 traced shape-only as rank 0 of a ``fake`` group of the mesh's size, with
-the kernels on, and its per-rank memory and collective bytes are printed
+the kernels on, and its per-rank memory (with what holds its peak, the
+live buffers by the op that made them) and collective bytes are printed
 as one JSON line.  Runs on any host (no GPU)::
 
     PYTHONPATH=src python examples/dryrun_seq_parallel_torch.py
@@ -43,6 +44,8 @@ def main(argv=None):
                 "collectives_gb": {k: v / 1e9 for k, v in
                                    rec["collectives"].items() if v},
                 "launches": {k: v for k, v in rec["launches"].items() if v},
+                "peak_live_gb": {k: v / 1e9 for k, v in
+                                 rec["peak_live"].items()},
                 "trace_s": rec["compile_s"]}), flush=True)
 
 

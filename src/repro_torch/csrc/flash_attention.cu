@@ -6,7 +6,10 @@
 // native (query head h reads KV head h / (H/K), no KV repeat in memory),
 // causal mask kpos <= qpos aligned top-left, plus the ragged-tail mask
 // kpos < Sk.  Accumulates in fp32 and returns q's dtype.  q, k and v may be
-// strided views (the model passes transposes of (B, S, heads, hd)).
+// strided views (the model passes transposes of (B, S, heads, hd)).  Where
+// the caller asks (training), it also writes each query row's log-sum-exp
+// of its scaled scores, which the backward (flash_attention_bwd.cu) reads
+// instead of recomputing the softmax's statistics; serving asks for none.
 //
 // bf16, the served path (flash_fwd_wgmma_kernel).  Bound on this card by
 // bytes at the prefill shapes (S = 512: reading q, k, v and writing out
@@ -47,9 +50,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash.cuh"
 #include "hopper.cuh"
 
 namespace {
+
+using namespace flash;
 
 // ------------------------------------------------------------------ fp32
 
@@ -68,6 +74,7 @@ template <int HD>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, float* __restrict__ out,  // (B, H, Sq, HD) contiguous
+    float* __restrict__ lse,  // (B, H, Sq) or null
     int H, int K, int Sq, int Sk, long long qsb, long long qsh, long long qss,
     long long ksb, long long ksh, long long kss, long long vsb, long long vsh,
     long long vss, int causal, float scale) {
@@ -219,6 +226,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const int qp = q0 + r;
     if (qp >= Sq) continue;
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
+    if (lse != nullptr && tx == 0)  // natural log: the max is of the scaled scores
+      lse[((size_t)b * H + h) * Sq + qp] = m[r] + logf(l[r]);
     float* orow = out + (((size_t)b * H + h) * Sq + qp) * HD;
 #pragma unroll
     for (int j = 0; j < DPT; ++j) orow[tx + 16 * j] = acc[i][j] * inv;
@@ -226,9 +235,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 }
 
 template <int HD>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out, int B, int H,
-                       int K, int Sq, int Sk, const long long* st, int causal, float scale,
-                       cudaStream_t stream) {
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out, float* lse,
+                       int B, int H, int K, int Sq, int Sk, const long long* st, int causal,
+                       float scale, cudaStream_t stream) {
   const size_t smem = sizeof(float) * smem_floats<HD>();
   auto kern = flash_fwd_kernel<HD>;
   if (smem > 48 * 1024) {
@@ -239,8 +248,8 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out, i
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), H, K, Sq, Sk, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
-      st[7], st[8], causal, scale);
+      static_cast<float*>(out), lse, H, K, Sq, Sk, st[0], st[1], st[2], st[3], st[4], st[5],
+      st[6], st[7], st[8], causal, scale);
   return cudaGetLastError();
 }
 
@@ -251,32 +260,10 @@ constexpr int kWGs = 2;      // consumer warpgroups per block
 constexpr int kKeys = 64;    // keys per K/V tile
 constexpr int kStages = 3;   // K/V tiles in flight
 constexpr int kThreadsWG = 128 * kWGs + 32;  // + the producer warp
-constexpr float kLog2e = 1.4426950408889634f;
 
 template <int HD>
-struct Tile {
-  static constexpr int SW = HD * 2 < 128 ? HD * 2 : 128;  // swizzle span (bytes per smem row)
-  static constexpr int CW = SW / 2;                        // head-dim columns per chunk
-  static constexpr int NC = HD / CW;                       // chunks per row
-  static constexpr int CHUNK = 64 * SW;                    // one chunk of 64 rows
-  static constexpr int TILE = NC * CHUNK;                  // 64 rows x HD (Q of a warpgroup, K, V)
-  static constexpr size_t SMEM = 1024 + (size_t)(2 * kWGs + 2 * kStages) * TILE;
-};
-
-// q/k/v tensor maps are 4-D: (hd, pos, head, batch), or (hd, head, pos,
-// batch) where the head stride is the smaller (the model's transposed
-// views); `swap` says which, and the coordinates follow
-__device__ __forceinline__ void tma_qkv(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                        int col, int pos, int head, int b, int swap) {
-  if (swap)
-    hopper::tma_load_4d(dst, map, bar, col, head, pos, b);
-  else
-    hopper::tma_load_4d(dst, map, bar, col, pos, head, b);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+constexpr size_t wgmma_smem() {
+  return 1024 + (size_t)(2 * kWGs + 2 * kStages) * Tile<HD>::TILE;
 }
 
 // P as two bf16 A operands: hi = bf16(P), lo = bf16(P - hi)
@@ -285,26 +272,6 @@ __device__ __forceinline__ void split_bf16(float p0, float p1, uint32_t& hi, uin
   const float2 hf = __bfloat1622float2(h);
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = pack_bf16(p0 - hf.x, p1 - hf.y);
-}
-
-template <int CW>
-__device__ __forceinline__ void pv_wgmma(float (&o)[CW / 2], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  if constexpr (CW == 64)
-    hopper::wgmma_m64n64k16_rs<1>(o, a, db);
-  else if constexpr (CW == 32)
-    hopper::wgmma_m64n32k16_rs<1>(o, a, db);
-  else
-    hopper::wgmma_m64n16k16_rs<1>(o, a, db);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 // The work: items (q tile, query heads, batch row), heaviest first (the
@@ -336,6 +303,7 @@ __global__ void __launch_bounds__(kThreadsWG, 1) flash_fwd_wgmma_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv,
     const __grid_constant__ CUtensorMap to,  // out (B, H, Sq, HD), contiguous
+    float* __restrict__ lse,                 // (B, H, Sq) or null
     const Items items, int n_items, int H, int K, int swaps, float scale_log2) {
   using namespace hopper;
   using T = Tile<HD>;
@@ -433,12 +401,7 @@ __global__ void __launch_bounds__(kThreadsWG, 1) flash_fwd_wgmma_kernel(
         for (int k = 0; k < 32; ++k) sc[k] = 0.f;
         fence_regs(sc);
         wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < HD / 16; ++kk) {  // S = Q K^T, both K-major
-          const int off = (kk / (CW / 16)) * T::CHUNK + (kk % (CW / 16)) * 32;
-          wgmma_m64n64k16_ss<0>(sc, gmma_desc(q_addr + off, 16, 8 * SW, SW),
-                                gmma_desc(k_addr + off, 16, 8 * SW, SW), kk > 0);
-        }
+        qk_wgmma<HD>(sc, q_addr, k_addr);  // S = Q K^T, both K-major
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(sc);
@@ -512,18 +475,16 @@ __global__ void __launch_bounds__(kThreadsWG, 1) flash_fwd_wgmma_kernel(
     // rows past Sq fall outside the tensor map and are not written.  The Q
     // buffer is released once the store has read it.
     if (nk_wg > 0) {
-      const float inv_a = 1.f / quad_sum(l_a);
-      const float inv_b = 1.f / quad_sum(l_b);
-#pragma unroll
-      for (int c = 0; c < NC; ++c)
-#pragma unroll
-        for (int j = 0; j < CW / 8; ++j) {
-          const uint32_t off = c * T::CHUNK + r * SW + 16 * j + 4 * (lane % 4);
-          *reinterpret_cast<uint32_t*>(qtile + swizzle(off, SW)) =
-              pack_bf16(o[c][4 * j] * inv_a, o[c][4 * j + 1] * inv_a);
-          *reinterpret_cast<uint32_t*>(qtile + swizzle(off + 8 * SW, SW)) =
-              pack_bf16(o[c][4 * j + 2] * inv_b, o[c][4 * j + 3] * inv_b);
-        }
+      const float sum_a = quad_sum(l_a);
+      const float sum_b = quad_sum(l_b);
+      const float inv_a = 1.f / sum_a;
+      const float inv_b = 1.f / sum_b;
+      if (lse != nullptr && lane % 4 == 0) {  // natural log: the max is kept in base 2
+        float* row = lse + ((size_t)b * H + head) * items.Sq;
+        if (row_a < items.Sq) row[row_a] = (m_a + log2f(sum_a)) * kLn2;
+        if (row_b < items.Sq) row[row_b] = (m_b + log2f(sum_b)) * kLn2;
+      }
+      acc_to_tile<HD>(qtile, o, r, lane, inv_a, inv_b);
       fence_async_smem();
     }
     named_barrier(1 + wg, 128);
@@ -538,40 +499,21 @@ __global__ void __launch_bounds__(kThreadsWG, 1) flash_fwd_wgmma_kernel(
   }
 }
 
-// the tensor map of q, k or v: boxes of 64 positions x one swizzle span of
-// the head dim; rows past S read as zeros
-cudaError_t qkv_map(CUtensorMap* map, const void* p, int hd, int S, int heads, int B,
-                    long long sb, long long sh, long long ss, int* swap) {
-  const int sw = hd * 2 < 128 ? hd * 2 : 128;
-  *swap = sh < ss;
-  const uint64_t dims[4] = {(uint64_t)hd, (uint64_t)(*swap ? heads : S),
-                            (uint64_t)(*swap ? S : heads), (uint64_t)B};
-  const uint64_t strides[3] = {2ull * (uint64_t)(*swap ? sh : ss),
-                               2ull * (uint64_t)(*swap ? ss : sh), 2ull * (uint64_t)sb};
-  const uint32_t box[4] = {(uint32_t)(sw / 2), *swap ? 1u : 64u, *swap ? 64u : 1u, 1u};
-  return hopper::make_map_bf16(map, p, 4, dims, strides, box, sw);
-}
-
-bool tma_ok(const void* p, long long sb, long long sh, long long ss) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && sb % 8 == 0 && sh % 8 == 0 && ss % 8 == 0;
-}
-
 template <int HD>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out, int B, int H,
-                        int K, int Sq, int Sk, const long long* st, int causal, float scale,
-                        cudaStream_t stream) {
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out, float* lse,
+                        int B, int H, int K, int Sq, int Sk, const long long* st, int causal,
+                        float scale, cudaStream_t stream) {
   if (!tma_ok(q, st[0], st[1], st[2]) || !tma_ok(k, st[3], st[4], st[5]) ||
       !tma_ok(v, st[6], st[7], st[8]))
     return cudaErrorMisalignedAddress;
   CUtensorMap tq, tk, tv, to;
-  int sq, sk, sv, so;
+  int sq, sk, sv;
   cudaError_t e = qkv_map(&tq, q, HD, Sq, H, B, st[0], st[1], st[2], &sq);
   if (e == cudaSuccess) e = qkv_map(&tk, k, HD, Sk, K, B, st[3], st[4], st[5], &sk);
   if (e == cudaSuccess) e = qkv_map(&tv, v, HD, Sk, K, B, st[6], st[7], st[8], &sv);
-  if (e == cudaSuccess)
-    e = qkv_map(&to, out, HD, Sq, H, B, (long long)H * Sq * HD, (long long)Sq * HD, HD, &so);
+  if (e == cudaSuccess) e = dense_map(&to, out, HD, Sq, H, B);
   if (e != cudaSuccess) return e;
-  e = hopper::allow_smem<flash_fwd_wgmma_kernel<HD>>(Tile<HD>::SMEM);
+  e = hopper::allow_smem<flash_fwd_wgmma_kernel<HD>>(wgmma_smem<HD>());
   if (e != cudaSuccess) return e;
   const int heads = (H / K) % 2 == 0 ? 2 : 1;
   const int rows = kWGs * kRowsWG / heads;
@@ -586,40 +528,42 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out, 
     if (e != cudaSuccess) return e;
   }
   const int grid = sms < n_items ? sms : n_items;
-  flash_fwd_wgmma_kernel<HD><<<grid, kThreadsWG, Tile<HD>::SMEM, stream>>>(
-      tq, tk, tv, to, items, n_items, H, K, sq | (sk << 1) | (sv << 2), scale * kLog2e);
+  flash_fwd_wgmma_kernel<HD><<<grid, kThreadsWG, wgmma_smem<HD>(), stream>>>(
+      tq, tk, tv, to, lse, items, n_items, H, K, sq | (sk << 1) | (sv << 2), scale * kLog2e);
   return cudaGetLastError();
 }
 
 template <bool BF16, int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B, int H, int K,
-                   int Sq, int Sk, const long long* st, int causal, float scale,
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse, int B,
+                   int H, int K, int Sq, int Sk, const long long* st, int causal, float scale,
                    cudaStream_t s) {
-  return BF16 ? launch_bf16<HD>(q, k, v, out, B, H, K, Sq, Sk, st, causal, scale, s)
-              : launch_f32<HD>(q, k, v, out, B, H, K, Sq, Sk, st, causal, scale, s);
+  return BF16 ? launch_bf16<HD>(q, k, v, out, lse, B, H, K, Sq, Sk, st, causal, scale, s)
+              : launch_f32<HD>(q, k, v, out, lse, B, H, K, Sq, Sk, st, causal, scale, s);
 }
 
 template <bool BF16>
-cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* out, int B, int H,
-                        int K, int Sq, int Sk, int hd, const long long* st, int causal,
-                        float scale, cudaStream_t s) {
+cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* out, float* lse,
+                        int B, int H, int K, int Sq, int Sk, int hd, const long long* st,
+                        int causal, float scale, cudaStream_t s) {
   switch (hd) {
-    case 16: return launch<BF16, 16>(q, k, v, out, B, H, K, Sq, Sk, st, causal, scale, s);
-    case 32: return launch<BF16, 32>(q, k, v, out, B, H, K, Sq, Sk, st, causal, scale, s);
-    case 64: return launch<BF16, 64>(q, k, v, out, B, H, K, Sq, Sk, st, causal, scale, s);
-    case 128: return launch<BF16, 128>(q, k, v, out, B, H, K, Sq, Sk, st, causal, scale, s);
+    case 16: return launch<BF16, 16>(q, k, v, out, lse, B, H, K, Sq, Sk, st, causal, scale, s);
+    case 32: return launch<BF16, 32>(q, k, v, out, lse, B, H, K, Sq, Sk, st, causal, scale, s);
+    case 64: return launch<BF16, 64>(q, k, v, out, lse, B, H, K, Sq, Sk, st, causal, scale, s);
+    case 128: return launch<BF16, 128>(q, k, v, out, lse, B, H, K, Sq, Sk, st, causal, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
+// lse, where not null, receives the log-sum-exp of each query row's scaled
+// scores (natural log, fp32, (B, H, Sq) contiguous): the backward's input.
 // strides are in elements, in the order q(b, h, s), k(b, h, s), v(b, h, s);
 // the head dim is contiguous (bf16: 16-byte aligned bases, strides multiples
 // of 8).  dtype codes: 0 = float32, 1 = bfloat16.  Returns a cudaError_t
 // (0 = ok).
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* out,
-                                     int B, int H, int K, int Sq, int Sk, int hd,
+                                     float* lse, int B, int H, int K, int Sq, int Sk, int hd,
                                      long long qsb, long long qsh, long long qss,
                                      long long ksb, long long ksh, long long kss,
                                      long long vsb, long long vsh, long long vss, int causal,
@@ -629,8 +573,8 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
   const long long st[9] = {qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)dispatch_hd<false>(q, k, v, out, B, H, K, Sq, Sk, hd, st, causal, scale, s);
+    return (int)dispatch_hd<false>(q, k, v, out, lse, B, H, K, Sq, Sk, hd, st, causal, scale, s);
   if (dtype == 1)
-    return (int)dispatch_hd<true>(q, k, v, out, B, H, K, Sq, Sk, hd, st, causal, scale, s);
+    return (int)dispatch_hd<true>(q, k, v, out, lse, B, H, K, Sq, Sk, hd, st, causal, scale, s);
   return (int)cudaErrorInvalidValue;
 }

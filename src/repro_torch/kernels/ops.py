@@ -11,10 +11,12 @@ whose forward is the kernel (or, on the CPU, the plain version), so a
 kernel's output never leaves autograd without a gradient:
 
 * flash attention, as the JAX wrapper's ``custom_vjp`` (``_flash_diff``,
-  ``repro/kernels/ops.py:29-57``) makes it: the backward recomputes the
-  plain version under autograd and differentiates it (JAX, too, has no
-  backward kernel: its ``_flash_bwd`` recomputes ``flash_attention_ref``
-  in XLA);
+  ``repro/kernels/ops.py:29-57``) makes it differentiable: the forward
+  saves q, k, v, its output and each row's log-sum-exp, and the backward
+  is a kernel of its own on the card (``flash_attention_backward``, which
+  the Pallas package lacks: JAX's ``_flash_bwd`` recomputes
+  ``flash_attention_ref`` in XLA), its plain version written out in
+  :func:`ref.flash_attention_backward_ref` on the CPU;
 * the grouped matmul: dx is the same grouped product of the output
   cotangent with each group's transposed weights (the kernel again, on the
   card), dw one ``torch.bmm`` of x against the cotangent with the rows past
@@ -31,10 +33,11 @@ decode has no gradient in either package: it raises when asked for one.
 
 Inputs all on ``"meta"`` (the dry run's shape-only trace,
 :mod:`repro_torch.launch.op_analysis`) take a third branch in flash
-attention, the grouped matmul (forward and dx) and the scan (forward and
-reverse): an empty ``"meta"`` output of the kernel's shape and dtype, and
-one call in :data:`SHAPE_ONLY` under the kernel's name with the FLOPs and
-bytes of its ``work`` formula (the one ``chip_smoke.py``'s bounds read).
+attention (forward and backward), the grouped matmul (forward and dx) and
+the scan (forward and reverse): an empty ``"meta"`` output of the kernel's
+shape and dtype, and one call in :data:`SHAPE_ONLY` under the kernel's
+name with the FLOPs and bytes of its ``work`` formula (the one
+``chip_smoke.py``'s bounds read).
 A meta tensor holds no data, so nothing computed from it can reach a real
 result: this is the kernel's shape, not a fallback.  Paged decode has no
 such branch (no step the dry run traces decodes from pages).  Mixed
@@ -48,6 +51,7 @@ from typing import Dict
 import torch
 
 from . import flash_attention as _flash
+from . import flash_attention_bwd as _flash_bwd
 from . import grouped_matmul as _gmm
 from . import paged_attention as _paged
 from . import ref
@@ -56,6 +60,7 @@ from .build import CudaKernel
 
 KERNELS: Dict[str, CudaKernel] = {
     "flash_attention": _flash.KERNEL,
+    "flash_attention_backward": _flash_bwd.KERNEL,
     "paged_attention": _paged.KERNEL,
     "grouped_matmul": _gmm.KERNEL,
     "rglru_scan": _scan.KERNEL,
@@ -98,46 +103,75 @@ def _shape_only(name: str, out: torch.Tensor, work) -> torch.Tensor:
     return out
 
 
+def _flash_forward(q, k, v, causal: bool, lse: bool):
+    """The forward's output, and with ``lse`` also each row's fp32
+    log-sum-exp (the backward's input)."""
+    where = _device_type(q, k, v)
+    if where == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal,
+                                       return_lse=lse)
+    if where == "meta":
+        B, H, Sq, hd = q.shape
+        out = _shape_only(
+            "flash_attention",
+            torch.empty((B, H, Sq, hd), dtype=q.dtype, device="meta"),
+            _flash.work(B, H, k.shape[1], Sq, k.shape[2], hd, causal,
+                        q.element_size()))
+        return (out, torch.empty((B, H, Sq), dtype=torch.float32,
+                                 device="meta")) if lse else out
+    return _flash.flash_attention(q, k, v, causal=causal, return_lse=lse)
+
+
 class _FlashAttention(torch.autograd.Function):
-    """The flash kernel forward with the plain version's gradient."""
+    """The flash kernel forward with the flash backward kernel as its
+    gradient.  With no input that needs a gradient (serving, prefill) the
+    forward writes no log-sum-exp."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool):
+    def forward(ctx, q, k, v, causal: bool, need_grad: bool):
         ctx.causal = causal
-        ctx.save_for_backward(q, k, v)
-        where = _device_type(q, k, v)
-        if where == "cpu":
-            return ref.flash_attention_ref(q, k, v, causal=causal)
-        if where == "meta":
-            B, H, Sq, hd = q.shape
-            return _shape_only(
-                "flash_attention",
-                torch.empty((B, H, Sq, hd), dtype=q.dtype, device="meta"),
-                _flash.work(B, H, k.shape[1], Sq, k.shape[2], hd, causal,
-                            q.element_size()))
-        return _flash.flash_attention(q, k, v, causal=causal)
+        if not need_grad:
+            return _flash_forward(q, k, v, causal, False)
+        out, lse = _flash_forward(q, k, v, causal, True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
 
     @staticmethod
     def backward(ctx, g):
         return (*flash_attention_backward(*ctx.saved_tensors, g,
-                                          causal=ctx.causal), None)
+                                          causal=ctx.causal), None, None)
 
 
-def flash_attention_backward(q, k, v, g, *, causal: bool = True):
-    """(dq, dk, dv) of flash attention for the output cotangent ``g``: the
-    plain version recomputed under autograd and differentiated.  One
-    call's scores and probabilities live only until it returns."""
-    with torch.enable_grad(), torch.profiler.record_function(
-            "repro.flash_backward"):
-        ins = [t.detach().requires_grad_() for t in (q, k, v)]
-        out = ref.flash_attention_ref(*ins, causal=causal)
-        return torch.autograd.grad(out, ins, g)
+def flash_attention_backward(q, k, v, o, lse, g, *, causal: bool = True):
+    """(dq, dk, dv) of flash attention for the cotangent ``g`` of its output
+    ``o``, from the forward's log-sum-exp ``lse``: the backward kernel on
+    the card, :func:`ref.flash_attention_backward_ref` on the CPU, a
+    shape-only call on ``"meta"``."""
+    with torch.profiler.record_function("repro.flash_backward"):
+        where = _device_type(q, k, v, o, lse, g)
+        if where == "cpu":
+            return ref.flash_attention_backward_ref(q, k, v, o, lse, g,
+                                                    causal=causal)
+        if where == "meta":
+            B, H, Sq, hd = q.shape
+            K, Sk = k.shape[1], k.shape[2]
+            dq = _shape_only(
+                "flash_attention_backward",
+                torch.empty(q.shape, dtype=q.dtype, device="meta"),
+                _flash_bwd.work(B, H, K, Sq, Sk, hd, causal,
+                                q.element_size()))
+            return (dq, torch.empty(k.shape, dtype=q.dtype, device="meta"),
+                    torch.empty(k.shape, dtype=q.dtype, device="meta"))
+        return _flash_bwd.flash_attention_backward(q, k, v, o, lse, g,
+                                                   causal=causal)
 
 
 def flash_attention(q, k, v, *, causal: bool = True):
     """Causal (or full) GQA attention, head-major: q (B,H,Sq,hd), k/v
     (B,K,Sk,hd) → (B,H,Sq,hd) in q's dtype; differentiable in q, k, v."""
-    return _FlashAttention.apply(q, k, v, causal)
+    need = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    return _FlashAttention.apply(q, k, v, causal, need)
 
 
 def paged_attention(q, k_pool, v_pool, page_table, lengths):
@@ -275,9 +309,9 @@ def launch_counts() -> Dict[str, int]:
 
 
 def launch_keys() -> Dict[str, Dict[tuple, int]]:
-    """Each kernel's launches by the key its wrapper names: flash's
-    (B, H, K, Sq, Sk, hd, causal, dtype), the scan's (B, S, D, dtype,
-    reverse); empty for the other kernels."""
+    """Each kernel's launches by the key its wrapper names: flash's and
+    its backward's (B, H, K, Sq, Sk, hd, causal, dtype), the scan's
+    (B, S, D, dtype, reverse); empty for the other kernels."""
     return {name: dict(k.by_key) for name, k in KERNELS.items()}
 
 

@@ -30,9 +30,18 @@ def _wide(t):
     return t.to(torch.promote_types(t.dtype, torch.float32))
 
 
+def _causal_mask(Sq: int, Sk: int, device):
+    """(Sq, Sk) bool: key ``kpos <= qpos``, aligned top-left."""
+    return (torch.arange(Sk, device=device)[None, :]
+            <= torch.arange(Sq, device=device)[:, None])
+
+
 def flash_attention_ref(q, k, v, *, causal: bool = True,
-                        sm_scale: Optional[float] = None):
-    """q (B,H,Sq,hd); k/v (B,K,Sk,hd) with K dividing H. Returns (B,H,Sq,hd)."""
+                        sm_scale: Optional[float] = None,
+                        return_lse: bool = False):
+    """q (B,H,Sq,hd); k/v (B,K,Sk,hd) with K dividing H. Returns (B,H,Sq,hd),
+    and with ``return_lse`` also the (B,H,Sq) log-sum-exp of each row's
+    scaled scores (natural log, fp32; the kernel's second output)."""
     B, H, Sq, hd = q.shape
     K, Sk = k.shape[1], k.shape[2]
     kk, vv = k.float(), v.float()
@@ -42,12 +51,42 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(hd)
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) * scale
     if causal:
-        qpos = torch.arange(Sq, device=q.device)
-        kpos = torch.arange(Sk, device=q.device)
-        mask = kpos[None, :] <= qpos[:, None]
+        mask = _causal_mask(Sq, Sk, q.device)
         s = torch.where(mask[None, None], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bhkd->bhqd", p, vv).to(q.dtype)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, vv).to(q.dtype)
+    return (out, torch.logsumexp(s, dim=-1)) if return_lse else out
+
+
+def flash_attention_backward_ref(q, k, v, o, lse, do, *, causal: bool = True):
+    """(dq, dk, dv) of flash attention for the cotangent ``do`` of its
+    output ``o``, from the forward's log-sum-exp ``lse`` (B,H,Sq), written
+    out as the backward kernel computes it, in fp32: ``D = rowsum(do·o)``,
+    ``P = exp(scale·QKᵀ − lse)`` (0 where masked; scale 1/sqrt(hd), the
+    forward's), ``dV = Pᵀ dO``, ``dS = P ∘ (dO Vᵀ − D)``,
+    ``dQ = scale·dS K``, ``dK = scale·dSᵀ Q``;
+    each KV head's dK and dV sum its H/K query heads.  Returns q's, k's
+    and v's dtypes."""
+    B, H, Sq, hd = q.shape
+    K, Sk = k.shape[1], k.shape[2]
+    G = H // K
+    qf, kf, vf, of, gf = (_wide(t) for t in (q, k, v, o, do))
+    kk = kf.repeat_interleave(G, dim=1) if G > 1 else kf
+    vv = vf.repeat_interleave(G, dim=1) if G > 1 else vf
+    scale = 1.0 / math.sqrt(hd)
+    p = torch.exp(torch.einsum("bhqd,bhkd->bhqk", qf, kk) * scale
+                  - lse.to(qf.dtype)[..., None])
+    if causal:
+        p = torch.where(_causal_mask(Sq, Sk, q.device)[None, None], p,
+                        torch.zeros((), dtype=p.dtype, device=p.device))
+    dsum = (gf * of).sum(-1)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", gf, vv) - dsum[..., None])
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kk) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, gf)
+    dk = dk.reshape(B, K, G, Sk, hd).sum(2)
+    dv = dv.reshape(B, K, G, Sk, hd).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def paged_attention_ref(q, k_pool, v_pool, page_table, lengths, *,

@@ -149,6 +149,7 @@ def run_cell(arch: Union[str, ArchConfig], shape: Union[str, ShapeConfig],
             rec["hlo_bytes"] = stats.hbm_bytes
             rec["collectives"] = dict(stats.collective_bytes)
             rec["launches"] = dict(stats.launches)
+            rec["peak_live"] = dict(stats.peak_live)
             rec["model_flops"] = _model_flops(
                 get_arch(arch) if isinstance(arch, str) else arch, shp)
             rec["n_devices"] = math.prod(dims)

@@ -30,7 +30,11 @@ this rank's, as JAX's partitioned module is the per-device program:
   inputs hold, plus each storage an op creates from its creation until
   it is freed (``weakref.finalize``: the pattern of torch's
   ``torch.distributed._tools.mem_tracker``, kept here in the one mode
-  that also counts the ops).
+  that also counts the ops);
+* ``peak_live``: what holds those bytes, the live storages grouped by the
+  op that made them, its result's shape and dtype (``"input"`` for the
+  step's inputs), largest first, taken when the live bytes last rose 1 %
+  above the previous such snapshot (so within 1 % of the peak).
 
 ``hlo_analysis`` multiplies each while-loop body by its trip count,
 since ``cost_analysis()`` counts a loop body once.  Eager dispatch runs
@@ -85,7 +89,8 @@ _INTO_COPY = {_aten.scatter_add, _aten.scatter, _aten.index_add,
 
 @dataclass
 class OpStats:
-    """``HloStats``'s fields, plus ``launches`` and ``peak_bytes``."""
+    """``HloStats``'s fields, plus ``launches``, ``peak_bytes`` and
+    ``peak_live``."""
 
     flops: float = 0.0
     hbm_bytes: float = 0.0
@@ -93,6 +98,7 @@ class OpStats:
         default_factory=lambda: {k: 0.0 for k in COLLECTIVES})
     launches: Dict[str, int] = field(default_factory=dict)
     peak_bytes: int = 0
+    peak_live: Dict[str, int] = field(default_factory=dict)
 
     @property
     def total_collective_bytes(self) -> float:
@@ -138,6 +144,13 @@ def _role(func) -> Tuple[Any, bool, bool]:
     return packet, moves, packet in _FILLS
 
 
+#: the live bytes must rise this much above the last ``peak_live``
+#: snapshot before the next is taken
+_SNAPSHOT_STEP = 1.01
+#: groups kept in a snapshot
+_SNAPSHOT_TOP = 8
+
+
 class _Counter(TorchDispatchMode):
     def __init__(self, inputs):
         super().__init__()
@@ -145,24 +158,37 @@ class _Counter(TorchDispatchMode):
         self.bytes = 0.0
         self.live = 0
         # id of a live storage → [its counted bytes, the weakref that
-        # uncounts them when it is freed]
+        # uncounts them when it is freed, what made it]
         self._seen: Dict[int, list] = {}
         self._fresh: set = set()  # ids of filled buffers no op has read
         for t in _tensors(inputs):
-            self._see(t.untyped_storage(), True)
+            self._see(t.untyped_storage(), True, "input")
         self.peak = self.live
+        self.peak_live: Dict[str, int] = {}
+        self._snapped = 0
 
-    def _see(self, st, counted: bool) -> bool:
+    def _see(self, st, counted: bool, label: str = "") -> bool:
         """Know ``st`` until it is freed; ``counted``: its bytes are live
-        bytes of the step (an input's, or an op's new storage).  Returns
-        whether it was new."""
+        bytes of the step (an input's, or an op's new storage, made by
+        ``label``).  Returns whether it was new."""
         key = id(st)
         if key in self._seen:
             return False
         n = st.nbytes() if counted else 0
-        self._seen[key] = [n, weakref.ref(st, lambda _, k=key: self._gone(k))]
+        self._seen[key] = [n, weakref.ref(st, lambda _, k=key: self._gone(k)),
+                           label]
         self.live += n
         return True
+
+    def _snapshot(self) -> None:
+        """``peak_live``: the live bytes by what made them, largest first."""
+        groups: Dict[str, int] = {}
+        for n, _, label in self._seen.values():
+            if n:
+                groups[label] = groups.get(label, 0) + n
+        top = sorted(groups.items(), key=lambda kv: -kv[1])[:_SNAPSHOT_TOP]
+        self.peak_live = dict(top)
+        self._snapped = self.live
 
     def _gone(self, key: int) -> None:
         self.live -= self._seen.pop(key, (0,))[0]
@@ -185,13 +211,16 @@ class _Counter(TorchDispatchMode):
                 self._fresh.discard(id(st))
         for t in outs:
             st = t.untyped_storage()
-            if self._see(st, True) and fill:
+            label = f"{packet} {tuple(t.shape)} {str(t.dtype)[6:]}"
+            if self._see(st, True, label) and fill:
                 self._fresh.add(id(st))
         if into is not None:  # the in-place form's: the buffer is the result
             self.live -= self._seen[into][0]
             self._seen[into][0] = 0
         if self.live > self.peak:
             self.peak = self.live
+            if self.live > _SNAPSHOT_STEP * self._snapped:
+                self._snapshot()
         if packet in _DOTS:
             self.flops += _dot_flops(packet, args, outs[0])
         if moves:
@@ -213,7 +242,7 @@ def analyze(fn: Callable, *args, **kwargs) -> Tuple[Any, OpStats]:
     with counter:
         out = fn(*args, **kwargs)
     stats = OpStats(flops=counter.flops, hbm_bytes=counter.bytes,
-                    peak_bytes=counter.peak)
+                    peak_bytes=counter.peak, peak_live=counter.peak_live)
     for key, kind in KINDS.items():
         stats.collective_bytes[kind] += (collectives.TRAFFIC[key]
                                          - traffic[key])

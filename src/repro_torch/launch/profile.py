@@ -26,7 +26,7 @@ kernel and library handle, then on a fresh session over the same model measures:
   kernel launches per step, and the idle share = 1 − device / wall.
 
 Device time is the sum of the profiler's CUDA-side events (one stream, so
-they do not overlap), grouped into the four ported kernels, copies and
+they do not overlap), grouped into the ported kernels, copies and
 the rest, with the largest kernels also listed by name.
 
 Training (``--train``, :func:`profile_train`): full qwen3-0.6b in the
@@ -34,20 +34,20 @@ training layout, batch 8 × seq 1024 (``chip_smoke.py`` phase 6's cell),
 two warm-up steps, then one profiled step (:func:`profile_train_step`,
 which ``chip_smoke.py`` phases 6e and 6f also call on their depth-cut MoE
 and hybrid models) whose forward, backward and update are each closed by
-a device sync.  Its device time is split by the phase a kernel was
-launched in and by what launched it (:data:`TRAIN_GROUPS`): the flash
-kernel in the forward and in the backward (the remat recompute), the
-plain attention backward (inside the flash autograd function's
-backward); the grouped matmul in the forward, in the recompute and as dx
-(inside its function's backward), and the rest of that backward (dw's
-``torch.bmm``, the cotangent's mask, w's transposed copy); the scan in
-the forward, in the recompute and reversed (inside its function's
+a device sync. Its device time is split by the phase a kernel was launched
+in and by what launched it (:data:`TRAIN_GROUPS`): the flash kernel in the
+forward and in the backward (the remat recompute), the flash backward
+kernel with the cotangent's copy, if any (inside the flash autograd
+function's backward); the grouped matmul in the forward, in the recompute
+and as dx (inside its function's backward), and the rest of that backward
+(dw's ``torch.bmm``, the cotangent's mask, w's transposed copy); the scan
+in the forward, in the recompute and reversed (inside its function's
 backward) with the elementwise rest of that backward; the RG-LRU gate
 products (``repro.rglru_gates``: forward and recompute; their backward
 counts as matmuls); ``chunked_xent`` (its forward, its backward-time
 logits recompute, and the backward nodes of its forward ops, matched by
-autograd sequence number), the remaining matmuls (cuBLAS kernels by
-name), the optimizer update and the rest.
+autograd sequence number), the remaining matmuls (cuBLAS kernels by name),
+the optimizer update and the rest.
 
 Prints one line per phase and a JSON line; exits non-zero when the
 profiler records no device time.
@@ -69,7 +69,7 @@ from ..config import get_arch
 from .serve import _build_requests, frontend_lens
 
 #: the groups of a train step's device time (see the module doc)
-TRAIN_GROUPS = ("flash_forward", "flash_recompute", "attention_backward_plain",
+TRAIN_GROUPS = ("flash_forward", "flash_recompute", "flash_backward",
                 "gmm_forward", "gmm_recompute", "gmm_dx", "gmm_backward_rest",
                 "scan_forward", "scan_recompute", "scan_reverse",
                 "scan_backward_rest", "gate_products", "chunked_xent",
@@ -80,14 +80,18 @@ MATMUL_KEYS = ("gemm", "nvjet", "xmma", "cutlass")
 #: backward: the function's ``record_function`` range, or the autograd
 #: node that runs it — a kernel launched through ``ctypes`` is filed under
 #: the node's op, outside the range
-BACKWARD_NODES = {"repro.gmm_backward": "_GroupedMatmulBackward",
+BACKWARD_NODES = {"repro.flash_backward": "_FlashAttentionBackward",
+                  "repro.gmm_backward": "_GroupedMatmulBackward",
                   "repro.scan_backward": "_RGLRUScanBackward"}
 
 # substrings of the kernels' names: paged_decode_split_kernel;
-# flash_fwd_kernel (fp32) and flash_fwd_wgmma_kernel (bf16);
+# flash_fwd_kernel (fp32) and flash_fwd_wgmma_kernel (bf16); the flash
+# backward's flash_bwd_dot_kernel, flash_bwd_{dkv,dq}_f32_kernel and
+# flash_bwd_{dkv,dq}_wgmma_kernel;
 # gmm_bf16_kernel, gmm_wgmma_kernel, gmm_skinny_kernel and gmm_f32_kernel
 GROUPS = (("paged_attention", "paged_decode_split"),
           ("flash_attention", "flash_fwd_"),
+          ("flash_attention_bwd", "flash_bwd_"),
           ("grouped_matmul", "gmm_"),
           ("rglru_scan", "rglru_scan_kernel"),
           ("copy", "emcpy"))
@@ -222,7 +226,7 @@ def train_breakdown(events, phases: Dict[str, Tuple[float, float]]
             elif "flash_fwd" in k.name:
                 group = f"flash_{again}"
             elif "repro.flash_backward" in marks:
-                group = "attention_backward_plain"
+                group = "flash_backward"
             elif "repro.gmm_backward" in marks:
                 group = "gmm_dx" if "gmm_" in k.name else "gmm_backward_rest"
             elif "gmm_" in k.name:

@@ -12,6 +12,9 @@ from repro.models import layers as jlay
 from repro_torch.models import attention as tatt
 from repro_torch.models import layers as tlay
 
+from port_testing import one_torch_thread, unoptimized_jax  # noqa: F401
+
+
 ATOL = 1e-5
 D, H, KV, HD, THETA = 64, 4, 2, 16, 1e6
 

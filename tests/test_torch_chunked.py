@@ -36,6 +36,9 @@ from repro_torch.models import attention as tatt
 from repro_torch.models import build_model
 from repro_torch.serving import Request, ServingConfig, ServingSession
 
+from port_testing import one_torch_thread, unoptimized_jax  # noqa: F401
+
+
 ROOT = Path(__file__).resolve().parents[1]
 D, H, KV, HD, THETA, PS = 64, 4, 2, 16, 1e6, 8
 COUNTERS = ("chunk_steps", "interleaved_chunks", "decode_steps",

@@ -35,14 +35,7 @@ from repro_torch.ckpt import (AsyncCheckpointManager, CheckpointManager,
 from repro_torch.ckpt.remesh import fresh_module
 from repro_torch.optim import AdamW, OptState
 
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One intra-op thread while this module runs (restored after)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from port_testing import one_torch_thread, unoptimized_jax  # noqa: F401
 
 
 def _tree(seed=0):

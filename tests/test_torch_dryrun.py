@@ -85,11 +85,15 @@ from repro_torch.configs import ASSIGNED
 from repro_torch.core.costmodel import HardwareSpec
 from repro_torch.kernels import ops
 from repro_torch.kernels import flash_attention as flash_k
+from repro_torch.kernels import flash_attention_bwd as flash_bwd_k
 from repro_torch.kernels import grouped_matmul as gmm_k
 from repro_torch.kernels import rglru_scan as scan_k
 from repro_torch.launch import dryrun
 from repro_torch.launch.op_analysis import analyze
 from repro_torch.models.transformer import layer_kinds
+
+from port_testing import one_torch_thread, unoptimized_jax  # noqa: F401
+
 
 ROOT = Path(__file__).resolve().parents[1]
 #: JAX's record keys (``repro/launch/dryrun.py:run_cell``)
@@ -201,11 +205,14 @@ def test_shape_only_kernel_branch():
     meta = dict(device="meta")
     ops.reset_shape_only()
     launches = ops.launch_counts()
-    q = torch.empty(2, 8, 300, 64, dtype=torch.bfloat16, **meta)
+    q = torch.empty(2, 8, 300, 64, dtype=torch.bfloat16, **meta,
+                    requires_grad=True)
     kv = torch.empty(2, 4, 300, 64, dtype=torch.bfloat16, **meta)
     out = ops.flash_attention(q, kv, kv, causal=True)
     assert (out.shape, out.dtype, out.device.type) == (
         q.shape, q.dtype, "meta")
+    dq, = torch.autograd.grad(out.sum(), [q])  # the flash backward
+    assert (dq.shape, dq.dtype, dq.device.type) == (q.shape, q.dtype, "meta")
     x = torch.empty(4, 16, 32, **meta, requires_grad=True)
     w = torch.empty(4, 32, 24, **meta, requires_grad=True)
     sizes = torch.empty(4, dtype=torch.int32, **meta)
@@ -218,6 +225,8 @@ def test_shape_only_kernel_branch():
     torch.autograd.grad(h.sum(), [a])  # the reverse scan
     want = {"flash_attention": [1, *flash_k.work(2, 8, 4, 300, 300, 64,
                                                  True, 2)],
+            "flash_attention_backward": [
+                1, *flash_bwd_k.work(2, 8, 4, 300, 300, 64, True, 2)],
             "grouped_matmul": [2, *(np.array(gmm_k.work(4, 16, 32, 24, 4))
                                     + gmm_k.work(4, 16, 24, 32, 4))],
             "rglru_scan": [2, *(2 * np.array(scan_k.work(2, 10, 6, 4)))],
@@ -227,7 +236,7 @@ def test_shape_only_kernel_branch():
     assert got == pytest.approx(want)
     assert ops.launch_counts() == launches  # the card's count is untouched
     with pytest.raises(ValueError, match="shape-only"):
-        ops.paged_attention(q[:, :, 0], kv, kv,
+        ops.paged_attention(q[:, :, 0].detach(), kv, kv,
                             torch.empty(2, 3, dtype=torch.int32, **meta),
                             torch.empty(2, dtype=torch.int32, **meta))
     with pytest.raises(ValueError, match="all on meta"):
@@ -249,6 +258,19 @@ def test_op_analysis_counts_a_known_function():
     # the inputs' 160 floats, c, c * 2 and the sum live together
     assert st.peak_bytes == 4 * (32 + 128 + 64 + 64 + 1)
     assert st.total_collective_bytes == 0
+
+
+def test_op_analysis_peak_snapshot_names_what_holds_the_peak():
+    """``peak_live``: the live storages at the peak (within 1 %), grouped
+    by the op that made them with its result's shape and dtype, and the
+    step's inputs."""
+    a = torch.empty(4, 8, device="meta")
+    b = torch.empty(8, 16, device="meta")
+    _, st = analyze(lambda a, b: (a @ b * 2).sum(), a, b)
+    assert st.peak_live == {"input": 4 * (32 + 128),
+                            "aten.mm (4, 16) float32": 4 * 64,
+                            "aten.mul (4, 16) float32": 4 * 64}
+    assert st.peak_bytes <= 1.01 * sum(st.peak_live.values())
 
 
 # ------------------------------------------------------ production cells
@@ -472,7 +494,8 @@ def test_launches_equal_the_chip_phases(arch):
     prefill = dryrun.run_cell(cfg, ShapeConfig("prefill", 320, 8, "prefill"),
                               mesh_shape=(2, 2), shcfg=shcfg, verbose=False)
     assert prefill["launches"] == {
-        "flash_attention": L, "paged_attention": 0, "rglru_scan": 0,
+        "flash_attention": L, "flash_attention_backward": 0,
+        "paged_attention": 0, "rglru_scan": 0,
         "grouped_matmul": 3 * L if cfg.is_moe else 0}
 
 

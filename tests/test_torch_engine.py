@@ -38,6 +38,9 @@ from repro_torch.runtime import (ExecComponent, ExecFlow, MTModel, WaveEngine,
                                  tiny_multitask_clip, tiny_ofasys)
 from repro_torch.runtime.mtmodel import _demo_batches
 
+from port_testing import one_torch_thread, unoptimized_jax  # noqa: E402, F401
+
+
 TOL = 1e-5
 MAKERS = {"clip": (tiny_multitask_clip, jax_tiny_clip),
           "ofasys": (tiny_ofasys, jax_tiny_ofasys)}

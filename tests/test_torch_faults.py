@@ -36,20 +36,13 @@ from repro_torch.runtime import tiny_multitask_clip
 from repro_torch.session import (CheckpointCallbacks, SessionConfig,
                                  SpindleSession)
 
+from port_testing import one_torch_thread, unoptimized_jax  # noqa: F401
+
 TASKS = ("img_text", "audio_text", "audio_vision")
 #: two devices per host so killing host 1 removes a re-plannable block
 CLUSTER_KW = dict(n_devices=8, island_size=4, devices_per_host=2,
                   mem_bytes=96e9)
 CLUSTER = ClusterSpec(**CLUSTER_KW)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One intra-op thread while this module runs (restored after)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def make_session(cluster=CLUSTER, **kw):

@@ -47,6 +47,8 @@ from repro_torch.core.workloads import multitask_clip
 from repro_torch.models import build_model
 from repro_torch.serving import ServingConfig, ServingSession
 
+from port_testing import one_torch_thread, unoptimized_jax  # noqa: F401
+
 PKG = {
     "jax": SimpleNamespace(
         fleet=jfleet, events=jevents, faults=jfaults, launch=jlaunch,
@@ -72,17 +74,6 @@ FAULTS_CLUSTER = dict(n_devices=32, island_size=4, devices_per_host=4,
                       mem_bytes=96e9)
 LAUNCH_CLUSTER = dict(n_devices=32, island_size=8, mem_bytes=96e9,
                       devices_per_host=4)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One intra-op thread while this module runs (restored after): its
-    small CPU ops gain nothing from more, and under parallel test workers
-    every op's thread team would contend for the same cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # ----------------------------------------------------------------- host maps

@@ -23,6 +23,9 @@ from repro_torch.kernels import grouped_matmul as cuda_gmm
 from repro_torch.kernels import paged_attention as cuda_paged
 from repro_torch.kernels import rglru_scan as cuda_scan
 
+from port_testing import one_torch_thread, unoptimized_jax  # noqa: F401
+
+
 ATOL = 2e-4
 
 
@@ -126,7 +129,9 @@ def test_ops_on_cpu_need_no_nvcc(monkeypatch):
     ops.grouped_matmul(torch.randn(2, 4, 8), torch.randn(2, 8, 3),
                        torch.tensor([4, 1], dtype=torch.int32))
     ops.rglru_scan(torch.rand(2, 5, 8), torch.randn(2, 5, 8))
-    assert ops.launch_counts() == {"flash_attention": 0, "paged_attention": 0,
+    assert ops.launch_counts() == {"flash_attention": 0,
+                                   "flash_attention_backward": 0,
+                                   "paged_attention": 0,
                                    "grouped_matmul": 0, "rglru_scan": 0}
     assert all(k._fn is None for k in ops.KERNELS.values())
 

@@ -835,18 +835,62 @@ def test_chunked_shared_grow_serving_equal_on_cuda_and_cpu(cuda_device):
     assert out["cuda"] == out["cpu"]
 
 
-# the flash autograd function: the kernel's forward, the plain version's
-# recomputed gradient (the training path)
+# the flash autograd function: the forward kernel, the backward kernel
+# (the training path).  Tolerance of a gradient, relative to its largest
+# entry, against the plain backward in fp32 on the same inputs: fp32 1e-5
+# (sums in another order); bf16 twice SDPA's own bf16 backward error
+# against the same reference on the same inputs (P and dS are rounded to
+# bf16 for their products there too, and every gradient once on output)
+def _exact_flash_grads(q, k, v, g, causal):
+    """(dq, dk, dv) of the plain version in fp32 from ``q, k, v, g``."""
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+    o, lse = ref.flash_attention_ref(qf, kf, vf, causal=causal,
+                                     return_lse=True)
+    return ref.flash_attention_backward_ref(qf, kf, vf, o, lse, gf,
+                                            causal=causal)
+
+
+def _rel_errs(got, want):
+    return [float((a.float() - b).abs().max()) / float(b.abs().max())
+            for a, b in zip(got, want)]
+
+
+def _sdpa_rel_errs(q, k, v, g, causal, want):
+    """SDPA's forward + backward on the same inputs (KV heads repeated as
+    leaves, their gradients summed in fp32), relative errors against
+    ``want``."""
+    import torch.nn.functional as F
+
+    G = q.shape[1] // k.shape[1]
+    ins = [q.detach().requires_grad_()] + [
+        t.repeat_interleave(G, 1).detach().requires_grad_() for t in (k, v)]
+    out = F.scaled_dot_product_attention(*ins, is_causal=causal)
+    dq, dk, dv = torch.autograd.grad(out, ins, g)
+    B, _, Sk, hd = k.shape
+    dk, dv = (t.float().reshape(B, -1, G, Sk, hd).sum(2) for t in (dk, dv))
+    return _rel_errs((dq, dk, dv), want)
+
+
+def _assert_flash_grads(got, q, k, v, g, causal):
+    want = _exact_flash_grads(q, k, v, g, causal)
+    errs = _rel_errs(got, want)
+    if q.dtype == torch.float32:
+        assert max(errs) <= 1e-5, errs
+    else:
+        sdpa = _sdpa_rel_errs(q, k, v, g, causal, want)
+        assert all(e <= 2 * s for e, s in zip(errs, sdpa)), (errs, sdpa)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,rtol", DTYPES)
 @pytest.mark.parametrize("H,K,S,hd", [(8, 2, 300, 64), (16, 8, 1024, 128)])
 def test_flash_backward_matches_plain_on_gpu(cuda_device, dtype, rtol, H, K,
-                                             S, hd):
-    """Gradients through ``ops.flash_attention`` equal autograd of the plain
-    version on the card (the same recompute: exact up to the forward's
-    rounding, which the gradient never reads), for head-major views of
-    (B, S, heads, hd) projections as the model passes them; the forward
-    launches the kernel once."""
+                                             S, hd, monkeypatch):
+    """Gradients through ``ops.flash_attention`` for head-major views of
+    (B, S, heads, hd) projections, as the model passes them: the forward
+    launches the flash kernel once, the backward the backward kernel once
+    and never the plain forward (monkeypatched to raise); the gradients
+    hold the stated tolerance against the plain backward in fp32."""
     rng = np.random.default_rng(41)
     B = 2
 
@@ -856,18 +900,115 @@ def test_flash_backward_matches_plain_on_gpu(cuda_device, dtype, rtol, H, K,
 
     q, k, v = view(H), view(K), view(K)
     g = torch.from_numpy(_np(rng, (B, H, S, hd))).to(cuda_device, dtype)
-    before = ops.launch_counts()["flash_attention"]
+    before = ops.launch_counts()
     ins = [t.detach().requires_grad_() for t in (q, k, v)]
     out = ops.flash_attention(*ins)
+    real = ref.flash_attention_ref
+
+    def forbidden(*a, **kw):
+        raise AssertionError("the backward recomputed the plain forward")
+
+    monkeypatch.setattr(ref, "flash_attention_ref", forbidden)
     got = torch.autograd.grad(out, ins, g)
-    assert ops.launch_counts()["flash_attention"] == before + 1
-    ins = [t.detach().requires_grad_() for t in (q, k, v)]
-    want_out = ref.flash_attention_ref(*ins)
-    want = torch.autograd.grad(want_out, ins, g)
-    _assert_close(out.detach(), want_out.detach(), rtol)
-    for a, b in zip(got, want):
-        assert a.dtype == dtype
-        _assert_close(a, b, 0.0)
+    torch.cuda.synchronize()
+    monkeypatch.setattr(ref, "flash_attention_ref", real)
+    after = ops.launch_counts()
+    assert after["flash_attention"] == before["flash_attention"] + 1
+    assert (after["flash_attention_backward"]
+            == before["flash_attention_backward"] + 1)
+    _assert_close(out.detach(), ref.flash_attention_ref(q, k, v), rtol)
+    for a, t in zip(got, (q, k, v)):
+        assert a.dtype == dtype and a.shape == t.shape
+    _assert_flash_grads(got, q, k, v, g, True)
+
+
+# every shape the chip phases' training paths launch the backward at, and
+# the rest of what the forward takes: ragged S, H/K of 1 to 16, every head
+# dim, Sq != Sk non-causal
+FLASH_BWD_CASES = [  # (B, H, K, Sq, Sk, hd, causal)
+    (8, 16, 8, 1024, 1024, 128, True),  # phase 6: qwen3-0.6b, 8 x 1,024
+    (4, 16, 8, 1024, 1024, 128, True),  # 8b's data-parallel rank
+    (4, 8, 4, 1024, 1024, 128, True),   # 8e / 8h: a (data 2, model 2) rank
+    (4, 16, 16, 1024, 1024, 128, True),  # 6e: qwen2-moe, 4 x 1,024
+    (2, 8, 8, 320, 320, 64, False),     # 8g: seamless encoder
+    (2, 8, 8, 1280, 1280, 64, True),    # 8g: decoder self
+    (2, 8, 8, 1280, 320, 64, False),    # 8g: cross attention
+    (2, 8, 2, 1040, 1040, 128, True),   # ragged S, H/K 4
+    (1, 32, 2, 300, 300, 128, True),    # glm4's H/K 16
+    (2, 4, 2, 65, 65, 16, True),        # one key past a tile
+    (3, 4, 4, 17, 17, 32, False),       # fewer rows than a tile
+    (2, 4, 1, 129, 40, 64, False),      # Sq > Sk non-causal
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_BWD_CASES)
+@pytest.mark.parametrize("strided", [False, True])
+def test_flash_backward_kernel_at_the_chip_shapes_on_gpu(cuda_device, dtype,
+                                                         case, strided):
+    """The backward kernel against the plain backward in fp32, fed the
+    forward kernel's output and log-sum-exp; q, k and v contiguous or
+    head-major views of (B, S, heads, hd)."""
+    from repro_torch.kernels import flash_attention as flash_k
+    from repro_torch.kernels import flash_attention_bwd as bwd_k
+
+    B, H, K, Sq, Sk, hd, causal = case
+    rng = np.random.default_rng(sum(case[:6]))
+
+    def make(n, S):
+        x = torch.from_numpy(_np(rng, (B, S, n, hd))).to(cuda_device, dtype)
+        return x.transpose(1, 2) if strided else x.transpose(1, 2).contiguous()
+
+    q, k, v = make(H, Sq), make(K, Sk), make(K, Sk)
+    g = torch.from_numpy(_np(rng, (B, H, Sq, hd))).to(cuda_device, dtype)
+    o, lse = flash_k.flash_attention(q, k, v, causal=causal, return_lse=True)
+    want_lse = ref.flash_attention_ref(q, k, v, causal=causal,
+                                       return_lse=True)[1]
+    assert float((lse - want_lse).abs().max()) <= 1e-4
+    got = bwd_k.flash_attention_backward(q, k, v, o, lse, g, causal=causal)
+    torch.cuda.synchronize()
+    for a, t in zip(got, (q, k, v)):
+        assert a.dtype == dtype and a.shape == t.shape
+    _assert_flash_grads(got, q, k, v, g, causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_repeats_bit_for_bit_on_gpu(cuda_device, dtype):
+    """No atomics: two calls on the same inputs give the same bits (the
+    card's replica and SP-against-TP checks rely on it)."""
+    from repro_torch.kernels import flash_attention as flash_k
+    from repro_torch.kernels import flash_attention_bwd as bwd_k
+
+    rng = np.random.default_rng(47)
+    B, H, K, S, hd = 4, 16, 8, 1024, 128
+    q = torch.from_numpy(_np(rng, (B, H, S, hd))).to(cuda_device, dtype)
+    k, v = (torch.from_numpy(_np(rng, (B, K, S, hd))).to(cuda_device, dtype)
+            for _ in range(2))
+    g = torch.from_numpy(_np(rng, (B, H, S, hd))).to(cuda_device, dtype)
+    o, lse = flash_k.flash_attention(q, k, v, return_lse=True)
+    first = bwd_k.flash_attention_backward(q, k, v, o, lse, g)
+    second = bwd_k.flash_attention_backward(q, k, v, o, lse, g)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_flash_serving_forward_writes_no_lse_on_gpu(cuda_device):
+    """With no input that needs a gradient (serving, prefill) the forward
+    asks the kernel for no log-sum-exp: the same output, and no backward
+    state kept."""
+    rng = np.random.default_rng(48)
+    q = torch.from_numpy(_np(rng, (2, 8, 300, 64))).to(cuda_device,
+                                                       torch.bfloat16)
+    kv = torch.from_numpy(_np(rng, (2, 4, 300, 64))).to(cuda_device,
+                                                        torch.bfloat16)
+    with torch.no_grad():
+        served = ops.flash_attention(q, kv, kv)
+    trained = ops.flash_attention(q.requires_grad_(), kv, kv)
+    assert served.grad_fn is None and trained.grad_fn is not None
+    assert torch.equal(served, trained.detach())
 
 
 @pytest.mark.cuda
@@ -875,9 +1016,9 @@ def test_flash_backward_matches_plain_on_gpu(cuda_device, dtype, rtol, H, K,
 def test_train_step_launches_flash_twice_per_layer_on_gpu(cuda_device,
                                                           compute):
     """One loss + backward of a reduced qwen3 training model at S 320 under
-    block remat launches flash 2 x n_layers times (forward and recompute)
-    and no other kernel; in fp32 its loss and gradients equal the CPU
-    model's (the plain path) within 1e-4."""
+    block remat launches flash 2 x n_layers times (forward and recompute),
+    the flash backward once a layer and no other kernel; in fp32 its loss
+    and gradients equal the CPU model's (the plain path) within 1e-4."""
     from repro_torch.config import ShardingConfig, get_arch, reduced
     from repro_torch.models import build_model
 
@@ -897,8 +1038,9 @@ def test_train_step_launches_flash_twice_per_layer_on_gpu(cuda_device,
         torch.cuda.synchronize()
         after = ops.launch_counts()
         delta = {n: after[n] - before[n] for n in after}
-        want = 2 * cfg.n_layers if dev == "cuda" else 0
-        assert delta == {**{n: 0 for n in after}, "flash_attention": want}
+        L = cfg.n_layers if dev == "cuda" else 0
+        assert delta == {**{n: 0 for n in after}, "flash_attention": 2 * L,
+                         "flash_attention_backward": L}
         assert torch.isfinite(loss)
         out[dev] = (float(loss), [g.float().cpu() for g in grads])
     if compute == "float32":

@@ -25,6 +25,9 @@ from repro_torch.config import get_arch, reduced
 from repro_torch.kernels import ops
 from repro_torch.models import moe as tmoe
 
+from port_testing import one_torch_thread, unoptimized_jax  # noqa: F401
+
+
 ATOL = 1e-5
 B, S = 2, 24
 

@@ -39,21 +39,13 @@ hypothesis = pytest.importorskip("hypothesis")
 from hypothesis import given, settings  # noqa: E402
 from hypothesis import strategies as st  # noqa: E402
 
+from port_testing import (  # noqa: E402, F401
+    jax_solo_tokens, one_torch_thread, unoptimized_jax)
+
 CACHE_LEN = 48
 PS = 8
 #: counters of metrics() that do not measure time
 TIMELESS = ("seconds", "latency", "throughput", "cache", "planned_makespan")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One intra-op thread while this module runs (restored after): its
-    small CPU ops gain nothing from more, and under parallel test workers
-    every op's thread team would contend for the same cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _sides(arch, seed):
@@ -114,15 +106,8 @@ def _tokens(sess):
 
 def _solo(jmodel, params, tokens, max_new, cache_len=CACHE_LEN):
     """JAX reference: the request decoded entirely alone (batch 1, slab)."""
-    logits, cache = jmodel.prefill(
-        params, {"tokens": jnp.asarray(tokens)[None]}, cache_len=cache_len,
-        cache_dtype=jnp.float32)
-    out = [int(jnp.argmax(logits[0], axis=-1))]
-    for i in range(max_new - 1):
-        logits, cache = jmodel.decode_step(
-            params, jnp.asarray([out[-1]], jnp.int32), cache, len(tokens) + i)
-        out.append(int(jnp.argmax(logits[0], axis=-1)))
-    return out
+    return jax_solo_tokens(jmodel, params, tokens, max_new,
+                           cache_len=cache_len, cache_dtype=jnp.float32)
 
 
 def _counters(m):

@@ -24,6 +24,9 @@ from repro.models import recurrent as jrec
 from repro_torch.kernels import ops, ref
 from repro_torch.models import recurrent as trec
 
+from port_testing import one_torch_thread, unoptimized_jax  # noqa: F401
+
+
 ATOL = 1e-5
 SCAN_ATOL = 1e-4
 D = 64

@@ -51,20 +51,12 @@ from repro_torch.serving import (
 )
 from repro_torch.serving.pages import PagePool
 
+from port_testing import (  # noqa: F401
+    jax_solo_tokens, one_torch_thread, unoptimized_jax)
+
 CACHE_LEN = 48
 KV_KEYS = ("kv_slab_tokens", "kv_page_size", "kv_pages", "kv_pages_in_use",
            "kv_page_hw", "kv_page_hw_tokens", "kv_defers")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One intra-op thread while this module runs (restored after): its
-    small CPU ops gain nothing from more, and under parallel test workers
-    every op's thread team would contend for the same cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -108,17 +100,8 @@ def _jax_reqs(specs):
 
 def _solo_tokens(jmodel, params, tokens, max_new, cache_dtype):
     """JAX reference: the request decoded entirely alone (batch 1, slab)."""
-    logits, cache = jmodel.prefill(params, {"tokens": jnp.asarray(tokens)[None]},
-                                   cache_len=CACHE_LEN,
-                                   cache_dtype=jnp.dtype(cache_dtype))
-    tok = int(jnp.argmax(logits[0], axis=-1))
-    out = [tok]
-    for i in range(max_new - 1):
-        logits, cache = jmodel.decode_step(
-            params, jnp.asarray([tok], jnp.int32), cache, len(tokens) + i)
-        tok = int(jnp.argmax(logits[0], axis=-1))
-        out.append(tok)
-    return out
+    return jax_solo_tokens(jmodel, params, tokens, max_new,
+                           cache_len=CACHE_LEN, cache_dtype=cache_dtype)
 
 
 @pytest.fixture(scope="module")

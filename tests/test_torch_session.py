@@ -13,6 +13,7 @@ import dataclasses
 import json
 
 import pytest
+import torch
 
 import repro.launch.events as jax_events
 import repro.session as jax_session
@@ -25,6 +26,9 @@ import repro_torch.session as session
 from repro_torch.core.costmodel import HardwareSpec
 from repro_torch.core.placement import ClusterSpec
 from repro_torch.core.workloads import multitask_clip
+
+from port_testing import one_torch_thread, unoptimized_jax  # noqa: F401
+
 
 CLUSTER = dict(n_devices=16, island_size=8, mem_bytes=96e9,
                devices_per_host=4)
@@ -317,6 +321,25 @@ def test_task_completed_rebinds_and_matches_reference_and_jax():
         jax_session.SessionConfig(cluster=JaxClusterSpec(**BOUND_CLUSTER)),
         model_factory=lambda ts: jax_tiny_clip(n_tasks=len(ts)),
         tasks=TASKS).bind()
+    # the JAX step runs jitted, one trace per plan and optimizer (eager JAX
+    # compiles every op: its steps took ~70 s here); the session's wave
+    # callbacks fire after the step, in wave order, as the eager engine
+    # fires them after each forward wave
+    engine, eager_step, traced = jsess.engine, jsess.engine.train_step, {}
+
+    def jitted_step(params, opt_state, batches, optimizer, on_wave=None):
+        key = (id(engine.plan), id(optimizer))
+        if key not in traced:
+            traced[key] = (engine.plan, optimizer, jax.jit(
+                lambda p, o, b: eager_step(p, o, b, optimizer)))
+        out = traced[key][2](params, opt_state, batches)
+        if on_wave is not None:
+            waves = engine.plan.waves()
+            for widx in sorted(waves):
+                on_wave(widx, waves[widx])
+        return out
+
+    engine.train_step = jitted_step
     bridge.load_mt_params(sess.params,
                           jax.tree.map(np.asarray, jsess.params))
 
@@ -346,6 +369,7 @@ def test_task_completed_rebinds_and_matches_reference_and_jax():
     assert np.max(np.abs(np.asarray(sess.history)
                          - np.asarray(jsess.history))) < 1e-5
     assert sess.history[-1] < sess.history[0]
+    assert len(traced) == 2  # the JAX engine stepped on both plans
 
 
 def test_bound_cache_hit_replan_vs_full_replan():

@@ -37,6 +37,9 @@ from repro_torch.parallel import ShardingRules, tree_param_specs
 from repro_torch.parallel.sharding import (placements, tree_batch_specs,
                                            tree_cache_specs)
 
+from port_testing import one_torch_thread, unoptimized_jax  # noqa: F401
+
+
 ARCHS = ("qwen3-0.6b", "qwen2-moe-a2.7b", "qwen3-moe-30b-a3b",
          "recurrentgemma-9b", "seamless-m4t-medium", "pixtral-12b",
          "glm4-9b", "xlstm-125m", "deepseek-67b", "llama3-405b")

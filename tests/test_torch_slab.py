@@ -45,21 +45,12 @@ from repro_torch.serving import Request, ServingConfig, ServingSession
 from repro_torch.serving.batcher import (CacheIO, ContinuousBatcher,
                                          read_slot, write_slot, write_slots)
 
+from port_testing import one_torch_thread, unoptimized_jax  # noqa: F401
+
 CACHE_LEN = 48
 #: metrics() keys that hold a time (or the planner cache, off here)
 TIMED = ("seconds", "latency", "throughput", "cache", "planned_makespan")
 
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One intra-op thread while this module runs (restored after): its
-    small CPU ops gain nothing from more, and under parallel test workers
-    every op's thread team would contend for the same cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(rng, shape):

@@ -38,6 +38,9 @@ from repro_torch.config import (SHAPES, ShapeConfig, ShardingConfig,
 from repro_torch.launch.steps import build_step
 from repro_torch.optim import OptState
 
+from port_testing import one_torch_thread, unoptimized_jax  # noqa: F401
+
+
 ARCHS = ("qwen3-0.6b", "glm4-9b", "deepseek-67b", "llama3-405b",
          "qwen2-moe-a2.7b", "qwen3-moe-30b-a3b", "pixtral-12b")
 #: the hybrid, ssm and enc-dec archs

@@ -69,6 +69,8 @@ from repro_torch.parallel import make_mesh
 from repro_torch.parallel.mesh import run_ranks
 from repro_torch.parallel.sharding import spec_axes
 
+from port_testing import one_torch_thread, unoptimized_jax  # noqa: F401
+
 ROOT = Path(__file__).resolve().parents[1]
 TOL = 1e-5
 SP = {"seq_parallel": True}
@@ -215,15 +217,6 @@ def _rank_main(rank, d):
             hist.append(float(loss))
         r.update(hist=hist, params=_np(params), mu=_np(opt.mu))
     return res
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One intra-op thread while this module runs (restored after)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -55,16 +55,7 @@ from repro_torch.models.layers import cross_entropy
 from repro_torch.models.transformer import chunked_xent
 from repro_torch.optim import AdamW, warmup_cosine
 
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One intra-op thread while this module runs (restored after): its
-    small CPU ops gain nothing from more, and under parallel test workers
-    every op's thread team would contend for the same cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from port_testing import one_torch_thread, unoptimized_jax  # noqa: E402, F401
 
 
 def _t(a):
@@ -76,9 +67,12 @@ def _t(a):
 
 @pytest.mark.parametrize("H,K", [(2, 2), (4, 2)])
 def test_flash_autograd_matches_plain_and_jax_custom_vjp(H, K):
-    """Gradients through the port's flash autograd function equal autograd
-    of the plain version exactly, and JAX's custom_vjp (its Pallas kernel
-    in interpret mode, its oracle's recompute) within 1e-4."""
+    """Gradients through the port's flash autograd function (the plain
+    backward, ``ref.flash_attention_backward_ref``, from the forward's
+    saved output and log-sum-exp) equal autograd of the plain forward
+    within 1e-5 of each gradient's largest entry (the two sum in other
+    orders), and JAX's custom_vjp (its Pallas kernel in interpret mode,
+    its oracle's recompute) within 1e-4."""
     B, S, hd = 1, 128, 32
     rng = np.random.default_rng(3)
     q = rng.standard_normal((B, H, S, hd)).astype(np.float32)
@@ -93,7 +87,7 @@ def test_flash_autograd_matches_plain_and_jax_custom_vjp(H, K):
     got = grads(ops.flash_attention)
     want = grads(ref.flash_attention_ref)
     for a, b in zip(got, want):
-        assert torch.equal(a, b)
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
 
     def loss_jax(q, k, v):
         return jnp.sum(jax_ops.flash_attention(q, k, v, block_q=64,
@@ -107,30 +101,39 @@ def test_flash_autograd_matches_plain_and_jax_custom_vjp(H, K):
 def test_flash_forward_runs_again_under_remat():
     """Under block remat the flash forward runs twice per layer (forward and
     recompute) and its backward once: on the CPU each call is the plain
-    version, so the count of its calls is the launch count of the card."""
+    version, so the count of its calls is the launch count of the card.
+    The backward never calls the plain forward."""
     cfg = reduced(get_arch("qwen3-0.6b"))
     calls = []
-    real = ref.flash_attention_ref
+    real, real_bwd = ref.flash_attention_ref, ref.flash_attention_backward_ref
 
     def counting(*a, **kw):
-        calls.append(torch.is_grad_enabled())
+        calls.append("forward")
         return real(*a, **kw)
+
+    def counting_bwd(*a, **kw):
+        calls.append("backward")
+        return real_bwd(*a, **kw)
 
     toks = torch.randint(0, cfg.vocab, (2, 320), generator=torch.Generator()
                          .manual_seed(0))
     batch = {"tokens": toks, "labels": toks.roll(-1, 1)}
-    for remat, per_layer in (("block", 3), ("none", 2)):
+    for remat, per_layer in (("block", 2), ("none", 1)):
         m = build_model(cfg, ShardingConfig(use_kernels=True, remat=remat),
                         device="cpu", train=True)
         m.init(0)
         calls.clear()
         ref.flash_attention_ref = counting
+        ref.flash_attention_backward_ref = counting_bwd
         try:
             loss, _ = m.loss(batch)
             loss.backward()
         finally:
             ref.flash_attention_ref = real
-        assert len(calls) == per_layer * cfg.n_layers, (remat, len(calls))
+            ref.flash_attention_backward_ref = real_bwd
+        assert calls.count("forward") == per_layer * cfg.n_layers, (
+            remat, calls)
+        assert calls.count("backward") == cfg.n_layers, (remat, calls)
 
 
 # ------------------------------------------------------ model loss and grads

@@ -43,6 +43,9 @@ from repro_torch.launch.train import train
 from repro_torch.models import build_model
 from repro_torch.models import transformer as ttrans
 
+from port_testing import one_torch_thread, unoptimized_jax  # noqa: F401
+
+
 ATOL = 1e-5
 RG_LAYERS = 5
 S = 64

@@ -41,6 +41,9 @@ from repro_torch.launch.train import train, train_step
 from repro_torch.models import build_model
 from repro_torch.optim import AdamW, warmup_cosine
 
+from port_testing import one_torch_thread, unoptimized_jax  # noqa: F401
+
+
 ATOL = 1e-5
 MOE_ARCHS = ("qwen2-moe-a2.7b", "qwen3-moe-30b-a3b")
 S = 64

@@ -29,6 +29,9 @@ from repro_torch.config import ShardingConfig, get_arch, reduced
 from repro_torch.models import build_model
 from repro_torch.serving.batcher import write_pages
 
+from port_testing import one_torch_thread, unoptimized_jax  # noqa: F401
+
+
 ATOL = 1e-4
 PS = 8
 

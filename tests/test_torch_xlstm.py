@@ -42,20 +42,11 @@ from repro_torch.models import build_model
 from repro_torch.models import recurrent as trec
 from repro_torch.optim import AdamW, warmup_cosine
 
+from port_testing import one_torch_thread, unoptimized_jax  # noqa: F401
+
 ARCH = "xlstm-125m"
 B, S, H, HD, D = 2, 20, 4, 8, 32
 
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One intra-op thread while this module runs (restored after): its
-    small CPU ops gain nothing from more, and under parallel test workers
-    every op's thread team would contend for the same cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(rng, shape, scale=1.0):
