@@ -377,11 +377,15 @@ its plain version's, the plain recompute's it replaced, SDPA's backward
 alone and SDPA's forward + backward; the grouped matmul's
 gradient at 6e's expert shapes (E64 C341, gate/up and down, bf16: dx
 through the kernel, dw one ``torch.bmm``) and the scan's at 6f's (B4
-S1,024 D4,096, fp32: the reverse scan through the kernel) and at 8g's rank
-shape (B2 S1,024 D2,048) against autograd of the plain versions, with the
-device time of the dx launch, w's transposed copy, dw and the whole
-backward (``torch.bmm`` at the dx shape as the library yardstick), and of
-the reverse scan and the whole scan backward; and flash at 8g's seamless
+S1,024 D4,096, fp32: one launch of the kernel run backwards in time, also
+equal bit for bit to the flipped copies through the forward kernel it
+replaced) and at 8g's rank shape (B2 S1,024 D2,048) against autograd of
+the plain versions, with the device time of the dx launch, w's transposed
+copy, dw and the whole backward (``torch.bmm`` at the dx shape as the
+library yardstick), and of the reverse launch and the whole scan
+backward; the flash backward's time split by its CUDA kernels (in bf16
+the dQ pass, which also forms D, and the dK/dV pass; in fp32 a D
+pre-pass before them); and flash at 8g's seamless
 rank's encoder (B2 H8 S320 hd64, non-causal), decoder self (S1,280,
 causal) and cross attention (Sq1,280 Sk320) shapes.
 """
@@ -599,14 +603,16 @@ def host_us(torch, fn, args, iters: int = 40) -> float:
 
 def _template_args(mangled: str) -> str:
     """The template arguments at the start of ``mangled`` (``I...E``), as
-    text: types (``f``, ``13__nv_bfloat16``) and integers (``Li4E``)."""
+    text: types (``f``, ``13__nv_bfloat16``), integers (``Li4E``) and
+    booleans (``Lb1E``)."""
     if not mangled.startswith("I"):
         return ""
     args, i = [], 1
     while i < len(mangled) and mangled[i] != "E":
-        m = re.match(r"Li(\d+)E", mangled[i:])
+        m = re.match(r"L([ib])(\d+)E", mangled[i:])
         if m:
-            args.append(m.group(1))
+            args.append(m.group(2) if m.group(1) == "i" else
+                        ("true" if m.group(2) == "1" else "false"))
             i += m.end()
         elif mangled[i] == "f":
             args.append("float")
@@ -1066,24 +1072,28 @@ SCAN_TRAIN = (4, 1024, 4096)
 
 def check_scan_backward(torch, ops, ref, shape=SCAN_TRAIN) -> dict:
     """The RG-LRU scan's gradient at ``shape`` (B, S, D) in fp32 (the
-    model's gates are fp32): the reverse scan through the kernel and the
-    elementwise da, db (``ops.rglru_scan_backward``) against autograd of
-    the plain version on the card, within 2e-4.  Device times: the reverse
-    scan's launch (on flipped copies made outside) and the whole backward;
-    the plain version's scan at the same shape."""
+    model's gates are fp32): one launch of the kernel run backwards in time
+    (``ops.rglru_scan_backward``, reading a, the cotangent and h in place)
+    against autograd of the plain version on the card, within 2e-4, and
+    bit for bit against the flipped composition the port ran before it
+    (the forward kernel on flipped, shifted copies, then the products).
+    Device times: the reverse launch itself, the whole backward (the
+    autograd function's), and the plain reverse loop
+    (``ref.rglru_scan_backward_ref``)."""
     from repro_torch.kernels import rglru_scan as scan_k
 
     dev = torch.device("cuda")
     B, S, D = shape
     g = torch.Generator(device=dev).manual_seed(19)
 
-    def make():
+    def make():  # a, h = rglru_scan(a, b), the cotangent; and b
         a = torch.sigmoid(torch.randn(B, S, D, generator=g, device=dev))
-        return (a, torch.randn(B, S, D, generator=g, device=dev),
-                torch.randn(B, S, D, generator=g, device=dev))
+        b = torch.randn(B, S, D, generator=g, device=dev)
+        gy = torch.randn(B, S, D, generator=g, device=dev)
+        return (a, ops.rglru_scan(a, b), gy), b
 
-    first = make()
-    a, b, gy = first
+    first, b = make()
+    a, h, gy = first
     ins = [a.clone().requires_grad_(), b.clone().requires_grad_()]
     got = torch.autograd.grad(ops.rglru_scan(*ins), ins, gy)
     ins = [a.clone().requires_grad_(), b.clone().requires_grad_()]
@@ -1091,16 +1101,20 @@ def check_scan_backward(torch, ops, ref, shape=SCAN_TRAIN) -> dict:
     tol = (0.0, 2e-4, "2e-4")
     err = max(check_close(f"rglru_scan backward d{n}", x, y, "float32", tol)
               for n, x, y in zip("ab", got, want))
-    sets = [first] + [make() for _ in range(
+    a_next = torch.cat([a[:, 1:], torch.zeros_like(a[:, :1])], 1)
+    dh = scan_k.rglru_scan(a_next.flip(1).contiguous(),
+                           gy.flip(1).contiguous()).flip(1)
+    flipped = (dh * torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], 1), dh)
+    if not all(torch.equal(x, y) for x, y in zip(got, flipped)):
+        raise AssertionError(f"rglru_scan backward {shape}: the reverse "
+                             f"launch differs from the flipped composition")
+    del a_next, dh, flipped, ins, want
+    sets = [first] + [make()[0] for _ in range(
         n_copies(torch, 3 * a.numel() * 4) - 1)]
-    rsets = [(torch.cat([a[:, 1:], torch.zeros_like(a[:, :1])], 1)
-              .flip(1).contiguous(), gy.flip(1).contiguous())
-             for a, _, gy in sets]
-    ms = time_ms(torch, ops.rglru_scan, rsets)
-    hsets = [(a, ops.rglru_scan(a, b), gy) for a, b, gy in sets]
-    backward_ms = time_ms(torch, ops.rglru_scan_backward, hsets)
-    plain_ms = time_ms(torch, ref.rglru_scan_ref, rsets, iters=10)
-    flops, nbytes = scan_k.work(B, S, D, 4)
+    ms = time_ms(torch, scan_k.rglru_scan_backward, sets)
+    backward_ms = time_ms(torch, ops.rglru_scan_backward, sets)
+    plain_ms = time_ms(torch, ref.rglru_scan_backward_ref, sets, iters=3)
+    flops, nbytes = scan_k.work(B, S, D, 4, reverse=True)
     bms, bby = bound_ms(nbytes, flops, "float32")
     return dict(max_abs_err=err, tol="2e-4", ms=ms, plain_ms=plain_ms,
                 bound_ms=bms, bound_by=bby, library_ms=None,
@@ -1184,8 +1198,10 @@ def phase_kernels(torch, ops, ref, gmm, paged) -> dict:
                                (("tp",), SCAN_SHAPES["tp"][:3])):
                 r = check_scan_backward(torch, ops, ref, shape)
                 log(f"rglru_scan backward {dtn} {' '.join(key)} "
-                    f"B={shape[0]} S={shape[1]} D={shape[2]}: reverse scan "
-                    f"{_line(r)} whole_backward_ms={r['backward_ms']:.5f}")
+                    f"B={shape[0]} S={shape[1]} D={shape[2]}: the reverse "
+                    f"launch {_line(r)} whole_backward_ms="
+                    f"{r['backward_ms']:.5f}; equal to the flipped "
+                    f"composition bit for bit")
                 results[("rglru_scan_backward", dtn) + key] = r
     return results
 

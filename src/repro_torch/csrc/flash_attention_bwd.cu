@@ -12,34 +12,59 @@
 //   dV = P^T dO,  dP = dO V^T,  dS = P o (dP - D),
 //   dQ = scale dS K,  dK = scale dS^T Q,
 // GQA-native: the H/K query heads of a KV head sum into its dK and dV in
-// the kernel.  Three launches, in stream order: D (one warp a row), then
-// the dK/dV pass, then the dQ pass.  No atomics: every sum runs in a fixed
-// order, so two calls give the same bits (the card's checks of replicas and
-// of SP against TP rely on it).
+// the kernel.  Two passes in stream order, a dQ pass (which in bf16 also
+// forms D from the dO and O tiles it loads) and a dK/dV pass that reads D;
+// the fp32 path forms D in a pre-pass (one warp a row) and runs the dK/dV
+// pass first.  No atomics: every sum runs in a fixed order, so two calls
+// give the same bits (the card's checks of replicas and of SP against TP
+// rely on it).
 //
 // bf16, the training path.  Bound by operations at the training shapes
 // (B8 H16 S1,024 hd128 causal: 5 products of hd per scored pair against
 // ~100 MB of q, k, v, O, dO and gradients), so the products run on the
-// tensor cores fed by TMA, as the forward's do.  The two passes, as FA2/FA3
-// split them, cost seven products against the minimal five: S and dP are
-// computed in both.  That buys a fixed order for every sum and no atomics.
+// tensor cores fed by TMA, as the forward's do.  Two passes, as FA2 splits
+// them, cost seven products against the minimal five (S and dP are
+// computed in both); the fused pass (FA3) would add dQ's partial sums from
+// every key block into one fp32 buffer, which needs atomics, or counters
+// that make blocks wait on each other to keep a fixed order.  Two passes
+// keep every sum in a fixed order with neither.
+//   Registers by role: a block is two consumer warpgroups and one producer
+//   warpgroup (384 threads, so ptxas plans 168 registers a thread); the
+//   producer gives back all but 24 (setmaxnreg.dec) and the consumers take
+//   240 (setmaxnreg.inc), which holds fp32 dK and dV of 64 keys x 128
+//   (128 registers) beside S^T and dP^T (64) without spilling.
+//   Products overlapped with the softmax arithmetic, inside each
+//   warpgroup: the two score products are committed as separate groups, so
+//   P is formed (exp2 on the SFU, mask) while dP's chain still runs; in
+//   the dK/dV pass dV += P^T dO is issued before dS = P (dP - D) is formed
+//   and runs under it.  The two consumer warpgroups are not synchronised
+//   with each other, so one's arithmetic also runs under the other's
+//   products.  (Letting a tile's dQ += dS K run on under the next tile's
+//   S and dP held two of the ring's three stages a warpgroup and was
+//   slower, as was a fourth stage.)
+//   D in the dQ pass: its blocks load the O tiles of their rows beside Q
+//   and dO, and the four lanes of a quad sum a row's 16-byte units, which
+//   saves the pre-pass's read of O and dO.
+//   Order: each pass launches its heaviest blocks first (under the causal
+//   mask, the first key blocks and the last query blocks of every head),
+//   every head's before any lighter block.
 //   dK/dV pass: one block per (128 keys, KV head, batch row): two consumer
-//   warpgroups of 64 keys each and a producer warp.  K and V of the block
-//   are loaded once; the producer then walks the group's query heads and
-//   the query tiles that can see these keys (causal: none wholly above the
-//   diagonal), bringing each 64-row tile of Q and dO through TMA into a
-//   3-stage ring with full/empty mbarriers, and the tile's L and D rows
-//   (its lanes store them beside the TMA copy, and every lane arrives on
-//   the stage's barrier).  Per tile, S^T = K Q^T and dP^T = V dO^T are
-//   wgmma chains with both operands K-major in swizzled shared memory; P^T
-//   and dS^T stay in fp32 registers, are rounded to bf16 A operands and
-//   feed dV += P^T dO and dK += dS^T Q with dO and Q read MN-major from
-//   the same tiles.  dK and dV accumulate in fp32 registers and leave once
+//   warpgroups of 64 keys each.  K and V of the block are loaded once; the
+//   producer then walks the group's query heads and the query tiles that
+//   can see these keys (causal: none wholly above the diagonal), bringing
+//   each 64-row tile of Q and dO through TMA into a 3-stage ring with
+//   full/empty mbarriers, and the tile's L and D rows (its first warp's
+//   lanes store them beside the TMA copy, and every lane arrives on the
+//   stage's barrier).  Per tile, S^T = K Q^T and dP^T = V dO^T are wgmma
+//   chains with both operands K-major in swizzled shared memory; P^T and
+//   dS^T stay in fp32 registers, are rounded to bf16 A operands and feed
+//   dV += P^T dO and dK += dS^T Q with dO and Q read MN-major from the
+//   same tiles.  dK and dV accumulate in fp32 registers and leave once
 //   through shared memory and TMA stores.
-//   dQ pass: one block per (128 query rows, query head, batch row), heaviest
-//   first: two consumer warpgroups of 64 rows; Q and dO loaded once, K and
-//   V tiles of 64 keys through a 3-stage ring; per tile S = Q K^T and
-//   dP = dO V^T, then dQ += dS K, dQ in fp32 registers.
+//   dQ pass: one block per (128 query rows, query head, batch row): two
+//   consumer warpgroups of 64 rows; Q, dO and O loaded once, K and V tiles
+//   of 64 keys through a 3-stage ring; per tile S = Q K^T and dP = dO V^T,
+//   then dQ += dS K, dQ in fp32 registers.
 // P and dS are rounded once to bf16 for their products, as SDPA's flash
 // backward rounds them.  TMA needs 16-byte aligned bases and strides: the
 // wrapper checks q, k, v, makes dO contiguous, and raises on the rest.
@@ -60,25 +85,21 @@ namespace {
 
 using namespace flash;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
 // ------------------------------------------------------------ D = dO . O
 
-// D of `rows` rows of hd values, o and dout contiguous; one warp a row,
-// summed in a fixed order
-template <typename T>
-__global__ void __launch_bounds__(256) flash_bwd_dot_kernel(const T* __restrict__ o,
-                                                            const T* __restrict__ dout,
+// D of `rows` fp32 rows of hd values, o and dout contiguous; one warp a
+// row, summed in a fixed order (the fp32 path; the bf16 dQ pass forms D)
+__global__ void __launch_bounds__(256) flash_bwd_dot_kernel(const float* __restrict__ o,
+                                                            const float* __restrict__ dout,
                                                             float* __restrict__ dsum,
                                                             long long rows, int hd) {
   const long long row = (long long)blockIdx.x * 8 + threadIdx.x / 32;
   if (row >= rows) return;
   const int lane = threadIdx.x % 32;
-  const T* a = o + row * hd;
-  const T* g = dout + row * hd;
+  const float* a = o + row * hd;
+  const float* g = dout + row * hd;
   float s = 0.f;
-  for (int d = lane; d < hd; d += 32) s = fmaf(to_f32(a[d]), to_f32(g[d]), s);
+  for (int d = lane; d < hd; d += 32) s = fmaf(a[d], g[d], s);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
   if (lane == 0) dsum[row] = s;
@@ -410,20 +431,53 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* 
 // ------------------------------------------------------------------ bf16
 
 constexpr int kWGs = 2;     // consumer warpgroups per block, 64 rows each
+// 2^x on the SFU (ex2.approx.ftz: the masked scores' -inf gives 0, and a
+// result below 2^-126 flushes to 0 where exp2f would scale it)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 constexpr int kStages = 3;  // tiles in flight
-constexpr int kThreadsWG = 128 * kWGs + 32;  // + the producer warp
+constexpr int kThreadsWG = 128 * (kWGs + 1);  // + the producer warpgroup
+// setmaxnreg: the block launches at 168 registers a thread (65,536 / 384);
+// the producer warpgroup drops to 24 and the consumers rise to 240
+// (24 * 128 + 240 * 256 = 168 * 384)
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
 
 // both passes: kWGs own tiles of two operands, kStages stages of two
 template <int HD>
 constexpr size_t wgmma_smem() {
   return 1024 + (size_t)(2 * kWGs + 2 * kStages) * Tile<HD>::TILE;
 }
+// the dQ pass: also the O tiles of its rows, from which it forms D
+template <int HD>
+constexpr size_t dq_smem() {
+  return wgmma_smem<HD>() + (size_t)kWGs * Tile<HD>::TILE;
+}
+
+// sum of the products of 8 bf16 pairs, in order, onto acc
+__device__ __forceinline__ float dot8(uint4 x, uint4 y, float acc) {
+  const uint32_t xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xs[i]));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ys[i]));
+    acc = fmaf(a.x, b.x, acc);
+    acc = fmaf(a.y, b.y, acc);
+  }
+  return acc;
+}
 
 // the first 64-row query tile that sees key k0 (causal), else 0
 __device__ __forceinline__ int first_q_tile(int k0, int causal) { return causal ? k0 / 64 : 0; }
 
 // dK and dV of 64 * kWGs keys of one KV head and batch row (see the head
-// note).  tq, tg: q and dO; tdk, tdv: dk and dv (B, K, Sk, HD), contiguous
+// note).  Grid (K, B, key blocks): the launch walks x fastest, so every
+// (head, row)'s first key block, the one the most query tiles see under
+// the causal mask, starts before any second one.  tq, tg: q and dO; tdk,
+// tdv: dk and dv (B, K, Sk, HD), contiguous
 template <int HD>
 __global__ void __launch_bounds__(kThreadsWG, 1) flash_bwd_dkv_wgmma_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
@@ -444,9 +498,9 @@ __global__ void __launch_bounds__(kThreadsWG, 1) flash_bwd_dkv_wgmma_kernel(
   uint8_t* gs = qs + kStages * T::TILE;
 
   const int tid = threadIdx.x;
-  const int kh = blockIdx.y;
-  const int b = blockIdx.z;
-  const int k0 = blockIdx.x * 64 * kWGs;
+  const int kh = blockIdx.x;
+  const int b = blockIdx.y;
+  const int k0 = blockIdx.z * 64 * kWGs;
   const int group = H / K;
   const int n_qt = (Sq + 63) / 64;
   const int t0 = first_q_tile(k0, causal);
@@ -461,8 +515,10 @@ __global__ void __launch_bounds__(kThreadsWG, 1) flash_bwd_dkv_wgmma_kernel(
   __syncthreads();
 
   const int wg = tid / 128;
-  if (wg == kWGs) {  // the producer warp: lane 0 issues the copies, every lane L and D
-    const int lane = tid % 32;
+  if (wg == kWGs) {  // the producer warpgroup: its first warp works
+    reg_dealloc<kProducerRegs>();
+    if (tid % 128 >= 32) return;
+    const int lane = tid % 32;  // lane 0 issues the copies, every lane L and D
     if (lane == 0) {
       mbar_expect_tx(&kvfull, 2 * kWGs * T::TILE);
       for (int w = 0; w < kWGs; ++w)
@@ -501,6 +557,7 @@ __global__ void __launch_bounds__(kThreadsWG, 1) flash_bwd_dkv_wgmma_kernel(
   }
 
   // a consumer warpgroup: 64 keys
+  reg_alloc<kConsumerRegs>();
   const int warp = (tid % 128) / 32;
   const int lane = tid % 32;
   const int r = warp * 16 + lane / 4;  // this thread's key rows r and r + 8 of the 64
@@ -526,36 +583,46 @@ __global__ void __launch_bounds__(kThreadsWG, 1) flash_bwd_dkv_wgmma_kernel(
       if (kw < Sk && (!causal || q0 + 63 >= kw)) {
         const uint32_t q_addr = smem_addr(qs + s * T::TILE);
         const uint32_t g_addr = smem_addr(gs + s * T::TILE);
+        // S^T and dP^T as two groups, so P is formed while dP^T runs
         float st[32], dpt[32];
 #pragma unroll
         for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
         fence_regs(st);
         fence_regs(dpt);
         wgmma_fence();
-        qk_wgmma<HD>(st, k_addr, q_addr);   // S^T = K Q^T
+        qk_wgmma<HD>(st, k_addr, q_addr);  // S^T = K Q^T
+        wgmma_commit();
         qk_wgmma<HD>(dpt, v_addr, g_addr);  // dP^T = V dO^T
         wgmma_commit();
-        wgmma_wait<0>();
+        wgmma_wait<1>();
         fence_regs(st);
-        fence_regs(dpt);
 
         // element i: key row r (+8 for i % 4 >= 2), query column 8 (i / 4)
         // + 2 (lane % 4) + i % 2 of the tile; keys past Sk only reach their
         // own rows, which are not stored
         const bool edge = causal && kw + 63 > q0;
+        uint32_t pa[4][4];
 #pragma unroll
         for (int i = 0; i < 32; ++i) {
           const int c = 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
-          float p = exp2f(st[i] * scale_log2 - ls[s][c]);
+          float p = fast_exp2(st[i] * scale_log2 - ls[s][c]);
           if (edge && kw + r + 8 * ((i % 4) / 2) > q0 + c) p = 0.f;
           st[i] = p;
-          dpt[i] = p * (dpt[i] - ds[s][c]);
         }
-        uint32_t pa[4][4], da[4][4];
         acc_to_a(st, pa);
+        wgmma_fence();
+        av_wgmma<HD>(dv, pa, g_addr);  // dV += P^T dO, running while dS is formed
+        wgmma_commit();
+        wgmma_wait<1>();  // dP^T is in
+        fence_regs(dpt);
+        uint32_t da[4][4];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int c = 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
+          dpt[i] = st[i] * (dpt[i] - ds[s][c]);
+        }
         acc_to_a(dpt, da);
         wgmma_fence();
-        av_wgmma<HD>(dv, pa, g_addr);  // dV += P^T dO
         av_wgmma<HD>(dk, da, q_addr);  // dK += dS^T Q
         wgmma_commit();
         wgmma_wait<0>();
@@ -589,14 +656,16 @@ __global__ void __launch_bounds__(kThreadsWG, 1) flash_bwd_dkv_wgmma_kernel(
 }
 
 // dQ of 64 * kWGs query rows of one head and batch row (see the head note).
-// tq, tg: q and dO; tdq: dq (B, H, Sq, HD), contiguous
+// Grid (H, B, query blocks), the last query block (the most keys under the
+// causal mask) launched first.  tq, tg: q and dO; tdq: dq (B, H, Sq, HD),
+// contiguous
 template <int HD>
 __global__ void __launch_bounds__(kThreadsWG, 1) flash_bwd_dq_wgmma_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tg,
-    const __grid_constant__ CUtensorMap tdq, const float* __restrict__ lse,
-    const float* __restrict__ dsum, int H, int K, int Sq, int Sk, int causal, int swaps,
-    float scale, float scale_log2) {
+    const __grid_constant__ CUtensorMap tdq, const __grid_constant__ CUtensorMap to,
+    const float* __restrict__ lse, float* __restrict__ dsum, int H, int K, int Sq, int Sk,
+    int causal, int swaps, float scale, float scale_log2) {
   using namespace hopper;
   using T = Tile<HD>;
   constexpr int NC = T::NC, CW = T::CW;
@@ -607,12 +676,13 @@ __global__ void __launch_bounds__(kThreadsWG, 1) flash_bwd_dq_wgmma_kernel(
   uint8_t* gs = qs + kWGs * T::TILE;
   uint8_t* ks = gs + kWGs * T::TILE;
   uint8_t* vs = ks + kStages * T::TILE;
+  uint8_t* os = vs + kStages * T::TILE;  // [wg] O tiles
 
   const int tid = threadIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * 64 * kWGs;  // heaviest first
   const int kh = h / (H / K);
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * 64 * kWGs;  // heaviest first
   const int n_kt = (Sk + 63) / 64;
   // K/V tiles of the keys that rows [r0, r0 + n) see
   auto tiles = [&](int r0, int n) {
@@ -630,14 +700,16 @@ __global__ void __launch_bounds__(kThreadsWG, 1) flash_bwd_dq_wgmma_kernel(
   __syncthreads();
 
   const int wg = tid / 128;
-  if (wg == kWGs) {  // the producer warp: one lane issues every copy
-    if (tid % 32 == 0) {
-      mbar_expect_tx(&qfull, 2 * kWGs * T::TILE);
+  if (wg == kWGs) {  // the producer warpgroup: one lane issues every copy
+    reg_dealloc<kProducerRegs>();
+    if (tid % 128 == 0) {
+      mbar_expect_tx(&qfull, 3 * kWGs * T::TILE);
       for (int w = 0; w < kWGs; ++w)
         for (int c = 0; c < NC; ++c) {
           tma_qkv(qs + w * T::TILE + c * T::CHUNK, &tq, &qfull, c * CW, q0 + 64 * w, h, b,
                   swaps & 1);
           tma_qkv(gs + w * T::TILE + c * T::CHUNK, &tg, &qfull, c * CW, q0 + 64 * w, h, b, 0);
+          tma_qkv(os + w * T::TILE + c * T::CHUNK, &to, &qfull, c * CW, q0 + 64 * w, h, b, 0);
         }
       for (int t = 0; t < nk; ++t) {
         const int s = t % kStages;
@@ -655,6 +727,7 @@ __global__ void __launch_bounds__(kThreadsWG, 1) flash_bwd_dq_wgmma_kernel(
   }
 
   // a consumer warpgroup: 64 query rows
+  reg_alloc<kConsumerRegs>();
   const int warp = (tid % 128) / 32;
   const int lane = tid % 32;
   const int r = warp * 16 + lane / 4;  // this thread's rows r and r + 8 of the 64
@@ -665,8 +738,6 @@ __global__ void __launch_bounds__(kThreadsWG, 1) flash_bwd_dq_wgmma_kernel(
   const size_t bh = (size_t)b * H + h;
   const float l_a = row_a < Sq ? lse[bh * Sq + row_a] * kLog2e : INFINITY;
   const float l_b = row_b < Sq ? lse[bh * Sq + row_b] * kLog2e : INFINITY;
-  const float d_a = row_a < Sq ? dsum[bh * Sq + row_a] : 0.f;
-  const float d_b = row_b < Sq ? dsum[bh * Sq + row_b] : 0.f;
   uint8_t* qtile = qs + wg * T::TILE;
   const uint32_t q_addr = smem_addr(qtile);
   const uint32_t g_addr = smem_addr(gs + wg * T::TILE);
@@ -677,6 +748,34 @@ __global__ void __launch_bounds__(kThreadsWG, 1) flash_bwd_dq_wgmma_kernel(
 #pragma unroll
     for (int i = 0; i < CW / 2; ++i) dq[c][i] = 0.f;
   mbar_wait(&qfull, 0);
+  // D of rows r and r + 8 from the dO and O tiles: each lane of a quad sums
+  // every fourth 16-byte unit of the row, then the quad's four sums; rows
+  // past Sq read as zeros.  Written for the dK/dV pass, which runs next.
+  float d_a, d_b;
+  {
+    const uint8_t* gtile = gs + wg * T::TILE;
+    const uint8_t* otile = os + wg * T::TILE;
+    float dd[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = r + 8 * half;
+      float acc = 0.f;
+#pragma unroll
+      for (int k = lane % 4; k < HD / 8; k += 4) {
+        const int c = k / (T::SW / 16), u = k % (T::SW / 16);
+        const uint32_t off = swizzle(c * T::CHUNK + row * T::SW + 16 * u, T::SW);
+        acc = dot8(*reinterpret_cast<const uint4*>(gtile + off),
+                   *reinterpret_cast<const uint4*>(otile + off), acc);
+      }
+      dd[half] = quad_sum(acc);
+    }
+    d_a = dd[0];
+    d_b = dd[1];
+    if (lane % 4 == 0) {
+      if (row_a < Sq) dsum[bh * Sq + row_a] = d_a;
+      if (row_b < Sq) dsum[bh * Sq + row_b] = d_b;
+    }
+  }
 
   for (int t = 0; t < nk; ++t) {
     const int s = t % kStages;
@@ -684,6 +783,7 @@ __global__ void __launch_bounds__(kThreadsWG, 1) flash_bwd_dq_wgmma_kernel(
     if (t < nk_wg) {
       const uint32_t k_addr = smem_addr(ks + s * T::TILE);
       const uint32_t v_addr = smem_addr(vs + s * T::TILE);
+      // S and dP as two groups, so P is formed while dP runs
       float sc[32], dp[32];
 #pragma unroll
       for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
@@ -691,24 +791,28 @@ __global__ void __launch_bounds__(kThreadsWG, 1) flash_bwd_dq_wgmma_kernel(
       fence_regs(dp);
       wgmma_fence();
       qk_wgmma<HD>(sc, q_addr, k_addr);  // S = Q K^T
+      wgmma_commit();
       qk_wgmma<HD>(dp, g_addr, v_addr);  // dP = dO V^T
       wgmma_commit();
-      wgmma_wait<0>();
+      wgmma_wait<1>();
       fence_regs(sc);
-      fence_regs(dp);
 
       const int k0 = t * 64;
       const bool edge = k0 + 64 > Sk || (causal && k0 + 63 > qw);
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
         const bool lo = (i % 4) < 2;
-        float p = exp2f(sc[i] * scale_log2 - (lo ? l_a : l_b));
+        float p = fast_exp2(sc[i] * scale_log2 - (lo ? l_a : l_b));
         if (edge) {
           const int kp = k0 + 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
           if (kp >= Sk || (causal && kp > (lo ? row_a : row_b))) p = 0.f;
         }
-        dp[i] = p * (dp[i] - (lo ? d_a : d_b));
+        sc[i] = p;
       }
+      wgmma_wait<0>();  // dP is in
+      fence_regs(dp);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dp[i] = sc[i] * (dp[i] - ((i % 4) < 2 ? d_a : d_b));
       uint32_t da[4][4];
       acc_to_a(dp, da);
       wgmma_fence();
@@ -736,36 +840,37 @@ __global__ void __launch_bounds__(kThreadsWG, 1) flash_bwd_dq_wgmma_kernel(
 }
 
 template <int HD>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void* dout,
-                        const float* lse, const float* dsum, void* dq, void* dk, void* dv,
-                        int B, int H, int K, int Sq, int Sk, const long long* st, int causal,
-                        float scale, cudaStream_t stream) {
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void* o,
+                        const void* dout, const float* lse, float* dsum, void* dq, void* dk,
+                        void* dv, int B, int H, int K, int Sq, int Sk, const long long* st,
+                        int causal, float scale, cudaStream_t stream) {
   if (!tma_ok(q, st[0], st[1], st[2]) || !tma_ok(k, st[3], st[4], st[5]) ||
-      !tma_ok(v, st[6], st[7], st[8]) || !tma_ok(dout, 8, 8, 8) || !tma_ok(dq, 8, 8, 8) ||
-      !tma_ok(dk, 8, 8, 8) || !tma_ok(dv, 8, 8, 8))
+      !tma_ok(v, st[6], st[7], st[8]) || !tma_ok(o, 8, 8, 8) || !tma_ok(dout, 8, 8, 8) ||
+      !tma_ok(dq, 8, 8, 8) || !tma_ok(dk, 8, 8, 8) || !tma_ok(dv, 8, 8, 8))
     return cudaErrorMisalignedAddress;
-  CUtensorMap tq, tk, tv, tg, tdq, tdk, tdv;
+  CUtensorMap tq, tk, tv, tg, to, tdq, tdk, tdv;
   int sq, sk, sv;
   cudaError_t e = qkv_map(&tq, q, HD, Sq, H, B, st[0], st[1], st[2], &sq);
   if (e == cudaSuccess) e = qkv_map(&tk, k, HD, Sk, K, B, st[3], st[4], st[5], &sk);
   if (e == cudaSuccess) e = qkv_map(&tv, v, HD, Sk, K, B, st[6], st[7], st[8], &sv);
   if (e == cudaSuccess) e = dense_map(&tg, dout, HD, Sq, H, B);
+  if (e == cudaSuccess) e = dense_map(&to, o, HD, Sq, H, B);
   if (e == cudaSuccess) e = dense_map(&tdq, dq, HD, Sq, H, B);
   if (e == cudaSuccess) e = dense_map(&tdk, dk, HD, Sk, K, B);
   if (e == cudaSuccess) e = dense_map(&tdv, dv, HD, Sk, K, B);
   if (e == cudaSuccess) e = hopper::allow_smem<flash_bwd_dkv_wgmma_kernel<HD>>(wgmma_smem<HD>());
-  if (e == cudaSuccess) e = hopper::allow_smem<flash_bwd_dq_wgmma_kernel<HD>>(wgmma_smem<HD>());
+  if (e == cudaSuccess) e = hopper::allow_smem<flash_bwd_dq_wgmma_kernel<HD>>(dq_smem<HD>());
   if (e != cudaSuccess) return e;
   const int swaps = sq | (sk << 1) | (sv << 2);
   const int rows = 64 * kWGs;
-  flash_bwd_dkv_wgmma_kernel<HD><<<dim3((Sk + rows - 1) / rows, K, B), kThreadsWG,
-                                   wgmma_smem<HD>(), stream>>>(
-      tq, tk, tv, tg, tdk, tdv, lse, dsum, H, K, Sq, Sk, causal, swaps, scale, scale * kLog2e);
+  const int nkb = (Sk + rows - 1) / rows, nqb = (Sq + rows - 1) / rows;
+  // the dQ pass first: it forms D, which the dK/dV pass reads
+  flash_bwd_dq_wgmma_kernel<HD><<<dim3(H, B, nqb), kThreadsWG, dq_smem<HD>(), stream>>>(
+      tq, tk, tv, tg, tdq, to, lse, dsum, H, K, Sq, Sk, causal, swaps, scale, scale * kLog2e);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  flash_bwd_dq_wgmma_kernel<HD><<<dim3((Sq + rows - 1) / rows, H, B), kThreadsWG,
-                                  wgmma_smem<HD>(), stream>>>(
-      tq, tk, tv, tg, tdq, lse, dsum, H, K, Sq, Sk, causal, swaps, scale, scale * kLog2e);
+  flash_bwd_dkv_wgmma_kernel<HD><<<dim3(K, B, nkb), kThreadsWG, wgmma_smem<HD>(), stream>>>(
+      tq, tk, tv, tg, tdk, tdv, lse, dsum, H, K, Sq, Sk, causal, swaps, scale, scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -774,21 +879,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
                    const float* lse, float* dsum, void* dq, void* dk, void* dv, int B, int H,
                    int K, int Sq, int Sk, const long long* st, int causal, float scale,
                    cudaStream_t s) {
-  const long long rows = (long long)B * H * Sq;
-  const unsigned blocks = (unsigned)((rows + 7) / 8);
-  if (BF16)
-    flash_bwd_dot_kernel<__nv_bfloat16><<<blocks, 256, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout), dsum,
-        rows, HD);
-  else
-    flash_bwd_dot_kernel<float><<<blocks, 256, 0, s>>>(
+  if constexpr (BF16) {  // its dQ pass forms D
+    return launch_bf16<HD>(q, k, v, o, dout, lse, dsum, dq, dk, dv, B, H, K, Sq, Sk, st,
+                           causal, scale, s);
+  } else {
+    const long long rows = (long long)B * H * Sq;
+    flash_bwd_dot_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, s>>>(
         static_cast<const float*>(o), static_cast<const float*>(dout), dsum, rows, HD);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  return BF16 ? launch_bf16<HD>(q, k, v, dout, lse, dsum, dq, dk, dv, B, H, K, Sq, Sk, st,
-                                causal, scale, s)
-              : launch_f32<HD>(q, k, v, dout, lse, dsum, dq, dk, dv, B, H, K, Sq, Sk, st,
-                               causal, scale, s);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    return launch_f32<HD>(q, k, v, dout, lse, dsum, dq, dk, dv, B, H, K, Sq, Sk, st, causal,
+                          scale, s);
+  }
 }
 
 template <bool BF16>

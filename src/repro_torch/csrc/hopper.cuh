@@ -1,9 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
-// TMA tensor maps and loads, 1-D bulk copies, cp.async, and warpgroup
-// matrix multiplies (wgmma), in raw PTX.  Header-only, no CUTLASS/CuTe:
-// nvcc builds a kernel that includes it in seconds.  The build cache (kernels/build.py) hashes every
-// csrc/*.cuh beside the kernel's own source, so an edit here rebuilds every
-// kernel.
+// TMA tensor maps and loads, 1-D bulk copies, cp.async, warpgroup matrix
+// multiplies (wgmma) and register reallocation (setmaxnreg), in raw PTX.
+// Header-only, no CUTLASS/CuTe: nvcc builds a kernel that includes it in
+// seconds.  The build cache (kernels/build.py) hashes every csrc/*.cuh
+// beside the kernel's own source, so an edit here rebuilds every kernel.
 //
 // Shared-memory tiles follow the canonical wgmma layouts that TMA's swizzle
 // modes write: a box whose inner extent is SW bytes (32, 64 or 128) lands
@@ -56,14 +56,16 @@ inline EncodeTiledFn encode_tiled_fn() {
 inline CUtensorMapSwizzle swizzle_of(int bytes) {
   return bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
          : bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                       : CU_TENSOR_MAP_SWIZZLE_32B;
+         : bytes == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
+                       : CU_TENSOR_MAP_SWIZZLE_NONE;
 }
 
-// A bf16 tensor map of `rank` dims, dims[0] contiguous; strides[i] is the
-// byte stride of dims[i + 1].  Out-of-range box elements read as zero.
-inline cudaError_t make_map_bf16(CUtensorMap* map, const void* base, int rank,
-                                 const uint64_t* dims, const uint64_t* strides,
-                                 const uint32_t* box, int swizzle_bytes) {
+// A tensor map of `rank` dims of `type`, dims[0] contiguous; strides[i] is
+// the byte stride of dims[i + 1]; swizzle_bytes 0 for none.  Out-of-range
+// box elements (negative coordinates too) read as zero.
+inline cudaError_t make_map(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                            int rank, const uint64_t* dims, const uint64_t* strides,
+                            const uint32_t* box, int swizzle_bytes) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return cudaErrorNotSupported;
   cuuint64_t gd[5], gs[4];
@@ -75,10 +77,18 @@ inline cudaError_t make_map_bf16(CUtensorMap* map, const void* base, int rank,
     if (i + 1 < rank) gs[i] = strides[i];
   }
   const CUresult r =
-      fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank, const_cast<void*>(base), gd,
-         gs, bx, es, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle_of(swizzle_bytes),
+      fn(map, type, (cuuint32_t)rank, const_cast<void*>(base), gd, gs, bx, es,
+         CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle_of(swizzle_bytes),
          CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// make_map for bf16
+inline cudaError_t make_map_bf16(CUtensorMap* map, const void* base, int rank,
+                                 const uint64_t* dims, const uint64_t* strides,
+                                 const uint32_t* box, int swizzle_bytes) {
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims, strides, box,
+                  swizzle_bytes);
 }
 
 // Raises a kernel's dynamic shared memory limit once per device (the call
@@ -202,6 +212,17 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void*
       : "memory");
 }
 
+// closes this thread's group of TMA stores issued since the last commit
+__device__ __forceinline__ void tma_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// waits until at most N of this thread's committed store groups are still
+// reading their shared memory
+template <int N>
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
 // waits until this thread's TMA stores have read their shared memory
 __device__ __forceinline__ void tma_store_drain() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
@@ -243,6 +264,20 @@ __device__ __forceinline__ void wgmma_commit() {
 template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// setmaxnreg: a warpgroup gives registers back to the SM's pool (dec) or
+// takes them from it (inc), N a multiple of 8 in [24, 256]; every warp of
+// the warpgroup executes it.  A warp-specialised kernel launched at R
+// registers a thread lets its producer warpgroup drop to a few and its
+// consumers rise above R, as long as the block's total stays R * threads.
+template <int N>
+__device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // keeps the compiler from moving reads or writes of wgmma's registers

@@ -23,8 +23,9 @@ kernel's output never leaves autograd without a gradient:
   each group zeroed (JAX differentiates its expert einsums in XLA,
   ``repro/models/moe.py:106-108``);
 * the RG-LRU scan: its backward is the same linear recurrence run
-  backwards in time, so it is the scan kernel again on inputs flipped
-  along S; ``da`` and ``db`` follow from it elementwise.
+  backwards in time, one launch of the scan kernel in reverse that reads
+  a, the cotangent and the forward's output in place and writes ``da``
+  and ``db`` (:func:`ref.rglru_scan_backward_ref` on the CPU).
 
 A forward run again by an activation checkpoint launches its kernel
 again, and counts again.  With no input that requires a gradient a
@@ -255,7 +256,7 @@ def grouped_matmul(x, w, group_sizes=None):
     return _GroupedMatmul.apply(x, w, group_sizes)
 
 
-def _rglru_scan(a, b, reverse=False):
+def _rglru_scan(a, b):
     where = _device_type(a, b)
     if where == "cpu":
         return ref.rglru_scan_ref(a, b)
@@ -264,7 +265,7 @@ def _rglru_scan(a, b, reverse=False):
             "rglru_scan",
             torch.empty(a.shape, dtype=a.dtype, device="meta"),
             _scan.work(*a.shape, a.element_size()))
-    return _scan.rglru_scan(a, b, reverse)
+    return _scan.rglru_scan(a, b)
 
 
 class _RGLRUScan(torch.autograd.Function):
@@ -283,18 +284,23 @@ class _RGLRUScan(torch.autograd.Function):
 
 def rglru_scan_backward(a, h, g):
     """(da, db) of the scan ``h = rglru_scan(a, b)`` for the cotangent
-    ``g`` of h.  The cotangent of h obeys ``dh_t = g_t + a_{t+1}·dh_{t+1}``:
-    the same scan over the sequence reversed (one more launch of the
-    kernel on the card, on contiguous flipped copies); then ``db = dh``
-    and ``da_t = dh_t·h_{t-1}`` with ``h_0 = 0``."""
+    ``g`` of h: ``dh_t = g_t + a_{t+1}·dh_{t+1}`` walked backwards in time,
+    ``db = dh`` and ``da_t = dh_t·h_{t-1}`` with ``h_0 = 0``.  On the card
+    one launch of the scan kernel run in reverse, reading a, g and h in
+    place; on the CPU :func:`ref.rglru_scan_backward_ref`; on ``"meta"`` a
+    shape-only call of the reverse launch's work."""
     with torch.profiler.record_function("repro.scan_backward"):
-        # a_{t+1} beside g_t (the last step has no successor), flipped
-        a_next = torch.cat([a[:, 1:], torch.zeros_like(a[:, :1])], dim=1)
-        dh = _rglru_scan(a_next.flip(1).contiguous(),
-                         g.to(a.dtype).flip(1).contiguous(),
-                         reverse=True).flip(1)
-        h_prev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], dim=1)
-        return dh * h_prev, dh
+        where = _device_type(a, h, g)
+        if where == "cpu":
+            return ref.rglru_scan_backward_ref(a, h, g)
+        if where == "meta":
+            da = _shape_only(
+                "rglru_scan",
+                torch.empty(a.shape, dtype=a.dtype, device="meta"),
+                _scan.work(*a.shape, a.element_size(), reverse=True))
+            return da, torch.empty(a.shape, dtype=a.dtype, device="meta")
+        return _scan.rglru_scan_backward(a, h,
+                                         g.to(a.dtype).contiguous())
 
 
 def rglru_scan(a, b):

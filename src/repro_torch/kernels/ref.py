@@ -143,3 +143,23 @@ def rglru_scan_ref(a, b):
         h = a32[:, t] * h + b32[:, t]
         out[:, t] = h.to(a.dtype)
     return out
+
+
+def rglru_scan_backward_ref(a, h, g):
+    """(da, db) of ``h = rglru_scan_ref(a, b)`` for the cotangent ``g`` of
+    h, as the reverse scan kernel computes them: a loop over t from S-1
+    down to 0 with a wide carry, ``dh_t = a_{t+1}·dh_{t+1} + g_t`` (a_S =
+    0; the multiply and the add rounded separately), dh_t rounded once to
+    a's dtype; ``db = dh`` and ``da_t = dh_t·h_{t-1}`` in a's dtype (h_{-1}
+    = 0)."""
+    a32, g32 = _wide(a), _wide(g.to(a.dtype))
+    S = a.shape[1]
+    zero = torch.zeros_like(a32[:, 0])
+    carry = zero
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    for t in range(S - 1, -1, -1):
+        carry = (a32[:, t + 1] if t + 1 < S else zero) * carry + g32[:, t]
+        dh = carry.to(a.dtype)
+        db[:, t] = dh
+        da[:, t] = dh * (h[:, t - 1] if t > 0 else zero.to(a.dtype))
+    return da, db

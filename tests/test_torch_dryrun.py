@@ -229,7 +229,8 @@ def test_shape_only_kernel_branch():
                 1, *flash_bwd_k.work(2, 8, 4, 300, 300, 64, True, 2)],
             "grouped_matmul": [2, *(np.array(gmm_k.work(4, 16, 32, 24, 4))
                                     + gmm_k.work(4, 16, 24, 32, 4))],
-            "rglru_scan": [2, *(2 * np.array(scan_k.work(2, 10, 6, 4)))],
+            "rglru_scan": [2, *(np.array(scan_k.work(2, 10, 6, 4))
+                                + scan_k.work(2, 10, 6, 4, reverse=True))],
             "paged_attention": [0, 0.0, 0.0]}
     got = {n: [r["calls"], r["flops"], r["bytes"]]
            for n, r in ops.SHAPE_ONLY.items()}

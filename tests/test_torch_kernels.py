@@ -139,7 +139,8 @@ def test_ops_on_cpu_need_no_nvcc(monkeypatch):
 def test_launch_keys_count_each_launch_by_its_key(monkeypatch):
     """A launch adds one to its kernel's count and, where the wrapper names
     a key, to that key's count; the reset clears both.  The scan's
-    backward names its launch reversed, its forward not."""
+    backward goes to the reverse launch's wrapper, its forward to the
+    forward's."""
     kernel = ops.KERNELS["rglru_scan"]
     monkeypatch.setattr(kernel, "_fn", lambda *args: 0)
     ops.reset_launch_counts()
@@ -153,12 +154,17 @@ def test_launch_keys_count_each_launch_by_its_key(monkeypatch):
 
     calls = []
 
-    def fake_scan(a, b, reverse=False):
-        calls.append(reverse)
+    def fake_scan(a, b):
+        calls.append(False)
         return ref.rglru_scan_ref(a, b)
+
+    def fake_reverse(a, h, g):
+        calls.append(True)
+        return ref.rglru_scan_backward_ref(a, h, g)
 
     monkeypatch.setattr(ops, "_device_type", lambda *tensors: "cuda")
     monkeypatch.setattr(ops._scan, "rglru_scan", fake_scan)
+    monkeypatch.setattr(ops._scan, "rglru_scan_backward", fake_reverse)
     a = torch.rand(2, 5, 8, requires_grad=True)
     ops.rglru_scan(a, torch.randn(2, 5, 8)).sum().backward()
     assert calls == [False, True]

@@ -703,6 +703,61 @@ def test_rglru_scan_kernel_matches_ref_on_gpu(cuda_device, dtype, rtol, B, S,
     assert float((diff - rtol * want.float().abs()).max()) <= atol
 
 
+# every shape chip_smoke.py's phase 3 checks the scan at: recurrentgemma-9b's
+# 8 x 512 prefill, a ragged D (plain loads, not bulk copies), a long decay,
+# and 8g's (data 2, model 2) rank's features in a train row and a prompt
+SCAN_CHIP_SHAPES = [(8, 512, 4096, None), (3, 300, 130, None),
+                    (1, 2048, 4096, 0.999), (2, 1024, 2048, None),
+                    (2, 2100, 2048, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,D,decay", SCAN_CHIP_SHAPES)
+def test_rglru_scan_fp32_equals_plain_bit_for_bit_on_gpu(cuda_device, B, S,
+                                                         D, decay):
+    """The fp32 kernel repeats the plain version's arithmetic (fp32 carry,
+    multiply and add rounded apart, sequential in t): the same bits."""
+    a, b = (t.to(cuda_device) for t in _scan_inputs(B, S, D, decay, seed=S))
+    assert torch.equal(ops.rglru_scan(a, b), ref.rglru_scan_ref(a, b))
+
+
+def _flipped_scan_backward(a, h, g):
+    """The scan's gradient as the port computed it before the reverse
+    launch: the forward kernel on flipped, shifted copies, then the
+    elementwise products."""
+    from repro_torch.kernels import rglru_scan as cuda_scan
+
+    a_next = torch.cat([a[:, 1:], torch.zeros_like(a[:, :1])], dim=1)
+    dh = cuda_scan.rglru_scan(a_next.flip(1).contiguous(),
+                              g.flip(1).contiguous()).flip(1)
+    h_prev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], dim=1)
+    return dh * h_prev, dh
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,D", [(4, 1024, 4096),   # phase 6f's layer
+                                   (2, 1024, 2048),   # 8g's rank
+                                   (3, 300, 130)])    # ragged: plain loads
+def test_rglru_scan_reverse_launch_equals_flipped_scans_on_gpu(
+        cuda_device, dtype, B, S, D):
+    """The gradient is one launch of the kernel run backwards in time,
+    keyed ``reverse``, reading a, g and h in place; it equals the flipped
+    copies through the forward kernel and the products bit for bit."""
+    a, b = (t.to(cuda_device, dtype) for t in _scan_inputs(B, S, D, seed=3))
+    g = torch.randn(B, S, D, generator=torch.Generator().manual_seed(4)).to(
+        cuda_device, dtype)
+    h = ops.rglru_scan(a, b)
+    ops.reset_launch_counts()
+    got = ops.rglru_scan_backward(a, h, g)
+    assert ops.launch_keys()["rglru_scan"] == {
+        (B, S, D, str(dtype).removeprefix("torch."), True): 1}
+    want = _flipped_scan_backward(a, h, g)
+    for x, y in zip(got, want):
+        assert x.dtype == dtype and x.is_contiguous()
+        assert torch.equal(x, y)
+
+
 @pytest.mark.cuda
 def test_hybrid_prefill_and_decode_without_host_sync(cuda_device):
     """Reduced recurrentgemma in fp32 with kernels on: a 100-token prefill
@@ -990,6 +1045,28 @@ def test_flash_backward_repeats_bit_for_bit_on_gpu(cuda_device, dtype):
     o, lse = flash_k.flash_attention(q, k, v, return_lse=True)
     first = bwd_k.flash_attention_backward(q, k, v, o, lse, g)
     second = bwd_k.flash_attention_backward(q, k, v, o, lse, g)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_BWD_CASES)
+def test_flash_backward_repeats_at_the_chip_shapes_on_gpu(cuda_device, case):
+    """Two bf16 calls give the same bits at every shape the backward is
+    checked at: no sum depends on which block finishes first."""
+    from repro_torch.kernels import flash_attention as flash_k
+    from repro_torch.kernels import flash_attention_bwd as bwd_k
+
+    B, H, K, Sq, Sk, hd, causal = case
+    rng = np.random.default_rng(sum(case[:6]) + 1)
+    dt = torch.bfloat16
+    q = torch.from_numpy(_np(rng, (B, H, Sq, hd))).to(cuda_device, dt)
+    k, v = (torch.from_numpy(_np(rng, (B, K, Sk, hd))).to(cuda_device, dt)
+            for _ in range(2))
+    g = torch.from_numpy(_np(rng, (B, H, Sq, hd))).to(cuda_device, dt)
+    o, lse = flash_k.flash_attention(q, k, v, causal=causal, return_lse=True)
+    first = bwd_k.flash_attention_backward(q, k, v, o, lse, g, causal=causal)
+    second = bwd_k.flash_attention_backward(q, k, v, o, lse, g, causal=causal)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
 

@@ -152,13 +152,15 @@ def test_scan_runs_forward_recompute_and_reverse(monkeypatch):
     card's launch count (phase 6f of ``chip_smoke.py``)."""
     cfg = reduced(get_arch("recurrentgemma-9b"), n_layers=RG_LAYERS)
     calls = []
-    real = ref.rglru_scan_ref
 
-    def counting(*a, **kw):
-        calls.append(1)
-        return real(*a, **kw)
+    def counting(real):
+        def run(*a, **kw):
+            calls.append(real.__name__)
+            return real(*a, **kw)
+        return run
 
-    monkeypatch.setattr(ref, "rglru_scan_ref", counting)
+    for name in ("rglru_scan_ref", "rglru_scan_backward_ref"):
+        monkeypatch.setattr(ref, name, counting(getattr(ref, name)))
     m = build_model(cfg, ShardingConfig(use_kernels=True), device="cpu",
                     train=True).init(0)
     toks = torch.randint(0, cfg.vocab, (2, 24),
@@ -166,6 +168,7 @@ def test_scan_runs_forward_recompute_and_reverse(monkeypatch):
     loss, _ = m.loss({"tokens": toks, "labels": toks.roll(-1, 1)})
     loss.backward()
     assert len(calls) == 10
+    assert calls.count("rglru_scan_backward_ref") == 4  # one a layer
 
 
 # ------------------------------------------------------------- sqrt remat
